@@ -1,0 +1,33 @@
+"""cylon_tpu_torch — the PyTorch/CUDA port of cylon_tpu for one NVIDIA
+H100.
+
+The port keeps cylon_tpu's module layout and names; it imports torch and
+numpy, never jax and nothing of cylon_tpu. This slice carries the
+distributed inner join: Table -> murmur-fmix key hash -> partition
+targets -> the counted padded shuffle (kernels K1 partition_hist and K2
+partition_scatter) -> the per-shard stream join (kernels K3
+join_plan_stream and K4 join_expand_stream) -> result. Entry points run
+on CUDA unless the context is created with ``device="cpu"``.
+
+    import cylon_tpu_torch as ct
+    ctx = ct.CylonContext.InitDistributed(ct.VirtualWorldConfig(4))
+    left = ct.Table.from_pydict(ctx, {"k": keys_l, "v": vals_l})
+    right = ct.Table.from_pydict(ctx, {"k": keys_r, "v": vals_r})
+    out = left.distributed_join(right, "inner", on=["k"])
+"""
+from .config import (CommConfig, CommType, CSVReadOptions, CSVWriteOptions,
+                     LocalConfig, MPIConfig, VirtualWorldConfig)
+from .context import CylonContext
+from .data.column import Column
+from .data.table import Table, concat_tables
+from .io.csv import read_csv, write_csv
+from .ops.join import JoinAlgorithm, JoinConfig, JoinType
+from .status import Code, CylonError, Status
+
+__all__ = [
+    "CommConfig", "CommType", "CSVReadOptions", "CSVWriteOptions",
+    "LocalConfig", "MPIConfig", "VirtualWorldConfig", "CylonContext",
+    "Column", "Table", "concat_tables", "read_csv", "write_csv",
+    "JoinAlgorithm", "JoinConfig", "JoinType", "Code", "CylonError",
+    "Status",
+]

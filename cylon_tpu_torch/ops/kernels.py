@@ -1,0 +1,518 @@
+"""Hand-written Hopper kernels of the main path, their plain PyTorch
+versions, their launch counters and their build (counterpart of
+cylon_tpu.ops.tpu_kernels).
+
+| kernel             | replaces (cylon_tpu/ops/tpu_kernels.py) | source               |
+| ------------------ | --------------------------------------- | -------------------- |
+| K1 partition_hist  | partition_hist (:1010)                  | csrc/partition.cu    |
+| K2 partition_scatter | partition_scatter (:1053)             | csrc/partition.cu    |
+| K3 join_plan_stream | join_plan_stream (:317)                | csrc/join_stream.cu  |
+| K4 join_expand_stream | join_expand_stream (:706)            | csrc/join_stream.cu  |
+
+Each wrapper takes tensors with a leading shard dimension ``[W, n]`` (one
+launch covers every shard of the virtual world) and 32-bit streams as
+int32 tensors carrying the uint32 bits. On a CPU tensor a wrapper runs
+its plain version; on a CUDA tensor it launches its kernel or raises —
+there is no fallback. Each launch adds one to ``LAUNCHES[name]``. The
+kernel notes in the .cu sources state what bounds each kernel on the
+card and what the design does about it.
+
+The sources build at first use with ``nvcc -gencode
+arch=compute_90a,code=sm_90a`` into shared libraries with a plain C
+interface under ``cylon_tpu_torch/_build/`` (named by the hash of the
+source, so an edited source rebuilds), loaded with ctypes.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence
+
+import torch
+
+from ..status import Code, CylonError
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+SOURCES = {"partition": CSRC / "partition.cu",
+           "join_stream": CSRC / "join_stream.cu"}
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+PARTITION_TILE = 4096   # rows per K1/K2 tile (csrc/partition.cu TILE)
+MAX_BUCKETS = 256       # K1/K2 bucket limit (csrc/partition.cu)
+PLAN_TILE = 2048        # elements per K3 tile (csrc/join_stream.cu TILE)
+
+KERNELS = ("partition_hist", "partition_scatter", "join_plan_stream",
+           "join_expand_stream")
+# launches per wrapper since the last reset_launches()
+LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# build and binding
+# ---------------------------------------------------------------------------
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_SIGNATURES = {
+    "partition": {
+        "launch_partition_hist": [_P, _P, _I, _L, _I, _I, _P],
+        "launch_partition_scatter": [_P, _P, _P, _P, _I, _L, _I, _I, _I, _P],
+    },
+    "join_stream": {
+        "launch_plan_pass1": [_P, _P, _P, _P, _I, _I, _L, _I, _P, _P, _P,
+                              _P],
+        "launch_plan_pass2": [_P, _P, _P, _I, _L, _I, _I, _P, _P, _P, _P,
+                              _P],
+        "launch_plan_pass3": [_P, _P, _P, _I, _L, _I, _I, _P, _P, _P, _P,
+                              _P, _I, _I, _L, _L, _P, _P, _P],
+        "launch_join_expand": [_P, _P, _I, _L, _P, _I, _L, _I, _L, _P, _P,
+                               _P, _P, _P],
+    },
+}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler, from PATH or the toolkit's usual home."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise CylonError(Code.ExecutionError,
+                     "nvcc not found: the CUDA kernels cannot be built")
+
+
+def _lib_path(name: str) -> Path:
+    digest = hashlib.sha1(SOURCES[name].read_bytes()
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names: Optional[Sequence[str]] = None) -> Dict[str, float]:
+    """Compile the named sources (default: all) that are not built yet,
+    one nvcc per source, all started together. Returns the seconds each
+    took (0.0 for one already built). The compiler's report (registers,
+    shared memory, spills) goes to ``_build/<name>.log``."""
+    names = list(SOURCES) if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = [n for n in names if not _lib_path(n).exists()]
+    procs = {}
+    t0 = time.perf_counter()
+    if todo:
+        nvcc = nvcc_path()
+        for n in todo:
+            tmp = _lib_path(n).with_suffix(f".{os.getpid()}.tmp")
+            log = open(BUILD_DIR / f"{n}.log", "w")
+            procs[n] = (subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])],
+                stdout=log, stderr=subprocess.STDOUT), tmp, log)
+    seconds = {n: 0.0 for n in names}
+    failed = []
+    for n, (p, tmp, log) in procs.items():
+        rc = p.wait()
+        log.close()
+        seconds[n] = time.perf_counter() - t0
+        if rc != 0:
+            failed.append(n)
+            continue
+        os.replace(tmp, _lib_path(n))
+    if failed:
+        report = "\n".join((BUILD_DIR / f"{n}.log").read_text()[-4000:]
+                           for n in failed)
+        raise CylonError(Code.ExecutionError,
+                         f"nvcc failed for {failed}:\n{report}")
+    return seconds
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        for fn, args in _SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = args
+            f.restype = ctypes.c_int
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return lib
+
+
+def _launch(lib_name: str, fn: str, *args) -> None:
+    """Call a C launcher (it returns cudaGetLastError after the launch)
+    and raise on any error."""
+    lib = _lib(lib_name)
+    rc = getattr(lib, fn)(*args)
+    if rc != 0:
+        msg = lib.kernel_error_string(rc).decode()
+        raise CylonError(Code.ExecutionError,
+                         f"{fn} failed: CUDA error {rc} ({msg})")
+
+
+def _ptr(x: Optional[torch.Tensor]):
+    return None if x is None else x.data_ptr()
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _check(x: torch.Tensor, what: str, dtype=torch.int32) -> None:
+    if x.dtype != dtype or x.dim() != 2 or not x.is_contiguous():
+        raise CylonError(Code.Invalid,
+                         f"{what}: want a contiguous [W, n] {dtype} tensor, "
+                         f"got {tuple(x.shape)} {x.dtype}")
+
+
+def _stack(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """[L, W, n] int32 from L [W, n] tensors."""
+    return torch.stack([x.to(torch.int32) for x in xs]).contiguous()
+
+
+def _excl_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Exclusive cumsum along dim 1 with int32 wrap-around (the TPU
+    kernels' int32 carries), as int32."""
+    c = torch.cumsum(x.to(torch.int64), 1) - x.to(torch.int64)
+    return _wrap32(c)
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    x = x & 0xFFFFFFFF
+    return (x - ((x & 0x80000000) << 1)).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# K1 partition_hist
+# ---------------------------------------------------------------------------
+
+
+def _tiles(n: int, tile: int) -> int:
+    return max(-(-n // tile), 1)
+
+
+def plain_partition_hist(t: torch.Tensor, nbuckets: int) -> torch.Tensor:
+    """Plain version of K1: int32 [W, tiles, nbuckets], ``out[w, b, k]`` =
+    rows of tile b of shard w with id k; ids outside [0, nbuckets) are
+    never counted."""
+    w, n = t.shape
+    tiles = _tiles(n, PARTITION_TILE)
+    tl = t.to(torch.int64)
+    ok = (tl >= 0) & (tl < nbuckets)
+    tile_of = torch.arange(n, device=t.device) // PARTITION_TILE
+    dest = torch.where(ok, tile_of * nbuckets + tl, tiles * nbuckets)
+    out = torch.zeros(w, tiles * nbuckets + 1, dtype=torch.int64,
+                      device=t.device)
+    out.scatter_add_(1, dest, torch.ones_like(dest))
+    return out[:, :-1].view(w, tiles, nbuckets).to(torch.int32)
+
+
+def partition_hist(t: torch.Tensor, nbuckets: int) -> torch.Tensor:
+    """K1: per-tile bucket histogram of [W, n] int32 target ids (tiles of
+    PARTITION_TILE rows). Summed over tiles it is the counts vector; its
+    bucket-major exclusive scan gives K2's write offsets."""
+    _check(t, "partition_hist ids")
+    if not t.is_cuda:
+        return plain_partition_hist(t, nbuckets)
+    if not 1 <= nbuckets <= MAX_BUCKETS:
+        raise CylonError(Code.Invalid, f"partition_hist takes 1..{MAX_BUCKETS}"
+                                       f" buckets, got {nbuckets}")
+    w, n = t.shape
+    tiles = _tiles(n, PARTITION_TILE)
+    out = torch.empty(w, tiles, nbuckets, dtype=torch.int32, device=t.device)
+    _launch("partition", "launch_partition_hist", _ptr(t), _ptr(out), w, n,
+            tiles, nbuckets, _stream(t))
+    LAUNCHES["partition_hist"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K2 partition_scatter
+# ---------------------------------------------------------------------------
+
+
+def plain_partition_scatter(t: torch.Tensor, legs: torch.Tensor,
+                            nbuckets: int) -> torch.Tensor:
+    """Plain version of K2: every leg of [L, W, n] permuted by the stable
+    sort of its shard's ids."""
+    del nbuckets  # every id lies in [0, nbuckets)
+    perm = torch.sort(t, dim=1, stable=True).indices
+    return legs.gather(2, perm.unsqueeze(0).expand_as(legs))
+
+
+def partition_scatter(t: torch.Tensor, legs: torch.Tensor, nbuckets: int,
+                      hist: torch.Tensor) -> torch.Tensor:
+    """K2: stable counting scatter of int32 legs [L, W, n] into
+    bucket-contiguous order by [W, n] ids in [0, nbuckets) — per shard,
+    bit for bit the stable sort by id, the last (dead) bucket included.
+    ``hist`` is K1's table for the same ids."""
+    _check(t, "partition_scatter ids")
+    if legs.dim() != 3 or legs.shape[1:] != t.shape \
+            or legs.dtype != torch.int32 or not legs.is_contiguous():
+        raise CylonError(Code.Invalid,
+                         "partition_scatter legs: want contiguous int32 "
+                         f"[L, W, n], got {tuple(legs.shape)} {legs.dtype}")
+    if not t.is_cuda:
+        return plain_partition_scatter(t, legs, nbuckets)
+    w, n = t.shape
+    tiles = hist.shape[1]
+    # per-(bucket, tile) start offsets: the bucket-major exclusive scan
+    offsets = _excl_cumsum(hist.transpose(1, 2).reshape(w, -1)).view(
+        w, nbuckets, tiles).contiguous()
+    out = torch.empty_like(legs)
+    _launch("partition", "launch_partition_scatter", _ptr(t), _ptr(legs),
+            _ptr(out), _ptr(offsets), w, n, tiles, nbuckets, legs.shape[0],
+            _stream(t))
+    LAUNCHES["partition_scatter"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K3 join_plan_stream
+# ---------------------------------------------------------------------------
+
+
+def _u(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.int64) & 0xFFFFFFFF
+
+
+def plain_join_plan_stream(bits_s, tag_s, na: int, nb: int,
+                           emit_unmatched_a: bool, lanes=(),
+                           n_a_lanes: Optional[int] = None,
+                           n_b_lanes: Optional[int] = None, bits2_s=None,
+                           verify_lanes=()):
+    """Plain version of K3 (see ``join_plan_stream``): the TPU kernel's
+    per-element arithmetic as whole-tensor scans."""
+    w, n = bits_s.shape
+    dev = bits_s.device
+    La = len(lanes) if n_a_lanes is None else n_a_lanes
+    Lb = len(lanes) if n_b_lanes is None else n_b_lanes
+    tag = _u(tag_s)
+    neq = torch.ones(w, n, dtype=torch.bool, device=dev)
+    neq[:, 1:] = bits_s[:, 1:] != bits_s[:, :-1]
+    if bits2_s is not None:
+        neq[:, 1:] |= bits2_s[:, 1:] != bits2_s[:, :-1]
+    side = ((tag >> 31) & 1) == 1
+    emit = ((tag >> 30) & 1) == 1
+    live = ((tag >> 29) & 1) == 1
+    idx = tag & ((1 << 29) - 1)
+    coll = torch.zeros(w, dtype=torch.int64, device=dev)
+    if len(verify_lanes):
+        diff = torch.zeros(w, n, dtype=torch.bool, device=dev)
+        for v in verify_lanes:
+            diff[:, 1:] |= v[:, 1:] != v[:, :-1]
+        prev_live = torch.zeros_like(live)
+        prev_live[:, 1:] = live[:, :-1]
+        coll = ((diff | ~prev_live) & ~neq & live).sum(1)
+    ib = (~side & live).to(torch.int64)
+    cumb = torch.cumsum(ib, 1)
+    headv = torch.where(neq, cumb - ib, 0)
+    bb = torch.cummax(headv, 1).values
+    eff_m = torch.where(live, cumb - bb, 0)
+    if emit_unmatched_a:
+        mm = torch.where(side & emit, eff_m.clamp(min=1), 0)
+    else:
+        mm = torch.where(side & live, eff_m, 0)
+    offv = torch.cumsum(mm, 1)
+    start = offv - mm
+    delta2 = (bb - start) * 2 + (eff_m > 0).to(torch.int64)
+
+    def compact(mask, vals, cap):
+        pos = torch.cumsum(mask.to(torch.int64), 1) - 1
+        dest = torch.where(mask, pos, cap)
+        out = torch.zeros(len(vals), w, cap + 1, dtype=torch.int32,
+                          device=dev)
+        for o, v in zip(out, vals):
+            o.scatter_(1, dest, _wrap32(v.to(torch.int64)))
+        return out[:, :, :cap].contiguous()
+
+    a = compact(mm > 0, [idx, delta2, start] + list(lanes[:La]), na)
+    b = compact(ib == 1, [idx - na] + list(lanes[:Lb]), nb)
+    counts = torch.stack([_wrap32(offv[:, -1]), (mm > 0).sum(1).to(
+        torch.int32), ib.sum(1).to(torch.int32), coll.to(torch.int32)], 1)
+    return counts, a, b
+
+
+def join_plan_stream(bits_s: torch.Tensor, tag_s: torch.Tensor, na: int,
+                     nb: int, emit_unmatched_a: bool,
+                     lanes: Sequence[torch.Tensor] = (),
+                     n_a_lanes: Optional[int] = None,
+                     n_b_lanes: Optional[int] = None,
+                     bits2_s: Optional[torch.Tensor] = None,
+                     verify_lanes: Sequence[torch.Tensor] = ()):
+    """K3: the join plan over the key-sorted stream, per shard.
+
+    Inputs are int32 [W, n] (n = na + nb) carrying uint32 bits, sorted
+    together: ``bits_s`` the key bits (dead rows all-ones), ``tag_s`` the
+    packed ``side<<31 | emit<<30 | live<<29 | iota``, ``lanes`` payload
+    streams (slot s: probe column s at probe rows, build column s at build
+    rows), ``bits2_s`` the second run-boundary stream and
+    ``verify_lanes`` the true-key streams of the hash mode.
+
+    Returns (counts int32 [W, 4] = [n_out, n_emit, n_blive,
+    n_collisions], a_streams, b_streams): group A (emitting probe rows) =
+    (idx, delta2, start, a lanes...) as one int32 [3 + La, W, na] tensor,
+    group B (live build rows) = (idx - na, b lanes...) as [1 + Lb, W,
+    nb]; entries past their count are unspecified."""
+    _check(bits_s, "join_plan_stream bits")
+    _check(tag_s, "join_plan_stream tag")
+    lanes = list(lanes)
+    La = len(lanes) if n_a_lanes is None else n_a_lanes
+    Lb = len(lanes) if n_b_lanes is None else n_b_lanes
+    w, n = bits_s.shape
+    if n != na + nb or n >= (1 << 29):
+        raise CylonError(Code.Invalid, f"join_plan_stream: n={n} rows for "
+                                       f"na={na}, nb={nb} (< 2^29)")
+    if not bits_s.is_cuda:
+        return plain_join_plan_stream(bits_s, tag_s, na, nb,
+                                      emit_unmatched_a, lanes, La, Lb,
+                                      bits2_s, verify_lanes)
+    dev = bits_s.device
+    st = _stream(bits_s)
+    tiles = _tiles(n, PLAN_TILE)
+    ver = _stack(list(verify_lanes)) if verify_lanes \
+        else None
+    b2 = None if bits2_s is None else bits2_s.contiguous()
+    agg = torch.empty(3, w, tiles, dtype=torch.int32, device=dev)
+    _launch("join_stream", "launch_plan_pass1", _ptr(bits_s), _ptr(tag_s),
+            _ptr(b2), _ptr(ver), len(verify_lanes), w, n, tiles,
+            _ptr(agg[0]), _ptr(agg[1]), _ptr(agg[2]), st)
+    aggB = agg[0].to(torch.int64)
+    base_b64 = torch.cumsum(aggB, 1) - aggB
+    tile_h = torch.where(agg[1] >= 0, base_b64 + agg[1], 0)
+    base_h = torch.zeros_like(tile_h)
+    base_h[:, 1:] = torch.cummax(tile_h, 1).values[:, :-1]
+    base_b = base_b64.to(torch.int32).contiguous()
+    base_h = base_h.to(torch.int32).contiguous()
+    unmatched = int(bool(emit_unmatched_a))
+    agg2 = torch.empty(2, w, tiles, dtype=torch.int32, device=dev)
+    _launch("join_stream", "launch_plan_pass2", _ptr(bits_s), _ptr(tag_s),
+            _ptr(b2), w, n, tiles, unmatched, _ptr(base_b), _ptr(base_h),
+            _ptr(agg2[0]), _ptr(agg2[1]), st)
+    base_off = _excl_cumsum(agg2[0]).contiguous()
+    base_a = _excl_cumsum(agg2[1]).contiguous()
+    lane_stack = _stack(lanes) if lanes else None
+    out_a = torch.empty(3 + La, w, na, dtype=torch.int32, device=dev)
+    out_b = torch.empty(1 + Lb, w, nb, dtype=torch.int32, device=dev)
+    _launch("join_stream", "launch_plan_pass3", _ptr(bits_s), _ptr(tag_s),
+            _ptr(b2), w, n, tiles, unmatched, _ptr(base_b), _ptr(base_h),
+            _ptr(base_off), _ptr(base_a), _ptr(lane_stack), La, Lb, na, nb,
+            _ptr(out_a), _ptr(out_b), st)
+    LAUNCHES["join_plan_stream"] += 1
+    counts = torch.stack([
+        _wrap32(agg2[0].to(torch.int64).sum(1)),
+        agg2[1].sum(1, dtype=torch.int32),
+        agg[0].sum(1, dtype=torch.int32),
+        agg[2].sum(1, dtype=torch.int32)], 1)
+    return counts, out_a, out_b
+
+
+# ---------------------------------------------------------------------------
+# K4 join_expand_stream
+# ---------------------------------------------------------------------------
+
+
+def plain_join_expand_stream(counts, a_streams, b_streams, cap_e: int):
+    """Plain version of K4 (see ``join_expand_stream``)."""
+    La, Lb = len(a_streams) - 3, len(b_streams) - 1
+    w, na = a_streams[0].shape
+    nb = b_streams[0].shape[1]
+    dev = counts.device
+    cnt = counts.to(torch.int64)
+    n_out, n_emit = cnt[:, 0:1], cnt[:, 1:2]
+    r = torch.arange(na, device=dev)
+    s = torch.where(r < n_emit, a_streams[2].to(torch.int64),
+                    torch.iinfo(torch.int64).max).contiguous()
+    j = torch.arange(cap_e, device=dev).expand(w, cap_e).contiguous()
+    cnt_le = torch.searchsorted(s, j, right=True)
+    woff = (cnt_le - 1).clamp(0, na - 1)
+    d2 = a_streams[1].to(torch.int64).gather(1, woff)
+    valid = j < n_out
+    bpos = j + (d2 >> 1)
+    has = valid & ((d2 & 1) == 1) & (bpos >= 0) & (bpos < nb)
+    bsafe = bpos.clamp(0, max(nb - 1, 0))
+    aidx = torch.where(valid, a_streams[0].gather(1, woff), -1)
+    bidx = torch.where(has, b_streams[0].gather(1, bsafe), -1)
+    al = tuple(torch.where(valid, a_streams[3 + k].gather(1, woff), 0)
+               for k in range(La))
+    bl = tuple(torch.where(has, b_streams[1 + k].gather(1, bsafe), 0)
+               for k in range(Lb))
+    return aidx, bidx, al, bl
+
+
+def join_expand_stream(counts: torch.Tensor, a_streams, b_streams,
+                       cap_e: int):
+    """K4: expand K3's compacted plan into ``cap_e`` output rows per
+    shard. ``a_streams`` and ``b_streams`` are K3's int32 groups, [3 + La,
+    W, na] and [1 + Lb, W, nb]. For output j < n_out: the covering probe
+    run (#{start <= j} - 1), its idx and lanes, and the build idx and
+    lanes at ``j + (delta2 >> 1)``. Returns (aidx, bidx int32 [W, cap_e],
+    a lane outputs, b lane outputs): -1 and zeroed lanes past n_out, and
+    on the build side where the row has no match."""
+    if counts.dtype != torch.int32 or counts.dim() != 2 \
+            or counts.shape[1] != 4:
+        raise CylonError(Code.Invalid, "join_expand_stream counts: want "
+                                       "int32 [W, 4]")
+    for what, x, lead in (("a", a_streams, 3), ("b", b_streams, 1)):
+        if x.dtype != torch.int32 or x.dim() != 3 or x.shape[0] < lead \
+                or x.shape[1] != counts.shape[0]:
+            raise CylonError(Code.Invalid, f"join_expand_stream {what}: "
+                             f"want int32 [>= {lead}, W, n], got "
+                             f"{tuple(x.shape)} {x.dtype}")
+    if not counts.is_cuda:
+        return plain_join_expand_stream(counts, a_streams, b_streams, cap_e)
+    La, Lb = len(a_streams) - 3, len(b_streams) - 1
+    w, na = a_streams[0].shape
+    nb = b_streams[0].shape[1]
+    dev = counts.device
+    counts = counts.contiguous()
+    A = a_streams.contiguous()
+    B = b_streams.contiguous()
+    aidx = torch.empty(w, cap_e, dtype=torch.int32, device=dev)
+    bidx = torch.empty_like(aidx)
+    al = torch.empty(max(La, 1), w, cap_e, dtype=torch.int32, device=dev)
+    bl = torch.empty(max(Lb, 1), w, cap_e, dtype=torch.int32, device=dev)
+    _launch("join_stream", "launch_join_expand", _ptr(counts),
+            _ptr(A), La, na, _ptr(B), Lb, nb, w, cap_e, _ptr(aidx),
+            _ptr(bidx), _ptr(al), _ptr(bl), _stream(counts))
+    LAUNCHES["join_expand_stream"] += 1
+    return aidx, bidx, tuple(al.unbind(0))[:La], tuple(bl.unbind(0))[:Lb]
+
+
+def kernel_table() -> List[dict]:
+    """Static description of the ported kernels: name, source, the TPU
+    kernel each replaces."""
+    rel = {k: str(v.relative_to(PACKAGE_DIR.parent)) for k, v in
+           SOURCES.items()}
+    return [
+        {"name": "partition_hist", "route": "cuda",
+         "source": rel["partition"],
+         "replaces": "cylon_tpu/ops/tpu_kernels.py:1010"},
+        {"name": "partition_scatter", "route": "cuda",
+         "source": rel["partition"],
+         "replaces": "cylon_tpu/ops/tpu_kernels.py:1053"},
+        {"name": "join_plan_stream", "route": "cuda",
+         "source": rel["join_stream"],
+         "replaces": "cylon_tpu/ops/tpu_kernels.py:317"},
+        {"name": "join_expand_stream", "route": "cuda",
+         "source": rel["join_stream"],
+         "replaces": "cylon_tpu/ops/tpu_kernels.py:706"},
+    ]

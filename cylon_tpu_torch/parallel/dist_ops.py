@@ -1,0 +1,263 @@
+"""Distributed relational operators: shuffle-composed, per-shard kernels
+(counterpart of the join and shuffle parts of
+cylon_tpu.parallel.dist_ops).
+
+The reference composes every distributed op as *local partition +
+all-to-all + local op* (reference: DistributedJoin, table.cpp:656-696).
+The same composition here:
+
+  1. key prep on the flat sharded columns (elementwise): dtype promotion,
+     order-preserving key bits, murmur-style partition targets;
+  2. the counted padded exchange of parallel/shuffle.py;
+  3. the per-shard join on ``[W, cap]`` views: matching keys are
+     co-located after the hash shuffle, so one batched call of the local
+     join's routes joins every shard.
+
+Results stay sharded: a result table holds ``W * cap`` rows, its padding
+masked by ``row_mask``.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from ..data import table as table_mod
+from ..data.column import Column
+from ..data.table import Table
+from ..ops import hash as _hash
+from ..ops import join as _join
+from ..ops import order as _order
+from ..status import not_ported
+from ..util import bucket_cap as _bucket_cap
+from . import shard
+from .shuffle import count_pair, exchange, exchange_pair
+
+
+def _dist_key_bits(cols: Sequence[Column]):
+    """Key bit arrays (nulls pushed to the all-ones end) and combined key
+    validity of flat sharded key columns. (The JAX package also returns
+    the partition hashes here; no caller reads them after the exchange,
+    so the port does not compute them.)"""
+    return tuple(_order.sort_keys(list(cols))), table_mod._all_valid(cols)
+
+
+def _targets_from_hashes(world: int, h1s: Sequence[torch.Tensor]
+                         ) -> torch.Tensor:
+    """Combine per-column row hashes into a shard target (the
+    ops/hash.hash_columns combine scheme, from the first hash)."""
+    return (_hash.combine_hashes(h1s) % world).to(torch.int32)
+
+
+def _partition_targets_dist(world: int, cols: Sequence[Column]
+                            ) -> torch.Tensor:
+    """Per-row target shard for the key columns."""
+    return _targets_from_hashes(world, [_hash.hash_column(c) for c in cols])
+
+
+def _build_exchange_payload(t: Table) -> dict:
+    """Payload leaves of a table shuffle: all-valid columns skip their
+    mask leaf (validity None round-trips as None)."""
+    payload = {}
+    for i, c in enumerate(t._columns):
+        payload[f"d{i}"] = c.data
+        if c.validity is not None:
+            payload[f"v{i}"] = c.validity
+    return payload
+
+
+def _finish_exchange_table(t: Table, out, new_emit):
+    cols = [Column(out[f"d{i}"], c.dtype, out.get(f"v{i}"), c.name)
+            for i, c in enumerate(t._columns)]
+    return cols, new_emit
+
+
+def _exchange_table(t: Table, targets, emit, ctx, counts=None,
+                    dense: bool = False):
+    """Shuffle a whole table's columns. Returns (columns, new_emit)."""
+    out, new_emit, _cap, _meta = exchange(_build_exchange_payload(t),
+                                          targets, emit, ctx, counts=counts,
+                                          dense=dense)
+    return _finish_exchange_table(t, out, new_emit)
+
+
+def _exchange_table_pair(t1: Table, tg1, e1, c1, t2: Table, tg2, e2, c2,
+                         ctx, dense: bool = False):
+    """The two-table shuffle of a distributed join."""
+    r1, r2 = exchange_pair(_build_exchange_payload(t1), tg1, e1, c1,
+                           _build_exchange_payload(t2), tg2, e2, c2, ctx,
+                           dense=dense)
+    return (_finish_exchange_table(t1, r1[0], r1[1]),
+            _finish_exchange_table(t2, r2[0], r2[1]))
+
+
+def _rebuild_columns(dat: Sequence, val: Sequence, src: Sequence[Column],
+                     names: Sequence[str]) -> List[Column]:
+    return [Column(d, c.dtype, v, name)
+            for d, v, c, name in zip(dat, val, src, names)]
+
+
+def _shards(xs, world: int) -> tuple:
+    """Flat [W * cap] tensors as [W, cap] per-shard views."""
+    return tuple(x.view(world, -1) for x in xs)
+
+
+def _dist_stream_mode(lkb, rkb, join_type: _join.JoinType, world: int,
+                      device: torch.device) -> Optional[Tuple[bool, int]]:
+    """None (the plan route) or (hash_mode, block_rows) when the per-shard
+    stream route applies: on CUDA the kernel route K3/K4, where the JAX
+    package picks its Pallas kernels on a TPU."""
+    if not _join._stream_on(device) \
+            or join_type == _join.JoinType.FULL_OUTER:
+        return None
+    na = int(lkb[0].shape[0]) // world
+    nb = int(rkb[0].shape[0]) // world
+    if na == 0 or nb == 0 or na + nb >= (1 << 29):
+        return None
+    if len(lkb) == 1 and lkb[0].element_size() == 4:
+        return (False, _join.stream_block_rows(na, nb))
+    lanes = sum(2 if b.element_size() == 8 else 1 for b in lkb)
+    if lanes <= _join.MAX_HASH_KEY_LANES:
+        return (True, _join.stream_block_rows(na, nb))
+    return None
+
+
+def shuffle(table: Table, hash_columns: Sequence) -> Table:
+    """Repartition rows by key hash (reference: cylon::Shuffle,
+    table.cpp:162-236). Tables already hash-placed on the same keys pass
+    through without an exchange."""
+    ctx = table._ctx
+    world = ctx.get_world_size()
+    if world == 1:
+        return table
+    t = shard.distribute(table, ctx)
+    idxs = [t._col_index(c) for c in hash_columns]
+    sig = shard.partition_signature([t._columns[i] for i in idxs], idxs,
+                                    world)
+    if t._hash_partitioned == sig:
+        return t
+    targets = _partition_targets_dist(world, [t._columns[i] for i in idxs])
+    cols, new_emit = _exchange_table(t, targets, t.emit_mask(), ctx,
+                                     dense=t.row_mask is None)
+    result = Table(cols, ctx, new_emit)
+    result._shard_world = world
+    result._hash_partitioned = sig
+    return result
+
+
+def distributed_join(left: Table, right: Table, config: _join.JoinConfig,
+                     force_exchange: bool = False) -> Table:
+    """The shuffle join (reference: DistributedJoin, table.cpp:656-696).
+    ``force_exchange`` runs the full shuffle + join composition even on a
+    one-shard world or co-partitioned inputs."""
+    ctx = left._ctx
+    world = ctx.get_world_size()
+    if world == 1 and not (force_exchange and ctx.is_distributed()):
+        # reference parity: world 1 short-circuits to the local join
+        return table_mod.join(left, right, config)
+    if config.exact:
+        raise not_ported("exact=True joins (varbytes keys)")
+    left_d = shard.distribute(left, ctx)
+    right_d = shard.distribute(right, ctx)
+    lidx, ridx = config.left_column_idx, config.right_column_idx
+    # the JAX package's _align_key_columns_dist differs from
+    # align_key_columns only for string keys, which are not ported
+    lcols, rcols = table_mod.align_key_columns(left_d, right_d, lidx, ridx)
+
+    plan = []
+    for t, kcols, kidx in ((left_d, lcols, lidx), (right_d, rcols, ridx)):
+        sig = shard.partition_signature(kcols, kidx, world)
+        if t._hash_partitioned == sig and not force_exchange:
+            # co-partitioned: rows are already hash-placed
+            plan.append(("skip", t, None, None))
+            continue
+        plan.append(("exchange", t, _partition_targets_dist(world, kcols),
+                     t.emit_mask()))
+    ex = [p for p in plan if p[0] == "exchange"]
+    results = {}
+    if len(ex) == 2:
+        # one count fetch covers both shuffles; a dense one-shard world
+        # needs none (the exchange counts in-program)
+        dense = ex[0][1].row_mask is None and ex[1][1].row_mask is None
+        cl = cr = None
+        if world > 1 or not dense:
+            cl, cr = count_pair(ex[0][2], ex[0][3], ex[1][2], ex[1][3],
+                                world)
+        r1, r2 = _exchange_table_pair(ex[0][1], ex[0][2], ex[0][3], cl,
+                                      ex[1][1], ex[1][2], ex[1][3], cr, ctx,
+                                      dense=dense)
+        results[id(ex[0])] = r1
+        results[id(ex[1])] = r2
+    shuffled = []
+    for p in plan:
+        kind, t, targets, emit = p
+        if kind == "skip":
+            shuffled.append((t._columns, t.emit_mask()))
+        elif id(p) in results:
+            shuffled.append(results[id(p)])
+        else:
+            shuffled.append(_exchange_table(t, targets, emit, ctx,
+                                            dense=t.row_mask is None))
+
+    # key bits from the SHUFFLED columns (elementwise ordered bits)
+    (lcols_s, lemit), (rcols_s, remit) = shuffled
+    left_s = Table(list(lcols_s), ctx, lemit)
+    right_s = Table(list(rcols_s), ctx, remit)
+    lcols2, rcols2 = table_mod.align_key_columns(left_s, right_s, lidx, ridx)
+    lkb, lkv = _dist_key_bits(lcols2)
+    rkb, rkv = _dist_key_bits(rcols2)
+    ldat = _shards((c.data for c in lcols_s), world)
+    lval = _shards((c.valid_mask() for c in lcols_s), world)
+    rdat = _shards((c.data for c in rcols_s), world)
+    rval = _shards((c.valid_mask() for c in rcols_s), world)
+    lkb_w, rkb_w = _shards(lkb, world), _shards(rkb, world)
+    lkv_w, rkv_w = lkv.view(world, -1), rkv.view(world, -1)
+    lemit_w, remit_w = lemit.view(world, -1), remit.view(world, -1)
+
+    jt = config.type
+    res = None
+    mode = _dist_stream_mode(lkb, rkb, jt, world, ctx.device)
+    if mode is not None:
+        hash_mode, br = mode
+        a_desc, b_desc = _join.plan_lane_descs(ldat, lval, rdat, rval, jt)
+        counts, a_streams, b_streams = _join.plan_program_stream(
+            lkb_w, lkv_w, lemit_w, rkb_w, rkv_w, remit_w, ldat, lval, rdat,
+            rval, jt, a_desc=a_desc, b_desc=b_desc, hash_mode=hash_mode)
+        cm = counts.cpu().numpy()
+        if not (hash_mode and int(cm[:, 3].sum()) > 0):
+            cap_e = _join.stream_expand_capacity(int(cm[:, 0].max()), br)
+            res = _join.materialize_program_stream(
+                counts, a_streams, b_streams, ldat, lval, rdat, rval, jt,
+                cap_e, a_desc=a_desc, b_desc=b_desc)
+        # else: 64-bit hash collision — recompute via the exact plan route
+    if res is None:
+        counts2, lo, m, bperm, un_mask = _join.join_plan_keys(
+            lkb_w, lkv_w, lemit_w, rkb_w, rkv_w, remit_w, jt)
+        aemit = remit_w if jt == _join.JoinType.RIGHT else lemit_w
+        cm = counts2.cpu().numpy()
+        cap_p = _bucket_cap(int(cm[:, 0].max()))
+        cap_u = _bucket_cap(int(cm[:, 1].max())) \
+            if jt == _join.JoinType.FULL_OUTER else 0
+        res = _join.materialize_program(lo, m, bperm, un_mask, aemit,
+                                        ldat, lval, rdat, rval, jt, cap_p,
+                                        cap_u)
+    # flatten the [W, cap] outputs back to the sharded flat layout
+    lod, lov, rod, rov = ([x.reshape(-1) for x in part] for part in res[:4])
+    emit = res[4].reshape(-1)
+    nl = left_d.column_count
+    cols = _rebuild_columns(lod, lov, lcols_s,
+                            [f"lt-{i}" for i in range(nl)])
+    cols += _rebuild_columns(rod, rov, rcols_s,
+                             [f"rt-{nl + j}"
+                              for j in range(right_d.column_count)])
+    result = Table(cols, ctx, emit)
+    result._shard_world = world
+    # co-partitioning witness: every emitted row sits on the shard its
+    # join-key hash routed it to
+    if jt in (_join.JoinType.INNER, _join.JoinType.LEFT):
+        result._hash_partitioned = shard.partition_signature(
+            lcols2, tuple(lidx), world)
+    elif jt == _join.JoinType.RIGHT:
+        result._hash_partitioned = shard.partition_signature(
+            rcols2, tuple(nl + j for j in ridx), world)
+    return result

@@ -1,0 +1,75 @@
+"""cylon_tpu_torch stands alone: it imports neither jax nor cylon_tpu,
+and its entry points refuse to run on a CUDA-less machine unless asked
+for the CPU."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PACKAGE = ROOT / "cylon_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "cylon_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    # exact module names: cylon_tpu_torch itself starts with "cylon_tpu"
+    top = module.split(".")[0]
+    return top in FORBIDDEN
+
+
+def test_import_leaves_jax_and_cylon_tpu_out():
+    code = ("import sys, cylon_tpu_torch, cylon_tpu_torch.parallel.dist_ops,"
+            " cylon_tpu_torch.interop, cylon_tpu_torch.ops.kernels;"
+            " bad = [m for m in sys.modules"
+            " if m.split('.')[0] in ('jax', 'jaxlib', 'cylon_tpu')];"
+            " print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    r = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p for p in PACKAGE.rglob("*.py")] + [ROOT / "chip_smoke.py"]),
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_import_in_source(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                continue  # relative: inside the package
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+def test_context_without_device_needs_cuda():
+    import cylon_tpu_torch as ct
+
+    if torch.cuda.is_available():
+        assert ct.CylonContext.Init().device.type == "cuda"
+        return
+    with pytest.raises(ct.CylonError, match="CUDA is not available"):
+        ct.CylonContext.Init()
+    with pytest.raises(ct.CylonError, match="CUDA is not available"):
+        ct.CylonContext.InitDistributed(ct.VirtualWorldConfig(4))
+    assert ct.CylonContext.Init(device="cpu").device.type == "cpu"
+
+
+def test_strings_raise_not_ported():
+    import numpy as np
+
+    import cylon_tpu_torch as ct
+
+    ctx = ct.CylonContext.Init(device="cpu")
+    with pytest.raises(ct.CylonError, match="not yet ported"):
+        ct.Table.from_pydict(ctx, {"s": np.array(["a", "b"])})

@@ -1,0 +1,209 @@
+"""The plain versions of kernels K1-K4 in cylon_tpu_torch against the JAX
+package's Pallas kernels, run in interpret mode on the CPU, bit for bit.
+
+K3/K4 run eagerly under the Pallas interpreter (block_rows=8, ~300 rows a
+side): one module-scoped fixture per case computes both packages' plans
+once. The LEFT case is held against the JAX package's XLA plan (its
+interpreter twin would double this file's time)."""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from cylon_tpu.ops import join as jjoin
+from cylon_tpu.ops import tpu_kernels as tk
+from cylon_tpu.parallel import shuffle as jshuffle
+
+from cylon_tpu_torch.ops import join as tjoin
+from cylon_tpu_torch.ops import kernels as K
+from cylon_tpu_torch.parallel import shuffle as tshuffle
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+# ---------------------------------------------------------------------------
+# K1 / K2
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("world", [2, 4, 8])
+def test_partition_hist_plain_matches_pallas(world):
+    rng = np.random.default_rng(world)
+    t = rng.integers(0, world + 1, 5000).astype(np.int32)
+    ref = np.asarray(tk.partition_hist(jnp.asarray(t), world + 1,
+                                       interpret=True))
+    got = K.partition_hist(_t(t)[None], world + 1)[0].numpy()
+    assert np.array_equal(ref, got)
+
+
+@pytest.mark.parametrize("world", [2, 4, 8])
+def test_partition_scatter_plain_matches_pallas(world):
+    rng = np.random.default_rng(10 + world)
+    t = rng.integers(0, world + 1, 5000).astype(np.int32)
+    legs = [rng.integers(0, 1 << 32, 5000, dtype=np.uint64).astype(
+        np.uint32) for _ in range(3)]
+    ref = tk.partition_scatter(jnp.asarray(t), [jnp.asarray(x) for x in legs],
+                               world + 1, interpret=True)
+    tt = _t(t)[None]
+    got = K.partition_scatter(
+        tt, torch.stack([_t(x.view(np.int32))[None] for x in legs]),
+        world + 1, K.partition_hist(tt, world + 1))
+    for r, g in zip(ref, got):
+        assert np.array_equal(np.asarray(r), g[0].numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("world", [2, 4, 8])
+def test_kernel_partition_matches_bucket_sort(world):
+    """The port's kernel partition (plain K1 + K2) and its sort partition
+    both equal the JAX package's `_bucket_sort`: leaves with the dead
+    tail, counts_out and start, across 4/8/2/1-byte leaves and bool."""
+    rng = np.random.default_rng(20 + world)
+    n = 5000
+    cols = {"a": rng.integers(-2**31, 2**31, n).astype(np.int32),
+            "b": rng.normal(size=n).astype(np.float64),
+            "c": rng.integers(-100, 100, n).astype(np.int16),
+            "d": rng.integers(-100, 100, n).astype(np.int8),
+            "e": rng.random(n) < 0.5}
+    targets = rng.integers(0, world, n).astype(np.int32)
+    emit = rng.random(n) < 0.8
+    ref, rc, rs = jshuffle._bucket_sort(
+        {k: jnp.asarray(v) for k, v in cols.items()}, jnp.asarray(targets),
+        jnp.asarray(emit), world)
+    payload = {k: _t(v)[None] for k, v in cols.items()}
+    for fn in (tshuffle._kernel_partition, tshuffle._bucket_sort):
+        got, gc, gs = fn(payload, _t(targets)[None], _t(emit)[None], world)
+        assert np.array_equal(np.asarray(rc), gc[0].numpy())
+        assert np.array_equal(np.asarray(rs), gs[0].numpy())
+        for k in cols:
+            assert np.array_equal(np.asarray(ref[k]), got[k][0].numpy()), k
+
+
+# ---------------------------------------------------------------------------
+# K3 / K4
+# ---------------------------------------------------------------------------
+
+CASES = {
+    "inner_sort": (jjoin.JoinType.INNER, False),
+    "inner_hash_two_keys": (jjoin.JoinType.INNER, True),
+}
+
+
+def _inputs(seed, hash_mode):
+    rng = np.random.default_rng(seed)
+    na, nb = 300, 280
+    nk = 2 if hash_mode else 1
+    lk = [rng.integers(0, 90, na).astype(np.int32) for _ in range(nk)]
+    rk = [rng.integers(0, 90, nb).astype(np.int32) for _ in range(nk)]
+    lkval = [rng.random(na) < 0.9] + [None] * (nk - 1)
+    lemit = rng.random(na) < 0.95
+    remit = rng.random(nb) < 0.95
+    ldat = [lk[0], rng.normal(size=na).astype(np.float32),
+            rng.integers(0, 1 << 20, na).astype(np.int64)]
+    lval = [lkval[0], None, rng.random(na) < 0.8]
+    rdat = [rk[0], rng.normal(size=nb).astype(np.float32)]
+    rval = [None, rng.random(nb) < 0.7]
+    return lk, lkval, lemit, rk, remit, ldat, lval, rdat, rval
+
+
+def _j(x):
+    return None if x is None else jnp.asarray(x)
+
+
+def _r(x):
+    return None if x is None else _t(x)[None]
+
+
+@pytest.fixture(scope="module", params=sorted(CASES))
+def plans(request):
+    jt, hash_mode = CASES[request.param]
+    lk, lkval, lemit, rk, remit, ldat, lval, rdat, rval = _inputs(
+        7 + int(jt), hash_mode)
+    nk = len(lk)
+    jargs = ([_j(x) for x in ldat], [_j(x) for x in lval],
+             [_j(x) for x in rdat], [_j(x) for x in rval])
+    a_desc, b_desc = jjoin.plan_lane_descs(*jargs, jt)
+    jc, ja, jb = jjoin.plan_program_stream(
+        tuple(_j(x) for x in lk), tuple(_j(x) for x in lkval),
+        _j(lemit), tuple(_j(x) for x in rk), (None,) * nk, _j(remit),
+        *(tuple(a) for a in jargs), (False,) * nk, jt, a_desc=a_desc,
+        b_desc=b_desc, block_rows=8, hash_mode=hash_mode, interpret=True)
+    jc = np.asarray(jc)
+    cap_e = jjoin.stream_expand_capacity(int(jc[0]), 8)
+    jexp = tk.join_expand_stream(jnp.asarray(jc), ja, jb, cap_e,
+                                 block_rows=8, interpret=True)
+
+    targs = ([_r(x) for x in ldat], [_r(x) for x in lval],
+             [_r(x) for x in rdat], [_r(x) for x in rval])
+    t_desc = tjoin.plan_lane_descs(*targs, jt)
+    lbits, lkv = tjoin.key_bits([_r(x) for x in lk], [_r(x) for x in lkval])
+    rbits, rkv = tjoin.key_bits([_r(x) for x in rk], [None] * nk)
+    tc, ta, tb = tjoin.plan_program_stream(
+        lbits, lkv, _r(lemit), rbits, rkv, _r(remit), *targs, jt,
+        a_desc=t_desc[0], b_desc=t_desc[1], hash_mode=hash_mode)
+    texp = K.join_expand_stream(tc, ta, tb, cap_e)
+    return dict(desc=((a_desc, b_desc), t_desc), counts=(jc, tc[0].numpy()),
+                a=(ja, ta), b=(jb, tb), exp=(jexp, texp))
+
+
+def test_lane_descs_match(plans):
+    jd, td = plans["desc"]
+    assert jd == td
+
+
+def test_plan_counts_match(plans):
+    jc, tc = plans["counts"]
+    assert np.array_equal(jc, tc), (jc, tc)
+
+
+def test_plan_groups_match_over_counted_prefix(plans):
+    jc, _ = plans["counts"]
+    n_emit, n_blive = int(jc[1]), int(jc[2])
+    for (js, ts), cnt in ((plans["a"], n_emit), (plans["b"], n_blive)):
+        assert len(js) == len(ts)
+        for x, y in zip(js, ts):
+            ref = np.asarray(x).reshape(-1)[:cnt]
+            assert np.array_equal(ref, y[0].numpy()[:cnt].view(np.uint32))
+
+
+def test_expand_outputs_match(plans):
+    (jaidx, jbidx, jal, jbl), (taidx, tbidx, tal, tbl) = plans["exp"]
+    assert np.array_equal(np.asarray(jaidx), taidx[0].numpy())
+    assert np.array_equal(np.asarray(jbidx), tbidx[0].numpy())
+    for x, y in zip(tuple(jal) + tuple(jbl), tuple(tal) + tuple(tbl)):
+        assert np.array_equal(np.asarray(x), y[0].numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("hash_mode", [False, True])
+def test_left_stream_matches_xla_plan(hash_mode):
+    """LEFT through the port's plain K3/K4 gives the same (lidx, ridx)
+    pairs as the JAX package's XLA plan route."""
+    jt = jjoin.JoinType.LEFT
+    lk, lkval, lemit, rk, remit, ldat, lval, rdat, rval = _inputs(
+        8, hash_mode)
+    nk = len(lk)
+    counts2, lo, m, bperm, un_mask = jjoin.plan_program(
+        tuple(_j(x) for x in lk), tuple(_j(x) for x in lkval), _j(lemit),
+        tuple(_j(x) for x in rk), (None,) * nk, _j(remit), (False,) * nk,
+        jt)
+    cap = int(np.asarray(counts2)[0])
+    *_, jl, jr = jjoin.materialize_program(
+        lo, m, bperm, un_mask, _j(lemit), (), (), (), (), jt, cap, 0)
+    jl, jr = np.asarray(jl), np.asarray(jr)
+    ref = sorted(zip(jl[jl >= 0].tolist(), jr[jl >= 0].tolist()))
+
+    targs = ([_r(x) for x in ldat], [_r(x) for x in lval],
+             [_r(x) for x in rdat], [_r(x) for x in rval])
+    a_desc, b_desc = tjoin.plan_lane_descs(*targs, jt)
+    lbits, lkv = tjoin.key_bits([_r(x) for x in lk], [_r(x) for x in lkval])
+    rbits, rkv = tjoin.key_bits([_r(x) for x in rk], [None] * nk)
+    tc, ta, tb = tjoin.plan_program_stream(
+        lbits, lkv, _r(lemit), rbits, rkv, _r(remit), *targs, jt,
+        a_desc=a_desc, b_desc=b_desc, hash_mode=hash_mode)
+    assert int(tc[0, 0]) == cap
+    tl, tr, _al, _bl = K.join_expand_stream(
+        tc, ta, tb, tjoin.stream_expand_capacity(cap, 8))
+    tl, tr = tl[0].numpy(), tr[0].numpy()
+    assert sorted(zip(tl[tl >= 0].tolist(), tr[tl >= 0].tolist())) == ref
