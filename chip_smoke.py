@@ -1,32 +1,51 @@
 """Drive cylon_tpu_torch's main path on one NVIDIA H100 and check it.
 
-    python3 chip_smoke.py [--rows N] [--seed S] [--out PATH]
+    python3 chip_smoke.py [--rows N] [--setop-rows M] [--seed S] [--out PATH]
 
-The configuration is the repo's headline benchmark (bench.py
-``bench_dist_join``): two tables of N = 16,777,216 rows, an int32 key
-uniform in [0, N) and one float32 payload per side, an inner join on the
-key, ``force_exchange=True`` on a virtual world of 4 shards on the card.
+Two paths, each at the size of the repo's own benchmark:
+
+* the join: bench.py ``bench_dist_join``, two tables of N = 16,777,216
+  rows (``--rows``), an int32 key uniform in [0, N) and one float32
+  payload per side, an inner join on the key, ``force_exchange=True`` on
+  a virtual world of 4 shards on the card (kernels K1-K4);
+* the set ops: bench.py ``bench_setops`` (``set_union``), two tables of
+  M = 8,388,608 rows (``--setop-rows``), int32 columns k uniform in
+  [0, M) and g uniform in [0, 2^20), ``Table.union/subtract/intersect``
+  on one card (kernels K5 setop_stream and K6 stream_compact), and
+  bench.py ``bench_dist_union``: ``distributed_set_op(UNION,
+  force_exchange=True)`` at world 4 (K1/K2).
 
 Phases, in order (any failure exits non-zero; nothing is caught):
   1. the card, torch, nvcc, and the build of every kernel from csrc/;
-  2. the main path: ``Table.distributed_join`` at world 4 on the kernel
-     route, with every kernel's launch counter set to 0 just before and
-     read just after (each of K1-K4 must have launched), the inputs of
-     each kernel's first launch recorded;
-  3. the same join on the plain route (the STREAM_PLAN/PARTITION_KERNEL
-     switches off): both outputs equal tensor for tensor once each is
-     put in one canonical row order; the row count (checked in phase 2)
-     equals the numpy count sum_k cnt_left(k) * cnt_right(k); then both
-     routes' steady-state walls, taken in turns, and one kernel-route
-     run under torch.profiler (device busy time, idle share, top kernels);
+  2. the join's main path: ``Table.distributed_join`` at world 4 on the
+     kernel route, with every kernel's launch counter set to 0 just
+     before and read just after (each of K1-K4 must have launched), the
+     inputs of each kernel's first launch recorded;
+  3. the same join on the plain route (every route switch off): both
+     outputs equal tensor for tensor once each is put in one canonical
+     row order; the row count (checked in phase 2) equals the numpy count
+     sum_k cnt_left(k) * cnt_right(k); then both routes' steady-state
+     walls, taken in turns, and one kernel-route run under
+     torch.profiler (device busy time, idle share, top kernels);
   4. a world-1 local inner join on the same tables, kernel route against
      plain route, both timed in turns;
-  5. each kernel at the shapes the main path gave it, against its plain
+  5. the set-op main path: for UNION, SUBTRACT and INTERSECT, the
+     counters set to 0 just before the kernel route and read just after
+     (K5 and K6 must have launched, with no hash collision), the plain
+     route (dense ranks) equal as a row set, the row count equal to an
+     independent numpy count, both routes' walls in turns; one
+     kernel-route UNION under torch.profiler;
+  6. the distributed union at world 4: K1/K2 launched, the kernel route
+     equal to the plain route and to the numpy count, walls in turns;
+  7. small duplicate-heavy set ops (nulls, a filtered emit mask) at
+     world 1 and 4, each equal row for row to an independent numpy set
+     computation;
+  8. each kernel at the shapes its path gave it, against its plain
      version on the same inputs, bit for bit: median ms over 7 timed runs
      (CUDA events), the plain version's ms, the library call's ms where
      one PyTorch call computes the same function, and the bound (bytes
      moved at 3.35 TB/s);
-  6. a small world-4 join against an independent numpy join.
+  9. a small world-4 join against an independent numpy join.
 
 It prints the kernels line (one JSON object) and the card's name and
 power limit on lines before the last, and as the last line
@@ -48,13 +67,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 WORLD = 4
-NOT_PORTED = [
-    {"name": "setop_stream", "replaces": "cylon_tpu/ops/tpu_kernels.py:544",
-     "status": "not_ported"},
-    {"name": "stream_compact",
-     "replaces": "cylon_tpu/ops/tpu_kernels.py:241",
-     "status": "not_ported"},
-]
+SETOP_OPS = ("UNION", "SUBTRACT", "INTERSECT")
 
 
 def log(*a):
@@ -143,20 +156,32 @@ def numpy_inner_join(lk, lv, rk, rv):
     return rows[np.lexsort(rows.T[::-1])]
 
 
-def run_route(J, S, switch, fn):
-    """fn() with the STREAM_PLAN/PARTITION_KERNEL switches set to
-    ``switch`` (None = the default kernel route on CUDA, False = the
-    plain route), synchronized."""
-    J.STREAM_PLAN, S.PARTITION_KERNEL = switch, switch
+def route_switches():
+    """(module, name) of every route switch: STREAM_PLAN (K3/K4),
+    PARTITION_KERNEL (K1/K2), STREAM_SETOP (K5/K6)."""
+    from cylon_tpu_torch.ops import join as J
+    from cylon_tpu_torch.ops import setops as SO
+    from cylon_tpu_torch.parallel import shuffle as S
+
+    return [(J, "STREAM_PLAN"), (S, "PARTITION_KERNEL"),
+            (SO, "STREAM_SETOP")]
+
+
+def run_route(switch, fn):
+    """fn() with every route switch set to ``switch`` (None = the default
+    kernel route on CUDA, False = the plain route), synchronized."""
+    for mod, name in route_switches():
+        setattr(mod, name, switch)
     try:
         out = fn()
         sync()
     finally:
-        J.STREAM_PLAN, S.PARTITION_KERNEL = None, None
+        for mod, name in route_switches():
+            setattr(mod, name, None)
     return out
 
 
-def alternate(J, S, fn, rounds: int = 5) -> dict:
+def alternate(fn, rounds: int = 5) -> dict:
     """Steady-state walls of both routes, taken in turns (plain, kernel,
     kernel, plain, ...) so that both see the same card state."""
     walls = {"kernel": [], "plain": []}
@@ -166,7 +191,7 @@ def alternate(J, S, fn, rounds: int = 5) -> dict:
             else [("kernel", None), ("plain", False)]
     for name, switch in order:
         t0 = time.perf_counter()
-        out = run_route(J, S, switch, fn)
+        out = run_route(switch, fn)
         walls[name].append(time.perf_counter() - t0)
         del out
     return walls
@@ -205,11 +230,13 @@ def profile_once(fn) -> dict:
 
 
 class Recorder:
-    """Records the inputs of each kernel wrapper's first call."""
+    """Records the inputs and the result of each kernel wrapper's first
+    call."""
 
     def __init__(self, kernels):
         self.k = kernels
         self.calls = {}
+        self.results = {}
         self.orig = {}
 
     def __enter__(self):
@@ -218,8 +245,11 @@ class Recorder:
             self.orig[name] = fn
 
             def wrapped(*a, _fn=fn, _name=name, **kw):
-                self.calls.setdefault(_name, (a, kw))
-                return _fn(*a, **kw)
+                out = _fn(*a, **kw)
+                if _name not in self.calls:
+                    self.calls[_name] = (a, kw)
+                    self.results[_name] = out
+                return out
 
             setattr(self.k, name, wrapped)
         return self
@@ -338,12 +368,218 @@ def check_kernels(K, calls) -> list:
         library_ms=None,
         bytes=b4 * (c.numel() + len(a_s) * n_emit + len(b_s) * b_read
                     + (len(a_s) - 3 + len(b_s) + 1) * w * cap_e)))
+
+    # K5 setop_stream: it must read h1, h2, tag and the L lanes at every
+    # element (the collision audit compares the lanes everywhere) and
+    # write (idx, lanes...) at the n_out emitted rows, plus the counts
+    a, kw = calls["setop_stream"]
+    got, ref = K.setop_stream(*a, **kw), K.plain_setop_stream(*a, **kw)
+    err = max_abs_err([(got[0], ref[0]), (got[1], ref[1])])
+    h1 = a[0]
+    lanes, op = a[3], a[4]
+    n_out = int(ref[0][:, 0].sum())
+    out.append(dict(
+        name="setop_stream", err=err,
+        shape=f"stream {list(h1.shape)}, {lanes.shape[0]} lanes, op {op}, "
+        f"n_out {n_out}",
+        ms=cuda_ms(lambda: K.setop_stream(*a, **kw)),
+        plain_ms=cuda_ms(lambda: K.plain_setop_stream(*a, **kw)),
+        library_ms=None,
+        bytes=b4 * ((3 + lanes.shape[0]) * h1.numel()
+                    + (1 + lanes.shape[0]) * n_out + ref[0].numel())))
+
+    # K6 stream_compact: it must read the mask (one byte) at every element
+    # and the streams only at the selected elements, and write L x count
+    # words plus the zero tail up to out_len, plus the counts
+    a, kw = calls["stream_compact"]
+    mask, streams = a[0], a[1]
+    got, ref = K.stream_compact(*a, **kw), K.plain_stream_compact(*a, **kw)
+    err = max_abs_err([(got[0], ref[0]), (got[1], ref[1])])
+    cnt = int(ref[1].sum())
+    L, w = streams.shape[0], mask.shape[0]
+    out_len = ref[0].shape[2]
+    assert w == 1 and torch.equal(streams[:, mask], ref[0][:, 0, :cnt]), \
+        "boolean indexing disagrees"
+    out.append(dict(
+        name="stream_compact", err=err,
+        shape=f"{L} streams x {list(mask.shape)}, count {cnt}, out_len "
+        f"{out_len}",
+        ms=cuda_ms(lambda: K.stream_compact(*a, **kw)),
+        plain_ms=cuda_ms(lambda: K.plain_stream_compact(*a, **kw)),
+        library_ms=cuda_ms(lambda: streams[:, mask]),
+        bytes=mask.numel() + b4 * (2 * L * cnt + L * (w * out_len - cnt)
+                                   + w)))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the set-op path
+# ---------------------------------------------------------------------------
+
+
+def make_setop_tables(ct, ctx, n: int, seed: int):
+    """bench.py's bench_setops (seed 3) and bench_dist_union (seed 6)
+    tables, the same generator sequence; also each side's rows packed as
+    int64 ``k << 32 | g`` for the numpy reference."""
+    rng = np.random.default_rng(seed)
+    cols = []
+    for _side in range(2):
+        k = rng.integers(0, n, n).astype(np.int32)
+        g = rng.integers(0, 1 << 20, n).astype(np.int32)
+        cols.append((k, g))
+    tables = [ct.Table.from_pydict(ctx, {"k": k, "g": g}) for k, g in cols]
+    packed = [(k.astype(np.int64) << 32) | g.astype(np.int64)
+              for k, g in cols]
+    return tables[0], tables[1], packed
+
+
+def numpy_setop_rows(pa: np.ndarray, pb: np.ndarray) -> dict:
+    """Independent reference: the sorted distinct rows of each op."""
+    ua, ub = np.unique(pa), np.unique(pb)
+    return {"UNION": np.union1d(ua, ub),
+            "SUBTRACT": np.setdiff1d(ua, ub, assume_unique=True),
+            "INTERSECT": np.intersect1d(ua, ub, assume_unique=True)}
+
+
+def setop_main_path(ct, K, n: int) -> dict:
+    """Phase 5: the local set ops at full size on one card."""
+    lctx = ct.CylonContext.Init()
+    a, b, (pa, pb) = make_setop_tables(ct, lctx, n, 3)
+    expect = {k: v.size for k, v in numpy_setop_rows(pa, pb).items()}
+    del pa, pb
+    sync()
+    res = {"rows": n, "expect": expect, "launches": {}, "walls": {},
+           "first_wall_s": {}, "n_coll": {}}
+    for name in SETOP_OPS:
+        def fn(_m=name.lower()):
+            return getattr(a, _m)(b)
+
+        assert all(getattr(m, v) is None for m, v in route_switches())
+        K.reset_launches()
+        with Recorder(K) as rec:
+            t0 = time.perf_counter()
+            out_k = fn()
+            sync()
+            first = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        res["launches"][name] = launches
+        res["first_wall_s"][name] = first
+        missing = [k for k in ("setop_stream", "stream_compact")
+                   if launches[k] == 0]
+        assert not missing, f"{name}: kernels not launched: {missing}"
+        n_coll = int(rec.results["setop_stream"][0][:, 1].sum())
+        res["n_coll"][name] = n_coll
+        assert n_coll == 0, f"{name}: {n_coll} hash collisions"
+        assert out_k.row_count == expect[name], (out_k.row_count,
+                                                 expect[name])
+        out_p = run_route(False, fn)
+        assert out_p.row_count == expect[name]
+        assert_same_rows(out_k, out_p, f"{name}: kernel vs plain route")
+        log(f"phase 5 {name} (2 x {n} rows, world 1): launches {launches}, "
+            f"n_coll 0, rows out {out_k.row_count} == numpy "
+            f"{expect[name]}, capacity {out_k.capacity}, routes equal; "
+            f"first run {first:.4f} s")
+        if name == "UNION":
+            res["calls"] = rec.calls
+            res["capacity"] = out_k.capacity
+        del out_k, out_p, rec
+        walls = alternate(fn)
+        res["walls"][name] = walls
+        log(f"  steady walls (s) {walls}; median kernel "
+            f"{statistics.median(walls['kernel']):.6f} (best "
+            f"{min(walls['kernel']):.6f}), plain "
+            f"{statistics.median(walls['plain']):.6f} (best "
+            f"{min(walls['plain']):.6f})")
+    prof = profile_once(lambda: a.union(b))
+    res["profile"] = prof
+    log(f"  profile of one kernel-route UNION: wall {prof['wall_ms']:.3f} "
+        f"ms, device busy {prof['busy_ms']:.3f} ms (idle share "
+        f"{prof['idle_share']:.4f}); top device time:")
+    for nm, ms, c in prof["top"]:
+        log(f"    {ms:9.3f} ms  x{c:<3d} {nm}")
+    return res
+
+
+def dist_union_path(ct, K, D, SO, dctx, n: int) -> dict:
+    """Phase 6: bench_dist_union at world 4 (K1/K2 in the exchange)."""
+    a, b, (pa, pb) = make_setop_tables(ct, dctx, n, 6)
+    expect = numpy_setop_rows(pa, pb)["UNION"].size
+    del pa, pb
+
+    def fn():
+        return D.distributed_set_op(a, b, SO.SetOp.UNION,
+                                    force_exchange=True)
+
+    sync()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    out_k = fn()
+    sync()
+    first = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    missing = [k for k in ("partition_hist", "partition_scatter")
+               if launches[k] == 0]
+    assert not missing, f"distributed union: not launched: {missing}"
+    assert out_k.row_count == expect, (out_k.row_count, expect)
+    out_p = run_route(False, fn)
+    assert_same_rows(out_k, out_p, "distributed union: kernel vs plain")
+    del out_k, out_p
+    walls = alternate(fn)
+    log(f"phase 6 distributed union (2 x {n} rows, world {WORLD}): "
+        f"launches {launches}, rows out {expect} == numpy, routes equal; "
+        f"first run {first:.4f} s; steady walls (s) {walls}")
+    return {"rows": n, "launches": launches, "walls": walls,
+            "first_wall_s": first, "out_rows": expect}
+
+
+def small_setop_check(ct, lctx, dctx, seed: int) -> None:
+    """Phase 7: duplicate-heavy tables (k, g in [0, 300), nulls in g, a
+    filtered emit mask), all three ops at world 1 and 4, each equal row
+    for row (after sorting) to an independent numpy set computation."""
+    n = 100_003
+    rng = np.random.default_rng(seed)
+    sides = []
+    for _side in range(2):
+        k = rng.integers(0, 300, n).astype(np.int32)
+        g = rng.integers(0, 300, n).astype(np.int32)
+        gv = rng.random(n) < 0.95
+        keep = rng.random(n) < 0.9
+        # a null g compares equal to every null g: the validity is part
+        # of the key, the data under a null is not
+        packed = ((k.astype(np.int64) << 33) | (gv.astype(np.int64) << 32)
+                  | np.where(gv, g, 0).astype(np.int64))[keep]
+        sides.append((k, g, gv, keep, packed))
+    ref = numpy_setop_rows(sides[0][4], sides[1][4])
+
+    def table(ctx, k, g, gv, keep):
+        dev = ctx.device
+        t = ct.Table([ct.Column.from_numpy(k, "k", None, dev),
+                      ct.Column.from_numpy(g, "g", gv, dev)], ctx)
+        return t.filter_mask(torch.from_numpy(keep).to(dev))
+
+    for ctx, world in ((lctx, 1), (dctx, WORLD)):
+        a, b = (table(ctx, *s_[:4]) for s_ in sides)
+        for name in SETOP_OPS:
+            m = name.lower() if world == 1 else f"distributed_{name.lower()}"
+            t = getattr(a, m)(b).compact()
+            kc, gc = t._columns
+            gvc = gc.valid_mask()
+            got = ((kc.data.to(torch.int64) << 33)
+                   | (gvc.to(torch.int64) << 32)
+                   | torch.where(gvc, gc.data, 0).to(torch.int64))
+            got = np.sort(got.cpu().numpy())
+            assert np.array_equal(got, ref[name]), (world, name)
+        log(f"phase 7 small set ops ({n} rows a side, world {world}): "
+            f"{ {k: v.size for k, v in ref.items()} } rows, each equal to "
+            f"numpy")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--rows", type=int, default=1 << 24)
+    ap.add_argument("--rows", type=int, default=1 << 24,
+                    help="rows per join table")
+    ap.add_argument("--setop-rows", type=int, default=1 << 23,
+                    help="rows per set-op table")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="also write the result JSON to this path")
@@ -353,9 +589,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import cylon_tpu_torch as ct
-    from cylon_tpu_torch.ops import join as J
     from cylon_tpu_torch.ops import kernels as K
-    from cylon_tpu_torch.parallel import shuffle as S
+    from cylon_tpu_torch.ops import setops as SO
+    from cylon_tpu_torch.parallel import dist_ops as D
 
     card = card_line()
     log(card)
@@ -375,8 +611,8 @@ def main() -> int:
     expect_rows = numpy_join_count(lk, rk, n)
     sync()
 
-    # phase 2: the main path on the kernel route, counters 0 -> read
-    assert J.STREAM_PLAN is None and S.PARTITION_KERNEL is None
+    # phase 2: the join's main path on the kernel route, counters 0 -> read
+    assert all(getattr(m, v) is None for m, v in route_switches())
     K.reset_launches()
     with Recorder(K) as rec:
         t0 = time.perf_counter()
@@ -387,7 +623,9 @@ def main() -> int:
     launches = dict(K.LAUNCHES)
     log(f"phase 2 main path (world {WORLD}, kernel route): {wall_k:.4f} s, "
         f"launches {launches}")
-    missing = [k for k in K.KERNELS if launches[k] == 0]
+    join_kernels = ("partition_hist", "partition_scatter",
+                    "join_plan_stream", "join_expand_stream")
+    missing = [k for k in join_kernels if launches[k] == 0]
     assert not missing, f"kernels not launched on the main path: {missing}"
     rows_k = out_k.row_count
     assert rows_k == expect_rows, (rows_k, expect_rows)
@@ -399,10 +637,10 @@ def main() -> int:
         return left.distributed_join(right, "inner", on=["k"],
                                      force_exchange=True)
 
-    out_p = run_route(J, S, False, dist_join)
+    out_p = run_route(False, dist_join)
     assert_same_rows(out_k, out_p, "world-4 kernel route vs plain route")
     del out_p, out_k
-    walls = alternate(J, S, dist_join)
+    walls = alternate(dist_join)
     rate = {k: {"median": 2 * n / statistics.median(v), "best": 2 * n / min(v)}
             for k, v in walls.items()}
     log(f"phase 3 plain route: outputs equal; steady walls (s) {walls}; "
@@ -424,18 +662,28 @@ def main() -> int:
     def local_join():
         return l1.join(r1, "inner", on=["k"])
 
-    loc_k = run_route(J, S, None, local_join)
-    loc_p = run_route(J, S, False, local_join)
+    loc_k = run_route(None, local_join)
+    loc_p = run_route(False, local_join)
     assert loc_k.row_count == expect_rows
     assert_same_rows(loc_k, loc_p, "world-1 kernel route vs plain route")
     del loc_k, loc_p
-    local_walls = alternate(J, S, local_join)
+    local_walls = alternate(local_join)
     log(f"phase 4 local join: outputs equal; steady walls (s) {local_walls}")
-    del l1, r1
+    del l1, r1, left, right
 
-    # phase 5: each kernel at its main-path shapes
-    results = check_kernels(K, rec.calls)
-    del rec
+    # phases 5-7: the set-op path
+    setop = setop_main_path(ct, K, args.setop_rows)
+    dist_union = dist_union_path(ct, K, D, SO, dctx, args.setop_rows)
+    small_setop_check(ct, lctx, dctx, args.seed + 2)
+
+    # phase 8: each kernel at the shapes its path gave it
+    calls = dict(rec.calls, **setop.pop("calls"))
+    results = check_kernels(K, calls)
+    del rec, calls
+    # launches: K1-K4 from the join's main path, K5/K6 summed over the
+    # three set ops' kernel-route runs (each counted from 0)
+    for name in ("setop_stream", "stream_compact"):
+        launches[name] = sum(v[name] for v in setop["launches"].values())
     table = {k["name"]: k for k in K.kernel_table()}
     kernels = []
     for r in results:
@@ -445,13 +693,14 @@ def main() -> int:
                    bound_ms=bound, bound_by="bytes",
                    library_ms=r["library_ms"])
         kernels.append(row)
-        log(f"phase 5 {r['name']} ({r['shape']}): ms {r['ms']:.4f} plain "
+        log(f"phase 8 {r['name']} ({r['shape']}): ms {r['ms']:.4f} plain "
             f"{r['plain_ms']:.4f} bound {bound:.4f} library "
             f"{r['library_ms']} max_abs_err {r['err']}")
+    assert [k["name"] for k in kernels] == list(K.KERNELS)
     bad = [k["name"] for k in kernels if k["max_abs_err"] != 0]
     assert not bad, f"kernels disagree with their plain versions: {bad}"
 
-    # phase 6: a small join against an independent numpy join
+    # phase 9: a small join against an independent numpy join
     small = 5003
     sl, sr, (slk, slv, srk, srv) = make_tables(ct, dctx, small,
                                                args.seed + 1)
@@ -463,10 +712,10 @@ def main() -> int:
     got = got[np.lexsort(got.T[::-1])]
     ref = numpy_inner_join(slk, slv, srk, srv)
     assert np.array_equal(got, ref), "small join disagrees with numpy"
-    log(f"phase 6 small join ({small} rows a side): {len(ref)} rows equal "
+    log(f"phase 9 small join ({small} rows a side): {len(ref)} rows equal "
         f"the numpy join")
 
-    summary = {"kernels": kernels, "not_ported": NOT_PORTED}
+    summary = {"kernels": kernels}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -475,7 +724,8 @@ def main() -> int:
                            dist_join_wall_s=walls, dist_join_rows_s=rate,
                            first_wall_s=wall_k,
                            local_join_wall_s=local_walls, profile=prof,
-                           out_rows=rows_k, build_s=build_s), f, indent=1)
+                           out_rows=rows_k, build_s=build_s, setop=setop,
+                           dist_union=dist_union), f, indent=1)
     log(json.dumps(summary))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,18 +2,26 @@
 H100.
 
 The port keeps cylon_tpu's module layout and names; it imports torch and
-numpy, never jax and nothing of cylon_tpu. This slice carries the
-distributed inner join: Table -> murmur-fmix key hash -> partition
-targets -> the counted padded shuffle (kernels K1 partition_hist and K2
-partition_scatter) -> the per-shard stream join (kernels K3
-join_plan_stream and K4 join_expand_stream) -> result. Entry points run
-on CUDA unless the context is created with ``device="cpu"``.
+numpy, never jax and nothing of cylon_tpu. It carries two paths:
+
+* the distributed inner join: Table -> murmur-fmix key hash -> partition
+  targets -> the counted padded shuffle (kernels K1 partition_hist and
+  K2 partition_scatter) -> the per-shard stream join (kernels K3
+  join_plan_stream and K4 join_expand_stream) -> result;
+* the set ops: ``Table.union/subtract/intersect`` sort the rows by a
+  full-row hash and run kernel K5 setop_stream, whose compaction is
+  kernel K6 stream_compact; ``distributed_union/...`` shuffle on every
+  column (K1/K2) and run the dense-ranks set op per shard.
+
+Entry points run on CUDA unless the context is created with
+``device="cpu"``.
 
     import cylon_tpu_torch as ct
     ctx = ct.CylonContext.InitDistributed(ct.VirtualWorldConfig(4))
     left = ct.Table.from_pydict(ctx, {"k": keys_l, "v": vals_l})
     right = ct.Table.from_pydict(ctx, {"k": keys_r, "v": vals_r})
     out = left.distributed_join(right, "inner", on=["k"])
+    rows = left.distributed_union(left2)  # left2: left's schema
 """
 from .config import (CommConfig, CommType, CSVReadOptions, CSVWriteOptions,
                      LocalConfig, MPIConfig, VirtualWorldConfig)

@@ -82,6 +82,13 @@ class Column:
     def rename(self, name: str) -> "Column":
         return Column(self.data, self.dtype, self.validity, name)
 
+    def astype(self, dtype: DataType) -> "Column":
+        """Value cast to ``dtype`` (validity kept)."""
+        if self.dtype.is_var_width() or dtype.is_var_width():
+            raise not_ported("string columns")
+        return Column(self.data.to(dtypes.torch_dtype(dtype.np_dtype)), dtype,
+                      self.validity, self.name)
+
     # -- export --
 
     def _host_mask(self) -> Optional[np.ndarray]:

@@ -21,6 +21,7 @@ from ..config import CSVWriteOptions
 from ..context import CylonContext
 from ..ops import join as _join
 from ..ops import order as _order
+from ..ops import setops as _setops
 from ..status import Code, CylonError, not_ported
 from ..util import capacity as _capacity
 from .column import Column
@@ -201,6 +202,34 @@ class Table:
         return dist_ops.distributed_join(self, table, cfg,
                                          force_exchange=force)
 
+    # -- set ops (pycylon table.pyx:411-457) --
+
+    def union(self, table: "Table") -> "Table":
+        return set_op(self, table, _setops.SetOp.UNION)
+
+    def subtract(self, table: "Table") -> "Table":
+        return set_op(self, table, _setops.SetOp.SUBTRACT)
+
+    def intersect(self, table: "Table") -> "Table":
+        return set_op(self, table, _setops.SetOp.INTERSECT)
+
+    def distributed_union(self, table: "Table") -> "Table":
+        from ..parallel import dist_ops
+
+        return dist_ops.distributed_set_op(self, table, _setops.SetOp.UNION)
+
+    def distributed_subtract(self, table: "Table") -> "Table":
+        from ..parallel import dist_ops
+
+        return dist_ops.distributed_set_op(self, table,
+                                           _setops.SetOp.SUBTRACT)
+
+    def distributed_intersect(self, table: "Table") -> "Table":
+        from ..parallel import dist_ops
+
+        return dist_ops.distributed_set_op(self, table,
+                                           _setops.SetOp.INTERSECT)
+
     def _make_join_config(self, table: "Table", join_type, algorithm,
                           kwargs) -> _join.JoinConfig:
         exact = bool(kwargs.pop("exact", False))
@@ -264,13 +293,38 @@ def align_key_columns(left: Table, right: Table, lidx: List[int],
     for li, ri in zip(lidx, ridx):
         a, b = left._columns[li], right._columns[ri]
         if a.data.dtype != b.data.dtype:
-            common = torch.promote_types(a.data.dtype, b.data.dtype)
-            a = Column(a.data.to(common), dtypes.from_np_dtype(
-                dtypes.numpy_dtype(common)), a.validity, a.name)
-            b = Column(b.data.to(common), a.dtype, b.validity, b.name)
+            common = dtypes.from_np_dtype(dtypes.numpy_dtype(
+                torch.promote_types(a.data.dtype, b.data.dtype)))
+            a, b = a.astype(common), b.astype(common)
         lcols.append(a)
         rcols.append(b)
     return lcols, rcols
+
+
+def _aligned_setop_columns(left: Table, right: Table):
+    """Schema-aligned column pairs for set ops: dtypes promoted. String
+    columns (dictionaries to unify in the JAX package) are not ported."""
+    if left.column_count != right.column_count:
+        raise CylonError(Code.Invalid, "set ops need equal schemas")
+    for c in left._columns + right._columns:
+        if c.dtype.is_var_width():
+            raise not_ported("string columns in set ops")
+    idx = list(range(left.column_count))
+    return align_key_columns(left, right, idx, idx)
+
+
+def row_gids(left: Table, right: Table) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shared dense FULL-ROW ids for set ops; nulls compare equal (validity
+    is part of the key, matching set-distinct semantics)."""
+    lcols, rcols = _aligned_setop_columns(left, right)
+    keys_l, keys_r = [], []
+    for a, b in zip(lcols, rcols):
+        keys_l.append(_order.sort_keys([a])[0])
+        keys_r.append(_order.sort_keys([b])[0])
+        if a.validity is not None or b.validity is not None:
+            keys_l.append(a.valid_mask().to(torch.uint8))
+            keys_r.append(b.valid_mask().to(torch.uint8))
+    return _order.dense_ranks_two(keys_l, keys_r)
 
 
 def _all_valid(cols: Sequence[Column]) -> torch.Tensor:
@@ -396,6 +450,33 @@ def _append_unmatched_right(left: Table, right: Table, out: Table,
                   zip(tail_cols, out.column_names)], left._ctx,
                  r_unmatched.emit_mask())
     return concat_tables([out, tail], left._ctx)
+
+
+# ---------------------------------------------------------------------------
+# local set ops (reference: table.cpp:729-942)
+# ---------------------------------------------------------------------------
+
+
+def set_op(left: Table, right: Table, op) -> Table:
+    """Local union/subtract/intersect. The stream route (one sort on a
+    full-row hash, then K5/K6) takes lane-packable schemas; the
+    dense-ranks route is the general and the hash-collision fallback."""
+    lcols, rcols = _aligned_setop_columns(left, right)
+    out = _setops.setop_stream_table(left, right, lcols, rcols, op)
+    if out is not None:
+        return out
+    gl, gr = row_gids(left, right)
+    rows = _setops.setop_rows(gl, gr, left.emit_mask(), right.emit_mask(),
+                              op)
+    out_cols = []
+    for a, b in zip(lcols, rcols):
+        validity = None
+        if a.validity is not None or b.validity is not None:
+            validity = torch.cat([a.valid_mask(), b.valid_mask()])
+        merged = Column(torch.cat([a.data, b.data]), a.dtype, validity,
+                        a.name)
+        out_cols.append(merged.take(rows))
+    return Table(out_cols, left._ctx)
 
 
 def concat_tables(tables: Sequence[Table], ctx: CylonContext) -> Table:

@@ -216,6 +216,11 @@ def numpy_dtype(dt: torch.dtype) -> np.dtype:
     return _TORCH_TO_NP[dt]
 
 
+def torch_dtype(dt) -> torch.dtype:
+    """The torch dtype of a numpy dtype."""
+    return _NP_TO_TORCH[np.dtype(dt)]
+
+
 def bits_container(dt: torch.dtype) -> torch.dtype:
     """The signed (uint8 for one byte) dtype of the same width, used to
     carry a value's raw bits."""

@@ -40,7 +40,11 @@ def from_reference_arrays(ctx: CylonContext, columns: Sequence[np.ndarray],
         else [f"c{i}" for i in range(len(columns))]
     cols = []
     for name, data, valid in zip(names, columns, validity):
-        c = Column.from_numpy(np.asarray(data), name, None, ctx.device)
+        data = np.asarray(data)
+        # an all-valid mask: the state is carried as it is, a NaN stays a
+        # value (from_numpy would read it as a null)
+        c = Column.from_numpy(data, name, np.ones(len(data), dtype=bool),
+                              ctx.device)
         if valid is not None:
             c.validity = torch.from_numpy(np.array(valid, dtype=bool)).to(
                 ctx.device)

@@ -8,6 +8,8 @@ cylon_tpu.ops.tpu_kernels).
 | K2 partition_scatter | partition_scatter (:1053)             | csrc/partition.cu    |
 | K3 join_plan_stream | join_plan_stream (:317)                | csrc/join_stream.cu  |
 | K4 join_expand_stream | join_expand_stream (:706)            | csrc/join_stream.cu  |
+| K5 setop_stream    | setop_stream (:544)                     | csrc/setop_stream.cu |
+| K6 stream_compact  | stream_compact (:241)                   | csrc/stream_compact.cu |
 
 Each wrapper takes tensors with a leading shard dimension ``[W, n]`` (one
 launch covers every shard of the virtual world) and 32-bit streams as
@@ -41,16 +43,21 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = {"partition": CSRC / "partition.cu",
-           "join_stream": CSRC / "join_stream.cu"}
+           "join_stream": CSRC / "join_stream.cu",
+           "setop_stream": CSRC / "setop_stream.cu",
+           "stream_compact": CSRC / "stream_compact.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 PARTITION_TILE = 4096   # rows per K1/K2 tile (csrc/partition.cu TILE)
 MAX_BUCKETS = 256       # K1/K2 bucket limit (csrc/partition.cu)
 PLAN_TILE = 2048        # elements per K3 tile (csrc/join_stream.cu TILE)
+SETOP_TILE = 2048       # elements per K5 tile (csrc/setop_stream.cu TILE)
+COMPACT_TILE = 2048     # elements per K6 tile (csrc/stream_compact.cu TILE)
+IDX_MASK = (1 << 29) - 1  # the row index field of a stream tag
 
 KERNELS = ("partition_hist", "partition_scatter", "join_plan_stream",
-           "join_expand_stream")
+           "join_expand_stream", "setop_stream", "stream_compact")
 # launches per wrapper since the last reset_launches()
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
@@ -83,6 +90,17 @@ _SIGNATURES = {
                               _P, _I, _I, _L, _L, _P, _P, _P],
         "launch_join_expand": [_P, _P, _I, _L, _P, _I, _L, _I, _L, _P, _P,
                                _P, _P, _P],
+    },
+    "setop_stream": {
+        "launch_setop_pass1": [_P, _P, _P, _P, _I, _I, _L, _I, _P, _P, _P,
+                               _P, _P, _P],
+        "launch_setop_pass2": [_P, _P, _P, _I, _L, _I, _I, _P, _P, _P, _P,
+                               _P, _P],
+    },
+    "stream_compact": {
+        "launch_compact_count": [_P, _I, _L, _I, _P, _P],
+        "launch_compact_write": [_P, _P, _I, _I, _L, _L, _I, _I, _P, _P, _P,
+                                 _P],
     },
 }
 
@@ -497,6 +515,188 @@ def join_expand_stream(counts: torch.Tensor, a_streams, b_streams,
     return aidx, bidx, tuple(al.unbind(0))[:La], tuple(bl.unbind(0))[:Lb]
 
 
+# ---------------------------------------------------------------------------
+# K6 stream_compact
+# ---------------------------------------------------------------------------
+
+
+def _check_streams(streams: torch.Tensor, shape, what: str) -> None:
+    if streams.dtype != torch.int32 or streams.dim() != 3 \
+            or tuple(streams.shape[1:]) != tuple(shape) \
+            or not streams.is_contiguous():
+        raise CylonError(Code.Invalid,
+                         f"{what}: want contiguous int32 [L, W, n] with [W, "
+                         f"n] = {list(shape)}, got {tuple(streams.shape)} "
+                         f"{streams.dtype}")
+
+
+def plain_stream_compact(mask: torch.Tensor, streams: torch.Tensor,
+                         out_len: int):
+    """Plain version of K6 (see ``stream_compact``)."""
+    L, w, n = streams.shape
+    pos = torch.cumsum(mask.to(torch.int64), 1) - 1
+    dest = torch.where(mask, pos, out_len)
+    out = torch.zeros(L, w, out_len + 1, dtype=torch.int32,
+                      device=streams.device)
+    for o, v in zip(out, streams):
+        o.scatter_(1, dest, v)
+    return out[:, :, :out_len].contiguous(), mask.sum(1, dtype=torch.int32)
+
+
+def stream_compact(mask: torch.Tensor, streams: torch.Tensor,
+                   out_len: Optional[int] = None):
+    """K6: per shard, the elements of every 32-bit stream where ``mask``
+    is True, moved in order to a dense prefix; zeros from each shard's
+    count to ``out_len`` (default n).
+
+    ``mask`` is bool [W, n], ``streams`` int32 [L, W, n]. Returns (int32
+    [L, W, out_len], counts int32 [W])."""
+    if mask.dtype != torch.bool or mask.dim() != 2 \
+            or not mask.is_contiguous():
+        raise CylonError(Code.Invalid, "stream_compact mask: want a "
+                         f"contiguous [W, n] bool tensor, got "
+                         f"{tuple(mask.shape)} {mask.dtype}")
+    _check_streams(streams, mask.shape, "stream_compact streams")
+    w, n = mask.shape
+    out_len = n if out_len is None else int(out_len)
+    if out_len < n:
+        raise CylonError(Code.Invalid, f"stream_compact: out_len {out_len} "
+                                       f"< n {n}")
+    if not mask.is_cuda:
+        return plain_stream_compact(mask, streams, out_len)
+    dev = mask.device
+    st = _stream(mask)
+    tiles = _tiles(n, COMPACT_TILE)
+    agg = torch.empty(w, tiles, dtype=torch.int32, device=dev)
+    _launch("stream_compact", "launch_compact_count", _ptr(mask), w, n,
+            tiles, _ptr(agg), st)
+    base = _excl_cumsum(agg).contiguous()
+    counts = agg.sum(1, dtype=torch.int32)
+    L = streams.shape[0]
+    out = torch.empty(L, w, out_len, dtype=torch.int32, device=dev)
+    _launch("stream_compact", "launch_compact_write", _ptr(mask),
+            _ptr(streams), L, w, n, out_len, tiles,
+            max(tiles, _tiles(out_len, COMPACT_TILE)), _ptr(base),
+            _ptr(counts), _ptr(out), st)
+    LAUNCHES["stream_compact"] += 1
+    return out, counts
+
+
+# ---------------------------------------------------------------------------
+# K5 setop_stream
+# ---------------------------------------------------------------------------
+
+
+def plain_setop_emit(h1_s, h2_s, tag_s, lanes, op: int):
+    """The plain emit mask and collision counts of K5: the TPU kernel's
+    per-element arithmetic as whole-tensor scans. Returns (emit bool [W,
+    n], n_collisions int32 [W])."""
+    w, n = h1_s.shape
+    dev = h1_s.device
+    tag = _u(tag_s)
+    neq = torch.ones(w, n, dtype=torch.bool, device=dev)
+    neq[:, 1:] = (h1_s[:, 1:] != h1_s[:, :-1]) | (h2_s[:, 1:] != h2_s[:, :-1])
+    side = ((tag >> 31) & 1) == 1
+    live = ((tag >> 29) & 1) == 1
+    # collision audit: a live non-head row must repeat its predecessor's
+    # lanes, and its predecessor must be live
+    diff = torch.zeros(w, n, dtype=torch.bool, device=dev)
+    for v in lanes:
+        diff[:, 1:] |= v[:, 1:] != v[:, :-1]
+    prev_live = torch.zeros_like(live)
+    prev_live[:, 1:] = live[:, :-1]
+    coll = ((diff | ~prev_live) & ~neq & live).sum(1, dtype=torch.int32)
+    ill = (side & live).to(torch.int64)
+    ibr = (~side & live).to(torch.int64)
+    cum_l = torch.cumsum(ill, 1)
+    cum_r = torch.cumsum(ibr, 1)
+    # run-head prefixes are non-decreasing: a running max broadcasts them
+    l_at = cum_l - torch.cummax(torch.where(neq, cum_l - ill, 0), 1).values
+    r_at = cum_r - torch.cummax(torch.where(neq, cum_r - ibr, 0), 1).values
+    if op == 0:    # UNION: first live element of each run
+        emit = live & (l_at + r_at == 1)
+    elif op == 1:  # SUBTRACT: first live left row, no live right row
+        emit = (ill == 1) & (l_at == 1) & (r_at == 0)
+    else:          # INTERSECT: first live left row, some live right row
+        emit = (ill == 1) & (l_at == 1) & (r_at > 0)
+    return emit, coll
+
+
+def _compact_setop(emit, coll, tag_s, lanes, out_len: int, compact):
+    """K5's compaction stage: (tag, lanes...) by the emit mask, then idx =
+    tag & (2^29 - 1)."""
+    out, n_out = compact(emit, torch.cat([tag_s.unsqueeze(0), lanes]),
+                         out_len)
+    out[0] &= IDX_MASK
+    return torch.stack([n_out, coll], 1), out
+
+
+def plain_setop_stream(h1_s, h2_s, tag_s, lanes, op: int, out_len: int):
+    """Plain version of K5 (see ``setop_stream``)."""
+    emit, coll = plain_setop_emit(h1_s, h2_s, tag_s, lanes, op)
+    return _compact_setop(emit, coll, tag_s, lanes, out_len,
+                          plain_stream_compact)
+
+
+def setop_stream(h1_s: torch.Tensor, h2_s: torch.Tensor,
+                 tag_s: torch.Tensor, lanes: torch.Tensor, op: int,
+                 out_len: Optional[int] = None):
+    """K5: one distinct set operation over the stream sorted by (h1, h2,
+    tag), per shard.
+
+    Inputs are int32 [W, n] (n < 2^29) carrying uint32 bits, sorted
+    together: ``h1_s``/``h2_s`` the 2x32-bit full-row hash (dead rows
+    all-ones), ``tag_s`` the packed ``side<<31 | live<<29 | iota`` with
+    side 1 for the LEFT table (so a run's right rows precede its left
+    rows), ``lanes`` the canonical row payload as int32 [L, W, n]; the
+    lanes double as hash-verify lanes. op: 0 UNION (first live row of
+    each run), 1 SUBTRACT (first live left row of runs without a live
+    right row), 2 INTERSECT (first live left row of runs with one).
+
+    Returns (counts int32 [W, 2] = [n_out, n_collisions], int32 [1 + L,
+    W, out_len] = (idx, lanes...) compacted at the emitted rows, zeros
+    past n_out). idx addresses the concatenated [left; right] rows. The
+    compaction is K6 (``stream_compact``)."""
+    for x, what in ((h1_s, "h1"), (h2_s, "h2"), (tag_s, "tag")):
+        _check(x, f"setop_stream {what}")
+    _check_streams(lanes, h1_s.shape, "setop_stream lanes")
+    w, n = h1_s.shape
+    out_len = n if out_len is None else int(out_len)
+    if n >= (1 << 29) or out_len < n:
+        raise CylonError(Code.Invalid, f"setop_stream: n={n} (< 2^29), "
+                                       f"out_len={out_len} (>= n)")
+    if not h1_s.is_cuda:
+        emit, coll = plain_setop_emit(h1_s, h2_s, tag_s, lanes, int(op))
+        return _compact_setop(emit, coll, tag_s, lanes, out_len,
+                              stream_compact)
+    dev = h1_s.device
+    st = _stream(h1_s)
+    tiles = _tiles(n, SETOP_TILE)
+    L = lanes.shape[0]
+    agg = torch.empty(5, w, tiles, dtype=torch.int32, device=dev)
+    _launch("setop_stream", "launch_setop_pass1", _ptr(h1_s), _ptr(h2_s),
+            _ptr(tag_s), _ptr(lanes) if L else None, L, w, n, tiles,
+            _ptr(agg[0]), _ptr(agg[1]), _ptr(agg[2]), _ptr(agg[3]),
+            _ptr(agg[4]), st)
+    # tile carries: live-left/right prefixes (exclusive cumsum) and the
+    # running max of run-head prefixes, as in K3
+    bases = []
+    for cnt, head in ((agg[0], agg[2]), (agg[1], agg[3])):
+        base64 = torch.cumsum(cnt.to(torch.int64), 1) - cnt.to(torch.int64)
+        tile_h = torch.where(head >= 0, base64 + head, 0)
+        base_h = torch.zeros_like(tile_h)
+        base_h[:, 1:] = torch.cummax(tile_h, 1).values[:, :-1]
+        bases += [base64.to(torch.int32).contiguous(),
+                  base_h.to(torch.int32).contiguous()]
+    emit = torch.empty(w, n, dtype=torch.bool, device=dev)
+    _launch("setop_stream", "launch_setop_pass2", _ptr(h1_s), _ptr(h2_s),
+            _ptr(tag_s), w, n, tiles, int(op), _ptr(bases[0]),
+            _ptr(bases[2]), _ptr(bases[1]), _ptr(bases[3]), _ptr(emit), st)
+    LAUNCHES["setop_stream"] += 1
+    return _compact_setop(emit, agg[4].sum(1, dtype=torch.int32), tag_s,
+                          lanes, out_len, stream_compact)
+
+
 def kernel_table() -> List[dict]:
     """Static description of the ported kernels: name, source, the TPU
     kernel each replaces."""
@@ -515,4 +715,10 @@ def kernel_table() -> List[dict]:
         {"name": "join_expand_stream", "route": "cuda",
          "source": rel["join_stream"],
          "replaces": "cylon_tpu/ops/tpu_kernels.py:706"},
+        {"name": "setop_stream", "route": "cuda",
+         "source": rel["setop_stream"],
+         "replaces": "cylon_tpu/ops/tpu_kernels.py:544"},
+        {"name": "stream_compact", "route": "cuda",
+         "source": rel["stream_compact"],
+         "replaces": "cylon_tpu/ops/tpu_kernels.py:241"},
     ]

@@ -114,20 +114,19 @@ def lexsort_indices(keys: Sequence[torch.Tensor]) -> torch.Tensor:
 
 def dense_ranks_two(keys_l: Sequence[torch.Tensor],
                     keys_r: Sequence[torch.Tensor]):
-    """Dense ranks over the union of two key sets (1-D keys): returns
-    (gid_l, gid_r) on a shared id space, so cross-table equality is
-    integer equality."""
-    nl = keys_l[0].shape[0]
-    cat = [torch.cat([a, b]) for a, b in zip(keys_l, keys_r)]
+    """Dense ranks over the union of two key sets along the last
+    dimension: 1-D keys, or ``[W, n]`` keys ranked per shard (what
+    ``shard_map`` gives the JAX package). Returns (gid_l, gid_r) on a
+    shared id space, so cross-table equality is integer equality."""
+    nl = keys_l[0].shape[-1]
+    cat = [torch.cat([a, b], -1) for a, b in zip(keys_l, keys_r)]
     perm = lexsort_indices(cat)
-    n = perm.shape[0]
-    neq = torch.zeros(n, dtype=torch.bool, device=perm.device)
-    if n:
-        neq[0] = True
+    neq = torch.zeros(perm.shape, dtype=torch.bool, device=perm.device)
+    if perm.shape[-1]:
+        neq[..., 0] = True
     for k in cat:
-        ks = k[perm]
-        neq[1:] |= ks[1:] != ks[:-1]
-    gid_sorted = torch.cumsum(neq.to(torch.int64), 0) - 1
-    gid = torch.empty_like(gid_sorted)
-    gid[perm] = gid_sorted
-    return gid[:nl], gid[nl:]
+        ks = k.gather(-1, perm)
+        neq[..., 1:] |= ks[..., 1:] != ks[..., :-1]
+    gid_sorted = torch.cumsum(neq.to(torch.int64), -1) - 1
+    gid = torch.empty_like(gid_sorted).scatter_(-1, perm, gid_sorted)
+    return gid[..., :nl], gid[..., nl:]

@@ -1,0 +1,309 @@
+"""Set operations (distinct union / subtract / intersect) on full-row keys
+(counterpart of cylon_tpu.ops.setops).
+
+Reference: cpp/src/cylon/table.cpp:39-942, a hash set of (table, row)
+pairs under a row comparator. Two routes, as in the JAX package:
+
+* dense ranks: both tables' rows map to shared integer ids (one sort of
+  the concatenated ordered bits), membership is ``torch.isin`` on the ids
+  and dedup a first-occurrence mask. The output rows are the emitted
+  rows in table order. Every function of this route takes ``[W, n]``
+  batches, one row per shard (W = 1 on the local path);
+* the stream route: one sort of the rows by a 2x32-bit full-row hash,
+  the row payload riding along as 32-bit lanes, then kernel K5
+  (``setop_stream``, whose compaction is kernel K6 ``stream_compact``).
+  The lanes double as hash-verify lanes: a collision sends the op back to
+  the dense-ranks route, so the result is exact.
+
+Set semantics match the reference: results are DISTINCT rows; null
+components compare equal to each other (validity is part of the key).
+"""
+from __future__ import annotations
+
+import enum
+from typing import List, Optional, Sequence
+
+import torch
+
+from ..util import capacity as _capacity
+from ..util import pow2
+from . import hash as _hash
+from . import kernels as _k
+from .join import _SIGN64, _masked_indices, stream_block_rows
+
+
+class SetOp(enum.IntEnum):
+    UNION = 0
+    SUBTRACT = 1
+    INTERSECT = 2
+
+
+_COUNT_KEYS = {SetOp.UNION: "n_union", SetOp.SUBTRACT: "n_subtract",
+               SetOp.INTERSECT: "n_intersect"}
+
+# ---------------------------------------------------------------------------
+# dense-ranks route
+# ---------------------------------------------------------------------------
+
+
+def _first_occurrence(g: torch.Tensor) -> torch.Tensor:
+    """[W, n] bool: True at the first row (in table order) of each
+    distinct id of its shard."""
+    w, n = g.shape
+    if n == 0:
+        return torch.zeros(w, 0, dtype=torch.bool, device=g.device)
+    perm = torch.sort(g, dim=1, stable=True).indices
+    gs = g.gather(1, perm)
+    neq = torch.ones(w, n, dtype=torch.bool, device=g.device)
+    neq[:, 1:] = gs[:, 1:] != gs[:, :-1]
+    return torch.zeros_like(neq).scatter_(1, perm, neq)
+
+
+def _isin(g: torch.Tensor, other: torch.Tensor) -> torch.Tensor:
+    """[W, na] bool: membership of each id of ``g`` among its shard's ids
+    in ``other``. Ids lie in [-2, na + nb); the callers give non-emitted
+    rows side-distinct negative sentinels, so those never match."""
+    w, na = g.shape
+    nb = other.shape[1]
+    if na == 0 or nb == 0:
+        return torch.zeros(w, na, dtype=torch.bool, device=g.device)
+    # shift every shard into its own id range: one isin covers all shards
+    off = torch.arange(w, device=g.device).unsqueeze(1) * (na + nb + 2) + 2
+    return torch.isin((g + off).reshape(-1),
+                      (other + off).reshape(-1)).view(w, na)
+
+
+def _masks(gl, gr, lemit, remit):
+    gl_eff = torch.where(lemit, gl, -1)
+    gr_eff = torch.where(remit, gr, -2)
+    return gl_eff, gr_eff, _first_occurrence(gl_eff) & lemit
+
+
+def setop_counts(gl, gr, lemit, remit) -> dict:
+    """Per-shard counts of all three ops: dict of int64 [W] tensors
+    n_union, n_subtract, n_intersect. ``gl``/``gr`` are [W, n] dense row
+    ids on a shared space (full-row keys)."""
+    gl_eff, gr_eff, first_l = _masks(gl, gr, lemit, remit)
+    in_r = _isin(gl_eff, gr_eff)
+    first_r = _first_occurrence(gr_eff) & remit
+    in_l = _isin(gr_eff, gl_eff)
+    # union: distinct(left) + the distinct right rows unseen in left
+    return {"n_union": first_l.sum(1) + (first_r & ~in_l).sum(1),
+            "n_subtract": (first_l & ~in_r).sum(1),
+            "n_intersect": (first_l & in_r).sum(1)}
+
+
+def setop_indices(gl, gr, lemit, remit, op: SetOp, out_size: int
+                  ) -> torch.Tensor:
+    """Per shard, the result's row indices, padded with -1 to
+    ``out_size`` (int32 [W, out_size]). Indices address the concatenated
+    [left; right] rows: i < nl is left row i, i >= nl right row i - nl
+    (only UNION emits those)."""
+    gl_eff, gr_eff, first_l = _masks(gl, gr, lemit, remit)
+    if op == SetOp.UNION:
+        first_r = _first_occurrence(gr_eff) & remit
+        mask = torch.cat([first_l, first_r & ~_isin(gr_eff, gl_eff)], 1)
+    else:
+        in_r = _isin(gl_eff, gr_eff)
+        keep = first_l & ~in_r if op == SetOp.SUBTRACT else first_l & in_r
+        mask = torch.cat([keep, torch.zeros_like(remit)], 1)
+    return _masked_indices(mask, out_size)
+
+
+def setop_rows(gl, gr, lemit, remit, op: SetOp) -> torch.Tensor:
+    """The local route over 1-D ids: count, materialize at pow2 capacity,
+    slice. Returns the result's int32 row indices."""
+    args = (gl[None], gr[None], lemit[None], remit[None])
+    total = int(setop_counts(*args)[_COUNT_KEYS[SetOp(op)]][0])
+    return setop_indices(*args, op, pow2(total))[0, :total]
+
+
+# ---------------------------------------------------------------------------
+# stream route: ONE sort on a 2x32-bit full-row hash + kernel K5
+# ---------------------------------------------------------------------------
+
+# None = auto (the kernel route on CUDA, dense ranks on the CPU); False
+# disables the stream route; True forces it, also on the CPU, where K5 and
+# K6 run their plain versions
+STREAM_SETOP: Optional[bool] = None
+
+# lane budget of the stream route (the TPU sort took 3 keys + the lanes)
+MAX_SETOP_LANES = 12
+
+
+def setop_lane_descs(lcols, rcols):
+    """Static lane plan over ALIGNED column pairs, or None when the
+    columns do not fit the lane budget. Per column: (kind, has_validity)
+    with kind "d" (4-byte bit-exact), "n" (1/2-byte widened), "b" (bool),
+    "w" (8-byte split hi/lo)."""
+    descs = []
+    total = 0
+    for a, b in zip(lcols, rcols):
+        has_v = a.validity is not None or b.validity is not None
+        if a.data.dtype == torch.bool:
+            kind, slots = "b", 1
+        elif a.data.dim() != 1:
+            return None
+        else:
+            size = a.data.element_size()
+            if size == 4:
+                kind, slots = "d", 1
+            elif size == 8:
+                kind, slots = "w", 2
+            elif size in (1, 2):
+                kind, slots = "n", 1
+            else:
+                return None
+        total += slots + (1 if has_v else 0)
+        if total > MAX_SETOP_LANES:
+            return None
+        descs.append((kind, has_v))
+    return tuple(descs)
+
+
+def setop_stream_applicable(n_total: int, descs,
+                            device: torch.device) -> bool:
+    if STREAM_SETOP is False or descs is None:
+        return False
+    if n_total == 0 or n_total >= (1 << 29):
+        return False
+    if STREAM_SETOP:
+        return True
+    return device.type == "cuda"
+
+
+def _zero_normalized(x: torch.Tensor) -> torch.Tensor:
+    """-0.0 -> +0.0, so equal float values have equal bits."""
+    return torch.where(x == 0, torch.zeros((), dtype=x.dtype,
+                                           device=x.device), x)
+
+
+def _col_lanes(col, other_has_v: bool, kind: str) -> List[torch.Tensor]:
+    """Canonical 32-bit lanes (int32 tensors) of one side's column: equal
+    VALUES give equal lane bits (floats: -0.0 normalized; null cells:
+    forced 0, the validity lane carrying the distinction). Narrow
+    integers widen as ``astype(uint32)`` does: signed ones sign-extend."""
+    x = col.data
+    if x.dtype.is_floating_point:
+        x = _zero_normalized(x)
+    if kind == "b":
+        bits = [x.to(torch.int32)]
+    elif kind == "n":
+        if x.dtype in (torch.float16, torch.uint16):
+            # float16: a bitcast, not a value cast (1.25 and 1.5 differ)
+            bits = [x.view(torch.int16).to(torch.int32) & 0xFFFF]
+        else:
+            bits = [x.to(torch.int32)]
+    elif kind == "w":
+        u = x.view(torch.int64)
+        bits = [_hash.as_i32(u >> 32), _hash.as_i32(u)]
+    else:
+        bits = [x.view(torch.int32)]
+    if col.validity is not None or other_has_v:
+        vm = col.valid_mask()
+        bits = [torch.where(vm, b, 0) for b in bits]
+        bits.append(vm.to(torch.int32))
+    return bits
+
+
+def stream_out_len(nl: int, nr: int) -> int:
+    """The TPU kernel's output stream length, ``(rows_for(n) + BR + 8) *
+    128``: the result's capacity is clamped to it, so the port's results
+    keep the JAX package's capacities."""
+    rows = max(-(-(nl + nr) // 128), 1)
+    return (rows + stream_block_rows(nl, nr) + 8) * 128
+
+
+def setop_stream_inputs(lane_l: Sequence[torch.Tensor],
+                        lane_r: Sequence[torch.Tensor],
+                        lemit: torch.Tensor, remit: torch.Tensor):
+    """The tag, the row hash and the sort of the stream route: K5's
+    (h1_s, h2_s, tag_s, lanes_s). Lanes are int32 [W, nl] and [W, nr],
+    emit masks bool."""
+    w, nl = lemit.shape
+    nr = remit.shape[1]
+    dev = lemit.device
+    live = torch.cat([lemit, remit], 1)
+    side = torch.cat([torch.ones(w, nl, dtype=torch.bool, device=dev),
+                      torch.zeros(w, nr, dtype=torch.bool, device=dev)], 1)
+    tag = (side.to(torch.int64) << 31) | (live.to(torch.int64) << 29) \
+        | torch.arange(nl + nr, dtype=torch.int64, device=dev)
+    lanes = torch.stack([torch.cat([a, b], 1) for a, b in zip(lane_l,
+                                                              lane_r)])
+    h1, h2 = _hash.hash2_streams(list(lanes), live)
+    # (h1, h2, tag) order: tag order is (side, live, iota) order, a stable
+    # sort by side * 2 + live; then a stable sort by the packed hash pair
+    perm = torch.sort((side.to(torch.uint8) << 1) | live.to(torch.uint8),
+                      dim=1, stable=True).indices
+    key = (((h1 << 32) | h2) ^ _SIGN64).gather(1, perm)
+    perm = perm.gather(1, torch.sort(key, dim=1, stable=True).indices)
+    return (_hash.as_i32(h1.gather(1, perm)),
+            _hash.as_i32(h2.gather(1, perm)),
+            _hash.as_i32(tag.gather(1, perm)),
+            lanes.gather(2, perm.unsqueeze(0).expand_as(lanes)))
+
+
+def _setop_stream_program(lane_l, lane_r, lemit, remit, op: SetOp,
+                          out_len: int):
+    """``setop_stream_inputs`` then K5: returns K5's (counts, streams)."""
+    return _k.setop_stream(*setop_stream_inputs(lane_l, lane_r, lemit,
+                                                remit), int(op), out_len)
+
+
+def setop_stream_table(left, right, lcols, rcols, op: SetOp):
+    """The stream route of a local set op. Returns the result Table, or
+    None when the route does not apply or the hash collided (the caller
+    takes the dense-ranks route). ``lcols``/``rcols`` are the
+    schema-ALIGNED columns."""
+    from ..data.column import Column
+    from ..data.table import Table
+
+    descs = setop_lane_descs(lcols, rcols)
+    nl, nr = left.capacity, right.capacity
+    dev = left._ctx.device
+    if not setop_stream_applicable(nl + nr, descs, dev):
+        return None
+    lane_l, lane_r = [], []
+    for (kind, _), a, b in zip(descs, lcols, rcols):
+        lane_l.extend(x[None] for x in _col_lanes(
+            a, b.validity is not None, kind))
+        lane_r.extend(x[None] for x in _col_lanes(
+            b, a.validity is not None, kind))
+    out_len = stream_out_len(nl, nr)
+    counts, streams = _setop_stream_program(
+        lane_l, lane_r, left.emit_mask()[None], right.emit_mask()[None], op,
+        out_len)
+    n_out, n_coll = counts[0].tolist()
+    if n_coll > 0:
+        return None
+    # capacity() rounds n_out up by up to ~6%, which can pass the stream
+    # length when n_out is close to n: clamp (it is always >= n_out)
+    cap = min(_capacity(n_out), out_len)
+    flat = [s[0, :cap] for s in streams[1:]]  # drop the idx stream
+    emit = torch.arange(cap, device=dev) < n_out
+    cols = []
+    k = 0
+    for (kind, has_v), a in zip(descs, lcols):
+        dt = a.data.dtype
+        if kind == "w":
+            u = (flat[k].to(torch.int64) << 32) \
+                | (flat[k + 1].to(torch.int64) & _hash.M32)
+            data = u.view(dt)
+            k += 2
+        elif kind == "b":
+            data = flat[k] != 0
+            k += 1
+        elif kind == "n":
+            narrow = torch.int16 if a.data.element_size() == 2 \
+                else torch.int8
+            data = flat[k].to(narrow).view(dt)
+            k += 1
+        else:
+            data = flat[k].view(dt)
+            k += 1
+        validity = None
+        if has_v:
+            validity = (flat[k] != 0) & emit
+            k += 1
+        cols.append(Column(data, a.dtype, validity, a.name))
+    return Table(cols, left._ctx, emit)

@@ -1,5 +1,5 @@
 """Distributed relational operators: shuffle-composed, per-shard kernels
-(counterpart of the join and shuffle parts of
+(counterpart of the join, set-op and shuffle parts of
 cylon_tpu.parallel.dist_ops).
 
 The reference composes every distributed op as *local partition +
@@ -9,9 +9,9 @@ The same composition here:
   1. key prep on the flat sharded columns (elementwise): dtype promotion,
      order-preserving key bits, murmur-style partition targets;
   2. the counted padded exchange of parallel/shuffle.py;
-  3. the per-shard join on ``[W, cap]`` views: matching keys are
-     co-located after the hash shuffle, so one batched call of the local
-     join's routes joins every shard.
+  3. the per-shard op on ``[W, cap]`` views: matching keys (full rows for
+     a set op) are co-located after the hash shuffle, so one batched call
+     of the local op's routes covers every shard.
 
 Results stay sharded: a result table holds ``W * cap`` rows, its padding
 masked by ``row_mask``.
@@ -28,7 +28,8 @@ from ..data.table import Table
 from ..ops import hash as _hash
 from ..ops import join as _join
 from ..ops import order as _order
-from ..status import not_ported
+from ..ops import setops as _setops
+from ..status import Code, CylonError, not_ported
 from ..util import bucket_cap as _bucket_cap
 from . import shard
 from .shuffle import count_pair, exchange, exchange_pair
@@ -260,4 +261,77 @@ def distributed_join(left: Table, right: Table, config: _join.JoinConfig,
     elif jt == _join.JoinType.RIGHT:
         result._hash_partitioned = shard.partition_signature(
             rcols2, tuple(nl + j for j in ridx), world)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# distributed set ops (reference: DistributedUnion/Subtract/Intersect,
+# table.cpp:948-1010 — ShuffleTwoTables on ALL columns + local set op)
+# ---------------------------------------------------------------------------
+
+
+def distributed_set_op(left: Table, right: Table, op: _setops.SetOp,
+                       force_exchange: bool = False) -> Table:
+    """Both tables shuffle on all their columns, then every shard runs
+    the dense-ranks set op (as the JAX package does: its per-shard set op
+    has no kernel). ``force_exchange`` runs the full composition even on
+    a one-shard world. The result stays sharded, in the JAX package's
+    per-shard row order."""
+    ctx = left._ctx
+    world = ctx.get_world_size()
+    if world == 1 and not (force_exchange and ctx.is_distributed()):
+        # reference parity: world 1 short-circuits to the local set op
+        return table_mod.set_op(left, right, op)
+    if left.column_count != right.column_count:
+        raise CylonError(Code.Invalid, "set ops need equal schemas")
+    left_d = shard.distribute(left, ctx)
+    right_d = shard.distribute(right, ctx)
+    lcols, rcols = table_mod._aligned_setop_columns(left_d, right_d)
+    has_validity = [a.validity is not None or b.validity is not None
+                    for a, b in zip(lcols, rcols)]
+
+    # exchange only the aligned columns; the row keys are recomputed per
+    # shard from the shuffled columns. Both counts in one host fetch.
+    sides = [(Table(list(cols), ctx, t.row_mask),
+              _partition_targets_dist(world, cols), t.emit_mask())
+             for cols, t in ((lcols, left_d), (rcols, right_d))]
+    dense = (world == 1 and left_d.row_mask is None
+             and right_d.row_mask is None)
+    cl = cr = None
+    if not dense:
+        cl, cr = count_pair(sides[0][1], sides[0][2], sides[1][1],
+                            sides[1][2], world)
+    (lcols_s, lemit), (rcols_s, remit) = (
+        _exchange_table(view, targets, emit, ctx, counts=cnt, dense=dense)
+        for (view, targets, emit), cnt in zip(sides, (cl, cr)))
+
+    def rebits(cols):
+        # ordered bits (nulls at the all-ones end) plus the validity byte:
+        # validity is part of the row key, so nulls compare equal
+        bits = []
+        for ci, c in enumerate(cols):
+            bits.append(_order.sort_keys([c])[0])
+            if has_validity[ci]:
+                bits.append(c.valid_mask().to(torch.uint8))
+        return _shards(bits, world)
+
+    lemit_w, remit_w = lemit.view(world, -1), remit.view(world, -1)
+    gl, gr = _order.dense_ranks_two(rebits(lcols_s), rebits(rcols_s))
+    counts = torch.stack(list(_setops.setop_counts(
+        gl, gr, lemit_w, remit_w).values()), 1).cpu().numpy()
+    cap = _bucket_cap(int(counts[:, int(op)].max()))
+    idx = _setops.setop_indices(gl, gr, lemit_w, remit_w, op, cap)
+    # indices address the per-shard concatenation [left; right]
+    dat = [torch.cat([a, b], 1) for a, b in zip(
+        _shards((c.data for c in lcols_s), world),
+        _shards((c.data for c in rcols_s), world))]
+    val = [torch.cat([a, b], 1) for a, b in zip(
+        _shards((c.valid_mask() for c in lcols_s), world),
+        _shards((c.valid_mask() for c in rcols_s), world))]
+    od, ov = _join.gather_columns(dat, val, idx)
+    cols = _rebuild_columns([d.reshape(-1) for d in od],
+                            [v.reshape(-1) for v in ov], lcols_s,
+                            [c.name for c in lcols_s])
+    result = Table(cols, ctx, (idx >= 0).reshape(-1))
+    result._shard_world = world
     return result

@@ -1,4 +1,4 @@
-"""cylon_tpu_torch kernels K1-K4 against their plain PyTorch versions on
+"""cylon_tpu_torch kernels K1-K6 against their plain PyTorch versions on
 the card, bit for bit.
 
 Needs CUDA: every test here is marked ``gpu`` and skips without a card.
@@ -11,8 +11,11 @@ import numpy as np
 import pytest
 import torch
 
+import cylon_tpu_torch as ct
 from cylon_tpu_torch.ops import join as J
 from cylon_tpu_torch.ops import kernels as K
+from cylon_tpu_torch.ops import order as O
+from cylon_tpu_torch.ops import setops as SO
 from cylon_tpu_torch.parallel import shuffle as S
 from cylon_tpu_torch.status import CylonError
 
@@ -103,3 +106,121 @@ def test_join_kernels_match_plain(cuda, jt, hash_mode):
     assert torch.equal(e_got[1], e_ref[1])
     for x, y in zip(e_got[2] + e_got[3], e_ref[2] + e_ref[3]):
         assert torch.equal(x, y)
+
+
+def _setop_stream(dev, rng, w, n, lanes, keys, live_frac, collide=False):
+    """K5's inputs, sorted by (h1, h2, tag): each element draws one of
+    ``keys`` row keys, whose lanes and 2x32-bit hash come from fixed
+    random tables (equal keys, equal hashes); dead rows get all-ones
+    hashes. ``collide`` gives keys 0 and 1 one hash (a collision)."""
+    table = rng.integers(-2**31, 2**31, (keys, max(lanes, 1)),
+                         dtype=np.int64)
+    hashes = rng.integers(0, 2**32 - 1, (keys, 2), dtype=np.int64)
+    if collide:
+        hashes[1] = hashes[0]
+    key = rng.integers(0, keys, (w, n))
+    live = rng.random((w, n)) < live_frac
+    side = rng.random((w, n)) < 0.5
+    h = np.where(live[..., None], hashes[key], 2**32 - 1)
+    tag = ((side.astype(np.int64) << 31) | (live.astype(np.int64) << 29)
+           | np.arange(n))
+    h1, h2, tg = (torch.from_numpy(x).to(dev) for x in (h[..., 0], h[..., 1],
+                                                         tag))
+    perm = O.lexsort_indices([_u32(h1), _u32(h2), _u32(tg)])
+    lane_vals = torch.from_numpy(table[key][..., :lanes].astype(
+        np.int32)).to(dev).permute(2, 0, 1)
+    return (_u32(h1).gather(1, perm), _u32(h2).gather(1, perm),
+            _u32(tg).gather(1, perm),
+            lane_vals.gather(2, perm.unsqueeze(0).expand_as(
+                lane_vals)).contiguous())
+
+
+def _u32(x):
+    """int64 values in [0, 2^32) -> int32 bits."""
+    return (x - ((x & 0x80000000) << 1)).to(torch.int32)
+
+
+@pytest.mark.parametrize("op", [0, 1, 2])
+@pytest.mark.parametrize("w,n,lanes,keys,live_frac", [
+    (1, 20_000, 1, 1, 1.0),        # one run across ten tiles
+    (3, 70_001, 2, 5_000, 0.9),    # ragged, three shards
+    (2, 9_999, 0, 300, 0.8),       # no lanes
+    (1, 50_000, 12, 2_000, 0.95),  # the lane budget
+    (2, 10_000, 2, 50, 0.0),       # every row dead
+])
+def test_setop_stream_matches_plain(cuda, op, w, n, lanes, keys, live_frac):
+    rng = np.random.default_rng(op + n)
+    args = _setop_stream(cuda, rng, w, n, lanes, keys, live_frac)
+    out_len = n + 3 * 128
+    got = K.setop_stream(*args, op, out_len)
+    ref = K.plain_setop_stream(*args, op, out_len)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]), (got[0], ref[0])
+    assert torch.equal(got[1], ref[1])
+    if live_frac == 0.0:
+        assert not got[0].any()
+
+
+def test_setop_stream_counts_collisions(cuda):
+    rng = np.random.default_rng(5)
+    args = _setop_stream(cuda, rng, 2, 30_000, 2, 40, 0.9, collide=True)
+    got = K.setop_stream(*args, 0)
+    ref = K.plain_setop_stream(*args, 0, 30_000)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and int(got[0][:, 1].min()) > 0
+    assert torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("lanes", [0, 1, 12])
+@pytest.mark.parametrize("density", [0.0, 0.3, 1.0])
+def test_stream_compact_matches_plain(cuda, lanes, density):
+    rng = np.random.default_rng(int(density * 10) + lanes)
+    w, n = 3, 70_001
+    mask = torch.from_numpy(rng.random((w, n)) < density).to(cuda)
+    streams = torch.from_numpy(rng.integers(-2**31, 2**31, (lanes, w, n),
+                                            dtype=np.int64).astype(
+                                                np.int32)).to(cuda)
+    for out_len in (n, n + 5_000):
+        got = K.stream_compact(mask, streams, out_len)
+        ref = K.plain_stream_compact(mask, streams, out_len)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], ref[1])
+        assert torch.equal(got[0], ref[0])
+
+
+@pytest.mark.parametrize("name", ["union", "subtract", "intersect"])
+def test_set_op_kernel_route_equals_dense_route(cuda, name):
+    """The public set op on the card: the default (kernel) route launches
+    K5 and K6 and gives the dense-ranks route's rows."""
+    rng = np.random.default_rng(3)
+    ctx = ct.CylonContext.Init()
+
+    def table(n):
+        k = rng.integers(0, 500, n).astype(np.int32)
+        g = rng.normal(size=n).astype(np.float32).round(0)
+        valid = rng.random(n) < 0.9
+        return ct.Table([ct.Column.from_numpy(k, "k", None, cuda),
+                         ct.Column.from_numpy(g, "g", valid, cuda)], ctx)
+
+    a, b = table(60_000), table(50_000)
+    K.reset_launches()
+    got = getattr(a, name)(b)
+    assert K.LAUNCHES["setop_stream"] == 1
+    assert K.LAUNCHES["stream_compact"] == 1
+    old = SO.STREAM_SETOP
+    try:
+        SO.STREAM_SETOP = False
+        ref = getattr(a, name)(b)
+    finally:
+        SO.STREAM_SETOP = old
+
+    def rows(t):
+        t = t.compact()
+        k, g = t._columns
+        v = g.valid_mask()
+        x = torch.stack([k.data.to(torch.int64), v.to(torch.int64),
+                         torch.where(v, g.data + 0.0, 0.0).view(
+                             torch.int32).to(torch.int64)], 1)
+        return x[O.lexsort_indices([x[:, 0], x[:, 1], x[:, 2]])]
+
+    assert torch.equal(rows(got), rows(ref))
