@@ -42,9 +42,11 @@ Phases, in order (any failure exits non-zero; nothing is caught):
      computation;
   8. each kernel at the shapes its path gave it, against its plain
      version on the same inputs, bit for bit: median ms over 7 timed runs
-     (CUDA events), the plain version's ms, the library call's ms where
-     one PyTorch call computes the same function, and the bound (bytes
-     moved at 3.35 TB/s);
+     (CUDA events), the kernel's own device time in a wrapper call (CUDA
+     events around each of its kernel launches, summed, without the
+     wrapper's copies and torch glue; median of 5 calls), the plain
+     version's ms, the library call's ms where one PyTorch call computes
+     the same function, and the bound (bytes moved at 3.35 TB/s);
   9. a small world-4 join against an independent numpy join.
 
 It prints the kernels line (one JSON object) and the card's name and
@@ -197,6 +199,39 @@ def alternate(fn, rounds: int = 5) -> dict:
     return walls
 
 
+def own_kernel_ms(K, fn, reps: int = 5) -> float:
+    """Device ms of the port's own kernels in one wrapper call of fn():
+    CUDA events recorded around each kernel launch the call makes
+    (``kernels._launch``; a launcher's memset of its tile state counts
+    with its kernel), summed over the call's launches, so the wrapper's
+    copies, allocations and torch glue are left out; the median over
+    ``reps`` calls. (torch.profiler drops device events of short windows
+    on that machine, so it cannot give this number reliably.)"""
+    real = K._launch
+    spans = []
+
+    def timed(*args):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        real(*args)
+        e.record()
+        spans.append((s, e))
+
+    sums = []
+    K._launch = timed
+    try:
+        for _ in range(reps):
+            spans.clear()
+            fn()
+            sync()
+            sums.append(sum(s.elapsed_time(e) for s, e in spans))
+    finally:
+        K._launch = real
+    assert all(sums), "no kernel launch seen"
+    return statistics.median(sums)
+
+
 def profile_once(fn) -> dict:
     """One run of fn() under torch.profiler: wall, summed device time of
     every kernel and copy, the idle share, and the top device-time
@@ -291,6 +326,7 @@ def check_kernels(K, calls) -> list:
         name="partition_hist", err=err, shape=f"ids {list(t.shape)}, "
         f"{nb} buckets",
         ms=cuda_ms(lambda: K.partition_hist(t, nb)),
+        kernel_ms=own_kernel_ms(K, lambda: K.partition_hist(t, nb)),
         plain_ms=cuda_ms(lambda: K.plain_partition_hist(t, nb)),
         library_ms=cuda_ms(lambda: torch.bincount(
             flat, minlength=w * tiles * nb)),
@@ -310,6 +346,8 @@ def check_kernels(K, calls) -> list:
         name="partition_scatter", err=err,
         shape=f"legs {list(legs.shape)}, {nb} buckets",
         ms=cuda_ms(lambda: K.partition_scatter(t, legs, nb, hist)),
+        kernel_ms=own_kernel_ms(
+            K, lambda: K.partition_scatter(t, legs, nb, hist)),
         plain_ms=cuda_ms(lambda: K.plain_partition_scatter(t, legs, nb)),
         library_ms=cuda_ms(library_k2),
         bytes=b4 * (t.numel() + hist.numel() + 2 * legs.numel())))
@@ -338,6 +376,7 @@ def check_kernels(K, calls) -> list:
         f"{len(kw.get('lanes', ()))} lanes, "
         f"n_emit {n_emit}, n_blive {n_blive}",
         ms=cuda_ms(lambda: K.join_plan_stream(**kw)),
+        kernel_ms=own_kernel_ms(K, lambda: K.join_plan_stream(**kw)),
         plain_ms=cuda_ms(lambda: K.plain_join_plan_stream(**kw)),
         library_ms=None,
         bytes=b4 * (streams * kw["bits_s"].numel() + la * n_emit
@@ -363,6 +402,8 @@ def check_kernels(K, calls) -> list:
         shape=f"cap_e {cap_e} x {w} shards, groups A {len(a_s)} x "
         f"{list(a_s[0].shape)}, B {len(b_s)} x {list(b_s[0].shape)}",
         ms=cuda_ms(lambda: K.join_expand_stream(cnt, a_s, b_s, cap_e)),
+        kernel_ms=own_kernel_ms(
+            K, lambda: K.join_expand_stream(cnt, a_s, b_s, cap_e)),
         plain_ms=cuda_ms(lambda: K.plain_join_expand_stream(
             cnt, a_s, b_s, cap_e)),
         library_ms=None,
@@ -371,22 +412,24 @@ def check_kernels(K, calls) -> list:
 
     # K5 setop_stream: it must read h1, h2, tag and the L lanes at every
     # element (the collision audit compares the lanes everywhere) and
-    # write (idx, lanes...) at the n_out emitted rows, plus the counts
+    # write (idx, lanes...) at the n_out emitted rows, plus the counts;
+    # streams is the (tag, lanes...) stack
     a, kw = calls["setop_stream"]
     got, ref = K.setop_stream(*a, **kw), K.plain_setop_stream(*a, **kw)
     err = max_abs_err([(got[0], ref[0]), (got[1], ref[1])])
     h1 = a[0]
-    lanes, op = a[3], a[4]
+    streams, op = a[2], a[3]
     n_out = int(ref[0][:, 0].sum())
     out.append(dict(
         name="setop_stream", err=err,
-        shape=f"stream {list(h1.shape)}, {lanes.shape[0]} lanes, op {op}, "
-        f"n_out {n_out}",
+        shape=f"stream {list(h1.shape)}, {streams.shape[0] - 1} lanes, op "
+        f"{op}, n_out {n_out}",
         ms=cuda_ms(lambda: K.setop_stream(*a, **kw)),
+        kernel_ms=own_kernel_ms(K, lambda: K.setop_stream(*a, **kw)),
         plain_ms=cuda_ms(lambda: K.plain_setop_stream(*a, **kw)),
         library_ms=None,
-        bytes=b4 * ((3 + lanes.shape[0]) * h1.numel()
-                    + (1 + lanes.shape[0]) * n_out + ref[0].numel())))
+        bytes=b4 * ((2 + streams.shape[0]) * h1.numel()
+                    + streams.shape[0] * n_out + ref[0].numel())))
 
     # K6 stream_compact: it must read the mask (one byte) at every element
     # and the streams only at the selected elements, and write L x count
@@ -398,13 +441,18 @@ def check_kernels(K, calls) -> list:
     cnt = int(ref[1].sum())
     L, w = streams.shape[0], mask.shape[0]
     out_len = ref[0].shape[2]
-    assert w == 1 and torch.equal(streams[:, mask], ref[0][:, 0, :cnt]), \
+    picked = streams[:, mask]
+    first_mask = kw.get("first_mask", -1)  # K5 cuts its tag to the idx
+    if first_mask != -1:
+        picked[0] &= first_mask
+    assert w == 1 and torch.equal(picked, ref[0][:, 0, :cnt]), \
         "boolean indexing disagrees"
     out.append(dict(
         name="stream_compact", err=err,
         shape=f"{L} streams x {list(mask.shape)}, count {cnt}, out_len "
         f"{out_len}",
         ms=cuda_ms(lambda: K.stream_compact(*a, **kw)),
+        kernel_ms=own_kernel_ms(K, lambda: K.stream_compact(*a, **kw)),
         plain_ms=cuda_ms(lambda: K.plain_stream_compact(*a, **kw)),
         library_ms=cuda_ms(lambda: streams[:, mask]),
         bytes=mask.numel() + b4 * (2 * L * cnt + L * (w * out_len - cnt)
@@ -689,11 +737,13 @@ def main() -> int:
     for r in results:
         bound = r["bytes"] / HBM_BYTES_PER_S * 1e3
         row = dict(table[r["name"]], launches=launches[r["name"]],
-                   max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                   max_abs_err=r["err"], ms=r["ms"],
+                   kernel_ms=r["kernel_ms"], plain_ms=r["plain_ms"],
                    bound_ms=bound, bound_by="bytes",
                    library_ms=r["library_ms"])
         kernels.append(row)
-        log(f"phase 8 {r['name']} ({r['shape']}): ms {r['ms']:.4f} plain "
+        log(f"phase 8 {r['name']} ({r['shape']}): ms {r['ms']:.4f} "
+            f"kernel_ms {r['kernel_ms']:.4f} plain "
             f"{r['plain_ms']:.4f} bound {bound:.4f} library "
             f"{r['library_ms']} max_abs_err {r['err']}")
     assert [k["name"] for k in kernels] == list(K.KERNELS)

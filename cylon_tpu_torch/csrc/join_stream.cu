@@ -5,18 +5,30 @@
 // `join_plan_stream` (:317). The TPU kernel is one sequential pass that
 // carries the live-build prefix, the run-head running max, the output
 // offset and two compaction write pointers from grid step to grid step in
-// SMEM. CUDA blocks run in no order, so every carry becomes a device-wide
-// scan of per-tile aggregates:
-//   pass 1: per tile, the live-build count, the largest in-tile build
-//           prefix at a run head, and the hash-collision count;
-//   (host: exclusive cumsum of the build counts, running max of the head
-//           prefixes -> per-tile carries)
-//   pass 2: per tile, the sum of the per-row multiplicity mm and the
-//           count of emitting probe rows;
-//   (host: exclusive cumsums -> per-tile output offset and group-A base)
-//   pass 3: recompute the pass-2 state from the inputs and write groups A
-//           (idx, delta2, start, lanes) and B (idx - na, lanes).
-// A run boundary at a tile edge is found by reading element i-1 directly.
+// SMEM. Here it is one pass too: blocks take their tiles in stream order
+// from an atomic counter and carry the state across tiles by one scan with
+// decoupled look-back (lookback.cuh):
+//   load:   the tile's bits and tag (and bits2 in hash mode), plus the
+//           element before it, into shared memory with 16-byte loads;
+//           each thread then owns IT consecutive elements there and
+//           compares each with its neighbour for run heads;
+//   scan:   one composite value per segment (`Plan`): the live-build
+//           count with the run-head prefix, and the sum of the
+//           multiplicities mm (uint32) and the count of mm > 0 as a
+//           function of the live build rows of the run open at the
+//           segment's start, so that the output offset and the group-A
+//           position need no second scan -> per element the build prefix,
+//           the run's head prefix bb, the output offset and the A rank;
+//   write:  each tile's group-A rows (idx, delta2, start, a lanes) fill
+//           one contiguous range of every A plane and its group-B rows
+//           (idx - na, b lanes) one range of every B plane: ranked in
+//           shared memory, then written plane by plane as coalesced runs.
+//           Payload lanes are read only at A and B elements, from the
+//           caller's lane tensors;
+//   counts: the last tile of each shard writes [n_out, n_emit, n_blive,
+//           n_collisions] from its inclusive prefix.
+// The hash-collision audit (hash mode) reads the verify lanes at each
+// element and its neighbour, element-striped across the block.
 // Arithmetic follows the TPU kernel's int32 wrap-around (sums in uint32).
 //
 // K4 replaces `join_expand_stream` (:706): one thread per output row j
@@ -27,238 +39,309 @@
 // Bound on an H100 (3.35 TB/s): bytes. K3 must read the stream once
 // ((2 + bits2 + verify) x 4 bytes per element, and the La or Lb payload
 // lanes only at the group A or group B elements) and write the
-// compacted groups once; the three passes read the stream three times
-// (passes 2 and 3 read only bits, tag and, in pass 3, the lanes), so the
-// design costs about 3x the read floor, traded for having no carry. K4
-// must write (2 + La + Lb) x 4 bytes per output row and read group A and
-// the matched rows of group B; its binary search reads log2(n_emit) starts per row, mostly from L2.
+// compacted groups once; the single pass moves those bytes and nothing
+// else but the 64-bit look-back state (10 words a tile). What remains
+// between it and the bound is each tile's latency (load, look-back,
+// writes) with only a few tiles resident on an SM. K4 must write
+// (2 + La + Lb) x 4 bytes per output row and read group A and the matched
+// rows of group B; its binary search reads log2(n_emit) starts per row,
+// mostly from L2.
 
 #include <cstdint>
 #include <cuda_runtime.h>
-#include <cub/block/block_reduce.cuh>
 #include <cub/block/block_scan.cuh>
+
+#include "lookback.cuh"
 
 namespace {
 
-constexpr int BT = 256;          // threads per block
-constexpr int IT = 8;            // consecutive elements per thread
-constexpr int TILE = BT * IT;    // elements per tile
-constexpr int EXPAND_THREADS = 256;
+using lookback::ScanState;
 
-struct MaxOp {
-  __device__ __forceinline__ int operator()(int a, int b) const {
-    return a > b ? a : b;
+constexpr int BT = 256;          // threads per block
+constexpr int IT = 11;           // consecutive elements per thread (odd:
+                                 // shared-memory reads hit 32 banks)
+constexpr int TILE = BT * IT;    // elements per tile
+constexpr int HALO = 4;          // shared slots before element 0 of a tile
+constexpr int SPAN = HALO + TILE + 4;
+constexpr int BLOCKS = 4;        // resident blocks an SM is built for
+constexpr int MAX_LANES = 8;     // ops/join.py MAX_SHARED_LANES
+constexpr int MAX_VERIFY = 8;    // ops/join.py MAX_HASH_KEY_LANES is 6
+constexpr int EXPAND_THREADS = 256;
+constexpr uint32_t IDX_MASK = (1u << 29) - 1u;
+
+struct Ptrs8 {
+  const uint32_t* p[MAX_LANES];
+};
+
+// The plan's scan value over a stream segment. (c, h) is the live-build
+// run composite: live build rows, and those before the segment's last run
+// head (-1 without one). The sum of mm (uint32 wrap-around) and the count
+// of rows with mm > 0 depend on what comes before the segment only through
+// d, the live build rows of the run that is open at the segment's start,
+// and only at the probe rows before the segment's first head: there mm is
+// d plus the build rows seen since the segment's start. So a segment
+// carries three (sum, count) pairs: before its first head at d = 0 (s0,
+// n0) and at d > 0 (s1 + k * d, n1), and from its first head on (sc, nc),
+// which no longer depends on d. Composing segments evaluates the later
+// one at the earlier one's outgoing d, so one scan with one look-back
+// gives every element its build prefix, its run's head prefix, its output
+// offset and its group-A rank. coll counts hash collisions.
+struct Plan {
+  int c, h, k;
+  unsigned s0, s1, sc;
+  int n0, n1, nc, coll;
+  static constexpr int NW = 5;
+  __device__ static Plan identity() {
+    return {0, -1, 0, 0u, 0u, 0u, 0, 0, 0, 0};
+  }
+  __device__ static Plan combine(const Plan& a, const Plan& b) {
+    Plan r;
+    lookback::run_combine(a.c, a.h, b.c, b.h, r.c, r.h);
+    r.coll = a.coll + b.coll;
+    if (a.h >= 0) {  // b sees the constant d = a.c - a.h
+      const int d = a.c - a.h;
+      r.k = a.k;
+      r.s0 = a.s0;
+      r.s1 = a.s1;
+      r.n0 = a.n0;
+      r.n1 = a.n1;
+      r.sc = a.sc + (d > 0 ? b.s1 + (unsigned)b.k * (unsigned)d : b.s0)
+             + b.sc;
+      r.nc = a.nc + (d > 0 ? b.n1 : b.n0) + b.nc;
+    } else {         // b sees d + a.c
+      const unsigned ka = (unsigned)b.k * (unsigned)a.c;
+      r.k = a.k + b.k;
+      r.s1 = a.s1 + b.s1 + ka;
+      r.n1 = a.n1 + b.n1;
+      r.s0 = a.s0 + (a.c > 0 ? b.s1 + ka : b.s0);
+      r.n0 = a.n0 + (a.c > 0 ? b.n1 : b.n0);
+      r.sc = b.sc;
+      r.nc = b.nc;
+    }
+    return r;
+  }
+  __device__ unsigned long long word(int i) const {
+    switch (i) {
+      case 0: return lookback::pack_run(c, h);
+      case 1: return (unsigned long long)s0 | ((unsigned long long)n0 << 32);
+      case 2: return (unsigned long long)s1 | ((unsigned long long)n1 << 32);
+      case 3: return (unsigned long long)sc | ((unsigned long long)nc << 32);
+      default:
+        return (unsigned long long)k | ((unsigned long long)coll << 31);
+    }
+  }
+  __device__ static Plan from_words(const unsigned long long* w) {
+    constexpr unsigned long long M31 = 0x7fffffffull;
+    return {lookback::run_c(w[0]), lookback::run_h(w[0]),
+            (int)(w[4] & M31), (unsigned)w[1], (unsigned)w[2],
+            (unsigned)w[3], (int)((w[1] >> 32) & M31),
+            (int)((w[2] >> 32) & M31), (int)((w[3] >> 32) & M31),
+            (int)((w[4] >> 31) & M31)};
+  }
+  __device__ Plan shfl_down(int d) const {
+    using lookback::FULL;
+    return {__shfl_down_sync(FULL, c, d), __shfl_down_sync(FULL, h, d),
+            __shfl_down_sync(FULL, k, d), __shfl_down_sync(FULL, s0, d),
+            __shfl_down_sync(FULL, s1, d), __shfl_down_sync(FULL, sc, d),
+            __shfl_down_sync(FULL, n0, d), __shfl_down_sync(FULL, n1, d),
+            __shfl_down_sync(FULL, nc, d), __shfl_down_sync(FULL, coll, d)};
   }
 };
 
-using ScanI = cub::BlockScan<int, BT>;
-using ScanU = cub::BlockScan<unsigned, BT>;
-using ReduceI = cub::BlockReduce<int, BT>;
-using ReduceU = cub::BlockReduce<unsigned, BT>;
-
-union TempStorage {
-  typename ScanI::TempStorage scan_i;
-  typename ScanU::TempStorage scan_u;
-  typename ReduceI::TempStorage red_i;
-  typename ReduceU::TempStorage red_u;
-};
-
-// element i starts a run: the first element, or its key (bits, and bits2
-// in hash mode) differs from element i-1's
-__device__ __forceinline__ bool run_head(const uint32_t* bw,
-                                         const uint32_t* b2w, long long i) {
-  if (i == 0) return true;
-  bool d = bw[i] != bw[i - 1];
-  if (b2w != nullptr) d = d || (b2w[i] != b2w[i - 1]);
-  return d;
-}
+using ScanPlan = cub::BlockScan<Plan, BT, cub::BLOCK_SCAN_WARP_SCANS>;
 
 __device__ __forceinline__ bool tag_side(uint32_t t) { return (t >> 31) & 1u; }
 __device__ __forceinline__ bool tag_emit(uint32_t t) { return (t >> 30) & 1u; }
 __device__ __forceinline__ bool tag_live(uint32_t t) { return (t >> 29) & 1u; }
-__device__ __forceinline__ uint32_t tag_idx(uint32_t t) {
-  return t & ((1u << 29) - 1u);
+
+// out[l * stride + r] = lanes.p[l][g0 + src[r]] for l in [4G, 4G + 4) and
+// l < L, r < rows: a tile's lane values at its ranked rows. A thread
+// issues the loads of 4 rows x 4 lanes before their stores.
+template <int G>
+__device__ __forceinline__ void gather_group(const Ptrs8& lanes, int L,
+                                             long long g0,
+                                             const uint16_t* src, int rows,
+                                             uint32_t* out, size_t stride) {
+  constexpr int U = 4;
+  for (int r0 = threadIdx.x; r0 < rows; r0 += U * BT) {
+    uint32_t v[U][4];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = r0 + u * BT;
+      const long long i = g0 + src[r < rows ? r : 0];
+#pragma unroll
+      for (int l = 0; l < 4; ++l)
+        if (r < rows && 4 * G + l < L)
+          v[u][l] = __ldg(lanes.p[4 * G + l] + i);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = r0 + u * BT;
+#pragma unroll
+      for (int l = 0; l < 4; ++l)
+        if (r < rows && 4 * G + l < L) out[(4 * G + l) * stride + r] = v[u][l];
+    }
+  }
 }
 
-__global__ void __launch_bounds__(BT)
-plan_pass1(const uint32_t* __restrict__ bits, const uint32_t* __restrict__ tag,
-           const uint32_t* __restrict__ bits2,
-           const uint32_t* __restrict__ verify, int nv, int W, long long n,
-           int tiles, int* aggB, int* aggH, int* aggC) {
-  __shared__ TempStorage tmp;
-  const int w = blockIdx.y;
-  const int tile = blockIdx.x;
-  const uint32_t* bw = bits + (size_t)w * n;
-  const uint32_t* tw = tag + (size_t)w * n;
-  const uint32_t* b2w = bits2 ? bits2 + (size_t)w * n : nullptr;
-  const long long i0 = (long long)tile * TILE + (long long)threadIdx.x * IT;
+__device__ __forceinline__ void gather_lanes(const Ptrs8& lanes, int L,
+                                             long long g0,
+                                             const uint16_t* src, int rows,
+                                             uint32_t* out, size_t stride) {
+  static_assert(MAX_LANES == 8, "two groups of four lanes");
+  if (L > 0) gather_group<0>(lanes, L, g0, src, rows, out, stride);
+  if (L > 4) gather_group<1>(lanes, L, g0, src, rows, out, stride);
+}
 
-  int ib[IT];
-  bool head[IT];
-  int sumb = 0, coll = 0;
+__global__ void __launch_bounds__(BT, BLOCKS)
+plan_stream(const uint32_t* __restrict__ bits, const uint32_t* __restrict__ tag,
+            const uint32_t* __restrict__ bits2, Ptrs8 verify, int nv,
+            Ptrs8 lanes, int La, int Lb, int W, long long n, int tiles,
+            int unmatched, long long na, long long nb, unsigned* next_tile,
+            ScanState st, uint32_t* __restrict__ outA,
+            uint32_t* __restrict__ outB, int* __restrict__ counts) {
+  __shared__ uint32_t s_bits[SPAN];   // after the scan: group-A delta2
+  __shared__ uint32_t s_tag[SPAN];
+  __shared__ uint32_t s_bits2[SPAN];  // after the scan: group-A start
+  __shared__ uint16_t s_srcA[TILE];
+  __shared__ uint16_t s_srcB[TILE];
+  __shared__ typename ScanPlan::TempStorage tmp;
+  __shared__ Plan s_pre, s_agg;
+  __shared__ unsigned s_vt;
+
+  const unsigned vt = lookback::take_tile(next_tile, &s_vt);
+  const int w = vt / tiles;
+  const int tile = vt % tiles;
+  const long long t0 = (long long)tile * TILE;  // tile start in its shard
+  const long long g0 = (long long)w * n + t0;   // tile start, flat
+  const int cnt = (int)max(0LL, min((long long)TILE, n - t0));
+  const bool hash = bits2 != nullptr;
+  {
+    const uint32_t* src[3] = {bits, tag, bits2};
+    uint32_t* dst[3] = {s_bits, s_tag, s_bits2};
+    lookback::load_tile<BT, HALO, TILE>(src, dst, hash ? 3 : 2, g0, cnt,
+                                        (long long)W * n);
+  }
+  __syncthreads();
+
+  // run heads and this thread's scan value (see Plan)
+  const int j0 = threadIdx.x * IT;
+  unsigned headm = 0;
+  Plan ta = Plan::identity();
 #pragma unroll
   for (int k = 0; k < IT; ++k) {
-    const long long i = i0 + k;
-    ib[k] = 0;
-    head[k] = false;
-    if (i < n) {
-      const uint32_t t = tw[i];
-      const bool live = tag_live(t);
-      ib[k] = (!tag_side(t) && live) ? 1 : 0;
-      head[k] = run_head(bw, b2w, i);
-      if (nv > 0 && live && !head[k]) {
-        // hash-collision audit: adjacent live rows of one run must agree
-        // on every true-key lane; a live row below a dead one also counts
-        bool c = !tag_live(tw[i - 1]);
-        for (int v = 0; v < nv; ++v) {
-          const uint32_t* vw = verify + ((size_t)v * W + w) * n;
-          c = c || (vw[i] != vw[i - 1]);
+    const int j = j0 + k;
+    if (j < cnt) {
+      const int x = HALO + j;
+      const uint32_t t = s_tag[x];
+      const bool side = tag_side(t), live = tag_live(t), emit = tag_emit(t);
+      if (t0 + j == 0 || s_bits[x] != s_bits[x - 1]
+          || (hash && s_bits2[x] != s_bits2[x - 1])) {
+        headm |= 1u << k;
+        ta.h = ta.c;
+      }
+      ta.c += (!side && live) ? 1 : 0;
+      if (ta.h >= 0) {  // mm no longer depends on what came before
+        const int effm = live ? ta.c - ta.h : 0;
+        const int m = unmatched ? ((side && emit) ? max(effm, 1) : 0)
+                                : ((side && live) ? effm : 0);
+        ta.sc += (unsigned)m;
+        ta.nc += m > 0 ? 1 : 0;
+      } else if (unmatched ? (side && emit) : (side && live)) {
+        // mm = d + c when live, and 1 for a dead emitting row (LEFT)
+        if (live) {
+          ++ta.k;
+          ta.s1 += (unsigned)ta.c;
+          ta.s0 += (unsigned)(unmatched ? max(ta.c, 1) : ta.c);
+          ta.n0 += (unmatched || ta.c > 0) ? 1 : 0;
+        } else {
+          ta.s1 += 1u;
+          ta.s0 += 1u;
+          ++ta.n0;
         }
-        coll += c ? 1 : 0;
+        ++ta.n1;
       }
     }
-    sumb += ib[k];
   }
-  int off, total;
-  ScanI(tmp.scan_i).ExclusiveSum(sumb, off, total);
-  int hmax = -1;
-  int run = off;
-#pragma unroll
-  for (int k = 0; k < IT; ++k) {
-    if (head[k]) hmax = max(hmax, run);
-    run += ib[k];
+  // hash-collision audit: a live row that is not a run head must follow a
+  // live row with the same true key on every verify lane
+  for (int j = threadIdx.x; nv > 0 && j < cnt; j += BT) {
+    const int x = HALO + j;
+    if (t0 + j == 0 || !tag_live(s_tag[x])) continue;
+    if (s_bits[x] != s_bits[x - 1] || (hash && s_bits2[x] != s_bits2[x - 1]))
+      continue;
+    bool c = !tag_live(s_tag[x - 1]);
+    for (int v = 0; v < nv; ++v)
+      c = c || verify.p[v][g0 + j] != verify.p[v][g0 + j - 1];
+    ta.coll += c ? 1 : 0;
   }
-  __syncthreads();
-  const int bh = ReduceI(tmp.red_i).Reduce(hmax, MaxOp());
-  __syncthreads();
-  const int bc = ReduceI(tmp.red_i).Sum(coll);
-  if (threadIdx.x == 0) {
-    const size_t o = (size_t)w * tiles + tile;
-    aggB[o] = total;
-    aggH[o] = bh;
-    aggC[o] = bc;
-  }
-}
 
-// WRITE = false: pass 2 (tile aggregates of mm); WRITE = true: pass 3.
-template <bool WRITE>
-__global__ void __launch_bounds__(BT)
-plan_pass23(const uint32_t* __restrict__ bits, const uint32_t* __restrict__ tag,
-            const uint32_t* __restrict__ bits2, int W, long long n,
-            int tiles, int unmatched, const int* __restrict__ baseB,
-            const int* __restrict__ baseH, int* aggM, int* aggA,
-            const int* __restrict__ baseOff, const int* __restrict__ baseA,
-            const uint32_t* __restrict__ lanes, int La, int Lb,
-            long long na, long long nb, uint32_t* outA, uint32_t* outB) {
-  __shared__ TempStorage tmp;
-  const int w = blockIdx.y;
-  const int tile = blockIdx.x;
-  const size_t to = (size_t)w * tiles + tile;
-  const uint32_t* bw = bits + (size_t)w * n;
-  const uint32_t* tw = tag + (size_t)w * n;
-  const uint32_t* b2w = bits2 ? bits2 + (size_t)w * n : nullptr;
-  const long long i0 = (long long)tile * TILE + (long long)threadIdx.x * IT;
-
-  uint32_t t[IT];
-  bool head[IT];
-  int sumb = 0;
-#pragma unroll
-  for (int k = 0; k < IT; ++k) {
-    const long long i = i0 + k;
-    t[k] = 0;  // side 0, live 0: inert
-    head[k] = false;
-    if (i < n) {
-      t[k] = tw[i];
-      head[k] = run_head(bw, b2w, i);
-    }
-    sumb += (!tag_side(t[k]) && tag_live(t[k])) ? 1 : 0;
-  }
-  int offb;
-  ScanI(tmp.scan_i).ExclusiveSum(sumb, offb);
-  __syncthreads();
-  // run-head build prefixes are non-decreasing in key order, so a running
-  // max of (head ? prefix : 0) broadcasts each run's head value
-  const int cum0 = baseB[to] + offb;  // live-build rows before this thread
-  int hmax = 0;
+  Plan ex;
   {
-    int c = cum0;
+    lookback::TilePrefix<Plan> cb{st, (long long)w * tiles, tile, &s_pre,
+                                  &s_agg};
+    ScanPlan(tmp).ExclusiveScan(ta, ex, lookback::Combine<Plan>(), cb);
+  }
+  const Plan incl = Plan::combine(s_pre, s_agg);
+
+  // rank the tile's group-A rows (mm > 0) and group-B rows (live build)
+  // in shared memory, with each A row's delta2 and start
+  uint32_t* s_d2 = s_bits;
+  uint32_t* s_start = s_bits2;
+  {
+    int c = ex.c, bb = ex.h;
+    unsigned offv = ex.sc;
+    int pa = ex.nc - s_pre.nc;  // rank among the tile's A rows
+    int pb = ex.c - s_pre.c;    // rank among the tile's B rows
 #pragma unroll
     for (int k = 0; k < IT; ++k) {
-      if (head[k]) hmax = max(hmax, c);
-      c += (!tag_side(t[k]) && tag_live(t[k])) ? 1 : 0;
+      const int j = j0 + k;
+      if (j < cnt) {
+        const uint32_t t = s_tag[HALO + j];
+        const bool side = tag_side(t), live = tag_live(t);
+        const bool ib = !side && live;
+        if ((headm >> k) & 1u) bb = max(bb, c);
+        c += ib ? 1 : 0;  // inclusive live-build prefix
+        const int effm = live ? c - bb : 0;
+        const int m = unmatched ? ((side && tag_emit(t)) ? max(effm, 1) : 0)
+                                : ((side && live) ? effm : 0);
+        if (m > 0) {
+          const unsigned start = offv;
+          offv += (unsigned)m;
+          s_d2[pa] = ((unsigned)bb - start) * 2u + (effm > 0 ? 1u : 0u);
+          s_start[pa] = start;
+          s_srcA[pa++] = (uint16_t)j;
+        }
+        if (ib) s_srcB[pb++] = (uint16_t)j;
+      }
     }
   }
-  int pmax;
-  ScanI(tmp.scan_i).ExclusiveScan(hmax, pmax, 0, MaxOp());
   __syncthreads();
 
-  int bb[IT], mm[IT], effm[IT];
-  unsigned summ = 0;
-  int cnta = 0;
+  // write both groups plane by plane, as contiguous runs
+  const size_t pa_ = (size_t)W * na, pb_ = (size_t)W * nb;  // plane strides
   {
-    int bbrun = max(baseH[to], pmax);
-    int c = cum0;
-#pragma unroll
-    for (int k = 0; k < IT; ++k) {
-      const bool side = tag_side(t[k]);
-      const bool live = tag_live(t[k]);
-      const int ibk = (!side && live) ? 1 : 0;
-      if (head[k]) bbrun = max(bbrun, c);
-      c += ibk;  // inclusive live-build prefix
-      bb[k] = bbrun;
-      effm[k] = live ? c - bbrun : 0;
-      if (unmatched)
-        mm[k] = (side && tag_emit(t[k])) ? max(effm[k], 1) : 0;
-      else
-        mm[k] = (side && live) ? effm[k] : 0;
-      summ += (unsigned)mm[k];
-      cnta += mm[k] > 0 ? 1 : 0;
-    }
+    const int nB = s_agg.c;
+    uint32_t* oB = outB + (size_t)w * nb + s_pre.c;
+    for (int r = threadIdx.x; r < nB; r += BT)
+      oB[r] = (s_tag[HALO + s_srcB[r]] & IDX_MASK) - (uint32_t)na;
+    gather_lanes(lanes, Lb, g0, s_srcB, nB, oB + pb_, pb_);
   }
-  if (!WRITE) {
-    const unsigned tm = ReduceU(tmp.red_u).Sum(summ);
-    __syncthreads();
-    const int ta = ReduceI(tmp.red_i).Sum(cnta);
-    if (threadIdx.x == 0) {
-      aggM[to] = (int)tm;
-      aggA[to] = ta;
+  {
+    const int nA = incl.nc - s_pre.nc;
+    uint32_t* oA = outA + (size_t)w * na + s_pre.nc;
+    for (int r = threadIdx.x; r < nA; r += BT) {
+      oA[r] = s_tag[HALO + s_srcA[r]] & IDX_MASK;
+      oA[pa_ + r] = s_d2[r];
+      oA[2 * pa_ + r] = s_start[r];
     }
-    return;
+    gather_lanes(lanes, La, g0, s_srcA, nA, oA + 3 * pa_, pa_);
   }
-  unsigned offm;
-  ScanU(tmp.scan_u).ExclusiveSum(summ, offm);
-  __syncthreads();
-  int offa;
-  ScanI(tmp.scan_i).ExclusiveSum(cnta, offa);
-
-  unsigned offv = (unsigned)baseOff[to] + offm;
-  long long pa = (long long)baseA[to] + offa;
-  long long pb = (long long)cum0;
-#pragma unroll
-  for (int k = 0; k < IT; ++k) {
-    const long long i = i0 + k;
-    const bool side = tag_side(t[k]);
-    const bool live = tag_live(t[k]);
-    offv += (unsigned)mm[k];
-    if (mm[k] > 0) {
-      const unsigned start = offv - (unsigned)mm[k];
-      const unsigned delta2 =
-          ((unsigned)bb[k] - start) * 2u + (effm[k] > 0 ? 1u : 0u);
-      outA[((size_t)0 * W + w) * na + pa] = tag_idx(t[k]);
-      outA[((size_t)1 * W + w) * na + pa] = delta2;
-      outA[((size_t)2 * W + w) * na + pa] = start;
-      for (int l = 0; l < La; ++l)
-        outA[((size_t)(3 + l) * W + w) * na + pa] =
-            lanes[((size_t)l * W + w) * n + i];
-      ++pa;
-    }
-    if (!side && live) {
-      outB[((size_t)0 * W + w) * nb + pb] = tag_idx(t[k]) - (uint32_t)na;
-      for (int l = 0; l < Lb; ++l)
-        outB[((size_t)(1 + l) * W + w) * nb + pb] =
-            lanes[((size_t)l * W + w) * n + i];
-      ++pb;
-    }
+  if (tile == tiles - 1 && threadIdx.x == 0) {
+    counts[w * 4 + 0] = (int)incl.sc;
+    counts[w * 4 + 1] = incl.nc;
+    counts[w * 4 + 2] = incl.c;
+    counts[w * 4 + 3] = incl.coll;
   }
 }
 
@@ -305,43 +388,34 @@ const char* kernel_error_string(int code) {
 
 int plan_tile_rows() { return TILE; }
 
-int launch_plan_pass1(const void* bits, const void* tag, const void* bits2,
-                      const void* verify, int nv, int W, long long n,
-                      int tiles, void* aggB, void* aggH, void* aggC,
-                      void* stream) {
-  dim3 grid(tiles, W);
-  plan_pass1<<<grid, BT, 0, (cudaStream_t)stream>>>(
+// 64-bit words of K3's state for W shards of `tiles` tiles: the tile
+// counter, then the look-back state
+long long plan_state_words(int W, int tiles) {
+  return 1 + lookback::state_words<Plan>((long long)W * tiles);
+}
+
+int launch_plan_stream(const void* bits, const void* tag, const void* bits2,
+                       const void* const* verify, int nv,
+                       const void* const* lanes, int nl, int La, int Lb,
+                       int W, long long n, int tiles, int unmatched,
+                       long long na, long long nb, void* state, void* outA,
+                       void* outB, void* counts, void* stream) {
+  if (nv > MAX_VERIFY || nl > MAX_LANES || La > nl || Lb > nl)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Ptrs8 ver{}, ln{};
+  for (int v = 0; v < nv; ++v) ver.p[v] = (const uint32_t*)verify[v];
+  for (int l = 0; l < nl; ++l) ln.p[l] = (const uint32_t*)lanes[l];
+  const long long T = (long long)W * tiles;
+  auto* words = (unsigned long long*)state;
+  cudaError_t err = cudaMemsetAsync(
+      state, 0, (size_t)plan_state_words(W, tiles) * 8,
+      (cudaStream_t)stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  plan_stream<<<(unsigned)T, BT, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)bits, (const uint32_t*)tag, (const uint32_t*)bits2,
-      (const uint32_t*)verify, nv, W, n, tiles, (int*)aggB, (int*)aggH,
-      (int*)aggC);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int launch_plan_pass2(const void* bits, const void* tag, const void* bits2,
-                      int W, long long n, int tiles, int unmatched,
-                      const void* baseB, const void* baseH, void* aggM,
-                      void* aggA, void* stream) {
-  dim3 grid(tiles, W);
-  plan_pass23<false><<<grid, BT, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)bits, (const uint32_t*)tag, (const uint32_t*)bits2, W,
-      n, tiles, unmatched, (const int*)baseB, (const int*)baseH, (int*)aggM,
-      (int*)aggA, nullptr, nullptr, nullptr, 0, 0, 0, 0, nullptr, nullptr);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int launch_plan_pass3(const void* bits, const void* tag, const void* bits2,
-                      int W, long long n, int tiles, int unmatched,
-                      const void* baseB, const void* baseH,
-                      const void* baseOff, const void* baseA,
-                      const void* lanes, int La, int Lb, long long na,
-                      long long nb, void* outA, void* outB, void* stream) {
-  dim3 grid(tiles, W);
-  plan_pass23<true><<<grid, BT, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)bits, (const uint32_t*)tag, (const uint32_t*)bits2, W,
-      n, tiles, unmatched, (const int*)baseB, (const int*)baseH, nullptr,
-      nullptr, (const int*)baseOff, (const int*)baseA,
-      (const uint32_t*)lanes, La, Lb, na, nb, (uint32_t*)outA,
-      (uint32_t*)outB);
+      ver, nv, ln, La, Lb, W, n, tiles, unmatched, na, nb, (unsigned*)words,
+      lookback::state_at<Plan>(words + 1, T), (uint32_t*)outA,
+      (uint32_t*)outB, (int*)counts);
   return static_cast<int>(cudaGetLastError());
 }
 

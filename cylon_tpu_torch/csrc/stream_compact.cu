@@ -12,8 +12,10 @@
 //   (host: exclusive cumsum of the tile counts -> each tile's base)
 //   write:  per tile, each warp ranks its selected elements with a ballot
 //           and a popcount, adds the counts of the warps before it, and
-//           writes every stream at base + rank. Every block also zeroes
-//           its TILE-wide share of [count, out_len).
+//           writes every stream at base + rank (stream 0 ANDed with
+//           `mask0`, which K5 uses to cut its tag down to the row index).
+//           Every block also zeroes its TILE-wide share of
+//           [count, out_len).
 // A warp owns 8 consecutive 32-element chunks, so each load is one
 // coalesced 128-byte row and the ranks follow element order (stable).
 //
@@ -67,7 +69,7 @@ compact_write(const uint8_t* __restrict__ mask,
               const uint32_t* __restrict__ streams, int L, int W,
               long long n, long long out_len, int tiles,
               const int* __restrict__ base, const int* __restrict__ counts,
-              uint32_t* __restrict__ out) {
+              uint32_t mask0, uint32_t* __restrict__ out) {
   __shared__ int wsum[WARPS];
   const int w = blockIdx.y;
   const int tile = blockIdx.x;
@@ -97,7 +99,7 @@ compact_write(const uint8_t* __restrict__ mask,
         const long long p = off + __popc(bal[k] & below);
         for (int s = 0; s < L; ++s)
           out[((size_t)s * W + w) * out_len + p] =
-              streams[((size_t)s * W + w) * n + i];
+              streams[((size_t)s * W + w) * n + i] & (s == 0 ? mask0 : ~0u);
       }
       off += __popc(bal[k]);
     }
@@ -128,11 +130,11 @@ int launch_compact_count(const void* mask, int W, long long n, int tiles,
 int launch_compact_write(const void* mask, const void* streams, int L,
                          int W, long long n, long long out_len, int tiles,
                          int tiles_out, const void* base, const void* counts,
-                         void* out, void* stream) {
+                         unsigned mask0, void* out, void* stream) {
   dim3 grid(tiles_out, W);
   compact_write<<<grid, BT, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)mask, (const uint32_t*)streams, L, W, n, out_len,
-      tiles, (const int*)base, (const int*)counts, (uint32_t*)out);
+      tiles, (const int*)base, (const int*)counts, mask0, (uint32_t*)out);
   return static_cast<int>(cudaGetLastError());
 }
 

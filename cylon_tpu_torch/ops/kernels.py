@@ -22,7 +22,8 @@ card and what the design does about it.
 The sources build at first use with ``nvcc -gencode
 arch=compute_90a,code=sm_90a`` into shared libraries with a plain C
 interface under ``cylon_tpu_torch/_build/`` (named by the hash of the
-source, so an edited source rebuilds), loaded with ctypes.
+source and the shared headers, so an edited source rebuilds), loaded with
+ctypes.
 """
 from __future__ import annotations
 
@@ -51,8 +52,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 PARTITION_TILE = 4096   # rows per K1/K2 tile (csrc/partition.cu TILE)
 MAX_BUCKETS = 256       # K1/K2 bucket limit (csrc/partition.cu)
-PLAN_TILE = 2048        # elements per K3 tile (csrc/join_stream.cu TILE)
-SETOP_TILE = 2048       # elements per K5 tile (csrc/setop_stream.cu TILE)
+PLAN_TILE = 2816        # elements per K3 tile (csrc/join_stream.cu TILE)
+SETOP_TILE = 2816       # elements per K5 tile (csrc/setop_stream.cu TILE)
+MAX_PLAN_LANES = 8      # K3 payload and verify lane limit (join_stream.cu)
 COMPACT_TILE = 2048     # elements per K6 tile (csrc/stream_compact.cu TILE)
 IDX_MASK = (1 << 29) - 1  # the row index field of a stream tag
 
@@ -82,27 +84,24 @@ _SIGNATURES = {
         "launch_partition_scatter": [_P, _P, _P, _P, _I, _L, _I, _I, _I, _P],
     },
     "join_stream": {
-        "launch_plan_pass1": [_P, _P, _P, _P, _I, _I, _L, _I, _P, _P, _P,
-                              _P],
-        "launch_plan_pass2": [_P, _P, _P, _I, _L, _I, _I, _P, _P, _P, _P,
-                              _P],
-        "launch_plan_pass3": [_P, _P, _P, _I, _L, _I, _I, _P, _P, _P, _P,
-                              _P, _I, _I, _L, _L, _P, _P, _P],
+        "launch_plan_stream": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _L,
+                               _I, _I, _L, _L, _P, _P, _P, _P, _P],
         "launch_join_expand": [_P, _P, _I, _L, _P, _I, _L, _I, _L, _P, _P,
                                _P, _P, _P],
     },
     "setop_stream": {
-        "launch_setop_pass1": [_P, _P, _P, _P, _I, _I, _L, _I, _P, _P, _P,
-                               _P, _P, _P],
-        "launch_setop_pass2": [_P, _P, _P, _I, _L, _I, _I, _P, _P, _P, _P,
-                               _P, _P],
+        "launch_setop_stream": [_P, _P, _P, _I, _I, _L, _I, _I, _P, _P, _P,
+                                _P],
     },
     "stream_compact": {
         "launch_compact_count": [_P, _I, _L, _I, _P, _P],
-        "launch_compact_write": [_P, _P, _I, _I, _L, _L, _I, _I, _P, _P, _P,
-                                 _P],
+        "launch_compact_write": [_P, _P, _I, _I, _L, _L, _I, _I, _P, _P,
+                                 ctypes.c_uint, _P, _P],
     },
 }
+# the 64-bit words of a single-pass kernel's tile state, (W, tiles) -> n
+_STATE_WORDS = {"join_stream": "plan_state_words",
+                "setop_stream": "setop_state_words"}
 
 
 def nvcc_path() -> str:
@@ -119,7 +118,8 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1(SOURCES[name].read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(SOURCES[name].read_bytes() + headers
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -171,6 +171,10 @@ def _lib(name: str) -> ctypes.CDLL:
             f.restype = ctypes.c_int
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
+        if name in _STATE_WORDS:
+            f = getattr(lib, _STATE_WORDS[name])
+            f.argtypes = [ctypes.c_int, ctypes.c_int]
+            f.restype = ctypes.c_longlong
         _LIBS[name] = lib
     return lib
 
@@ -190,20 +194,22 @@ def _ptr(x: Optional[torch.Tensor]):
     return None if x is None else x.data_ptr()
 
 
+def _ptrs(xs: Sequence[torch.Tensor]):
+    """A C array of the tensors' device pointers (a kernel's lane table)."""
+    return (ctypes.c_void_p * max(len(xs), 1))(*[x.data_ptr() for x in xs])
+
+
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _check(x: torch.Tensor, what: str, dtype=torch.int32) -> None:
-    if x.dtype != dtype or x.dim() != 2 or not x.is_contiguous():
+def _check(x: torch.Tensor, what: str, dtype=torch.int32,
+           shape=None) -> None:
+    if x.dtype != dtype or x.dim() != 2 or not x.is_contiguous() \
+            or (shape is not None and x.shape != shape):
         raise CylonError(Code.Invalid,
                          f"{what}: want a contiguous [W, n] {dtype} tensor, "
                          f"got {tuple(x.shape)} {x.dtype}")
-
-
-def _stack(xs: Sequence[torch.Tensor]) -> torch.Tensor:
-    """[L, W, n] int32 from L [W, n] tensors."""
-    return torch.stack([x.to(torch.int32) for x in xs]).contiguous()
 
 
 def _excl_cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -403,43 +409,32 @@ def join_plan_stream(bits_s: torch.Tensor, tag_s: torch.Tensor, na: int,
         return plain_join_plan_stream(bits_s, tag_s, na, nb,
                                       emit_unmatched_a, lanes, La, Lb,
                                       bits2_s, verify_lanes)
+    for i, x in enumerate(lanes):
+        _check(x, f"join_plan_stream lane {i}", shape=bits_s.shape)
+    for i, x in enumerate(verify_lanes):
+        _check(x, f"join_plan_stream verify lane {i}", shape=bits_s.shape)
+    if bits2_s is not None:
+        _check(bits2_s, "join_plan_stream bits2", shape=bits_s.shape)
+    if max(len(lanes), len(verify_lanes)) > MAX_PLAN_LANES \
+            or max(La, Lb) > len(lanes):
+        raise CylonError(Code.Invalid, f"join_plan_stream takes at most "
+                         f"{MAX_PLAN_LANES} payload and verify lanes, got "
+                         f"{len(lanes)} and {len(verify_lanes)} (La={La}, "
+                         f"Lb={Lb})")
     dev = bits_s.device
-    st = _stream(bits_s)
     tiles = _tiles(n, PLAN_TILE)
-    ver = _stack(list(verify_lanes)) if verify_lanes \
-        else None
-    b2 = None if bits2_s is None else bits2_s.contiguous()
-    agg = torch.empty(3, w, tiles, dtype=torch.int32, device=dev)
-    _launch("join_stream", "launch_plan_pass1", _ptr(bits_s), _ptr(tag_s),
-            _ptr(b2), _ptr(ver), len(verify_lanes), w, n, tiles,
-            _ptr(agg[0]), _ptr(agg[1]), _ptr(agg[2]), st)
-    aggB = agg[0].to(torch.int64)
-    base_b64 = torch.cumsum(aggB, 1) - aggB
-    tile_h = torch.where(agg[1] >= 0, base_b64 + agg[1], 0)
-    base_h = torch.zeros_like(tile_h)
-    base_h[:, 1:] = torch.cummax(tile_h, 1).values[:, :-1]
-    base_b = base_b64.to(torch.int32).contiguous()
-    base_h = base_h.to(torch.int32).contiguous()
-    unmatched = int(bool(emit_unmatched_a))
-    agg2 = torch.empty(2, w, tiles, dtype=torch.int32, device=dev)
-    _launch("join_stream", "launch_plan_pass2", _ptr(bits_s), _ptr(tag_s),
-            _ptr(b2), w, n, tiles, unmatched, _ptr(base_b), _ptr(base_h),
-            _ptr(agg2[0]), _ptr(agg2[1]), st)
-    base_off = _excl_cumsum(agg2[0]).contiguous()
-    base_a = _excl_cumsum(agg2[1]).contiguous()
-    lane_stack = _stack(lanes) if lanes else None
+    lib = _lib("join_stream")
+    state = torch.empty(lib.plan_state_words(w, tiles), dtype=torch.int64,
+                        device=dev)
     out_a = torch.empty(3 + La, w, na, dtype=torch.int32, device=dev)
     out_b = torch.empty(1 + Lb, w, nb, dtype=torch.int32, device=dev)
-    _launch("join_stream", "launch_plan_pass3", _ptr(bits_s), _ptr(tag_s),
-            _ptr(b2), w, n, tiles, unmatched, _ptr(base_b), _ptr(base_h),
-            _ptr(base_off), _ptr(base_a), _ptr(lane_stack), La, Lb, na, nb,
-            _ptr(out_a), _ptr(out_b), st)
+    counts = torch.empty(w, 4, dtype=torch.int32, device=dev)
+    _launch("join_stream", "launch_plan_stream", _ptr(bits_s), _ptr(tag_s),
+            _ptr(bits2_s), _ptrs(verify_lanes), len(verify_lanes),
+            _ptrs(lanes), len(lanes), La, Lb, w, n, tiles,
+            int(bool(emit_unmatched_a)), na, nb, _ptr(state), _ptr(out_a),
+            _ptr(out_b), _ptr(counts), _stream(bits_s))
     LAUNCHES["join_plan_stream"] += 1
-    counts = torch.stack([
-        _wrap32(agg2[0].to(torch.int64).sum(1)),
-        agg2[1].sum(1, dtype=torch.int32),
-        agg[0].sum(1, dtype=torch.int32),
-        agg[2].sum(1, dtype=torch.int32)], 1)
     return counts, out_a, out_b
 
 
@@ -531,7 +526,7 @@ def _check_streams(streams: torch.Tensor, shape, what: str) -> None:
 
 
 def plain_stream_compact(mask: torch.Tensor, streams: torch.Tensor,
-                         out_len: int):
+                         out_len: int, first_mask: int = -1):
     """Plain version of K6 (see ``stream_compact``)."""
     L, w, n = streams.shape
     pos = torch.cumsum(mask.to(torch.int64), 1) - 1
@@ -540,14 +535,17 @@ def plain_stream_compact(mask: torch.Tensor, streams: torch.Tensor,
                       device=streams.device)
     for o, v in zip(out, streams):
         o.scatter_(1, dest, v)
+    if L and first_mask != -1:
+        out[0] &= first_mask
     return out[:, :, :out_len].contiguous(), mask.sum(1, dtype=torch.int32)
 
 
 def stream_compact(mask: torch.Tensor, streams: torch.Tensor,
-                   out_len: Optional[int] = None):
+                   out_len: Optional[int] = None, first_mask: int = -1):
     """K6: per shard, the elements of every 32-bit stream where ``mask``
     is True, moved in order to a dense prefix; zeros from each shard's
-    count to ``out_len`` (default n).
+    count to ``out_len`` (default n). Stream 0's words are ANDed with
+    ``first_mask`` (a non-negative int31 mask, or -1 for none).
 
     ``mask`` is bool [W, n], ``streams`` int32 [L, W, n]. Returns (int32
     [L, W, out_len], counts int32 [W])."""
@@ -563,7 +561,7 @@ def stream_compact(mask: torch.Tensor, streams: torch.Tensor,
         raise CylonError(Code.Invalid, f"stream_compact: out_len {out_len} "
                                        f"< n {n}")
     if not mask.is_cuda:
-        return plain_stream_compact(mask, streams, out_len)
+        return plain_stream_compact(mask, streams, out_len, first_mask)
     dev = mask.device
     st = _stream(mask)
     tiles = _tiles(n, COMPACT_TILE)
@@ -577,7 +575,7 @@ def stream_compact(mask: torch.Tensor, streams: torch.Tensor,
     _launch("stream_compact", "launch_compact_write", _ptr(mask),
             _ptr(streams), L, w, n, out_len, tiles,
             max(tiles, _tiles(out_len, COMPACT_TILE)), _ptr(base),
-            _ptr(counts), _ptr(out), st)
+            _ptr(counts), first_mask & 0xFFFFFFFF, _ptr(out), st)
     LAUNCHES["stream_compact"] += 1
     return out, counts
 
@@ -622,79 +620,65 @@ def plain_setop_emit(h1_s, h2_s, tag_s, lanes, op: int):
     return emit, coll
 
 
-def _compact_setop(emit, coll, tag_s, lanes, out_len: int, compact):
-    """K5's compaction stage: (tag, lanes...) by the emit mask, then idx =
-    tag & (2^29 - 1)."""
-    out, n_out = compact(emit, torch.cat([tag_s.unsqueeze(0), lanes]),
-                         out_len)
-    out[0] &= IDX_MASK
+def _compact_setop(emit, coll, streams, out_len: int, compact):
+    """K5's compaction stage: the (tag, lanes...) stack by the emit mask,
+    the tag cut to idx = tag & (2^29 - 1)."""
+    out, n_out = compact(emit, streams, out_len, first_mask=IDX_MASK)
     return torch.stack([n_out, coll], 1), out
 
 
-def plain_setop_stream(h1_s, h2_s, tag_s, lanes, op: int, out_len: int):
+def plain_setop_stream(h1_s, h2_s, streams, op: int, out_len: int):
     """Plain version of K5 (see ``setop_stream``)."""
-    emit, coll = plain_setop_emit(h1_s, h2_s, tag_s, lanes, op)
-    return _compact_setop(emit, coll, tag_s, lanes, out_len,
+    emit, coll = plain_setop_emit(h1_s, h2_s, streams[0], streams[1:], op)
+    return _compact_setop(emit, coll, streams, out_len,
                           plain_stream_compact)
 
 
 def setop_stream(h1_s: torch.Tensor, h2_s: torch.Tensor,
-                 tag_s: torch.Tensor, lanes: torch.Tensor, op: int,
+                 streams: torch.Tensor, op: int,
                  out_len: Optional[int] = None):
     """K5: one distinct set operation over the stream sorted by (h1, h2,
     tag), per shard.
 
     Inputs are int32 [W, n] (n < 2^29) carrying uint32 bits, sorted
     together: ``h1_s``/``h2_s`` the 2x32-bit full-row hash (dead rows
-    all-ones), ``tag_s`` the packed ``side<<31 | live<<29 | iota`` with
-    side 1 for the LEFT table (so a run's right rows precede its left
-    rows), ``lanes`` the canonical row payload as int32 [L, W, n]; the
-    lanes double as hash-verify lanes. op: 0 UNION (first live row of
-    each run), 1 SUBTRACT (first live left row of runs without a live
-    right row), 2 INTERSECT (first live left row of runs with one).
+    all-ones), and ``streams`` int32 [1 + L, W, n]: row 0 the packed tag
+    ``side<<31 | live<<29 | iota`` with side 1 for the LEFT table (so a
+    run's right rows precede its left rows), rows 1..L the canonical row
+    payload lanes, which double as hash-verify lanes. op: 0 UNION (first
+    live row of each run), 1 SUBTRACT (first live left row of runs
+    without a live right row), 2 INTERSECT (first live left row of runs
+    with one).
 
     Returns (counts int32 [W, 2] = [n_out, n_collisions], int32 [1 + L,
     W, out_len] = (idx, lanes...) compacted at the emitted rows, zeros
     past n_out). idx addresses the concatenated [left; right] rows. The
-    compaction is K6 (``stream_compact``)."""
-    for x, what in ((h1_s, "h1"), (h2_s, "h2"), (tag_s, "tag")):
+    compaction is K6 (``stream_compact``) on ``streams`` as it is."""
+    for x, what in ((h1_s, "h1"), (h2_s, "h2")):
         _check(x, f"setop_stream {what}")
-    _check_streams(lanes, h1_s.shape, "setop_stream lanes")
+    _check_streams(streams, h1_s.shape, "setop_stream streams")
     w, n = h1_s.shape
     out_len = n if out_len is None else int(out_len)
-    if n >= (1 << 29) or out_len < n:
-        raise CylonError(Code.Invalid, f"setop_stream: n={n} (< 2^29), "
-                                       f"out_len={out_len} (>= n)")
+    if streams.shape[0] < 1 or n >= (1 << 29) or out_len < n:
+        raise CylonError(Code.Invalid, f"setop_stream: {streams.shape[0]} "
+                                       f"streams (>= 1: the tag), n={n} "
+                                       f"(< 2^29), out_len={out_len} (>= n)")
     if not h1_s.is_cuda:
-        emit, coll = plain_setop_emit(h1_s, h2_s, tag_s, lanes, int(op))
-        return _compact_setop(emit, coll, tag_s, lanes, out_len,
-                              stream_compact)
+        emit, coll = plain_setop_emit(h1_s, h2_s, streams[0], streams[1:],
+                                      int(op))
+        return _compact_setop(emit, coll, streams, out_len, stream_compact)
     dev = h1_s.device
-    st = _stream(h1_s)
     tiles = _tiles(n, SETOP_TILE)
-    L = lanes.shape[0]
-    agg = torch.empty(5, w, tiles, dtype=torch.int32, device=dev)
-    _launch("setop_stream", "launch_setop_pass1", _ptr(h1_s), _ptr(h2_s),
-            _ptr(tag_s), _ptr(lanes) if L else None, L, w, n, tiles,
-            _ptr(agg[0]), _ptr(agg[1]), _ptr(agg[2]), _ptr(agg[3]),
-            _ptr(agg[4]), st)
-    # tile carries: live-left/right prefixes (exclusive cumsum) and the
-    # running max of run-head prefixes, as in K3
-    bases = []
-    for cnt, head in ((agg[0], agg[2]), (agg[1], agg[3])):
-        base64 = torch.cumsum(cnt.to(torch.int64), 1) - cnt.to(torch.int64)
-        tile_h = torch.where(head >= 0, base64 + head, 0)
-        base_h = torch.zeros_like(tile_h)
-        base_h[:, 1:] = torch.cummax(tile_h, 1).values[:, :-1]
-        bases += [base64.to(torch.int32).contiguous(),
-                  base_h.to(torch.int32).contiguous()]
+    lib = _lib("setop_stream")
+    state = torch.empty(lib.setop_state_words(w, tiles), dtype=torch.int64,
+                        device=dev)
     emit = torch.empty(w, n, dtype=torch.bool, device=dev)
-    _launch("setop_stream", "launch_setop_pass2", _ptr(h1_s), _ptr(h2_s),
-            _ptr(tag_s), w, n, tiles, int(op), _ptr(bases[0]),
-            _ptr(bases[2]), _ptr(bases[1]), _ptr(bases[3]), _ptr(emit), st)
+    coll = torch.empty(w, dtype=torch.int32, device=dev)
+    _launch("setop_stream", "launch_setop_stream", _ptr(h1_s), _ptr(h2_s),
+            _ptr(streams), streams.shape[0] - 1, w, n, tiles, int(op),
+            _ptr(state), _ptr(emit), _ptr(coll), _stream(h1_s))
     LAUNCHES["setop_stream"] += 1
-    return _compact_setop(emit, agg[4].sum(1, dtype=torch.int32), tag_s,
-                          lanes, out_len, stream_compact)
+    return _compact_setop(emit, coll, streams, out_len, stream_compact)
 
 
 def kernel_table() -> List[dict]:

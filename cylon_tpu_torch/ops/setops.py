@@ -218,19 +218,23 @@ def setop_stream_inputs(lane_l: Sequence[torch.Tensor],
                         lane_r: Sequence[torch.Tensor],
                         lemit: torch.Tensor, remit: torch.Tensor):
     """The tag, the row hash and the sort of the stream route: K5's
-    (h1_s, h2_s, tag_s, lanes_s). Lanes are int32 [W, nl] and [W, nr],
-    emit masks bool."""
+    (h1_s, h2_s, streams_s), where streams_s is the int32 [1 + L, W, n]
+    stack of the tag (row 0) and the lanes, gathered by the sort in one
+    go so that K5 hands it to its compaction as it is. Lanes are int32
+    [W, nl] and [W, nr], emit masks bool."""
     w, nl = lemit.shape
     nr = remit.shape[1]
     dev = lemit.device
     live = torch.cat([lemit, remit], 1)
     side = torch.cat([torch.ones(w, nl, dtype=torch.bool, device=dev),
                       torch.zeros(w, nr, dtype=torch.bool, device=dev)], 1)
-    tag = (side.to(torch.int64) << 31) | (live.to(torch.int64) << 29) \
-        | torch.arange(nl + nr, dtype=torch.int64, device=dev)
-    lanes = torch.stack([torch.cat([a, b], 1) for a, b in zip(lane_l,
-                                                              lane_r)])
-    h1, h2 = _hash.hash2_streams(list(lanes), live)
+    streams = torch.empty(1 + len(lane_l), w, nl + nr, dtype=torch.int32,
+                          device=dev)
+    streams[0] = (side.to(torch.int32) << 31) | (live.to(torch.int32) << 29) \
+        | torch.arange(nl + nr, dtype=torch.int32, device=dev)
+    for k, (a, b) in enumerate(zip(lane_l, lane_r)):
+        torch.cat([a, b], 1, out=streams[1 + k])
+    h1, h2 = _hash.hash2_streams(list(streams[1:]), live)
     # (h1, h2, tag) order: tag order is (side, live, iota) order, a stable
     # sort by side * 2 + live; then a stable sort by the packed hash pair
     perm = torch.sort((side.to(torch.uint8) << 1) | live.to(torch.uint8),
@@ -239,8 +243,7 @@ def setop_stream_inputs(lane_l: Sequence[torch.Tensor],
     perm = perm.gather(1, torch.sort(key, dim=1, stable=True).indices)
     return (_hash.as_i32(h1.gather(1, perm)),
             _hash.as_i32(h2.gather(1, perm)),
-            _hash.as_i32(tag.gather(1, perm)),
-            lanes.gather(2, perm.unsqueeze(0).expand_as(lanes)))
+            streams.gather(2, perm.unsqueeze(0).expand_as(streams)))
 
 
 def _setop_stream_program(lane_l, lane_r, lemit, remit, op: SetOp,

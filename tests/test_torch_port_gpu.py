@@ -108,9 +108,11 @@ def test_join_kernels_match_plain(cuda, jt, hash_mode):
         assert torch.equal(x, y)
 
 
-def _setop_stream(dev, rng, w, n, lanes, keys, live_frac, collide=False):
-    """K5's inputs, sorted by (h1, h2, tag): each element draws one of
-    ``keys`` row keys, whose lanes and 2x32-bit hash come from fixed
+def _setop_stream(dev, rng, w, n, lanes, keys, live_frac, collide=False,
+                  key=None):
+    """K5's inputs (h1, h2, the [1 + lanes, W, n] stack of tag and lanes),
+    sorted by (h1, h2, tag): each element draws one of ``keys`` row keys
+    (or takes ``key``), whose lanes and 2x32-bit hash come from fixed
     random tables (equal keys, equal hashes); dead rows get all-ones
     hashes. ``collide`` gives keys 0 and 1 one hash (a collision)."""
     table = rng.integers(-2**31, 2**31, (keys, max(lanes, 1)),
@@ -118,7 +120,8 @@ def _setop_stream(dev, rng, w, n, lanes, keys, live_frac, collide=False):
     hashes = rng.integers(0, 2**32 - 1, (keys, 2), dtype=np.int64)
     if collide:
         hashes[1] = hashes[0]
-    key = rng.integers(0, keys, (w, n))
+    if key is None:
+        key = rng.integers(0, keys, (w, n))
     live = rng.random((w, n)) < live_frac
     side = rng.random((w, n)) < 0.5
     h = np.where(live[..., None], hashes[key], 2**32 - 1)
@@ -129,10 +132,10 @@ def _setop_stream(dev, rng, w, n, lanes, keys, live_frac, collide=False):
     perm = O.lexsort_indices([_u32(h1), _u32(h2), _u32(tg)])
     lane_vals = torch.from_numpy(table[key][..., :lanes].astype(
         np.int32)).to(dev).permute(2, 0, 1)
+    streams = torch.cat([_u32(tg).unsqueeze(0), lane_vals])
     return (_u32(h1).gather(1, perm), _u32(h2).gather(1, perm),
-            _u32(tg).gather(1, perm),
-            lane_vals.gather(2, perm.unsqueeze(0).expand_as(
-                lane_vals)).contiguous())
+            streams.gather(2, perm.unsqueeze(0).expand_as(
+                streams)).contiguous())
 
 
 def _u32(x):
@@ -224,3 +227,127 @@ def test_set_op_kernel_route_equals_dense_route(cuda, name):
         return x[O.lexsort_indices([x[:, 0], x[:, 1], x[:, 2]])]
 
     assert torch.equal(rows(got), rows(ref))
+
+
+# ---------------------------------------------------------------------------
+# look-back stress: K3 and K5 carry their scans across tiles by decoupled
+# look-back, whose faults are races, so each case runs the kernel 20 times
+# and every run must equal the plain version
+# ---------------------------------------------------------------------------
+
+STRESS_RUNS = 20
+
+
+def _edge_run(case, tile):
+    """Stream run length of an edge case: a whole tile, half a tile, or
+    two short of a tile (boundaries drift across tile edges)."""
+    return {"edge_tile": tile, "edge_half": tile // 2,
+            "edge_short": tile - 2}[case]
+
+
+def _stress_keys(rng, case, w):
+    """(lk, rk, lemit, remit) as numpy for one stress case."""
+    tile = K.PLAN_TILE
+    if case == "w8_1000_tiles":  # >= 1,000 tiles a shard at W = 8
+        na = nb = 1000 * tile // 2 + 3
+    elif case == "ragged":       # n not a multiple of the tile
+        na, nb = 100_001, 77_777
+    elif case.startswith("edge"):
+        na = nb = 20 * tile
+    elif case == "hot_run":      # the hot key's run: ~450 tiles
+        na = nb = 700_000
+    else:
+        na = nb = 300_000
+    lk = rng.integers(0, na // 3, (w, na)).astype(np.int32)
+    rk = rng.integers(0, na // 3, (w, nb)).astype(np.int32)
+    lemit = rng.random((w, na)) < 0.95
+    remit = rng.random((w, nb)) < 0.95
+    if case == "hot_run":        # one run spanning hundreds of tiles
+        lk[rng.random((w, na)) < 0.9] = 7
+        rk[rng.random((w, nb)) < 0.9] = 7
+    elif case.startswith("edge"):
+        # every row live and runs of exactly `run` stream elements (half
+        # from each side), so run boundaries fall on tile edges
+        run = _edge_run(case, tile)
+        lk = np.broadcast_to(np.arange(na) // (run // 2), (w, na)).astype(
+            np.int32)
+        rk = np.broadcast_to(np.arange(nb) // (run // 2), (w, nb)).astype(
+            np.int32)
+        lemit = np.ones((w, na), bool)
+        remit = np.ones((w, nb), bool)
+    elif case == "all_dead":
+        lemit[:] = False
+        remit[:] = False
+    return lk, rk, lemit, remit
+
+
+PLAN_STRESS = [
+    # case, world, join type, hash mode
+    ("w8_1000_tiles", 8, J.JoinType.INNER, False),
+    ("hot_run", 2, J.JoinType.INNER, False),
+    ("edge_tile", 3, J.JoinType.INNER, False),
+    ("edge_half", 3, J.JoinType.INNER, False),
+    ("edge_short", 3, J.JoinType.LEFT, False),
+    ("ragged", 3, J.JoinType.INNER, False),
+    ("all_dead", 2, J.JoinType.INNER, False),
+    ("uniform", 4, J.JoinType.LEFT, False),
+    ("uniform", 4, J.JoinType.INNER, True),
+    ("hot_run", 2, J.JoinType.LEFT, True),
+]
+
+
+@pytest.mark.parametrize("case,world,jt,hash_mode", PLAN_STRESS)
+def test_plan_stream_lookback_stress(cuda, case, world, jt, hash_mode):
+    rng = np.random.default_rng(len(case) + world)
+    lk, rk, lemit, remit = _stress_keys(rng, case, world)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+
+    lbits, lkv = J.key_bits([t(lk)], [None])
+    rbits, rkv = J.key_bits([t(rk)], [None])
+    ldat = (t(lk), t(rng.normal(size=lk.shape).astype(np.float32)))
+    rdat = (t(rk), t(rng.normal(size=rk.shape).astype(np.float32)))
+    lv = rv = (None, None)
+    a_desc, b_desc = J.plan_lane_descs(ldat, lv, rdat, rv, jt)
+    kw = J.stream_plan_inputs(lbits, lkv, t(lemit), rbits, rkv, t(remit),
+                              ldat, lv, rdat, rv, jt, a_desc, b_desc,
+                              hash_mode)
+    if case == "w8_1000_tiles":
+        assert kw["bits_s"].shape[1] >= 1000 * K.PLAN_TILE
+    ref = K.plain_join_plan_stream(**kw)
+    for _ in range(STRESS_RUNS):
+        got = K.join_plan_stream(**kw)
+        torch.cuda.synchronize()
+        _plan_equal(ref, got)
+
+
+@pytest.mark.parametrize("op", [0, 1, 2])
+@pytest.mark.parametrize("case", ["w8_1000_tiles", "hot_run", "edge_tile",
+                                  "edge_half", "ragged", "all_dead"])
+def test_setop_stream_lookback_stress(cuda, case, op):
+    rng = np.random.default_rng(op + len(case))
+    tile = K.SETOP_TILE
+    w, n, keys, live, key = 2, 300_000, 50_000, 0.9, None
+    if case == "w8_1000_tiles":
+        w, n = 8, 1000 * tile + 5
+        keys = n // 2
+    elif case == "hot_run":      # one run over all 356 tiles
+        n, keys = 1_000_000, 1
+    elif case.startswith("edge"):
+        run = _edge_run(case, tile)
+        n, live = 20 * tile, 1.0
+        keys = n // run
+        key = np.broadcast_to(np.arange(n) // run, (w, n))
+    elif case == "ragged":
+        w, n = 3, 100_001
+    else:
+        live = 0.0
+    args = _setop_stream(cuda, rng, w, n, 2, keys, live, key=key)
+    out_len = n + 3 * 128
+    ref = K.plain_setop_stream(*args, op, out_len)
+    for _ in range(STRESS_RUNS):
+        got = K.setop_stream(*args, op, out_len)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], ref[0]), (got[0], ref[0])
+        assert torch.equal(got[1], ref[1])

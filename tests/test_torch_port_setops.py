@@ -256,8 +256,8 @@ def test_stream_program_matches_pallas(stream_case):
     finally:
         K.setop_stream = real
     ref = _jax_sorted_stream(lane_l, lane_r, lemit, remit)
-    h1, h2, tag, lanes_s = seen["args"][:4]
-    for j, t in zip(ref, [h1[0], h2[0], tag[0]] + list(lanes_s[:, 0])):
+    h1, h2, streams_s = seen["args"][:3]
+    for j, t in zip(ref, [h1[0], h2[0]] + list(streams_s[:, 0])):
         assert np.array_equal(j, t.numpy().view(np.uint32))
     _assert_streams_match(stream_case["j_out"], counts, streams)
     assert int(counts[0, 1]) == 0
@@ -269,7 +269,7 @@ def test_plain_k5_on_pallas_sorted_stream(stream_case):
     h1, h2, tag, *lanes = [_t(x.view(np.int32))[None] for x in
                            _jax_sorted_stream(lane_l, lane_r, lemit, remit)]
     out_len = tsetops.stream_out_len(lemit.shape[0], remit.shape[0])
-    counts, streams = K.setop_stream(h1, h2, tag, torch.stack(lanes),
+    counts, streams = K.setop_stream(h1, h2, torch.stack([tag] + lanes),
                                      int(stream_case["op"]), out_len)
     _assert_streams_match(stream_case["j_out"], counts, streams)
     # past n_out the port's streams are zero
@@ -281,8 +281,9 @@ def test_public_api_stream_route_matches(stream_case):
     """(c) STREAM_SETOP=True on both sides: the same live rows in the
     same order, and the same capacity."""
     t_args = stream_case["t_k5"][0]
-    # every lane of the case rode the sort (UNION: every lane kind)
-    assert t_args[3].shape[0] == (10 if stream_case["op"] == 0 else 4)
+    # the tag and every lane of the case rode the sort (UNION: every lane
+    # kind)
+    assert t_args[2].shape[0] == 1 + (10 if stream_case["op"] == 0 else 4)
     assert_same_tables(stream_case["jres"], stream_case["tres"],
                        stream_case["op"].name)
 
