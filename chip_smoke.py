@@ -332,25 +332,27 @@ def check_kernels(K, calls) -> list:
             flat, minlength=w * tiles * nb)),
         bytes=b4 * (t.numel() + got.numel())))
 
-    # K2 partition_scatter
-    (t, legs, nb, hist), _ = calls["partition_scatter"]
-    got = K.partition_scatter(t, legs, nb, hist)
-    ref = K.plain_partition_scatter(t, legs, nb)
+    # K2 partition_scatter: it must read the ids and the legs once, write
+    # the legs once, and read the [W, nb - 1] live-bucket totals
+    (t, legs, nb, counts), _ = calls["partition_scatter"]
+    got = K.partition_scatter(t, legs, nb, counts)
+    ref = K.plain_partition_scatter(t, legs, nb, counts)
     err = max_abs_err([(got, ref)])
 
     def library_k2():
         perm = torch.sort(t, dim=1, stable=True).indices
-        return legs.gather(2, perm.unsqueeze(0).expand_as(legs))
+        return [leg.gather(1, perm) for leg in legs]
 
     out.append(dict(
         name="partition_scatter", err=err,
-        shape=f"legs {list(legs.shape)}, {nb} buckets",
-        ms=cuda_ms(lambda: K.partition_scatter(t, legs, nb, hist)),
+        shape=f"{len(legs)} legs x {list(t.shape)}, {nb} buckets",
+        ms=cuda_ms(lambda: K.partition_scatter(t, legs, nb, counts)),
         kernel_ms=own_kernel_ms(
-            K, lambda: K.partition_scatter(t, legs, nb, hist)),
-        plain_ms=cuda_ms(lambda: K.plain_partition_scatter(t, legs, nb)),
+            K, lambda: K.partition_scatter(t, legs, nb, counts)),
+        plain_ms=cuda_ms(lambda: K.plain_partition_scatter(
+            t, legs, nb, counts)),
         library_ms=cuda_ms(library_k2),
-        bytes=b4 * (t.numel() + hist.numel() + 2 * legs.numel())))
+        bytes=b4 * (t.numel() + counts.numel() + 2 * got.numel())))
 
     # K3 join_plan_stream
     _a, kw = calls["join_plan_stream"]

@@ -1,7 +1,9 @@
 // Single-pass chained scan with decoupled look-back (Merrill & Garland,
 // "Single-pass Parallel Prefix Scan with Decoupled Look-back", NVIDIA
 // 2016), and the coalesced tile load, shared by K3 (join_stream.cu) and
-// K5 (setop_stream.cu).
+// K5 (setop_stream.cu), and by K6 (stream_compact.cu); K2 (partition.cu)
+// uses the tile counter and the word conventions with a look-back of its
+// own over many buckets.
 //
 // A kernel launches one block per (shard, tile) and takes its tile from an
 // atomic counter (`take_tile`), so tiles start in stream order and a

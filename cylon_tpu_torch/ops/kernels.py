@@ -51,11 +51,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 PARTITION_TILE = 4096   # rows per K1/K2 tile (csrc/partition.cu TILE)
+MAX_SCATTER_LEGS = 32   # K2 legs per pass (csrc/partition.cu MAX_LEGS)
 MAX_BUCKETS = 256       # K1/K2 bucket limit (csrc/partition.cu)
 PLAN_TILE = 2816        # elements per K3 tile (csrc/join_stream.cu TILE)
 SETOP_TILE = 2816       # elements per K5 tile (csrc/setop_stream.cu TILE)
 MAX_PLAN_LANES = 8      # K3 payload and verify lane limit (join_stream.cu)
-COMPACT_TILE = 2048     # elements per K6 tile (csrc/stream_compact.cu TILE)
+COMPACT_TILE = 4096     # elements per K6 tile (csrc/stream_compact.cu TILE)
 IDX_MASK = (1 << 29) - 1  # the row index field of a stream tag
 
 KERNELS = ("partition_hist", "partition_scatter", "join_plan_stream",
@@ -81,7 +82,8 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "partition": {
         "launch_partition_hist": [_P, _P, _I, _L, _I, _I, _P],
-        "launch_partition_scatter": [_P, _P, _P, _P, _I, _L, _I, _I, _I, _P],
+        "launch_partition_scatter": [_P, _P, _I, _P, _P, _I, _L, _I, _I, _P,
+                                     _P],
     },
     "join_stream": {
         "launch_plan_stream": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _L,
@@ -94,14 +96,16 @@ _SIGNATURES = {
                                 _P],
     },
     "stream_compact": {
-        "launch_compact_count": [_P, _I, _L, _I, _P, _P],
-        "launch_compact_write": [_P, _P, _I, _I, _L, _L, _I, _I, _P, _P,
-                                 ctypes.c_uint, _P, _P],
+        "launch_stream_compact": [_P, _P, _I, _I, _L, _L, _I, _I,
+                                  ctypes.c_uint, _P, _P, _P, _P],
     },
 }
-# the 64-bit words of a single-pass kernel's tile state, (W, tiles) -> n
-_STATE_WORDS = {"join_stream": "plan_state_words",
-                "setop_stream": "setop_state_words"}
+# the 64-bit words of a single-pass kernel's tile state: (W, tiles) -> n,
+# and (W, tiles, nbuckets) -> n for K2
+_STATE_WORDS = {"join_stream": ("plan_state_words", [_I, _I]),
+                "setop_stream": ("setop_state_words", [_I, _I]),
+                "stream_compact": ("compact_state_words", [_I, _I]),
+                "partition": ("scatter_state_words", [_I, _I, _I])}
 
 
 def nvcc_path() -> str:
@@ -172,8 +176,9 @@ def _lib(name: str) -> ctypes.CDLL:
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
         if name in _STATE_WORDS:
-            f = getattr(lib, _STATE_WORDS[name])
-            f.argtypes = [ctypes.c_int, ctypes.c_int]
+            fn, args = _STATE_WORDS[name]
+            f = getattr(lib, fn)
+            f.argtypes = args
             f.restype = ctypes.c_longlong
         _LIBS[name] = lib
     return lib
@@ -212,11 +217,14 @@ def _check(x: torch.Tensor, what: str, dtype=torch.int32,
                          f"got {tuple(x.shape)} {x.dtype}")
 
 
-def _excl_cumsum(x: torch.Tensor) -> torch.Tensor:
-    """Exclusive cumsum along dim 1 with int32 wrap-around (the TPU
-    kernels' int32 carries), as int32."""
-    c = torch.cumsum(x.to(torch.int64), 1) - x.to(torch.int64)
-    return _wrap32(c)
+def _check_streams(streams: torch.Tensor, shape, what: str) -> None:
+    if streams.dtype != torch.int32 or streams.dim() != 3 \
+            or tuple(streams.shape[1:]) != tuple(shape) \
+            or not streams.is_contiguous():
+        raise CylonError(Code.Invalid,
+                         f"{what}: want contiguous int32 [L, W, n] with [W, "
+                         f"n] = {list(shape)}, got {tuple(streams.shape)} "
+                         f"{streams.dtype}")
 
 
 def _wrap32(x: torch.Tensor) -> torch.Tensor:
@@ -251,8 +259,8 @@ def plain_partition_hist(t: torch.Tensor, nbuckets: int) -> torch.Tensor:
 
 def partition_hist(t: torch.Tensor, nbuckets: int) -> torch.Tensor:
     """K1: per-tile bucket histogram of [W, n] int32 target ids (tiles of
-    PARTITION_TILE rows). Summed over tiles it is the counts vector; its
-    bucket-major exclusive scan gives K2's write offsets."""
+    PARTITION_TILE rows). Summed over tiles it is the counts vector, whose
+    live buckets are K2's ``counts``."""
     _check(t, "partition_hist ids")
     if not t.is_cuda:
         return plain_partition_hist(t, nbuckets)
@@ -273,38 +281,62 @@ def partition_hist(t: torch.Tensor, nbuckets: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def plain_partition_scatter(t: torch.Tensor, legs: torch.Tensor,
-                            nbuckets: int) -> torch.Tensor:
-    """Plain version of K2: every leg of [L, W, n] permuted by the stable
-    sort of its shard's ids."""
-    del nbuckets  # every id lies in [0, nbuckets)
+def _leg_list(legs, shape, what: str) -> List[torch.Tensor]:
+    """K2's legs as a list of [W, n] int32 tensors: a stacked [L, W, n]
+    tensor, or a sequence of [W, n] tensors, each checked."""
+    if isinstance(legs, torch.Tensor):
+        _check_streams(legs, shape, what)
+        return list(legs.unbind(0))
+    legs = list(legs)
+    for i, x in enumerate(legs):
+        _check(x, f"{what} {i}", shape=shape)
+    return legs
+
+
+def plain_partition_scatter(t: torch.Tensor, legs, nbuckets: int,
+                            counts: torch.Tensor) -> torch.Tensor:
+    """Plain version of K2: every leg (a stacked [L, W, n] tensor or a
+    sequence of [W, n] tensors) permuted by the stable sort of its
+    shard's ids, as one int32 [L, W, n] tensor."""
+    del nbuckets, counts  # every id lies in [0, nbuckets)
+    legs = _leg_list(legs, t.shape, "partition_scatter legs")
+    if not legs:
+        return torch.empty(0, *t.shape, dtype=torch.int32, device=t.device)
+    stack = torch.stack(legs)
     perm = torch.sort(t, dim=1, stable=True).indices
-    return legs.gather(2, perm.unsqueeze(0).expand_as(legs))
+    return stack.gather(2, perm.unsqueeze(0).expand_as(stack))
 
 
-def partition_scatter(t: torch.Tensor, legs: torch.Tensor, nbuckets: int,
-                      hist: torch.Tensor) -> torch.Tensor:
-    """K2: stable counting scatter of int32 legs [L, W, n] into
-    bucket-contiguous order by [W, n] ids in [0, nbuckets) — per shard,
-    bit for bit the stable sort by id, the last (dead) bucket included.
-    ``hist`` is K1's table for the same ids."""
+def partition_scatter(t: torch.Tensor, legs, nbuckets: int,
+                      counts: torch.Tensor) -> torch.Tensor:
+    """K2: stable counting scatter of int32 legs into bucket-contiguous
+    order by [W, n] ids in [0, nbuckets) — per shard, bit for bit the
+    stable sort by id, the last (dead) bucket included. ``legs`` is a
+    sequence of [W, n] tensors (read in place) or a stacked [L, W, n]
+    tensor; ``counts`` int32 [W, nbuckets - 1] holds each shard's live
+    bucket totals (the ids' histogram without its last bucket). Returns
+    int32 [L, W, n]. On the card: one memset and one launch (per
+    MAX_SCATTER_LEGS legs)."""
     _check(t, "partition_scatter ids")
-    if legs.dim() != 3 or legs.shape[1:] != t.shape \
-            or legs.dtype != torch.int32 or not legs.is_contiguous():
-        raise CylonError(Code.Invalid,
-                         "partition_scatter legs: want contiguous int32 "
-                         f"[L, W, n], got {tuple(legs.shape)} {legs.dtype}")
-    if not t.is_cuda:
-        return plain_partition_scatter(t, legs, nbuckets)
+    legs = _leg_list(legs, t.shape, "partition_scatter legs")
     w, n = t.shape
-    tiles = hist.shape[1]
-    # per-(bucket, tile) start offsets: the bucket-major exclusive scan
-    offsets = _excl_cumsum(hist.transpose(1, 2).reshape(w, -1)).view(
-        w, nbuckets, tiles).contiguous()
-    out = torch.empty_like(legs)
-    _launch("partition", "launch_partition_scatter", _ptr(t), _ptr(legs),
-            _ptr(out), _ptr(offsets), w, n, tiles, nbuckets, legs.shape[0],
-            _stream(t))
+    _check(counts, "partition_scatter counts", shape=(w, nbuckets - 1))
+    if not t.is_cuda:
+        return plain_partition_scatter(t, legs, nbuckets, counts)
+    if not 1 <= nbuckets <= MAX_BUCKETS:
+        raise CylonError(Code.Invalid, f"partition_scatter takes 1.."
+                                       f"{MAX_BUCKETS} buckets, got {nbuckets}")
+    if any(x.device != t.device for x in [counts, *legs]):
+        raise CylonError(Code.Invalid, "partition_scatter: ids, legs and "
+                                       "counts must be on one device")
+    out = torch.empty(len(legs), w, n, dtype=torch.int32, device=t.device)
+    tiles = _tiles(n, PARTITION_TILE)
+    lib = _lib("partition")
+    state = torch.empty(lib.scatter_state_words(w, tiles, nbuckets),
+                        dtype=torch.int64, device=t.device)
+    _launch("partition", "launch_partition_scatter", _ptr(t), _ptrs(legs),
+            len(legs), _ptr(out), _ptr(counts), w, n, tiles, nbuckets,
+            _ptr(state), _stream(t))
     LAUNCHES["partition_scatter"] += 1
     return out
 
@@ -515,16 +547,6 @@ def join_expand_stream(counts: torch.Tensor, a_streams, b_streams,
 # ---------------------------------------------------------------------------
 
 
-def _check_streams(streams: torch.Tensor, shape, what: str) -> None:
-    if streams.dtype != torch.int32 or streams.dim() != 3 \
-            or tuple(streams.shape[1:]) != tuple(shape) \
-            or not streams.is_contiguous():
-        raise CylonError(Code.Invalid,
-                         f"{what}: want contiguous int32 [L, W, n] with [W, "
-                         f"n] = {list(shape)}, got {tuple(streams.shape)} "
-                         f"{streams.dtype}")
-
-
 def plain_stream_compact(mask: torch.Tensor, streams: torch.Tensor,
                          out_len: int, first_mask: int = -1):
     """Plain version of K6 (see ``stream_compact``)."""
@@ -548,7 +570,8 @@ def stream_compact(mask: torch.Tensor, streams: torch.Tensor,
     ``first_mask`` (a non-negative int31 mask, or -1 for none).
 
     ``mask`` is bool [W, n], ``streams`` int32 [L, W, n]. Returns (int32
-    [L, W, out_len], counts int32 [W])."""
+    [L, W, out_len], counts int32 [W]). On the card: one memset and one
+    launch."""
     if mask.dtype != torch.bool or mask.dim() != 2 \
             or not mask.is_contiguous():
         raise CylonError(Code.Invalid, "stream_compact mask: want a "
@@ -562,20 +585,22 @@ def stream_compact(mask: torch.Tensor, streams: torch.Tensor,
                                        f"< n {n}")
     if not mask.is_cuda:
         return plain_stream_compact(mask, streams, out_len, first_mask)
-    dev = mask.device
-    st = _stream(mask)
-    tiles = _tiles(n, COMPACT_TILE)
-    agg = torch.empty(w, tiles, dtype=torch.int32, device=dev)
-    _launch("stream_compact", "launch_compact_count", _ptr(mask), w, n,
-            tiles, _ptr(agg), st)
-    base = _excl_cumsum(agg).contiguous()
-    counts = agg.sum(1, dtype=torch.int32)
     L = streams.shape[0]
+    dev = mask.device
+    if streams.device != dev:
+        raise CylonError(Code.Invalid, "stream_compact: mask and streams "
+                                       "must be on one device")
     out = torch.empty(L, w, out_len, dtype=torch.int32, device=dev)
-    _launch("stream_compact", "launch_compact_write", _ptr(mask),
-            _ptr(streams), L, w, n, out_len, tiles,
-            max(tiles, _tiles(out_len, COMPACT_TILE)), _ptr(base),
-            _ptr(counts), first_mask & 0xFFFFFFFF, _ptr(out), st)
+    counts = torch.empty(w, dtype=torch.int32, device=dev)
+    tiles = _tiles(n, COMPACT_TILE)
+    slack = -(-(out_len - n) // COMPACT_TILE)
+    lib = _lib("stream_compact")
+    state = torch.empty(lib.compact_state_words(w, tiles), dtype=torch.int64,
+                        device=dev)
+    _launch("stream_compact", "launch_stream_compact", _ptr(mask),
+            _ptr(streams), L, w, n, out_len, tiles, slack,
+            first_mask & 0xFFFFFFFF, _ptr(state), _ptr(out), _ptr(counts),
+            _stream(mask))
     LAUNCHES["stream_compact"] += 1
     return out, counts
 

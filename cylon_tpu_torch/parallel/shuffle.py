@@ -104,14 +104,16 @@ def _leg_split(x: torch.Tensor):
 
 def _kernel_partition(payload, targets, emit, world: int):
     """The kernel twin of `_bucket_sort`: identical contract, via one
-    histogram pass (K1) and one counting-scatter pass (K2)."""
+    histogram pass (K1), its sum over tiles, and one counting-scatter pass
+    (K2) that reads the payload's legs in place."""
     t = _dead_keyed(targets, emit, world)
-    splits = {k: _leg_split(x) for k, x in payload.items()}
-    legs = torch.stack([leg for ls, _ in splits.values() for leg in ls])
+    splits = {k: _leg_split(x.contiguous()) for k, x in payload.items()}
     hist = _k.partition_hist(t, world + 1)
     counts_out = hist[:, :, :world].sum(1, dtype=torch.int32)
     c = counts_out.to(torch.int64)
-    outs = _k.partition_scatter(t, legs, world + 1, hist)
+    outs = _k.partition_scatter(
+        t, [leg for ls, _ in splits.values() for leg in ls], world + 1,
+        counts_out)
     out, i = {}, 0
     for k, (ls, join) in splits.items():
         out[k] = join(list(outs[i:i + len(ls)]))

@@ -1,5 +1,6 @@
-"""Compare the stream kernels K3 join_plan_stream and K5 setop_stream of
-two checkouts on one card, and split each wrapper call's device time.
+"""Compare the single-pass kernels K2 partition_scatter, K3
+join_plan_stream, K5 setop_stream and K6 stream_compact of two checkouts
+on one card, and split each wrapper call's device time.
 
     python3 scripts/stream_kernels_ab.py --trees OLD,NEW,NEW,OLD
         [--rows N] [--setop-rows M] [--out PATH]
@@ -10,9 +11,9 @@ process (so list them in turns: old, new, new, old). In each process:
 
 * build the tree's kernels;
 * run ``chip_smoke.py``'s world-4 join (2 x N rows, ``force_exchange``)
-  once on the kernel route, recording K3's inputs, then time 5 steady
-  walls of it;
-* the same for the local UNION of 2 x M rows (K5's inputs);
+  once on the kernel route, recording K2's and K3's inputs (each
+  wrapper's first call), then time 5 steady walls of it;
+* the same for the local UNION of 2 x M rows (K5's and K6's inputs);
 * time each wrapper at those inputs (median of 7 CUDA-event-timed calls,
   as ``chip_smoke.py`` phase 8 does) and profile one wrapper call under
   ``torch.profiler``: its device time split into the port's own kernels
@@ -35,6 +36,10 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+
+KERNELS = ("partition_scatter", "join_plan_stream", "setop_stream",
+           "stream_compact")
 
 
 def _dev_us(e) -> float:
@@ -164,7 +169,9 @@ def child(tree: Path, rows: int, setop_rows: int) -> dict:
     res["join_walls_s"] = walls(join)
     _a, kw = rec.calls["join_plan_stream"]
     wrapper("join_plan_stream", lambda: K.join_plan_stream(**kw))
-    del rec, kw, left, right
+    k2, k2kw = rec.calls["partition_scatter"]
+    wrapper("partition_scatter", lambda: K.partition_scatter(*k2, **k2kw))
+    del rec, kw, k2, k2kw, left, right
 
     # the set-op path: K5's inputs from the local UNION's first call
     lctx = ct.CylonContext.Init()
@@ -178,6 +185,8 @@ def child(tree: Path, rows: int, setop_rows: int) -> dict:
     res["union_walls_s"] = walls(lambda: a.union(b))
     args, kw = rec.calls["setop_stream"]
     wrapper("setop_stream", lambda: K.setop_stream(*args, **kw))
+    k6, k6kw = rec.calls["stream_compact"]
+    wrapper("stream_compact", lambda: K.stream_compact(*k6, **k6kw))
     return res
 
 
@@ -224,7 +233,7 @@ def main() -> int:
             **{k: {"ms": r[k]["ms"], "kernel_ms": r[k]["kernel_ms"],
                    "split_ms": r[k]["profile"]["ms"],
                    "split_launches": r[k]["profile"]["launches"]}
-               for k in ("join_plan_stream", "setop_stream")}}),
+               for k in KERNELS}}),
             flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -52,9 +52,11 @@ def test_partition_kernels_match_plain(cuda, world):
                             ).to(cuda)
     hist = K.partition_hist(t, world + 1)
     assert torch.equal(hist, K.plain_partition_hist(t, world + 1))
-    out = K.partition_scatter(t, legs, world + 1, hist)
+    counts = hist[:, :, :world].sum(1, dtype=torch.int32)
+    out = K.partition_scatter(t, legs, world + 1, counts)
     torch.cuda.synchronize()
-    assert torch.equal(out, K.plain_partition_scatter(t, legs, world + 1))
+    assert torch.equal(out, K.plain_partition_scatter(t, legs, world + 1,
+                                                      counts))
 
 
 def test_partition_past_the_bucket_limit_raises(cuda):
@@ -230,9 +232,9 @@ def test_set_op_kernel_route_equals_dense_route(cuda, name):
 
 
 # ---------------------------------------------------------------------------
-# look-back stress: K3 and K5 carry their scans across tiles by decoupled
-# look-back, whose faults are races, so each case runs the kernel 20 times
-# and every run must equal the plain version
+# look-back stress: K2, K3, K5 and K6 carry their scans across tiles by
+# decoupled look-back, whose faults are races, so each case runs the kernel
+# 20 times and every run must equal the plain version
 # ---------------------------------------------------------------------------
 
 STRESS_RUNS = 20
@@ -351,3 +353,91 @@ def test_setop_stream_lookback_stress(cuda, case, op):
         torch.cuda.synchronize()
         assert torch.equal(got[0], ref[0]), (got[0], ref[0])
         assert torch.equal(got[1], ref[1])
+
+
+def _scatter_ids(rng, case, w, n, nb):
+    """[W, n] bucket ids in [0, nb) for one K2 stress case."""
+    if case == "one_bucket":     # every row in one live bucket
+        return np.full((w, n), nb // 2 - (nb == 2), np.int32)
+    if case == "all_dead":       # every row in the dead (last) bucket
+        return np.full((w, n), nb - 1, np.int32)
+    if case == "alternating":    # neighbours in different buckets
+        return np.broadcast_to(np.arange(n) % nb, (w, n)).astype(np.int32)
+    return rng.integers(0, nb, (w, n)).astype(np.int32)
+
+
+SCATTER_STRESS = [
+    # case, nbuckets, W, n (none a multiple of the tile), legs
+    ("one_bucket", 2, 4, 300_001, "sequence"),
+    ("all_dead", 5, 1, 1_000_003, "stack"),
+    ("alternating", 5, 8, 250_007, "sequence"),
+    ("uniform", 5, 4, 1_000_003, "stack"),
+    ("uniform", 9, 8, 300_001, "sequence"),
+    ("alternating", 9, 1, 70_001, "stack"),
+    ("uniform", 256, 4, 200_003, "sequence"),
+    ("one_bucket", 256, 1, 100_001, "stack"),
+    ("all_dead", 256, 8, 50_001, "sequence"),
+    ("uniform", 2, 1, 4_096 * 300 + 17, "stack"),
+]
+
+
+@pytest.mark.parametrize("case,nb,w,n,legs_as", SCATTER_STRESS)
+def test_partition_scatter_lookback_stress(cuda, case, nb, w, n, legs_as):
+    rng = np.random.default_rng(nb + w + len(case))
+    t = torch.from_numpy(_scatter_ids(rng, case, w, n, nb)).contiguous().to(
+        cuda)
+    legs = torch.from_numpy(rng.integers(-2**31, 2**31, (3, w, n),
+                                         dtype=np.int64).astype(np.int32)
+                            ).to(cuda)
+    if legs_as == "sequence":
+        legs = [x.clone() for x in legs]
+    counts = K.plain_partition_hist(t, nb)[:, :, :nb - 1].sum(
+        1, dtype=torch.int32)
+    ref = K.plain_partition_scatter(t, legs, nb, counts)
+    for _ in range(STRESS_RUNS):
+        got = K.partition_scatter(t, legs, nb, counts)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+
+
+def test_partition_scatter_more_legs_than_one_pass(cuda):
+    """More legs than one pass takes: the launcher runs one pass per
+    group of MAX_SCATTER_LEGS legs."""
+    rng = np.random.default_rng(11)
+    w, n, nb = 4, 100_003, 5
+    t = torch.from_numpy(rng.integers(0, nb, (w, n)).astype(np.int32)).to(
+        cuda)
+    legs = [torch.from_numpy(rng.integers(-2**31, 2**31, (w, n),
+                                          dtype=np.int64).astype(np.int32)
+                             ).to(cuda)
+            for _ in range(K.MAX_SCATTER_LEGS + 7)]
+    counts = K.partition_hist(t, nb)[:, :, :nb - 1].sum(1, dtype=torch.int32)
+    got = K.partition_scatter(t, legs, nb, counts)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K.plain_partition_scatter(t, legs, nb, counts))
+
+
+def _compact_mask(rng, density, w, n):
+    if density == "alternating":
+        return np.broadcast_to(np.arange(n) % 2 == 0, (w, n)).copy()
+    return rng.random((w, n)) < density
+
+
+@pytest.mark.parametrize("lanes,first_mask", [(0, -1), (1, K.IDX_MASK),
+                                              (12, K.IDX_MASK)])
+@pytest.mark.parametrize("w", [1, 3])
+@pytest.mark.parametrize("density", [0.0, 1e-4, 0.3, 1.0, "alternating"])
+def test_stream_compact_lookback_stress(cuda, density, w, lanes, first_mask):
+    rng = np.random.default_rng(w + lanes)
+    n = 1_000_003 if lanes < 12 else 300_007
+    mask = torch.from_numpy(_compact_mask(rng, density, w, n)).to(cuda)
+    streams = torch.from_numpy(rng.integers(-2**31, 2**31, (lanes, w, n),
+                                            dtype=np.int64).astype(
+                                                np.int32)).to(cuda)
+    for out_len in (n, n + 5 * K.COMPACT_TILE + 123):
+        ref = K.plain_stream_compact(mask, streams, out_len, first_mask)
+        for _ in range(STRESS_RUNS):
+            got = K.stream_compact(mask, streams, out_len, first_mask)
+            torch.cuda.synchronize()
+            assert torch.equal(got[1], ref[1])
+            assert torch.equal(got[0], ref[0])

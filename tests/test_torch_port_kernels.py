@@ -18,6 +18,7 @@ from cylon_tpu.parallel import shuffle as jshuffle
 from cylon_tpu_torch.ops import join as tjoin
 from cylon_tpu_torch.ops import kernels as K
 from cylon_tpu_torch.parallel import shuffle as tshuffle
+from cylon_tpu_torch.status import CylonError
 
 
 def _t(x):
@@ -39,8 +40,9 @@ def test_partition_hist_plain_matches_pallas(world):
     assert np.array_equal(ref, got)
 
 
+@pytest.mark.parametrize("legs_as", ["stack", "sequence"])
 @pytest.mark.parametrize("world", [2, 4, 8])
-def test_partition_scatter_plain_matches_pallas(world):
+def test_partition_scatter_plain_matches_pallas(world, legs_as):
     rng = np.random.default_rng(10 + world)
     t = rng.integers(0, world + 1, 5000).astype(np.int32)
     legs = [rng.integers(0, 1 << 32, 5000, dtype=np.uint64).astype(
@@ -48,11 +50,35 @@ def test_partition_scatter_plain_matches_pallas(world):
     ref = tk.partition_scatter(jnp.asarray(t), [jnp.asarray(x) for x in legs],
                                world + 1, interpret=True)
     tt = _t(t)[None]
+    tlegs = [_t(x.view(np.int32))[None] for x in legs]
+    counts = K.partition_hist(tt, world + 1)[:, :, :world].sum(
+        1, dtype=torch.int32)
     got = K.partition_scatter(
-        tt, torch.stack([_t(x.view(np.int32))[None] for x in legs]),
-        world + 1, K.partition_hist(tt, world + 1))
+        tt, torch.stack(tlegs) if legs_as == "stack" else tlegs, world + 1,
+        counts)
+    assert got.shape == (3, 1, 5000)
     for r, g in zip(ref, got):
         assert np.array_equal(np.asarray(r), g[0].numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("bad", ["counts_shape", "counts_dtype", "leg_shape",
+                                 "leg_dtype", "stack_shape"])
+def test_partition_scatter_rejects_malformed_inputs(bad):
+    t = torch.zeros(2, 10, dtype=torch.int32)
+    legs = [torch.zeros(2, 10, dtype=torch.int32) for _ in range(2)]
+    counts = torch.zeros(2, 4, dtype=torch.int32)
+    if bad == "counts_shape":
+        counts = torch.zeros(2, 5, dtype=torch.int32)
+    elif bad == "counts_dtype":
+        counts = counts.to(torch.int64)
+    elif bad == "leg_shape":
+        legs[1] = torch.zeros(2, 11, dtype=torch.int32)
+    elif bad == "leg_dtype":
+        legs[0] = legs[0].to(torch.int64)
+    else:
+        legs = torch.zeros(2, 2, 11, dtype=torch.int32)
+    with pytest.raises(CylonError):
+        K.partition_scatter(t, legs, 5, counts)
 
 
 @pytest.mark.parametrize("world", [2, 4, 8])
