@@ -399,10 +399,15 @@ def check_kernels(K, calls) -> list:
     hit = ref[1] >= 0
     b_read = torch.unique(shard_of[hit] * b_s.shape[2]
                           + ref[1][hit].to(torch.int64)).numel()
+    # tiles at or past their shard's n_out only write -1 and zeros
+    tiles = -(-cap_e // K.EXPAND_TILE)
+    fill = sum(tiles - min(tiles, -(-max(int(x), 0) // K.EXPAND_TILE))
+               for x in c[:, 0])
     out.append(dict(
         name="join_expand_stream", err=err,
         shape=f"cap_e {cap_e} x {w} shards, groups A {len(a_s)} x "
-        f"{list(a_s[0].shape)}, B {len(b_s)} x {list(b_s[0].shape)}",
+        f"{list(a_s[0].shape)}, B {len(b_s)} x {list(b_s[0].shape)}, "
+        f"{fill} of {w * tiles} tiles fill-only",
         ms=cuda_ms(lambda: K.join_expand_stream(cnt, a_s, b_s, cap_e)),
         kernel_ms=own_kernel_ms(
             K, lambda: K.join_expand_stream(cnt, a_s, b_s, cap_e)),

@@ -31,10 +31,26 @@
 // element and its neighbour, element-striped across the block.
 // Arithmetic follows the TPU kernel's int32 wrap-around (sums in uint32).
 //
-// K4 replaces `join_expand_stream` (:706): one thread per output row j
-// binary-searches group A's strictly increasing starts over [0, n_emit)
-// for its covering probe run, then gathers the build row at
-// j + (delta2 >> 1) (arithmetic shift: the delta may be negative).
+// K4 replaces `join_expand_stream` (:706). The TPU kernel carries a run
+// pointer from grid step to grid step and searches a (BR + 8)-row window
+// of group A for each block of outputs. Here each block takes one tile of
+// EX_TILE consecutive outputs of one shard, with no carry:
+//   fill:   a tile at or past the shard's n_out reads nothing but the
+//           counts and writes -1 to aidx and bidx and 0 to every lane
+//           plane, as 16-byte stores;
+//   search: one warp finds the run that covers the tile's first output
+//           with a 32-ary search over group A's strictly increasing
+//           starts (each step probes 32 evenly spaced starts, ballots and
+//           keeps one interval: ~5 dependent loads at 2.6 M runs);
+//   window: every run covers at least one output, so the tile's runs are
+//           the next EX_TILE at most; the block loads their starts into
+//           shared memory with coalesced loads;
+//   rows:   each thread owns EX_V consecutive outputs a step: a binary
+//           search in shared memory for its first output's run and a walk
+//           for the rest, then two rounds of __ldg loads, group A's idx,
+//           delta2 and lanes at the runs and group B's at j + (delta2 >>
+//           1) (arithmetic shift: the delta may be negative; consecutive
+//           within a run), and one 16-byte store per output plane.
 //
 // Bound on an H100 (3.35 TB/s): bytes. K3 must read the stream once
 // ((2 + bits2 + verify) x 4 bytes per element, and the La or Lb payload
@@ -44,8 +60,9 @@
 // between it and the bound is each tile's latency (load, look-back,
 // writes) with only a few tiles resident on an SM. K4 must write
 // (2 + La + Lb) x 4 bytes per output row and read group A and the matched
-// rows of group B; its binary search reads log2(n_emit) starts per row,
-// mostly from L2.
+// rows of group B; beyond those it reads a window of starts and ~5 probes
+// of the search a tile, and tiles past n_out (half of the join cell's)
+// only write.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -66,7 +83,13 @@ constexpr int SPAN = HALO + TILE + 4;
 constexpr int BLOCKS = 4;        // resident blocks an SM is built for
 constexpr int MAX_LANES = 8;     // ops/join.py MAX_SHARED_LANES
 constexpr int MAX_VERIFY = 8;    // ops/join.py MAX_HASH_KEY_LANES is 6
-constexpr int EXPAND_THREADS = 256;
+constexpr int EX_BT = 256;                   // K4 threads per block
+constexpr int EX_V = 4;                      // outputs a thread owns a step
+constexpr int EX_STEP = EX_BT * EX_V;
+constexpr int EX_STEPS = 2;                  // steps a K4 tile
+constexpr int EX_TILE = EX_STEP * EX_STEPS;  // outputs per K4 tile
+constexpr int EX_BLOCKS = 3;   // K4 blocks an SM: 80 registers a thread
+                               // (the compiler's own 158 fit one)
 constexpr uint32_t IDX_MASK = (1u << 29) - 1u;
 
 struct Ptrs8 {
@@ -345,37 +368,164 @@ plan_stream(const uint32_t* __restrict__ bits, const uint32_t* __restrict__ tag,
   }
 }
 
-__global__ void __launch_bounds__(EXPAND_THREADS)
+// out[j + q] = v[q] for q < EX_V and j + q < end: one 16-byte store when
+// all four are in range and `vec` says the plane rows are 16-byte aligned
+__device__ __forceinline__ void store4(uint32_t* out, long long j,
+                                       long long end, bool vec,
+                                       const uint32_t (&v)[EX_V]) {
+  static_assert(EX_V == 4, "one uint4 a thread");
+  if (vec && j + EX_V <= end) {
+    *reinterpret_cast<uint4*>(out + j) = make_uint4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < EX_V; ++q)
+      if (j + q < end) out[j + q] = v[q];
+  }
+}
+
+// A: [3 + La, W, capA] (idx, delta2, start, a lanes); B: [1 + Lb, W, capB]
+// (idx, b lanes); outputs [W, cap_e] and [La or Lb, W, cap_e]. Grid:
+// (tiles of EX_TILE outputs, W).
+__global__ void __launch_bounds__(EX_BT, EX_BLOCKS)
 join_expand(const int* __restrict__ counts, const uint32_t* __restrict__ A,
             int La, long long capA, const uint32_t* __restrict__ B, int Lb,
-            long long capB, int W, long long cap_e, int* aidx, int* bidx,
-            uint32_t* alanes, uint32_t* blanes) {
+            long long capB, int W, long long cap_e, int vec,
+            uint32_t* __restrict__ aidx, uint32_t* __restrict__ bidx,
+            uint32_t* __restrict__ alanes, uint32_t* __restrict__ blanes) {
+  __shared__ int s_start[EX_TILE];
+  __shared__ int s_lo;
   const int w = blockIdx.y;
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= cap_e) return;
-  const int n_out = counts[w * 4 + 0];
-  const int n_emit = counts[w * 4 + 1];
-  const int* start = (const int*)(A + ((size_t)2 * W + w) * capA);
-  // covering run = #{r < n_emit : start[r] <= j} - 1 (starts increase)
-  int lo = 0, hi = n_emit;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if ((long long)start[mid] <= j) lo = mid + 1; else hi = mid;
+  const long long j0 = (long long)blockIdx.x * EX_TILE;
+  const long long n_out = counts[w * 4 + 0];
+  const int n_emit = (int)max(0LL, min((long long)counts[w * 4 + 1], capA));
+  const size_t ow = (size_t)w * cap_e;         // the shard's row in a plane
+  const size_t plane = (size_t)W * cap_e;
+  const int tid = threadIdx.x;
+
+  if (j0 >= n_out) {  // fill only
+    const uint32_t neg[EX_V] = {~0u, ~0u, ~0u, ~0u}, zero[EX_V] = {};
+#pragma unroll
+    for (int s = 0; s < EX_STEPS; ++s) {
+      const long long j = j0 + s * EX_STEP + tid * EX_V;
+      store4(aidx + ow, j, cap_e, vec, neg);
+      store4(bidx + ow, j, cap_e, vec, neg);
+      for (int l = 0; l < La; ++l)
+        store4(alanes + l * plane + ow, j, cap_e, vec, zero);
+      for (int l = 0; l < Lb; ++l)
+        store4(blanes + l * plane + ow, j, cap_e, vec, zero);
+    }
+    return;
   }
-  const long long woff = lo > 0 ? lo - 1 : 0;
-  const int d2 = (int)A[((size_t)1 * W + w) * capA + woff];
-  const bool valid = j < n_out;
-  const long long bpos = j + (d2 >> 1);
-  const bool has = valid && (d2 & 1) && bpos >= 0 && bpos < capB;
-  const size_t o = (size_t)w * cap_e + j;
-  aidx[o] = valid ? (int)A[((size_t)0 * W + w) * capA + woff] : -1;
-  bidx[o] = has ? (int)B[((size_t)0 * W + w) * capB + bpos] : -1;
-  for (int l = 0; l < La; ++l)
-    alanes[((size_t)l * W + w) * cap_e + j] =
-        valid ? A[((size_t)(3 + l) * W + w) * capA + woff] : 0u;
-  for (int l = 0; l < Lb; ++l)
-    blanes[((size_t)l * W + w) * cap_e + j] =
-        has ? B[((size_t)(1 + l) * W + w) * capB + bpos] : 0u;
+
+  // c = #{r < n_emit : start[r] <= j0}, by one warp: each step probes the
+  // last start of each of 32 equal parts of [lo, hi) and keeps the part
+  // that holds c (c stays in [lo, hi])
+  const int* start = (const int*)(A + ((size_t)2 * W + w) * capA);
+  if (tid < 32) {
+    int lo = 0, hi = n_emit;
+    while (lo < hi) {
+      const int s = (hi - lo + 31) >> 5;
+      const int p = lo + (tid + 1) * s - 1;
+      const bool le = p < hi && (long long)__ldg(start + p) <= j0;
+      const int m = __popc(__ballot_sync(lookback::FULL, le));
+      hi = min(hi, lo + (m + 1) * s - 1);
+      lo += m * s;
+    }
+    if (tid == 0) s_lo = max(lo - 1, 0);
+  }
+  __syncthreads();
+  // the runs of the tile's outputs below n_out: [r_lo, r_lo + nwin)
+  const int r_lo = s_lo;
+  const int nwin = (int)min((long long)(n_emit - r_lo),
+                            min(n_out, j0 + EX_TILE) - j0);
+  for (int k = tid; k < nwin; k += EX_BT) s_start[k] = __ldg(start + r_lo + k);
+  __syncthreads();
+
+  const uint32_t* Aw = A + (size_t)w * capA + r_lo;
+  const uint32_t* Bw = B + (size_t)w * capB;
+  const size_t pa = (size_t)W * capA, pb = (size_t)W * capB;
+#pragma unroll
+  for (int s = 0; s < EX_STEPS; ++s) {
+    const long long j = j0 + s * EX_STEP + tid * EX_V;
+    // each output's run in the window: a binary search for the first, a
+    // walk for the others
+    int lo = 0, hi = nwin;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if ((long long)s_start[mid] <= j) lo = mid + 1; else hi = mid;
+    }
+    int k = lo - 1;
+    int kq[EX_V];
+    bool valid[EX_V];
+#pragma unroll
+    for (int q = 0; q < EX_V; ++q) {
+      if (q > 0)
+        while (k + 1 < nwin && (long long)s_start[k + 1] <= j + q) ++k;
+      kq[q] = max(k, 0);
+      valid[q] = j + q < n_out;
+    }
+    // plane p of group A at output q's run
+    auto a_at = [&](int p, int q) { return __ldg(Aw + p * pa + kq[q]); };
+    // two dependent rounds of loads before the stores: group A's idx,
+    // delta2 and first lanes at the runs, then group B's idx and first
+    // lanes at bpos
+    constexpr int LG = 4;  // lanes a round takes; more go four at a time
+    uint32_t av[2 + LG][EX_V], bv[1 + LG][EX_V];
+#pragma unroll
+    for (int p = 0; p < 2 + LG; ++p)
+#pragma unroll
+      for (int q = 0; q < EX_V; ++q)
+        av[p][q] = valid[q] && p < 2 + La ? a_at(p < 2 ? p : p + 1, q)
+                                          : (p == 0 ? ~0u : 0u);
+    int bpos[EX_V];  // capB < 2^29
+    bool has[EX_V];
+#pragma unroll
+    for (int q = 0; q < EX_V; ++q) {
+      const int d2 = (int)av[1][q];
+      const long long bp = j + q + (d2 >> 1);
+      has[q] = valid[q] && (d2 & 1) && bp >= 0 && bp < capB;
+      bpos[q] = has[q] ? (int)bp : 0;
+    }
+#pragma unroll
+    for (int p = 0; p < 1 + LG; ++p)
+#pragma unroll
+      for (int q = 0; q < EX_V; ++q)
+        bv[p][q] = has[q] && p < 1 + Lb ? __ldg(Bw + p * pb + bpos[q])
+                                        : (p == 0 ? ~0u : 0u);
+    store4(aidx + ow, j, cap_e, vec, av[0]);
+    store4(bidx + ow, j, cap_e, vec, bv[0]);
+#pragma unroll
+    for (int l = 0; l < LG; ++l) {
+      if (l < La) store4(alanes + l * plane + ow, j, cap_e, vec, av[2 + l]);
+      if (l < Lb) store4(blanes + l * plane + ow, j, cap_e, vec, bv[1 + l]);
+    }
+    for (int l0 = LG; l0 < La; l0 += 4) {
+      uint32_t v[4][EX_V];
+#pragma unroll
+      for (int l = 0; l < 4; ++l)
+#pragma unroll
+        for (int q = 0; q < EX_V; ++q)
+          v[l][q] = (l0 + l < La && valid[q]) ? a_at(3 + l0 + l, q) : 0u;
+#pragma unroll
+      for (int l = 0; l < 4; ++l)
+        if (l0 + l < La)
+          store4(alanes + (l0 + l) * plane + ow, j, cap_e, vec, v[l]);
+    }
+    for (int l0 = LG; l0 < Lb; l0 += 4) {
+      uint32_t v[4][EX_V];
+#pragma unroll
+      for (int l = 0; l < 4; ++l)
+#pragma unroll
+        for (int q = 0; q < EX_V; ++q)
+          v[l][q] = (l0 + l < Lb && has[q])
+                        ? __ldg(Bw + (size_t)(1 + l0 + l) * pb + bpos[q])
+                        : 0u;
+#pragma unroll
+      for (int l = 0; l < 4; ++l)
+        if (l0 + l < Lb)
+          store4(blanes + (l0 + l) * plane + ow, j, cap_e, vec, v[l]);
+    }
+  }
 }
 
 }  // namespace
@@ -387,6 +537,8 @@ const char* kernel_error_string(int code) {
 }
 
 int plan_tile_rows() { return TILE; }
+
+int expand_tile_rows() { return EX_TILE; }
 
 // 64-bit words of K3's state for W shards of `tiles` tiles: the tile
 // counter, then the look-back state
@@ -419,15 +571,21 @@ int launch_plan_stream(const void* bits, const void* tag, const void* bits2,
   return static_cast<int>(cudaGetLastError());
 }
 
+// One launch: a block per tile of EX_TILE outputs per shard.
 int launch_join_expand(const void* counts, const void* A, int La,
                        long long capA, const void* B, int Lb, long long capB,
                        int W, long long cap_e, void* aidx, void* bidx,
                        void* alanes, void* blanes, void* stream) {
-  dim3 grid((unsigned)((cap_e + EXPAND_THREADS - 1) / EXPAND_THREADS), W);
-  join_expand<<<grid, EXPAND_THREADS, 0, (cudaStream_t)stream>>>(
+  const long long tiles = (cap_e + EX_TILE - 1) / EX_TILE;
+  if (tiles > 0x7fffffffLL || W > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto aligned = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
+  const int vec = cap_e % 4 == 0 && aligned(aidx) && aligned(bidx)
+                  && aligned(alanes) && aligned(blanes);
+  join_expand<<<dim3((unsigned)tiles, W), EX_BT, 0, (cudaStream_t)stream>>>(
       (const int*)counts, (const uint32_t*)A, La, capA, (const uint32_t*)B,
-      Lb, capB, W, cap_e, (int*)aidx, (int*)bidx, (uint32_t*)alanes,
-      (uint32_t*)blanes);
+      Lb, capB, W, cap_e, vec, (uint32_t*)aidx, (uint32_t*)bidx,
+      (uint32_t*)alanes, (uint32_t*)blanes);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,6 +11,16 @@
 //
 // K1 writes a per-tile histogram [W, tiles, nb]; summed over tiles (a
 //    torch reduction in the shuffle) it is each shard's per-bucket total.
+//    The TPU kernel counts a block with one vector compare-and-sum per
+//    bucket. Here a block takes one tile of one shard; each thread
+//    starts all its loads (16 ids, as four 16-byte loads where
+//    the shard's rows are 16-byte aligned, else as coalesced 4-byte
+//    loads) before it counts. Up to REG_BUCKETS buckets the counts live in
+//    registers, byte b of one 64-bit word for bucket b (at most 16 a
+//    thread), summed per warp with one __reduce_add_sync per bucket and
+//    over the warps in shared memory: no atomics. Past that, each id's
+//    warp peers (__match_any_sync) add their number to a shared table
+//    with one atomic from the group's leader.
 // K2 is one pass. Blocks take their tiles in stream order from an atomic
 //    counter. A tile reads its ids once (warp-striped, coalesced), ranks
 //    each row within its warp and bucket (`__match_any_sync` and a
@@ -27,7 +37,11 @@
 //    The scatter order is the stable sort by bucket, the dead bucket
 //    (ids == nb - 1, placed after the live ones) included.
 //
-// Bound on an H100 (3.35 TB/s): bytes. K2 must read the ids and the L
+// Bound on an H100 (3.35 TB/s): bytes. K1 must read the ids once and
+// write the table (4 bytes per row and 4 per tile and bucket); a tile's
+// loads are all in flight at once and the counting costs a few integer
+// operations per id, so what remains is the launch and its ramp at ~20 us.
+// K2 must read the ids and the L
 // 4-byte legs once and write the legs once, plus the [W, nb - 1] totals:
 // (4 + 8 L) bytes per row. The pass moves those bytes and the look-back
 // state (2 x 8 bytes per tile and bucket, zeroed by the launcher's
@@ -50,7 +64,9 @@ using lookback::FULL;
 using lookback::WRITTEN;
 
 constexpr int TILE = 4096;          // rows per tile (matches the TPU block)
-constexpr int HIST_THREADS = 256;
+constexpr int HIST_BT = 256;        // K1 threads per block
+constexpr int HIST_IT = 16;         // ids a K1 thread loads per tile
+constexpr int REG_BUCKETS = 8;      // K1 counts in registers up to here
 constexpr int BT = 256;             // K2 threads per block
 constexpr int WARPS = BT / 32;
 constexpr int IT = TILE / BT;       // rows per thread
@@ -61,6 +77,7 @@ constexpr int WIN = 4;              // predecessors a look-back thread reads
 constexpr int BLOCKS = 3;           // K2 blocks resident on an SM
 
 static_assert(MAX_BUCKETS <= BT, "one scan thread per bucket");
+static_assert(HIST_BT * HIST_IT == TILE, "K1 threads cover a tile");
 
 struct Legs {
   const uint32_t* p[MAX_LEGS];
@@ -68,24 +85,78 @@ struct Legs {
 
 using ScanU64 = cub::BlockScan<unsigned long long, BT>;
 
-__global__ void partition_hist_kernel(const int32_t* __restrict__ t,
-                                      int32_t* __restrict__ hist,
-                                      long long n, int tiles, int nb) {
-  __shared__ int h[MAX_BUCKETS];
+// hist: [W, tiles, nb]; grid (tiles, W), a block per tile of a shard.
+__global__ void __launch_bounds__(HIST_BT)
+partition_hist_kernel(const int32_t* __restrict__ t,
+                      int32_t* __restrict__ hist, long long n, int tiles,
+                      int nb) {
+  __shared__ int s_w[HIST_BT / 32][REG_BUCKETS];  // nb <= REG_BUCKETS
+  __shared__ int s_h[MAX_BUCKETS];                // nb > REG_BUCKETS
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int w = blockIdx.y;
-  const int tile = blockIdx.x;
-  for (int b = threadIdx.x; b < nb; b += blockDim.x) h[b] = 0;
-  __syncthreads();
-  const int32_t* tw = t + (size_t)w * n;
-  const long long lo = (long long)tile * TILE;
-  const long long hi = min(n, lo + TILE);
-  for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
-    const int b = tw[i];
-    if (b >= 0 && b < nb) atomicAdd(&h[b], 1);
+  const long long t0 = (long long)blockIdx.x * TILE;
+  const int32_t* tt = t + (size_t)w * n + t0;
+  const int cnt = (int)min((long long)TILE, n - t0);
+  int id[HIST_IT];
+  if (((uintptr_t)(t + (size_t)w * n) & 15) == 0) {
+    // vector c = tid + k * HIST_BT holds rows 4c .. 4c + 3
+#pragma unroll
+    for (int k = 0; k < HIST_IT / 4; ++k) {
+      const int r = 4 * (tid + k * HIST_BT);
+      if (r + 4 <= cnt) {
+        const int4 v = __ldg(reinterpret_cast<const int4*>(tt + r));
+        id[4 * k] = v.x;
+        id[4 * k + 1] = v.y;
+        id[4 * k + 2] = v.z;
+        id[4 * k + 3] = v.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          id[4 * k + e] = r + e < cnt ? __ldg(tt + r + e) : -1;
+      }
+    }
+  } else {  // the shard's rows start off a 16-byte boundary
+#pragma unroll
+    for (int k = 0; k < HIST_IT; ++k) {
+      const int r = tid + k * HIST_BT;
+      id[k] = r < cnt ? __ldg(tt + r) : -1;
+    }
   }
-  __syncthreads();
-  int32_t* out = hist + ((size_t)w * tiles + tile) * nb;
-  for (int b = threadIdx.x; b < nb; b += blockDim.x) out[b] = h[b];
+  int32_t* out = hist + ((size_t)w * tiles + blockIdx.x) * nb;
+  if (nb <= REG_BUCKETS) {
+    unsigned long long acc = 0;  // byte b counts bucket b
+#pragma unroll
+    for (int k = 0; k < HIST_IT; ++k)
+      if ((unsigned)id[k] < (unsigned)nb) acc += 1ull << (8 * id[k]);
+#pragma unroll
+    for (int b = 0; b < REG_BUCKETS; ++b) {
+      if (b >= nb) break;
+      const unsigned c =
+          __reduce_add_sync(FULL, (unsigned)(acc >> (8 * b)) & 0xffu);
+      if (lane == 0) s_w[warp][b] = (int)c;
+    }
+    __syncthreads();
+    if (tid < nb) {
+      int c = 0;
+#pragma unroll
+      for (int k = 0; k < HIST_BT / 32; ++k) c += s_w[k][tid];
+      out[tid] = c;
+    }
+  } else {
+    for (int b = tid; b < nb; b += HIST_BT) s_h[b] = 0;
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < HIST_IT; ++k) {
+      const bool in = (unsigned)id[k] < (unsigned)nb;
+      const unsigned peers = __match_any_sync(FULL, in ? id[k] : -1);
+      if (in && lane == __ffs(peers) - 1)
+        atomicAdd(&s_h[id[k]], __popc(peers));
+    }
+    __syncthreads();
+    for (int b = tid; b < nb; b += HIST_BT) out[b] = s_h[b];
+  }
 }
 
 // Shared state of one block's look-back over all buckets.
@@ -321,8 +392,9 @@ long long scatter_state_words(int W, int tiles, int nb) {
 int launch_partition_hist(const void* t, void* hist, int W, long long n,
                           int tiles, int nb, void* stream) {
   if (nb < 1 || nb > MAX_BUCKETS) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(tiles, W);
-  partition_hist_kernel<<<grid, HIST_THREADS, 0, (cudaStream_t)stream>>>(
+  if (W > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  partition_hist_kernel<<<dim3(tiles, W), HIST_BT, 0,
+                          (cudaStream_t)stream>>>(
       (const int32_t*)t, (int32_t*)hist, n, tiles, nb);
   return static_cast<int>(cudaGetLastError());
 }

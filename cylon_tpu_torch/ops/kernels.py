@@ -54,6 +54,7 @@ PARTITION_TILE = 4096   # rows per K1/K2 tile (csrc/partition.cu TILE)
 MAX_SCATTER_LEGS = 32   # K2 legs per pass (csrc/partition.cu MAX_LEGS)
 MAX_BUCKETS = 256       # K1/K2 bucket limit (csrc/partition.cu)
 PLAN_TILE = 2816        # elements per K3 tile (csrc/join_stream.cu TILE)
+EXPAND_TILE = 2048      # outputs per K4 tile (csrc/join_stream.cu EX_TILE)
 SETOP_TILE = 2816       # elements per K5 tile (csrc/setop_stream.cu TILE)
 MAX_PLAN_LANES = 8      # K3 payload and verify lane limit (join_stream.cu)
 COMPACT_TILE = 4096     # elements per K6 tile (csrc/stream_compact.cu TILE)
@@ -260,7 +261,8 @@ def plain_partition_hist(t: torch.Tensor, nbuckets: int) -> torch.Tensor:
 def partition_hist(t: torch.Tensor, nbuckets: int) -> torch.Tensor:
     """K1: per-tile bucket histogram of [W, n] int32 target ids (tiles of
     PARTITION_TILE rows). Summed over tiles it is the counts vector, whose
-    live buckets are K2's ``counts``."""
+    live buckets are K2's ``counts``. On the card: one launch, a block per
+    tile."""
     _check(t, "partition_hist ids")
     if not t.is_cuda:
         return plain_partition_hist(t, nbuckets)
@@ -511,7 +513,8 @@ def join_expand_stream(counts: torch.Tensor, a_streams, b_streams,
     run (#{start <= j} - 1), its idx and lanes, and the build idx and
     lanes at ``j + (delta2 >> 1)``. Returns (aidx, bidx int32 [W, cap_e],
     a lane outputs, b lane outputs): -1 and zeroed lanes past n_out, and
-    on the build side where the row has no match."""
+    on the build side where the row has no match. On the card: one launch,
+    a block per EXPAND_TILE outputs of a shard."""
     if counts.dtype != torch.int32 or counts.dim() != 2 \
             or counts.shape[1] != 4:
         raise CylonError(Code.Invalid, "join_expand_stream counts: want "

@@ -28,41 +28,17 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import json
-import os
-import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
 
-ROOT = Path(__file__).resolve().parent.parent
-MAX_TILES = 1 << 16
+import phase_tools as pt
+
 PHASES = {"partition": ("ids_rank", "scan", "lookback", "legs"),
           "stream_compact": ("mask", "lookback", "zeros", "streams")}
 
-
-def sub(s: str, a: str, b: str) -> str:
-    assert s.count(a) == 1, a
-    return s.replace(a, b)
-
-
-def stamp(name: str) -> str:
-    return f"  const unsigned long long {name} = now();\n"
-
-
-PRELUDE = ("namespace {\n"
-           f"__device__ unsigned long long g_stamp[5 * {MAX_TILES}];\n"
-           "__device__ unsigned long long g_count[3];\n"
-           "__device__ __forceinline__ unsigned long long now() {\n"
-           "  unsigned long long t;\n"
-           "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n"
-           "  return t;\n}\n")
-
-STORE = ("  if (threadIdx.x == 0 && vt < " + str(MAX_TILES) + ") {\n"
-         "    unsigned long long* d = g_stamp + 5 * vt;\n"
-         "    d[0] = T0; d[1] = T1; d[2] = T2; d[3] = T3; d[4] = now();\n"
-         "  }\n")
+PRELUDE = pt.prelude(5, "__device__ unsigned long long g_count[3];\n")
+STORE = pt.store("vt", ["T0", "T1", "T2", "T3", "now()"])
 
 READ = """
 extern "C" int read_stamps(void* dst, void* counters) {
@@ -78,31 +54,32 @@ extern "C" int read_stamps(void* dst, void* counters) {
 def instrument_k2(src: str) -> str:
     """Stamps: T0 tile taken, T1 ranked, T2 scanned, T3 looked back;
     counters: look-back calls, rounds, rounds that waited."""
-    s = sub(src, "namespace {\n", PRELUDE)
-    s = sub(s, "  if (tid < nb) {\n    lb.run[tid] = 0;",
-            "  if (tid == 0) atomicAdd(&g_count[0], 1ull);\n"
-            "  if (tid < nb) {\n    lb.run[tid] = 0;")
-    s = sub(s, "  while (true) {\n    if (g < G && !lb.done[b]) {",
-            "  while (true) {\n    if (tid == 0) atomicAdd(&g_count[1], 1ull);\n"
-            "    if (g < G && !lb.done[b]) {")
-    s = sub(s, "    if (__syncthreads_or(blocked)) __nanosleep(32);",
-            "    if (__syncthreads_or(blocked)) {\n"
-            "      if (tid == 0) atomicAdd(&g_count[2], 1ull);\n"
-            "      __nanosleep(32);\n    }")
-    s = sub(s, "  const int w = vt / tiles;\n", stamp("T0")
-            + "  const int w = vt / tiles;\n")
-    s = sub(s, "    slot[r] = in ? before + __popc(peers & below) : -1;\n"
+    s = pt.sub(src, "namespace {\n", PRELUDE)
+    s = pt.sub(s, "  if (tid < nb) {\n    lb.run[tid] = 0;",
+               "  if (tid == 0) atomicAdd(&g_count[0], 1ull);\n"
+               "  if (tid < nb) {\n    lb.run[tid] = 0;")
+    s = pt.sub(s, "  while (true) {\n    if (g < G && !lb.done[b]) {",
+               "  while (true) {\n"
+               "    if (tid == 0) atomicAdd(&g_count[1], 1ull);\n"
+               "    if (g < G && !lb.done[b]) {")
+    s = pt.sub(s, "    if (__syncthreads_or(blocked)) __nanosleep(32);",
+               "    if (__syncthreads_or(blocked)) {\n"
+               "      if (tid == 0) atomicAdd(&g_count[2], 1ull);\n"
+               "      __nanosleep(32);\n    }")
+    s = pt.sub(s, "  const int w = vt / tiles;\n", pt.stamp("T0")
+               + "  const int w = vt / tiles;\n")
+    s = pt.sub(s, "    slot[r] = in ? before + __popc(peers & below) : -1;\n"
                "  }\n  __syncthreads();\n",
-            "    slot[r] = in ? before + __popc(peers & below) : -1;\n"
-            "  }\n  __syncthreads();\n" + stamp("T1"))
-    s = sub(s, "  if (L > 0) load_leg(0);\n",
-            "  if (L > 0) load_leg(0);\n" + stamp("T2"))
-    s = sub(s, "    s_dst[tid] = base_b + pre - s_loc[tid];\n  }\n"
+               "    slot[r] = in ? before + __popc(peers & below) : -1;\n"
+               "  }\n  __syncthreads();\n" + pt.stamp("T1"))
+    s = pt.sub(s, "  if (L > 0) load_leg(0);\n",
+               "  if (L > 0) load_leg(0);\n" + pt.stamp("T2"))
+    s = pt.sub(s, "    s_dst[tid] = base_b + pre - s_loc[tid];\n  }\n"
                "  __syncthreads();\n",
-            "    s_dst[tid] = base_b + pre - s_loc[tid];\n  }\n"
-               "  __syncthreads();\n" + stamp("T3"))
-    s = sub(s, "    __syncthreads();\n  }\n}\n\n}  // namespace",
-            "    __syncthreads();\n  }\n" + STORE + "}\n\n}  // namespace")
+               "    s_dst[tid] = base_b + pre - s_loc[tid];\n  }\n"
+               "  __syncthreads();\n" + pt.stamp("T3"))
+    s = pt.sub(s, "    __syncthreads();\n  }\n}\n\n}  // namespace",
+               "    __syncthreads();\n  }\n" + STORE + "}\n\n}  // namespace")
     return s + READ
 
 
@@ -110,21 +87,22 @@ def instrument_k6(src: str) -> str:
     """Stamps: T0 tile taken, T1 mask loaded, T2 looked back, T3 tail
     zeroed; counters: look-back calls (tiles past the first), steps of 32
     predecessors, steps that waited (counted in the patched header)."""
-    s = sub(src, "namespace {\n", PRELUDE)
-    s = sub(s, "  const int w = (int)(vt / tiles);\n", stamp("T0")
-            + "  const int w = (int)(vt / tiles);\n")
-    s = sub(s, "  __syncthreads();\n  unsigned bal[IT];",
-            "  __syncthreads();\n" + stamp("T1") + "  unsigned bal[IT];")
-    s = sub(s, "  __syncthreads();\n  const int excl = s_excl;",
-            "  __syncthreads();\n" + stamp("T2")
-            + "  const int excl = s_excl;")
-    s = sub(s, "  const int wo = s_woff[warp];",
-            stamp("T3") + "  const int wo = s_woff[warp];")
-    s = sub(s, "    __syncthreads();\n  }\n}\n\n}  // namespace",
-            "    __syncthreads();\n  }\n" + STORE + "}\n\n}  // namespace")
-    s = sub(s, "      excl = lookback::look_back<Count>(",
-            "      if (lane == 0) atomicAdd(&g_count[0], 1ull);\n"
-            "      excl = lookback::look_back<Count>(")
+    s = pt.sub(src, "namespace {\n", PRELUDE)
+    s = pt.sub(s, "  const int w = (int)(vt / tiles);\n", pt.stamp("T0")
+               + "  const int w = (int)(vt / tiles);\n")
+    s = pt.sub(s, "  __syncthreads();\n  unsigned bal[IT];",
+               "  __syncthreads();\n" + pt.stamp("T1")
+               + "  unsigned bal[IT];")
+    s = pt.sub(s, "  __syncthreads();\n  const int excl = s_excl;",
+               "  __syncthreads();\n" + pt.stamp("T2")
+               + "  const int excl = s_excl;")
+    s = pt.sub(s, "  const int wo = s_woff[warp];",
+               pt.stamp("T3") + "  const int wo = s_woff[warp];")
+    s = pt.sub(s, "    __syncthreads();\n  }\n}\n\n}  // namespace",
+               "    __syncthreads();\n  }\n" + STORE + "}\n\n}  // namespace")
+    s = pt.sub(s, "      excl = lookback::look_back<Count>(",
+               "      if (lane == 0) atomicAdd(&g_count[0], 1ull);\n"
+               "      excl = lookback::look_back<Count>(")
     return s + READ
 
 
@@ -132,13 +110,13 @@ def instrument_header(hdr: str) -> str:
     """The warp look-back's steps of 32 predecessors and the steps that
     met one with nothing published, as counters in the header that
     ``read_lb_counts`` reads and clears."""
-    h = sub(hdr, "namespace lookback {\n",
-            "namespace lookback {\n"
-            "__device__ unsigned long long g_lb_steps, g_lb_waits;\n")
-    h = sub(h, "    if (__any_sync(FULL, status == 0)) {\n",
-            "    if (lane == 0) atomicAdd(&g_lb_steps, 1ull);\n"
-            "    if (__any_sync(FULL, status == 0)) {\n"
-            "      if (lane == 0) atomicAdd(&g_lb_waits, 1ull);\n")
+    h = pt.sub(hdr, "namespace lookback {\n",
+               "namespace lookback {\n"
+               "__device__ unsigned long long g_lb_steps, g_lb_waits;\n")
+    h = pt.sub(h, "    if (__any_sync(FULL, status == 0)) {\n",
+               "    if (lane == 0) atomicAdd(&g_lb_steps, 1ull);\n"
+               "    if (__any_sync(FULL, status == 0)) {\n"
+               "      if (lane == 0) atomicAdd(&g_lb_waits, 1ull);\n")
     h += """
 extern "C" int read_lb_counts(void* counters) {
   cudaMemcpyFromSymbol(counters, lookback::g_lb_steps, 8);
@@ -152,52 +130,19 @@ extern "C" int read_lb_counts(void* counters) {
     return h
 
 
-def build(K, name: str, src: str, hdr: str):
-    vdir = K.BUILD_DIR / "tile_phases" / name
-    vdir.mkdir(parents=True, exist_ok=True)
-    (vdir / "lookback.cuh").write_text(hdr)
-    (vdir / f"{name}.cu").write_text(src)
-    so = vdir / f"lib{name}_phases.so"
-    with open(vdir / "build.log", "w") as log:
-        subprocess.run([K.nvcc_path(), *K.NVCC_FLAGS, "-o", str(so),
-                        str(vdir / f"{name}.cu")], check=True, stdout=log,
-                       stderr=subprocess.STDOUT)
-    lib = ctypes.CDLL(str(so))
-    for fn, args in K._SIGNATURES[name].items():
-        getattr(lib, fn).argtypes = args
-        getattr(lib, fn).restype = ctypes.c_int
-    state_fn, state_args = K._STATE_WORDS[name]
-    getattr(lib, state_fn).argtypes = state_args
-    getattr(lib, state_fn).restype = ctypes.c_longlong
-    lib.read_stamps.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    lib.read_lb_counts.argtypes = [ctypes.c_void_p]
-    return lib
-
-
 def measure(torch, lib, go, T: int, phases, rows_per_tile: int) -> dict:
     """Warm up, then one stamped launch: per-phase percentiles."""
-    stamps = np.zeros(5 * MAX_TILES, np.uint64)
+    stamps = np.zeros(5 * pt.MAX_TILES, np.uint64)
     counts = np.zeros(3, np.uint64)
     lbc = np.zeros(2, np.uint64)
-    for _ in range(3):
-        go()
-    torch.cuda.synchronize()
-    lib.read_stamps(stamps.ctypes.data, counts.ctypes.data)
-    lib.read_lb_counts(lbc.ctypes.data)
-    go()
-    torch.cuda.synchronize()
-    lib.read_stamps(stamps.ctypes.data, counts.ctypes.data)
-    lib.read_lb_counts(lbc.ctypes.data)
+
+    def read():
+        lib.read_stamps(stamps.ctypes.data, counts.ctypes.data)
+        lib.read_lb_counts(lbc.ctypes.data)
+
+    pt.stamped(torch, go, read)
     t = stamps[:5 * T].reshape(T, 5).astype(np.int64)
-    us = np.diff(t, axis=1) / 1e3
-    span = (t[:, 4].max() - t[:, 0].min()) / 1e3
-    return {"tiles": T, "tile_rows": rows_per_tile, "span_us": span,
-            "tiles_per_us": T / span,
-            "tile_us_mean": float((t[:, 4] - t[:, 0]).mean() / 1e3),
-            "phase_us": {p: {"mean": float(us[:, i].mean()),
-                             **{f"p{q}": float(np.percentile(us[:, i], q))
-                                for q in (50, 90, 99)}}
-                         for i, p in enumerate(phases)},
+    return {"tile_rows": rows_per_tile, **pt.span_stats(t, phases),
             "counters": [int(x) for x in counts],
             "lookback_steps_waits": [int(x) for x in lbc]}
 
@@ -208,37 +153,25 @@ def main() -> int:
     ap.add_argument("--setop-rows", type=int, default=1 << 23)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
-    import torch
-
-    if not torch.cuda.is_available():
-        print("k2_k6_tile_phases: CUDA is not available", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT))
-    import chip_smoke as cs
-    import cylon_tpu_torch as ct
-    from cylon_tpu_torch.ops import kernels as K
-
-    card = cs.card_line()
-    print(card, flush=True)
+    torch, cs, ct, K, card = pt.init("k2_k6_tile_phases")
     hdr = instrument_header((K.CSRC / "lookback.cuh").read_text())
-    k2 = build(K, "partition",
-               instrument_k2(K.SOURCES["partition"].read_text()), hdr)
-    k6 = build(K, "stream_compact",
-               instrument_k6(K.SOURCES["stream_compact"].read_text()), hdr)
+    libs = pt.build(K, {
+        "partition": ("partition",
+                      instrument_k2(K.SOURCES["partition"].read_text()), hdr),
+        "stream_compact": ("stream_compact", instrument_k6(
+            K.SOURCES["stream_compact"].read_text()), hdr)}, "tile_phases")
+    for lib in libs.values():
+        lib.read_stamps.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.read_lb_counts.argtypes = [ctypes.c_void_p]
+    k2, k6 = libs["partition"], libs["stream_compact"]
     st = torch.cuda.current_stream().cuda_stream
 
-    dctx = ct.CylonContext.InitDistributed(ct.VirtualWorldConfig(4))
-    left, right, _h = cs.make_tables(ct, dctx, args.rows, 0)
-    with cs.Recorder(K) as rec:
-        out = left.distributed_join(right, "inner", on=["k"],
-                                    force_exchange=True)
-        torch.cuda.synchronize()
-    del out, left, right
+    rec = pt.record_join(torch, cs, ct, K, args.rows)
     (t, legs, nb, counts), _ = rec.calls["partition_scatter"]
     legs = list(legs)
     w, n = t.shape
     tiles = -(-n // K.PARTITION_TILE)
-    assert w * tiles <= MAX_TILES
+    assert w * tiles <= pt.MAX_TILES
     state = torch.empty(k2.scatter_state_words(w, tiles, nb),
                         dtype=torch.int64, device="cuda")
     o2 = torch.empty(len(legs), w, n, dtype=torch.int32, device="cuda")
@@ -253,18 +186,13 @@ def main() -> int:
     assert torch.equal(o2, K.plain_partition_scatter(t, legs, nb, counts))
     del rec, t, legs, counts, o2, state
 
-    lctx = ct.CylonContext.Init()
-    a, b, _p = cs.make_setop_tables(ct, lctx, args.setop_rows, 3)
-    with cs.Recorder(K) as rec:
-        out = a.union(b)
-        torch.cuda.synchronize()
-    del out, a, b
+    rec = pt.record_union(torch, cs, ct, K, args.setop_rows)
     (mask, streams, out_len), kw = rec.calls["stream_compact"]
     first = kw.get("first_mask", -1)
     w, n = mask.shape
     tiles = -(-n // K.COMPACT_TILE)
     slack = -(-(out_len - n) // K.COMPACT_TILE)
-    assert w * tiles <= MAX_TILES
+    assert w * tiles <= pt.MAX_TILES
     state = torch.empty(k6.compact_state_words(w, tiles), dtype=torch.int64,
                         device="cuda")
     o6 = torch.empty(streams.shape[0], w, out_len, dtype=torch.int32,
@@ -281,14 +209,7 @@ def main() -> int:
                                     PHASES["stream_compact"], K.COMPACT_TILE)
     ref = K.plain_stream_compact(mask, streams, out_len, first)
     assert torch.equal(o6, ref[0]) and torch.equal(c6, ref[1])
-    print(json.dumps(res), flush=True)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
-                    exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(res, f, indent=1)
-    print(card, flush=True)
-    return 0
+    return pt.finish(res, args.out, card)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
-"""Compare the single-pass kernels K2 partition_scatter, K3
-join_plan_stream, K5 setop_stream and K6 stream_compact of two checkouts
-on one card, and split each wrapper call's device time.
+"""Compare the kernels K1 partition_hist, K2 partition_scatter, K3
+join_plan_stream, K4 join_expand_stream, K5 setop_stream and K6
+stream_compact of two checkouts on one card, and split each wrapper
+call's device time.
 
     python3 scripts/stream_kernels_ab.py --trees OLD,NEW,NEW,OLD
         [--rows N] [--setop-rows M] [--out PATH]
@@ -11,8 +12,8 @@ process (so list them in turns: old, new, new, old). In each process:
 
 * build the tree's kernels;
 * run ``chip_smoke.py``'s world-4 join (2 x N rows, ``force_exchange``)
-  once on the kernel route, recording K2's and K3's inputs (each
-  wrapper's first call), then time 5 steady walls of it;
+  once on the kernel route, recording K1's, K2's, K3's and K4's inputs
+  (each wrapper's first call), then time 5 steady walls of it;
 * the same for the local UNION of 2 x M rows (K5's and K6's inputs);
 * time each wrapper at those inputs (median of 7 CUDA-event-timed calls,
   as ``chip_smoke.py`` phase 8 does) and profile one wrapper call under
@@ -38,8 +39,8 @@ import time
 from pathlib import Path
 
 
-KERNELS = ("partition_scatter", "join_plan_stream", "setop_stream",
-           "stream_compact")
+KERNELS = ("partition_hist", "partition_scatter", "join_plan_stream",
+           "join_expand_stream", "setop_stream", "stream_compact")
 
 
 def _dev_us(e) -> float:
@@ -152,7 +153,7 @@ def child(tree: Path, rows: int, setop_rows: int) -> dict:
                      "kernel_ms": launch_ms(torch, K, call),
                      "profile": profile_split(torch, call, own)}
 
-    # the join path: K3's inputs from the world-4 join's first call
+    # the join path: K1-K4's inputs from the world-4 join's first call
     dctx = ct.CylonContext.InitDistributed(ct.VirtualWorldConfig(4))
     left, right, _h = cs.make_tables(ct, dctx, rows, 0)
     torch.cuda.synchronize()
@@ -171,7 +172,12 @@ def child(tree: Path, rows: int, setop_rows: int) -> dict:
     wrapper("join_plan_stream", lambda: K.join_plan_stream(**kw))
     k2, k2kw = rec.calls["partition_scatter"]
     wrapper("partition_scatter", lambda: K.partition_scatter(*k2, **k2kw))
-    del rec, kw, k2, k2kw, left, right
+    k1, k1kw = rec.calls["partition_hist"]
+    wrapper("partition_hist", lambda: K.partition_hist(*k1, **k1kw))
+    k4, k4kw = rec.calls["join_expand_stream"]
+    wrapper("join_expand_stream",
+            lambda: K.join_expand_stream(*k4, **k4kw))
+    del rec, kw, k1, k1kw, k2, k2kw, k4, k4kw, left, right
 
     # the set-op path: K5's inputs from the local UNION's first call
     lctx = ct.CylonContext.Init()

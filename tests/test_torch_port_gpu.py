@@ -7,6 +7,8 @@ that has only torch; there, skip the JAX package's conftest:
 
     python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -57,6 +59,18 @@ def test_partition_kernels_match_plain(cuda, world):
     torch.cuda.synchronize()
     assert torch.equal(out, K.plain_partition_scatter(t, legs, world + 1,
                                                       counts))
+
+
+def test_tile_constants_match_sources(cuda):
+    """The wrappers' tile sizes are the sources' own."""
+    def c_int(lib, fn):
+        f = getattr(K._lib(lib), fn)
+        f.argtypes, f.restype = [], ctypes.c_int
+        return f()
+
+    assert c_int("partition", "tile_rows") == K.PARTITION_TILE
+    assert c_int("join_stream", "plan_tile_rows") == K.PLAN_TILE
+    assert c_int("join_stream", "expand_tile_rows") == K.EXPAND_TILE
 
 
 def test_partition_past_the_bucket_limit_raises(cuda):
@@ -441,3 +455,182 @@ def test_stream_compact_lookback_stress(cuda, density, w, lanes, first_mask):
             torch.cuda.synchronize()
             assert torch.equal(got[1], ref[1])
             assert torch.equal(got[0], ref[0])
+
+
+# ---------------------------------------------------------------------------
+# K4 stress: tiles of outputs, a 32-ary search per tile and a window of
+# starts. K4 has no cross-block state, so its result cannot depend on
+# scheduling; each case runs twice, the allocator's cache dirtied before
+# each run, so that an output slot the kernel leaves unwritten shows.
+# ---------------------------------------------------------------------------
+
+def _dirty(dev, nbytes):
+    """Fill and free a block of device memory, so that the next
+    allocations likely start from garbage rather than from an earlier
+    result."""
+    junk = torch.full((max(nbytes // 4, 1),), 0x5A5A5A5A, dtype=torch.int32,
+                      device=dev)
+    del junk
+
+
+def _expand_sides(rng, case, w):
+    """Probe side (keys, key validity, emit) and build keys, numpy [W, n],
+    of one K4 stress case."""
+    na, nb, kmax = 100_000, 100_000, 60_000
+    if case == "one_tile":
+        na, nb, kmax = 600, 500, 700
+    pk = rng.integers(0, kmax, (w, na)).astype(np.int32)
+    bk = rng.integers(0, kmax, (w, nb)).astype(np.int32)
+    pval = np.ones((w, na), bool)
+    pemit = rng.random((w, na)) < 0.95
+    if case == "heavy":          # runs of 12,000 outputs: ~6 tiles each
+        pk[:, :3] = 7
+        bk[:, :12_000] = 7
+    elif case == "empty_shard":  # one shard emits no probe row
+        pemit[w // 2] = False
+    elif case == "left_dead":    # nulls, unmatched keys, both key ends
+        pval = rng.random((w, na)) < 0.8
+        pk[:, 100:5_000] += kmax
+        pk[:, :2], bk[:, :2] = [0, kmax - 1], [0, kmax - 1]
+        pval[:, :2] = True
+    elif case == "uneven":       # n_out differs by ~2x from shard to shard
+        for s in range(w):
+            pk[s] %= kmax // (1 + s % 3)
+            bk[s] %= kmax // (1 + s % 3)
+    elif case == "few_runs":     # 1, 20, 31, 33, ... emitting probe rows
+        pemit[:] = False
+        for s in range(w):
+            e = (1, 20, 31, 33)[s % 4]
+            pemit[s, :e] = True
+            pk[s, 0] = 7
+        bk[:, :3_000] = 7
+    return pk, pval, pemit, bk
+
+
+def _expand_plan(dev, rng, case, w, jt, hash_mode, La, Lb):
+    """K3's plan (the plain version, so that K4's test does not rest on
+    K3) over a case's join, with max(La, Lb) random payload lanes."""
+    pk, pval, pemit, bk = _expand_sides(rng, case, w)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    pbits, pkv = J.key_bits([t(pk)], [t(pval)])
+    bbits, bkv = J.key_bits([t(bk)], [None])
+    p = (pbits, pkv, t(pemit), (t(pk),), (None,))
+    b = (bbits, bkv, torch.ones_like(t(bk), dtype=torch.bool), (t(bk),),
+         (None,))
+    left, right = (b, p) if jt == J.JoinType.RIGHT else (p, b)
+    kw = J.stream_plan_inputs(*left[:3], *right[:3], left[3], left[4],
+                              right[3], right[4], jt, (), (), hash_mode)
+    n = kw["bits_s"].shape[1]
+    kw["lanes"] = [t(rng.integers(-2**31, 2**31, (w, n), dtype=np.int64)
+                     .astype(np.int32)) for _ in range(max(La, Lb))]
+    kw["n_a_lanes"], kw["n_b_lanes"] = La, Lb
+    return K.plain_join_plan_stream(**kw)
+
+
+EXPAND_STRESS = [
+    # case, world, join type, hash mode, La, Lb
+    ("heavy", 1, J.JoinType.INNER, False, 4, 4),
+    ("heavy", 4, J.JoinType.LEFT, True, 1, 0),
+    ("heavy", 8, J.JoinType.RIGHT, False, 8, 8),
+    ("straddle", 1, J.JoinType.RIGHT, True, 0, 1),
+    ("straddle", 4, J.JoinType.INNER, False, 4, 4),
+    ("empty_shard", 4, J.JoinType.INNER, False, 4, 4),
+    ("empty_shard", 8, J.JoinType.LEFT, True, 8, 1),
+    ("empty_shard", 4, J.JoinType.RIGHT, False, 0, 0),
+    ("left_dead", 1, J.JoinType.LEFT, False, 4, 4),
+    ("left_dead", 4, J.JoinType.LEFT, True, 1, 8),
+    ("left_dead", 8, J.JoinType.RIGHT, False, 4, 0),
+    ("cap_exact", 1, J.JoinType.INNER, False, 4, 4),
+    ("cap_exact", 4, J.JoinType.LEFT, True, 1, 1),
+    ("one_tile", 1, J.JoinType.INNER, True, 8, 4),
+    ("one_tile", 4, J.JoinType.RIGHT, False, 1, 1),
+    ("uneven", 8, J.JoinType.INNER, False, 4, 4),
+    ("uneven", 4, J.JoinType.LEFT, True, 0, 8),
+    ("few_runs", 4, J.JoinType.INNER, False, 4, 4),
+    ("few_runs", 8, J.JoinType.RIGHT, True, 8, 0),
+]
+
+
+@pytest.mark.parametrize("case,world,jt,hash_mode,La,Lb", EXPAND_STRESS)
+def test_join_expand_stress(cuda, case, world, jt, hash_mode, La, Lb):
+    rng = np.random.default_rng(len(case) + 10 * world + int(jt))
+    counts, a, b = _expand_plan(cuda, rng, case, world, jt, hash_mode, La,
+                                Lb)
+    n_out = counts[:, 0].cpu()
+    n_emit = counts[:, 1].cpu()
+    top = int(n_out.max())
+    if case == "cap_exact":      # cap_e = n_out, and a scalar tail
+        caps = [top, top + 1, top + 2, top + 3]
+    elif case == "one_tile":
+        assert top <= K.EXPAND_TILE
+        caps = [K.EXPAND_TILE]
+    else:
+        caps = [J.stream_expand_capacity(top, 8)]
+    # each case has the shape it is named for
+    if case == "heavy":
+        assert int((a[2, :, 1:n_emit.min()] - a[2, :, :n_emit.min() - 1])
+                   .max()) > 5 * K.EXPAND_TILE
+    elif case == "straddle":
+        assert any(0 < int(x) % K.EXPAND_TILE for x in n_out)
+    elif case == "empty_shard":
+        assert int(n_emit.min()) == 0 < int(n_emit.max())
+    elif case == "left_dead":
+        assert (a[1, 0, :int(n_emit[0])] % 2 == 0).any()  # dead or unmatched
+    elif case == "uneven":
+        assert int(n_out.max()) > 1.5 * int(n_out.min())
+    elif case == "few_runs":
+        assert sorted(set(n_emit.tolist()))[0] == 1 and int(n_emit.max()) < 34
+    for cap_e in caps:
+        ref = K.plain_join_expand_stream(counts, a, b, cap_e)
+        for _ in range(2):
+            _dirty(cuda, 4 * world * cap_e * (2 + La + Lb))
+            got = K.join_expand_stream(counts, a, b, cap_e)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], ref[0])
+            assert torch.equal(got[1], ref[1])
+            assert len(got[2]) == La and len(got[3]) == Lb
+            for x, y in zip(got[2] + got[3], ref[2] + ref[3]):
+                assert torch.equal(x, y)
+        if case == "left_dead":  # some valid rows have no build row
+            assert bool(((ref[0] >= 0) & (ref[1] < 0)).any())
+        if case == "heavy":      # bpos spans reach both ends of group B
+            assert int(ref[1].max()) >= 0
+
+
+# ---------------------------------------------------------------------------
+# K1 stress: counts in registers (nb <= 8) or by warp peer groups (nb > 8);
+# shards start off a 16-byte boundary where n is not a multiple of 4
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [1, 3, 4_095, 4_096, 4_097, 1_000_003])
+@pytest.mark.parametrize("nb", [1, 2, 5, 8, 9, 17, 256])
+def test_partition_hist_stress(cuda, nb, n):
+    rng = np.random.default_rng(nb * 7 + n)
+    w = 3
+    ids = rng.integers(-2, nb + 3, (w, n)).astype(np.int32)
+    t = torch.from_numpy(ids).to(cuda)
+    ref = K.plain_partition_hist(t, nb)
+    for _ in range(2):
+        _dirty(cuda, 4 * ref.numel())
+        got = K.partition_hist(t, nb)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("nb", [5, 17])
+def test_partition_hist_unaligned_base(cuda, nb):
+    """A [W, n] view whose first row starts 4 bytes past an aligned
+    address: every shard takes the scalar loads."""
+    rng = np.random.default_rng(nb)
+    w, n = 2, 3 * K.PARTITION_TILE
+    flat = torch.from_numpy(rng.integers(-1, nb + 1, w * n + 1).astype(
+        np.int32)).to(cuda)
+    t = flat[1:].view(w, n)
+    assert t.data_ptr() % 16 == 4 and t.is_contiguous()
+    got = K.partition_hist(t, nb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K.plain_partition_hist(t, nb))

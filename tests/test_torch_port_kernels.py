@@ -40,6 +40,19 @@ def test_partition_hist_plain_matches_pallas(world):
     assert np.array_equal(ref, got)
 
 
+@pytest.mark.parametrize("nb", [1, 5, 9])
+def test_partition_hist_plain_matches_pallas_out_of_range_ragged(nb):
+    """Ids below 0 and at or past nbuckets are never counted, and the last
+    tile is ragged (n not a multiple of the 4,096-row tile)."""
+    rng = np.random.default_rng(30 + nb)
+    n = 2 * K.PARTITION_TILE + 777
+    t = rng.integers(-3, nb + 3, n).astype(np.int32)
+    ref = np.asarray(tk.partition_hist(jnp.asarray(t), nb, interpret=True))
+    got = K.partition_hist(_t(t)[None], nb)[0].numpy()
+    assert got.shape == (3, nb) and got.sum() < n
+    assert np.array_equal(ref, got)
+
+
 @pytest.mark.parametrize("legs_as", ["stack", "sequence"])
 @pytest.mark.parametrize("world", [2, 4, 8])
 def test_partition_scatter_plain_matches_pallas(world, legs_as):
@@ -233,3 +246,4 @@ def test_left_stream_matches_xla_plan(hash_mode):
         tc, ta, tb, tjoin.stream_expand_capacity(cap, 8))
     tl, tr = tl[0].numpy(), tr[0].numpy()
     assert sorted(zip(tl[tl >= 0].tolist(), tr[tl >= 0].tolist())) == ref
+
