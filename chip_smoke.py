@@ -1,8 +1,9 @@
 """Drive cylon_tpu_torch's main path on one NVIDIA H100 and check it.
 
-    python3 chip_smoke.py [--rows N] [--setop-rows M] [--seed S] [--out PATH]
+    python3 chip_smoke.py [--rows N] [--setop-rows M] [--pipeline-rows P]
+                          [--groupby-rows G] [--seed S] [--out PATH]
 
-Two paths, each at the size of the repo's own benchmark:
+Four paths, each at the size of the repo's own benchmark:
 
 * the join: bench.py ``bench_dist_join``, two tables of N = 16,777,216
   rows (``--rows``), an int32 key uniform in [0, N) and one float32
@@ -13,7 +14,17 @@ Two paths, each at the size of the repo's own benchmark:
   [0, M) and g uniform in [0, 2^20), ``Table.union/subtract/intersect``
   on one card (kernels K5 setop_stream and K6 stream_compact), and
   bench.py ``bench_dist_union``: ``distributed_set_op(UNION,
-  force_exchange=True)`` at world 4 (K1/K2).
+  force_exchange=True)`` at world 4 (K1/K2);
+* groupby: bench.py ``bench_plan_pipeline``'s eager form (two tables of
+  P = 8,388,608 rows, ``--pipeline-rows``, k in [0, P/4): an inner
+  distributed join on k at world 4, then ``distributed_groupby`` of the
+  right payload by k, whose partials take the compact exchange route)
+  and ``bench_groupby`` (G = 16,777,216 rows, ``--groupby-rows``: g in
+  [0, 2^20), ``groupby(0, [1, 2, 1], [sum, count, mean])`` at world 1
+  and 4);
+* sort: bench.py ``bench_sort`` and ``bench_dist_sort`` (G rows, k in
+  [0, 2^31): ``Table.sort`` at world 1, ``distributed_sort(...,
+  force_exchange=True)`` at world 4).
 
 Phases, in order (any failure exits non-zero; nothing is caught):
   1. the card, torch, nvcc, and the build of every kernel from csrc/;
@@ -47,7 +58,20 @@ Phases, in order (any failure exits non-zero; nothing is caught):
      wrapper's copies and torch glue; median of 5 calls), the plain
      version's ms, the library call's ms where one PyTorch call computes
      the same function, and the bound (bytes moved at 3.35 TB/s);
-  9. a small world-4 join against an independent numpy join.
+  9. a small world-4 join against an independent numpy join;
+ 10. join -> groupby at world 4: K1-K4 launched (counters 0 -> read),
+     the partials' exchange seen on the compact route, the group keys
+     exact and the sums within tolerance against numpy;
+ 11. groupby at world 1 and 4 (K1/K2 at world 4): keys and counts exact,
+     sums and means within tolerance against numpy;
+ 12. sort at world 1 and 4 (K1/K2 at world 4): the key sequence exact
+     against np.sort, the rows equal as a multiset;
+ 13. small and empty inputs at world 4 and 8 (the compact route): all
+     four join types and the three set ops against numpy, one join in
+     several rounds, one hash_partition and one repartition check.
+Phases 10-12 each record the median of 5 steady runs after one warm-up.
+Tolerances: float sums 1e-5 * sum |x| of the group (+1e-30), float64
+means 1e-12 * sum |x| / count; everything else exact.
 
 It prints the kernels line (one JSON object) and the card's name and
 power limit on lines before the last, and as the last line
@@ -629,12 +653,351 @@ def small_setop_check(ct, lctx, dctx, seed: int) -> None:
             f"numpy")
 
 
+# ---------------------------------------------------------------------------
+# groupby, sort and the compact exchange route (phases 10-13)
+# ---------------------------------------------------------------------------
+
+SUM_RTOL = 1e-5     # float SUM: |port - ref| <= 1e-5 * sum |x| + 1e-30
+MEAN_RTOL = 1e-12   # float64 MEAN: <= 1e-12 * sum |x| / count
+
+
+def steady(fn, reps: int = 5) -> list:
+    """Walls (s) of ``reps`` runs of fn() after one warm-up, each ending
+    in a synchronize."""
+    fn()
+    sync()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        walls.append(time.perf_counter() - t0)
+        del out
+    return walls
+
+
+class RouteSpy:
+    """Counts the calls of the exchange's compact route and records each
+    call's round count (``shuffle._compact_body``)."""
+
+    def __init__(self, S):
+        self.S = S
+        self.rounds = []
+
+    def __enter__(self):
+        self.real = self.S._compact_body
+
+        def spy(world, block, rounds, *a):
+            self.rounds.append(rounds)
+            return self.real(world, block, rounds, *a)
+
+        self.S._compact_body = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.S._compact_body = self.real
+
+
+def live_columns(table) -> list:
+    """Every column's live rows in the flat (shard by shard) order, host
+    numpy, with its validity."""
+    live = table.emit_mask()
+    return [(c.data[live].cpu().numpy(), c.valid_mask()[live].cpu().numpy())
+            for c in table._columns]
+
+
+def check_sums(got, ref, scale, what: str) -> float:
+    """Float sums within SUM_RTOL of sum |x|; returns the worst ratio of
+    error to its bound."""
+    err = np.abs(got.astype(np.float64) - ref)
+    bound = SUM_RTOL * scale + 1e-30
+    assert np.all(err <= bound), (what, float((err / bound).max()))
+    return float((err / bound).max()) if err.size else 0.0
+
+
+def pipeline_phase(ct, K, D, S, dctx, n: int) -> dict:
+    """Phase 10: bench.py bench_plan_pipeline's eager form at world 4: an
+    inner distributed_join on k, then distributed_groupby([0], [4],
+    [SUM]) of the right payload. The join leaves its rows placed by k, so
+    the partials' exchange has a diagonal count matrix: it must take the
+    compact route, and K1-K4 must launch."""
+    rng = np.random.default_rng(9)
+    lk = rng.integers(0, n // 4, n).astype(np.int32)
+    lv = rng.normal(size=n).astype(np.float32)
+    lz = rng.integers(0, 50, n).astype(np.int32)
+    rk = rng.integers(0, n // 4, n).astype(np.int32)
+    rw = rng.normal(size=n).astype(np.float32)
+    left = ct.Table.from_pydict(dctx, {"k": lk, "v": lv, "z": lz})
+    right = ct.Table.from_pydict(dctx, {"k": rk, "w": rw})
+    agg = ct.AggregationOp.SUM
+
+    def fn():
+        j = D.distributed_join(left, right, ct.JoinConfig(
+            ct.JoinType.INNER, [0], [0]))
+        return D.distributed_groupby(j, [0], [4], [agg])
+
+    sync()
+    K.reset_launches()
+    with RouteSpy(S) as spy:
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        first = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    missing = [k for k in ("partition_hist", "partition_scatter",
+                           "join_plan_stream", "join_expand_stream")
+               if launches[k] == 0]
+    assert not missing, f"join -> groupby: not launched: {missing}"
+    assert spy.rounds, "the partials' exchange did not take the compact route"
+    # numpy oracle: group k holds cnt_left(k) copies of each right row
+    m = n // 4
+    cl = np.bincount(lk, minlength=m).astype(np.float64)
+    cr = np.bincount(rk, minlength=m)
+    keys = np.flatnonzero((cl > 0) & (cr > 0))
+    ref = (cl * np.bincount(rk, weights=rw.astype(np.float64),
+                            minlength=m))[keys]
+    scale = (cl * np.bincount(rk, weights=np.abs(rw).astype(np.float64),
+                              minlength=m))[keys]
+    (gk, gkv), (gs, gsv) = live_columns(out)
+    assert gkv.all() and gsv.all()
+    order = np.argsort(gk, kind="stable")
+    assert np.array_equal(gk[order], keys), "join -> groupby: group keys"
+    worst = check_sums(gs[order], ref, scale, "join -> groupby sums")
+    del out
+    walls = steady(fn)
+    log(f"phase 10 join -> groupby (2 x {n} rows, world {WORLD}): launches "
+        f"{launches}, compact route rounds {spy.rounds}; {len(keys)} groups "
+        f"== numpy, sums within tolerance (worst error/bound {worst:.3e}); "
+        f"first run {first:.4f} s; steady walls (s) {walls}; median "
+        f"{statistics.median(walls):.6f}, input rows/s "
+        f"{2 * n / statistics.median(walls):.4e}")
+    return {"rows": n, "launches": launches, "compact_rounds": spy.rounds,
+            "groups": int(len(keys)), "first_wall_s": first, "walls": walls,
+            "worst_sum_err_over_bound": worst}
+
+
+def groupby_phase(ct, K, lctx, dctx, n: int) -> dict:
+    """Phase 11: bench.py bench_groupby, groupby(0, [1, 2, 1], ["sum",
+    "count", "mean"]) at world 1 and at world 4 (K1/K2), against numpy:
+    keys and counts exact, sums and means within tolerance."""
+    rng = np.random.default_rng(1)
+    g = rng.integers(0, 1 << 20, n).astype(np.int32)
+    x = rng.normal(size=n).astype(np.float32)
+    y = rng.integers(0, 100, n).astype(np.int32)
+    cnt = np.bincount(g, minlength=1 << 20)
+    keys = np.flatnonzero(cnt)
+    x64 = x.astype(np.float64)
+    sx = np.bincount(g, weights=x64, minlength=1 << 20)[keys]
+    ax = np.bincount(g, weights=np.abs(x64), minlength=1 << 20)[keys]
+    res = {"rows": n}
+    for ctx, world in ((lctx, 1), (dctx, WORLD)):
+        t = ct.Table.from_pydict(ctx, {"g": g, "x": x, "y": y})
+
+        def fn():
+            return t.groupby(0, [1, 2, 1], ["sum", "count", "mean"])
+
+        sync()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        first = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        if world > 1:
+            missing = [k for k in ("partition_hist", "partition_scatter")
+                       if launches[k] == 0]
+            assert not missing, f"groupby world {world}: {missing}"
+        cols = live_columns(out)
+        assert all(v.all() for _d, v in cols)
+        order = np.argsort(cols[0][0], kind="stable")
+        gk, gs, gc, gm = (c[0][order] for c in cols)
+        assert np.array_equal(gk, keys), f"groupby world {world}: keys"
+        assert np.array_equal(gc, cnt[keys]), f"groupby world {world}: count"
+        worst = check_sums(gs, sx, ax, f"groupby world {world} sums")
+        merr = np.abs(gm - sx / cnt[keys])
+        mbound = MEAN_RTOL * ax / cnt[keys]
+        assert np.all(merr <= mbound), f"groupby world {world}: means"
+        del out
+        walls = steady(fn)
+        med = statistics.median(walls)
+        log(f"phase 11 groupby ({n} rows, world {world}): launches "
+            f"{launches}; {len(keys)} groups, keys and counts == numpy, sums "
+            f"(worst error/bound {worst:.3e}) and means within tolerance; "
+            f"first run {first:.4f} s; steady walls (s) {walls}; median "
+            f"{med:.6f}, rows/s {n / med:.4e}")
+        res[f"world{world}"] = {"launches": launches, "first_wall_s": first,
+                                "walls": walls, "groups": int(len(keys)),
+                                "worst_sum_err_over_bound": worst}
+        del t
+    return res
+
+
+def sort_phase(ct, K, D, lctx, dctx, n: int) -> dict:
+    """Phase 12: bench.py bench_sort / bench_dist_sort: Table.sort("k") at
+    world 1 and distributed_sort(force_exchange=True) at world 4 (K1/K2),
+    against np.sort: the key sequence exact across shards in shard order,
+    the rows equal as a multiset."""
+    rng = np.random.default_rng(2)
+    k = rng.integers(0, 1 << 31, n).astype(np.int32)
+    v = rng.normal(size=n).astype(np.float32)
+    ks = np.sort(k)
+    rows = np.sort((k.astype(np.int64) << 32)
+                   | v.view(np.uint32).astype(np.int64))
+    res = {"rows": n}
+    for ctx, world in ((lctx, 1), (dctx, WORLD)):
+        t = ct.Table.from_pydict(ctx, {"k": k, "v": v})
+
+        def fn():
+            if world == 1:
+                return t.sort("k")
+            return D.distributed_sort(t, "k", force_exchange=True)
+
+        sync()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        first = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        if world > 1:
+            missing = [x for x in ("partition_hist", "partition_scatter")
+                       if launches[x] == 0]
+            assert not missing, f"sort world {world}: {missing}"
+        (gk, gkv), (gv, gvv) = live_columns(out)
+        assert gkv.all() and gvv.all()
+        assert np.array_equal(gk, ks), f"sort world {world}: key sequence"
+        got = np.sort((gk.astype(np.int64) << 32)
+                      | gv.view(np.uint32).astype(np.int64))
+        assert np.array_equal(got, rows), f"sort world {world}: rows"
+        del out
+        walls = steady(fn)
+        med = statistics.median(walls)
+        log(f"phase 12 sort ({n} rows, world {world}): launches {launches}; "
+            f"key sequence == np.sort, rows equal as a multiset; first run "
+            f"{first:.4f} s; steady walls (s) {walls}; median {med:.6f}, "
+            f"rows/s {n / med:.4e}")
+        res[f"world{world}"] = {"launches": launches, "first_wall_s": first,
+                                "walls": walls}
+        del t
+    return res
+
+
+def numpy_join_rows(lk, lv, rk, rv, how: str) -> list:
+    """Independent reference: the sorted (lk, lv, rk, rv) rows of a join
+    on int keys, None where a side has no match."""
+    rows = []
+    for i in range(len(lk)):
+        hit = np.flatnonzero(rk == lk[i])
+        rows += [(int(lk[i]), float(lv[i]), int(rk[j]), float(rv[j]))
+                 for j in hit]
+        if not len(hit) and how in ("left", "outer"):
+            rows.append((int(lk[i]), float(lv[i]), None, None))
+    if how in ("right", "outer"):
+        rows += [(None, None, int(rk[j]), float(rv[j]))
+                 for j in range(len(rk)) if not (lk == rk[j]).any()]
+    return sorted(rows, key=repr)
+
+
+def table_rows(table) -> list:
+    cols = [[(None if not ok else (float(x) if d.dtype.kind == "f"
+                                   else int(x))) for x, ok in zip(d, v)]
+            for d, v in live_columns(table)]
+    return sorted(zip(*cols), key=repr) if cols else []
+
+
+def small_inputs_phase(ct, K, D, S) -> dict:
+    """Phase 13: small and empty inputs on the card. World 4 and 8; 0, 1,
+    3 and 15 rows a side and an empty left side; all four join types and
+    the three distributed set ops against numpy, the compact route
+    observed; one join with MAX_BLOCK cut so that it runs several rounds;
+    one hash_partition and one repartition check."""
+    out = {"cases": 0, "compact_calls": 0}
+    with RouteSpy(S) as spy:
+        for world in (4, 8):
+            ctx = ct.CylonContext.InitDistributed(ct.VirtualWorldConfig(world))
+            for nl, nr in ((0, 0), (1, 1), (3, 3), (15, 15), (0, 9)):
+                rng = np.random.default_rng(100 * nl + nr + world)
+                lk = rng.integers(0, 4, nl).astype(np.int32)
+                lv = rng.normal(size=nl).astype(np.float32)
+                rk = rng.integers(0, 4, nr).astype(np.int32)
+                rv = rng.normal(size=nr).astype(np.float32)
+                left = ct.Table.from_pydict(ctx, {"k": lk, "v": lv})
+                right = ct.Table.from_pydict(ctx, {"k": rk, "v": rv})
+                for how in ("inner", "left", "right", "outer"):
+                    got = table_rows(left.distributed_join(right, how,
+                                                           on=["k"]))
+                    assert got == numpy_join_rows(lk, lv, rk, rv, how), \
+                        (world, nl, nr, how)
+                    out["cases"] += 1
+                pl = {(int(a), float(b)) for a, b in zip(lk, lv)}
+                pr = {(int(a), float(b)) for a, b in zip(rk, rv)}
+                for op, ref in (("union", pl | pr), ("subtract", pl - pr),
+                                ("intersect", pl & pr)):
+                    got = table_rows(getattr(left, f"distributed_{op}")(
+                        right))
+                    assert got == sorted(ref, key=repr), (world, nl, nr, op)
+                    out["cases"] += 1
+        out["compact_calls"] = len(spy.rounds)
+        assert out["compact_calls"], "no small input took the compact route"
+        # several rounds: a block cap of 2 rows for a 15-row join
+        ctx = ct.CylonContext.InitDistributed(ct.VirtualWorldConfig(4))
+        rng = np.random.default_rng(7)
+        lk, rk = (rng.integers(0, 3, 15).astype(np.int32) for _ in range(2))
+        lv, rv = (rng.normal(size=15).astype(np.float32) for _ in range(2))
+        left = ct.Table.from_pydict(ctx, {"k": lk, "v": lv})
+        right = ct.Table.from_pydict(ctx, {"k": rk, "v": rv})
+        old, S.MAX_BLOCK = S.MAX_BLOCK, 2
+        spy.rounds.clear()
+        try:
+            got = table_rows(left.distributed_join(right, "inner", on=["k"]))
+        finally:
+            S.MAX_BLOCK = old
+        assert spy.rounds and max(spy.rounds) > 1, spy.rounds
+        assert got == numpy_join_rows(lk, lv, rk, rv, "inner")
+        out["max_rounds"] = max(spy.rounds)
+    # hash_partition: every live row in exactly one partition, each row's
+    # partition its key hash's; repartition: row i of the layout on shard
+    # i % world, the rows unchanged as a multiset
+    rng = np.random.default_rng(11)
+    k = rng.integers(0, 1000, 10_000).astype(np.int32)
+    v = rng.normal(size=10_000).astype(np.float32)
+    t = ct.Table.from_pydict(ctx, {"k": k, "v": v})
+    parts = D.hash_partition(t, ["k"], 5)
+    from cylon_tpu_torch.ops import hash as H
+
+    target = H.partition_targets([t._columns[0]], 5).cpu().numpy()
+    seen = []
+    for p, pt in parts.items():
+        pk = pt._columns[0].data.cpu().numpy()
+        assert np.array_equal(pk, k[target == p]), f"partition {p}"
+        seen.append(len(pk))
+    assert sum(seen) == len(k)
+    r = D.repartition(t, ctx)
+    rk = r._columns[0].data.view(4, -1).cpu().numpy()
+    live = r.emit_mask().view(4, -1).cpu().numpy()
+    for sh in range(4):
+        assert np.array_equal(rk[sh][live[sh]], k[sh::4]), f"shard {sh}"
+    rows = live.sum(1)
+    log(f"phase 13 small inputs (world 4 and 8, 0/1/3/15 rows a side and an "
+        f"empty left side): {out['cases']} joins and set ops == numpy, "
+        f"{out['compact_calls']} compact-route exchanges; a 15-row join in "
+        f"{out['max_rounds']} rounds == numpy; hash_partition into 5 "
+        f"{seen} and repartition rows {rows.tolist()} checked")
+    out["hash_partition_rows"] = seen
+    out["repartition_rows"] = rows.tolist()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=1 << 24,
                     help="rows per join table")
     ap.add_argument("--setop-rows", type=int, default=1 << 23,
                     help="rows per set-op table")
+    ap.add_argument("--pipeline-rows", type=int, default=1 << 23,
+                    help="rows per join -> groupby table")
+    ap.add_argument("--groupby-rows", type=int, default=1 << 24,
+                    help="rows of the groupby and sort tables")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="also write the result JSON to this path")
@@ -772,6 +1135,15 @@ def main() -> int:
     log(f"phase 9 small join ({small} rows a side): {len(ref)} rows equal "
         f"the numpy join")
 
+    # phases 10-13: the compact exchange route, groupby and sort
+    from cylon_tpu_torch.parallel import shuffle as S
+
+    del sl, sr, so
+    pipe = pipeline_phase(ct, K, D, S, dctx, args.pipeline_rows)
+    groupby = groupby_phase(ct, K, lctx, dctx, args.groupby_rows)
+    sort = sort_phase(ct, K, D, lctx, dctx, args.groupby_rows)
+    small_inputs = small_inputs_phase(ct, K, D, S)
+
     summary = {"kernels": kernels}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -782,7 +1154,9 @@ def main() -> int:
                            first_wall_s=wall_k,
                            local_join_wall_s=local_walls, profile=prof,
                            out_rows=rows_k, build_s=build_s, setop=setop,
-                           dist_union=dist_union), f, indent=1)
+                           dist_union=dist_union, join_groupby=pipe,
+                           groupby=groupby, sort=sort,
+                           small_inputs=small_inputs), f, indent=1)
     log(json.dumps(summary))
     log(card)
     print(json.dumps({"ok": True, "device": {

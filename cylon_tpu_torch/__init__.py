@@ -11,7 +11,17 @@ numpy, never jax and nothing of cylon_tpu. It carries two paths:
 * the set ops: ``Table.union/subtract/intersect`` sort the rows by a
   full-row hash and run kernel K5 setop_stream, whose compaction is
   kernel K6 stream_compact; ``distributed_union/...`` shuffle on every
-  column (K1/K2) and run the dense-ranks set op per shard.
+  column (K1/K2) and run the dense-ranks set op per shard;
+* groupby, scalar aggregates and sort: ``Table.groupby``, ``sum``,
+  ``count``, ``min``, ``max``, ``mean``, ``sort`` and their distributed
+  forms ``distributed_groupby`` (per-shard partials, their exchange,
+  second-phase merge) and ``distributed_sort`` (range splitters, the
+  exchange, per-shard sorts), plus ``hash_partition`` and
+  ``repartition``. These run torch ops; their exchanges run K1/K2.
+
+Every distributed op exchanges through the padded route or, for skewed,
+diagonal or small count matrices, the compact route
+(parallel/shuffle.py).
 
 Entry points run on CUDA unless the context is created with
 ``device="cpu"``.
@@ -22,6 +32,7 @@ Entry points run on CUDA unless the context is created with
     right = ct.Table.from_pydict(ctx, {"k": keys_r, "v": vals_r})
     out = left.distributed_join(right, "inner", on=["k"])
     rows = left.distributed_union(left2)  # left2: left's schema
+    sums = out.groupby(0, [1], ["sum"])
 """
 from .config import (CommConfig, CommType, CSVReadOptions, CSVWriteOptions,
                      LocalConfig, MPIConfig, VirtualWorldConfig)
@@ -29,7 +40,10 @@ from .context import CylonContext
 from .data.column import Column
 from .data.table import Table, concat_tables
 from .io.csv import read_csv, write_csv
+from .ops.groupby import AggregationOp
 from .ops.join import JoinAlgorithm, JoinConfig, JoinType
+from .parallel.dist_ops import (distributed_groupby, distributed_sort,
+                                hash_partition, repartition)
 from .status import Code, CylonError, Status
 
 __all__ = [
@@ -37,5 +51,6 @@ __all__ = [
     "LocalConfig", "MPIConfig", "VirtualWorldConfig", "CylonContext",
     "Column", "Table", "concat_tables", "read_csv", "write_csv",
     "JoinAlgorithm", "JoinConfig", "JoinType", "Code", "CylonError",
-    "Status",
+    "Status", "AggregationOp", "distributed_groupby", "distributed_sort",
+    "hash_partition", "repartition",
 ]

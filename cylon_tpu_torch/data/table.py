@@ -19,11 +19,14 @@ import torch
 from .. import dtypes
 from ..config import CSVWriteOptions
 from ..context import CylonContext
+from ..ops import aggregates as _aggregates
+from ..ops import groupby as _groupby
 from ..ops import join as _join
 from ..ops import order as _order
 from ..ops import setops as _setops
 from ..status import Code, CylonError, not_ported
 from ..util import capacity as _capacity
+from ..util import pow2 as _pow2
 from .column import Column
 
 
@@ -159,6 +162,29 @@ class Table:
 
     # -- row selection --
 
+    def take(self, indices) -> "Table":
+        """Gather rows by logical index (live rows in order); -1 gives a
+        null row. A masked table compacts first, so an index never
+        addresses a filtered-out row."""
+        t = self.compact()
+        idx = torch.as_tensor(indices, device=self._ctx.device)
+        return Table([c.take(idx) for c in t._columns], self._ctx)
+
+    def sort(self, order_by, ascending=True) -> "Table":
+        """Local sort (reference: Sort, util/arrow_utils.cpp:144-184):
+        one stable lexsort of the key columns' ordered bits (per-key
+        ``ascending``, nulls last), then a gather of every column."""
+        t = self.compact()
+        by = order_by if isinstance(order_by, (list, tuple)) else [order_by]
+        cols_idx = [t._col_index(c) for c in by]
+        asc = list(ascending) if isinstance(ascending, (list, tuple)) \
+            else [ascending] * len(cols_idx)
+        cols = [t._columns[i] for i in cols_idx]
+        if any(c.dtype.is_var_width() for c in cols):
+            raise not_ported("string sort keys")
+        perm = _order.lexsort_indices(_order.sort_keys(cols, asc))
+        return t.take(perm)
+
     def filter_mask(self, mask: torch.Tensor) -> "Table":
         """Filter by a bool mask: folds into ``row_mask`` (no gather)."""
         t = Table(list(self._columns), self._ctx, mask & self.emit_mask())
@@ -230,6 +256,50 @@ class Table:
         return dist_ops.distributed_set_op(self, table,
                                            _setops.SetOp.INTERSECT)
 
+    # -- aggregates (pycylon table.pyx:485-522) --
+
+    def _agg(self, column, op: str) -> "Table":
+        col = column if isinstance(column, Column) \
+            else self._columns[self._col_index(column)]
+        if self.row_mask is not None:
+            col = Column(col.data, col.dtype,
+                         col.valid_mask() & self.emit_mask(), col.name)
+        # a distributed table's flat columns hold every shard: one
+        # reduction spans them all
+        value = _aggregates.agg_scalar(col, op)
+        return Table.from_pydict(self._ctx, {col.name: [value]})
+
+    def sum(self, column) -> "Table":
+        return self._agg(column, "sum")
+
+    def count(self, column) -> "Table":
+        return self._agg(column, "count")
+
+    def min(self, column) -> "Table":
+        return self._agg(column, "min")
+
+    def max(self, column) -> "Table":
+        return self._agg(column, "max")
+
+    def mean(self, column) -> "Table":
+        return self._agg(column, "mean")
+
+    # -- groupby (pycylon table.pyx:524-554) --
+
+    def groupby(self, index_col, aggregate_cols: Sequence,
+                aggregate_ops: Sequence) -> "Table":
+        """Group by ``index_col`` (one column or a list) and aggregate
+        ``aggregate_cols[i]`` with ``aggregate_ops[i]`` ("sum", "count",
+        "min", "max", "mean" or an AggregationOp). A distributed context
+        of world > 1 runs `distributed_groupby`."""
+        ops = [_as_agg_op(o) for o in aggregate_ops]
+        if self._ctx.is_distributed() and self._ctx.get_world_size() > 1:
+            from ..parallel import dist_ops
+
+            return dist_ops.distributed_groupby(self, index_col,
+                                                list(aggregate_cols), ops)
+        return groupby_local(self, index_col, list(aggregate_cols), ops)
+
     def _make_join_config(self, table: "Table", join_type, algorithm,
                           kwargs) -> _join.JoinConfig:
         exact = bool(kwargs.pop("exact", False))
@@ -260,6 +330,24 @@ _JOIN_TYPES = {
 _JOIN_ALGOS = {"sort": _join.JoinAlgorithm.SORT,
                "hash": _join.JoinAlgorithm.HASH,
                "auto": _join.JoinAlgorithm.AUTO}
+
+
+def _as_agg_op(o) -> _groupby.AggregationOp:
+    if isinstance(o, _groupby.AggregationOp):
+        return o
+    if isinstance(o, str):
+        return _groupby.AggregationOp[o.upper()]
+    return _groupby.AggregationOp(int(o))
+
+
+def _agg_dtype(src: Column, op) -> dtypes.DataType:
+    """The result type of ``op`` over ``src``: COUNT int64, MEAN double,
+    the others the source's type."""
+    if op == _groupby.AggregationOp.COUNT:
+        return dtypes.Int64()
+    if op == _groupby.AggregationOp.MEAN:
+        return dtypes.Double()
+    return src.dtype
 
 
 def _resolve_join_columns(left: Table, right: Table, kwargs
@@ -450,6 +538,56 @@ def _append_unmatched_right(left: Table, right: Table, out: Table,
                   zip(tail_cols, out.column_names)], left._ctx,
                  r_unmatched.emit_mask())
     return concat_tables([out, tail], left._ctx)
+
+
+# ---------------------------------------------------------------------------
+# local groupby (reference: LocalHashGroupBy, groupby_hash.hpp:321-359)
+# ---------------------------------------------------------------------------
+
+
+def groupby_local(table: Table, index_col, aggregate_cols: List,
+                  aggregate_ops: List) -> Table:
+    """Sort the rows into groups (one lexsort by dead flag and key bits,
+    a key's validity a key of its own), fetch the group count (the op's
+    one host sync), then one segment reduction per distinct (column, op).
+    The output holds ``pow2(groups)`` rows in key order, its padding dead
+    in ``row_mask``."""
+    idx_cols = index_col if isinstance(index_col, (list, tuple)) \
+        else [index_col]
+    idx_cols = [table._col_index(c) for c in idx_cols]
+    val_cols = [table._col_index(c) for c in aggregate_cols]
+    ops = list(aggregate_ops)
+    key_columns = [table._columns[i] for i in idx_cols]
+    if any(c.dtype.is_var_width() for c in key_columns
+           + [table._columns[i] for i in val_cols]):
+        raise not_ported("string columns in groupby")
+    keys = []
+    for c in key_columns:
+        keys.extend(_order.sort_keys([c]))
+        if c.validity is not None:
+            keys.append(c.valid_mask().to(torch.uint8))
+    values = [table._columns[i].data for i in val_cols]
+    valids = [table._columns[i].validity for i in val_cols]
+    values_s, valids_s, emit_s, iota_s, gid_s, ng = \
+        _groupby.presort_groups(keys, table.emit_mask(), values, valids)
+    num_groups = max(int(ng[0]), 1)
+    cap = _pow2(num_groups)
+    rep, group_valid, results = _groupby.sorted_segment_aggregate(
+        gid_s, emit_s, iota_s, values_s, valids_s, cap, ops, val_cols,
+        [table._columns[i].validity is None for i in val_cols])
+    rep, group_valid = rep[0], group_valid[0]
+    safe = torch.clamp(rep, max=max(table.capacity - 1, 0))
+    out_cols = []
+    for i in idx_cols:
+        g = table._columns[i].take(safe)
+        validity = None if table._columns[i].validity is None \
+            else g.validity & group_valid
+        out_cols.append(Column(g.data, g.dtype, validity, g.name))
+    for (arr, avalid), vi, op in zip(results, val_cols, ops):
+        src = table._columns[vi]
+        out_cols.append(Column(arr[0], _agg_dtype(src, op),
+                               avalid[0] & group_valid, src.name))
+    return Table(out_cols, table._ctx, group_valid)
 
 
 # ---------------------------------------------------------------------------

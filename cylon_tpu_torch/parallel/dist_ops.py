@@ -1,6 +1,6 @@
 """Distributed relational operators: shuffle-composed, per-shard kernels
-(counterpart of the join, set-op and shuffle parts of
-cylon_tpu.parallel.dist_ops).
+(counterpart of cylon_tpu.parallel.dist_ops: the shuffle, the join, the
+set ops, the groupby, the sort, hash_partition and repartition).
 
 The reference composes every distributed op as *local partition +
 all-to-all + local op* (reference: DistributedJoin, table.cpp:656-696).
@@ -18,13 +18,18 @@ masked by ``row_mask``.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from .. import dtypes
+from ..context import CylonContext
 from ..data import table as table_mod
 from ..data.column import Column
 from ..data.table import Table
+from ..dtypes import movable
+from ..ops import groupby as _groupby
 from ..ops import hash as _hash
 from ..ops import join as _join
 from ..ops import order as _order
@@ -335,3 +340,333 @@ def distributed_set_op(left: Table, right: Table, op: _setops.SetOp,
     result = Table(cols, ctx, (idx >= 0).reshape(-1))
     result._shard_world = world
     return result
+
+
+# ---------------------------------------------------------------------------
+# hash_partition / repartition (reference: HashPartition, table.cpp:102-160)
+# ---------------------------------------------------------------------------
+
+
+def hash_partition(table: Table, hash_columns: Sequence,
+                   num_partitions: int) -> Dict[int, Table]:
+    """Split a table into ``{partition: Table}`` by key hash: one stable
+    sort by target (dead rows last), then each partition is one slice of
+    every column, on the device. String columns are not ported."""
+    idxs = [table._col_index(c) for c in hash_columns]
+    if any(c.dtype.is_var_width() for c in table._columns):
+        raise not_ported("string columns in hash_partition")
+    ctx = table._ctx
+    targets = _hash.partition_targets([table._columns[i] for i in idxs],
+                                      num_partitions)
+    tkey = torch.where(table.emit_mask(), targets, num_partitions)
+    perm = torch.sort(tkey, stable=True).indices
+    counts = torch.bincount(tkey.to(torch.int64),
+                            minlength=num_partitions + 1).cpu().numpy()
+    offs = np.concatenate([[0], np.cumsum(counts[:num_partitions])])
+    cols = [Column(movable(c.data)[perm].view(c.data.dtype), c.dtype,
+                   None if c.validity is None else c.validity[perm], c.name)
+            for c in table._columns]
+    out = {}
+    for p in range(num_partitions):
+        lo, hi = int(offs[p]), int(offs[p + 1])
+        out[p] = Table([Column(c.data[lo:hi], c.dtype,
+                               None if c.validity is None
+                               else c.validity[lo:hi], c.name)
+                        for c in cols], ctx)
+    return out
+
+
+def repartition(table: Table, ctx: CylonContext) -> Table:
+    """Round-robin rows over the shards (no key): row i of the flat
+    layout goes to shard i % world."""
+    t = shard.distribute(table, ctx)
+    world = ctx.get_world_size()
+    targets = (torch.arange(t.capacity, device=ctx.device)
+               % world).to(torch.int32)
+    cols, new_emit = _exchange_table(t, targets, t.emit_mask(), ctx,
+                                     dense=t.row_mask is None)
+    result = Table(cols, ctx, new_emit)
+    result._shard_world = world
+    return result
+
+
+# ---------------------------------------------------------------------------
+# distributed groupby (reference: GroupBy, groupby/groupby.cpp:96-139):
+# per-shard partial aggregates, their exchange by key hash, and a merge
+# with the second-phase ops (COUNT partials summed, MEAN as SUM + COUNT)
+# ---------------------------------------------------------------------------
+
+
+def _shard_groupby(world: int, kbits, kdat, kval, emit, vdat, vval,
+                   ops, col_ids, all_valid):
+    """The per-shard group-by over ``[W, n]`` views, every shard in one
+    batched call (the JAX package's ``_groupby_fn`` under ``shard_map``):
+    group slots per shard = the shard capacity n. Returns flat
+    ``[W * n]`` key data, key validity, group validity, aggregates."""
+    n = emit.shape[0] // world
+    keys = [b.view(world, n) for b in kbits] \
+        + [v.view(world, n).to(torch.uint8) for v in kval]
+    vdat_s, vval_s, emit_s, iota_s, gid_s, _ng = _groupby.presort_groups(
+        keys, emit.view(world, n), [d.view(world, n) for d in vdat],
+        [None if v is None else v.view(world, n) for v in vval])
+    rep, gvalid, results = _groupby.sorted_segment_aggregate(
+        gid_s, emit_s, iota_s, vdat_s, vval_s, n, ops, col_ids, all_valid)
+    safe = torch.clamp(rep, max=n - 1)
+
+    def take(x):
+        return movable(x.view(world, n)).gather(1, safe).view(
+            x.dtype).reshape(-1)
+
+    kout = [take(d) for d in kdat]
+    kvout = [take(v) & gvalid.reshape(-1) for v in kval]
+    agg = [(arr.reshape(-1), (av & gvalid).reshape(-1))
+           for arr, av in results]
+    return kout, kvout, gvalid.reshape(-1), agg
+
+
+def _groupby_shuffle_agg(ctx: CylonContext, key_columns, value_columns,
+                         ops, emit, col_ids=None, dense: bool = False,
+                         skip_exchange: bool = False):
+    """Shuffle rows by key hash (unless ``skip_exchange``: the caller
+    asserts each key's rows already sit on one shard), then aggregate per
+    shard. Returns (key columns, [(agg, valid)], group validity)."""
+    world = ctx.get_world_size()
+    if skip_exchange:
+        out_cols, emit_s = list(key_columns) + list(value_columns), emit
+    else:
+        view = Table(list(key_columns) + list(value_columns), ctx, None)
+        targets = _partition_targets_dist(world, key_columns)
+        out_cols, emit_s = _exchange_table(view, targets, emit, ctx,
+                                           dense=dense)
+    nk = len(key_columns)
+    kcols_s, vcols_s = out_cols[:nk], out_cols[nk:]
+    if col_ids is None:
+        col_ids = tuple(range(len(vcols_s)))
+    kout, kvout, gvalid, agg = _shard_groupby(
+        world, _order.sort_keys(kcols_s), [c.data for c in kcols_s],
+        [c.valid_mask() for c in kcols_s], emit_s,
+        [c.data for c in vcols_s], [c.validity for c in vcols_s], ops,
+        col_ids, [c.validity is None for c in vcols_s])
+    key_out = [Column(d, kc.dtype, v, kc.name)
+               for d, v, kc in zip(kout, kvout, kcols_s)]
+    return key_out, agg, gvalid
+
+
+def _groupby_table(ctx, key_out, cols, gvalid) -> Table:
+    """The distributed groupby's result: sharded, its groups placed by
+    key hash (the witness lets a later same-key stage skip its
+    exchange)."""
+    world = ctx.get_world_size()
+    out = Table(list(key_out) + cols, ctx, gvalid)
+    out._shard_world = world
+    out._hash_partitioned = shard.partition_signature(
+        key_out, tuple(range(len(key_out))), world)
+    return out
+
+
+def distributed_groupby(table: Table, index_col, aggregate_cols: List,
+                        aggregate_ops: List[_groupby.AggregationOp],
+                        pre_aggregate: bool = True,
+                        pre_partitioned: bool = False) -> Table:
+    """Phase A aggregates each shard's rows into partials (MEAN as a
+    float64 SUM and a COUNT), phase B exchanges the partials by key hash
+    and merges them with the second-phase ops. ``pre_aggregate=False``
+    exchanges the rows and aggregates once; ``pre_partitioned=True``
+    asserts the rows are already hash-placed by these keys and runs one
+    per-shard pass with no exchange. A one-shard world runs the local
+    groupby."""
+    ctx = table._ctx
+    world = ctx.get_world_size()
+    if world == 1:
+        return table_mod.groupby_local(table, index_col, aggregate_cols,
+                                       aggregate_ops)
+    t = shard.distribute(table, ctx)
+    idx_cols = index_col if isinstance(index_col, (list, tuple)) \
+        else [index_col]
+    idx_cols = [t._col_index(c) for c in idx_cols]
+    val_cols = [t._col_index(c) for c in aggregate_cols]
+    key_columns = [t._columns[i] for i in idx_cols]
+    if any(c.dtype.is_var_width() for c in t._columns):
+        raise not_ported("string columns in groupby")
+    ops = list(aggregate_ops)
+    emit = t.emit_mask()
+    MEAN = _groupby.AggregationOp.MEAN
+    SUM = _groupby.AggregationOp.SUM
+    COUNT = _groupby.AggregationOp.COUNT
+
+    if pre_partitioned or not pre_aggregate:
+        key_out, agg, gvalid = _groupby_shuffle_agg(
+            ctx, key_columns, [t._columns[vi] for vi in val_cols],
+            tuple(ops), emit, col_ids=tuple(val_cols),
+            dense=t.row_mask is None, skip_exchange=pre_partitioned)
+        cols = [Column(arr, table_mod._agg_dtype(t._columns[vi], op), av,
+                       t._columns[vi].name)
+                for (arr, av), vi, op in zip(agg, val_cols, ops)]
+        return _groupby_table(ctx, key_out, cols, gvalid)
+
+    # phase A: per-shard partials; MEAN expands to (f64 SUM, COUNT)
+    a_entries = []   # (original position, phase-A op, cast to f64)
+    b_ops = []
+    out_map = []     # ("d", a index) or ("mean", sum index, count index)
+    for j, op in enumerate(ops):
+        if op == MEAN:
+            out_map.append(("mean", len(a_entries), len(a_entries) + 1))
+            a_entries += [(j, SUM, True), (j, COUNT, False)]
+            b_ops += [SUM, SUM]
+        else:
+            out_map.append(("d", len(a_entries)))
+            a_entries.append((j, op, False))
+            b_ops.append(_groupby.second_phase_op(op))
+    srcs = [t._columns[val_cols[j]] for j, _op, _c in a_entries]
+    koutA, kvoutA, gvalidA, aggA = _shard_groupby(
+        world, _order.sort_keys(key_columns),
+        [c.data for c in key_columns], [c.valid_mask() for c in key_columns],
+        emit,
+        [src.data.to(torch.float64) if cast else src.data
+         for src, (_j, _op, cast) in zip(srcs, a_entries)],
+        [src.validity for src in srcs],
+        tuple(op for _j, op, _c in a_entries),
+        tuple((val_cols[j], cast) for j, _op, cast in a_entries),
+        [src.validity is None for src in srcs])
+    pkey_cols = [Column(d, kc.dtype, v, kc.name)
+                 for d, v, kc in zip(koutA, kvoutA, key_columns)]
+    pval_cols = [Column(arr, dtypes.Double() if cast
+                        else table_mod._agg_dtype(src, opA), av, src.name)
+                 for (arr, av), src, (_j, opA, cast)
+                 in zip(aggA, srcs, a_entries)]
+
+    # phase B: exchange the partials, merge with the second-phase ops
+    key_out, aggB, gvalid = _groupby_shuffle_agg(
+        ctx, pkey_cols, pval_cols, tuple(b_ops), gvalidA)
+    cols = []
+    for op, vi, m in zip(ops, val_cols, out_map):
+        src = t._columns[vi]
+        if m[0] == "mean":
+            s_arr, s_av = aggB[m[1]]
+            c_arr, c_av = aggB[m[2]]
+            data = s_arr / torch.clamp(c_arr.to(torch.float64), min=1)
+            cols.append(Column(data, table_mod._agg_dtype(src, op),
+                               s_av & c_av & (c_arr > 0), src.name))
+        else:
+            arr, av = aggB[m[1]]
+            cols.append(Column(arr, table_mod._agg_dtype(src, op), av,
+                               src.name))
+    return _groupby_table(ctx, key_out, cols, gvalid)
+
+
+# ---------------------------------------------------------------------------
+# distributed sort: sample the key lanes, agree range splitters, range-
+# partition through the exchange the joins use, then sort each shard
+# ---------------------------------------------------------------------------
+
+# per-shard sample count for splitter estimation (total = world * this)
+SORT_SAMPLES_PER_SHARD = 4096
+
+
+def _range_splitters(world: int, lanes: Sequence[torch.Tensor],
+                     emit: torch.Tensor) -> list:
+    """world - 1 splitter tuples: the lexicographic quantiles of a
+    sample of the live rows' key lanes, as unsigned numpy scalars. The
+    sample positions come from the JAX package's generator and seed, so
+    the splitters match its own on the same layout."""
+    n = int(lanes[0].shape[0])
+    rng = np.random.default_rng(0xC11)
+    k = min(n, SORT_SAMPLES_PER_SHARD * world)
+    pos = torch.from_numpy(np.sort(rng.integers(0, n, k))).to(emit.device)
+    # one device->host copy: every lane's unsigned value as int64 (8-byte
+    # lanes keep their bits), then the emit flag
+    packed = torch.stack([l[pos].to(torch.int64)
+                          if l.element_size() == 8
+                          else _order.unsigned(l[pos]) for l in lanes]
+                         + [emit[pos].to(torch.int64)]).cpu().numpy()
+    live = packed[-1].astype(bool)
+    samples = [packed[i].view(np.uint64)[live].astype(
+        np.dtype(f"u{l.element_size()}")) for i, l in enumerate(lanes)]
+    if samples[0].size == 0:
+        return [tuple(s.dtype.type(0) for s in samples)] * (world - 1)
+    order = np.lexsort(tuple(reversed(samples)))
+    q = (np.arange(1, world) * samples[0].size) // world
+    return [tuple(s[order[qi]] for s in samples) for qi in q]
+
+
+def _sortable_scalar(v: np.generic) -> int:
+    """An unsigned splitter value in `order.sortable`'s int64 space."""
+    if v.dtype.itemsize == 8:
+        return int(np.array(v).view(np.int64)) ^ _order._I64_MIN
+    return int(v)
+
+
+def _splitter_targets(lanes: Sequence[torch.Tensor],
+                      splitters) -> torch.Tensor:
+    """target = the number of splitter tuples lexicographically <= the
+    row's key tuple. Lanes compare unsigned (`order.sortable`): the
+    port's bits ride in signed containers, and a signed compare would
+    send every key with the top bit set to the wrong shard."""
+    keys = [_order.sortable(l) for l in lanes]
+    n = keys[0].shape[0]
+    targets = torch.zeros(n, dtype=torch.int32, device=keys[0].device)
+    for tup in splitters:
+        ge = torch.zeros(n, dtype=torch.bool, device=keys[0].device)
+        eq = torch.ones(n, dtype=torch.bool, device=keys[0].device)
+        for key, sv in zip(keys, tup):
+            v = _sortable_scalar(sv)
+            ge |= eq & (key > v)
+            eq &= key == v
+        targets += (ge | eq).to(torch.int32)
+    return targets
+
+
+def _shard_sort(world: int, bits, emit, dat, val):
+    """Each shard's rows stably sorted by (dead last, key lanes...), all
+    shards in one batched sort: sorted data, validity and emit, flat."""
+    n = emit.shape[0] // world
+    emit_w = emit.view(world, n)
+    perm = _order.lexsort_indices([(~emit_w).to(torch.uint8)]
+                                  + [b.view(world, n) for b in bits])
+
+    def take(x):
+        return movable(x.view(world, n)).gather(1, perm).view(
+            x.dtype).reshape(-1)
+
+    return ([take(d) for d in dat], [take(v) for v in val],
+            take(emit))
+
+
+def distributed_sort(table: Table, order_by, ascending=True,
+                     force_exchange: bool = False) -> Table:
+    """Splitter-based distributed sort: sample the key lanes, agree
+    world - 1 range splitters, range-partition through the exchange,
+    then sort every shard. Shard i's rows all precede shard i+1's, so the
+    global order is (shard, position); nulls last. ``force_exchange``
+    runs the whole composition on a one-shard world too. (The JAX
+    package memoizes the splitters per source column; the port samples
+    on every call.)"""
+    ctx = table._ctx
+    t = shard.distribute(table, ctx) if ctx.is_distributed() else table
+    by = order_by if isinstance(order_by, (list, tuple)) else [order_by]
+    idxs = [t._col_index(c) for c in by]
+    asc = list(ascending) if isinstance(ascending, (list, tuple)) \
+        else [ascending] * len(idxs)
+    world = ctx.get_world_size()
+    if not (ctx.is_distributed() and (world > 1 or force_exchange)):
+        return t.sort(by, ascending)
+    order_cols = [t._columns[i] for i in idxs]
+    if any(c.dtype.is_var_width() for c in t._columns):
+        raise not_ported("string columns in distributed_sort")
+
+    lanes = _order.sort_keys(order_cols, asc)
+    emit = t.emit_mask()
+    splitters = _range_splitters(world, lanes, emit)
+    targets = _splitter_targets(lanes, splitters)
+    cols_s, emit_s = _exchange_table(t, targets, emit, ctx,
+                                     dense=t.row_mask is None)
+    # key lanes recomputed from the shuffled columns: they never cross
+    # the exchange
+    sbits = _order.sort_keys([cols_s[i] for i in idxs], asc)
+    sdat, sval, semit = _shard_sort(world, sbits, emit_s,
+                                    [c.data for c in cols_s],
+                                    [c.valid_mask() for c in cols_s])
+    out = Table([Column(d, c.dtype, v, c.name)
+                 for d, v, c in zip(sdat, sval, cols_s)], ctx, semit)
+    out._shard_world = world
+    return out

@@ -13,9 +13,12 @@ A two-phase exchange, as in the JAX package:
      ``world * block``, live rows marked by the emit mask.
 
 Rows whose emit mask is False are dropped in transit. When padding would
-cost more than PADDED_WASTE_FACTOR over the compact layout (a skewed
-count matrix), the JAX package takes its blockwise route
-(``_exchange_fn``); that route is not ported yet and the exchange raises.
+cost more than PADDED_WASTE_FACTOR over the compact layout (a skewed, a
+diagonal or a tiny count matrix), or the block exceeds MAX_BLOCK, the
+exchange takes the compact route (the JAX package's ``_exchange_fn``):
+``rounds`` rounds each move one ``[W_src, W_dst, block]`` send block a
+leaf, and every received row lands at its source's running offset in a
+compact output of ``pow2(recv_max)`` rows a shard, live rows a prefix.
 The JAX package's chunked pipeline is bit-identical to its single-shot
 program by contract, so the port runs the single-shot program.
 """
@@ -31,13 +34,14 @@ from ..dtypes import movable
 from ..ops import kernels as _k
 from ..status import not_ported
 from ..util import pow2 as _pow2
+from ..util import pow2_floor as _pow2_floor
 from . import comm
 
 # upper bound on the per-pair block (rows per (src, dst) pair)
 MAX_BLOCK = 1 << 22
 
 # padded-mode acceptance: worst-case capacity blowup over the compact
-# layout before the blockwise (skew) route takes over
+# layout before the compact (blockwise) route takes over
 PADDED_WASTE_FACTOR = 2
 
 # None = auto (K1 + K2 on CUDA, the stable sort elsewhere); False forces
@@ -52,12 +56,15 @@ PARTITION_KERNEL: Optional[bool] = None
 
 def _target_counts(t: torch.Tensor, world: int) -> torch.Tensor:
     """counts[s, w] = #rows of shard s with target w (ids == world are
-    dead and not counted), int32 [W, world]."""
-    counts = torch.zeros(t.shape[0], world + 1, dtype=torch.int64,
-                         device=t.device)
-    counts.scatter_add_(1, t.to(torch.int64).clamp(0, world),
-                        torch.ones_like(t, dtype=torch.int64))
-    return counts[:, :world].to(torch.int32)
+    dead and not counted), int32 [W, world]. One bincount over (shard,
+    target) bins: a scatter-add into W * (world + 1) counters serialises
+    its atomics on the card (6.2 ms for [4, 4,194,304] ids on an H100,
+    scripts/profile_port_groupby.py)."""
+    w = t.shape[0]
+    bins = (torch.arange(w, device=t.device).unsqueeze(-1) * (world + 1)
+            + t.to(torch.int64).clamp(0, world)).reshape(-1)
+    counts = torch.bincount(bins, minlength=w * (world + 1))
+    return counts.view(w, world + 1)[:, :world].to(torch.int32)
 
 
 def _dead_keyed(targets: torch.Tensor, emit: torch.Tensor,
@@ -156,31 +163,45 @@ def _padded_body_w1(block: int, payload, targets, emit):
             (pos < counts_in[:, :1]), counts_in)
 
 
-def _send_block(xs: torch.Tensor, start: torch.Tensor, block: int,
+def _pad_block(xs: torch.Tensor, block: int) -> torch.Tensor:
+    """``xs`` [W, n] with ``block`` zero rows appended, so every send
+    slice of `_send_block` stays in range."""
+    pad = torch.zeros(xs.shape[0], block, dtype=xs.dtype, device=xs.device)
+    return torch.cat([xs, pad], 1)
+
+
+def _send_block(xp: torch.Tensor, start: torch.Tensor, o: int, block: int,
                 world: int) -> torch.Tensor:
-    """[W_src, W_dst, block] send stack: ONE contiguous slice per target
-    (rows are target-sorted). ``xs`` is padded by ``block`` rows here, so
-    slices stay in range; over-read rows belong to other targets and are
-    dead on the receiving side."""
-    pad = torch.zeros(world, block, dtype=xs.dtype, device=xs.device)
-    xp = torch.cat([xs, pad], 1)
-    rows = (start.unsqueeze(-1)
-            + torch.arange(block, device=xs.device)).view(world, -1)
+    """[W_src, W_dst, block] send stack of round offset ``o``: ONE
+    contiguous slice per target (rows are target-sorted), from row
+    ``start + o`` clamped to the unpadded length. ``xp`` is padded by
+    ``block`` rows (`_pad_block`); over-read rows belong to other targets
+    or to later rounds and are dropped on the receiving side."""
+    n = xp.shape[1] - block
+    rows = (torch.clamp(start + o, max=n).unsqueeze(-1)
+            + torch.arange(block, device=xp.device)).view(world, -1)
     return movable(xp).gather(1, rows).view(xp.dtype).view(
         world, world, block)
 
 
-def _padded_partition(world: int, block: int, payload, targets, emit):
-    """The partition prefix of the padded exchange: stable partition by
-    target (K1 + K2 on the kernel route, the stable sort otherwise — the
-    same layout), the counts exchange, and the receive-side emit mask."""
+def _partition(world: int, payload, targets, emit):
+    """The partition prefix of both routes: stable partition by target
+    (K1 + K2 on the kernel route, the stable sort otherwise — the same
+    layout) and the counts exchange. Returns (sorted leaves, counts_in
+    int32 [W_dst, W_src], start int64 [W, world])."""
     if use_partition_kernel(world, targets.device):
         sorted_leaves, counts_out, start = _kernel_partition(
             payload, targets, emit, world)
     else:
         sorted_leaves, counts_out, start = _bucket_sort(
             payload, targets, emit, world)
-    counts_in = comm.all_to_all(counts_out)
+    return sorted_leaves, comm.all_to_all(counts_out), start
+
+
+def _padded_partition(world: int, block: int, payload, targets, emit):
+    """`_partition` plus the padded layout's receive-side emit mask."""
+    sorted_leaves, counts_in, start = _partition(world, payload, targets,
+                                                 emit)
     cap_out = world * block
     pos = torch.arange(cap_out, device=targets.device)
     new_emit = (pos % block) < counts_in.gather(
@@ -196,15 +217,58 @@ def _padded_body(world: int, block: int, payload, targets, emit):
         return _padded_body_w1(block, payload, targets, emit)
     sorted_leaves, counts_in, start, new_emit = _padded_partition(
         world, block, payload, targets, emit)
-    out = {k: comm.all_to_all(_send_block(x, start, block, world)).view(
+    out = {k: comm.all_to_all(_send_block(_pad_block(x, block), start, 0,
+                                          block, world)).view(
         world, world * block) for k, x in sorted_leaves.items()}
     return out, new_emit, counts_in
 
 
+def _compact_body(world: int, block: int, rounds: int, cap_out: int,
+                  payload, targets, emit):
+    """The compact-mode exchange (the JAX package's ``_exchange_fn``):
+    ``rounds`` rounds, round k moving one block a (src, dst) pair from
+    offset ``o = k * block`` of each target's run. Shard d writes source
+    s's row ``o + i`` at ``S[d, s] + o + i``, ``S`` the exclusive cumsum
+    of its counts_in; rows at or past ``counts_in[d, s]`` go to spare slot
+    ``cap_out + i``, cut off at the end (one spare slot for all of them
+    serialises the stores: 50 ms for the diagonal matrix of the join ->
+    groupby cell's partials on an H100, scripts/profile_port_groupby.py).
+    Returns (leaves [W, cap_out], new emit,
+    counts_in int32 [W, world]): live rows form a prefix of
+    ``counts_in.sum()`` rows a shard, sources in order."""
+    sorted_leaves, counts_in, start = _partition(world, payload, targets,
+                                                 emit)
+    dev = targets.device
+    ci = counts_in.to(torch.int64)
+    S = torch.cumsum(ci, 1) - ci
+    biota = torch.arange(block, device=dev)
+    padded = {k: _pad_block(x, block) for k, x in sorted_leaves.items()}
+    outs = {k: torch.zeros(world, cap_out + block, dtype=movable(x).dtype,
+                           device=dev) for k, x in padded.items()}
+    for r in range(rounds):
+        o = r * block
+        pos = S.unsqueeze(-1) + o + biota                  # [W, W_src, B]
+        pvalid = (o + biota) < ci.unsqueeze(-1)
+        psafe = torch.where(pvalid, pos, cap_out + biota).view(world, -1)
+        for k, xp in padded.items():
+            recv = comm.all_to_all(_send_block(xp, start, o, block, world))
+            outs[k].scatter_(1, psafe,
+                             movable(recv).reshape(world, world * block))
+    out = {k: outs[k][:, :cap_out].view(x.dtype)
+           for k, x in padded.items()}
+    new_emit = torch.arange(cap_out, device=dev) < ci.sum(1, keepdim=True)
+    return out, new_emit, counts_in
+
+
 def _count_matrix(targets, emit, world: int) -> torch.Tensor:
-    """The send-count matrix [src, dst] of flat [W * cap] targets."""
-    return _target_counts(_dead_keyed(targets.view(world, -1),
-                                      emit.view(world, -1), world), world)
+    """The send-count matrix [src, dst] of flat [W * cap] targets: K1's
+    histogram summed over tiles on the kernel route, a bincount
+    otherwise."""
+    t = _dead_keyed(targets.view(world, -1), emit.view(world, -1), world)
+    if use_partition_kernel(world, t.device):
+        return _k.partition_hist(t, world + 1)[:, :, :world].sum(
+            1, dtype=torch.int32)
+    return _target_counts(t, world)
 
 
 def count_pair(targets1, emit1, targets2, emit2, world: int):
@@ -215,15 +279,18 @@ def count_pair(targets1, emit1, targets2, emit2, world: int):
     return host[0], host[1]
 
 
-def _padded_route(counts: np.ndarray, world: int) -> Tuple[bool, int]:
-    """(padded_ok, block): the JAX package's routing rule."""
+def _padded_route(counts: np.ndarray, world: int,
+                  max_block: Optional[int] = None) -> Tuple[bool, int, int]:
+    """(padded_ok, block, mb): the JAX package's routing rule, ``mb`` the
+    per-round block cap. The port has no memory-pool comm budget yet
+    (``_budget_block_cap``): only MAX_BLOCK (or ``max_block``) binds."""
     max_pair = int(counts.max()) if counts.size else 0
     recv_max = int(counts.sum(axis=0).max()) if counts.size else 0
     block_p = _pow2(max_pair)
-    # the port has no memory-pool comm budget yet: only MAX_BLOCK binds
+    mb = _pow2_floor(MAX_BLOCK if max_block is None else max_block)
     ok = (world * block_p <= PADDED_WASTE_FACTOR * max(_pow2(recv_max), 1)
-          and block_p <= MAX_BLOCK)
-    return ok, block_p
+          and block_p <= mb)
+    return ok, block_p, mb
 
 
 def _flat(d: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -236,15 +303,21 @@ def _shards(d: Dict[str, torch.Tensor], world: int):
 
 def exchange(payload: Dict[str, torch.Tensor], targets: torch.Tensor,
              emit: torch.Tensor, ctx: CylonContext,
+             max_block: Optional[int] = None,
              counts: Optional[np.ndarray] = None, dense: bool = False):
     """Shuffle flat ``[W * cap]`` per-row tensors to their target shards.
-    Returns (exchanged payload, new emit mask, output capacity ``world *
-    block``, meta {"mode", "block", "counts_in"}), the JAX package's
-    4-tuple. Each source's rows land contiguous and in stable order."""
+    Returns (exchanged payload, new emit mask, output capacity a shard,
+    meta {"mode", "block", "counts_in"}), the JAX package's 4-tuple. Each
+    source's rows land contiguous and in stable order: at ``s * block``
+    in "padded" mode (capacity ``world * block``), as one live prefix in
+    "compact" mode (capacity ``pow2(recv_max)``, ``block`` 0).
+    ``max_block`` caps the per-round block (MAX_BLOCK by default)."""
     world = ctx.get_world_size()
-    if world == 1 and counts is None and dense:
+    block1 = _pow2(int(targets.shape[0]))
+    if world == 1 and counts is None and dense and (
+            max_block is None or block1 <= _pow2_floor(max_block)):
         # one shard, every row live: block = pow2(n), counts in-program
-        block = _pow2(int(targets.shape[0]))
+        block = block1
         out, new_emit, ci = _padded_body(
             1, block, _shards(payload, 1), targets.view(1, -1),
             emit.view(1, -1))
@@ -252,15 +325,22 @@ def exchange(payload: Dict[str, torch.Tensor], targets: torch.Tensor,
             "mode": "padded", "block": block, "counts_in": ci}
     if counts is None:
         counts = _count_matrix(targets, emit, world).cpu().numpy()
-    ok, block = _padded_route(counts, world)
-    if not ok:
-        raise not_ported("the blockwise (skew) exchange route "
-                         "cylon_tpu.parallel.shuffle._exchange_fn")
-    out, new_emit, ci = _padded_body(
-        world, block, _shards(payload, world), targets.view(world, -1),
-        emit.view(world, -1))
-    return _flat(out), new_emit.reshape(-1), world * block, {
-        "mode": "padded", "block": block, "counts_in": ci}
+    ok, block_p, mb = _padded_route(counts, world, max_block)
+    shards = (_shards(payload, world), targets.view(world, -1),
+              emit.view(world, -1))
+    if ok:
+        out, new_emit, ci = _padded_body(world, block_p, *shards)
+        return _flat(out), new_emit.reshape(-1), world * block_p, {
+            "mode": "padded", "block": block_p, "counts_in": ci}
+    max_pair = int(counts.max()) if counts.size else 0
+    recv_max = int(counts.sum(axis=0).max()) if counts.size else 0
+    block = min(block_p, mb)
+    # a pow2 round count, as in the JAX package
+    rounds = _pow2(-(-max(max_pair, 1) // block))
+    cap = _pow2(recv_max)
+    out, new_emit, ci = _compact_body(world, block, rounds, cap, *shards)
+    return _flat(out), new_emit.reshape(-1), cap, {
+        "mode": "compact", "block": 0, "counts_in": ci}
 
 
 def exchange_pair(payload1, targets1, emit1, counts1,

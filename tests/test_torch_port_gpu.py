@@ -634,3 +634,340 @@ def test_partition_hist_unaligned_base(cuda, nb):
     got = K.partition_hist(t, nb)
     torch.cuda.synchronize()
     assert torch.equal(got, K.plain_partition_hist(t, nb))
+
+
+# ---------------------------------------------------------------------------
+# the compact exchange route, groupby, aggregates and sort on the card,
+# each against the same port on the CPU with the same inputs. Tolerance 0
+# except float SUM (1e-5 * sum |x| of the group, plus 1e-30) and MEAN
+# (1e-12 * sum |x| / count): float atomics on the card add in no fixed
+# order.
+# ---------------------------------------------------------------------------
+
+SUM_RTOL, MEAN_RTOL = 1e-5, 1e-12
+
+
+def _ctx_pair(cuda, world):
+    if world == 0:
+        return ct.CylonContext.Init(), ct.CylonContext.Init(device="cpu")
+    cfg = ct.VirtualWorldConfig(world)
+    return (ct.CylonContext.InitDistributed(cfg),
+            ct.CylonContext.InitDistributed(cfg, device="cpu"))
+
+
+def _table(ctx, arrays, valid=None):
+    valid = valid or {}
+    return ct.Table([ct.Column.from_numpy(a, k, valid.get(k), ctx.device)
+                     for k, a in arrays.items()], ctx)
+
+
+def _host_cols(t):
+    live = t.emit_mask().cpu().numpy()
+    return live, [(c.valid_mask().cpu().numpy(), c.data.cpu().numpy())
+                  for c in t._columns]
+
+
+def assert_layout_equal(gpu_t, cpu_t, float_kinds=None, scale=None,
+                        what=""):
+    """The flat (per-shard) layout: capacity, row mask, every column's
+    validity and live data bit for bit; columns named in ``float_kinds``
+    ({index: "sum" or "mean"}) within the float-sum tolerances, scaled by
+    ``scale[index]`` (an array over the live rows: sum |x|, count)."""
+    float_kinds = float_kinds or {}
+    assert gpu_t.capacity == cpu_t.capacity, what
+    gl, gc = _host_cols(gpu_t)
+    cl, cc = _host_cols(cpu_t)
+    assert np.array_equal(gl, cl), what
+    for i, ((gv, gd), (cv, cd)) in enumerate(zip(gc, cc)):
+        assert np.array_equal(gv[gl], cv[cl]), (what, i)
+        m = gl & gv
+        a, b = gd[m], cd[m]
+        assert a.dtype == b.dtype, (what, i)
+        if i not in float_kinds:
+            assert np.array_equal(a.view(np.uint8), b.view(np.uint8)), \
+                (what, i)
+            continue
+        assert np.array_equal(np.isnan(a), np.isnan(b)), (what, i)
+        s, c = scale[i]
+        tol = SUM_RTOL * s + 1e-30 if float_kinds[i] == "sum" \
+            else MEAN_RTOL * s / np.maximum(c, 1)
+        tol = tol[gv[gl]] if np.ndim(tol) else tol
+        ok = np.isnan(a) | (np.abs(a - b) <= tol)
+        assert ok.all(), (what, i)
+
+
+def _exchange_case(world, name):
+    """Flat payload, targets, emit and max_block of a compact-route case
+    (the CPU file tests/test_torch_port_compact_exchange.py holds the
+    same shapes against the JAX package)."""
+    n, kind, mb = {"one_row": (1, "hash", None), "empty": (0, "hash", None),
+                   "few": (5, "hash", None), "diagonal": (40, "diag", None),
+                   "source_skew": (200, "skew", None),
+                   "rounds": (200, "skew", 4)}[name]
+    cap = -(-(-(-max(n, 1) // world)) // 8) * 8
+    total = world * cap
+    rng = np.random.default_rng(world * 7 + len(name))
+    payload = {"x": rng.integers(-100, 100, total).astype(np.int32),
+               "y": rng.normal(size=total),
+               "b": rng.random(total) < 0.5}
+    emit = np.zeros(total, bool)
+    if kind == "skew":
+        emit[:min(n, cap)] = True
+    else:
+        emit[np.arange(total) % cap < -(-n // world)] = True
+        emit[np.flatnonzero(emit)[n:]] = False
+    targets = (np.arange(total) // cap if kind == "diag"
+               else rng.integers(0, world, total)).astype(np.int32)
+    return payload, targets, emit, mb
+
+
+@pytest.mark.parametrize("world", [4, 8])
+@pytest.mark.parametrize("case", ["one_row", "empty", "few", "diagonal",
+                                  "source_skew", "rounds"])
+def test_compact_exchange_on_card(cuda, world, case):
+    """Both routes' outputs on the card equal the CPU's shard by shard;
+    K1/K2 partition the rows (shards of 8 rows, every row dead in
+    ``empty``)."""
+    payload, targets, emit, mb = _exchange_case(world, case)
+    gctx, cctx = _ctx_pair(cuda, world)
+    outs = []
+    for ctx in (gctx, cctx):
+        K.reset_launches()
+        outs.append(S.exchange(
+            {k: torch.from_numpy(v).to(ctx.device) for k, v in
+             payload.items()}, torch.from_numpy(targets).to(ctx.device),
+            torch.from_numpy(emit).to(ctx.device), ctx, max_block=mb))
+        if ctx is gctx:
+            # K1 counts the send matrix, then K1 + K2 partition
+            torch.cuda.synchronize()
+            assert K.LAUNCHES["partition_hist"] == 2
+            assert K.LAUNCHES["partition_scatter"] == 1
+    (go, ge, gcap, gm), (co, ce, ccap, cm) = outs
+    assert gm["mode"] == cm["mode"] and gcap == ccap
+    if case != "few":
+        assert gm["mode"] == "compact"
+    assert torch.equal(gm["counts_in"].cpu(), cm["counts_in"])
+    assert torch.equal(ge.cpu(), ce)
+    for k in payload:
+        a, b = go[k].cpu()[ce], co[k][ce]
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8)), k
+
+
+def _small_join_arrays(case):
+    if case == "one_row_self":
+        a = {"k": np.zeros(1, np.int32), "v": np.ones(1, np.float32)}
+        return a, dict(a)
+    nl, nr = {"empty_left": (0, 6), "few": (3, 14),
+              "four_row_shards": (13, 16)}[case]
+    rng = np.random.default_rng(nl + nr)
+    return ({"k": rng.integers(0, 4, nl).astype(np.int32),
+             "v": rng.normal(size=nl).astype(np.float32)},
+            {"k": rng.integers(0, 4, nr).astype(np.int32),
+             "w": rng.normal(size=nr).astype(np.float32)})
+
+
+def _row_multiset(t):
+    t = t.compact()
+    rows = np.stack([np.where(c.valid_mask().cpu().numpy(),
+                              c.data.cpu().numpy().view(
+                                  f"u{c.data.element_size()}").astype(
+                                      np.int64), -1)
+                     for c in t._columns], 1) if t.capacity else \
+        np.zeros((0, t.column_count), np.int64)
+    return rows[np.lexsort(rows.T[::-1])] if len(rows) else rows
+
+
+@pytest.mark.parametrize("world", [4, 8])
+@pytest.mark.parametrize("case", ["one_row_self", "empty_left", "few",
+                                  "four_row_shards"])
+@pytest.mark.parametrize("how", ["inner", "left", "right", "outer"])
+def test_small_distributed_join_on_card(cuda, world, case, how):
+    """Small and empty inputs on the card: the compact route hands the
+    join shards of 1 to 4 rows (some all dead); K1/K2 partition them and,
+    where the stream route applies, K3/K4 join them. Rows equal the
+    CPU's."""
+    la, ra = _small_join_arrays(case)
+    gctx, cctx = _ctx_pair(cuda, world)
+    K.reset_launches()
+    got = _table(gctx, la).distributed_join(_table(gctx, ra), how,
+                                            on=["k"])
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    assert launches["partition_hist"] >= 1
+    if how != "outer" and len(la["k"]) and len(ra["k"]):
+        assert launches["join_plan_stream"] == 1, launches
+        assert launches["join_expand_stream"] == 1, launches
+    exp = _table(cctx, la).distributed_join(_table(cctx, ra), how, on=["k"])
+    assert np.array_equal(_row_multiset(got), _row_multiset(exp))
+
+
+@pytest.mark.parametrize("world", [4, 8])
+@pytest.mark.parametrize("case", ["one_row_self", "empty_left", "few"])
+@pytest.mark.parametrize("op", ["union", "subtract", "intersect"])
+def test_small_distributed_set_op_on_card(cuda, world, case, op):
+    la, ra = _small_join_arrays(case)
+    ra = {"k": ra["k"], "v": ra.get("v", ra.get("w"))}
+    gctx, cctx = _ctx_pair(cuda, world)
+    got = getattr(_table(gctx, la), f"distributed_{op}")(_table(gctx, ra))
+    exp = getattr(_table(cctx, la), f"distributed_{op}")(_table(cctx, ra))
+    assert np.array_equal(_row_multiset(got), _row_multiset(exp))
+
+
+def _group_arrays(n, groups, seed=0):
+    rng = np.random.default_rng(seed)
+    g = (np.arange(n) if groups == n else rng.integers(0, groups, n)
+         ).astype(np.int32)
+    x = rng.normal(size=n).astype(np.float32)
+    x[rng.random(n) < 0.05] = -0.0
+    arrays = {"g": rng.permutation(g), "x": x,
+              "y": rng.integers(-1000, 1000, n).astype(np.int32)}
+    return arrays, {"x": rng.random(n) < 0.9}
+
+
+def _group_scale(t, arrays, valid, col):
+    """(sum |x|, count) of ``col`` per output row of the groupby ``t``
+    (key column 0), over the live rows of the output."""
+    live = t.emit_mask().cpu().numpy()
+    keys = t._columns[0].data.cpu().numpy()[live]
+    v = valid.get(col, np.ones(len(arrays[col]), bool))
+    x = np.abs(np.where(v, arrays[col], 0).astype(np.float64))
+    order = np.argsort(arrays["g"], kind="stable")
+    gs = arrays["g"][order]
+    lo = np.searchsorted(gs, keys, "left")
+    hi = np.searchsorted(gs, keys, "right")
+    cx = np.concatenate([[0], np.cumsum(x[order])])
+    cv = np.concatenate([[0], np.cumsum(v[order])])
+    return cx[hi] - cx[lo], cv[hi] - cv[lo]
+
+
+@pytest.mark.parametrize("world", [0, 4])
+@pytest.mark.parametrize("groups", [1, 1000, "all"])
+def test_groupby_on_card(cuda, world, groups):
+    """groupby(g, [x, y, x, x, x], [sum, count, mean, min, max]) with one
+    group, with 1,000 groups and with as many groups as rows, on the card
+    against the CPU."""
+    n = 20_000
+    arrays, valid = _group_arrays(n, n if groups == "all" else groups)
+    gctx, cctx = _ctx_pair(cuda, world)
+    ops = ["sum", "count", "mean", "min", "max"]
+    got = _table(gctx, arrays, valid).groupby(0, [1, 2, 1, 1, 1], ops)
+    exp = _table(cctx, arrays, valid).groupby(0, [1, 2, 1, 1, 1], ops)
+    sc = _group_scale(exp, arrays, valid, "x")
+    assert_layout_equal(got, exp, {1: "sum", 3: "mean"}, {1: sc, 3: sc},
+                        f"world {world} groups {groups}")
+
+
+@pytest.mark.parametrize("mode", ["rows", "pre_partitioned"])
+def test_groupby_without_partials_on_card(cuda, mode):
+    from cylon_tpu_torch.parallel import dist_ops as D
+
+    arrays, valid = _group_arrays(5_000, 300, seed=2)
+    gctx, cctx = _ctx_pair(cuda, 4)
+    res = []
+    for ctx in (gctx, cctx):
+        t = _table(ctx, arrays, valid)
+        ops = [ct.AggregationOp.SUM, ct.AggregationOp.MIN]
+        if mode == "rows":
+            res.append(D.distributed_groupby(t, 0, [2, 1], ops,
+                                             pre_aggregate=False))
+        else:
+            res.append(D.distributed_groupby(D.shuffle(t, ["g"]), 0, [2, 1],
+                                             ops, pre_partitioned=True))
+    assert_layout_equal(res[0], res[1], what=mode)
+
+
+@pytest.mark.parametrize("world", [0, 4])
+@pytest.mark.parametrize("op", ["sum", "count", "min", "max", "mean"])
+def test_scalar_aggregates_on_card(cuda, world, op):
+    arrays, valid = _group_arrays(30_000, 50, seed=3)
+    gctx, cctx = _ctx_pair(cuda, world)
+    for col in ("x", "y"):
+        a = getattr(_table(gctx, arrays, valid), op)(col)._columns[0]
+        b = getattr(_table(cctx, arrays, valid), op)(col)._columns[0]
+        ga, cb = a.data.cpu().numpy(), b.data.numpy()
+        assert ga.dtype == cb.dtype
+        if op in ("sum", "mean") and ga.dtype.kind == "f":
+            s = np.abs(np.where(valid.get(col, True), arrays[col], 0)).sum()
+            tol = SUM_RTOL * s + 1e-30 if op == "sum" \
+                else MEAN_RTOL * s / len(arrays[col])
+            assert np.all(np.abs(ga - cb) <= tol), (col, ga, cb)
+        else:
+            assert np.array_equal(ga.view(np.uint8), cb.view(np.uint8)), col
+
+
+@pytest.mark.parametrize("world", [0, 1, 4, 8])
+@pytest.mark.parametrize("keys", ["distinct", "all_equal", "top_bit"])
+def test_sort_on_card(cuda, world, keys):
+    """Table.sort (world 0) and distributed_sort (force_exchange at world
+    1) on the card: bit for bit the CPU's rows, shard by shard (both
+    sorts are stable), and K1/K2 in the exchange."""
+    from cylon_tpu_torch.parallel import dist_ops as D
+
+    rng = np.random.default_rng(4)
+    n = 50_000
+    k = {"distinct": rng.permutation(n).astype(np.int32),
+         "all_equal": np.full(n, 7, np.int32),
+         "top_bit": rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32)
+         }[keys]
+    arrays = {"k": k, "v": rng.normal(size=n).astype(np.float32),
+              "b": rng.integers(-(1 << 63), (1 << 63) - 1, n,
+                                dtype=np.int64)}
+    gctx, cctx = _ctx_pair(cuda, world)
+    res = []
+    for ctx in (gctx, cctx):
+        t = _table(ctx, arrays)
+        K.reset_launches()
+        if world == 0:
+            res.append(t.sort(["k", "b"], [True, False]))
+        else:
+            res.append(D.distributed_sort(t, ["k", "b"], [True, False],
+                                          force_exchange=True))
+        if ctx is gctx and world > 1:
+            torch.cuda.synchronize()
+            assert K.LAUNCHES["partition_scatter"] == 1
+    assert_layout_equal(res[0], res[1], what=f"world {world} {keys}")
+
+
+@pytest.mark.parametrize("world", [4, 8])
+def test_hash_partition_and_repartition_on_card(cuda, world):
+    from cylon_tpu_torch.parallel import dist_ops as D
+
+    arrays, valid = _group_arrays(10_000, 400, seed=5)
+    gctx, cctx = _ctx_pair(cuda, world)
+    gp = D.hash_partition(_table(gctx, arrays, valid), ["g"], 5)
+    cp = D.hash_partition(_table(cctx, arrays, valid), ["g"], 5)
+    for p in range(5):
+        assert_layout_equal(gp[p], cp[p], what=f"partition {p}")
+    assert_layout_equal(D.repartition(_table(gctx, arrays, valid), gctx),
+                        D.repartition(_table(cctx, arrays, valid), cctx),
+                        what="repartition")
+
+
+@pytest.mark.parametrize("world", [4, 8])
+@pytest.mark.parametrize("n", [1, 3, 7])
+def test_reshuffle_of_compact_output_on_card(cuda, world, n):
+    """A shuffle of a few rows (all on source shard 0, so the compact
+    route) lands in compact shards of 1 to 8 rows;
+    shuffling that by another key runs K1/K2 on [W, cap] ids whose shards
+    start off a 16-byte boundary, and a groupby of it merges partials of
+    such shards. Rows and layout equal the CPU's."""
+    from cylon_tpu_torch.parallel import dist_ops as D
+
+    rng = np.random.default_rng(n)
+    arrays = {"k": rng.integers(0, 1 << 20, n).astype(np.int32),
+              "v": rng.integers(0, 3, n).astype(np.int64)}
+    gctx, cctx = _ctx_pair(cuda, world)
+    res = []
+    for ctx in (gctx, cctx):
+        first = D.shuffle(_table(ctx, arrays), ["k"])
+        assert first.capacity // world <= 8
+        K.reset_launches()
+        second = D.shuffle(first, ["v"])
+        if ctx is gctx:
+            torch.cuda.synchronize()
+            assert K.LAUNCHES["partition_hist"] == 2
+            assert K.LAUNCHES["partition_scatter"] == 1
+        res.append((first, second, D.distributed_groupby(
+            first, 1, [0], [ct.AggregationOp.COUNT])))
+    for g, c in zip(res[0], res[1]):
+        assert_layout_equal(g, c, what=f"world {world} n {n}")
