@@ -1,7 +1,8 @@
 """Drive cylon_tpu_torch's main path on one NVIDIA H100 and check it.
 
     python3 chip_smoke.py [--rows N] [--setop-rows M] [--pipeline-rows P]
-                          [--groupby-rows G] [--seed S] [--out PATH]
+                          [--groupby-rows G] [--string-rows R] [--seed S]
+                          [--out PATH]
 
 Four paths, each at the size of the repo's own benchmark:
 
@@ -24,7 +25,13 @@ Four paths, each at the size of the repo's own benchmark:
   and 4);
 * sort: bench.py ``bench_sort`` and ``bench_dist_sort`` (G rows, k in
   [0, 2^31): ``Table.sort`` at world 1, ``distributed_sort(...,
-  force_exchange=True)`` at world 4).
+  force_exchange=True)`` at world 4);
+* strings: bench.py ``bench_string_join`` and ``bench_dist_string_join``
+  (two tables of R = 4,194,304 rows, ``--string-rows``: a varbytes key
+  "u" + 8 hex digits of ks + "xxx", 12 bytes, ks uniform in [0, 2^20),
+  a float32 payload; ``Table.join`` at world 1 and ``distributed_join(...,
+  force_exchange=True)`` at world 4: K3 in hash mode with 4 verify
+  lanes, the key words riding K4 as payload lanes, K1/K2 at world 4).
 
 Phases, in order (any failure exits non-zero; nothing is caught):
   1. the card, torch, nvcc, and the build of every kernel from csrc/;
@@ -68,7 +75,20 @@ Phases, in order (any failure exits non-zero; nothing is caught):
      against np.sort, the rows equal as a multiset;
  13. small and empty inputs at world 4 and 8 (the compact route): all
      four join types and the three set ops against numpy, one join in
-     several rounds, one hash_partition and one repartition check.
+     several rounds, one hash_partition and one repartition check;
+ 14. the string join at world 1 (seeds 10, 11), 15. at world 4 with a
+     forced exchange (seeds 20, 21): counters 0 -> read (K3 and K4, and
+     K1/K2 at world 4, must launch; every K3 call in hash mode with 4
+     verify lanes), the rows (ks, left payload, right payload) equal to a
+     numpy join on ks, the median of 5 steady walls, 2R / wall rows/s and
+     one profile; then K3 and K4 at phase 14's shapes against their plain
+     versions, bit for bit;
+ 16. strings at small size against Python from the same integer ids:
+     dictionary and varbytes storage, nulls, empty strings, non-ASCII
+     text and BINARY values, keys of 1-3, 11 and 19-20 words; all four
+     joins, the three set ops (K5/K6 for dictionary strings at world 1),
+     groupby and sort at world 1 and 4, and a mixed dictionary/varbytes
+     concat_tables.
 Phases 10-12 each record the median of 5 steady runs after one warm-up.
 Tolerances: float sums 1e-5 * sum |x| of the group (+1e-30), float64
 means 1e-12 * sum |x| / count; everything else exact.
@@ -167,18 +187,10 @@ def numpy_join_count(lk: np.ndarray, rk: np.ndarray, n: int) -> int:
 
 def numpy_inner_join(lk, lv, rk, rv):
     """Independent reference: (key, left payload bits, right payload
-    bits) rows of the inner join, sorted."""
-    order = np.argsort(rk, kind="stable")
-    rks = rk[order]
-    lo = np.searchsorted(rks, lk, "left")
-    hi = np.searchsorted(rks, lk, "right")
-    cnt = hi - lo
-    li = np.repeat(np.arange(len(lk)), cnt)
-    starts = np.repeat(lo - np.cumsum(cnt) + cnt, cnt)
-    ri = order[starts + np.arange(len(li))]
-    rows = np.stack([lk[li].astype(np.int64),
-                     lv[li].view(np.int32).astype(np.int64),
-                     rv[ri].view(np.int32).astype(np.int64)], 1)
+    bits) rows of the inner join, sorted, the payload bits signed."""
+    k, a, b = numpy_join_arrays(lk, lv, rk, rv)
+    rows = np.stack([k] + [x.astype(np.uint32).view(np.int32).astype(
+        np.int64) for x in (a, b)], 1)
     return rows[np.lexsort(rows.T[::-1])]
 
 
@@ -329,6 +341,75 @@ def max_abs_err(pairs) -> int:
     return err
 
 
+def check_k3(K, kw) -> dict:
+    """K3 on the inputs of one recorded call against its plain version,
+    timed; the bytes it must move."""
+    b4 = 4
+    got = K.join_plan_stream(**kw)
+    ref = K.plain_join_plan_stream(**kw)
+    pairs = [(got[0], ref[0])]
+    counts = ref[0].cpu()
+    for w_ in range(counts.shape[0]):
+        ne, nbl = int(counts[w_, 1]), int(counts[w_, 2])
+        pairs += [(x[w_, :ne], y[w_, :ne]) for x, y in zip(got[1], ref[1])]
+        pairs += [(x[w_, :nbl], y[w_, :nbl]) for x, y in zip(got[2], ref[2])]
+    err = max_abs_err(pairs)
+    # bits, tag (and in hash mode bits2 and the verify lanes) are read at
+    # every element; the payload lanes only at group A elements (the a
+    # lanes) and group B elements (the b lanes)
+    streams = 2 + len(kw.get("verify_lanes", ())) \
+        + (kw.get("bits2_s") is not None)
+    n_emit, n_blive = int(counts[:, 1].sum()), int(counts[:, 2].sum())
+    la, lb = len(ref[1]) - 3, len(ref[2]) - 1
+    return dict(
+        name="join_plan_stream", err=err,
+        shape=f"stream {list(kw['bits_s'].shape)}, "
+        f"{len(kw.get('lanes', ()))} lanes, "
+        f"n_emit {n_emit}, n_blive {n_blive}",
+        ms=cuda_ms(lambda: K.join_plan_stream(**kw)),
+        kernel_ms=own_kernel_ms(K, lambda: K.join_plan_stream(**kw)),
+        plain_ms=cuda_ms(lambda: K.plain_join_plan_stream(**kw)),
+        library_ms=None,
+        bytes=b4 * (streams * kw["bits_s"].numel() + la * n_emit
+                    + lb * n_blive + counts.numel()
+                    + len(ref[1]) * n_emit + len(ref[2]) * n_blive))
+
+
+def check_k4(K, cnt, a_s, b_s, cap_e) -> dict:
+    """K4 on the inputs of one recorded call against its plain version,
+    timed; the bytes it must move."""
+    b4 = 4
+    got = K.join_expand_stream(cnt, a_s, b_s, cap_e)
+    ref = K.plain_join_expand_stream(cnt, a_s, b_s, cap_e)
+    err = max_abs_err([(got[0], ref[0]), (got[1], ref[1])]
+                      + list(zip(got[2] + got[3], ref[2] + ref[3])))
+    c = cnt.cpu()
+    n_emit = int(c[:, 1].sum())
+    w = cnt.shape[0]
+    # group B rows are read only where some output row matches them
+    shard_of = torch.arange(w, device=cnt.device)[:, None].expand_as(ref[1])
+    hit = ref[1] >= 0
+    b_read = torch.unique(shard_of[hit] * b_s.shape[2]
+                          + ref[1][hit].to(torch.int64)).numel()
+    # tiles at or past their shard's n_out only write -1 and zeros
+    tiles = -(-cap_e // K.EXPAND_TILE)
+    fill = sum(tiles - min(tiles, -(-max(int(x), 0) // K.EXPAND_TILE))
+               for x in c[:, 0])
+    return dict(
+        name="join_expand_stream", err=err,
+        shape=f"cap_e {cap_e} x {w} shards, groups A {len(a_s)} x "
+        f"{list(a_s[0].shape)}, B {len(b_s)} x {list(b_s[0].shape)}, "
+        f"{fill} of {w * tiles} tiles fill-only",
+        ms=cuda_ms(lambda: K.join_expand_stream(cnt, a_s, b_s, cap_e)),
+        kernel_ms=own_kernel_ms(
+            K, lambda: K.join_expand_stream(cnt, a_s, b_s, cap_e)),
+        plain_ms=cuda_ms(lambda: K.plain_join_expand_stream(
+            cnt, a_s, b_s, cap_e)),
+        library_ms=None,
+        bytes=b4 * (c.numel() + len(a_s) * n_emit + len(b_s) * b_read
+                    + (len(a_s) - 3 + len(b_s) + 1) * w * cap_e))
+
+
 def check_kernels(K, calls) -> list:
     """Phase 5: every kernel at its main-path shapes against its plain
     version, timed."""
@@ -378,68 +459,10 @@ def check_kernels(K, calls) -> list:
         library_ms=cuda_ms(library_k2),
         bytes=b4 * (t.numel() + counts.numel() + 2 * got.numel())))
 
-    # K3 join_plan_stream
+    # K3 join_plan_stream, K4 join_expand_stream
     _a, kw = calls["join_plan_stream"]
-    got = K.join_plan_stream(**kw)
-    ref = K.plain_join_plan_stream(**kw)
-    pairs = [(got[0], ref[0])]
-    counts = ref[0].cpu()
-    for w_ in range(counts.shape[0]):
-        ne, nbl = int(counts[w_, 1]), int(counts[w_, 2])
-        pairs += [(x[w_, :ne], y[w_, :ne]) for x, y in zip(got[1], ref[1])]
-        pairs += [(x[w_, :nbl], y[w_, :nbl]) for x, y in zip(got[2], ref[2])]
-    err = max_abs_err(pairs)
-    # bits, tag (and in hash mode bits2 and the verify lanes) are read at
-    # every element; the payload lanes only at group A elements (the a
-    # lanes) and group B elements (the b lanes)
-    streams = 2 + len(kw.get("verify_lanes", ())) \
-        + (kw.get("bits2_s") is not None)
-    n_emit, n_blive = int(counts[:, 1].sum()), int(counts[:, 2].sum())
-    la, lb = len(ref[1]) - 3, len(ref[2]) - 1
-    out.append(dict(
-        name="join_plan_stream", err=err,
-        shape=f"stream {list(kw['bits_s'].shape)}, "
-        f"{len(kw.get('lanes', ()))} lanes, "
-        f"n_emit {n_emit}, n_blive {n_blive}",
-        ms=cuda_ms(lambda: K.join_plan_stream(**kw)),
-        kernel_ms=own_kernel_ms(K, lambda: K.join_plan_stream(**kw)),
-        plain_ms=cuda_ms(lambda: K.plain_join_plan_stream(**kw)),
-        library_ms=None,
-        bytes=b4 * (streams * kw["bits_s"].numel() + la * n_emit
-                    + lb * n_blive + counts.numel()
-                    + len(ref[1]) * n_emit + len(ref[2]) * n_blive)))
-
-    # K4 join_expand_stream
-    (cnt, a_s, b_s, cap_e), _ = calls["join_expand_stream"]
-    got = K.join_expand_stream(cnt, a_s, b_s, cap_e)
-    ref = K.plain_join_expand_stream(cnt, a_s, b_s, cap_e)
-    err = max_abs_err([(got[0], ref[0]), (got[1], ref[1])]
-                      + list(zip(got[2] + got[3], ref[2] + ref[3])))
-    c = cnt.cpu()
-    n_emit = int(c[:, 1].sum())
-    w = cnt.shape[0]
-    # group B rows are read only where some output row matches them
-    shard_of = torch.arange(w, device=cnt.device)[:, None].expand_as(ref[1])
-    hit = ref[1] >= 0
-    b_read = torch.unique(shard_of[hit] * b_s.shape[2]
-                          + ref[1][hit].to(torch.int64)).numel()
-    # tiles at or past their shard's n_out only write -1 and zeros
-    tiles = -(-cap_e // K.EXPAND_TILE)
-    fill = sum(tiles - min(tiles, -(-max(int(x), 0) // K.EXPAND_TILE))
-               for x in c[:, 0])
-    out.append(dict(
-        name="join_expand_stream", err=err,
-        shape=f"cap_e {cap_e} x {w} shards, groups A {len(a_s)} x "
-        f"{list(a_s[0].shape)}, B {len(b_s)} x {list(b_s[0].shape)}, "
-        f"{fill} of {w * tiles} tiles fill-only",
-        ms=cuda_ms(lambda: K.join_expand_stream(cnt, a_s, b_s, cap_e)),
-        kernel_ms=own_kernel_ms(
-            K, lambda: K.join_expand_stream(cnt, a_s, b_s, cap_e)),
-        plain_ms=cuda_ms(lambda: K.plain_join_expand_stream(
-            cnt, a_s, b_s, cap_e)),
-        library_ms=None,
-        bytes=b4 * (c.numel() + len(a_s) * n_emit + len(b_s) * b_read
-                    + (len(a_s) - 3 + len(b_s) + 1) * w * cap_e)))
+    out.append(check_k3(K, kw))
+    out.append(check_k4(K, *calls["join_expand_stream"][0]))
 
     # K5 setop_stream: it must read h1, h2, tag and the L lanes at every
     # element (the collision audit compares the lanes everywhere) and
@@ -988,6 +1011,330 @@ def small_inputs_phase(ct, K, D, S) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# string columns (phases 14-16)
+# ---------------------------------------------------------------------------
+
+STRING_KEYS = 1 << 20   # bench.py's n_keys (n // 4) at 4,194,304 rows
+
+
+def make_string_table(ct, ctx, n: int, seed: int):
+    """bench.py's bench_string_join / bench_dist_string_join tables: key
+    "u" + 8 hex digits of ks + "xxx" (12 bytes, 3 words, varbytes), ks
+    uniform in [0, 2^20), and a float32 normal payload from the same
+    generator. Returns (table, ks, v)."""
+    from cylon_tpu_torch.data.strings import VarBytes
+
+    r = np.random.default_rng(seed)
+    ks = r.integers(0, STRING_KEYS, n)
+    hexd = np.frombuffer(b"0123456789abcdef", np.uint8)
+    b = np.empty((n, 12), np.uint8)
+    b[:, 0] = ord("u")
+    for j in range(8):
+        b[:, 1 + j] = hexd[(ks >> (28 - 4 * j)) & 0xF]
+    b[:, 9:] = ord("x")
+    vb = VarBytes._from_packed(b.tobytes(), np.full(n, 12, np.int32),
+                               device=ctx.device)
+    v = r.normal(size=n).astype(np.float32)
+    t = ct.Table([ct.Column.from_varbytes(vb, None, "k"),
+                  ct.Column.from_numpy(v, "v", None, ctx.device)], ctx)
+    return t, ks, v
+
+
+def decode_hex_keys(col) -> torch.Tensor:
+    """ks back from the 12-byte keys on the card (bytes 1-8 are its hex
+    digits); asserts every key is "u" + 8 hex digits + "xxx"."""
+    w = [l.to(torch.int64) & 0xFFFFFFFF for l in col.varbytes.word_lanes(3)]
+    byte = [(w[i // 4] >> (8 * (i % 4))) & 0xFF for i in range(12)]
+    assert bool((col.varbytes.lengths == 12).all()), "key lengths"
+    assert bool((byte[0] == ord("u")).all()) and all(
+        bool((x == ord("x")).all()) for x in byte[9:]), "key bytes"
+    k = torch.zeros_like(w[0])
+    for x in byte[1:9]:
+        k = k * 16 + torch.where(x >= ord("a"), x - ord("a") + 10,
+                                 x - ord("0"))
+    return k
+
+
+def numpy_join_arrays(lk, lv, rk, rv):
+    """Independent reference: (key, left payload bits, right payload
+    bits) of the inner join, unsorted."""
+    order = np.argsort(rk, kind="stable")
+    rks = rk[order]
+    lo = np.searchsorted(rks, lk, "left")
+    cnt = np.searchsorted(rks, lk, "right") - lo
+    li = np.repeat(np.arange(len(lk)), cnt)
+    ri = order[np.repeat(lo - np.cumsum(cnt) + cnt, cnt) + np.arange(len(li))]
+    return (lk[li].astype(np.int64), lv[li].view(np.uint32).astype(np.int64),
+            rv[ri].view(np.uint32).astype(np.int64))
+
+
+def canonical_triples(k, a, b) -> torch.Tensor:
+    """[m, 3] int64 rows sorted by (k, a, b) on the card; k < 2^31, a and
+    b 32-bit."""
+    p = torch.sort(b, stable=True).indices
+    p = p[torch.sort(((k << 32) | a)[p], stable=True).indices]
+    return torch.stack([k[p], a[p], b[p]], 1)
+
+
+def check_string_join(out, expect) -> int:
+    """The join's live rows equal the numpy join's: keys decoded from the
+    bytes of both key columns, payload bits."""
+    t = out.compact()
+    lk, rk = decode_hex_keys(t._columns[0]), decode_hex_keys(t._columns[2])
+    assert torch.equal(lk, rk), "left and right keys differ"
+    bits = [c.data.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+            for c in (t._columns[1], t._columns[3])]
+    got = canonical_triples(lk, *bits)
+    ref = canonical_triples(*(torch.from_numpy(x).to(got.device)
+                              for x in expect))
+    assert got.shape == ref.shape and torch.equal(got, ref), \
+        "string join rows disagree with numpy"
+    return int(got.shape[0])
+
+
+class HashModeSpy:
+    """Records, per K3 call, the number of verify lanes (hash mode) and
+    payload lanes."""
+
+    def __init__(self, K):
+        self.K = K
+        self.calls = []
+
+    def __enter__(self):
+        self.real = self.K.join_plan_stream
+
+        def spy(**kw):
+            self.calls.append((kw.get("bits2_s") is not None,
+                               len(kw.get("verify_lanes", ())),
+                               len(kw.get("lanes", ()))))
+            return self.real(**kw)
+
+        self.K.join_plan_stream = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.K.join_plan_stream = self.real
+
+
+def string_join_phase(ct, K, ctx, n: int, world: int, seeds) -> dict:
+    """Phases 14 (world 1, Table.join) and 15 (world 4, distributed_join
+    with force_exchange): two string-key tables of n rows, an inner join
+    on k. K3 must run in hash mode with 4 verify lanes (3 words and the
+    length) and K4 launch (and K1/K2 at world 4); the rows equal a numpy
+    join on ks. Median of 5 steady walls, 2n / wall rows/s, one profile."""
+    phase = 14 if world == 1 else 15
+    left, lk, lv = make_string_table(ct, ctx, n, seeds[0])
+    right, rk, rv = make_string_table(ct, ctx, n, seeds[1])
+    expect = numpy_join_arrays(lk, lv, rk, rv)
+
+    def fn():
+        if world == 1:
+            return left.join(right, "inner", on=["k"])
+        return left.distributed_join(right, "inner", on=["k"],
+                                     force_exchange=True)
+
+    sync()
+    K.reset_launches()
+    with Recorder(K) as rec, HashModeSpy(K) as hm:
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        first = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    need = ["join_plan_stream", "join_expand_stream"] + (
+        ["partition_hist", "partition_scatter"] if world > 1 else [])
+    missing = [k for k in need if launches[k] == 0]
+    assert not missing, f"string join world {world}: not launched {missing}"
+    assert hm.calls and all(h and v == 4 for h, v, _l in hm.calls), \
+        f"K3 not in hash mode with 4 verify lanes: {hm.calls}"
+    rows = check_string_join(out, expect)
+    del out
+    walls = steady(fn)
+    med = statistics.median(walls)
+    prof = profile_once(fn)
+    log(f"phase {phase} string join (2 x {n} rows, 12-byte keys, world "
+        f"{world}): launches {launches}, K3 (hash mode, verify lanes, "
+        f"payload lanes) {hm.calls}; {rows} rows == numpy join; first run "
+        f"{first:.4f} s; steady walls (s) {walls}; median {med:.6f}, input "
+        f"rows/s {2 * n / med:.4e}; profile: wall {prof['wall_ms']:.3f} ms, "
+        f"device busy {prof['busy_ms']:.3f} ms (idle share "
+        f"{prof['idle_share']:.4f}); top device time:")
+    for name, ms, calls in prof["top"]:
+        log(f"    {ms:9.3f} ms  x{calls:<3d} {name}")
+    return {"rows": n, "world": world, "launches": launches,
+            "k3_calls": hm.calls, "out_rows": rows, "first_wall_s": first,
+            "walls": walls, "rows_per_s": 2 * n / med, "profile": prof,
+            "calls": rec.calls}
+
+
+class StringPolicy:
+    """Sets the string ingest policy for a block: "dict" (always
+    dictionary-encode) or "varbytes" (never)."""
+
+    def __init__(self, storage: str):
+        from cylon_tpu_torch.data import strings
+
+        self.s, self.storage = strings, storage
+
+    def __enter__(self):
+        self.old = (self.s.DICT_MAX_VOCAB, self.s.DICT_MAX_RATIO)
+        if self.storage == "dict":
+            self.s.DICT_MAX_VOCAB, self.s.DICT_MAX_RATIO = 1 << 30, 1e9
+        else:
+            self.s.DICT_MAX_VOCAB = 0
+        return self
+
+    def __exit__(self, *exc):
+        self.s.DICT_MAX_VOCAB, self.s.DICT_MAX_RATIO = self.old
+
+
+def id_string(family: str, i):
+    """The string of integer id i in a family (None stays None): "short"
+    1-3 words with non-ASCII text and id 0 empty, "long" 11 words
+    (content-hash keys, past LANE_WORDS_MAX), "sortlong" 19-20 words (past
+    SORT_PREFIX_WORDS), "binary" non-UTF-8 bytes."""
+    if i is None:
+        return None
+    if family == "short":
+        return "" if i == 0 else f"é{i}"
+    if family == "long":
+        return "L" * 40 + f"{i:03d}"
+    if family == "sortlong":
+        return "S" * 70 + f"{i:03d}"[::-1] + "é" * (i % 3)
+    return bytes([255 - i % 256, 0, i % 7]) * (1 + i % 3)
+
+
+def id_rows(seed: int, n: int, span: int):
+    r = np.random.default_rng(seed)
+    ids = [int(x) for x in r.integers(0, span, n)]
+    return [None if r.random() < 0.1 else i for i in ids]
+
+
+def py_join(lid, lv, rid, rv, how, f):
+    rows = []
+    for i, a in enumerate(lid):
+        hit = [j for j, b in enumerate(rid) if a is not None and b == a]
+        rows += [(f(a), lv[i], f(rid[j]), rv[j]) for j in hit]
+        if not hit and how in ("left", "outer"):
+            rows.append((f(a), lv[i], None, None))
+    if how in ("right", "outer"):
+        rows += [(None, None, f(b), rv[j]) for j, b in enumerate(rid)
+                 if b is None or b not in lid]
+    return sorted(rows, key=repr)
+
+
+def table_tuples(t) -> list:
+    d = t.to_pydict()
+    cols = [[(x.item() if isinstance(x, np.generic) else x) for x in v]
+            for v in d.values()]
+    cols = [[None if (isinstance(x, float) and x != x) else x for x in c]
+            for c in cols]
+    return sorted(zip(*cols), key=repr)
+
+
+def string_small_phase(ct, K, D, lctx, dctx) -> dict:
+    """Phase 16: string correctness at small size on the card against
+    Python built from the same integer ids: dictionary and varbytes
+    storage, nulls, empty strings, non-ASCII text, BINARY values; keys of
+    1-3 words (word lanes), 11 words (content hash, the long-row word
+    exchange) and 19-20 words (past the sort prefix); all four joins at
+    world 1 and 4; the three set ops (dictionary: K5/K6 at world 1);
+    groupby and sort at world 1 and 4; a mixed dictionary/varbytes
+    concat_tables."""
+    out = {"cases": 0}
+    n = 40
+    for family in ("short", "long", "binary", "sortlong"):
+        for storage in ("dict", "varbytes"):
+            if family == "binary" and storage == "dict":
+                continue  # bytes values are always varbytes
+            lid, rid = id_rows(1, n, 25), id_rows(2, n - 5, 25)
+            lv, rv = list(range(n)), list(range(100, 100 + n - 5))
+
+            def f(i, family=family):
+                return id_string(family, i)
+
+            def strings(ids):
+                return np.array([f(i) for i in ids], dtype=object)
+
+            for ctx, world in ((lctx, 1), (dctx, WORLD)):
+                with StringPolicy(storage):
+                    lt = ct.Table.from_pydict(ctx, {
+                        "k": strings(lid), "v": np.array(lv, np.int64)})
+                    rt = ct.Table.from_pydict(ctx, {
+                        "k": strings(rid), "w": np.array(rv, np.int64)})
+                assert lt._columns[0].is_varbytes == (storage != "dict")
+                what = (family, storage, world)
+                for how in ("inner", "left", "right", "outer"):
+                    got = lt.join(rt, how, on=["k"]) if world == 1 else \
+                        lt.distributed_join(rt, how, on=["k"])
+                    assert table_tuples(got) == py_join(
+                        lid, lv, rid, rv, how, f), what + (how,)
+                    out["cases"] += 1
+                # set ops on (k, v % 3) rows
+                la = list(zip(strings(lid), [x % 3 for x in lv]))
+                ra = list(zip(strings(rid), [x % 3 for x in rv]))
+                with StringPolicy(storage):
+                    sa = ct.Table.from_pydict(ctx, {
+                        "k": strings(lid),
+                        "g": np.array([x % 3 for x in lv], np.int64)})
+                    sb = ct.Table.from_pydict(ctx, {
+                        "k": strings(rid),
+                        "g": np.array([x % 3 for x in rv], np.int64)})
+                for op, ref in (("union", set(la) | set(ra)),
+                                ("subtract", set(la) - set(ra)),
+                                ("intersect", set(la) & set(ra))):
+                    K.reset_launches()
+                    res = getattr(sa, op)(sb) if world == 1 else \
+                        getattr(sa, f"distributed_{op}")(sb)
+                    sync()
+                    if world == 1 and storage == "dict":
+                        assert K.LAUNCHES["setop_stream"] == 1 and \
+                            K.LAUNCHES["stream_compact"] >= 1, \
+                            ("K5/K6 not launched", what, op)
+                    assert table_tuples(res) == sorted(ref, key=repr), \
+                        what + (op,)
+                    out["cases"] += 1
+                # groupby: count and sum of v per key (nulls one group)
+                g = lt.groupby(0, [1, 1], ["count", "sum"])
+                exp = {}
+                for i, v in zip(lid, lv):
+                    c, s = exp.get(f(i), (0, 0))
+                    exp[f(i)] = (c + 1, s + v)
+                assert table_tuples(g) == sorted(
+                    ((k, c, s) for k, (c, s) in exp.items()), key=repr), \
+                    what + ("groupby",)
+                # sort: descending, nulls last, ties by v ascending
+                srt = lt.sort(["k", "v"], [False, True]) if world == 1 else \
+                    D.distributed_sort(lt, ["k", "v"], [False, True],
+                                       force_exchange=True)
+                keyed = sorted([(f(i), v) for i, v in zip(lid, lv)
+                                if i is not None],
+                               key=lambda x: x[1])
+                keyed = sorted(keyed, key=lambda x: x[0], reverse=True)
+                keyed += sorted([(None, v) for i, v in zip(lid, lv)
+                                 if i is None], key=lambda x: x[1])
+                d = srt.to_pydict()
+                assert list(zip(d["k"].tolist(), d["v"].tolist())) == keyed, \
+                    what + ("sort",)
+                out["cases"] += 2
+    # concat_tables of a dictionary and a varbytes column
+    ids = id_rows(3, 30, 20)
+    vals = np.array([id_string("short", i) for i in ids], dtype=object)
+    with StringPolicy("dict"):
+        a = ct.Table.from_pydict(lctx, {"k": vals[:15]})
+    with StringPolicy("varbytes"):
+        b = ct.Table.from_pydict(lctx, {"k": vals[15:]})
+    both = ct.concat_tables([a, b], lctx)
+    assert both._columns[0].is_varbytes
+    assert both.to_pydict()["k"].tolist() == vals.tolist()
+    out["cases"] += 1
+    log(f"phase 16 strings at small size (dictionary and varbytes, 1-20 "
+        f"word keys, BINARY, nulls, world 1 and {WORLD}): {out['cases']} "
+        f"joins, set ops, groupbys, sorts and a mixed concat == Python")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=1 << 24,
@@ -998,6 +1345,8 @@ def main() -> int:
                     help="rows per join -> groupby table")
     ap.add_argument("--groupby-rows", type=int, default=1 << 24,
                     help="rows of the groupby and sort tables")
+    ap.add_argument("--string-rows", type=int, default=1 << 22,
+                    help="rows per string-join table")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="also write the result JSON to this path")
@@ -1144,6 +1493,28 @@ def main() -> int:
     sort = sort_phase(ct, K, D, lctx, dctx, args.groupby_rows)
     small_inputs = small_inputs_phase(ct, K, D, S)
 
+    # phases 14-16: string columns; then K3 (hash mode) and K4 at phase
+    # 14's shapes against their plain versions
+    string_join = string_join_phase(ct, K, lctx, args.string_rows, 1,
+                                    (10, 11))
+    dist_string_join = string_join_phase(ct, K, dctx, args.string_rows,
+                                         WORLD, (20, 21))
+    string_small = string_small_phase(ct, K, D, lctx, dctx)
+    calls = string_join.pop("calls")
+    dist_string_join.pop("calls")
+    string_kernels = []
+    for r in (check_k3(K, calls["join_plan_stream"][1]),
+              check_k4(K, *calls["join_expand_stream"][0])):
+        r["bound_ms"] = r.pop("bytes") / HBM_BYTES_PER_S * 1e3
+        string_kernels.append(r)
+        log(f"phase 14 kernel check {r['name']} ({r['shape']}): ms "
+            f"{r['ms']:.4f} kernel_ms {r['kernel_ms']:.4f} plain "
+            f"{r['plain_ms']:.4f} bound {r['bound_ms']:.4f} max_abs_err "
+            f"{r['err']}")
+    bad = [r["name"] for r in string_kernels if r["err"] != 0]
+    assert not bad, f"kernels disagree at phase 14's shapes: {bad}"
+    del calls
+
     summary = {"kernels": kernels}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -1156,7 +1527,12 @@ def main() -> int:
                            out_rows=rows_k, build_s=build_s, setop=setop,
                            dist_union=dist_union, join_groupby=pipe,
                            groupby=groupby, sort=sort,
-                           small_inputs=small_inputs), f, indent=1)
+                           small_inputs=small_inputs,
+                           string_join=string_join,
+                           dist_string_join=dist_string_join,
+                           string_small=string_small,
+                           string_kernels=string_kernels), f, indent=1,
+                      default=str)
     log(json.dumps(summary))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,11 @@ numpy, never jax and nothing of cylon_tpu. It carries two paths:
   forms ``distributed_groupby`` (per-shard partials, their exchange,
   second-phase merge) and ``distributed_sort`` (range splitters, the
   exchange, per-shard sorts), plus ``hash_partition`` and
-  ``repartition``. These run torch ops; their exchanges run K1/K2.
+  ``repartition``. These run torch ops; their exchanges run K1/K2;
+* string columns (dictionary-encoded or varbytes, data/strings.py)
+  through every op above, Arrow and Parquet I/O, and the column-model
+  helpers (``project``, ``select``, ``slice``, ``merge``, ``t[...]``,
+  the comparisons, the blocked local join).
 
 Every distributed op exchanges through the padded route or, for skewed,
 diagonal or small count matrices, the compact route
@@ -40,6 +44,7 @@ from .context import CylonContext
 from .data.column import Column
 from .data.table import Table, concat_tables
 from .io.csv import read_csv, write_csv
+from .io.parquet import read_parquet, write_parquet
 from .ops.groupby import AggregationOp
 from .ops.join import JoinAlgorithm, JoinConfig, JoinType
 from .parallel.dist_ops import (distributed_groupby, distributed_sort,
@@ -52,5 +57,5 @@ __all__ = [
     "Column", "Table", "concat_tables", "read_csv", "write_csv",
     "JoinAlgorithm", "JoinConfig", "JoinType", "Code", "CylonError",
     "Status", "AggregationOp", "distributed_groupby", "distributed_sort",
-    "hash_partition", "repartition",
+    "hash_partition", "repartition", "read_parquet", "write_parquet",
 ]

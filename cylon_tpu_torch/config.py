@@ -220,3 +220,24 @@ class CSVWriteOptions:
     # pycylon snake_case
     def with_delimiter(self, d: str) -> "CSVWriteOptions":
         return self.WithDelimiter(d)
+
+
+class ParquetOptions:
+    """Reference: io/parquet_config.hpp (chunk size + writer properties)."""
+
+    def __init__(self):
+        self._chunk_size = 64 * 1024
+        self._compression: Optional[str] = None
+        self._concurrent_file_reads = True
+
+    def ChunkSize(self, n: int) -> "ParquetOptions":
+        self._chunk_size = n
+        return self
+
+    def WithCompression(self, codec: str) -> "ParquetOptions":
+        self._compression = codec
+        return self
+
+    def ConcurrentFileReads(self, v: bool) -> "ParquetOptions":
+        self._concurrent_file_reads = v
+        return self

@@ -3,9 +3,10 @@ cylon_tpu.io.csv).
 
 Reference: cpp/src/cylon/io/arrow_io.cpp:34-62 and table.cpp:1019-1064.
 pyarrow's C++ CSV reader parses on the host; the parsed columns move to
-the context's device. pyarrow and pandas are imported inside the
-functions: the machine with the card has neither, and the rest of the
-port does not need them.
+the context's device, string columns through the ingest policy of
+data/column.py (dictionary or varbytes). pyarrow and pandas are imported
+inside the functions: the machine with the card has neither, and the
+rest of the port does not need them.
 """
 from __future__ import annotations
 
@@ -47,7 +48,8 @@ def _arrow_options(options: CSVReadOptions):
         import pyarrow as pa
 
         convert_kwargs["column_types"] = {
-            name: pa.from_numpy_dtype(dt.np_dtype)
+            name: pa.string() if dt.is_var_width()
+            else pa.from_numpy_dtype(dt.np_dtype)
             for name, dt in o._column_types.items()}
     return read_opts, parse_opts, pacsv.ConvertOptions(**convert_kwargs)
 
@@ -81,6 +83,11 @@ def _read_one(ctx: CylonContext, path: str, options: CSVReadOptions) -> Table:
     cols = []
     for i, name in enumerate(at.column_names):
         arr = at.column(i).combine_chunks()
+        if pa.types.is_string(arr.type) or pa.types.is_large_string(
+                arr.type) or pa.types.is_binary(arr.type):
+            # the string ingest policy: dictionary or varbytes
+            cols.append(Column.from_pyarrow(arr, name, ctx.device))
+            continue
         validity = None
         if arr.null_count:
             validity = np.asarray(arr.is_valid())

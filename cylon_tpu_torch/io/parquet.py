@@ -1,0 +1,44 @@
+"""Parquet IO through pyarrow (counterpart of cylon_tpu.io.parquet;
+reference: io/arrow_io.cpp:64-113 and parquet.cpp). pyarrow is imported
+inside the functions. (The JAX package's per-rank reader and its fault
+injection and retry hooks are not ported yet.)"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Union
+
+from ..config import ParquetOptions
+from ..context import CylonContext
+from ..data.table import Table, concat_tables
+from ..status import Code, CylonDataError, CylonError
+
+
+def _read_table(path: str):
+    """One parquet file -> pyarrow table. A missing file or a permission
+    error is an IOError; malformed bytes a typed CylonDataError."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    try:
+        return pq.read_table(path)
+    except OSError as e:
+        raise CylonError(Code.IOError, str(e))
+    except (pa.ArrowInvalid, pa.ArrowException, ValueError) as e:
+        raise CylonDataError(f"malformed parquet {path}: {e}") from e
+
+
+def read_parquet(ctx: CylonContext, path: Union[str, Sequence[str]],
+                 options: Optional[ParquetOptions] = None) -> Table:
+    if isinstance(path, (list, tuple)):
+        return concat_tables([read_parquet(ctx, p, options) for p in path],
+                             ctx)
+    return Table.from_arrow(ctx, _read_table(path))
+
+
+def write_parquet(table: Table, path: str,
+                  options: Optional[ParquetOptions] = None) -> None:
+    import pyarrow.parquet as pq
+
+    options = options or ParquetOptions()
+    pq.write_table(table.to_arrow(), path,
+                   row_group_size=options._chunk_size,
+                   compression=options._compression or "snappy")

@@ -4,7 +4,8 @@
 Reference: cpp/src/cylon/compute/aggregates.cpp:113-339 — a local
 reduction followed by an all-reduce of the scalar. A distributed table
 keeps every shard in one flat tensor, so one reduction over its live
-rows spans all shards. Nulls are skipped; count counts non-null rows.
+rows spans all shards. Nulls are skipped; count counts non-null rows;
+string min/max are lexicographic.
 The result is a Python scalar, as in the JAX package: sum keeps torch's
 (and numpy's) promotion of small integers to int64.
 """
@@ -12,9 +13,10 @@ from __future__ import annotations
 
 import torch
 
-from ..dtypes import numpy_dtype
-from ..status import Code, CylonError, not_ported
+from ..dtypes import Type, numpy_dtype
+from ..status import Code, CylonError
 from .groupby import _max_of, _min_of, float_order_key
+from .order import lexsort_indices
 
 
 def _arith(x: torch.Tensor) -> torch.Tensor:
@@ -45,14 +47,40 @@ def _extreme(data: torch.Tensor, valid: torch.Tensor, op: str):
     return float_order_key(k).view(data.dtype).item()
 
 
+def _string_extreme(col, valid: torch.Tensor, op: str):
+    """Lexicographic min/max of a string column as str (bytes for
+    BINARY), None when no row is valid. Dictionary columns reduce their
+    codes; varbytes columns sort their prefix keys once and decode only
+    the winning row (rows past the device prefix bound: on the host)."""
+    if not bool(valid.any()):
+        return None
+    if col.dictionary is not None:
+        x = _fill(col.data, valid, (1 << 31) - 1 if op == "min" else -1)
+        return str(col.dictionary[int(x.min() if op == "min" else x.max())])
+    as_str = col.dtype.type != Type.BINARY
+    vb = col.varbytes
+    if not vb.sortable_on_device:
+        vals = [v for v in col.to_numpy() if v is not None]
+        return min(vals) if op == "min" else max(vals)
+    keys = vb.sort_prefix_keys()
+    if op == "max":
+        keys = [~k for k in keys]
+    keys = [torch.where(valid, k, -1) for k in keys]  # nulls lose
+    v = vb.take(lexsort_indices(keys)[:1]).to_host(as_str=as_str)[0]
+    return str(v) if as_str else bytes(v)
+
+
 def agg_scalar(col, op: str):
     """One scalar aggregate of a column, as a Python scalar."""
-    if col.dtype.is_var_width():
-        raise not_ported("string columns in aggregates")
     valid = col.valid_mask()
     data = col.data
     if op == "count":
         return int(valid.sum())
+    if col.is_string:
+        if op not in ("min", "max"):
+            raise CylonError(Code.TypeError,
+                             f"{op} unsupported for string column")
+        return _string_extreme(col, valid, op)
     if op == "sum":
         return _fill(_arith(data), valid, 0).sum().item()
     if op in ("min", "max"):

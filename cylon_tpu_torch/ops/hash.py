@@ -76,8 +76,14 @@ def fmix64(h: torch.Tensor) -> torch.Tensor:
 
 def hash_column(col) -> torch.Tensor:
     """Per-row uint32 hash of one column, as int32 bits. Equal values hash
-    equal (floats use the -0.0-normalized ordered bits); nulls hash to a
-    fixed tag."""
+    equal (floats use the -0.0-normalized ordered bits, dictionary
+    strings their codes); nulls hash to a fixed tag. Varbytes strings hash
+    their whole byte content (the content hash h1)."""
+    if getattr(col, "is_varbytes", False):
+        h1 = col.varbytes.raw_hashes()[0]
+        if col.validity is not None:
+            h1 = torch.where(col.validity, h1, NULL_TAG - (1 << 32))
+        return h1
     bits = ordered_bits(col)
     if bits.element_size() == 8:
         h = fmix64(bits.to(torch.int64))

@@ -63,8 +63,8 @@ class JoinConfig:
         self.algorithm = algorithm
         self.left_column_idx = _as_list(left_column_idx)
         self.right_column_idx = _as_list(right_column_idx)
-        # byte-verification of hashed varbytes keys: strings are not
-        # ported, so the flag only exists to be refused
+        # byte-verification of varbytes keys that join on their content
+        # hash (rows longer than strings.EXACT_KEY_WORDS words)
         self.exact = exact
 
 
@@ -334,10 +334,13 @@ def _vm(v, like):
     return v
 
 
-def key_bits(keys, valids):
+def key_bits(keys, valids, raw=None):
     """Key columns -> (tuple of ordered key bits, combined key validity),
-    the inputs of both plan routes."""
-    bits = tuple(ordered_bits_raw(x) for x in keys)
+    the inputs of both plan routes. ``raw[i]`` True: key i already is its
+    bits (dictionary codes, varbytes word lanes and hashes: the JAX
+    package's string keys)."""
+    raw = raw or [False] * len(keys)
+    bits = tuple(x if r else ordered_bits_raw(x) for x, r in zip(keys, raw))
     kv = _vm(None, keys[0])
     for v in valids:
         if v is not None:

@@ -35,7 +35,15 @@ def all_ones(container: torch.dtype) -> int:
 
 
 def ordered_bits(col, descending: bool = False) -> torch.Tensor:
-    """Column wrapper over `ordered_bits_raw`."""
+    """Column wrapper over `ordered_bits_raw`. Dictionary strings are
+    their codes (the vocabulary is sorted, so codes are rank-preserving);
+    a varbytes column has no single ordered-bits array."""
+    if getattr(col, "is_varbytes", False):
+        raise CylonError(Code.TypeError,
+                         "varbytes columns need sort_prefix_keys/hash_keys, "
+                         "not ordered_bits")
+    if getattr(col, "dictionary", None) is not None:
+        return ~col.data if descending else col.data
     return ordered_bits_raw(col.data, descending)
 
 

@@ -134,13 +134,18 @@ MAX_SETOP_LANES = 12
 def setop_lane_descs(lcols, rcols):
     """Static lane plan over ALIGNED column pairs, or None when the
     columns do not fit the lane budget. Per column: (kind, has_validity)
-    with kind "d" (4-byte bit-exact), "n" (1/2-byte widened), "b" (bool),
-    "w" (8-byte split hi/lo)."""
+    with kind "d" (4-byte bit-exact; dictionary strings as their codes),
+    "n" (1/2-byte widened), "b" (bool), "w" (8-byte split hi/lo).
+    Varbytes content has no fixed lanes: such schemas take dense ranks."""
     descs = []
     total = 0
     for a, b in zip(lcols, rcols):
         has_v = a.validity is not None or b.validity is not None
-        if a.data.dtype == torch.bool:
+        if a.is_varbytes or b.is_varbytes:
+            return None
+        if a.is_string:
+            kind, slots = "d", 1
+        elif a.data.dtype == torch.bool:
             kind, slots = "b", 1
         elif a.data.dim() != 1:
             return None
@@ -308,5 +313,6 @@ def setop_stream_table(left, right, lcols, rcols, op: SetOp):
         if has_v:
             validity = (flat[k] != 0) & emit
             k += 1
-        cols.append(Column(data, a.dtype, validity, a.name))
+        cols.append(Column(data, a.dtype, validity, a.name,
+                           dictionary=a.dictionary))
     return Table(cols, left._ctx, emit)

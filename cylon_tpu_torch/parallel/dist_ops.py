@@ -26,7 +26,7 @@ import torch
 from .. import dtypes
 from ..context import CylonContext
 from ..data import table as table_mod
-from ..data.column import Column
+from ..data.column import Column, string_key_arrays
 from ..data.table import Table
 from ..dtypes import movable
 from ..ops import groupby as _groupby
@@ -34,18 +34,74 @@ from ..ops import hash as _hash
 from ..ops import join as _join
 from ..ops import order as _order
 from ..ops import setops as _setops
-from ..status import Code, CylonError, not_ported
+from ..data.strings import (EXACT_KEY_WORDS, LANE_WORDS_MAX, VarBytes,
+                            _nwords, _word_row_map, pair_k_words)
+from ..status import Code, CylonError
 from ..util import bucket_cap as _bucket_cap
 from . import shard
 from .shuffle import count_pair, exchange, exchange_pair
 
 
-def _dist_key_bits(cols: Sequence[Column]):
-    """Key bit arrays (nulls pushed to the all-ones end) and combined key
-    validity of flat sharded key columns. (The JAX package also returns
-    the partition hashes here; no caller reads them after the exchange,
-    so the port does not compute them.)"""
-    return tuple(_order.sort_keys(list(cols))), table_mod._all_valid(cols)
+# ---------------------------------------------------------------------------
+# key prep: bits and partition hashes of plain, dictionary and varbytes
+# key columns, on the flat sharded columns (elementwise, or through
+# eff_starts for varbytes: a sharded varbytes column's per-shard layouts
+# tile one global word buffer, so whole-tensor passes cover every shard)
+# ---------------------------------------------------------------------------
+
+
+def _lanes_hash(lanes: Sequence[torch.Tensor], ln: torch.Tensor
+                ) -> torch.Tensor:
+    """Partition hash of word lanes + byte length (the exact-key analog
+    of the content hash h1; both sides of a join pass the same lane
+    count, so equal bytes land on equal shards), as int32 bits."""
+    h = (_hash.u32(ln) * 0x9E3779B1) & _hash.M32
+    for l in lanes:
+        h = (h * 31 + _hash.fmix32(_hash.u32(l))) & _hash.M32
+    return _hash.as_i32(_hash.fmix32(h))
+
+
+def _lane_count(c: Column, k_words: Optional[int]) -> int:
+    vb = c.varbytes
+    return vb.max_words if k_words is None else max(int(k_words),
+                                                    vb.max_words)
+
+
+def _dist_col_bits(c: Column, k_words: Optional[int] = None) -> list:
+    """One column's key bit arrays: short varbytes rows (<=
+    EXACT_KEY_WORDS words, at least ``k_words`` lanes) their word lanes +
+    length, byte-exact; longer rows the content-hash quad; plain and
+    dictionary columns their ordered bits (nulls at the all-ones end)."""
+    if not c.is_varbytes:
+        return [_order.sort_keys([c])[0]]
+    return string_key_arrays(c, k_words)[0]
+
+
+def _dist_col_hash(c: Column, k_words: Optional[int] = None
+                   ) -> torch.Tensor:
+    """One column's partition hash: the word-lane hash of short varbytes
+    rows, the content hash h1 of long ones, ops/hash.hash_column
+    otherwise; null rows hash to the null tag."""
+    if not c.is_varbytes:
+        return _hash.hash_column(c)
+    k = _lane_count(c, k_words)
+    h1 = _lanes_hash(c.varbytes.word_lanes(k), c.varbytes.lengths) \
+        if k <= EXACT_KEY_WORDS else c.varbytes.raw_hashes()[0]
+    if c.validity is not None:
+        h1 = torch.where(c.validity, h1, _hash.NULL_TAG - (1 << 32))
+    return h1
+
+
+def _dist_key_bits(cols: Sequence[Column],
+                   paired: Optional[Sequence[Column]] = None):
+    """Key bit arrays and combined key validity of flat sharded key
+    columns. ``paired``: the other side's aligned key columns, so both
+    sides emit matching lane counts."""
+    bits = []
+    for j, c in enumerate(cols):
+        bits.extend(_dist_col_bits(
+            c, pair_k_words(c, paired[j]) if paired is not None else None))
+    return tuple(bits), table_mod._all_valid(cols)
 
 
 def _targets_from_hashes(world: int, h1s: Sequence[torch.Tensor]
@@ -55,51 +111,216 @@ def _targets_from_hashes(world: int, h1s: Sequence[torch.Tensor]
     return (_hash.combine_hashes(h1s) % world).to(torch.int32)
 
 
-def _partition_targets_dist(world: int, cols: Sequence[Column]
+def _partition_targets_dist(world: int, cols: Sequence[Column],
+                            paired: Optional[Sequence[Column]] = None
                             ) -> torch.Tensor:
     """Per-row target shard for the key columns."""
-    return _targets_from_hashes(world, [_hash.hash_column(c) for c in cols])
+    return _targets_from_hashes(world, [
+        _dist_col_hash(c, pair_k_words(c, paired[j])
+                       if paired is not None else None)
+        for j, c in enumerate(cols)])
 
 
-def _build_exchange_payload(t: Table) -> dict:
+# ---------------------------------------------------------------------------
+# varbytes movement: short rows ride the row exchange as word lanes; long
+# rows move their words through a second exchange whose "rows" are words,
+# then the shard-relative starts are rebuilt from both exchanges' layouts
+# ---------------------------------------------------------------------------
+
+
+def _word_targets(vb, targets: torch.Tensor, emit: torch.Tensor):
+    """Per-word (targets, emit): every word inherits its row's target;
+    words of dead rows and slack slots are dropped."""
+    nw = _nwords(vb.lengths)
+    row, p = _word_row_map(vb.eff_starts(), nw, int(vb.words.shape[0]))
+    wemit = emit[row] & (p >= 0) & (p < nw[row])
+    return targets[row].to(torch.int32), wemit
+
+
+def _block_offsets(meta: dict, world: int, like: torch.Tensor):
+    """[W, W] start of each source's items in each receiving shard: s *
+    block on the padded route, the exclusive cumsum of the counts on the
+    compact route (block 0)."""
+    ci = meta["counts_in"].to(torch.int64)
+    if meta["block"]:
+        return (torch.arange(world, device=like.device)
+                * meta["block"]).expand(ci.shape[0], world)
+    return torch.cumsum(ci, 1) - ci
+
+
+def _starts_reconcile(world: int, lengths: torch.Tensor, row_meta: dict,
+                      word_meta: dict) -> torch.Tensor:
+    """Shard-relative starts after a row + word exchange pair, for any mix
+    of padded and compact layouts: both exchanges keep each source's
+    items contiguous and in order, so row (source s, j)'s words sit at
+    that source's word-segment offset plus the within-source word
+    prefix. Dead rows must have length 0."""
+    L = lengths.view(world, -1)
+    n = L.shape[1]
+    nw = _nwords(L)
+    cs = _order.cumsum_rows(nw)
+    row_off = _block_offsets(row_meta, world, L)
+    word_off = _block_offsets(word_meta, world, L)
+    pos = torch.arange(n, device=L.device)
+    sid = (pos.view(1, 1, n) >= row_off[:, 1:].unsqueeze(-1)).sum(1)
+    head = torch.where(row_off > 0, cs.gather(1, (row_off - 1).clamp(
+        0, max(n - 1, 0))), 0)
+    starts = word_off.gather(1, sid) + (cs - nw) - head.gather(1, sid)
+    return starts.reshape(-1).to(torch.int32)
+
+
+def _exchange_varbytes_words(ctx: CylonContext, vb, targets, emit,
+                             new_lengths, row_meta: dict):
+    """The word leg of a varbytes shuffle: the words ride their own
+    exchange (its stable partition keeps word order = row order), then
+    the starts are rebuilt."""
+    world = ctx.get_world_size()
+    wt, wemit = _word_targets(vb, targets, emit)
+    wout, _e, _cap, wmeta = exchange({"w": vb.words}, wt, wemit, ctx)
+    w = wout["w"]
+    return VarBytes(w, _starts_reconcile(world, new_lengths, row_meta,
+                                         wmeta),
+                    new_lengths, vb.max_words, int(w.shape[0]),
+                    shard_geom=(int(new_lengths.shape[0]) // world,
+                                int(w.shape[0]) // world))
+
+
+def _take_into_shards(src, idx_g: torch.Tensor) -> VarBytes:
+    """Per-shard varlen gather: ``idx_g`` [W, m] holds global row indices
+    of ``src`` (-1: an empty row); shard w's rows land packed in its own
+    word segment of ``bucket_cap`` (worst shard's words) words, with
+    shard-relative starts — one host sync for that capacity."""
+    world, m = idx_g.shape
+    dev = idx_g.device
+    hit = idx_g >= 0
+    if src.nrows == 0:
+        hit = torch.zeros_like(hit)
+    safe = torch.where(hit, idx_g, 0)
+    nw_src = _nwords(src.lengths)
+    nw = torch.where(hit, nw_src[safe], 0) if src.nrows \
+        else torch.zeros_like(idx_g)
+    lens = torch.where(hit, src.lengths[safe], 0) if src.nrows \
+        else torch.zeros(world, m, dtype=torch.int32, device=dev)
+    cap_w = _bucket_cap(int(nw.sum(1).max()) if m else 0)
+    starts = _order.cumsum_rows(nw) - nw
+    words = torch.zeros(world * cap_w, dtype=torch.int32, device=dev)
+    if m and src.nrows:
+        gstarts = starts + torch.arange(world, device=dev).unsqueeze(1) \
+            * cap_w
+        row, p = _word_row_map(gstarts.reshape(-1), nw.reshape(-1),
+                               world * cap_w)
+        at = src.eff_starts()[safe.reshape(-1)][row] + p
+        w = src.words[at.clamp(0, int(src.words.shape[0]) - 1)]
+        valid = (p >= 0) & (p < nw.reshape(-1)[row])
+        words = torch.where(valid, w, 0)
+    return VarBytes(words, starts.reshape(-1).to(torch.int32),
+                    lens.reshape(-1).to(torch.int32), src.max_words,
+                    world * cap_w, shard_geom=(m, cap_w))
+
+
+def varlen_take_sharded(vb, idx: torch.Tensor, world: int) -> VarBytes:
+    """The distributed VarBytes.take: ``idx`` is the flat ``[W * m]``
+    layout of shard-local row indices (-1: an empty row) into the
+    sharded ``vb``."""
+    iw = idx.view(world, -1).to(torch.int64)
+    rows = vb.nrows // world
+    base = torch.arange(world, device=iw.device).unsqueeze(1) * rows
+    return _take_into_shards(vb, torch.where(iw >= 0, iw + base, -1))
+
+
+def _dist_as_varbytes(col: Column, world: int) -> Column:
+    """A sharded dictionary column lifted to varbytes: the vocabulary's
+    VarBytes is built once and every shard gathers its own layout."""
+    if col.is_varbytes:
+        return col
+    vocab = VarBytes.from_host(col.dictionary, device=col.data.device)
+    vb = _take_into_shards(vocab, col.data.view(world, -1).to(torch.int64))
+    return Column(vb.lengths, col.dtype, col.validity, col.name, varbytes=vb)
+
+
+def _align_key_columns_dist(left_d: Table, right_d: Table, lidx, ridx,
+                            world: int):
+    """Distribution-aware align_key_columns: a dictionary column meeting
+    a varbytes one lifts per shard (the local lift would collapse the
+    per-shard layouts)."""
+    lcols, rcols = [], []
+    for li, ri in zip(lidx, ridx):
+        a, b = left_d._columns[li], right_d._columns[ri]
+        if a.is_string and b.is_string and (a.is_varbytes or b.is_varbytes):
+            a, b = _dist_as_varbytes(a, world), _dist_as_varbytes(b, world)
+        else:
+            a, b = table_mod._align_pair(a, b)
+        lcols.append(a)
+        rcols.append(b)
+    return lcols, rcols
+
+
+def _build_exchange_payload(t: Table) -> Tuple[dict, dict]:
     """Payload leaves of a table shuffle: all-valid columns skip their
-    mask leaf (validity None round-trips as None)."""
-    payload = {}
+    mask leaf (validity None round-trips as None); short varbytes columns
+    (<= LANE_WORDS_MAX words) add their word lanes as legs. Returns
+    (payload, lane_cols: column -> lane count)."""
+    payload, lane_cols = {}, {}
     for i, c in enumerate(t._columns):
         payload[f"d{i}"] = c.data
         if c.validity is not None:
             payload[f"v{i}"] = c.validity
-    return payload
+        if c.is_varbytes and c.varbytes.max_words <= LANE_WORDS_MAX:
+            lane_cols[i] = c.varbytes.max_words
+            for k, l in enumerate(c.varbytes.word_lanes()):
+                payload[f"d{i}w{k}"] = l
+    return payload, lane_cols
 
 
-def _finish_exchange_table(t: Table, out, new_emit):
-    cols = [Column(out[f"d{i}"], c.dtype, out.get(f"v{i}"), c.name)
-            for i, c in enumerate(t._columns)]
+def _finish_exchange_table(t: Table, ctx: CylonContext, targets, emit,
+                           result, lane_cols: dict):
+    """Columns out of an exchange result. Varbytes rows that are dead
+    after the exchange get length 0 first (both exchange routes leave
+    garbage in dead slots; the lane masks and the word-row map need
+    nw = 0 there)."""
+    out, new_emit, _cap, meta = result
+    world = ctx.get_world_size()
+    cols = []
+    for i, c in enumerate(t._columns):
+        d, v = out[f"d{i}"], out.get(f"v{i}")
+        if not c.is_varbytes:
+            cols.append(Column(d, c.dtype, v, c.name,
+                               dictionary=c.dictionary))
+            continue
+        d = torch.where(new_emit, d, 0)
+        if i in lane_cols:
+            vb = VarBytes.from_lanes([out[f"d{i}w{k}"]
+                                      for k in range(lane_cols[i])], d,
+                                     world)
+        else:
+            vb = _exchange_varbytes_words(ctx, c.varbytes, targets, emit, d,
+                                          meta)
+        cols.append(Column(vb.lengths, c.dtype, v, c.name, varbytes=vb))
     return cols, new_emit
 
 
 def _exchange_table(t: Table, targets, emit, ctx, counts=None,
                     dense: bool = False):
     """Shuffle a whole table's columns. Returns (columns, new_emit)."""
-    out, new_emit, _cap, _meta = exchange(_build_exchange_payload(t),
-                                          targets, emit, ctx, counts=counts,
-                                          dense=dense)
-    return _finish_exchange_table(t, out, new_emit)
+    payload, lane_cols = _build_exchange_payload(t)
+    res = exchange(payload, targets, emit, ctx, counts=counts, dense=dense)
+    return _finish_exchange_table(t, ctx, targets, emit, res, lane_cols)
 
 
 def _exchange_table_pair(t1: Table, tg1, e1, c1, t2: Table, tg2, e2, c2,
                          ctx, dense: bool = False):
     """The two-table shuffle of a distributed join."""
-    r1, r2 = exchange_pair(_build_exchange_payload(t1), tg1, e1, c1,
-                           _build_exchange_payload(t2), tg2, e2, c2, ctx,
+    p1, lc1 = _build_exchange_payload(t1)
+    p2, lc2 = _build_exchange_payload(t2)
+    r1, r2 = exchange_pair(p1, tg1, e1, c1, p2, tg2, e2, c2, ctx,
                            dense=dense)
-    return (_finish_exchange_table(t1, r1[0], r1[1]),
-            _finish_exchange_table(t2, r2[0], r2[1]))
+    return (_finish_exchange_table(t1, ctx, tg1, e1, r1, lc1),
+            _finish_exchange_table(t2, ctx, tg2, e2, r2, lc2))
 
 
 def _rebuild_columns(dat: Sequence, val: Sequence, src: Sequence[Column],
                      names: Sequence[str]) -> List[Column]:
-    return [Column(d, c.dtype, v, name)
+    return [Column(d, c.dtype, v, name, dictionary=c.dictionary)
             for d, v, c, name in zip(dat, val, src, names)]
 
 
@@ -140,7 +361,7 @@ def shuffle(table: Table, hash_columns: Sequence) -> Table:
     idxs = [t._col_index(c) for c in hash_columns]
     sig = shard.partition_signature([t._columns[i] for i in idxs], idxs,
                                     world)
-    if t._hash_partitioned == sig:
+    if sig is not None and t._hash_partitioned == sig:
         return t
     targets = _partition_targets_dist(world, [t._columns[i] for i in idxs])
     cols, new_emit = _exchange_table(t, targets, t.emit_mask(), ctx,
@@ -151,33 +372,48 @@ def shuffle(table: Table, hash_columns: Sequence) -> Table:
     return result
 
 
+def _shards_opt(xs, world: int) -> tuple:
+    """`_shards` keeping None entries (all-valid lane columns)."""
+    return tuple(None if x is None else x.view(world, -1) for x in xs)
+
+
 def distributed_join(left: Table, right: Table, config: _join.JoinConfig,
                      force_exchange: bool = False) -> Table:
     """The shuffle join (reference: DistributedJoin, table.cpp:656-696).
     ``force_exchange`` runs the full shuffle + join composition even on a
-    one-shard world or co-partitioned inputs."""
+    one-shard world or co-partitioned inputs. Short varbytes columns ride
+    the exchange and the join as word lanes; long ones move their words
+    through their own exchange and gather per shard. With ``exact``, long
+    varbytes keys (joined on their content hash) are byte-verified after
+    the join."""
     ctx = left._ctx
     world = ctx.get_world_size()
     if world == 1 and not (force_exchange and ctx.is_distributed()):
         # reference parity: world 1 short-circuits to the local join
         return table_mod.join(left, right, config)
+    lidx, ridx = config.left_column_idx, config.right_column_idx
+    exact_pairs = []
     if config.exact:
-        raise not_ported("exact=True joins (varbytes keys)")
+        for li, rj in zip(lidx, ridx):
+            kw = pair_k_words(left._columns[li], right._columns[rj])
+            if kw is not None and kw > EXACT_KEY_WORDS:
+                exact_pairs.append((li, rj))
     left_d = shard.distribute(left, ctx)
     right_d = shard.distribute(right, ctx)
-    lidx, ridx = config.left_column_idx, config.right_column_idx
-    # the JAX package's _align_key_columns_dist differs from
-    # align_key_columns only for string keys, which are not ported
-    lcols, rcols = table_mod.align_key_columns(left_d, right_d, lidx, ridx)
+    lcols, rcols = _align_key_columns_dist(left_d, right_d, lidx, ridx,
+                                           world)
 
     plan = []
-    for t, kcols, kidx in ((left_d, lcols, lidx), (right_d, rcols, ridx)):
+    for t, kcols, kidx, other in ((left_d, lcols, lidx, rcols),
+                                  (right_d, rcols, ridx, lcols)):
         sig = shard.partition_signature(kcols, kidx, world)
-        if t._hash_partitioned == sig and not force_exchange:
+        if sig is not None and t._hash_partitioned == sig \
+                and not force_exchange:
             # co-partitioned: rows are already hash-placed
             plan.append(("skip", t, None, None))
             continue
-        plan.append(("exchange", t, _partition_targets_dist(world, kcols),
+        plan.append(("exchange", t,
+                     _partition_targets_dist(world, kcols, other),
                      t.emit_mask()))
     ex = [p for p in plan if p[0] == "exchange"]
     results = {}
@@ -205,17 +441,24 @@ def distributed_join(left: Table, right: Table, config: _join.JoinConfig,
             shuffled.append(_exchange_table(t, targets, emit, ctx,
                                             dense=t.row_mask is None))
 
-    # key bits from the SHUFFLED columns (elementwise ordered bits)
+    # key bits from the SHUFFLED columns (elementwise ordered bits; word
+    # lanes slice out of the strided layout)
     (lcols_s, lemit), (rcols_s, remit) = shuffled
     left_s = Table(list(lcols_s), ctx, lemit)
     right_s = Table(list(rcols_s), ctx, remit)
-    lcols2, rcols2 = table_mod.align_key_columns(left_s, right_s, lidx, ridx)
-    lkb, lkv = _dist_key_bits(lcols2)
-    rkb, rkv = _dist_key_bits(rcols2)
-    ldat = _shards((c.data for c in lcols_s), world)
-    lval = _shards((c.valid_mask() for c in lcols_s), world)
-    rdat = _shards((c.data for c in rcols_s), world)
-    rval = _shards((c.valid_mask() for c in rcols_s), world)
+    lcols2, rcols2 = _align_key_columns_dist(left_s, right_s, lidx, ridx,
+                                             world)
+    lkb, lkv = _dist_key_bits(lcols2, rcols2)
+    rkb, rkv = _dist_key_bits(rcols2, lcols2)
+    alias = table_mod._alias_right_keys(left_s, right_s, config)
+    ldat, lval, lslots = table_mod.lane_payload(lcols_s)
+    rdat, rval, rslots = table_mod.lane_payload(rcols_s, skip=alias)
+    # the plan carries every real column's validity (all-valid ones too),
+    # as the JAX package's does; lane columns carry none
+    lval = [c.valid_mask() for c in lcols_s] + list(lval[len(lcols_s):])
+    rval = [c.valid_mask() for c in rcols_s] + list(rval[len(rcols_s):])
+    ldat, rdat = _shards(ldat, world), _shards(rdat, world)
+    lval, rval = _shards_opt(lval, world), _shards_opt(rval, world)
     lkb_w, rkb_w = _shards(lkb, world), _shards(rkb, world)
     lkv_w, rkv_w = lkv.view(world, -1), rkv.view(world, -1)
     lemit_w, remit_w = lemit.view(world, -1), remit.view(world, -1)
@@ -248,16 +491,25 @@ def distributed_join(left: Table, right: Table, config: _join.JoinConfig,
                                         ldat, lval, rdat, rval, jt, cap_p,
                                         cap_u)
     # flatten the [W, cap] outputs back to the sharded flat layout
-    lod, lov, rod, rov = ([x.reshape(-1) for x in part] for part in res[:4])
-    emit = res[4].reshape(-1)
+    lod, lov, rod, rov, (emit,), (lidx_o,), (ridx_o,) = (
+        [x.reshape(-1) for x in part] for part in (
+            res[0], res[1], res[2], res[3], [res[4]], [res[5]], [res[6]]))
     nl = left_d.column_count
-    cols = _rebuild_columns(lod, lov, lcols_s,
-                            [f"lt-{i}" for i in range(nl)])
-    cols += _rebuild_columns(rod, rov, rcols_s,
-                             [f"rt-{nl + j}"
-                              for j in range(right_d.column_count)])
+    cols = table_mod.rebuild_join_columns(
+        lcols_s, lod, lov, lslots, lidx_o, [f"lt-{i}" for i in range(nl)],
+        world)
+    cols += table_mod.rebuild_join_columns(
+        rcols_s, rod, rov, rslots, ridx_o,
+        [f"rt-{nl + j}" for j in range(right_d.column_count)], world,
+        alias=alias, aliased_to=cols)
     result = Table(cols, ctx, emit)
     result._shard_world = world
+    if exact_pairs:
+        result, collided = _exact_post_verify(result, nl, exact_pairs,
+                                              config)
+        if collided:
+            return _exact_dict_redo(left, right, config, exact_pairs,
+                                    force_exchange)
     # co-partitioning witness: every emitted row sits on the shard its
     # join-key hash routed it to
     if jt in (_join.JoinType.INNER, _join.JoinType.LEFT):
@@ -269,10 +521,77 @@ def distributed_join(left: Table, right: Table, config: _join.JoinConfig,
     return result
 
 
+def _exact_post_verify(res: Table, nl: int, pairs, config):
+    """Byte verification of exact=True long varbytes keys after the
+    exchange: both key columns sit row-aligned in the output, so it is one
+    ``equals_rows`` per key pair. INNER joins drop false matches from the
+    row mask; outer joins report any collision for the exact redo."""
+    emit = res.emit_mask()
+    bad = torch.zeros_like(emit)
+    for li, rj in pairs:
+        a, b = res._columns[li], res._columns[nl + rj]
+        both = a.valid_mask() & b.valid_mask()
+        bad = bad | (emit & both & ~a.varbytes.equals_rows(b.varbytes))
+    if config.type == _join.JoinType.INNER:
+        out = Table(res._columns, res._ctx, emit & ~bad)
+        out._shard_world = res._shard_world
+        return out, False
+    return res, bool(bad.any())
+
+
+def _exact_dict_redo(left: Table, right: Table, config: _join.JoinConfig,
+                     pairs, force_exchange: bool) -> Table:
+    """Collision recovery for exact outer joins on long varbytes keys:
+    each colliding key pair re-encoded over ONE shared sorted vocabulary
+    (a host round trip, paid only after a detected collision), the
+    distributed join redone on the exact codes, and the redone key
+    columns lifted back to varbytes so the schema matches."""
+    ctx = left._ctx
+    world = ctx.get_world_size()
+    nl = left.column_count
+    lcols2, rcols2 = list(left._columns), list(right._columns)
+    for li, rj in pairs:
+        lcols2[li], rcols2[rj] = table_mod._dict_encode_pair(
+            left._columns[li], right._columns[rj])
+    cfg = _join.JoinConfig(config.type, config.left_column_idx,
+                           config.right_column_idx, config.algorithm,
+                           exact=False)
+    l2 = Table(lcols2, ctx, left.row_mask)
+    r2 = Table(rcols2, ctx, right.row_mask)
+    l2._shard_world, r2._shard_world = left._shard_world, right._shard_world
+    res = distributed_join(l2, r2, cfg, force_exchange=force_exchange)
+    out_cols = list(res._columns)
+    for li, rj in pairs:
+        for pos in (li, nl + rj):
+            c = out_cols[pos]
+            if c.dictionary is not None:
+                out_cols[pos] = _dist_as_varbytes(c, world)
+    out = Table(out_cols, ctx, res.row_mask)
+    out._shard_world = res._shard_world
+    return out
+
+
 # ---------------------------------------------------------------------------
 # distributed set ops (reference: DistributedUnion/Subtract/Intersect,
 # table.cpp:948-1010 — ShuffleTwoTables on ALL columns + local set op)
 # ---------------------------------------------------------------------------
+
+
+def _concat_shards(a, b, world: int) -> VarBytes:
+    """Per shard, [a's rows; b's rows] as one sharded VarBytes: the word
+    segments concatenate and b's starts shift by a's segment (the range
+    sums ignore the gaps, so nothing is repacked)."""
+    wa = a.words.view(world, -1)
+    ca = wa.shape[1]
+    starts = torch.cat([a.starts.view(world, -1).to(torch.int64),
+                        b.starts.view(world, -1).to(torch.int64) + ca], 1)
+    words = torch.cat([wa, b.words.view(world, -1)], 1)
+    lens = torch.cat([a.lengths.view(world, -1),
+                      b.lengths.view(world, -1)], 1)
+    return VarBytes(words.reshape(-1), starts.reshape(-1).to(torch.int32),
+                    lens.reshape(-1), max(a.max_words, b.max_words),
+                    int(words.numel()),
+                    shard_geom=(lens.shape[1], words.shape[1]))
 
 
 def distributed_set_op(left: Table, right: Table, op: _setops.SetOp,
@@ -291,15 +610,17 @@ def distributed_set_op(left: Table, right: Table, op: _setops.SetOp,
         raise CylonError(Code.Invalid, "set ops need equal schemas")
     left_d = shard.distribute(left, ctx)
     right_d = shard.distribute(right, ctx)
-    lcols, rcols = table_mod._aligned_setop_columns(left_d, right_d)
+    idx = list(range(left_d.column_count))
+    lcols, rcols = _align_key_columns_dist(left_d, right_d, idx, idx, world)
     has_validity = [a.validity is not None or b.validity is not None
                     for a, b in zip(lcols, rcols)]
 
     # exchange only the aligned columns; the row keys are recomputed per
     # shard from the shuffled columns. Both counts in one host fetch.
     sides = [(Table(list(cols), ctx, t.row_mask),
-              _partition_targets_dist(world, cols), t.emit_mask())
-             for cols, t in ((lcols, left_d), (rcols, right_d))]
+              _partition_targets_dist(world, cols, other), t.emit_mask())
+             for cols, other, t in ((lcols, rcols, left_d),
+                                    (rcols, lcols, right_d))]
     dense = (world == 1 and left_d.row_mask is None
              and right_d.row_mask is None)
     cl = cr = None
@@ -310,18 +631,20 @@ def distributed_set_op(left: Table, right: Table, op: _setops.SetOp,
         _exchange_table(view, targets, emit, ctx, counts=cnt, dense=dense)
         for (view, targets, emit), cnt in zip(sides, (cl, cr)))
 
-    def rebits(cols):
-        # ordered bits (nulls at the all-ones end) plus the validity byte:
+    def rebits(cols, other):
+        # key bits (nulls at the all-ones end for plain columns, word
+        # lanes or content hashes for varbytes) plus the validity byte:
         # validity is part of the row key, so nulls compare equal
         bits = []
         for ci, c in enumerate(cols):
-            bits.append(_order.sort_keys([c])[0])
+            bits.extend(_dist_col_bits(c, pair_k_words(c, other[ci])))
             if has_validity[ci]:
                 bits.append(c.valid_mask().to(torch.uint8))
         return _shards(bits, world)
 
     lemit_w, remit_w = lemit.view(world, -1), remit.view(world, -1)
-    gl, gr = _order.dense_ranks_two(rebits(lcols_s), rebits(rcols_s))
+    gl, gr = _order.dense_ranks_two(rebits(lcols_s, rcols_s),
+                                    rebits(rcols_s, lcols_s))
     counts = torch.stack(list(_setops.setop_counts(
         gl, gr, lemit_w, remit_w).values()), 1).cpu().numpy()
     cap = _bucket_cap(int(counts[:, int(op)].max()))
@@ -337,6 +660,14 @@ def distributed_set_op(left: Table, right: Table, op: _setops.SetOp,
     cols = _rebuild_columns([d.reshape(-1) for d in od],
                             [v.reshape(-1) for v in ov], lcols_s,
                             [c.name for c in lcols_s])
+    flat_idx = idx.reshape(-1)
+    for ci, (a, b) in enumerate(zip(lcols_s, rcols_s)):
+        if a.is_varbytes:
+            vb = varlen_take_sharded(
+                _concat_shards(a.varbytes, b.varbytes, world), flat_idx,
+                world)
+            cols[ci] = Column(vb.lengths, a.dtype, cols[ci].validity,
+                              a.name, varbytes=vb)
     result = Table(cols, ctx, (idx >= 0).reshape(-1))
     result._shard_world = world
     return result
@@ -351,10 +682,13 @@ def hash_partition(table: Table, hash_columns: Sequence,
                    num_partitions: int) -> Dict[int, Table]:
     """Split a table into ``{partition: Table}`` by key hash: one stable
     sort by target (dead rows last), then each partition is one slice of
-    every column, on the device. String columns are not ported."""
+    every column, on the device; short varbytes columns ride the sort as
+    word lanes. A table with varbytes rows longer than LANE_WORDS_MAX
+    words takes the host partitioner (the same placement)."""
     idxs = [table._col_index(c) for c in hash_columns]
-    if any(c.dtype.is_var_width() for c in table._columns):
-        raise not_ported("string columns in hash_partition")
+    if any(c.is_varbytes and c.varbytes.max_words > LANE_WORDS_MAX
+           for c in table._columns):
+        return _hash_partition_host(table, idxs, num_partitions)
     ctx = table._ctx
     targets = _hash.partition_targets([table._columns[i] for i in idxs],
                                       num_partitions)
@@ -363,16 +697,73 @@ def hash_partition(table: Table, hash_columns: Sequence,
     counts = torch.bincount(tkey.to(torch.int64),
                             minlength=num_partitions + 1).cpu().numpy()
     offs = np.concatenate([[0], np.cumsum(counts[:num_partitions])])
-    cols = [Column(movable(c.data)[perm].view(c.data.dtype), c.dtype,
-                   None if c.validity is None else c.validity[perm], c.name)
-            for c in table._columns]
+
+    def take(x):
+        return movable(x)[perm].view(x.dtype)
+
+    sorted_cols = []
+    for c in table._columns:
+        lanes = [take(l) for l in c.varbytes.word_lanes()] \
+            if c.is_varbytes else None
+        sorted_cols.append((c, take(c.data), None if c.validity is None
+                            else c.validity[perm], lanes))
     out = {}
     for p in range(num_partitions):
         lo, hi = int(offs[p]), int(offs[p + 1])
-        out[p] = Table([Column(c.data[lo:hi], c.dtype,
-                               None if c.validity is None
-                               else c.validity[lo:hi], c.name)
-                        for c in cols], ctx)
+        cols = []
+        for c, d, v, lanes in sorted_cols:
+            v = None if v is None else v[lo:hi]
+            if lanes is None:
+                cols.append(Column(d[lo:hi], c.dtype, v, c.name,
+                                   dictionary=c.dictionary))
+            else:
+                vb = VarBytes.from_lanes([l[lo:hi] for l in lanes],
+                                         d[lo:hi])
+                cols.append(Column(vb.lengths, c.dtype, v, c.name,
+                                   varbytes=vb))
+        out[p] = Table(cols, ctx)
+    return out
+
+
+def _hash_partition_host(table: Table, idxs, num_partitions: int) -> dict:
+    """The host partitioner of long varbytes rows: the key columns hash
+    on the host exactly as on the device (varbytes through
+    ``native.np_varbytes_hash``, the content hash h1)."""
+    from .. import native
+
+    t = table.compact()
+    dev = t._ctx.device
+    host, valids = [], []
+    for c in t._columns:
+        host.append(c.varbytes.to_host(as_str=c.dtype.type
+                                       != dtypes.Type.BINARY)
+                    if c.is_varbytes else c.data.cpu().numpy())
+        valids.append(None if c.validity is None
+                      else c.validity.cpu().numpy())
+    pre = [t._columns[i].is_varbytes for i in idxs]
+    keys = [native.np_varbytes_hash(host[i]) if p else host[i]
+            for i, p in zip(idxs, pre)]
+    flags = [t._columns[i].dictionary is not None for i in idxs]
+    _t, counts, order = native.hash_partition(
+        keys, [valids[i] for i in idxs], num_partitions, is_string=flags,
+        prehashed=pre)
+    offs = np.concatenate([[0], np.cumsum(counts)])
+    out = {}
+    for p in range(num_partitions):
+        seg = order[offs[p]:offs[p + 1]]
+        cols = []
+        for ci, c in enumerate(t._columns):
+            v = None if valids[ci] is None \
+                else torch.from_numpy(valids[ci][seg]).to(dev)
+            if c.is_varbytes:
+                vb = VarBytes.from_host(host[ci][seg], device=dev)
+                cols.append(Column(vb.lengths, c.dtype, v, c.name,
+                                   varbytes=vb))
+            else:
+                cols.append(Column(torch.from_numpy(np.ascontiguousarray(
+                    host[ci][seg])).to(dev), c.dtype, v, c.name,
+                    dictionary=c.dictionary))
+        out[p] = Table(cols, t._ctx)
     return out
 
 
@@ -402,7 +793,8 @@ def _shard_groupby(world: int, kbits, kdat, kval, emit, vdat, vval,
     """The per-shard group-by over ``[W, n]`` views, every shard in one
     batched call (the JAX package's ``_groupby_fn`` under ``shard_map``):
     group slots per shard = the shard capacity n. Returns flat
-    ``[W * n]`` key data, key validity, group validity, aggregates."""
+    ``[W * n]`` key data, key validity, group validity, aggregates, and
+    the representative row of each group slot (shard-local)."""
     n = emit.shape[0] // world
     keys = [b.view(world, n) for b in kbits] \
         + [v.view(world, n).to(torch.uint8) for v in kval]
@@ -421,7 +813,26 @@ def _shard_groupby(world: int, kbits, kdat, kval, emit, vdat, vval,
     kvout = [take(v) & gvalid.reshape(-1) for v in kval]
     agg = [(arr.reshape(-1), (av & gvalid).reshape(-1))
            for arr, av in results]
-    return kout, kvout, gvalid.reshape(-1), agg
+    return kout, kvout, gvalid.reshape(-1), agg, safe.reshape(-1)
+
+
+def _group_bits(cols: Sequence[Column]) -> list:
+    """Group keys of key columns (validity bytes are added per shard)."""
+    return [b for c in cols for b in _dist_col_bits(c)]
+
+
+def _key_columns_out(world: int, kcols, kout, kvout, safe) -> List[Column]:
+    """Group key columns from the per-shard group-by: varbytes keys
+    gather their representatives' bytes per shard."""
+    out = []
+    for d, v, kc in zip(kout, kvout, kcols):
+        if kc.is_varbytes:
+            vb = varlen_take_sharded(kc.varbytes, safe, world)
+            out.append(Column(vb.lengths, kc.dtype, v, kc.name, varbytes=vb))
+        else:
+            out.append(Column(d, kc.dtype, v, kc.name,
+                              dictionary=kc.dictionary))
+    return out
 
 
 def _groupby_shuffle_agg(ctx: CylonContext, key_columns, value_columns,
@@ -442,14 +853,12 @@ def _groupby_shuffle_agg(ctx: CylonContext, key_columns, value_columns,
     kcols_s, vcols_s = out_cols[:nk], out_cols[nk:]
     if col_ids is None:
         col_ids = tuple(range(len(vcols_s)))
-    kout, kvout, gvalid, agg = _shard_groupby(
-        world, _order.sort_keys(kcols_s), [c.data for c in kcols_s],
+    kout, kvout, gvalid, agg, safe = _shard_groupby(
+        world, _group_bits(kcols_s), [c.data for c in kcols_s],
         [c.valid_mask() for c in kcols_s], emit_s,
         [c.data for c in vcols_s], [c.validity for c in vcols_s], ops,
         col_ids, [c.validity is None for c in vcols_s])
-    key_out = [Column(d, kc.dtype, v, kc.name)
-               for d, v, kc in zip(kout, kvout, kcols_s)]
-    return key_out, agg, gvalid
+    return _key_columns_out(world, kcols_s, kout, kvout, safe), agg, gvalid
 
 
 def _groupby_table(ctx, key_out, cols, gvalid) -> Table:
@@ -486,9 +895,8 @@ def distributed_groupby(table: Table, index_col, aggregate_cols: List,
     idx_cols = [t._col_index(c) for c in idx_cols]
     val_cols = [t._col_index(c) for c in aggregate_cols]
     key_columns = [t._columns[i] for i in idx_cols]
-    if any(c.dtype.is_var_width() for c in t._columns):
-        raise not_ported("string columns in groupby")
     ops = list(aggregate_ops)
+    table_mod._check_string_values([t._columns[i] for i in val_cols], ops)
     emit = t.emit_mask()
     MEAN = _groupby.AggregationOp.MEAN
     SUM = _groupby.AggregationOp.SUM
@@ -499,8 +907,7 @@ def distributed_groupby(table: Table, index_col, aggregate_cols: List,
             ctx, key_columns, [t._columns[vi] for vi in val_cols],
             tuple(ops), emit, col_ids=tuple(val_cols),
             dense=t.row_mask is None, skip_exchange=pre_partitioned)
-        cols = [Column(arr, table_mod._agg_dtype(t._columns[vi], op), av,
-                       t._columns[vi].name)
+        cols = [table_mod._agg_column(arr, av, t._columns[vi], op)
                 for (arr, av), vi, op in zip(agg, val_cols, ops)]
         return _groupby_table(ctx, key_out, cols, gvalid)
 
@@ -518,20 +925,18 @@ def distributed_groupby(table: Table, index_col, aggregate_cols: List,
             a_entries.append((j, op, False))
             b_ops.append(_groupby.second_phase_op(op))
     srcs = [t._columns[val_cols[j]] for j, _op, _c in a_entries]
-    koutA, kvoutA, gvalidA, aggA = _shard_groupby(
-        world, _order.sort_keys(key_columns),
-        [c.data for c in key_columns], [c.valid_mask() for c in key_columns],
-        emit,
+    koutA, kvoutA, gvalidA, aggA, safeA = _shard_groupby(
+        world, _group_bits(key_columns), [c.data for c in key_columns],
+        [c.valid_mask() for c in key_columns], emit,
         [src.data.to(torch.float64) if cast else src.data
          for src, (_j, _op, cast) in zip(srcs, a_entries)],
         [src.validity for src in srcs],
         tuple(op for _j, op, _c in a_entries),
         tuple((val_cols[j], cast) for j, _op, cast in a_entries),
         [src.validity is None for src in srcs])
-    pkey_cols = [Column(d, kc.dtype, v, kc.name)
-                 for d, v, kc in zip(koutA, kvoutA, key_columns)]
-    pval_cols = [Column(arr, dtypes.Double() if cast
-                        else table_mod._agg_dtype(src, opA), av, src.name)
+    pkey_cols = _key_columns_out(world, key_columns, koutA, kvoutA, safeA)
+    pval_cols = [Column(arr, dtypes.Double(), av, src.name) if cast
+                 else table_mod._agg_column(arr, av, src, opA)
                  for (arr, av), src, (_j, opA, cast)
                  in zip(aggA, srcs, a_entries)]
 
@@ -549,8 +954,7 @@ def distributed_groupby(table: Table, index_col, aggregate_cols: List,
                                s_av & c_av & (c_arr > 0), src.name))
         else:
             arr, av = aggB[m[1]]
-            cols.append(Column(arr, table_mod._agg_dtype(src, op), av,
-                               src.name))
+            cols.append(table_mod._agg_column(arr, av, src, op))
     return _groupby_table(ctx, key_out, cols, gvalid)
 
 
@@ -618,7 +1022,8 @@ def _splitter_targets(lanes: Sequence[torch.Tensor],
 
 def _shard_sort(world: int, bits, emit, dat, val):
     """Each shard's rows stably sorted by (dead last, key lanes...), all
-    shards in one batched sort: sorted data, validity and emit, flat."""
+    shards in one batched sort: sorted data, validity and emit, flat,
+    and the flat shard-local permutation."""
     n = emit.shape[0] // world
     emit_w = emit.view(world, n)
     perm = _order.lexsort_indices([(~emit_w).to(torch.uint8)]
@@ -629,7 +1034,16 @@ def _shard_sort(world: int, bits, emit, dat, val):
             x.dtype).reshape(-1)
 
     return ([take(d) for d in dat], [take(v) for v in val],
-            take(emit))
+            take(emit), perm.reshape(-1))
+
+
+def _dist_order_lanes(c: Column, a: bool):
+    """Lanes whose lexicographic (unsigned) tuple order is column c's
+    sort order (ascending ``a``, nulls last), or None for varbytes rows
+    past the device prefix bound (the host sort)."""
+    if not c.is_varbytes:
+        return list(_order.sort_keys([c], [a]))
+    return table_mod._sort_keys_mixed([c], [a])
 
 
 def distributed_sort(table: Table, order_by, ascending=True,
@@ -637,10 +1051,12 @@ def distributed_sort(table: Table, order_by, ascending=True,
     """Splitter-based distributed sort: sample the key lanes, agree
     world - 1 range splitters, range-partition through the exchange,
     then sort every shard. Shard i's rows all precede shard i+1's, so the
-    global order is (shard, position); nulls last. ``force_exchange``
-    runs the whole composition on a one-shard world too. (The JAX
-    package memoizes the splitters per source column; the port samples
-    on every call.)"""
+    global order is (shard, position); nulls last. Varbytes keys sort on
+    big-endian prefix words + length; rows past SORT_PREFIX_WORDS words
+    take the host sort, then redistribute. ``force_exchange`` runs the
+    whole composition on a one-shard world too. (The JAX package
+    memoizes the splitters per source column; the port samples on every
+    call.)"""
     ctx = table._ctx
     t = shard.distribute(table, ctx) if ctx.is_distributed() else table
     by = order_by if isinstance(order_by, (list, tuple)) else [order_by]
@@ -650,11 +1066,11 @@ def distributed_sort(table: Table, order_by, ascending=True,
     world = ctx.get_world_size()
     if not (ctx.is_distributed() and (world > 1 or force_exchange)):
         return t.sort(by, ascending)
-    order_cols = [t._columns[i] for i in idxs]
-    if any(c.dtype.is_var_width() for c in t._columns):
-        raise not_ported("string columns in distributed_sort")
-
-    lanes = _order.sort_keys(order_cols, asc)
+    per_col = [_dist_order_lanes(t._columns[i], a)
+               for i, a in zip(idxs, asc)]
+    if any(l is None for l in per_col):
+        return shard.distribute(t.compact().sort(by, ascending), ctx)
+    lanes = [l for col_lanes in per_col for l in col_lanes]
     emit = t.emit_mask()
     splitters = _range_splitters(world, lanes, emit)
     targets = _splitter_targets(lanes, splitters)
@@ -662,11 +1078,17 @@ def distributed_sort(table: Table, order_by, ascending=True,
                                      dense=t.row_mask is None)
     # key lanes recomputed from the shuffled columns: they never cross
     # the exchange
-    sbits = _order.sort_keys([cols_s[i] for i in idxs], asc)
-    sdat, sval, semit = _shard_sort(world, sbits, emit_s,
-                                    [c.data for c in cols_s],
-                                    [c.valid_mask() for c in cols_s])
-    out = Table([Column(d, c.dtype, v, c.name)
-                 for d, v, c in zip(sdat, sval, cols_s)], ctx, semit)
+    sbits = [l for i, a in zip(idxs, asc)
+             for l in _dist_order_lanes(cols_s[i], a)]
+    sdat, sval, semit, perm = _shard_sort(world, sbits, emit_s,
+                                          [c.data for c in cols_s],
+                                          [c.valid_mask() for c in cols_s])
+    cols = _rebuild_columns(sdat, sval, cols_s, [c.name for c in cols_s])
+    for ci, c in enumerate(cols_s):
+        if c.is_varbytes:
+            vb = varlen_take_sharded(c.varbytes, perm, world)
+            cols[ci] = Column(vb.lengths, c.dtype, sval[ci], c.name,
+                              varbytes=vb)
+    out = Table(cols, ctx, semit)
     out._shard_world = world
     return out

@@ -1,0 +1,290 @@
+"""cylon_tpu_torch's distributed string ops against cylon_tpu's on the
+virtual CPU mesh (world 4 and 8): partition targets of string keys bit
+for bit; a shuffle shard by shard, words and starts included, for short
+rows (word lanes riding the row exchange) and long rows (their own word
+exchange and the starts rebuild); the distributed join, set ops, groupby
+and sort as row multisets and orders; ``exact=True`` on long keys under
+a forced content-hash collision; hash_partition on the host path.
+
+Everything compared is bytes, bits, counts or orders: exact (tolerance
+0). ``DICT_MAX_VOCAB = 0`` in both packages forces varbytes storage.
+"""
+import numpy as np
+import pytest
+import torch
+
+import cylon_tpu as jct
+from cylon_tpu.data import strings as jstrings
+from cylon_tpu.ops.join import JoinConfig as JJoinConfig
+from cylon_tpu.ops.join import JoinType as JJoinType
+from cylon_tpu.parallel import dist_ops as jdist
+
+import cylon_tpu_torch as tct
+from cylon_tpu_torch.data import strings as tstrings
+from cylon_tpu_torch.ops import join as tjoin
+from cylon_tpu_torch.parallel import dist_ops as tdist
+from cylon_tpu_torch.parallel import shuffle as tshuffle
+
+from test_torch_port_strings import (_colliding_hash_jax,
+                                     _colliding_hash_torch, _strings, rows)
+
+SHORT = ["", "a", "bb", "héllo", "ÿþ€", "abcde", "u0001f00axxx"]
+LONG = SHORT + ["k" * 37, "m" * 40, "z" * 80]
+N = 64  # rows a table: one shape, so cylon_tpu's programs compile once
+
+
+_REF = {}
+
+
+def _ref(key, fn):
+    """cylon_tpu's result of a case, computed once (its programs compile
+    per shape; the port's routes reuse it)."""
+    if key not in _REF:
+        _REF[key] = fn()
+    return _REF[key]
+
+
+def _force_varbytes(monkeypatch):
+    monkeypatch.setattr(jstrings, "DICT_MAX_VOCAB", 0)
+    monkeypatch.setattr(tstrings, "DICT_MAX_VOCAB", 0)
+
+
+@pytest.fixture(params=["plan", "kernel"])
+def route(request, monkeypatch):
+    """'kernel': K1/K2 and K3/K4 wrappers forced (plain versions on the
+    CPU); 'plan': the default CPU routes."""
+    if request.param == "kernel":
+        monkeypatch.setattr(tshuffle, "PARTITION_KERNEL", True)
+        monkeypatch.setattr(tjoin, "STREAM_PLAN", True)
+    return request.param
+
+
+def _ctxs(request, world):
+    jctx = request.getfixturevalue({4: "dist_ctx", 8: "dist_ctx8"}[world])
+    return jctx, tct.CylonContext.InitDistributed(
+        tct.VirtualWorldConfig(world), device="cpu")
+
+
+def _pair(ctxs, data):
+    return jct.Table.from_pydict(ctxs[0], data), \
+        tct.Table.from_pydict(ctxs[1], data)
+
+
+def _data(seed, n, vocab):
+    return {"k": _strings(seed, n, vocab),
+            "v": np.arange(n, dtype=np.int32)}
+
+
+def _np(x):
+    return np.asarray(x) if not isinstance(x, torch.Tensor) \
+        else x.cpu().numpy()
+
+
+@pytest.mark.parametrize("world", [4, 8])
+@pytest.mark.parametrize("vocab", ["short", "long", "dict"])
+def test_partition_targets_bit_exact(request, monkeypatch, world, vocab):
+    """Targets of string keys (word-lane hash, content hash, dictionary
+    codes), alone and paired with a second key column."""
+    if vocab != "dict":
+        _force_varbytes(monkeypatch)
+    ctxs = _ctxs(request, world)
+    words = LONG if vocab == "long" else SHORT
+    jt, tt = _pair(ctxs, _data(world, N, words))
+    jd = jct.parallel.shard.distribute(jt, ctxs[0])
+    td = tdist.shard.distribute(tt, ctxs[1])
+    for idx in ([0], [0, 1]):
+        jcols = [jd._columns[i] for i in idx]
+        tcols = [td._columns[i] for i in idx]
+        jtg = _np(jdist._partition_targets_dist(ctxs[0], jcols))
+        ttg = tdist._partition_targets_dist(world, tcols).numpy()
+        assert np.array_equal(jtg, ttg), idx
+
+
+@pytest.mark.parametrize("world,vocab", [(4, "short"), (8, "long")])
+def test_shuffle_shard_by_shard(request, monkeypatch, route, world, vocab):
+    """After a shuffle on the string key every shard holds the same rows,
+    words and shard-relative starts as cylon_tpu's (short rows: strided
+    lanes; long rows: the word exchange), and a second column of long
+    rows rides along."""
+    _force_varbytes(monkeypatch)
+    ctxs = _ctxs(request, world)
+    words = SHORT if vocab == "short" else LONG
+    data = dict(_data(world + 5, N, words), p=_strings(9, N, LONG))
+    jt, tt = _pair(ctxs, data)
+    js = _ref(("shuffle", world, vocab), lambda: jdist.shuffle(jt, ["k"]))
+    ts = tdist.shuffle(tt, ["k"])
+    assert np.array_equal(_np(js.row_mask), ts.row_mask.numpy())
+    for jc, tc in zip(js._columns, ts._columns):
+        if tc.is_varbytes:
+            jv, tv = jc.varbytes, tc.varbytes
+            assert tv.shard_geom == tuple(jv.shard_geom)
+            assert np.array_equal(_np(jv.words).view(np.int32),
+                                  tv.words.numpy())
+            assert np.array_equal(_np(jv.starts), tv.starts.numpy())
+        assert np.array_equal(_np(jc.data), tc.data.numpy())
+    assert ts.to_pydict()["k"].tolist() == js.to_pydict()["k"].tolist()
+    assert ts.to_pydict()["p"].tolist() == js.to_pydict()["p"].tolist()
+
+
+@pytest.mark.parametrize("world,keys,hows", [
+    (4, "short", ("inner", "outer")),
+    (4, "dict", ("inner",)),
+    (4, "mixed", ("right",)),
+    (4, "long", ("inner", "left"))])
+def test_distributed_join_matches(request, monkeypatch, route, world, keys,
+                                  hows):
+    """Join types on string keys at world 4 and 8 (word-lane keys,
+    content-hash keys with a long payload column, dictionary codes, and a
+    dictionary key meeting a varbytes one): row multisets equal."""
+    ctxs = _ctxs(request, world)
+    words = LONG if keys == "long" else SHORT
+    a = _data(31, N, words)
+    if keys == "long":
+        a["p"] = _strings(32, N, LONG)
+    b = _data(33, N, words)
+    if keys == "mixed":
+        ja, ta = _pair(ctxs, a)
+        _force_varbytes(monkeypatch)
+        jb, tb = _pair(ctxs, b)
+        assert ta._columns[0].dictionary is not None
+    else:
+        if keys != "dict":
+            _force_varbytes(monkeypatch)
+        ja, ta = _pair(ctxs, a)
+        jb, tb = _pair(ctxs, b)
+    for how in hows:
+        tres = ta.distributed_join(tb, how, on=["k"])
+        assert tres._shard_world == world
+        assert rows(tres) == _ref(("join", world, keys, how), lambda: rows(
+            ja.distributed_join(jb, how, on=["k"]))), how
+
+
+@pytest.mark.parametrize("world,force,ops", [
+    (4, True, ("union", "intersect")), (8, False, ("subtract",))])
+def test_distributed_set_ops_match(request, monkeypatch, route, world,
+                                   force, ops):
+    """Varbytes rows (short and long) take per-shard dense ranks on word
+    lanes and content hashes; dictionary rows their codes."""
+    if force:
+        _force_varbytes(monkeypatch)
+    ctxs = _ctxs(request, world)
+    a = {"s": _strings(41, N, LONG), "k": np.arange(N, dtype=np.int32) % 3}
+    b = {"s": _strings(42, N, LONG), "k": np.arange(N, dtype=np.int32) % 2}
+    ja, ta = _pair(ctxs, a)
+    jb, tb = _pair(ctxs, b)
+    for op in ops:
+        tres = getattr(ta, f"distributed_{op}")(tb)
+        assert rows(tres) == _ref(("setop", world, force, op), lambda: rows(
+            getattr(ja, f"distributed_{op}")(jb))), op
+
+
+@pytest.mark.parametrize("world,force", [(4, True), (8, False)])
+def test_distributed_groupby_and_sort_match(request, monkeypatch, route,
+                                            world, force):
+    """Groupby by a string key (short and long rows, nulls as a group)
+    with SUM/COUNT/MEAN and a dictionary MIN; the splitter sort (and its
+    host path past SORT_PREFIX_WORDS) in the same global order."""
+    if force:
+        _force_varbytes(monkeypatch)
+    ctxs = _ctxs(request, world)
+    data = {"k": _strings(51, N, LONG), "v": np.arange(N) % 9,
+            "d": np.array(SHORT, object)[np.arange(N) % 5]}
+    if force:
+        data["d"] = data["v"] * 2
+    jt, tt = _pair(ctxs, data)
+    ops = ["sum", "count", "mean", "min"]
+    tg = tt.groupby(0, [1, 1, 1, 2], ops)
+    assert rows(tg) == _ref(("groupby", world, force), lambda: rows(
+        jt.groupby(0, [1, 1, 1, 2], ops)))
+    if world != 4:
+        return
+    short = {"k": _strings(52, N, SHORT), "v": np.arange(N) % 4}
+    js_, ts_ = _pair(ctxs, short)
+    for t_j, t_t, by, asc in ((jt, tt, ["k", "v"], [False, True]),
+                              (js_, ts_, "k", False)):
+        ts = tdist.distributed_sort(t_t, by, asc).to_pydict()
+        js = _ref(("sort", world, force, str(by)), lambda: (
+            jdist.distributed_sort(t_j, by, asc).to_pydict()))
+        assert ts["k"].tolist() == js["k"].tolist()
+        assert ts["v"].tolist() == js["v"].tolist()
+
+
+def test_exact_distributed_join_long_keys(request, monkeypatch, route):
+    """Every content hash forced equal: INNER drops the false matches
+    after the exchange, LEFT redoes the join on shared dictionary codes;
+    both as cylon_tpu's rows."""
+    _force_varbytes(monkeypatch)
+    monkeypatch.setattr(jstrings, "_hash_rows", _colliding_hash_jax)
+    monkeypatch.setattr(tstrings, "_hash_rows", _colliding_hash_torch)
+    ctxs = _ctxs(request, 4)
+    lk = np.array([f"{'L' * 26}{i:04d}" for i in range(N)], object)
+    rk = np.array([f"{'L' * 26}{i:04d}" for i in range(0, 2 * N, 2)],
+                  object)
+    ja, ta = _pair(ctxs, {"k": lk, "v": np.arange(N, dtype=np.int32)})
+    jb, tb = _pair(ctxs, {"k": rk, "w": np.arange(N, dtype=np.int32)})
+    for jt_, tt_, n in ((JJoinType.INNER, tjoin.JoinType.INNER, N // 2),
+                        (JJoinType.LEFT, tjoin.JoinType.LEFT, N)):
+        jrows = _ref(("exact", n), lambda: rows(jdist.distributed_join(
+            ja, jb, JJoinConfig(jt_, [0], [0], exact=True),
+            force_exchange=True)))
+        tres = tdist.distributed_join(ta, tb, tjoin.JoinConfig(
+            tt_, [0], [0], exact=True), force_exchange=True)
+        assert tres.row_count == n
+        assert rows(tres) == jrows
+
+
+def test_hash_partition_strings(request, monkeypatch):
+    """hash_partition of short rows (on the device, word lanes riding the
+    sort) and long rows (the host partitioner) puts every row where
+    cylon_tpu does."""
+    _force_varbytes(monkeypatch)
+    ctxs = (jct.CylonContext.Init(), tct.CylonContext.Init(device="cpu"))
+    for words in (SHORT, LONG):
+        data = {"k": _strings(61, 100, words), "v": np.arange(100)}
+        jt, tt = _pair(ctxs, data)
+        jp = jdist.hash_partition(jt, ["k"], 5)
+        tp = tdist.hash_partition(tt, ["k"], 5)
+        for p in range(5):
+            assert tp[p].to_pydict()["v"].tolist() == \
+                jp[p].to_pydict()["v"].tolist()
+            assert tp[p].to_pydict()["k"].tolist() == \
+                jp[p].to_pydict()["k"].tolist()
+
+
+def _spec(c):
+    """A cylon_tpu string column as interop's dict (numpy arrays)."""
+    if c.dictionary is not None:
+        return {"codes": _np(c.data), "dictionary": c.dictionary}
+    vb = c.varbytes
+    return {"words": _np(vb.words), "starts": _np(vb.starts),
+            "lengths": _np(vb.lengths), "max_words": vb.max_words,
+            "total_words": vb.total_words, "stride": vb.stride,
+            "shard_geom": vb.shard_geom}
+
+
+@pytest.mark.parametrize("force", [False, True])
+def test_interop_carries_sharded_strings(request, monkeypatch, force):
+    """from_reference_arrays takes a distributed cylon_tpu table with a
+    string column (dictionary, or varbytes with its shard layout) as
+    numpy state; the port's shuffle of it equals cylon_tpu's, row for
+    row."""
+    from cylon_tpu_torch.interop import from_reference_arrays
+
+    if force:
+        _force_varbytes(monkeypatch)
+    ctxs = _ctxs(request, 4)
+    jt = jct.parallel.shard.distribute(
+        jct.Table.from_pydict(ctxs[0], _data(71, N, LONG)), ctxs[0])
+    cols = [_spec(c) if c.is_string else _np(c.data) for c in jt._columns]
+    tt = from_reference_arrays(
+        ctxs[1], cols, [None if c.validity is None else _np(c.validity)
+                        for c in jt._columns],
+        None if jt.row_mask is None else _np(jt.row_mask), world=4,
+        names=jt.column_names)
+    assert tt._columns[0].is_varbytes == force
+    assert tt.to_pydict()["k"].tolist() == jt.to_pydict()["k"].tolist()
+    js = _ref(("interop", force), lambda: jdist.shuffle(jt, ["k"]))
+    ts = tdist.shuffle(tt, ["k"])
+    assert np.array_equal(_np(js.row_mask), ts.row_mask.numpy())
+    assert ts.to_pydict()["k"].tolist() == js.to_pydict()["k"].tolist()
+    assert ts.to_pydict()["v"].tolist() == js.to_pydict()["v"].tolist()

@@ -971,3 +971,167 @@ def test_reshuffle_of_compact_output_on_card(cuda, world, n):
             first, 1, [0], [ct.AggregationOp.COUNT])))
     for g, c in zip(res[0], res[1]):
         assert_layout_equal(g, c, what=f"world {world} n {n}")
+
+
+# ---------------------------------------------------------------------------
+# string columns on the card: the string join at world 1 and 4 against the
+# plain route, K3's hash mode at its 6-lane verify limit, and a string
+# shuffle whose compact output feeds K1/K2 again. Tolerance 0.
+# ---------------------------------------------------------------------------
+
+
+def _key_strings(ks, width):
+    """Fixed-width keys "u" + digits of ks, as bytes rows."""
+    return np.array([f"u{k:0{width - 1}d}".encode() for k in ks], object)
+
+
+def _string_table(ctx, ks, width, v, long_payload=False):
+    from cylon_tpu_torch.data.strings import VarBytes
+
+    n = len(ks)
+    raw = b"".join(_key_strings(ks, width))
+    vb = VarBytes._from_packed(raw, np.full(n, width, np.int32),
+                               device=ctx.device)
+    cols = [ct.Column.from_varbytes(vb, None, "k"),
+            ct.Column.from_numpy(v, "v", None, ctx.device)]
+    if long_payload:
+        long_raw = b"".join(b"p" * 40 + s for s in _key_strings(ks, width))
+        pv = VarBytes._from_packed(long_raw, np.full(n, 40 + width,
+                                                     np.int32),
+                                   device=ctx.device)
+        cols.append(ct.Column.from_varbytes(pv, None, "p"))
+    return ct.Table(cols, ctx)
+
+
+def _string_rows(t):
+    """Live rows as sorted (bytes of every string column, data bits of
+    the rest)."""
+    t = t.compact()
+    cols = []
+    for c in t._columns:
+        if c.is_varbytes:
+            cols.append(list(c.varbytes.to_host(as_str=False)))
+        else:
+            cols.append(c.data.cpu().numpy().view(
+                f"u{c.data.element_size()}").tolist())
+    return sorted(zip(*cols))
+
+
+def _all_routes(value):
+    J.STREAM_PLAN = value
+    S.PARTITION_KERNEL = value
+    SO.STREAM_SETOP = value
+
+
+@pytest.mark.parametrize("world", [1, 4])
+@pytest.mark.parametrize("width,long_payload", [(12, False), (20, True),
+                                                (40, False)])
+def test_string_join_on_card(cuda, world, width, long_payload):
+    """The varbytes-key inner join on the card, kernel route against the
+    plain route: 12- and 20-byte keys join through K3 in hash mode (4 and
+    6 verify lanes) with their words as K4 payload lanes; 40-byte keys on
+    the content hash; a 52-byte payload gathers per shard."""
+    rng = np.random.default_rng(width)
+    n = 40_000
+    ctx = ct.CylonContext.InitDistributed(ct.VirtualWorldConfig(world)) \
+        if world > 1 else ct.CylonContext.Init()
+    left = _string_table(ctx, rng.integers(0, n // 4, n), width,
+                         rng.normal(size=n).astype(np.float32),
+                         long_payload)
+    right = _string_table(ctx, rng.integers(0, n // 4, n), width,
+                          rng.normal(size=n).astype(np.float32))
+
+    def run():
+        if world > 1:
+            return left.distributed_join(right, "inner", on=["k"],
+                                         force_exchange=True)
+        return left.join(right, "inner", on=["k"])
+
+    seen = []
+    real = K.join_plan_stream
+
+    def spy(**kw):
+        seen.append(len(kw.get("verify_lanes", ())))
+        return real(**kw)
+
+    K.reset_launches()
+    K.join_plan_stream = spy
+    try:
+        got = run()
+        torch.cuda.synchronize()
+    finally:
+        K.join_plan_stream = real
+    assert K.LAUNCHES["join_expand_stream"] == 1
+    assert seen == [{12: 4, 20: 6, 40: 4}[width]], seen
+    if world > 1:
+        assert K.LAUNCHES["partition_scatter"] >= 1
+    _all_routes(False)
+    try:
+        exp = run()
+    finally:
+        _all_routes(None)
+    assert got.row_count == exp.row_count > 0
+    assert _string_rows(got) == _string_rows(exp)
+
+
+def test_k3_hash_mode_six_verify_lanes(cuda):
+    """K3 in hash mode with 6 verify lanes (a 5-word key plus its length)
+    and 7 + 2 payload lanes, against its plain version."""
+    from cylon_tpu_torch.data import table as T
+
+    rng = np.random.default_rng(6)
+    n = 30_000
+    ctx = ct.CylonContext.Init()
+    left = _string_table(ctx, rng.integers(0, n // 3, n), 20,
+                         rng.normal(size=n).astype(np.float32))
+    right = _string_table(ctx, rng.integers(0, n // 3, n), 20,
+                          rng.normal(size=n).astype(np.float32))
+    lk, lkv, raw = T._expanded_keys(left._columns[:1], right._columns[:1])
+    rk, rkv, _ = T._expanded_keys(right._columns[:1], left._columns[:1])
+    lbits, lv = J.key_bits(T._rows(lk), T._rows(lkv), raw)
+    rbits, rv = J.key_bits(T._rows(rk), T._rows(rkv), raw)
+    ldat, lval, _s = T.lane_payload(left._columns)
+    rdat, rval, _s = T.lane_payload(right._columns, skip={0})
+    ldat, lval, rdat, rval = (T._rows(x) for x in (ldat, lval, rdat, rval))
+    a_desc, b_desc = J.plan_lane_descs(ldat, lval, rdat, rval,
+                                       J.JoinType.INNER)
+    kw = J.stream_plan_inputs(lbits, lv, None, rbits, rv, None, ldat, lval,
+                              rdat, rval, J.JoinType.INNER, a_desc, b_desc,
+                              hash_mode=True)
+    assert len(kw["verify_lanes"]) == 6 and len(kw["lanes"]) == 7
+    _plan_equal(K.plain_join_plan_stream(**kw), K.join_plan_stream(**kw))
+
+
+@pytest.mark.parametrize("world", [4, 8])
+@pytest.mark.parametrize("width", [12, 60])
+def test_string_shuffle_compact_output_on_card(cuda, world, width):
+    """A shuffle of a few string rows (all on shard 0: the compact route;
+    60-byte rows move through their own word exchange) lands in compact
+    shards; shuffling that again by another key runs K1/K2 on them. Rows,
+    words and starts equal the CPU's."""
+    from cylon_tpu_torch.parallel import dist_ops as D
+
+    rng = np.random.default_rng(width + world)
+    n = 7
+    ks = rng.integers(0, 1 << 20, n)
+    v = rng.integers(0, 3, n).astype(np.float32)
+    res = []
+    for dev in ("cuda", "cpu"):
+        ctx = ct.CylonContext.InitDistributed(ct.VirtualWorldConfig(world),
+                                              device=dev)
+        t = _string_table(ctx, ks, width, v)
+        first = D.shuffle(t, ["k"])
+        assert first.capacity // world <= 8
+        K.reset_launches()
+        second = D.shuffle(first, ["v"])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert K.LAUNCHES["partition_hist"] >= 2
+            assert K.LAUNCHES["partition_scatter"] >= 1
+        res.append((first, second))
+    for g, c in zip(res[0], res[1]):
+        assert torch.equal(g.emit_mask().cpu(), c.emit_mask())
+        gv, cv = g._columns[0].varbytes, c._columns[0].varbytes
+        assert torch.equal(gv.words.cpu(), cv.words)
+        assert torch.equal(gv.starts.cpu(), cv.starts)
+        assert _string_rows(g) == _string_rows(c)

@@ -513,14 +513,25 @@ def test_promoted_columns(stream_off):
 
 
 def test_string_columns_raise_not_ported():
+    """Dictionary string columns now take part in set ops (their codes
+    ride the lane route as 4-byte lanes) and give cylon_tpu's rows, row
+    for row; a cast of a string column is refused as in cylon_tpu."""
+    jctx = jct.CylonContext.Init()
     tctx = tct.CylonContext.Init(device="cpu")
-    s = tct.Column(torch.zeros(3, dtype=torch.int32), tdtypes.String(), None,
-                   "s")
-    t = tct.Table([s], tctx)
-    with pytest.raises(tct.CylonError, match="not yet ported"):
-        t.union(t)
-    with pytest.raises(tct.CylonError, match="not yet ported"):
-        s.astype(tdtypes.Int64())
+    a = {"s": np.array(["x", "y", "x", None, "z"], dtype=object),
+         "k": np.arange(5, dtype=np.int32) % 2}
+    b = {"s": np.array(["y", "w", None], dtype=object),
+         "k": np.array([1, 0, 1], np.int32)}
+    jl, tl = _pair(jctx, tctx, a, {})
+    jr, tr = _pair(jctx, tctx, b, {})
+    assert tl._columns[0].dictionary is not None
+    for op in OPS:
+        tres = getattr(tl, op)(tr)
+        assert_same_tables(getattr(jl, op)(jr), tres, op)
+        assert tres.to_pydict()["s"].tolist() == \
+            getattr(jl, op)(jr).to_pydict()["s"].tolist()
+    with pytest.raises(tct.CylonError, match="cannot cast string column"):
+        tl._columns[0].astype(tdtypes.Int64())
 
 
 def test_interop_carries_every_lane_kind():
