@@ -1,7 +1,8 @@
 """Drive cylon_tpu_torch's main path on one NVIDIA H100 and check it.
 
     python3 chip_smoke.py [--rows N] [--setop-rows M] [--pipeline-rows P]
-                          [--groupby-rows G] [--string-rows R] [--seed S]
+                          [--groupby-rows G] [--string-rows R]
+                          [--bcast-rows B] [--shuffle-rows X] [--seed S]
                           [--out PATH]
 
 Four paths, each at the size of the repo's own benchmark:
@@ -31,7 +32,16 @@ Four paths, each at the size of the repo's own benchmark:
   "u" + 8 hex digits of ks + "xxx", 12 bytes, ks uniform in [0, 2^20),
   a float32 payload; ``Table.join`` at world 1 and ``distributed_join(...,
   force_exchange=True)`` at world 4: K3 in hash mode with 4 verify
-  lanes, the key words riding K4 as payload lanes, K1/K2 at world 4).
+  lanes, the key words riding K4 as payload lanes, K1/K2 at world 4);
+* the exchange variants: the ring join on the join's tables (world 4,
+  ``comm="ring"``: K3/K4 at every ring step); bench.py
+  ``bench_adaptive_join``'s broadcast join (B = 4,194,304 probe rows,
+  ``--bcast-rows``, B // 1000 build rows, keys in [0, B // 2000),
+  ``comm="broadcast"``, inner and left: K3/K4, no exchange) and its
+  salted shuffle (B rows, 70% one key: K1/K2); bench.py
+  ``bench_shuffle_pipeline``'s chunked exchange (X = 16,777,216 rows,
+  ``--shuffle-rows``, 24 bytes a row, a pipeline of at least 4 chunks:
+  K1/K2).
 
 Phases, in order (any failure exits non-zero; nothing is caught):
   1. the card, torch, nvcc, and the build of every kernel from csrc/;
@@ -89,6 +99,25 @@ Phases, in order (any failure exits non-zero; nothing is caught):
      joins, the three set ops (K5/K6 for dictionary strings at world 1),
      groupby and sort at world 1 and 4, and a mixed dictionary/varbytes
      concat_tables.
+ 17. the ring join: no fallback, K3/K4 launched, the rows equal the
+     numpy inner join, every shard's rows equal the ring's plain route's;
+     the median of 5 walls in turns with the shuffle join of phase 2;
+ 18. the broadcast join, inner and left with build_side=1: K1/K2 launched
+     0 times and no exchange called, K3/K4 launched, the rows equal a
+     numpy join; walls in turns with the shuffle join;
+ 19. the salted shuffle: K1/K2 launched, the salted targets and both
+     count matrices equal an independent numpy version of the rule, the
+     rows equal the unsalted shuffle's; max/mean shard imbalance and
+     walls of both;
+ 20. the chunked exchange: K1/K2 launched, the output equals the
+     single-shot exchange's (CYLON_EXCHANGE_OVERLAP=0) bit for bit on
+     every shard; the chunk count, both walls, and both routes'
+     torch.cuda.max_memory_allocated; the chunk counts of phases 2, 10
+     and 15 (a phase whose exchange chunks is also timed with the
+     overlap knob at its default and off, in turns);
+ 21. the ring, broadcast, salted and chunked paths at small size (world
+     4 and 8, 0-15 rows a side, a hot key) against Python joins or the
+     single-shot exchange.
 Phases 10-12 each record the median of 5 steady runs after one warm-up.
 Tolerances: float sums 1e-5 * sum |x| of the group (+1e-30), float64
 means 1e-12 * sum |x| / count; everything else exact.
@@ -761,7 +790,7 @@ def pipeline_phase(ct, K, D, S, dctx, n: int) -> dict:
 
     sync()
     K.reset_launches()
-    with RouteSpy(S) as spy:
+    with RouteSpy(S) as spy, ChunkSpy(S) as cspy:
         t0 = time.perf_counter()
         out = fn()
         sync()
@@ -771,6 +800,7 @@ def pipeline_phase(ct, K, D, S, dctx, n: int) -> dict:
                            "join_plan_stream", "join_expand_stream")
                if launches[k] == 0]
     assert not missing, f"join -> groupby: not launched: {missing}"
+    chunks = chunk_report(10, cspy, fn)
     assert spy.rounds, "the partials' exchange did not take the compact route"
     # numpy oracle: group k holds cnt_left(k) copies of each right row
     m = n // 4
@@ -796,7 +826,7 @@ def pipeline_phase(ct, K, D, S, dctx, n: int) -> dict:
         f"{2 * n / statistics.median(walls):.4e}")
     return {"rows": n, "launches": launches, "compact_rounds": spy.rounds,
             "groups": int(len(keys)), "first_wall_s": first, "walls": walls,
-            "worst_sum_err_over_bound": worst}
+            "worst_sum_err_over_bound": worst, "chunks": chunks}
 
 
 def groupby_phase(ct, K, lctx, dctx, n: int) -> dict:
@@ -1134,14 +1164,17 @@ def string_join_phase(ct, K, ctx, n: int, world: int, seeds) -> dict:
         return left.distributed_join(right, "inner", on=["k"],
                                      force_exchange=True)
 
+    from cylon_tpu_torch.parallel import shuffle as S
+
     sync()
     K.reset_launches()
-    with Recorder(K) as rec, HashModeSpy(K) as hm:
+    with Recorder(K) as rec, HashModeSpy(K) as hm, ChunkSpy(S) as cspy:
         t0 = time.perf_counter()
         out = fn()
         sync()
         first = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
+    chunks = chunk_report(phase, cspy, fn) if world > 1 else None
     need = ["join_plan_stream", "join_expand_stream"] + (
         ["partition_hist", "partition_scatter"] if world > 1 else [])
     missing = [k for k in need if launches[k] == 0]
@@ -1165,7 +1198,7 @@ def string_join_phase(ct, K, ctx, n: int, world: int, seeds) -> dict:
     return {"rows": n, "world": world, "launches": launches,
             "k3_calls": hm.calls, "out_rows": rows, "first_wall_s": first,
             "walls": walls, "rows_per_s": 2 * n / med, "profile": prof,
-            "calls": rec.calls}
+            "calls": rec.calls, "chunks": chunks}
 
 
 class StringPolicy:
@@ -1335,6 +1368,537 @@ def string_small_phase(ct, K, D, lctx, dctx) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the ring join, the broadcast join, the salted shuffle and the chunked
+# exchange (phases 17-21)
+# ---------------------------------------------------------------------------
+
+
+class ChunkSpy:
+    """Records the chunk count of every padded exchange (the result of
+    each ``shuffle._chunk_plan`` call)."""
+
+    def __init__(self, S):
+        self.S = S
+        self.chunks = []
+
+    def __enter__(self):
+        self.real = self.S._chunk_plan
+
+        def spy(block, world, row_bytes):
+            cb, n = self.real(block, world, row_bytes)
+            self.chunks.append(n)
+            return cb, n
+
+        self.S._chunk_plan = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.S._chunk_plan = self.real
+
+
+class CallSpy:
+    """Counts the calls of named functions of a module (every call still
+    runs)."""
+
+    def __init__(self, mod, names):
+        self.mod, self.names = mod, names
+        self.calls = {n: 0 for n in names}
+
+    def __enter__(self):
+        self.real = {n: getattr(self.mod, n) for n in self.names}
+        for n, fn in self.real.items():
+            def spy(*a, _n=n, _fn=fn, **kw):
+                self.calls[_n] += 1
+                return _fn(*a, **kw)
+
+            setattr(self.mod, n, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.real.items():
+            setattr(self.mod, n, fn)
+
+
+def overlap_turns(fn, rounds: int = 5) -> dict:
+    """Walls (s) of fn() with CYLON_EXCHANGE_OVERLAP at its default and at
+    0, taken in turns."""
+    walls = {"default": [], "off": []}
+    for i in range(2 * rounds):
+        name = ("default", "off")[(i + i // 2) % 2]
+        if name == "off":
+            os.environ["CYLON_EXCHANGE_OVERLAP"] = "0"
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+            walls[name].append(time.perf_counter() - t0)
+            del out
+        finally:
+            os.environ.pop("CYLON_EXCHANGE_OVERLAP", None)
+    return walls
+
+
+def chunk_report(phase: int, spy, fn) -> dict:
+    """The chunk counts of a phase's exchanges; where one chunked, the
+    phase's walls with the overlap knob at its default and off."""
+    out = {"chunks": list(spy.chunks)}
+    if max(spy.chunks, default=1) > 1:
+        out["overlap_walls"] = overlap_turns(fn)
+    log(f"  phase {phase}: chunk counts of its padded exchanges "
+        f"{spy.chunks}" + (f"; walls (s) overlap default / off "
+                           f"{out['overlap_walls']}"
+                           if "overlap_walls" in out else ""))
+    return out
+
+
+def in_turns(fns: dict, rounds: int = 5) -> dict:
+    """Walls (s) of each named fn, one warm-up each, then ``rounds``
+    rounds in turns, the order reversed every other round."""
+    names = list(fns)
+    for n in names:
+        fns[n]()
+        sync()
+    walls = {n: [] for n in names}
+    for i in range(rounds):
+        for n in (names if i % 2 == 0 else names[::-1]):
+            t0 = time.perf_counter()
+            out = fns[n]()
+            sync()
+            walls[n].append(time.perf_counter() - t0)
+            del out
+    return walls
+
+
+def shard_canonical(table, world: int) -> list:
+    """Each live row's shard and columns (data bits, validity), sorted by
+    shard, then the columns: equal lists mean equal shards as row
+    multisets."""
+    from cylon_tpu_torch.ops import order
+
+    emit = table.emit_mask()
+    live = emit.nonzero().flatten()
+    sid = (live // (emit.shape[0] // world)).to(torch.int32)
+    cols = []
+    for c in table._columns:
+        d = c.data[live]
+        cols += [d.view(torch.int32) if d.element_size() == 4 else d,
+                 c.valid_mask()[live].to(torch.int32)]
+    perm = order.lexsort_indices([sid] + cols)
+    return [sid[perm]] + [x[perm] for x in cols]
+
+
+def join_bits(table):
+    """(k, v bits, w bits, w valid) of a compacted k | v | k | w join
+    output, int64 on the card."""
+    t = table.compact()
+    k, v, k2, w = t._columns
+    hit = w.valid_mask()
+    assert torch.equal(k.data[hit], k2.data[hit]), "key columns differ"
+
+    def bits(c):
+        return c.data.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+    return k.data.to(torch.int64), bits(v), bits(w), hit
+
+
+def check_join_against_numpy(table, lk, lv, rk, rv, how: str) -> int:
+    """The matched rows equal numpy_join_arrays' rows; for LEFT, the
+    unmatched rows are the probe rows whose key the build side lacks."""
+    k, v, w, hit = join_bits(table)
+    dev = k.device
+    got = canonical_triples(k[hit], v[hit], w[hit])
+    ref = canonical_triples(*(torch.from_numpy(x).to(dev)
+                              for x in numpy_join_arrays(lk, lv, rk, rv)))
+    assert got.shape == ref.shape and torch.equal(got, ref), \
+        f"{how} join: matched rows disagree with numpy"
+    miss = ~np.isin(lk, rk)
+    if how == "left":
+        z = torch.zeros(int((~hit).sum()), dtype=torch.int64, device=dev)
+        got_u = canonical_triples(k[~hit], v[~hit], z)
+        zr = np.zeros(int(miss.sum()), np.int64)
+        ref_u = canonical_triples(*(torch.from_numpy(x).to(dev) for x in (
+            lk[miss].astype(np.int64),
+            lv[miss].view(np.uint32).astype(np.int64), zr)))
+        assert got_u.shape == ref_u.shape and torch.equal(got_u, ref_u), \
+            "left join: unmatched rows disagree with numpy"
+    else:
+        assert bool(hit.all()), "inner join: a row without a match"
+    return int(hit.numel())
+
+
+def ring_phase(ct, K, D, dctx, n: int, seed: int) -> dict:
+    """Phase 17: the ring join on the join's data (bench.py:99-110), inner,
+    world 4: it stays on the ring (no fallback to the shuffle join), K3
+    and K4 launch, the rows equal the numpy inner join, and every shard's
+    rows equal the ring's plain route's (STREAM_PLAN False); the median
+    of 5 steady walls in turns with the shuffle join of phase 2."""
+    left, right, (lk, lv, rk, rv) = make_tables(ct, dctx, n, seed)
+
+    def ring():
+        return left.distributed_join(right, "inner", on=["k"], comm="ring")
+
+    def shuffle_join():
+        return left.distributed_join(right, "inner", on=["k"],
+                                     force_exchange=True)
+
+    sync()
+    K.reset_launches()
+    with CallSpy(D, ["distributed_join"]) as fb:
+        t0 = time.perf_counter()
+        out = ring()
+        sync()
+        first = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    assert fb.calls["distributed_join"] == 0, "the ring fell back"
+    missing = [k for k in ("join_plan_stream", "join_expand_stream")
+               if launches[k] == 0]
+    assert not missing, f"ring join: not launched {missing}"
+    rows = check_join_against_numpy(out, lk, lv, rk, rv, "inner")
+    plain = run_route(False, ring)
+    assert plain.capacity == out.capacity
+    a, b = shard_canonical(out, WORLD), shard_canonical(plain, WORLD)
+    assert all(torch.equal(x, y) for x, y in zip(a, b)), \
+        "ring join: a shard differs from the plain route's"
+    per_shard = torch.bincount(a[0].to(torch.int64), minlength=WORLD)
+    del out, plain, a, b
+    walls = in_turns({"ring": ring, "shuffle": shuffle_join})
+    med = {x: statistics.median(y) for x, y in walls.items()}
+    prof = profile_once(ring)
+    log(f"phase 17 ring join (2 x {n} rows, world {WORLD}): launches "
+        f"{launches}; stayed on the ring; {rows} rows == numpy, every "
+        f"shard == the plain route's (rows a shard "
+        f"{per_shard.tolist()}); first run {first:.4f} s; steady walls (s) "
+        f"{walls}; median ring {med['ring']:.6f}, shuffle join "
+        f"{med['shuffle']:.6f}; profile: wall {prof['wall_ms']:.3f} ms, "
+        f"busy {prof['busy_ms']:.3f} ms (idle {prof['idle_share']:.4f})")
+    for name, ms, calls in prof["top"]:
+        log(f"    {ms:9.3f} ms  x{calls:<3d} {name}")
+    return {"rows": n, "launches": launches, "first_wall_s": first,
+            "walls": walls, "out_rows": rows,
+            "shard_rows": per_shard.tolist(), "profile": prof}
+
+
+def broadcast_phase(ct, K, D, S, dctx, n: int) -> dict:
+    """Phase 18: the broadcast hash join at bench_adaptive_join's shape
+    (bench.py:346-370: n probe rows, n // 1000 build rows, keys in [0,
+    n // 2000), default_rng(21)), world 4, INNER and LEFT with
+    build_side=1: no exchange (K1 and K2 launch 0 times, shuffle.exchange
+    is never called), K3 and K4 launch, the rows equal a numpy join; the
+    median of 5 steady walls in turns with the shuffle join on the same
+    tables."""
+    rng = np.random.default_rng(21)
+    nb = max(n // 1000, 64)
+    keys = max(nb // 2, 1)
+    lk = rng.integers(0, keys, n).astype(np.int32)
+    lv = rng.normal(size=n).astype(np.float32)
+    rk = rng.integers(0, keys, nb).astype(np.int32)
+    rv = rng.normal(size=nb).astype(np.float32)
+    left = ct.Table.from_pydict(dctx, {"k": lk, "v": lv})
+    right = ct.Table.from_pydict(dctx, {"k": rk, "w": rv})
+    res = {"probe_rows": n, "build_rows": nb, "keys": keys}
+    for how in ("inner", "left"):
+        def bcast():
+            return left.distributed_join(right, how, on=["k"],
+                                         comm="broadcast", build_side=1)
+
+        def shuffle_join():
+            return left.distributed_join(right, how, on=["k"])
+
+        sync()
+        K.reset_launches()
+        with CallSpy(D, ["exchange", "exchange_pair", "count_pair",
+                         "distributed_join"]) as dspy, \
+                CallSpy(S, ["exchange"]) as sspy:
+            t0 = time.perf_counter()
+            out = bcast()
+            sync()
+            first = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        calls = dict(dspy.calls, **{"shuffle.exchange":
+                                    sspy.calls["exchange"]})
+        assert not any(calls.values()), f"broadcast {how}: {calls}"
+        assert launches["partition_hist"] == 0 \
+            and launches["partition_scatter"] == 0, launches
+        missing = [k for k in ("join_plan_stream", "join_expand_stream")
+                   if launches[k] == 0]
+        assert not missing, f"broadcast {how}: not launched {missing}"
+        rows = check_join_against_numpy(out, lk, lv, rk, rv, how)
+        del out
+        walls = in_turns({"broadcast": bcast, "shuffle": shuffle_join})
+        med = {x: statistics.median(y) for x, y in walls.items()}
+        log(f"phase 18 broadcast join {how} ({n} probe x {nb} build rows, "
+            f"world {WORLD}, build_side=1): launches {launches}, no "
+            f"exchange; {rows} rows == numpy; first run {first:.4f} s; "
+            f"steady walls (s) {walls}; median broadcast "
+            f"{med['broadcast']:.6f}, shuffle join {med['shuffle']:.6f}")
+        res[how] = {"launches": launches, "first_wall_s": first,
+                    "walls": walls, "out_rows": rows}
+    return res
+
+
+def numpy_salted_targets(targets, emit, world: int, salt: int,
+                         warn: float):
+    """Independent numpy version of the salting rule: (salted targets,
+    salted counts, raw counts)."""
+    t = targets.reshape(world, -1).astype(np.int64)
+    e = emit.reshape(world, -1)
+
+    def counts(x):
+        d = np.where(e, x, world)
+        return np.stack([np.bincount(r, minlength=world + 1)[:world]
+                         for r in d])
+
+    raw = counts(t)
+    recv = raw.sum(0)
+    total = max(int(recv.sum()), 1)
+    hot = recv.astype(np.float32) * np.float32(world) \
+        > np.float32(warn) * np.float32(total)
+    h = np.arange(t.shape[1], dtype=np.uint32)
+    h ^= h >> 16
+    h *= np.uint32(0x85EBCA6B)
+    h ^= h >> 13
+    h *= np.uint32(0xC2B2AE35)
+    h ^= h >> 16
+    sub = (h % np.uint32(salt)).astype(np.int64)
+    safe = np.clip(t, 0, world - 1)
+    t2 = np.where(hot[safe] & e, (safe + sub) % world, safe)
+    return t2.reshape(-1), counts(t2), raw
+
+
+def salted_phase(ct, K, D, S, dctx, n: int) -> dict:
+    """Phase 19: the salted shuffle at bench.py:416-438's shape (n rows,
+    70% key 7, the rest in [0, 2^20), v = arange; default_rng(21) after
+    the broadcast phase's draws), world 4, CYLON_SALT_FACTOR at its
+    default: K1 and K2 launch, the salted targets and both count
+    matrices equal an independent numpy version of the rule, the rows
+    equal the unsalted shuffle's as a multiset; max/mean shard imbalance
+    and the median of 5 walls of both, in turns."""
+    from cylon_tpu_torch.parallel import shard
+    from cylon_tpu_torch.telemetry import knobs
+
+    rng = np.random.default_rng(21)
+    nb = max(n // 1000, 64)
+    keys = max(nb // 2, 1)
+    rng.integers(0, keys, n)
+    rng.normal(size=n)
+    rng.integers(0, keys, nb)
+    rng.normal(size=nb)
+    zk = np.where(rng.random(n) < 0.7, 7,
+                  rng.integers(0, 1 << 20, n)).astype(np.int32)
+    t = ct.Table.from_pydict(dctx, {"k": zk,
+                                    "v": np.arange(n, dtype=np.float32)})
+    salt = 1 << (max(int(knobs.get("CYLON_SALT_FACTOR")), 1).bit_length()
+                 - 1)
+    warn = float(knobs.get("CYLON_SKEW_WARN_FACTOR"))
+    td = shard.distribute(t, dctx)
+    targets = D._partition_targets_dist(WORLD, [td._columns[0]])
+    emit = td.emit_mask()
+    t2, sc, rc = S.salted_exchange_targets(targets, emit, dctx, salt, warn)
+    n2, nsc, nrc = numpy_salted_targets(targets.cpu().numpy(),
+                                        emit.cpu().numpy(), WORLD, salt,
+                                        warn)
+    assert np.array_equal(t2.cpu().numpy(), n2), "salted targets"
+    assert np.array_equal(sc, nsc) and np.array_equal(rc, nrc), \
+        "salted count matrices"
+
+    def plain():
+        return D.shuffle(t, ["k"])
+
+    def salted():
+        return D.shuffle(t, ["k"], salted=True)
+
+    sync()
+    K.reset_launches()
+    out = salted()
+    sync()
+    launches = dict(K.LAUNCHES)
+    missing = [k for k in ("partition_hist", "partition_scatter")
+               if launches[k] == 0]
+    assert not missing, f"salted shuffle: not launched {missing}"
+    ref = plain()
+    assert out._hash_partitioned is None
+    ca, cb = canonical(out), canonical(ref)
+    assert all(torch.equal(x, y) for p, q in zip(ca, cb)
+               for x, y in zip(p, q)), "salted rows != unsalted rows"
+
+    def imbalance(x):
+        rows = x.emit_mask().view(WORLD, -1).sum(1).cpu().numpy()
+        return float(rows.max() / max(rows.sum() / WORLD, 1.0)), \
+            rows.tolist()
+
+    imb = {"salted": imbalance(out), "unsalted": imbalance(ref)}
+    del out, ref, ca, cb
+    walls = in_turns({"salted": salted, "unsalted": plain})
+    med = {x: statistics.median(y) for x, y in walls.items()}
+    log(f"phase 19 salted shuffle ({n} rows, 70% one key, world {WORLD}, "
+        f"salt {salt}): launches {launches}; targets and count matrices == "
+        f"numpy; rows == the unsalted shuffle's; max/mean imbalance "
+        f"(rows a shard) salted {imb['salted']}, unsalted "
+        f"{imb['unsalted']}; steady walls (s) {walls}; median salted "
+        f"{med['salted']:.6f}, unsalted {med['unsalted']:.6f}")
+    return {"rows": n, "salt": salt, "launches": launches,
+            "imbalance": imb, "walls": walls,
+            "raw_counts": rc.tolist(), "salted_counts": sc.tolist()}
+
+
+def chunked_phase(ct, K, S, dctx, n: int) -> dict:
+    """Phase 20: bench_shuffle_pipeline (bench.py:237-345): n rows, 4
+    float32 and 1 int64 leaves (24 bytes a row), uniform targets, every
+    row live, default_rng(12), world 4, the counted padded route with the
+    chunk bytes of bench.py:277 (a pipeline at least 4 deep): K1 and K2
+    launch, the chunked output equals the single-shot one
+    (CYLON_EXCHANGE_OVERLAP=0) bit for bit on every shard; the chunk
+    count, the median of 5 walls of both in turns, and each route's
+    torch.cuda.max_memory_allocated over one call."""
+    rng = np.random.default_rng(12)
+    dev = dctx.device
+    payload = {f"f{i}": torch.from_numpy(
+        rng.normal(size=n).astype(np.float32)).to(dev) for i in range(4)}
+    payload["i0"] = torch.from_numpy(
+        rng.integers(0, 1 << 31, n).astype(np.int64)).to(dev)
+    targets = torch.from_numpy(
+        rng.integers(0, WORLD, n).astype(np.int32)).to(dev)
+    emit = torch.ones(n, dtype=torch.bool, device=dev)
+    counts = S._count_matrix(targets, emit, WORLD).cpu().numpy()
+    _ok, block, _mb = S._padded_route(counts, payload, WORLD,
+                                      dctx.memory_pool.comm_budget_bytes())
+    cbytes = max((WORLD * 24 * block) // 4, 1 << 12)
+
+    def run(overlap: str):
+        os.environ["CYLON_EXCHANGE_OVERLAP"] = overlap
+        os.environ["CYLON_EXCHANGE_CHUNK_BYTES"] = str(cbytes)
+        try:
+            return S.exchange(payload, targets, emit, dctx, counts=counts)
+        finally:
+            os.environ.pop("CYLON_EXCHANGE_OVERLAP", None)
+            os.environ.pop("CYLON_EXCHANGE_CHUNK_BYTES", None)
+
+    res = {"rows": n, "block": block, "chunk_bytes": cbytes, "peak": {},
+           "launches": {}}
+    outs = {}
+    for name, overlap in (("chunked", "1"), ("single", "0")):
+        sync()
+        K.reset_launches()
+        outs[name] = run(overlap)
+        sync()
+        res["launches"][name] = dict(K.LAUNCHES)
+    missing = [k for k in ("partition_hist", "partition_scatter")
+               if res["launches"]["chunked"][k] == 0]
+    assert not missing, f"chunked exchange: not launched {missing}"
+    (co, ce, ccap, cm), (so, se, scap, sm) = outs["chunked"], outs["single"]
+    chunks = cm.get("chunks", 1)
+    assert chunks >= 4 and "chunks" not in sm, (chunks, sm)
+    assert ccap == scap and torch.equal(ce, se) \
+        and torch.equal(cm["counts_in"], sm["counts_in"])
+    for k in payload:
+        assert torch.equal(co[k][ce], so[k][se]), f"chunked leaf {k}"
+    res["chunks"] = chunks
+    del outs, co, so, ce, se, cm, sm
+    # each route's peak over one call, from the same baseline (the inputs
+    # only): max_memory_allocated after reset_peak_memory_stats
+    for name, overlap in (("chunked", "1"), ("single", "0"), ("chunked", "1"),
+                          ("single", "0")):
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = run(overlap)
+        sync()
+        res["peak"].setdefault(name, []).append({
+            "max_memory_allocated": int(torch.cuda.max_memory_allocated()),
+            "before": int(before)})
+        del out
+    walls = in_turns({"chunked": lambda: run("1"),
+                      "single": lambda: run("0")})
+    med = {x: statistics.median(y) for x, y in walls.items()}
+    res["walls"] = walls
+    log(f"phase 20 chunked exchange ({n} rows, 24 bytes a row, world "
+        f"{WORLD}, block {block}, chunk bytes {cbytes}): {chunks} chunks; "
+        f"launches {res['launches']}; output == single-shot bit for bit on "
+        f"every shard; peak bytes (max_memory_allocated, allocated before) "
+        f"{res['peak']}; steady walls (s) {walls}; median chunked "
+        f"{med['chunked']:.6f}, single-shot {med['single']:.6f}")
+    return res
+
+
+def small_variants_phase(ct, K, D, S) -> dict:
+    """Phase 21: the new paths at small size, against Python joins or the
+    single-shot exchange: world 4 and 8, 0-15 rows a side and a hot key;
+    the ring join (INNER, LEFT, RIGHT and its FULL_OUTER fallback), the
+    broadcast join in every legal (join type, build side) and one illegal
+    pair, the salted shuffle on uniform keys (untouched), a remainder
+    chunk."""
+    out = {"cases": 0}
+    legal = [("inner", 0), ("inner", 1), ("left", 1), ("right", 0),
+             ("left", 0)]
+    for world in (4, 8):
+        ctx = ct.CylonContext.InitDistributed(ct.VirtualWorldConfig(world))
+        for nl, nr, hot in ((0, 0, False), (1, 1, False), (3, 3, False),
+                            (15, 15, False), (0, 9, False), (15, 4, True)):
+            rng = np.random.default_rng(100 * nl + nr + world)
+            lk = rng.integers(0, 4, nl).astype(np.int32)
+            rk = rng.integers(0, 4, nr).astype(np.int32)
+            if hot:
+                lk[: nl - 2] = 1
+                rk[: nr - 1] = 1
+            lv = rng.normal(size=nl).astype(np.float32)
+            rv = rng.normal(size=nr).astype(np.float32)
+            left = ct.Table.from_pydict(ctx, {"k": lk, "v": lv})
+            right = ct.Table.from_pydict(ctx, {"k": rk, "v": rv})
+            for how in ("inner", "left", "right", "outer"):
+                got = table_rows(left.distributed_join(right, how,
+                                                       on=["k"],
+                                                       comm="ring"))
+                assert got == numpy_join_rows(lk, lv, rk, rv, how), \
+                    ("ring", world, nl, nr, how)
+                out["cases"] += 1
+            for how, side in legal:
+                got = table_rows(left.distributed_join(
+                    right, how, on=["k"], comm="broadcast",
+                    build_side=side))
+                assert got == numpy_join_rows(lk, lv, rk, rv, how), \
+                    ("broadcast", world, nl, nr, how, side)
+                out["cases"] += 1
+        rng = np.random.default_rng(world)
+        u = ct.Table.from_pydict(ctx, {
+            "k": rng.integers(0, 4096, 4096).astype(np.int32),
+            "v": np.arange(4096, dtype=np.float32)})
+        a, b = D.shuffle(u, ["k"]), D.shuffle(u, ["k"], salted=True)
+        assert torch.equal(a.emit_mask(), b.emit_mask()) and all(
+            torch.equal(x.data, y.data)
+            for x, y in zip(a._columns, b._columns)), "salted uniform"
+        out["cases"] += 1
+    # a remainder chunk: 3-row chunks of a padded exchange
+    ctx = ct.CylonContext.InitDistributed(ct.VirtualWorldConfig(4))
+    rng = np.random.default_rng(3)
+    n = 4096
+    dev = ctx.device
+    payload = {"a": torch.from_numpy(rng.integers(0, 1 << 30, n).astype(
+        np.int32)).to(dev), "b": torch.from_numpy(rng.random(n) < 0.5).to(
+        dev)}
+    targets = torch.from_numpy(rng.integers(0, 4, n).astype(
+        np.int32)).to(dev)
+    emit = torch.from_numpy(rng.random(n) < 0.85).to(dev)
+    base = S.exchange(payload, targets, emit, ctx)
+    real = S._chunk_plan
+    S._chunk_plan = lambda block, w, rb: (3, -(-block // 3))
+    try:
+        got = S.exchange(payload, targets, emit, ctx)
+    finally:
+        S._chunk_plan = real
+    assert got[3]["chunks"] == -(-base[3]["block"] // 3)
+    assert got[2] == base[2] and torch.equal(got[1], base[1])
+    for k in payload:
+        assert torch.equal(got[0][k][got[1]], base[0][k][base[1]])
+    out["cases"] += 1
+    out["remainder_chunks"] = got[3]["chunks"]
+    log(f"phase 21 small ring, broadcast, salted and chunked cases (world "
+        f"4 and 8, 0-15 rows a side, a hot key): {out['cases']} cases == "
+        f"Python joins or the single-shot exchange (a remainder exchange "
+        f"in {out['remainder_chunks']} chunks of 3 rows)")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=1 << 24,
@@ -1347,6 +1911,11 @@ def main() -> int:
                     help="rows of the groupby and sort tables")
     ap.add_argument("--string-rows", type=int, default=1 << 22,
                     help="rows per string-join table")
+    ap.add_argument("--bcast-rows", type=int, default=1 << 22,
+                    help="probe rows of the broadcast join and rows of "
+                         "the salted shuffle")
+    ap.add_argument("--shuffle-rows", type=int, default=1 << 24,
+                    help="rows of the chunked exchange")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="also write the result JSON to this path")
@@ -1359,6 +1928,7 @@ def main() -> int:
     from cylon_tpu_torch.ops import kernels as K
     from cylon_tpu_torch.ops import setops as SO
     from cylon_tpu_torch.parallel import dist_ops as D
+    from cylon_tpu_torch.parallel import shuffle as S
 
     card = card_line()
     log(card)
@@ -1381,7 +1951,7 @@ def main() -> int:
     # phase 2: the join's main path on the kernel route, counters 0 -> read
     assert all(getattr(m, v) is None for m, v in route_switches())
     K.reset_launches()
-    with Recorder(K) as rec:
+    with Recorder(K) as rec, ChunkSpy(S) as chunks2:
         t0 = time.perf_counter()
         out_k = left.distributed_join(right, "inner", on=["k"],
                                       force_exchange=True)
@@ -1404,6 +1974,7 @@ def main() -> int:
         return left.distributed_join(right, "inner", on=["k"],
                                      force_exchange=True)
 
+    chunks2 = chunk_report(2, chunks2, dist_join)
     out_p = run_route(False, dist_join)
     assert_same_rows(out_k, out_p, "world-4 kernel route vs plain route")
     del out_p, out_k
@@ -1485,8 +2056,6 @@ def main() -> int:
         f"the numpy join")
 
     # phases 10-13: the compact exchange route, groupby and sort
-    from cylon_tpu_torch.parallel import shuffle as S
-
     del sl, sr, so
     pipe = pipeline_phase(ct, K, D, S, dctx, args.pipeline_rows)
     groupby = groupby_phase(ct, K, lctx, dctx, args.groupby_rows)
@@ -1515,6 +2084,18 @@ def main() -> int:
     assert not bad, f"kernels disagree at phase 14's shapes: {bad}"
     del calls
 
+    # phases 17-21: the ring and broadcast joins, the salted shuffle, the
+    # chunked exchange
+    ring = ring_phase(ct, K, D, dctx, n, args.seed)
+    bcast = broadcast_phase(ct, K, D, S, dctx, args.bcast_rows)
+    salted = salted_phase(ct, K, D, S, dctx, args.bcast_rows)
+    chunked = chunked_phase(ct, K, S, dctx, args.shuffle_rows)
+    small_variants = small_variants_phase(ct, K, D, S)
+    log(f"chunk counts of the padded exchanges: phase 2 "
+        f"{chunks2['chunks']}, phase 10 {pipe['chunks']['chunks']}, phase "
+        f"15 {dist_string_join['chunks']['chunks']}, phase 20 "
+        f"{chunked['chunks']}")
+
     summary = {"kernels": kernels}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -1531,7 +2112,11 @@ def main() -> int:
                            string_join=string_join,
                            dist_string_join=dist_string_join,
                            string_small=string_small,
-                           string_kernels=string_kernels), f, indent=1,
+                           string_kernels=string_kernels,
+                           join_chunks=chunks2, ring_join=ring,
+                           broadcast_join=bcast, salted_shuffle=salted,
+                           chunked_exchange=chunked,
+                           small_variants=small_variants), f, indent=1,
                       default=str)
     log(json.dumps(summary))
     log(card)

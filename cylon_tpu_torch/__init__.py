@@ -23,9 +23,16 @@ numpy, never jax and nothing of cylon_tpu. It carries two paths:
   helpers (``project``, ``select``, ``slice``, ``merge``, ``t[...]``,
   the comparisons, the blocked local join).
 
-Every distributed op exchanges through the padded route or, for skewed,
-diagonal or small count matrices, the compact route
-(parallel/shuffle.py).
+Every distributed op exchanges through the padded route (in chunks when
+its payload passes CYLON_EXCHANGE_CHUNK_BYTES) or, for skewed, diagonal
+or small count matrices, the compact route (parallel/shuffle.py). The
+distributed join also runs as a ring join (``comm="ring"``: the build
+side rotates around the shards) or a broadcast hash join
+(``comm="broadcast"``: the build side is replicated, nothing is
+exchanged), both on the per-shard K3/K4 join; ``dist_ops.shuffle(...,
+salted=True)`` spreads hot keys over several shards. The context's
+``memory_pool`` (memory.py) bounds the exchange buffers and picks the
+blocked local join when device memory runs short.
 
 Entry points run on CUDA unless the context is created with
 ``device="cpu"``.

@@ -11,7 +11,9 @@ InitDistributed, GetRank/GetWorldSize, GetNextSequence). In the port:
   device (config.VirtualWorldConfig): per-shard work runs on tensors
   with a leading shard dimension, and the collectives are tensor ops
   (parallel/comm.py);
-* ``get_next_sequence`` survives as the op-sequence counter.
+* ``get_next_sequence`` survives as the op-sequence counter;
+* the context owns one ``MemoryPool`` (memory.py), as in the JAX
+  package: the routing guards read its budget.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Optional
 import torch
 
 from .config import CommConfig, CommType, LocalConfig, VirtualWorldConfig
+from .memory import MemoryPool
 from .status import Code, CylonError
 
 
@@ -39,8 +42,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 class CylonContext:
-    """Holds the device, the (virtual) world size and the op sequence
-    counter."""
+    """Holds the device, the (virtual) world size, the op sequence
+    counter and the device's memory pool."""
 
     def __init__(self, config: Optional[CommConfig] = None,
                  distributed: bool = False, device=None):
@@ -54,6 +57,7 @@ class CylonContext:
         self._world = config.world_size \
             if self.distributed and ct == CommType.VIRTUAL else 1
         self.device = resolve_device(device)
+        self.memory_pool = MemoryPool(self.device)
 
     # -- reference API (cylon_context.hpp) --
 

@@ -29,7 +29,7 @@ from ..ops import groupby as _groupby
 from ..ops import join as _join
 from ..ops import order as _order
 from ..ops import setops as _setops
-from ..status import Code, CylonError, not_ported
+from ..status import Code, CylonError
 from ..util import capacity as _capacity
 from ..util import pow2 as _pow2
 from .column import (Column, align_string_columns, as_varbytes,
@@ -296,17 +296,30 @@ class Table:
 
     def distributed_join(self, table: "Table", join_type: str = "inner",
                          algorithm: str = "auto", **kwargs) -> "Table":
-        """The shuffle join: both sides repartition by key hash through
-        the counted padded exchange, then every shard joins locally.
-        ``force_exchange`` runs the exchange even where it could be
-        skipped (a one-shard world, co-partitioned inputs)."""
+        """comm="shuffle" (default): both sides repartition by key hash
+        through the counted padded exchange, then every shard joins
+        locally (``force_exchange`` runs the exchange even where it could
+        be skipped: a one-shard world, co-partitioned inputs);
+        comm="ring" streams the build side around the ring of shards;
+        comm="broadcast" replicates ``build_side`` (0 = left, 1 = right,
+        the default) to every shard and probes locally, with no
+        exchange."""
         from ..parallel import dist_ops
 
         comm = kwargs.pop("comm", "shuffle")
+        build_side = kwargs.pop("build_side", 1)
         force = bool(kwargs.pop("force_exchange", False))
-        if comm != "shuffle":
-            raise not_ported(f"the {comm!r} distributed join")
         cfg = self._make_join_config(table, join_type, algorithm, kwargs)
+        if comm == "ring":
+            return dist_ops.distributed_join_ring(self, table, cfg)
+        if comm == "broadcast":
+            return dist_ops.broadcast_hash_join(self, table, cfg,
+                                                build_side=int(build_side))
+        if comm != "shuffle":
+            raise CylonError(Code.Invalid,
+                             f"unknown comm mode {comm!r} "
+                             "(expected 'shuffle', 'ring' or "
+                             "'broadcast')")
         return dist_ops.distributed_join(self, table, cfg,
                                          force_exchange=force)
 
@@ -707,11 +720,32 @@ def _rows(xs) -> tuple:
 def join(left: Table, right: Table, config: _join.JoinConfig) -> Table:
     """Local join: two phases (plan, then materialize) with only the
     output counts crossing to the host; the result keeps a static
-    capacity with padding rows masked by ``row_mask``. (The JAX package
-    also picks the blocked join by itself when its memory pool runs
-    short; the port has no memory pool yet: ``probe_block_rows`` asks for
-    it.)"""
+    capacity with padding rows masked by ``row_mask``. When the estimated
+    plan memory exceeds half of the memory pool's free bytes and the
+    probe side has more than 2^20 rows, the probe side runs in blocks
+    (``join_blocked``; ``Table.join(probe_block_rows=)`` forces it)."""
+    est = _join_plan_bytes_estimate(left, right)
+    avail = left._ctx.memory_pool.available_bytes()
+    probe_cap = right.capacity if config.type == _join.JoinType.RIGHT \
+        else left.capacity
+    if avail and est > avail // 2 and probe_cap > (1 << 20):
+        blk = max((1 << 20),
+                  probe_cap // max(2 * est // max(avail, 1), 2))
+        return join_blocked(left, right, config, int(blk))
     return _join_once(left, right, config)
+
+
+def _join_plan_bytes_estimate(left: Table, right: Table) -> int:
+    """Rough plan + materialize working-set bytes (the JAX package's
+    estimate, data/table.py:865): ~24 bytes a row plus each column's
+    width and validity; varbytes columns add twice their word bytes."""
+    n = left.capacity + right.capacity
+    width = sum(max(c.data.element_size(), 4) + 1
+                for c in left._columns + right._columns)
+    vb_bytes = sum(4 * int(c.varbytes.words.shape[0])
+                   for c in left._columns + right._columns
+                   if c.is_varbytes)
+    return int(n) * (width + 24) + 2 * vb_bytes
 
 
 def lane_payload(cols: Sequence[Column], skip=()) -> Tuple[tuple, tuple,

@@ -37,9 +37,13 @@ from ..ops import setops as _setops
 from ..data.strings import (EXACT_KEY_WORDS, LANE_WORDS_MAX, VarBytes,
                             _nwords, _word_row_map, pair_k_words)
 from ..status import Code, CylonError
+from ..telemetry import knobs as _knobs
 from ..util import bucket_cap as _bucket_cap
-from . import shard
-from .shuffle import count_pair, exchange, exchange_pair
+from ..util import capacity as _capacity
+from ..util import pow2_floor as _pow2_floor
+from . import comm, shard
+from .shuffle import (count_pair, exchange, exchange_pair,
+                      salted_exchange_targets)
 
 
 # ---------------------------------------------------------------------------
@@ -329,16 +333,17 @@ def _shards(xs, world: int) -> tuple:
     return tuple(x.view(world, -1) for x in xs)
 
 
-def _dist_stream_mode(lkb, rkb, join_type: _join.JoinType, world: int,
+def _dist_stream_mode(lkb, rkb, join_type: _join.JoinType,
                       device: torch.device) -> Optional[Tuple[bool, int]]:
     """None (the plan route) or (hash_mode, block_rows) when the per-shard
-    stream route applies: on CUDA the kernel route K3/K4, where the JAX
-    package picks its Pallas kernels on a TPU."""
+    stream route applies to [W, na] and [W, nb] key bits: on CUDA the
+    kernel route K3/K4, where the JAX package picks its Pallas kernels on
+    a TPU."""
     if not _join._stream_on(device) \
             or join_type == _join.JoinType.FULL_OUTER:
         return None
-    na = int(lkb[0].shape[0]) // world
-    nb = int(rkb[0].shape[0]) // world
+    na = int(lkb[0].shape[1])
+    nb = int(rkb[0].shape[1])
     if na == 0 or nb == 0 or na + nb >= (1 << 29):
         return None
     if len(lkb) == 1 and lkb[0].element_size() == 4:
@@ -349,10 +354,95 @@ def _dist_stream_mode(lkb, rkb, join_type: _join.JoinType, world: int,
     return None
 
 
-def shuffle(table: Table, hash_columns: Sequence) -> Table:
+def _shard_plan(lkb, lkv, lemit, rkb, rkv, remit, ldat, lval, rdat, rval,
+                jt: _join.JoinType):
+    """Phase 1 of the per-shard join over [W, n] key bits, key validity,
+    emits and payload lanes: K3 on the stream route (picked by
+    `_dist_stream_mode`), the plan route otherwise or after a 64-bit
+    hash collision. Returns (route, host counts int64 [W, 2] = [n_out,
+    n_unmatched_b], state) for `_shard_materialize`."""
+    mode = _dist_stream_mode(lkb, rkb, jt, lemit.device)
+    if mode is not None:
+        hash_mode, br = mode
+        a_desc, b_desc = _join.plan_lane_descs(ldat, lval, rdat, rval, jt)
+        counts, a_streams, b_streams = _join.plan_program_stream(
+            lkb, lkv, lemit, rkb, rkv, remit, ldat, lval, rdat, rval, jt,
+            a_desc=a_desc, b_desc=b_desc, hash_mode=hash_mode)
+        cm = counts.cpu().numpy().astype(np.int64)
+        if not (hash_mode and int(cm[:, 3].sum()) > 0):
+            host = np.stack([cm[:, 0], np.zeros_like(cm[:, 0])], 1)
+            return "stream", host, (counts, a_streams, b_streams, a_desc,
+                                    b_desc, br)
+        # else: 64-bit hash collision — recompute via the exact plan route
+    counts2, lo, m, bperm, un_mask = _join.join_plan_keys(
+        lkb, lkv, lemit, rkb, rkv, remit, jt)
+    aemit = remit if jt == _join.JoinType.RIGHT else lemit
+    return "plan", counts2.cpu().numpy(), (lo, m, bperm, un_mask, aemit)
+
+
+def _shard_materialize(route: str, state, ldat, lval, rdat, rval,
+                       jt: _join.JoinType, cap: int, cap_u: int = 0):
+    """Phase 2 of the per-shard join at ``cap`` output rows a shard (plus
+    ``cap_u`` unmatched build rows on the plan route's FULL_OUTER): K4 on
+    the stream route. Returns (ldat', lval', rdat', rval', emit, lidx,
+    ridx), each [W, cap + cap_u]."""
+    if route == "stream":
+        counts, a_streams, b_streams, a_desc, b_desc, _br = state
+        return _join.materialize_program_stream(
+            counts, a_streams, b_streams, ldat, lval, rdat, rval, jt, cap,
+            a_desc=a_desc, b_desc=b_desc)
+    lo, m, bperm, un_mask, aemit = state
+    return _join.materialize_program(lo, m, bperm, un_mask, aemit, ldat,
+                                     lval, rdat, rval, jt, cap, cap_u)
+
+
+def _shard_matched(route: str, state) -> torch.Tensor:
+    """bool [W, na]: the probe rows an INNER plan matched (K3's group A
+    rows, the plan route's ``m > 0``)."""
+    if route == "stream":
+        counts, a_streams = state[0], state[1]
+        w, na = a_streams.shape[1:]
+        idx = a_streams[0].to(torch.int64)
+        pos = torch.arange(na, device=idx.device)
+        emits = pos < counts[:, 1:2].to(torch.int64)
+        # entries past n_emit go to spare slots of their own: one shared
+        # overflow slot would serialise their stores on the card
+        hit = torch.zeros(w, 2 * na, dtype=torch.bool, device=idx.device)
+        hit.scatter_(1, torch.where(emits, idx, na + pos), True)
+        return hit[:, :na]
+    return state[1] > 0
+
+
+def _shard_join(lkb, lkv, lemit, rkb, rkv, remit, ldat, lval, rdat, rval,
+                jt: _join.JoinType):
+    """The per-shard join of the shuffle and broadcast joins over [W, n]
+    inputs: `_shard_plan`, then `_shard_materialize` at the route's
+    capacity (the JAX package's shapes: the stream route's expansion
+    capacity, the plan route's bucket capacities)."""
+    route, host, state = _shard_plan(lkb, lkv, lemit, rkb, rkv, remit,
+                                     ldat, lval, rdat, rval, jt)
+    if route == "stream":
+        cap = _join.stream_expand_capacity(int(host[:, 0].max()), state[5])
+        return _shard_materialize(route, state, ldat, lval, rdat, rval, jt,
+                                  cap)
+    cap_u = _bucket_cap(int(host[:, 1].max())) \
+        if jt == _join.JoinType.FULL_OUTER else 0
+    return _shard_materialize(route, state, ldat, lval, rdat, rval, jt,
+                              _bucket_cap(int(host[:, 0].max())), cap_u)
+
+
+def shuffle(table: Table, hash_columns: Sequence,
+            salted: bool = False) -> Table:
     """Repartition rows by key hash (reference: cylon::Shuffle,
     table.cpp:162-236). Tables already hash-placed on the same keys pass
-    through without an exchange."""
+    through without an exchange.
+
+    ``salted``: the hot-key variant (the JAX package's dist_ops.py:751):
+    destinations whose receive total exceeds CYLON_SKEW_WARN_FACTOR x the
+    mean spread their rows over the pow2 floor of CYLON_SALT_FACTOR
+    consecutive shards (`shuffle.salted_exchange_targets`); a factor
+    below 2 turns salting off. The salt only routes, the rows are
+    unchanged, but the output carries no placement witness."""
     ctx = table._ctx
     world = ctx.get_world_size()
     if world == 1:
@@ -361,10 +451,23 @@ def shuffle(table: Table, hash_columns: Sequence) -> Table:
     idxs = [t._col_index(c) for c in hash_columns]
     sig = shard.partition_signature([t._columns[i] for i in idxs], idxs,
                                     world)
-    if sig is not None and t._hash_partitioned == sig:
+    salt = _pow2_floor(max(int(_knobs.get("CYLON_SALT_FACTOR")), 1)) \
+        if salted else 0
+    salted = salted and salt >= 2
+    if sig is not None and t._hash_partitioned == sig and not salted:
         return t
     targets = _partition_targets_dist(world, [t._columns[i] for i in idxs])
-    cols, new_emit = _exchange_table(t, targets, t.emit_mask(), ctx,
+    emit = t.emit_mask()
+    if salted:
+        targets, counts, _raw = salted_exchange_targets(
+            targets, emit, ctx, salt,
+            float(_knobs.get("CYLON_SKEW_WARN_FACTOR")))
+        cols, new_emit = _exchange_table(t, targets, emit, ctx,
+                                         counts=counts)
+        result = Table(cols, ctx, new_emit)
+        result._shard_world = world
+        return result
+    cols, new_emit = _exchange_table(t, targets, emit, ctx,
                                      dense=t.row_mask is None)
     result = Table(cols, ctx, new_emit)
     result._shard_world = world
@@ -464,32 +567,8 @@ def distributed_join(left: Table, right: Table, config: _join.JoinConfig,
     lemit_w, remit_w = lemit.view(world, -1), remit.view(world, -1)
 
     jt = config.type
-    res = None
-    mode = _dist_stream_mode(lkb, rkb, jt, world, ctx.device)
-    if mode is not None:
-        hash_mode, br = mode
-        a_desc, b_desc = _join.plan_lane_descs(ldat, lval, rdat, rval, jt)
-        counts, a_streams, b_streams = _join.plan_program_stream(
-            lkb_w, lkv_w, lemit_w, rkb_w, rkv_w, remit_w, ldat, lval, rdat,
-            rval, jt, a_desc=a_desc, b_desc=b_desc, hash_mode=hash_mode)
-        cm = counts.cpu().numpy()
-        if not (hash_mode and int(cm[:, 3].sum()) > 0):
-            cap_e = _join.stream_expand_capacity(int(cm[:, 0].max()), br)
-            res = _join.materialize_program_stream(
-                counts, a_streams, b_streams, ldat, lval, rdat, rval, jt,
-                cap_e, a_desc=a_desc, b_desc=b_desc)
-        # else: 64-bit hash collision — recompute via the exact plan route
-    if res is None:
-        counts2, lo, m, bperm, un_mask = _join.join_plan_keys(
-            lkb_w, lkv_w, lemit_w, rkb_w, rkv_w, remit_w, jt)
-        aemit = remit_w if jt == _join.JoinType.RIGHT else lemit_w
-        cm = counts2.cpu().numpy()
-        cap_p = _bucket_cap(int(cm[:, 0].max()))
-        cap_u = _bucket_cap(int(cm[:, 1].max())) \
-            if jt == _join.JoinType.FULL_OUTER else 0
-        res = _join.materialize_program(lo, m, bperm, un_mask, aemit,
-                                        ldat, lval, rdat, rval, jt, cap_p,
-                                        cap_u)
+    res = _shard_join(lkb_w, lkv_w, lemit_w, rkb_w, rkv_w, remit_w, ldat,
+                      lval, rdat, rval, jt)
     # flatten the [W, cap] outputs back to the sharded flat layout
     lod, lov, rod, rov, (emit,), (lidx_o,), (ridx_o,) = (
         [x.reshape(-1) for x in part] for part in (
@@ -568,6 +647,261 @@ def _exact_dict_redo(left: Table, right: Table, config: _join.JoinConfig,
                 out_cols[pos] = _dist_as_varbytes(c, world)
     out = Table(out_cols, ctx, res.row_mask)
     out._shard_world = res._shard_world
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the ring join and the broadcast hash join (the JAX package's
+# dist_ops.py:1225-1731): the probe (a) side stays where it is; the build
+# (b) side either rotates around the ring, one shard's block a step
+# (comm.ring_shift), or is replicated to every shard (comm.gather_full).
+# Each step, or the one broadcast probe, is the shuffle join's per-shard
+# join (`_shard_plan` / `_shard_materialize`), so on the card it runs K3
+# and K4.
+# ---------------------------------------------------------------------------
+
+# the ring join routes to the shuffle join when its output slab overshoots
+# the worst per-shard output by this factor (hot-key skew)
+RING_SKEW_FACTOR = 4
+
+
+def _prep_join_side(t: Table, cols, other_cols, world: int):
+    """One join side's per-shard operands, all [W, n]: key bits, combined
+    key validity, emit, then the payload data and validity of every
+    column with the word lanes of its (short) varbytes columns appended
+    (``slots``: column -> (first lane, lane count), for
+    `_rebuild_join_side`)."""
+    bits, kv = _dist_key_bits(cols, other_cols)
+    dat, val, slots = table_mod.lane_payload(t._columns)
+    return (_shards(bits, world), kv.view(world, -1),
+            t.emit_mask().view(world, -1), _shards(dat, world),
+            _shards_opt(val, world), slots)
+
+
+def _rebuild_join_side(t: Table, od, ov, idx, slots, prefix: str,
+                       world: int) -> List[Column]:
+    """A side's output columns from its materialized [W, cap] tensors and
+    row indices (-1: no row): lane columns reassemble from their word
+    lanes."""
+    return table_mod.rebuild_join_columns(
+        t._columns, [x.reshape(-1) for x in od],
+        [x.reshape(-1) for x in ov], slots, idx.reshape(-1),
+        [f"{prefix}-{i}" for i in range(t.column_count)], world)
+
+
+def _join_output(ctx, a_cols: List[Column], b_cols: List[Column],
+                 a_left: bool, emit: torch.Tensor) -> Table:
+    """The joined table: left columns first, named lt-i / rt-i."""
+    cols = a_cols + b_cols if a_left else b_cols + a_cols
+    nl = len(a_cols) if a_left else len(b_cols)
+    cols = [c.rename(f"lt-{i}" if i < nl else f"rt-{i}")
+            for i, c in enumerate(cols)]
+    out = Table(cols, ctx, emit.reshape(-1))
+    out._shard_world = ctx.get_world_size()
+    return out
+
+
+def _long_varbytes(left: Table, right: Table) -> bool:
+    """A varbytes column too wide to ride as word lanes."""
+    return any(c.is_varbytes and c.varbytes.max_words > LANE_WORDS_MAX
+               for c in left._columns + right._columns)
+
+
+def _long_exact_keys(left: Table, right: Table, config) -> bool:
+    """An exact=True key pair joined on its content hash (wider than
+    EXACT_KEY_WORDS), which only the shuffle join byte-verifies."""
+    if not config.exact:
+        return False
+    for li, rj in zip(config.left_column_idx, config.right_column_idx):
+        kw = pair_k_words(left._columns[li], right._columns[rj])
+        if kw is not None and kw > EXACT_KEY_WORDS:
+            return True
+    return False
+
+
+def _ring_plans(a, b, world: int, need_matched: bool):
+    """The ring's count pass: W INNER plans of the resident a side against
+    the b side rotated k times (after step k shard i holds shard (i - k)
+    % W's block). Returns (pairs int64 [W, W] = rows of (shard, step),
+    the matched-a mask [W, na] when ``need_matched``, the plans and each
+    step's visiting b payload)."""
+    abits, akv, aemit, adat, aval = a
+    bbits, bkv, bemit, bdat, bval = b
+    pairs = np.zeros((world, world), dtype=np.int64)
+    matched = torch.zeros_like(aemit) if need_matched else None
+    steps = []
+    for k in range(world):
+        plan = _shard_plan(abits, akv, aemit, bbits, bkv, bemit, adat, aval,
+                           bdat, bval, _join.JoinType.INNER)
+        route, host, state = plan
+        pairs[:, k] = host[:, 0]
+        if need_matched:
+            matched |= _shard_matched(route, state)
+        steps.append((plan, bdat, bval))
+        if k + 1 < world:
+            bbits = tuple(comm.ring_shift(x) for x in bbits)
+            bkv, bemit = comm.ring_shift(bkv), comm.ring_shift(bemit)
+            bdat = tuple(comm.ring_shift(x) for x in bdat)
+            bval = tuple(None if x is None else comm.ring_shift(x)
+                         for x in bval)
+    return pairs, matched, steps
+
+
+def _ring_slabs(a, steps, matched, cap_step: int, cap_extra: int):
+    """The ring's materialize pass: step k's rows at slab offset ``k *
+    cap_step``, then the unmatched a rows (``cap_extra``). Returns
+    (a data, a validity, b data, b validity, emit, a idx, b idx), each
+    [W, world * cap_step + cap_extra]."""
+    _abits, _akv, aemit, adat, aval = a
+    parts = [_shard_materialize(route, state, adat, aval, bdat, bval,
+                                _join.JoinType.INNER, cap_step)
+             for (route, _host, state), bdat, bval in steps]
+    if cap_extra:
+        un = _join._masked_indices(aemit & ~matched, cap_extra)
+        hole = torch.full_like(un, -1)
+        parts.append(_join.gather_columns(adat, aval, un)
+                     + _join.gather_columns(steps[0][1], steps[0][2], hole)
+                     + (un >= 0, un, hole))
+    cols = [tuple(torch.cat(c, 1) for c in zip(*(p[i] for p in parts)))
+            for i in range(4)]
+    return (*cols, *(torch.cat([p[i] for p in parts], 1)
+                     for i in (4, 5, 6)))
+
+
+def distributed_join_ring(left: Table, right: Table,
+                          config: _join.JoinConfig) -> Table:
+    """Streaming ring join (the JAX package's dist_ops.py:1406; the
+    reference's ArrowJoin): INNER, LEFT and RIGHT. The probe side (left;
+    right for RIGHT) stays resident and the other side rotates around the
+    ring, each step joined per shard. FULL_OUTER, world 1, varbytes wider
+    than LANE_WORDS_MAX and exact keys wider than EXACT_KEY_WORDS take the
+    shuffle join, as does a hot key whose step slab would overshoot the
+    worst shard's output by RING_SKEW_FACTOR, or a slab past the memory
+    pool's comm budget. The count pass keeps each step's plan (K3's
+    output on the card) for the materialize pass."""
+    ctx = left._ctx
+    world = ctx.get_world_size()
+    jt = config.type
+    if world == 1 or jt == _join.JoinType.FULL_OUTER \
+            or _long_varbytes(left, right) \
+            or _long_exact_keys(left, right, config):
+        return distributed_join(left, right, config)
+    left_d = shard.distribute(left, ctx)
+    right_d = shard.distribute(right, ctx)
+    lcols, rcols = _align_key_columns_dist(
+        left_d, right_d, config.left_column_idx, config.right_column_idx,
+        world)
+    if jt == _join.JoinType.RIGHT:
+        a_t, a_cols, b_t, b_cols = right_d, rcols, left_d, lcols
+    else:
+        a_t, a_cols, b_t, b_cols = left_d, lcols, right_d, rcols
+    *a, a_slots = _prep_join_side(a_t, a_cols, b_cols, world)
+    *b, b_slots = _prep_join_side(b_t, b_cols, a_cols, world)
+
+    emit_unmatched = jt != _join.JoinType.INNER
+    pairs, matched, steps = _ring_plans(a, b, world, emit_unmatched)
+    extra = (a[2] & ~matched).sum(1).cpu().numpy() \
+        if emit_unmatched else None
+    cap_step = _bucket_cap(int(pairs.max())) if pairs.size else 1
+    cap_extra = _bucket_cap(int(extra.max())) if extra is not None else 0
+    # skew guard: every shard's slab is world * cap_step rows, cap_step
+    # set by the worst (shard, step) block; with an absolute floor, so
+    # that sparse outputs stay on the ring
+    worst_total = int(pairs.sum(axis=1).max()) if pairs.size else 0
+    slab = world * cap_step
+    budget = ctx.memory_pool.comm_budget_bytes()
+    row_bytes = sum(c.data.element_size() + 1
+                    + (5 * c.varbytes.max_words if c.is_varbytes else 0)
+                    for c in a_t._columns + b_t._columns)
+    over_budget = bool(budget) and slab * row_bytes > budget
+    skewed = slab > (1 << 16) and \
+        slab > RING_SKEW_FACTOR * _capacity(max(worst_total, 1))
+    if skewed or over_budget:
+        return distributed_join(left, right, config)
+
+    aod, aov, bod, bov, emit, aidx, bidx = _ring_slabs(
+        a, steps, matched, cap_step, cap_extra)
+    a_out = _rebuild_join_side(a_t, aod, aov, aidx, a_slots, "a", world)
+    b_out = _rebuild_join_side(b_t, bod, bov, bidx, b_slots, "b", world)
+    return _join_output(ctx, a_out, b_out, jt != _join.JoinType.RIGHT, emit)
+
+
+# build sides a broadcast join may replicate, per join type: the probe
+# must cover every row the join can emit unmatched (the JAX package's
+# runtime gate, dist_ops.py:1605; its planner and verifier keep their
+# own copies)
+_BCAST_LEGAL_SIDES = {_join.JoinType.INNER: (0, 1),
+                      _join.JoinType.LEFT: (1,),
+                      _join.JoinType.RIGHT: (0,)}
+
+
+def _broadcast_eligible(left: Table, right: Table,
+                        config: _join.JoinConfig,
+                        build_side: int) -> Optional[str]:
+    """None when the broadcast join can run this join, else the reason it
+    takes the shuffle join."""
+    jt = config.type
+    if build_side not in _BCAST_LEGAL_SIDES.get(jt, ()):
+        return f"build_side={build_side} not replicable under {jt.name}"
+    if _long_varbytes(left, right):
+        return "long varbytes payload cannot ride fixed word lanes"
+    if _long_exact_keys(left, right, config):
+        return "exact long varbytes keys need post-verification"
+    return None
+
+
+def broadcast_hash_join(left: Table, right: Table,
+                        config: _join.JoinConfig,
+                        build_side: int = 1) -> Table:
+    """Replicate ``build_side`` (0 = left, 1 = right) to every shard and
+    probe each shard's resident rows against the whole build table (the
+    JAX package's dist_ops.py:1635): no exchange. INNER may replicate
+    either side, LEFT only its right input, RIGHT only its left;
+    ineligible joins take the shuffle join. The output keeps the probe
+    side's placement witness (its positions shifted past the build
+    columns when the probe is the right table)."""
+    ctx = left._ctx
+    world = ctx.get_world_size()
+    if world == 1:
+        # one shard replicates nothing: the local join is the broadcast
+        return table_mod.join(left, right, config)
+    if _broadcast_eligible(left, right, config, build_side) is not None:
+        return distributed_join(left, right, config)
+    left_d = shard.distribute(left, ctx)
+    right_d = shard.distribute(right, ctx)
+    lcols, rcols = _align_key_columns_dist(
+        left_d, right_d, config.left_column_idx, config.right_column_idx,
+        world)
+    if build_side == 1:
+        a_t, a_cols, b_t, b_cols = left_d, lcols, right_d, rcols
+    else:
+        a_t, a_cols, b_t, b_cols = right_d, rcols, left_d, lcols
+    # the probe is always the a side: LEFT and RIGHT both run the local
+    # LEFT plan (unmatched probe rows emitted)
+    jt_local = _join.JoinType.INNER \
+        if config.type == _join.JoinType.INNER else _join.JoinType.LEFT
+    abits, akv, aemit, adat, aval, a_slots = _prep_join_side(
+        a_t, a_cols, b_cols, world)
+    bbits, bkv, bemit, bdat, bval, b_slots = _prep_join_side(
+        b_t, b_cols, a_cols, world)
+
+    def full(x):
+        return None if x is None else comm.gather_full(x)
+
+    aod, aov, bod, bov, emit, aidx, bidx = _shard_join(
+        abits, akv, aemit, tuple(full(x) for x in bbits), full(bkv),
+        full(bemit), adat, aval, tuple(full(x) for x in bdat),
+        tuple(full(x) for x in bval), jt_local)
+    a_out = _rebuild_join_side(a_t, aod, aov, aidx, a_slots, "a", world)
+    b_out = _rebuild_join_side(b_t, bod, bov, bidx, b_slots, "b", world)
+    out = _join_output(ctx, a_out, b_out, build_side == 1, emit)
+    sig = a_t._hash_partitioned
+    if sig is not None:
+        pos, dts, w = sig
+        if build_side == 0:
+            pos = tuple(b_t.column_count + int(p) for p in pos)
+        out._hash_partitioned = (tuple(int(p) for p in pos), tuple(dts),
+                                 int(w))
     return out
 
 

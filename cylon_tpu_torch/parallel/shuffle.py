@@ -19,8 +19,13 @@ exchange takes the compact route (the JAX package's ``_exchange_fn``):
 ``rounds`` rounds each move one ``[W_src, W_dst, block]`` send block a
 leaf, and every received row lands at its source's running offset in a
 compact output of ``pow2(recv_max)`` rows a shard, live rows a prefix.
-The JAX package's chunked pipeline is bit-identical to its single-shot
-program by contract, so the port runs the single-shot program.
+A padded exchange whose payload exceeds CYLON_EXCHANGE_CHUNK_BYTES a
+shard runs in chunks (`_padded_body` with ``cb``, the JAX package's
+overlapped pipeline): each chunk moves ``cb`` rows a (src, dst) pair, so
+the live send stack is ``[W, W, cb]`` instead of ``[W, W, block]``; the
+landing is bit-identical to the single-shot route on every live row.
+The memory pool's comm budget caps the per-round block
+(`_budget_block_cap`).
 """
 from __future__ import annotations
 
@@ -31,14 +36,20 @@ import torch
 
 from ..context import CylonContext
 from ..dtypes import movable
+from ..ops import hash as _hash
 from ..ops import kernels as _k
 from ..status import not_ported
+from ..telemetry import knobs as _knobs
 from ..util import pow2 as _pow2
 from ..util import pow2_floor as _pow2_floor
 from . import comm
 
 # upper bound on the per-pair block (rows per (src, dst) pair)
 MAX_BLOCK = 1 << 22
+
+# chunk-count ceiling of the chunked padded exchange: the chunk block is
+# floored so that one exchange never runs more chunks than this
+MAX_CHUNKS = 64
 
 # padded-mode acceptance: worst-case capacity blowup over the compact
 # layout before the compact (blockwise) route takes over
@@ -209,18 +220,57 @@ def _padded_partition(world: int, block: int, payload, targets, emit):
     return sorted_leaves, counts_in, start, new_emit
 
 
-def _padded_body(world: int, block: int, payload, targets, emit):
+def _padded_body(world: int, block: int, payload, targets, emit,
+                 cb: Optional[int] = None):
     """The padded-mode exchange over [W, n] per-shard values. Returns
     (leaves [W, world*block], new emit, counts_in int32 [W, world]):
-    source s's rows land at ``[s*block, s*block + counts_in[:, s])``."""
-    if world == 1:
+    source s's rows land at ``[s*block, s*block + counts_in[:, s])``.
+
+    ``cb`` below ``block`` runs it in chunks of ``cb`` rows a (src, dst)
+    pair (the JAX package's chunked pipeline): the chunk at offset o sends
+    the ``[W_src, W_dst, cb]`` stack of rows ``start + o`` straight from
+    the partitioned leaves, so no ``[W, W, block]`` stack is ever built,
+    and lands source s's rows at the static slots ``s * block + o``; a
+    remainder chunk drops the rows past the block. Bit-identical to the
+    single-shot exchange on every live row."""
+    if world == 1 and cb is None:
         return _padded_body_w1(block, payload, targets, emit)
     sorted_leaves, counts_in, start, new_emit = _padded_partition(
         world, block, payload, targets, emit)
-    out = {k: comm.all_to_all(_send_block(_pad_block(x, block), start, 0,
-                                          block, world)).view(
-        world, world * block) for k, x in sorted_leaves.items()}
+    cb = block if cb is None else cb
+    out = {}
+    for k, x in sorted_leaves.items():
+        xp = _pad_block(x, cb)
+        if cb >= block:
+            recv = comm.all_to_all(_send_block(xp, start, 0, block, world))
+        else:
+            # the chunks tile [0, block): every slot is written once
+            recv = torch.empty(world, world, block, dtype=movable(x).dtype,
+                               device=x.device)
+            for o in range(0, block, cb):
+                live = min(cb, block - o)
+                recv[:, :, o:o + live] = movable(comm.all_to_all(
+                    _send_block(xp, start, o, cb, world)))[:, :, :live]
+            recv = recv.view(x.dtype)
+        out[k] = recv.view(world, world * block)
     return out, new_emit, counts_in
+
+
+def _chunk_plan(block: int, world: int, bytes_per_row: int):
+    """(chunk_block, chunks) of a padded exchange with per-pair ``block``
+    (the JAX package's rule, shuffle.py:503); chunks == 1 is single-shot.
+    The chunk block is pow2-floored from CYLON_EXCHANGE_CHUNK_BYTES over
+    ``bytes_per_row * world`` and floored again so that an exchange runs
+    at most MAX_CHUNKS chunks."""
+    if not _knobs.get("CYLON_EXCHANGE_OVERLAP"):
+        return block, 1
+    target = int(_knobs.get("CYLON_EXCHANGE_CHUNK_BYTES"))
+    per_slot = max(int(bytes_per_row), 1) * max(world, 1)
+    cb = _pow2_floor(max(target // per_slot, 1))
+    cb = max(cb, _pow2_floor(max(block // MAX_CHUNKS, 1)))
+    if cb >= block:
+        return block, 1
+    return cb, -(-block // cb)
 
 
 def _compact_body(world: int, block: int, rounds: int, cap_out: int,
@@ -279,15 +329,39 @@ def count_pair(targets1, emit1, targets2, emit2, world: int):
     return host[0], host[1]
 
 
-def _padded_route(counts: np.ndarray, world: int,
+def _payload_row_bytes(payload: Dict[str, torch.Tensor]) -> int:
+    """Bytes a row of a payload of flat per-row leaves."""
+    return sum(x.element_size() * int(np.prod(x.shape[1:]))
+               for x in payload.values())
+
+
+def _budget_block_cap(payload, world: int, budget: Optional[int], mb: int,
+                      buffer_factor: int) -> int:
+    """Shrink the per-round block cap until ``buffer_factor * world *
+    block * row_bytes`` fits the comm budget, pow2-floored (the JAX
+    package's rule, shuffle.py:1022; the reference's analog is the
+    Allocator feeding receive buffers from the pool,
+    arrow_all_to_all.cpp:234-247). No budget (the CPU) leaves ``mb``."""
+    bytes_per_row = _payload_row_bytes(payload) or 4
+    if budget:
+        while mb > 1024 and buffer_factor * world * mb * bytes_per_row \
+                > budget:
+            mb //= 2
+    return _pow2_floor(mb)
+
+
+def _padded_route(counts: np.ndarray, payload, world: int,
+                  budget: Optional[int], buffer_factor: int = 4,
                   max_block: Optional[int] = None) -> Tuple[bool, int, int]:
     """(padded_ok, block, mb): the JAX package's routing rule, ``mb`` the
-    per-round block cap. The port has no memory-pool comm budget yet
-    (``_budget_block_cap``): only MAX_BLOCK (or ``max_block``) binds."""
+    per-round block cap (MAX_BLOCK or ``max_block``, shrunk to the comm
+    budget)."""
     max_pair = int(counts.max()) if counts.size else 0
     recv_max = int(counts.sum(axis=0).max()) if counts.size else 0
     block_p = _pow2(max_pair)
-    mb = _pow2_floor(MAX_BLOCK if max_block is None else max_block)
+    mb = _budget_block_cap(payload, world, budget,
+                           MAX_BLOCK if max_block is None else max_block,
+                           buffer_factor)
     ok = (world * block_p <= PADDED_WASTE_FACTOR * max(_pow2(recv_max), 1)
           and block_p <= mb)
     return ok, block_p, mb
@@ -310,28 +384,40 @@ def exchange(payload: Dict[str, torch.Tensor], targets: torch.Tensor,
     meta {"mode", "block", "counts_in"}), the JAX package's 4-tuple. Each
     source's rows land contiguous and in stable order: at ``s * block``
     in "padded" mode (capacity ``world * block``), as one live prefix in
-    "compact" mode (capacity ``pow2(recv_max)``, ``block`` 0).
+    "compact" mode (capacity ``pow2(recv_max)``, ``block`` 0). A padded
+    exchange that chunks (`_chunk_plan`) adds ``"chunks"`` to meta.
     ``max_block`` caps the per-round block (MAX_BLOCK by default)."""
     world = ctx.get_world_size()
-    block1 = _pow2(int(targets.shape[0]))
-    if world == 1 and counts is None and dense and (
-            max_block is None or block1 <= _pow2_floor(max_block)):
-        # one shard, every row live: block = pow2(n), counts in-program
-        block = block1
-        out, new_emit, ci = _padded_body(
-            1, block, _shards(payload, 1), targets.view(1, -1),
-            emit.view(1, -1))
-        return _flat(out), new_emit.reshape(-1), block, {
-            "mode": "padded", "block": block, "counts_in": ci}
+    if world == 1 and counts is None and dense:
+        # one shard, every row live: block = pow2(n), counts in-program;
+        # only the memory budget (or ``max_block``) binds, there are no
+        # rounds
+        block1 = _pow2(int(targets.shape[0]))
+        mb1 = _budget_block_cap(payload, 1,
+                                ctx.memory_pool.comm_budget_bytes(),
+                                block1 if max_block is None else max_block,
+                                4)
+        if block1 <= mb1:
+            out, new_emit, ci = _padded_body(
+                1, block1, _shards(payload, 1), targets.view(1, -1),
+                emit.view(1, -1))
+            return _flat(out), new_emit.reshape(-1), block1, {
+                "mode": "padded", "block": block1, "counts_in": ci}
     if counts is None:
         counts = _count_matrix(targets, emit, world).cpu().numpy()
-    ok, block_p, mb = _padded_route(counts, world, max_block)
+    ok, block_p, mb = _padded_route(counts, payload, world,
+                                    ctx.memory_pool.comm_budget_bytes(),
+                                    4, max_block)
     shards = (_shards(payload, world), targets.view(world, -1),
               emit.view(world, -1))
     if ok:
-        out, new_emit, ci = _padded_body(world, block_p, *shards)
-        return _flat(out), new_emit.reshape(-1), world * block_p, {
-            "mode": "padded", "block": block_p, "counts_in": ci}
+        cb, chunks = _chunk_plan(block_p, world, _payload_row_bytes(payload))
+        out, new_emit, ci = _padded_body(world, block_p, *shards,
+                                         cb=cb if chunks > 1 else None)
+        meta = {"mode": "padded", "block": block_p, "counts_in": ci}
+        if chunks > 1:
+            meta["chunks"] = chunks
+        return _flat(out), new_emit.reshape(-1), world * block_p, meta
     max_pair = int(counts.max()) if counts.size else 0
     recv_max = int(counts.sum(axis=0).max()) if counts.size else 0
     block = min(block_p, mb)
@@ -348,8 +434,41 @@ def exchange_pair(payload1, targets1, emit1, counts1,
                   dense: bool = False):
     """Both sides of a two-table shuffle; each result is exchange()'s
     4-tuple. ``counts`` may be None on a one-shard world with dense
-    emits (the counts then come from the exchange itself)."""
+    emits (the counts then come from the exchange itself). The JAX
+    package runs both padded bodies in one program unless either side
+    chunks (shuffle.py:769-777); in eager torch one program is two
+    exchanges, so both sides always go through exchange(), which
+    decides each side's route and chunks as that program would."""
     return (exchange(payload1, targets1, emit1, ctx, counts=counts1,
                      dense=dense),
             exchange(payload2, targets2, emit2, ctx, counts=counts2,
                      dense=dense))
+
+
+def salted_exchange_targets(targets: torch.Tensor, emit: torch.Tensor,
+                            ctx: CylonContext, salt: int,
+                            warn_factor: float):
+    """The salted shuffle's routing (the JAX package's
+    ``_salted_targets_fn``, shuffle.py:919-976): a destination is hot
+    when its receive total exceeds ``warn_factor`` x the mean (computed in
+    float32, as there); a hot destination's rows spread over ``salt``
+    consecutive shards by ``fmix32(row index within the shard) % salt``.
+    Returns (salted targets int32 [W * cap], salted counts, raw counts),
+    the two ``[W, W]`` host count matrices fetched together."""
+    world = ctx.get_world_size()
+    t = targets.view(world, -1).to(torch.int32)
+    e = emit.view(world, -1)
+    raw = _count_matrix(t, e, world)
+    recv = raw.sum(0)
+    total = recv.sum().clamp(min=1)
+    hot = (recv.to(torch.float32) * float(world)
+           > torch.tensor(warn_factor, dtype=torch.float32,
+                          device=t.device) * total.to(torch.float32))
+    iota = torch.arange(t.shape[1], device=t.device)
+    sub = (_hash.fmix32(iota) % salt).to(torch.int32)
+    safe = t.clamp(0, world - 1)
+    spread = (safe + sub) % world
+    t2 = torch.where(hot[safe.to(torch.int64)] & e, spread, safe)
+    salted = _count_matrix(t2, e, world)
+    host = torch.stack([salted, raw]).cpu().numpy()
+    return t2.reshape(-1), host[0], host[1]

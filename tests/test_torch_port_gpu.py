@@ -1135,3 +1135,165 @@ def test_string_shuffle_compact_output_on_card(cuda, world, width):
         assert torch.equal(gv.words.cpu(), cv.words)
         assert torch.equal(gv.starts.cpu(), cv.starts)
         assert _string_rows(g) == _string_rows(c)
+
+
+# ---------------------------------------------------------------------------
+# the ring and broadcast joins, the salted shuffle, the chunked exchange
+# and the memory pool on the card, against the same calls on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _shard_multisets(t, world):
+    """Each shard's live rows (validity-masked data bits), sorted."""
+    live = t.emit_mask().cpu().numpy()
+    cap = live.shape[0] // world
+    cols = np.stack([np.where(c.valid_mask().cpu().numpy(),
+                              c.data.cpu().numpy().view(
+                                  f"u{c.data.element_size()}").astype(
+                                      np.int64), -1)
+                     for c in t._columns], 1)
+    out = []
+    for s in range(world):
+        rows = cols[s * cap:(s + 1) * cap][live[s * cap:(s + 1) * cap]]
+        out.append(rows[np.lexsort(rows.T[::-1])] if len(rows) else rows)
+    return out
+
+
+def _join_pair(n, m, seed, keys):
+    rng = np.random.default_rng(seed)
+    return ({"k": rng.integers(0, keys, n).astype(np.int32),
+             "v": rng.normal(size=n).astype(np.float32)},
+            {"k": rng.integers(0, keys, m).astype(np.int32),
+             "w": rng.normal(size=m).astype(np.float32)})
+
+
+@pytest.mark.parametrize("world", [4, 8])
+@pytest.mark.parametrize("how", ["inner", "left", "right"])
+def test_ring_join_on_card(cuda, world, how):
+    """Every ring step runs K3 and K4 on the card; each shard's rows equal
+    the CPU ring's."""
+    la, ra = _join_pair(30_000, 20_000, world, 5_000)
+    res = []
+    for ctx in _ctx_pair(cuda, world):
+        K.reset_launches()
+        out = _table(ctx, la).distributed_join(_table(ctx, ra), how,
+                                               on=["k"], comm="ring")
+        if ctx.device.type == "cuda":
+            torch.cuda.synchronize()
+            assert K.LAUNCHES["join_plan_stream"] == world
+            assert K.LAUNCHES["join_expand_stream"] == world
+        res.append(out)
+    assert res[0].capacity == res[1].capacity
+    for a, b in zip(_shard_multisets(res[0], world),
+                    _shard_multisets(res[1], world)):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("world", [4, 8])
+@pytest.mark.parametrize("how,side", [("inner", 0), ("inner", 1),
+                                      ("left", 1), ("right", 0)])
+def test_broadcast_join_on_card(cuda, world, how, side):
+    """No partition kernel runs; K3 and K4 join each shard's probe rows
+    against the replicated build side; each shard's rows equal the
+    CPU's."""
+    la, ra = _join_pair(40_000, 400, world, 300)
+    if side == 0:
+        la, ra = ra, la
+    res = []
+    for ctx in _ctx_pair(cuda, world):
+        K.reset_launches()
+        out = _table(ctx, la).distributed_join(
+            _table(ctx, ra), how, on=["k"], comm="broadcast",
+            build_side=side)
+        if ctx.device.type == "cuda":
+            torch.cuda.synchronize()
+            assert K.LAUNCHES["partition_hist"] == 0
+            assert K.LAUNCHES["partition_scatter"] == 0
+            assert K.LAUNCHES["join_plan_stream"] == 1
+            assert K.LAUNCHES["join_expand_stream"] == 1
+        res.append(out)
+    for a, b in zip(_shard_multisets(res[0], world),
+                    _shard_multisets(res[1], world)):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("world", [4, 8])
+def test_salted_shuffle_on_card(cuda, world):
+    """The salted routing and its exchange (K1/K2) on the card land every
+    row where the CPU's do."""
+    from cylon_tpu_torch.parallel import dist_ops as D
+
+    rng = np.random.default_rng(world)
+    n = 50_000
+    arrays = {"k": np.where(rng.random(n) < 0.7, 7, rng.integers(
+        0, 1 << 20, n)).astype(np.int32),
+        "v": np.arange(n, dtype=np.float32)}
+    res = []
+    for ctx in _ctx_pair(cuda, world):
+        K.reset_launches()
+        res.append(D.shuffle(_table(ctx, arrays), ["k"], salted=True))
+        if ctx.device.type == "cuda":
+            torch.cuda.synchronize()
+            assert K.LAUNCHES["partition_hist"] >= 2
+            assert K.LAUNCHES["partition_scatter"] == 1
+    g, c = res
+    assert g._hash_partitioned is None
+    live = c.emit_mask()
+    assert torch.equal(g.emit_mask().cpu(), live)
+    for a, b in zip(g._columns, c._columns):
+        assert torch.equal(a.data.cpu()[live], b.data[live])
+
+
+@pytest.mark.parametrize("world", [1, 4, 8])
+@pytest.mark.parametrize("plan", ["knob", "remainder"])
+def test_chunked_exchange_on_card(cuda, world, plan, monkeypatch):
+    """The chunked exchange on the card equals its single-shot form and the
+    CPU's chunked exchange on every live row."""
+    rng = np.random.default_rng(world)
+    n = 200_000
+    host = {"a": rng.integers(0, 1 << 30, n).astype(np.int32),
+            "b": rng.normal(size=n).astype(np.float32),
+            "c": rng.integers(-(1 << 60), 1 << 60, n),
+            "d": rng.random(n) < 0.5}
+    targets = rng.integers(0, world, n).astype(np.int32)
+    emit = rng.random(n) < 0.9
+    monkeypatch.setenv("CYLON_EXCHANGE_CHUNK_BYTES", "65536")
+    if plan == "remainder":
+        monkeypatch.setattr(S, "_chunk_plan", lambda block, w, rb: (
+            1000, -(-block // 1000)))
+    res = {}
+    for (dev, ctx), overlap in (((d, c), o) for d, c in zip(
+            ("cuda", "cpu"), _ctx_pair(cuda, world)) for o in ("1", "0")):
+        monkeypatch.setenv("CYLON_EXCHANGE_OVERLAP", overlap)
+        res[dev, overlap] = S.exchange(
+            {k: torch.from_numpy(v).to(ctx.device) for k, v in host.items()},
+            torch.from_numpy(targets).to(ctx.device),
+            torch.from_numpy(emit).to(ctx.device), ctx)
+    base = res["cpu", "0"]
+    assert res["cuda", "1"][3]["chunks"] > 1
+    assert res["cpu", "1"][3]["chunks"] == res["cuda", "1"][3]["chunks"]
+    for key, (out, e, cap, meta) in res.items():
+        assert cap == base[2] and meta["block"] == base[3]["block"], key
+        assert torch.equal(e.cpu(), base[1]), key
+        assert torch.equal(meta["counts_in"].cpu(), base[3]["counts_in"])
+        for k in host:
+            assert torch.equal(out[k].cpu()[base[1]],
+                               base[0][k][base[1]]), (key, k)
+
+
+def test_memory_pool_on_card(cuda):
+    """On CUDA the pool reads the caching allocator: the limit is the
+    card's total memory, the live bytes follow an allocation, and the
+    budgets are set."""
+    ctx = ct.CylonContext.Init()
+    pool = ctx.memory_pool
+    total = torch.cuda.get_device_properties(cuda).total_memory
+    used0, _peak, limit = pool.snapshot()
+    assert limit == total
+    x = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)
+    used1 = pool.bytes_allocated()
+    assert used1 >= used0 + (64 << 20)
+    assert pool.available_bytes() == total - used1
+    assert pool.comm_budget_bytes() == int((total - used1) * 0.25)
+    assert pool.peak_bytes() >= used1
+    del x

@@ -26,7 +26,8 @@ def test_import_leaves_jax_and_cylon_tpu_out():
             " cylon_tpu_torch.interop, cylon_tpu_torch.ops.kernels,"
             " cylon_tpu_torch.ops.setops, cylon_tpu_torch.ops.groupby,"
             " cylon_tpu_torch.ops.aggregates, cylon_tpu_torch.data.strings,"
-            " cylon_tpu_torch.io.parquet, cylon_tpu_torch.native;"
+            " cylon_tpu_torch.io.parquet, cylon_tpu_torch.native,"
+            " cylon_tpu_torch.memory, cylon_tpu_torch.telemetry.knobs;"
             " bad = [m for m in sys.modules"
             " if m.split('.')[0] in ('jax', 'jaxlib', 'cylon_tpu')];"
             " print(bad); sys.exit(1 if bad else 0)")
@@ -69,8 +70,10 @@ def test_context_without_device_needs_cuda():
 
 
 def test_strings_raise_not_ported():
-    """String columns load and export now; what the port still lacks
-    raises the typed not-ported error (the ring distributed join)."""
+    """String columns load and export, the ring join on a string key
+    (which raised "not yet ported" before the ring join was ported)
+    equals the shuffle join, and an unknown ``comm`` raises Code.Invalid
+    with the JAX package's message."""
     import numpy as np
 
     import cylon_tpu_torch as ct
@@ -78,5 +81,17 @@ def test_strings_raise_not_ported():
     ctx = ct.CylonContext.Init(device="cpu")
     t = ct.Table.from_pydict(ctx, {"s": np.array(["a", "b"])})
     assert t.to_pydict()["s"].tolist() == ["a", "b"]
-    with pytest.raises(ct.CylonError, match="not yet ported"):
-        t.distributed_join(t, "inner", on=["s"], comm="ring")
+    dctx = ct.CylonContext.InitDistributed(ct.VirtualWorldConfig(4),
+                                           device="cpu")
+    d = ct.Table.from_pydict(dctx, {"s": np.array(["a", "b", "c", "a"]),
+                                    "v": np.arange(4)})
+    ring = d.distributed_join(d, "inner", on=["s"], comm="ring")
+    shuffle = d.distributed_join(d, "inner", on=["s"])
+
+    def rows(x):
+        return sorted(zip(*[v.tolist() for v in x.to_pydict().values()]))
+
+    assert rows(ring) == rows(shuffle) and len(rows(ring)) == 6
+    with pytest.raises(ct.CylonError, match="unknown comm mode") as e:
+        d.distributed_join(d, "inner", on=["s"], comm="bogus")
+    assert e.value.code == ct.Code.Invalid
