@@ -5,6 +5,8 @@
                           [--bcast-rows B] [--shuffle-rows X] [--seed S]
                           [--out PATH]
 
+(``--mp-child RANK`` is how phase 22 starts its two processes.)
+
 Four paths, each at the size of the repo's own benchmark:
 
 * the join: bench.py ``bench_dist_join``, two tables of N = 16,777,216
@@ -117,7 +119,24 @@ Phases, in order (any failure exits non-zero; nothing is caught):
      overlap knob at its default and off, in turns);
  21. the ring, broadcast, salted and chunked paths at small size (world
      4 and 8, 0-15 rows a side, a hot key) against Python joins or the
-     single-shot exchange.
+     single-shot exchange;
+ 22. the process-group backend (``MultiHostConfig``) on phase 2's join:
+     22a, two processes of two shards each (W = 4), both on cuda:0 with
+     gloo, which stages the collectives through host memory (NCCL
+     refuses two ranks on one device). Each process, started by this
+     script with ``--mp-child``, loads phase 1's build (it never builds),
+     builds only its own shards' rows from the seed through
+     ``assemble_process_local``, and runs the join with the counters set
+     to 0 just before and read just after (K1-K4 must launch in each);
+     its shards equal the virtual world's output of the same join
+     (computed again at the start of phase 22) shard for shard, by a
+     canonical digest of each shard's rows, and its global row count
+     phase 2's numpy count; then the median of 5 joins between
+     barriers. A process that exits non-zero or outlives its timeout
+     fails the run. 22b, one process of four shards on NCCL (a
+     one-process group): K1-K4 launch, the shards equal the virtual
+     world's, and 5 walls in turns with phase 2's join on the virtual
+     world.
 Phases 10-12 each record the median of 5 steady runs after one warm-up.
 Tolerances: float sums 1e-5 * sum |x| of the group (+1e-30), float64
 means 1e-12 * sum |x| / count; everything else exact.
@@ -142,6 +161,8 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 WORLD = 4
+MP_PROCS, MP_SHARDS = 2, 2  # phase 22a's process group: W = 4
+MP_TIMEOUT_S = 600
 SETOP_OPS = ("UNION", "SUBTRACT", "INTERSECT")
 
 
@@ -1452,6 +1473,197 @@ def chunk_report(phase: int, spy, fn) -> dict:
     return out
 
 
+def shard_digests(table, first: int, nshards: int) -> dict:
+    """{global shard: [live rows, sha256 of its rows]} of a table's
+    ``nshards`` shards, the first of them global shard ``first``: each
+    shard's live rows sorted by every column's bits (and validity), so
+    the digest is the shard's row multiset, whatever its slot order."""
+    import hashlib
+
+    from cylon_tpu_torch.ops import order
+
+    emit = table.emit_mask()
+    cap = emit.shape[0] // nshards
+    out = {}
+    for j in range(nshards):
+        live = emit[j * cap:(j + 1) * cap].nonzero().flatten() + j * cap
+        cols = []
+        for c in table._columns:
+            d = c.data[live]
+            cols += [d.view(torch.int32) if d.element_size() == 4 else d,
+                     c.valid_mask()[live].to(torch.int32)]
+        perm = order.lexsort_indices(cols)
+        h = hashlib.sha256()
+        for x in cols:
+            h.update(x[perm].cpu().numpy().tobytes())
+        out[str(first + j)] = [int(live.numel()), h.hexdigest()]
+    return out
+
+
+def mp_tables(ct, ctx, n: int, seed: int):
+    """Phase 2's tables (make_tables' draws), of which this process
+    builds only its own shards' rows, through assemble_process_local."""
+    from cylon_tpu_torch.parallel import shard
+
+    rng = np.random.default_rng(seed)
+    lk = rng.integers(0, n, n).astype(np.int32)
+    lv = rng.normal(size=n).astype(np.float32)
+    rk = rng.integers(0, n, n).astype(np.int32)
+    rv = rng.normal(size=n).astype(np.float32)
+    cap = shard.shard_capacity(n, ctx.get_world_size())
+
+    def side(k, v, name):
+        return shard.assemble_process_local(
+            [ct.Table.from_pydict(ctx, {"k": k[s * cap:(s + 1) * cap],
+                                        name: v[s * cap:(s + 1) * cap]})
+             for s in ctx.local_shard_indices()], ctx)
+
+    return side(lk, lv, "v"), side(rk, rv, "w")
+
+
+JOIN_KERNELS = ("partition_hist", "partition_scatter", "join_plan_stream",
+                "join_expand_stream")
+
+
+def mp_child(args) -> int:
+    """One process of phase 22a: joins the gloo group, runs phase 2's
+    join on its own shards, writes what it saw to ``--child-out``."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import cylon_tpu_torch as ct
+    from cylon_tpu_torch.ops import kernels as K
+
+    unbuilt = [s for s in K.SOURCES if not K._lib_path(s).exists()]
+    assert not unbuilt, f"kernels not built by phase 1: {unbuilt}"
+    ctx = ct.CylonContext.InitDistributed(ct.MultiHostConfig(
+        num_processes=MP_PROCS, process_id=args.mp_child, backend="gloo",
+        shards_per_process=MP_SHARDS, init_method=f"file://{args.rdv}"))
+    left, right = mp_tables(ct, ctx, args.rows, args.seed)
+
+    def join():
+        return left.distributed_join(right, "inner", on=["k"],
+                                     force_exchange=True)
+
+    sync()
+    K.reset_launches()
+    out = join()
+    sync()
+    launches = dict(K.LAUNCHES)
+    rows = out.row_count
+    digests = shard_digests(out, ctx.get_rank(), MP_SHARDS)
+    del out
+    walls = []
+    for _ in range(5):
+        ctx.barrier()
+        t0 = time.perf_counter()
+        out = join()
+        sync()
+        ctx.barrier()
+        walls.append(time.perf_counter() - t0)
+        del out
+    with open(args.child_out, "w") as f:
+        json.dump({"rank": args.mp_child, "device": str(ctx.device),
+                   "backend": ctx.comm.backend, "launches": launches,
+                   "rows": rows, "digests": digests, "walls_s": walls}, f)
+    ctx.finalize()
+    return 0
+
+
+def mp_phase(args, digests2: dict, expect_rows: int) -> dict:
+    """Phase 22a: the two processes of the gloo group on this card."""
+    import tempfile
+
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    t0 = time.perf_counter()
+    procs, logs = [], []
+    try:
+        for r in range(MP_PROCS):
+            logs.append(open(os.path.join(tmp, f"child{r}.log"), "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mp-child",
+                 str(r), "--rows", str(args.rows), "--seed", str(args.seed),
+                 "--rdv", os.path.join(tmp, "rdv"), "--child-out",
+                 os.path.join(tmp, f"child{r}.json")],
+                stdout=logs[-1], stderr=subprocess.STDOUT))
+        for p in procs:
+            p.wait(timeout=max(MP_TIMEOUT_S - (time.perf_counter() - t0),
+                               1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, lg) in enumerate(zip(procs, logs)):
+        lg.seek(0)
+        tail = lg.read()[-4000:]
+        lg.close()
+        assert p.returncode == 0, \
+            f"phase 22a process {r} exited {p.returncode}:\n{tail}"
+    seconds = time.perf_counter() - t0
+    children = []
+    for r in range(MP_PROCS):
+        with open(os.path.join(tmp, f"child{r}.json")) as f:
+            c = json.load(f)
+        missing = [k for k in JOIN_KERNELS if c["launches"][k] == 0]
+        assert not missing, f"process {r}: kernels not launched {missing}"
+        assert c["rows"] == expect_rows, (r, c["rows"], expect_rows)
+        for s, d in c["digests"].items():
+            assert d == digests2[s], \
+                f"process {r} shard {s} differs from the virtual world's"
+        children.append(c)
+    assert sorted(s for c in children for s in c["digests"]) == \
+        sorted(digests2)
+    med = [statistics.median(c["walls_s"]) * 1e3 for c in children]
+    log(f"phase 22a process group {MP_PROCS} x {MP_SHARDS} on one card "
+        f"(gloo, staged through host memory; {args.rows} rows a side): "
+        f"launches {[c['launches'] for c in children]}; shards equal "
+        f"the virtual world's; rows {expect_rows}; median walls (ms) a "
+        f"process {med}; walls (s) {[c['walls_s'] for c in children]}; "
+        f"phase {seconds:.2f} s")
+    return {"children": children, "median_ms": med, "seconds": seconds}
+
+
+def nccl_phase(ct, K, args, virtual_tables, digests2: dict,
+               expect_rows: int) -> dict:
+    """Phase 22b: a one-process NCCL group of four shards, in turns with
+    phase 2's join on the virtual world (``virtual_tables``)."""
+    t0 = time.perf_counter()
+    left_v, right_v = virtual_tables
+    pctx = ct.CylonContext.InitDistributed(ct.MultiHostConfig(
+        num_processes=1, shards_per_process=WORLD))
+    try:
+        assert pctx.comm.backend == "nccl", pctx.comm.backend
+        left_p, right_p = mp_tables(ct, pctx, args.rows, args.seed)
+
+        def join(a, b):
+            return lambda: a.distributed_join(b, "inner", on=["k"],
+                                              force_exchange=True)
+
+        sync()
+        K.reset_launches()
+        out = join(left_p, right_p)()
+        sync()
+        launches = dict(K.LAUNCHES)
+        missing = [k for k in JOIN_KERNELS if launches[k] == 0]
+        assert not missing, f"kernels not launched: {missing}"
+        assert out.row_count == expect_rows
+        assert shard_digests(out, 0, WORLD) == digests2, \
+            "the process group's shards differ from the virtual world's"
+        del out
+        walls = in_turns({"virtual_world": join(left_v, right_v),
+                          "process_group": join(left_p, right_p)})
+    finally:
+        pctx.finalize()
+    med = {k: statistics.median(v) * 1e3 for k, v in walls.items()}
+    seconds = time.perf_counter() - t0
+    log(f"phase 22b one-process NCCL group of {WORLD} shards: launches "
+        f"{launches}; shards equal the virtual world's; median ms {med}; "
+        f"walls (s) "
+        f"{walls}; phase {seconds:.2f} s")
+    return {"launches": launches, "walls_s": walls, "median_ms": med,
+            "seconds": seconds}
+
+
 def in_turns(fns: dict, rounds: int = 5) -> dict:
     """Walls (s) of each named fn, one warm-up each, then ``rounds``
     rounds in turns, the order reversed every other round."""
@@ -1760,7 +1972,7 @@ def chunked_phase(ct, K, S, dctx, n: int) -> dict:
     targets = torch.from_numpy(
         rng.integers(0, WORLD, n).astype(np.int32)).to(dev)
     emit = torch.ones(n, dtype=torch.bool, device=dev)
-    counts = S._count_matrix(targets, emit, WORLD).cpu().numpy()
+    counts = S._count_matrix(dctx.comm, targets, emit).cpu().numpy()
     _ok, block, _mb = S._padded_route(counts, payload, WORLD,
                                       dctx.memory_pool.comm_budget_bytes())
     cbytes = max((WORLD * 24 * block) // 4, 1 << 12)
@@ -1919,10 +2131,16 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="also write the result JSON to this path")
+    ap.add_argument("--mp-child", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--rdv", help=argparse.SUPPRESS)
+    ap.add_argument("--child-out", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if args.mp_child is not None:
+        return mp_child(args)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import cylon_tpu_torch as ct
     from cylon_tpu_torch.ops import kernels as K
@@ -2096,6 +2314,23 @@ def main() -> int:
         f"15 {dist_string_join['chunks']['chunks']}, phase 20 "
         f"{chunked['chunks']}")
 
+    # phase 22: the process-group backend on phase 2's join, held against
+    # the virtual world's output of it (computed here, so that phases
+    # 3-21 run on the same card state as before phase 22 existed)
+    t0 = time.perf_counter()
+    left_v, right_v, _host = make_tables(ct, dctx, n, args.seed)
+    out_v = left_v.distributed_join(right_v, "inner", on=["k"],
+                                    force_exchange=True)
+    assert out_v.row_count == expect_rows
+    digests2 = shard_digests(out_v, 0, WORLD)
+    del out_v
+    log(f"phase 22 virtual world's shards of phase 2's join: "
+        f"{time.perf_counter() - t0:.2f} s")
+    multiprocess = mp_phase(args, digests2, expect_rows)
+    one_rank_nccl = nccl_phase(ct, K, args, (left_v, right_v), digests2,
+                               expect_rows)
+    del left_v, right_v
+
     summary = {"kernels": kernels}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -2116,7 +2351,10 @@ def main() -> int:
                            join_chunks=chunks2, ring_join=ring,
                            broadcast_join=bcast, salted_shuffle=salted,
                            chunked_exchange=chunked,
-                           small_variants=small_variants), f, indent=1,
+                           small_variants=small_variants,
+                           shard_digests=digests2,
+                           multiprocess=multiprocess,
+                           one_rank_nccl=one_rank_nccl), f, indent=1,
                       default=str)
     log(json.dumps(summary))
     log(card)

@@ -23,6 +23,14 @@ numpy, never jax and nothing of cylon_tpu. It carries two paths:
   helpers (``project``, ``select``, ``slice``, ``merge``, ``t[...]``,
   the comparisons, the blocked local join).
 
+A distributed context is W shards in P processes of V shards each: the
+virtual world (``VirtualWorldConfig(W)``: one process, every shard on
+one device, the collectives tensor ops) or a process group
+(``MultiHostConfig``: ``torch.distributed``, NCCL across cards, gloo on
+the CPU or for processes sharing a card), each process holding its own
+shards. ``read_csv_per_rank`` / ``read_parquet_per_rank`` read each
+process's shards' files, ``Table.to_pydict_local`` hands its rows out.
+
 Every distributed op exchanges through the padded route (in chunks when
 its payload passes CYLON_EXCHANGE_CHUNK_BYTES) or, for skewed, diagonal
 or small count matrices, the compact route (parallel/shuffle.py). The
@@ -46,12 +54,13 @@ Entry points run on CUDA unless the context is created with
     sums = out.groupby(0, [1], ["sum"])
 """
 from .config import (CommConfig, CommType, CSVReadOptions, CSVWriteOptions,
-                     LocalConfig, MPIConfig, VirtualWorldConfig)
+                     LocalConfig, MPIConfig, MultiHostConfig,
+                     VirtualWorldConfig)
 from .context import CylonContext
 from .data.column import Column
 from .data.table import Table, concat_tables
-from .io.csv import read_csv, write_csv
-from .io.parquet import read_parquet, write_parquet
+from .io.csv import read_csv, read_csv_per_rank, write_csv
+from .io.parquet import read_parquet, read_parquet_per_rank, write_parquet
 from .ops.groupby import AggregationOp
 from .ops.join import JoinAlgorithm, JoinConfig, JoinType
 from .parallel.dist_ops import (distributed_groupby, distributed_sort,
@@ -60,9 +69,11 @@ from .status import Code, CylonError, Status
 
 __all__ = [
     "CommConfig", "CommType", "CSVReadOptions", "CSVWriteOptions",
-    "LocalConfig", "MPIConfig", "VirtualWorldConfig", "CylonContext",
-    "Column", "Table", "concat_tables", "read_csv", "write_csv",
+    "LocalConfig", "MPIConfig", "MultiHostConfig", "VirtualWorldConfig",
+    "CylonContext", "Column", "Table", "concat_tables", "read_csv",
+    "read_csv_per_rank", "write_csv",
     "JoinAlgorithm", "JoinConfig", "JoinType", "Code", "CylonError",
     "Status", "AggregationOp", "distributed_groupby", "distributed_sort",
-    "hash_partition", "repartition", "read_parquet", "write_parquet",
+    "hash_partition", "repartition", "read_parquet", "read_parquet_per_rank",
+    "write_parquet",
 ]

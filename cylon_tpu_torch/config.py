@@ -1,11 +1,13 @@
 """Configuration objects for cylon_tpu_torch.
 
 The comm configs mirror cylon_tpu.config (reference: cpp/src/cylon/net/
-comm_config.hpp:22-36, comm_type.hpp:20-22). The port's distributed
-backend is the *virtual world*: W logical shards on one device, each
-shard a row of a ``[W, cap]`` tensor, the way the JAX package's tests run
-a mesh of W virtual CPU devices. A ``torch.distributed`` backend is
-queued in ROADMAP.md.
+comm_config.hpp:22-36, comm_type.hpp:20-22). The port has two
+distributed backends behind one interface (parallel/comm.py): the
+*virtual world*, W logical shards on one device, each shard a row of a
+``[W, cap]`` tensor, the way the JAX package's tests run a mesh of W
+virtual CPU devices; and the *process group*, P processes of V shards
+each (W = P * V) joined by ``torch.distributed`` (MultiHostConfig, the
+counterpart of the JAX package's ``jax.distributed`` multi-host mesh).
 
 The IO option classes are copied from cylon_tpu.config (reference:
 io/csv_read_config.hpp, csv_write_config.hpp).
@@ -21,8 +23,9 @@ from .dtypes import DataType
 class CommType(enum.IntEnum):
     """Reference: net/comm_type.hpp."""
 
-    LOCAL = 0     # single shard, no collectives
-    VIRTUAL = 1   # W shards on one device; collectives are tensor ops
+    LOCAL = 0      # single shard, no collectives
+    VIRTUAL = 1    # W shards on one device; collectives are tensor ops
+    MULTIHOST = 2  # P processes x V shards; torch.distributed collectives
 
 
 class CommConfig:
@@ -50,6 +53,53 @@ class VirtualWorldConfig(CommConfig):
 
     def comm_type(self) -> CommType:
         return CommType.VIRTUAL
+
+
+class MultiHostConfig(CommConfig):
+    """P processes of V shards each, joined by ``torch.distributed``
+    (the counterpart of cylon_tpu's ``MultiHostConfig``, whose
+    ``jax.distributed.initialize`` gives each controller process the
+    shards of its local devices; reference: mpi_communicator.cpp:41-70).
+
+    Args:
+      coordinator_address: ``host:port`` of rank 0's store, used as
+        ``tcp://host:port`` when no ``init_method`` is given.
+      num_processes: P (None: ``WORLD_SIZE`` from the environment, as
+        ``torchrun`` sets it).
+      process_id: this process's rank (None: ``RANK``).
+      backend: ``"nccl"`` or ``"gloo"``; None means NCCL on a CUDA device
+        and gloo on the CPU. NCCL takes one card a rank; processes that
+        share a card use gloo, which stages CUDA tensors through host
+        memory.
+      shards_per_process: V, the shards each process owns (the JAX
+        package takes it from the local device count).
+      init_method: a ``torch.distributed`` rendezvous URL, e.g.
+        ``file:///path`` (no port to race for) or ``tcp://host:port``;
+        None with no ``coordinator_address`` means ``env://`` (one
+        process alone uses an in-memory store).
+    """
+
+    def __init__(self, coordinator_address: Optional[str] = None,
+                 num_processes: Optional[int] = None,
+                 process_id: Optional[int] = None,
+                 backend: Optional[str] = None,
+                 shards_per_process: int = 1,
+                 init_method: Optional[str] = None):
+        if int(shards_per_process) < 1:
+            raise ValueError("shards_per_process must be >= 1, got "
+                             f"{shards_per_process}")
+        if backend not in (None, "nccl", "gloo"):
+            raise ValueError(f"backend must be 'nccl', 'gloo' or None, "
+                             f"got {backend!r}")
+        self.coordinator_address = coordinator_address
+        self.num_processes = num_processes
+        self.process_id = process_id
+        self.backend = backend
+        self.shards_per_process = int(shards_per_process)
+        self.init_method = init_method
+
+    def comm_type(self) -> CommType:
+        return CommType.MULTIHOST
 
 
 # reference-style spelling (pycylon.net.MPIConfig)

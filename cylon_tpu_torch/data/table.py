@@ -7,7 +7,13 @@ A table of a distributed context keeps the JAX package's layout: one flat
 ``[W * cap]`` tensor per column, shard s holding rows ``[s*cap,
 (s+1)*cap)``, padding rows masked dead by ``row_mask``. Per-shard kernels
 view the columns as ``[W, cap]``; ``_shard_world`` records that the
-layout is sharded (the counterpart of a NamedSharding).
+layout is sharded (the counterpart of a NamedSharding). In a context of
+several processes (config.MultiHostConfig) a sharded table's tensors
+hold this process's V shards only, ``[V * cap]``: its ``row_count`` is
+the global count, agreed by the processes, and the local ops and the
+exports, which would see one process's rows as the whole table, raise
+(as the JAX package's do for an array spanning other processes'
+devices); ``to_pydict_local`` hands out this process's rows.
 
 String columns (dictionary or varbytes, data/column.py) go through every
 op: keys expand to dictionary codes, raw word lanes (short varbytes rows,
@@ -79,14 +85,37 @@ class Table:
 
     @property
     def row_count(self) -> int:
-        """Live row count (one host sync for a masked table, cached)."""
+        """Live row count (one host sync for a masked table, cached). A
+        table spread over several processes counts every process's rows
+        (one all-reduce: every process must ask)."""
         if not self._columns:
             return 0
-        if self._row_mask is None:
+        spread = self._spread()
+        if self._row_mask is None and not spread:
             return len(self._columns[0])
         if self._row_count_cache is None:
-            self._row_count_cache = int(self._row_mask.sum())
+            n = len(self._columns[0]) if self._row_mask is None \
+                else int(self._row_mask.sum())
+            if spread:
+                n = int(self._ctx.comm.all_reduce(np.array([n]), "sum")[0])
+            self._row_count_cache = n
         return self._row_count_cache
+
+    def _spread(self) -> bool:
+        """A sharded table of a context of several processes: its tensors
+        hold this process's shards only."""
+        return self._shard_world is not None and self._ctx.is_multiprocess()
+
+    def _require_whole(self, what: str) -> None:
+        """Raise where an op or an export would take this process's rows
+        for the whole table."""
+        if self._spread():
+            raise CylonError(
+                Code.Invalid,
+                f"{what} of a table spread over "
+                f"{self._ctx.get_process_count()} processes would see only "
+                f"this process's rows: use the distributed ops, or "
+                f"to_pydict_local() for this process's rows")
 
     def __len__(self) -> int:
         return self.row_count
@@ -143,6 +172,11 @@ class Table:
 
     def compact(self) -> "Table":
         """Drop masked rows; returns a dense local table."""
+        self._require_whole("compact")
+        return self._compact_rows()
+
+    def _compact_rows(self) -> "Table":
+        """The live rows this process holds, as a dense local table."""
         if self._row_mask is None:
             return self
         idx = torch.nonzero(self._row_mask).flatten()
@@ -166,6 +200,15 @@ class Table:
     def to_pydict(self) -> Dict[str, np.ndarray]:
         t = self.compact()
         return {n: c.to_numpy() for n, c in zip(t._unique_names(), t._columns)}
+
+    def to_pydict_local(self) -> Dict[str, np.ndarray]:
+        """This process's shards' live rows as host numpy, in shard order
+        (every row in the virtual world): the per-process handoff out of
+        a distributed table, e.g. to feed each process's training loop
+        (parallel/shard.extract_process_local)."""
+        from ..parallel import shard as _shard
+
+        return _shard.extract_process_local(self, self._ctx)
 
     def to_numpy(self, order: str = "F") -> np.ndarray:
         arrs = [c.to_numpy() for c in self.compact()._columns]
@@ -354,6 +397,7 @@ class Table:
     # -- aggregates (pycylon table.pyx:485-522) --
 
     def _agg(self, column, op: str) -> "Table":
+        self._require_whole(f"the scalar {op}")
         col = column if isinstance(column, Column) \
             else self._columns[self._col_index(column)]
         if self.row_mask is not None:
@@ -724,6 +768,8 @@ def join(left: Table, right: Table, config: _join.JoinConfig) -> Table:
     plan memory exceeds half of the memory pool's free bytes and the
     probe side has more than 2^20 rows, the probe side runs in blocks
     (``join_blocked``; ``Table.join(probe_block_rows=)`` forces it)."""
+    left._require_whole("a local join")
+    right._require_whole("a local join")
     est = _join_plan_bytes_estimate(left, right)
     avail = left._ctx.memory_pool.available_bytes()
     probe_cap = right.capacity if config.type == _join.JoinType.RIGHT \
@@ -768,12 +814,14 @@ def lane_payload(cols: Sequence[Column], skip=()) -> Tuple[tuple, tuple,
 
 
 def rebuild_join_columns(src: Sequence[Column], od, ov, slots: dict, idx,
-                         names: Sequence[str], world: Optional[int] = None,
+                         names: Sequence[str], cm=None,
                          alias: Optional[dict] = None,
                          aliased_to: Sequence[Column] = ()) -> List[Column]:
     """Output columns of a join side from the materialized tensors (flat
     or 1-D): lane columns reassemble strided (lengths zeroed where
-    ``idx`` missed), long varbytes columns gather by ``idx``. ``alias``
+    ``idx`` missed), long varbytes columns gather by ``idx``. ``cm``: the
+    collective backend of a sharded output (its ``shards`` per-shard
+    layouts), None for a local one. ``alias``
     maps a column to the one of ``aliased_to`` whose bytes it shares (the
     right key of an INNER join on word-lane keys)."""
     alias = alias or {}
@@ -788,22 +836,23 @@ def rebuild_join_columns(src: Sequence[Column], od, ov, slots: dict, idx,
         elif i in slots:
             off, k = slots[i]
             vb = VarBytes.from_lanes(list(od[off:off + k]),
-                                     torch.where(idx >= 0, od[i], 0), world)
+                                     torch.where(idx >= 0, od[i], 0),
+                                     None if cm is None else cm.shards)
         else:
-            vb = take_varbytes(c.varbytes, idx, world)
+            vb = take_varbytes(c.varbytes, idx, cm)
         cols.append(Column(vb.lengths, c.dtype, ov[i], name, varbytes=vb))
     return cols
 
 
-def take_varbytes(vb: VarBytes, idx: torch.Tensor,
-                  world: Optional[int] = None) -> VarBytes:
-    """Varlen gather by flat indices; ``world``: ``idx`` is the flat
-    ``[W * m]`` layout of shard-local indices into a sharded ``vb``."""
-    if world is None or world <= 1:
+def take_varbytes(vb: VarBytes, idx: torch.Tensor, cm=None) -> VarBytes:
+    """Varlen gather by flat indices; ``cm`` (a collective backend):
+    ``idx`` is the flat ``[V * m]`` layout of shard-local indices into a
+    sharded ``vb`` (one shard is a plain take)."""
+    if cm is None or cm.shards <= 1:
         return vb.take(idx)
     from ..parallel.dist_ops import varlen_take_sharded
 
-    return varlen_take_sharded(vb, idx, world)
+    return varlen_take_sharded(vb, idx, cm)
 
 
 def _alias_right_keys(left: Table, right: Table, config) -> dict:
@@ -1093,6 +1142,7 @@ def groupby_local(table: Table, index_col, aggregate_cols: List,
     one host sync), then one segment reduction per distinct (column, op).
     The output holds ``pow2(groups)`` rows in key order, its padding dead
     in ``row_mask``."""
+    table._require_whole("a local groupby")
     idx_cols = index_col if isinstance(index_col, (list, tuple)) \
         else [index_col]
     idx_cols = [table._col_index(c) for c in idx_cols]
@@ -1145,6 +1195,8 @@ def set_op(left: Table, right: Table, op) -> Table:
     full-row hash, then K5/K6) takes lane-packable schemas (dictionary
     strings ride as their codes); the dense-ranks route is the general
     (varbytes) and the hash-collision fallback."""
+    left._require_whole("a local set op")
+    right._require_whole("a local set op")
     lcols, rcols = _aligned_setop_columns(left, right)
     out = _setops.setop_stream_table(left, right, lcols, rcols, op)
     if out is not None:

@@ -66,6 +66,23 @@ def read_csv(ctx: CylonContext, path: Union[str, Sequence[str]],
     return _read_one(ctx, path, options)
 
 
+def read_csv_per_rank(ctx: CylonContext, path_pattern: str,
+                      options: Optional[CSVReadOptions] = None) -> Table:
+    """Per-rank file placement: ``path_pattern`` contains ``{rank}``,
+    substituted with each shard index (the reference's per-rank CSV
+    convention, cpp/test/join_test.cpp:22-24 ``csv1_<rank>.csv``). Each
+    process reads the files of its own shards (every shard's in the
+    virtual world) and shard i of the result holds file i's rows
+    (`shard.assemble_process_local`): collective, every process must
+    call it."""
+    from ..parallel import shard as _shard
+
+    options = options or CSVReadOptions()
+    return _shard.assemble_process_local(
+        [_read_one(ctx, path_pattern.format(rank=i), options)
+         for i in ctx.local_shard_indices()], ctx)
+
+
 def _read_one(ctx: CylonContext, path: str, options: CSVReadOptions) -> Table:
     import numpy as np
     import pyarrow as pa

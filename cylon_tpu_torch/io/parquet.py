@@ -1,7 +1,7 @@
 """Parquet IO through pyarrow (counterpart of cylon_tpu.io.parquet;
 reference: io/arrow_io.cpp:64-113 and parquet.cpp). pyarrow is imported
-inside the functions. (The JAX package's per-rank reader and its fault
-injection and retry hooks are not ported yet.)"""
+inside the functions. (The JAX package's fault injection and retry hooks
+around the reads are not ported yet.)"""
 from __future__ import annotations
 
 from typing import Optional, Sequence, Union
@@ -32,6 +32,21 @@ def read_parquet(ctx: CylonContext, path: Union[str, Sequence[str]],
         return concat_tables([read_parquet(ctx, p, options) for p in path],
                              ctx)
     return Table.from_arrow(ctx, _read_table(path))
+
+
+def read_parquet_per_rank(ctx: CylonContext, path_pattern: str,
+                          options: Optional[ParquetOptions] = None
+                          ) -> Table:
+    """Per-rank parquet placement, as `io.csv.read_csv_per_rank`:
+    ``path_pattern`` contains ``{rank}``, substituted with each shard
+    index; each process reads its own shards' files and shard i of the
+    result holds file i's rows. Collective: every process must call
+    it."""
+    from ..parallel import shard as _shard
+
+    return _shard.assemble_process_local(
+        [Table.from_arrow(ctx, _read_table(path_pattern.format(rank=i)))
+         for i in ctx.local_shard_indices()], ctx)
 
 
 def write_parquet(table: Table, path: str,

@@ -15,6 +15,15 @@ The same composition here:
 
 Results stay sharded: a result table holds ``W * cap`` rows, its padding
 masked by ``row_mask``.
+
+In a context of P processes of V shards each (W = P * V) a process's
+tensors hold its own V shards, ``[V * cap]``, and every per-shard view
+is ``[V, cap]`` (V = W in the virtual world). What the JAX package gets
+replicated by construction becomes an explicit collective here
+(``ctx.comm``, parallel/comm.py), so every process takes the same
+decision: the count matrices are gathered, the capacities and the
+per-shard routes agreed by an all-reduce, the sort's sample gathered in
+global order, the comm budget agreed as a minimum.
 """
 from __future__ import annotations
 
@@ -36,12 +45,13 @@ from ..ops import order as _order
 from ..ops import setops as _setops
 from ..data.strings import (EXACT_KEY_WORDS, LANE_WORDS_MAX, VarBytes,
                             _nwords, _word_row_map, pair_k_words)
-from ..status import Code, CylonError
+from ..status import Code, CylonError, not_ported
 from ..telemetry import knobs as _knobs
 from ..util import bucket_cap as _bucket_cap
 from ..util import capacity as _capacity
 from ..util import pow2_floor as _pow2_floor
-from . import comm, shard
+from . import shard
+from .comm import agree_max
 from .shuffle import (count_pair, exchange, exchange_pair,
                       salted_exchange_targets)
 
@@ -152,19 +162,19 @@ def _block_offsets(meta: dict, world: int, like: torch.Tensor):
     return torch.cumsum(ci, 1) - ci
 
 
-def _starts_reconcile(world: int, lengths: torch.Tensor, row_meta: dict,
+def _starts_reconcile(cm, lengths: torch.Tensor, row_meta: dict,
                       word_meta: dict) -> torch.Tensor:
     """Shard-relative starts after a row + word exchange pair, for any mix
     of padded and compact layouts: both exchanges keep each source's
     items contiguous and in order, so row (source s, j)'s words sit at
     that source's word-segment offset plus the within-source word
     prefix. Dead rows must have length 0."""
-    L = lengths.view(world, -1)
+    L = lengths.view(cm.shards, -1)
     n = L.shape[1]
     nw = _nwords(L)
     cs = _order.cumsum_rows(nw)
-    row_off = _block_offsets(row_meta, world, L)
-    word_off = _block_offsets(word_meta, world, L)
+    row_off = _block_offsets(row_meta, cm.world, L)
+    word_off = _block_offsets(word_meta, cm.world, L)
     pos = torch.arange(n, device=L.device)
     sid = (pos.view(1, 1, n) >= row_off[:, 1:].unsqueeze(-1)).sum(1)
     head = torch.where(row_off > 0, cs.gather(1, (row_off - 1).clamp(
@@ -178,23 +188,24 @@ def _exchange_varbytes_words(ctx: CylonContext, vb, targets, emit,
     """The word leg of a varbytes shuffle: the words ride their own
     exchange (its stable partition keeps word order = row order), then
     the starts are rebuilt."""
-    world = ctx.get_world_size()
+    v = ctx.local_shard_count()
     wt, wemit = _word_targets(vb, targets, emit)
     wout, _e, _cap, wmeta = exchange({"w": vb.words}, wt, wemit, ctx)
     w = wout["w"]
-    return VarBytes(w, _starts_reconcile(world, new_lengths, row_meta,
+    return VarBytes(w, _starts_reconcile(ctx.comm, new_lengths, row_meta,
                                          wmeta),
                     new_lengths, vb.max_words, int(w.shape[0]),
-                    shard_geom=(int(new_lengths.shape[0]) // world,
-                                int(w.shape[0]) // world))
+                    shard_geom=(int(new_lengths.shape[0]) // v,
+                                int(w.shape[0]) // v))
 
 
-def _take_into_shards(src, idx_g: torch.Tensor) -> VarBytes:
-    """Per-shard varlen gather: ``idx_g`` [W, m] holds global row indices
-    of ``src`` (-1: an empty row); shard w's rows land packed in its own
-    word segment of ``bucket_cap`` (worst shard's words) words, with
-    shard-relative starts — one host sync for that capacity."""
-    world, m = idx_g.shape
+def _take_into_shards(src, idx_g: torch.Tensor, cm) -> VarBytes:
+    """Per-shard varlen gather: ``idx_g`` [V, m] holds row indices of
+    ``src``'s flat buffer (-1: an empty row); shard w's rows land packed
+    in its own word segment of ``bucket_cap`` (worst shard's words, over
+    every process) words, with shard-relative starts — one host sync
+    for that capacity."""
+    v, m = idx_g.shape
     dev = idx_g.device
     hit = idx_g >= 0
     if src.nrows == 0:
@@ -204,46 +215,47 @@ def _take_into_shards(src, idx_g: torch.Tensor) -> VarBytes:
     nw = torch.where(hit, nw_src[safe], 0) if src.nrows \
         else torch.zeros_like(idx_g)
     lens = torch.where(hit, src.lengths[safe], 0) if src.nrows \
-        else torch.zeros(world, m, dtype=torch.int32, device=dev)
-    cap_w = _bucket_cap(int(nw.sum(1).max()) if m else 0)
+        else torch.zeros(v, m, dtype=torch.int32, device=dev)
+    cap_w = _bucket_cap(agree_max(cm, [nw.sum(1).max() if m else 0])[0])
     starts = _order.cumsum_rows(nw) - nw
-    words = torch.zeros(world * cap_w, dtype=torch.int32, device=dev)
+    words = torch.zeros(v * cap_w, dtype=torch.int32, device=dev)
     if m and src.nrows:
-        gstarts = starts + torch.arange(world, device=dev).unsqueeze(1) \
+        gstarts = starts + torch.arange(v, device=dev).unsqueeze(1) \
             * cap_w
         row, p = _word_row_map(gstarts.reshape(-1), nw.reshape(-1),
-                               world * cap_w)
+                               v * cap_w)
         at = src.eff_starts()[safe.reshape(-1)][row] + p
         w = src.words[at.clamp(0, int(src.words.shape[0]) - 1)]
         valid = (p >= 0) & (p < nw.reshape(-1)[row])
         words = torch.where(valid, w, 0)
     return VarBytes(words, starts.reshape(-1).to(torch.int32),
                     lens.reshape(-1).to(torch.int32), src.max_words,
-                    world * cap_w, shard_geom=(m, cap_w))
+                    v * cap_w, shard_geom=(m, cap_w))
 
 
-def varlen_take_sharded(vb, idx: torch.Tensor, world: int) -> VarBytes:
-    """The distributed VarBytes.take: ``idx`` is the flat ``[W * m]``
+def varlen_take_sharded(vb, idx: torch.Tensor, cm) -> VarBytes:
+    """The distributed VarBytes.take: ``idx`` is the flat ``[V * m]``
     layout of shard-local row indices (-1: an empty row) into the
-    sharded ``vb``."""
-    iw = idx.view(world, -1).to(torch.int64)
-    rows = vb.nrows // world
-    base = torch.arange(world, device=iw.device).unsqueeze(1) * rows
-    return _take_into_shards(vb, torch.where(iw >= 0, iw + base, -1))
+    sharded ``vb`` (``cm`` the collective backend)."""
+    iw = idx.view(cm.shards, -1).to(torch.int64)
+    rows = vb.nrows // cm.shards
+    base = torch.arange(cm.shards, device=iw.device).unsqueeze(1) * rows
+    return _take_into_shards(vb, torch.where(iw >= 0, iw + base, -1), cm)
 
 
-def _dist_as_varbytes(col: Column, world: int) -> Column:
+def _dist_as_varbytes(col: Column, cm) -> Column:
     """A sharded dictionary column lifted to varbytes: the vocabulary's
     VarBytes is built once and every shard gathers its own layout."""
     if col.is_varbytes:
         return col
     vocab = VarBytes.from_host(col.dictionary, device=col.data.device)
-    vb = _take_into_shards(vocab, col.data.view(world, -1).to(torch.int64))
+    vb = _take_into_shards(
+        vocab, col.data.view(cm.shards, -1).to(torch.int64), cm)
     return Column(vb.lengths, col.dtype, col.validity, col.name, varbytes=vb)
 
 
 def _align_key_columns_dist(left_d: Table, right_d: Table, lidx, ridx,
-                            world: int):
+                            cm):
     """Distribution-aware align_key_columns: a dictionary column meeting
     a varbytes one lifts per shard (the local lift would collapse the
     per-shard layouts)."""
@@ -251,7 +263,7 @@ def _align_key_columns_dist(left_d: Table, right_d: Table, lidx, ridx,
     for li, ri in zip(lidx, ridx):
         a, b = left_d._columns[li], right_d._columns[ri]
         if a.is_string and b.is_string and (a.is_varbytes or b.is_varbytes):
-            a, b = _dist_as_varbytes(a, world), _dist_as_varbytes(b, world)
+            a, b = _dist_as_varbytes(a, cm), _dist_as_varbytes(b, cm)
         else:
             a, b = table_mod._align_pair(a, b)
         lcols.append(a)
@@ -283,7 +295,6 @@ def _finish_exchange_table(t: Table, ctx: CylonContext, targets, emit,
     garbage in dead slots; the lane masks and the word-row map need
     nw = 0 there)."""
     out, new_emit, _cap, meta = result
-    world = ctx.get_world_size()
     cols = []
     for i, c in enumerate(t._columns):
         d, v = out[f"d{i}"], out.get(f"v{i}")
@@ -295,7 +306,7 @@ def _finish_exchange_table(t: Table, ctx: CylonContext, targets, emit,
         if i in lane_cols:
             vb = VarBytes.from_lanes([out[f"d{i}w{k}"]
                                       for k in range(lane_cols[i])], d,
-                                     world)
+                                     ctx.local_shard_count())
         else:
             vb = _exchange_varbytes_words(ctx, c.varbytes, targets, emit, d,
                                           meta)
@@ -328,9 +339,9 @@ def _rebuild_columns(dat: Sequence, val: Sequence, src: Sequence[Column],
             for d, v, c, name in zip(dat, val, src, names)]
 
 
-def _shards(xs, world: int) -> tuple:
-    """Flat [W * cap] tensors as [W, cap] per-shard views."""
-    return tuple(x.view(world, -1) for x in xs)
+def _shards(xs, v: int) -> tuple:
+    """Flat [V * cap] tensors as [V, cap] per-shard views."""
+    return tuple(x.view(v, -1) for x in xs)
 
 
 def _dist_stream_mode(lkb, rkb, join_type: _join.JoinType,
@@ -354,13 +365,14 @@ def _dist_stream_mode(lkb, rkb, join_type: _join.JoinType,
     return None
 
 
-def _shard_plan(lkb, lkv, lemit, rkb, rkv, remit, ldat, lval, rdat, rval,
-                jt: _join.JoinType):
-    """Phase 1 of the per-shard join over [W, n] key bits, key validity,
+def _shard_plan(cm, lkb, lkv, lemit, rkb, rkv, remit, ldat, lval, rdat,
+                rval, jt: _join.JoinType):
+    """Phase 1 of the per-shard join over [V, n] key bits, key validity,
     emits and payload lanes: K3 on the stream route (picked by
     `_dist_stream_mode`), the plan route otherwise or after a 64-bit
-    hash collision. Returns (route, host counts int64 [W, 2] = [n_out,
-    n_unmatched_b], state) for `_shard_materialize`."""
+    hash collision on any shard of any process (agreed through ``cm``).
+    Returns (route, host counts int64 [V, 2] = [n_out, n_unmatched_b],
+    state) for `_shard_materialize`."""
     mode = _dist_stream_mode(lkb, rkb, jt, lemit.device)
     if mode is not None:
         hash_mode, br = mode
@@ -368,9 +380,10 @@ def _shard_plan(lkb, lkv, lemit, rkb, rkv, remit, ldat, lval, rdat, rval,
         counts, a_streams, b_streams = _join.plan_program_stream(
             lkb, lkv, lemit, rkb, rkv, remit, ldat, lval, rdat, rval, jt,
             a_desc=a_desc, b_desc=b_desc, hash_mode=hash_mode)
-        cm = counts.cpu().numpy().astype(np.int64)
-        if not (hash_mode and int(cm[:, 3].sum()) > 0):
-            host = np.stack([cm[:, 0], np.zeros_like(cm[:, 0])], 1)
+        hc = counts.cpu().numpy().astype(np.int64)
+        collided = hash_mode and agree_max(cm, [hc[:, 3].max()])[0] > 0
+        if not collided:
+            host = np.stack([hc[:, 0], np.zeros_like(hc[:, 0])], 1)
             return "stream", host, (counts, a_streams, b_streams, a_desc,
                                     b_desc, br)
         # else: 64-bit hash collision — recompute via the exact plan route
@@ -397,7 +410,7 @@ def _shard_materialize(route: str, state, ldat, lval, rdat, rval,
 
 
 def _shard_matched(route: str, state) -> torch.Tensor:
-    """bool [W, na]: the probe rows an INNER plan matched (K3's group A
+    """bool [V, na]: the probe rows an INNER plan matched (K3's group A
     rows, the plan route's ``m > 0``)."""
     if route == "stream":
         counts, a_streams = state[0], state[1]
@@ -413,22 +426,23 @@ def _shard_matched(route: str, state) -> torch.Tensor:
     return state[1] > 0
 
 
-def _shard_join(lkb, lkv, lemit, rkb, rkv, remit, ldat, lval, rdat, rval,
-                jt: _join.JoinType):
-    """The per-shard join of the shuffle and broadcast joins over [W, n]
+def _shard_join(cm, lkb, lkv, lemit, rkb, rkv, remit, ldat, lval, rdat,
+                rval, jt: _join.JoinType):
+    """The per-shard join of the shuffle and broadcast joins over [V, n]
     inputs: `_shard_plan`, then `_shard_materialize` at the route's
     capacity (the JAX package's shapes: the stream route's expansion
-    capacity, the plan route's bucket capacities)."""
-    route, host, state = _shard_plan(lkb, lkv, lemit, rkb, rkv, remit,
+    capacity, the plan route's bucket capacities), from the worst shard
+    of every process."""
+    route, host, state = _shard_plan(cm, lkb, lkv, lemit, rkb, rkv, remit,
                                      ldat, lval, rdat, rval, jt)
+    n_out, n_un = agree_max(cm, host.max(axis=0))
     if route == "stream":
-        cap = _join.stream_expand_capacity(int(host[:, 0].max()), state[5])
+        cap = _join.stream_expand_capacity(n_out, state[5])
         return _shard_materialize(route, state, ldat, lval, rdat, rval, jt,
                                   cap)
-    cap_u = _bucket_cap(int(host[:, 1].max())) \
-        if jt == _join.JoinType.FULL_OUTER else 0
+    cap_u = _bucket_cap(n_un) if jt == _join.JoinType.FULL_OUTER else 0
     return _shard_materialize(route, state, ldat, lval, rdat, rval, jt,
-                              _bucket_cap(int(host[:, 0].max())), cap_u)
+                              _bucket_cap(n_out), cap_u)
 
 
 def shuffle(table: Table, hash_columns: Sequence,
@@ -475,9 +489,9 @@ def shuffle(table: Table, hash_columns: Sequence,
     return result
 
 
-def _shards_opt(xs, world: int) -> tuple:
+def _shards_opt(xs, v: int) -> tuple:
     """`_shards` keeping None entries (all-valid lane columns)."""
-    return tuple(None if x is None else x.view(world, -1) for x in xs)
+    return tuple(None if x is None else x.view(v, -1) for x in xs)
 
 
 def distributed_join(left: Table, right: Table, config: _join.JoinConfig,
@@ -501,10 +515,11 @@ def distributed_join(left: Table, right: Table, config: _join.JoinConfig,
             kw = pair_k_words(left._columns[li], right._columns[rj])
             if kw is not None and kw > EXACT_KEY_WORDS:
                 exact_pairs.append((li, rj))
+    cm = ctx.comm
+    v = cm.shards
     left_d = shard.distribute(left, ctx)
     right_d = shard.distribute(right, ctx)
-    lcols, rcols = _align_key_columns_dist(left_d, right_d, lidx, ridx,
-                                           world)
+    lcols, rcols = _align_key_columns_dist(left_d, right_d, lidx, ridx, cm)
 
     plan = []
     for t, kcols, kidx, other in ((left_d, lcols, lidx, rcols),
@@ -527,7 +542,7 @@ def distributed_join(left: Table, right: Table, config: _join.JoinConfig,
         cl = cr = None
         if world > 1 or not dense:
             cl, cr = count_pair(ex[0][2], ex[0][3], ex[1][2], ex[1][3],
-                                world)
+                                ctx)
         r1, r2 = _exchange_table_pair(ex[0][1], ex[0][2], ex[0][3], cl,
                                       ex[1][1], ex[1][2], ex[1][3], cr, ctx,
                                       dense=dense)
@@ -550,7 +565,7 @@ def distributed_join(left: Table, right: Table, config: _join.JoinConfig,
     left_s = Table(list(lcols_s), ctx, lemit)
     right_s = Table(list(rcols_s), ctx, remit)
     lcols2, rcols2 = _align_key_columns_dist(left_s, right_s, lidx, ridx,
-                                             world)
+                                             cm)
     lkb, lkv = _dist_key_bits(lcols2, rcols2)
     rkb, rkv = _dist_key_bits(rcols2, lcols2)
     alias = table_mod._alias_right_keys(left_s, right_s, config)
@@ -560,15 +575,15 @@ def distributed_join(left: Table, right: Table, config: _join.JoinConfig,
     # as the JAX package's does; lane columns carry none
     lval = [c.valid_mask() for c in lcols_s] + list(lval[len(lcols_s):])
     rval = [c.valid_mask() for c in rcols_s] + list(rval[len(rcols_s):])
-    ldat, rdat = _shards(ldat, world), _shards(rdat, world)
-    lval, rval = _shards_opt(lval, world), _shards_opt(rval, world)
-    lkb_w, rkb_w = _shards(lkb, world), _shards(rkb, world)
-    lkv_w, rkv_w = lkv.view(world, -1), rkv.view(world, -1)
-    lemit_w, remit_w = lemit.view(world, -1), remit.view(world, -1)
+    ldat, rdat = _shards(ldat, v), _shards(rdat, v)
+    lval, rval = _shards_opt(lval, v), _shards_opt(rval, v)
+    lkb_w, rkb_w = _shards(lkb, v), _shards(rkb, v)
+    lkv_w, rkv_w = lkv.view(v, -1), rkv.view(v, -1)
+    lemit_w, remit_w = lemit.view(v, -1), remit.view(v, -1)
 
     jt = config.type
-    res = _shard_join(lkb_w, lkv_w, lemit_w, rkb_w, rkv_w, remit_w, ldat,
-                      lval, rdat, rval, jt)
+    res = _shard_join(cm, lkb_w, lkv_w, lemit_w, rkb_w, rkv_w, remit_w,
+                      ldat, lval, rdat, rval, jt)
     # flatten the [W, cap] outputs back to the sharded flat layout
     lod, lov, rod, rov, (emit,), (lidx_o,), (ridx_o,) = (
         [x.reshape(-1) for x in part] for part in (
@@ -576,10 +591,10 @@ def distributed_join(left: Table, right: Table, config: _join.JoinConfig,
     nl = left_d.column_count
     cols = table_mod.rebuild_join_columns(
         lcols_s, lod, lov, lslots, lidx_o, [f"lt-{i}" for i in range(nl)],
-        world)
+        cm)
     cols += table_mod.rebuild_join_columns(
         rcols_s, rod, rov, rslots, ridx_o,
-        [f"rt-{nl + j}" for j in range(right_d.column_count)], world,
+        [f"rt-{nl + j}" for j in range(right_d.column_count)], cm,
         alias=alias, aliased_to=cols)
     result = Table(cols, ctx, emit)
     result._shard_world = world
@@ -615,7 +630,7 @@ def _exact_post_verify(res: Table, nl: int, pairs, config):
         out = Table(res._columns, res._ctx, emit & ~bad)
         out._shard_world = res._shard_world
         return out, False
-    return res, bool(bad.any())
+    return res, agree_max(res._ctx.comm, [bad.any()])[0] > 0
 
 
 def _exact_dict_redo(left: Table, right: Table, config: _join.JoinConfig,
@@ -624,9 +639,13 @@ def _exact_dict_redo(left: Table, right: Table, config: _join.JoinConfig,
     each colliding key pair re-encoded over ONE shared sorted vocabulary
     (a host round trip, paid only after a detected collision), the
     distributed join redone on the exact codes, and the redone key
-    columns lifted back to varbytes so the schema matches."""
+    columns lifted back to varbytes so the schema matches. (A table
+    spread over several processes would need one vocabulary over every
+    process's keys: not ported.)"""
     ctx = left._ctx
-    world = ctx.get_world_size()
+    if ctx.is_multiprocess():
+        raise not_ported("the exact join's collision redo across "
+                         "processes")
     nl = left.column_count
     lcols2, rcols2 = list(left._columns), list(right._columns)
     for li, rj in pairs:
@@ -644,7 +663,7 @@ def _exact_dict_redo(left: Table, right: Table, config: _join.JoinConfig,
         for pos in (li, nl + rj):
             c = out_cols[pos]
             if c.dictionary is not None:
-                out_cols[pos] = _dist_as_varbytes(c, world)
+                out_cols[pos] = _dist_as_varbytes(c, ctx.comm)
     out = Table(out_cols, ctx, res.row_mask)
     out._shard_world = res._shard_world
     return out
@@ -665,28 +684,28 @@ def _exact_dict_redo(left: Table, right: Table, config: _join.JoinConfig,
 RING_SKEW_FACTOR = 4
 
 
-def _prep_join_side(t: Table, cols, other_cols, world: int):
-    """One join side's per-shard operands, all [W, n]: key bits, combined
+def _prep_join_side(t: Table, cols, other_cols, v: int):
+    """One join side's per-shard operands, all [V, n]: key bits, combined
     key validity, emit, then the payload data and validity of every
     column with the word lanes of its (short) varbytes columns appended
     (``slots``: column -> (first lane, lane count), for
     `_rebuild_join_side`)."""
     bits, kv = _dist_key_bits(cols, other_cols)
     dat, val, slots = table_mod.lane_payload(t._columns)
-    return (_shards(bits, world), kv.view(world, -1),
-            t.emit_mask().view(world, -1), _shards(dat, world),
-            _shards_opt(val, world), slots)
+    return (_shards(bits, v), kv.view(v, -1),
+            t.emit_mask().view(v, -1), _shards(dat, v),
+            _shards_opt(val, v), slots)
 
 
 def _rebuild_join_side(t: Table, od, ov, idx, slots, prefix: str,
-                       world: int) -> List[Column]:
-    """A side's output columns from its materialized [W, cap] tensors and
+                       cm) -> List[Column]:
+    """A side's output columns from its materialized [V, cap] tensors and
     row indices (-1: no row): lane columns reassemble from their word
     lanes."""
     return table_mod.rebuild_join_columns(
         t._columns, [x.reshape(-1) for x in od],
         [x.reshape(-1) for x in ov], slots, idx.reshape(-1),
-        [f"{prefix}-{i}" for i in range(t.column_count)], world)
+        [f"{prefix}-{i}" for i in range(t.column_count)], cm)
 
 
 def _join_output(ctx, a_cols: List[Column], b_cols: List[Column],
@@ -719,30 +738,31 @@ def _long_exact_keys(left: Table, right: Table, config) -> bool:
     return False
 
 
-def _ring_plans(a, b, world: int, need_matched: bool):
+def _ring_plans(cm, a, b, need_matched: bool):
     """The ring's count pass: W INNER plans of the resident a side against
-    the b side rotated k times (after step k shard i holds shard (i - k)
-    % W's block). Returns (pairs int64 [W, W] = rows of (shard, step),
-    the matched-a mask [W, na] when ``need_matched``, the plans and each
-    step's visiting b payload)."""
+    the b side rotated k times (after step k global shard i holds shard
+    (i - k) % W's block, ``cm.ring_shift``). Returns (pairs int64 [V, W]
+    = rows of (local shard, step), the matched-a mask [V, na] when
+    ``need_matched``, the plans and each step's visiting b payload)."""
     abits, akv, aemit, adat, aval = a
     bbits, bkv, bemit, bdat, bval = b
-    pairs = np.zeros((world, world), dtype=np.int64)
+    world = cm.world
+    pairs = np.zeros((cm.shards, world), dtype=np.int64)
     matched = torch.zeros_like(aemit) if need_matched else None
     steps = []
     for k in range(world):
-        plan = _shard_plan(abits, akv, aemit, bbits, bkv, bemit, adat, aval,
-                           bdat, bval, _join.JoinType.INNER)
+        plan = _shard_plan(cm, abits, akv, aemit, bbits, bkv, bemit, adat,
+                           aval, bdat, bval, _join.JoinType.INNER)
         route, host, state = plan
         pairs[:, k] = host[:, 0]
         if need_matched:
             matched |= _shard_matched(route, state)
         steps.append((plan, bdat, bval))
         if k + 1 < world:
-            bbits = tuple(comm.ring_shift(x) for x in bbits)
-            bkv, bemit = comm.ring_shift(bkv), comm.ring_shift(bemit)
-            bdat = tuple(comm.ring_shift(x) for x in bdat)
-            bval = tuple(None if x is None else comm.ring_shift(x)
+            bbits = tuple(cm.ring_shift(x) for x in bbits)
+            bkv, bemit = cm.ring_shift(bkv), cm.ring_shift(bemit)
+            bdat = tuple(cm.ring_shift(x) for x in bdat)
+            bval = tuple(None if x is None else cm.ring_shift(x)
                          for x in bval)
     return pairs, matched, steps
 
@@ -780,7 +800,8 @@ def distributed_join_ring(left: Table, right: Table,
     pool's comm budget. The count pass keeps each step's plan (K3's
     output on the card) for the materialize pass."""
     ctx = left._ctx
-    world = ctx.get_world_size()
+    cm = ctx.comm
+    world = cm.world
     jt = config.type
     if world == 1 or jt == _join.JoinType.FULL_OUTER \
             or _long_varbytes(left, right) \
@@ -790,26 +811,26 @@ def distributed_join_ring(left: Table, right: Table,
     right_d = shard.distribute(right, ctx)
     lcols, rcols = _align_key_columns_dist(
         left_d, right_d, config.left_column_idx, config.right_column_idx,
-        world)
+        cm)
     if jt == _join.JoinType.RIGHT:
         a_t, a_cols, b_t, b_cols = right_d, rcols, left_d, lcols
     else:
         a_t, a_cols, b_t, b_cols = left_d, lcols, right_d, rcols
-    *a, a_slots = _prep_join_side(a_t, a_cols, b_cols, world)
-    *b, b_slots = _prep_join_side(b_t, b_cols, a_cols, world)
+    *a, a_slots = _prep_join_side(a_t, a_cols, b_cols, cm.shards)
+    *b, b_slots = _prep_join_side(b_t, b_cols, a_cols, cm.shards)
 
     emit_unmatched = jt != _join.JoinType.INNER
-    pairs, matched, steps = _ring_plans(a, b, world, emit_unmatched)
-    extra = (a[2] & ~matched).sum(1).cpu().numpy() \
-        if emit_unmatched else None
-    cap_step = _bucket_cap(int(pairs.max())) if pairs.size else 1
-    cap_extra = _bucket_cap(int(extra.max())) if extra is not None else 0
+    pairs, matched, steps = _ring_plans(cm, a, b, emit_unmatched)
+    extra = int((a[2] & ~matched).sum(1).max()) if emit_unmatched else 0
     # skew guard: every shard's slab is world * cap_step rows, cap_step
-    # set by the worst (shard, step) block; with an absolute floor, so
-    # that sparse outputs stay on the ring
-    worst_total = int(pairs.sum(axis=1).max()) if pairs.size else 0
+    # set by the worst (shard, step) block of any process; with an
+    # absolute floor, so that sparse outputs stay on the ring
+    worst_pair, extra, worst_total = agree_max(
+        cm, [pairs.max(), extra, pairs.sum(axis=1).max()])
+    cap_step = _bucket_cap(worst_pair)
+    cap_extra = _bucket_cap(extra) if emit_unmatched else 0
     slab = world * cap_step
-    budget = ctx.memory_pool.comm_budget_bytes()
+    budget = ctx.comm_budget_bytes()
     row_bytes = sum(c.data.element_size() + 1
                     + (5 * c.varbytes.max_words if c.is_varbytes else 0)
                     for c in a_t._columns + b_t._columns)
@@ -821,8 +842,8 @@ def distributed_join_ring(left: Table, right: Table,
 
     aod, aov, bod, bov, emit, aidx, bidx = _ring_slabs(
         a, steps, matched, cap_step, cap_extra)
-    a_out = _rebuild_join_side(a_t, aod, aov, aidx, a_slots, "a", world)
-    b_out = _rebuild_join_side(b_t, bod, bov, bidx, b_slots, "b", world)
+    a_out = _rebuild_join_side(a_t, aod, aov, aidx, a_slots, "a", cm)
+    b_out = _rebuild_join_side(b_t, bod, bov, bidx, b_slots, "b", cm)
     return _join_output(ctx, a_out, b_out, jt != _join.JoinType.RIGHT, emit)
 
 
@@ -861,8 +882,8 @@ def broadcast_hash_join(left: Table, right: Table,
     side's placement witness (its positions shifted past the build
     columns when the probe is the right table)."""
     ctx = left._ctx
-    world = ctx.get_world_size()
-    if world == 1:
+    cm = ctx.comm
+    if cm.world == 1:
         # one shard replicates nothing: the local join is the broadcast
         return table_mod.join(left, right, config)
     if _broadcast_eligible(left, right, config, build_side) is not None:
@@ -871,7 +892,7 @@ def broadcast_hash_join(left: Table, right: Table,
     right_d = shard.distribute(right, ctx)
     lcols, rcols = _align_key_columns_dist(
         left_d, right_d, config.left_column_idx, config.right_column_idx,
-        world)
+        cm)
     if build_side == 1:
         a_t, a_cols, b_t, b_cols = left_d, lcols, right_d, rcols
     else:
@@ -881,19 +902,19 @@ def broadcast_hash_join(left: Table, right: Table,
     jt_local = _join.JoinType.INNER \
         if config.type == _join.JoinType.INNER else _join.JoinType.LEFT
     abits, akv, aemit, adat, aval, a_slots = _prep_join_side(
-        a_t, a_cols, b_cols, world)
+        a_t, a_cols, b_cols, cm.shards)
     bbits, bkv, bemit, bdat, bval, b_slots = _prep_join_side(
-        b_t, b_cols, a_cols, world)
+        b_t, b_cols, a_cols, cm.shards)
 
     def full(x):
-        return None if x is None else comm.gather_full(x)
+        return None if x is None else cm.gather_full(x)
 
     aod, aov, bod, bov, emit, aidx, bidx = _shard_join(
-        abits, akv, aemit, tuple(full(x) for x in bbits), full(bkv),
+        cm, abits, akv, aemit, tuple(full(x) for x in bbits), full(bkv),
         full(bemit), adat, aval, tuple(full(x) for x in bdat),
         tuple(full(x) for x in bval), jt_local)
-    a_out = _rebuild_join_side(a_t, aod, aov, aidx, a_slots, "a", world)
-    b_out = _rebuild_join_side(b_t, bod, bov, bidx, b_slots, "b", world)
+    a_out = _rebuild_join_side(a_t, aod, aov, aidx, a_slots, "a", cm)
+    b_out = _rebuild_join_side(b_t, bod, bov, bidx, b_slots, "b", cm)
     out = _join_output(ctx, a_out, b_out, build_side == 1, emit)
     sig = a_t._hash_partitioned
     if sig is not None:
@@ -911,17 +932,17 @@ def broadcast_hash_join(left: Table, right: Table,
 # ---------------------------------------------------------------------------
 
 
-def _concat_shards(a, b, world: int) -> VarBytes:
+def _concat_shards(a, b, v: int) -> VarBytes:
     """Per shard, [a's rows; b's rows] as one sharded VarBytes: the word
     segments concatenate and b's starts shift by a's segment (the range
     sums ignore the gaps, so nothing is repacked)."""
-    wa = a.words.view(world, -1)
+    wa = a.words.view(v, -1)
     ca = wa.shape[1]
-    starts = torch.cat([a.starts.view(world, -1).to(torch.int64),
-                        b.starts.view(world, -1).to(torch.int64) + ca], 1)
-    words = torch.cat([wa, b.words.view(world, -1)], 1)
-    lens = torch.cat([a.lengths.view(world, -1),
-                      b.lengths.view(world, -1)], 1)
+    starts = torch.cat([a.starts.view(v, -1).to(torch.int64),
+                        b.starts.view(v, -1).to(torch.int64) + ca], 1)
+    words = torch.cat([wa, b.words.view(v, -1)], 1)
+    lens = torch.cat([a.lengths.view(v, -1),
+                      b.lengths.view(v, -1)], 1)
     return VarBytes(words.reshape(-1), starts.reshape(-1).to(torch.int32),
                     lens.reshape(-1), max(a.max_words, b.max_words),
                     int(words.numel()),
@@ -942,10 +963,12 @@ def distributed_set_op(left: Table, right: Table, op: _setops.SetOp,
         return table_mod.set_op(left, right, op)
     if left.column_count != right.column_count:
         raise CylonError(Code.Invalid, "set ops need equal schemas")
+    cm = ctx.comm
+    v = cm.shards
     left_d = shard.distribute(left, ctx)
     right_d = shard.distribute(right, ctx)
     idx = list(range(left_d.column_count))
-    lcols, rcols = _align_key_columns_dist(left_d, right_d, idx, idx, world)
+    lcols, rcols = _align_key_columns_dist(left_d, right_d, idx, idx, cm)
     has_validity = [a.validity is not None or b.validity is not None
                     for a, b in zip(lcols, rcols)]
 
@@ -960,7 +983,7 @@ def distributed_set_op(left: Table, right: Table, op: _setops.SetOp,
     cl = cr = None
     if not dense:
         cl, cr = count_pair(sides[0][1], sides[0][2], sides[1][1],
-                            sides[1][2], world)
+                            sides[1][2], ctx)
     (lcols_s, lemit), (rcols_s, remit) = (
         _exchange_table(view, targets, emit, ctx, counts=cnt, dense=dense)
         for (view, targets, emit), cnt in zip(sides, (cl, cr)))
@@ -974,22 +997,22 @@ def distributed_set_op(left: Table, right: Table, op: _setops.SetOp,
             bits.extend(_dist_col_bits(c, pair_k_words(c, other[ci])))
             if has_validity[ci]:
                 bits.append(c.valid_mask().to(torch.uint8))
-        return _shards(bits, world)
+        return _shards(bits, v)
 
-    lemit_w, remit_w = lemit.view(world, -1), remit.view(world, -1)
+    lemit_w, remit_w = lemit.view(v, -1), remit.view(v, -1)
     gl, gr = _order.dense_ranks_two(rebits(lcols_s, rcols_s),
                                     rebits(rcols_s, lcols_s))
     counts = torch.stack(list(_setops.setop_counts(
         gl, gr, lemit_w, remit_w).values()), 1).cpu().numpy()
-    cap = _bucket_cap(int(counts[:, int(op)].max()))
+    cap = _bucket_cap(agree_max(cm, [counts[:, int(op)].max()])[0])
     idx = _setops.setop_indices(gl, gr, lemit_w, remit_w, op, cap)
     # indices address the per-shard concatenation [left; right]
     dat = [torch.cat([a, b], 1) for a, b in zip(
-        _shards((c.data for c in lcols_s), world),
-        _shards((c.data for c in rcols_s), world))]
+        _shards((c.data for c in lcols_s), v),
+        _shards((c.data for c in rcols_s), v))]
     val = [torch.cat([a, b], 1) for a, b in zip(
-        _shards((c.valid_mask() for c in lcols_s), world),
-        _shards((c.valid_mask() for c in rcols_s), world))]
+        _shards((c.valid_mask() for c in lcols_s), v),
+        _shards((c.valid_mask() for c in rcols_s), v))]
     od, ov = _join.gather_columns(dat, val, idx)
     cols = _rebuild_columns([d.reshape(-1) for d in od],
                             [v.reshape(-1) for v in ov], lcols_s,
@@ -998,8 +1021,7 @@ def distributed_set_op(left: Table, right: Table, op: _setops.SetOp,
     for ci, (a, b) in enumerate(zip(lcols_s, rcols_s)):
         if a.is_varbytes:
             vb = varlen_take_sharded(
-                _concat_shards(a.varbytes, b.varbytes, world), flat_idx,
-                world)
+                _concat_shards(a.varbytes, b.varbytes, v), flat_idx, cm)
             cols[ci] = Column(vb.lengths, a.dtype, cols[ci].validity,
                               a.name, varbytes=vb)
     result = Table(cols, ctx, (idx >= 0).reshape(-1))
@@ -1018,7 +1040,10 @@ def hash_partition(table: Table, hash_columns: Sequence,
     sort by target (dead rows last), then each partition is one slice of
     every column, on the device; short varbytes columns ride the sort as
     word lanes. A table with varbytes rows longer than LANE_WORDS_MAX
-    words takes the host partitioner (the same placement)."""
+    words takes the host partitioner (the same placement). The split is
+    local, as the reference's HashPartition is per rank: a table spread
+    over several processes splits the rows this process holds, and no
+    collective follows, so nothing needs agreeing."""
     idxs = [table._col_index(c) for c in hash_columns]
     if any(c.is_varbytes and c.varbytes.max_words > LANE_WORDS_MAX
            for c in table._columns):
@@ -1062,26 +1087,12 @@ def hash_partition(table: Table, hash_columns: Sequence,
 def _hash_partition_host(table: Table, idxs, num_partitions: int) -> dict:
     """The host partitioner of long varbytes rows: the key columns hash
     on the host exactly as on the device (varbytes through
-    ``native.np_varbytes_hash``, the content hash h1)."""
-    from .. import native
-
-    t = table.compact()
+    ``native.np_varbytes_hash``, the content hash h1;
+    `shard.host_partition_arrays`)."""
+    t = table._compact_rows()
     dev = t._ctx.device
-    host, valids = [], []
-    for c in t._columns:
-        host.append(c.varbytes.to_host(as_str=c.dtype.type
-                                       != dtypes.Type.BINARY)
-                    if c.is_varbytes else c.data.cpu().numpy())
-        valids.append(None if c.validity is None
-                      else c.validity.cpu().numpy())
-    pre = [t._columns[i].is_varbytes for i in idxs]
-    keys = [native.np_varbytes_hash(host[i]) if p else host[i]
-            for i, p in zip(idxs, pre)]
-    flags = [t._columns[i].dictionary is not None for i in idxs]
-    _t, counts, order = native.hash_partition(
-        keys, [valids[i] for i in idxs], num_partitions, is_string=flags,
-        prehashed=pre)
-    offs = np.concatenate([[0], np.cumsum(counts)])
+    host, valids, _counts, order, offs = shard.host_partition_arrays(
+        t, idxs, num_partitions)
     out = {}
     for p in range(num_partitions):
         seg = order[offs[p]:offs[p + 1]]
@@ -1102,11 +1113,13 @@ def _hash_partition_host(table: Table, idxs, num_partitions: int) -> dict:
 
 
 def repartition(table: Table, ctx: CylonContext) -> Table:
-    """Round-robin rows over the shards (no key): row i of the flat
-    layout goes to shard i % world."""
+    """Round-robin rows over the shards (no key): row i of the global
+    flat layout goes to shard i % world (this process's rows start at
+    its rank times its capacity)."""
     t = shard.distribute(table, ctx)
     world = ctx.get_world_size()
-    targets = (torch.arange(t.capacity, device=ctx.device)
+    first = ctx.get_process_rank() * t.capacity
+    targets = ((torch.arange(t.capacity, device=ctx.device) + first)
                % world).to(torch.int32)
     cols, new_emit = _exchange_table(t, targets, t.emit_mask(), ctx,
                                      dense=t.row_mask is None)
@@ -1122,25 +1135,26 @@ def repartition(table: Table, ctx: CylonContext) -> Table:
 # ---------------------------------------------------------------------------
 
 
-def _shard_groupby(world: int, kbits, kdat, kval, emit, vdat, vval,
+def _shard_groupby(nloc: int, kbits, kdat, kval, emit, vdat, vval,
                    ops, col_ids, all_valid):
-    """The per-shard group-by over ``[W, n]`` views, every shard in one
-    batched call (the JAX package's ``_groupby_fn`` under ``shard_map``):
-    group slots per shard = the shard capacity n. Returns flat
-    ``[W * n]`` key data, key validity, group validity, aggregates, and
-    the representative row of each group slot (shard-local)."""
-    n = emit.shape[0] // world
-    keys = [b.view(world, n) for b in kbits] \
-        + [v.view(world, n).to(torch.uint8) for v in kval]
+    """The per-shard group-by over ``[nloc, n]`` views of this process's
+    nloc shards, every shard in one batched call (the JAX package's
+    ``_groupby_fn`` under ``shard_map``): group slots per shard = the
+    shard capacity n. Returns flat ``[nloc * n]`` key data, key validity,
+    group validity, aggregates, and the representative row of each
+    group slot (shard-local)."""
+    n = emit.shape[0] // nloc
+    keys = [b.view(nloc, n) for b in kbits] \
+        + [v.view(nloc, n).to(torch.uint8) for v in kval]
     vdat_s, vval_s, emit_s, iota_s, gid_s, _ng = _groupby.presort_groups(
-        keys, emit.view(world, n), [d.view(world, n) for d in vdat],
-        [None if v is None else v.view(world, n) for v in vval])
+        keys, emit.view(nloc, n), [d.view(nloc, n) for d in vdat],
+        [None if v is None else v.view(nloc, n) for v in vval])
     rep, gvalid, results = _groupby.sorted_segment_aggregate(
         gid_s, emit_s, iota_s, vdat_s, vval_s, n, ops, col_ids, all_valid)
     safe = torch.clamp(rep, max=n - 1)
 
     def take(x):
-        return movable(x.view(world, n)).gather(1, safe).view(
+        return movable(x.view(nloc, n)).gather(1, safe).view(
             x.dtype).reshape(-1)
 
     kout = [take(d) for d in kdat]
@@ -1155,13 +1169,13 @@ def _group_bits(cols: Sequence[Column]) -> list:
     return [b for c in cols for b in _dist_col_bits(c)]
 
 
-def _key_columns_out(world: int, kcols, kout, kvout, safe) -> List[Column]:
+def _key_columns_out(cm, kcols, kout, kvout, safe) -> List[Column]:
     """Group key columns from the per-shard group-by: varbytes keys
     gather their representatives' bytes per shard."""
     out = []
     for d, v, kc in zip(kout, kvout, kcols):
         if kc.is_varbytes:
-            vb = varlen_take_sharded(kc.varbytes, safe, world)
+            vb = varlen_take_sharded(kc.varbytes, safe, cm)
             out.append(Column(vb.lengths, kc.dtype, v, kc.name, varbytes=vb))
         else:
             out.append(Column(d, kc.dtype, v, kc.name,
@@ -1176,6 +1190,7 @@ def _groupby_shuffle_agg(ctx: CylonContext, key_columns, value_columns,
     asserts each key's rows already sit on one shard), then aggregate per
     shard. Returns (key columns, [(agg, valid)], group validity)."""
     world = ctx.get_world_size()
+    cm = ctx.comm
     if skip_exchange:
         out_cols, emit_s = list(key_columns) + list(value_columns), emit
     else:
@@ -1188,11 +1203,11 @@ def _groupby_shuffle_agg(ctx: CylonContext, key_columns, value_columns,
     if col_ids is None:
         col_ids = tuple(range(len(vcols_s)))
     kout, kvout, gvalid, agg, safe = _shard_groupby(
-        world, _group_bits(kcols_s), [c.data for c in kcols_s],
+        cm.shards, _group_bits(kcols_s), [c.data for c in kcols_s],
         [c.valid_mask() for c in kcols_s], emit_s,
         [c.data for c in vcols_s], [c.validity for c in vcols_s], ops,
         col_ids, [c.validity is None for c in vcols_s])
-    return _key_columns_out(world, kcols_s, kout, kvout, safe), agg, gvalid
+    return _key_columns_out(cm, kcols_s, kout, kvout, safe), agg, gvalid
 
 
 def _groupby_table(ctx, key_out, cols, gvalid) -> Table:
@@ -1260,7 +1275,8 @@ def distributed_groupby(table: Table, index_col, aggregate_cols: List,
             b_ops.append(_groupby.second_phase_op(op))
     srcs = [t._columns[val_cols[j]] for j, _op, _c in a_entries]
     koutA, kvoutA, gvalidA, aggA, safeA = _shard_groupby(
-        world, _group_bits(key_columns), [c.data for c in key_columns],
+        ctx.local_shard_count(), _group_bits(key_columns),
+        [c.data for c in key_columns],
         [c.valid_mask() for c in key_columns], emit,
         [src.data.to(torch.float64) if cast else src.data
          for src, (_j, _op, cast) in zip(srcs, a_entries)],
@@ -1268,7 +1284,8 @@ def distributed_groupby(table: Table, index_col, aggregate_cols: List,
         tuple(op for _j, op, _c in a_entries),
         tuple((val_cols[j], cast) for j, _op, cast in a_entries),
         [src.validity is None for src in srcs])
-    pkey_cols = _key_columns_out(world, key_columns, koutA, kvoutA, safeA)
+    pkey_cols = _key_columns_out(ctx.comm, key_columns, koutA, kvoutA,
+                                 safeA)
     pval_cols = [Column(arr, dtypes.Double(), av, src.name) if cast
                  else table_mod._agg_column(arr, av, src, opA)
                  for (arr, av), src, (_j, opA, cast)
@@ -1301,22 +1318,40 @@ def distributed_groupby(table: Table, index_col, aggregate_cols: List,
 SORT_SAMPLES_PER_SHARD = 4096
 
 
-def _range_splitters(world: int, lanes: Sequence[torch.Tensor],
+def _range_splitters(ctx: CylonContext, lanes: Sequence[torch.Tensor],
                      emit: torch.Tensor) -> list:
     """world - 1 splitter tuples: the lexicographic quantiles of a
     sample of the live rows' key lanes, as unsigned numpy scalars. The
     sample positions come from the JAX package's generator and seed, so
-    the splitters match its own on the same layout."""
-    n = int(lanes[0].shape[0])
+    the splitters match its own on the same layout. They are drawn over
+    the GLOBAL flat layout (every process's ``V * cap`` rows, in rank
+    order); each process reads the positions it holds and the samples
+    are gathered in global order, so every process, and the virtual
+    world, gets the same splitters bit for bit."""
+    cm = ctx.comm
+    world = cm.world
+    n_local = int(lanes[0].shape[0])
+    n = n_local * cm.nproc
     rng = np.random.default_rng(0xC11)
     k = min(n, SORT_SAMPLES_PER_SHARD * world)
-    pos = torch.from_numpy(np.sort(rng.integers(0, n, k))).to(emit.device)
+    gpos = np.sort(rng.integers(0, n, k))
+    # every process knows every process's share of the positions
+    cuts = np.searchsorted(gpos, np.arange(cm.nproc + 1) * n_local)
+    mine = gpos[cuts[cm.rank]:cuts[cm.rank + 1]] - cm.rank * n_local
+    pos = torch.from_numpy(mine).to(emit.device)
     # one device->host copy: every lane's unsigned value as int64 (8-byte
     # lanes keep their bits), then the emit flag
     packed = torch.stack([l[pos].to(torch.int64)
                           if l.element_size() == 8
                           else _order.unsigned(l[pos]) for l in lanes]
                          + [emit[pos].to(torch.int64)]).cpu().numpy()
+    if cm.nproc > 1:
+        width = int(np.diff(cuts).max())
+        padded = np.zeros((packed.shape[0], width), np.int64)
+        padded[:, :packed.shape[1]] = packed
+        every = cm.all_gather_host(padded)
+        packed = np.concatenate([every[p][:, :cuts[p + 1] - cuts[p]]
+                                 for p in range(cm.nproc)], 1)
     live = packed[-1].astype(bool)
     samples = [packed[i].view(np.uint64)[live].astype(
         np.dtype(f"u{l.element_size()}")) for i, l in enumerate(lanes)]
@@ -1354,17 +1389,17 @@ def _splitter_targets(lanes: Sequence[torch.Tensor],
     return targets
 
 
-def _shard_sort(world: int, bits, emit, dat, val):
-    """Each shard's rows stably sorted by (dead last, key lanes...), all
-    shards in one batched sort: sorted data, validity and emit, flat,
-    and the flat shard-local permutation."""
-    n = emit.shape[0] // world
-    emit_w = emit.view(world, n)
+def _shard_sort(nloc: int, bits, emit, dat, val):
+    """Each shard's rows stably sorted by (dead last, key lanes...), this
+    process's nloc shards in one batched sort: sorted data, validity and
+    emit, flat, and the flat shard-local permutation."""
+    n = emit.shape[0] // nloc
+    emit_w = emit.view(nloc, n)
     perm = _order.lexsort_indices([(~emit_w).to(torch.uint8)]
-                                  + [b.view(world, n) for b in bits])
+                                  + [b.view(nloc, n) for b in bits])
 
     def take(x):
-        return movable(x.view(world, n)).gather(1, perm).view(
+        return movable(x.view(nloc, n)).gather(1, perm).view(
             x.dtype).reshape(-1)
 
     return ([take(d) for d in dat], [take(v) for v in val],
@@ -1392,6 +1427,7 @@ def distributed_sort(table: Table, order_by, ascending=True,
     memoizes the splitters per source column; the port samples on every
     call.)"""
     ctx = table._ctx
+    cm = ctx.comm
     t = shard.distribute(table, ctx) if ctx.is_distributed() else table
     by = order_by if isinstance(order_by, (list, tuple)) else [order_by]
     idxs = [t._col_index(c) for c in by]
@@ -1403,10 +1439,13 @@ def distributed_sort(table: Table, order_by, ascending=True,
     per_col = [_dist_order_lanes(t._columns[i], a)
                for i, a in zip(idxs, asc)]
     if any(l is None for l in per_col):
+        if ctx.is_multiprocess():
+            raise not_ported("the host sort of varbytes keys past "
+                             "SORT_PREFIX_WORDS words across processes")
         return shard.distribute(t.compact().sort(by, ascending), ctx)
     lanes = [l for col_lanes in per_col for l in col_lanes]
     emit = t.emit_mask()
-    splitters = _range_splitters(world, lanes, emit)
+    splitters = _range_splitters(ctx, lanes, emit)
     targets = _splitter_targets(lanes, splitters)
     cols_s, emit_s = _exchange_table(t, targets, emit, ctx,
                                      dense=t.row_mask is None)
@@ -1414,13 +1453,13 @@ def distributed_sort(table: Table, order_by, ascending=True,
     # the exchange
     sbits = [l for i, a in zip(idxs, asc)
              for l in _dist_order_lanes(cols_s[i], a)]
-    sdat, sval, semit, perm = _shard_sort(world, sbits, emit_s,
+    sdat, sval, semit, perm = _shard_sort(cm.shards, sbits, emit_s,
                                           [c.data for c in cols_s],
                                           [c.valid_mask() for c in cols_s])
     cols = _rebuild_columns(sdat, sval, cols_s, [c.name for c in cols_s])
     for ci, c in enumerate(cols_s):
         if c.is_varbytes:
-            vb = varlen_take_sharded(c.varbytes, perm, world)
+            vb = varlen_take_sharded(c.varbytes, perm, cm)
             cols[ci] = Column(vb.lengths, c.dtype, sval[ci], c.name,
                               varbytes=vb)
     out = Table(cols, ctx, semit)

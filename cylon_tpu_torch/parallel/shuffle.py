@@ -26,6 +26,13 @@ the live send stack is ``[W, W, cb]`` instead of ``[W, W, block]``; the
 landing is bit-identical to the single-shot route on every live row.
 The memory pool's comm budget caps the per-round block
 (`_budget_block_cap`).
+
+Every per-shard tensor here is this process's ``[V, ...]`` part of the
+world (V = W in the virtual world, parallel/comm.py): targets and the
+count matrix's columns range over the W global shards, and the
+collectives go through the context's backend (``ctx.comm``). The count
+matrix is gathered to the global ``[W, W]`` before the host reads it,
+so every process picks the same route, block and rounds.
 """
 from __future__ import annotations
 
@@ -42,7 +49,6 @@ from ..status import not_ported
 from ..telemetry import knobs as _knobs
 from ..util import pow2 as _pow2
 from ..util import pow2_floor as _pow2_floor
-from . import comm
 
 # upper bound on the per-pair block (rows per (src, dst) pair)
 MAX_BLOCK = 1 << 22
@@ -181,50 +187,53 @@ def _pad_block(xs: torch.Tensor, block: int) -> torch.Tensor:
     return torch.cat([xs, pad], 1)
 
 
-def _send_block(xp: torch.Tensor, start: torch.Tensor, o: int, block: int,
-                world: int) -> torch.Tensor:
-    """[W_src, W_dst, block] send stack of round offset ``o``: ONE
+def _send_block(xp: torch.Tensor, start: torch.Tensor, o: int, block: int
+                ) -> torch.Tensor:
+    """[V_src, W_dst, block] send stack of round offset ``o``: ONE
     contiguous slice per target (rows are target-sorted), from row
     ``start + o`` clamped to the unpadded length. ``xp`` is padded by
     ``block`` rows (`_pad_block`); over-read rows belong to other targets
     or to later rounds and are dropped on the receiving side."""
     n = xp.shape[1] - block
+    v, world = start.shape
     rows = (torch.clamp(start + o, max=n).unsqueeze(-1)
-            + torch.arange(block, device=xp.device)).view(world, -1)
+            + torch.arange(block, device=xp.device)).view(v, -1)
     return movable(xp).gather(1, rows).view(xp.dtype).view(
-        world, world, block)
+        v, world, block)
 
 
-def _partition(world: int, payload, targets, emit):
+def _partition(cm, payload, targets, emit):
     """The partition prefix of both routes: stable partition by target
     (K1 + K2 on the kernel route, the stable sort otherwise — the same
     layout) and the counts exchange. Returns (sorted leaves, counts_in
-    int32 [W_dst, W_src], start int64 [W, world])."""
+    int32 [V_dst, W_src], start int64 [V, W])."""
+    world = cm.world
     if use_partition_kernel(world, targets.device):
         sorted_leaves, counts_out, start = _kernel_partition(
             payload, targets, emit, world)
     else:
         sorted_leaves, counts_out, start = _bucket_sort(
             payload, targets, emit, world)
-    return sorted_leaves, comm.all_to_all(counts_out), start
+    return sorted_leaves, cm.all_to_all(counts_out), start
 
 
-def _padded_partition(world: int, block: int, payload, targets, emit):
+def _padded_partition(cm, block: int, payload, targets, emit):
     """`_partition` plus the padded layout's receive-side emit mask."""
-    sorted_leaves, counts_in, start = _partition(world, payload, targets,
+    sorted_leaves, counts_in, start = _partition(cm, payload, targets,
                                                  emit)
-    cap_out = world * block
+    cap_out = cm.world * block
     pos = torch.arange(cap_out, device=targets.device)
     new_emit = (pos % block) < counts_in.gather(
-        1, (pos // block).expand(world, cap_out))
+        1, (pos // block).expand(counts_in.shape[0], cap_out))
     return sorted_leaves, counts_in, start, new_emit
 
 
-def _padded_body(world: int, block: int, payload, targets, emit,
+def _padded_body(cm, block: int, payload, targets, emit,
                  cb: Optional[int] = None):
-    """The padded-mode exchange over [W, n] per-shard values. Returns
-    (leaves [W, world*block], new emit, counts_in int32 [W, world]):
-    source s's rows land at ``[s*block, s*block + counts_in[:, s])``.
+    """The padded-mode exchange over [V, n] per-shard values (``cm`` the
+    context's collective backend). Returns (leaves [V, W*block], new
+    emit, counts_in int32 [V, W]): source s's rows land at ``[s*block,
+    s*block + counts_in[:, s])``.
 
     ``cb`` below ``block`` runs it in chunks of ``cb`` rows a (src, dst)
     pair (the JAX package's chunked pipeline): the chunk at offset o sends
@@ -233,26 +242,28 @@ def _padded_body(world: int, block: int, payload, targets, emit,
     and lands source s's rows at the static slots ``s * block + o``; a
     remainder chunk drops the rows past the block. Bit-identical to the
     single-shot exchange on every live row."""
+    world = cm.world
     if world == 1 and cb is None:
         return _padded_body_w1(block, payload, targets, emit)
     sorted_leaves, counts_in, start, new_emit = _padded_partition(
-        world, block, payload, targets, emit)
+        cm, block, payload, targets, emit)
+    v = start.shape[0]
     cb = block if cb is None else cb
     out = {}
     for k, x in sorted_leaves.items():
         xp = _pad_block(x, cb)
         if cb >= block:
-            recv = comm.all_to_all(_send_block(xp, start, 0, block, world))
+            recv = cm.all_to_all(_send_block(xp, start, 0, block))
         else:
             # the chunks tile [0, block): every slot is written once
-            recv = torch.empty(world, world, block, dtype=movable(x).dtype,
+            recv = torch.empty(v, world, block, dtype=movable(x).dtype,
                                device=x.device)
             for o in range(0, block, cb):
                 live = min(cb, block - o)
-                recv[:, :, o:o + live] = movable(comm.all_to_all(
-                    _send_block(xp, start, o, cb, world)))[:, :, :live]
+                recv[:, :, o:o + live] = movable(cm.all_to_all(
+                    _send_block(xp, start, o, cb)))[:, :, :live]
             recv = recv.view(x.dtype)
-        out[k] = recv.view(world, world * block)
+        out[k] = recv.view(v, world * block)
     return out, new_emit, counts_in
 
 
@@ -273,7 +284,7 @@ def _chunk_plan(block: int, world: int, bytes_per_row: int):
     return cb, -(-block // cb)
 
 
-def _compact_body(world: int, block: int, rounds: int, cap_out: int,
+def _compact_body(cm, block: int, rounds: int, cap_out: int,
                   payload, targets, emit):
     """The compact-mode exchange (the JAX package's ``_exchange_fn``):
     ``rounds`` rounds, round k moving one block a (src, dst) pair from
@@ -283,50 +294,62 @@ def _compact_body(world: int, block: int, rounds: int, cap_out: int,
     ``cap_out + i``, cut off at the end (one spare slot for all of them
     serialises the stores: 50 ms for the diagonal matrix of the join ->
     groupby cell's partials on an H100, scripts/profile_port_groupby.py).
-    Returns (leaves [W, cap_out], new emit,
-    counts_in int32 [W, world]): live rows form a prefix of
+    Returns (leaves [V, cap_out], new emit,
+    counts_in int32 [V, W]): live rows form a prefix of
     ``counts_in.sum()`` rows a shard, sources in order."""
-    sorted_leaves, counts_in, start = _partition(world, payload, targets,
+    sorted_leaves, counts_in, start = _partition(cm, payload, targets,
                                                  emit)
+    world = cm.world
+    v = start.shape[0]
     dev = targets.device
     ci = counts_in.to(torch.int64)
     S = torch.cumsum(ci, 1) - ci
     biota = torch.arange(block, device=dev)
     padded = {k: _pad_block(x, block) for k, x in sorted_leaves.items()}
-    outs = {k: torch.zeros(world, cap_out + block, dtype=movable(x).dtype,
+    outs = {k: torch.zeros(v, cap_out + block, dtype=movable(x).dtype,
                            device=dev) for k, x in padded.items()}
     for r in range(rounds):
         o = r * block
-        pos = S.unsqueeze(-1) + o + biota                  # [W, W_src, B]
+        pos = S.unsqueeze(-1) + o + biota                  # [V, W_src, B]
         pvalid = (o + biota) < ci.unsqueeze(-1)
-        psafe = torch.where(pvalid, pos, cap_out + biota).view(world, -1)
+        psafe = torch.where(pvalid, pos, cap_out + biota).view(v, -1)
         for k, xp in padded.items():
-            recv = comm.all_to_all(_send_block(xp, start, o, block, world))
+            recv = cm.all_to_all(_send_block(xp, start, o, block))
             outs[k].scatter_(1, psafe,
-                             movable(recv).reshape(world, world * block))
+                             movable(recv).reshape(v, world * block))
     out = {k: outs[k][:, :cap_out].view(x.dtype)
            for k, x in padded.items()}
     new_emit = torch.arange(cap_out, device=dev) < ci.sum(1, keepdim=True)
     return out, new_emit, counts_in
 
 
-def _count_matrix(targets, emit, world: int) -> torch.Tensor:
-    """The send-count matrix [src, dst] of flat [W * cap] targets: K1's
-    histogram summed over tiles on the kernel route, a bincount
-    otherwise."""
-    t = _dead_keyed(targets.view(world, -1), emit.view(world, -1), world)
+def _local_counts(cm, targets, emit) -> torch.Tensor:
+    """This process's rows [V_src, W_dst] of the send-count matrix of
+    flat [V * cap] targets: K1's histogram summed over tiles on the
+    kernel route, a bincount otherwise."""
+    world = cm.world
+    t = _dead_keyed(targets.view(cm.shards, -1),
+                    emit.view(cm.shards, -1), world)
     if use_partition_kernel(world, t.device):
         return _k.partition_hist(t, world + 1)[:, :, :world].sum(
             1, dtype=torch.int32)
     return _target_counts(t, world)
 
 
-def count_pair(targets1, emit1, targets2, emit2, world: int):
-    """Host (countsL, countsR) send-count matrices [src, dst] for two
-    shuffles, one device->host copy."""
-    host = torch.stack([_count_matrix(targets1, emit1, world),
-                        _count_matrix(targets2, emit2, world)]).cpu().numpy()
-    return host[0], host[1]
+def _count_matrix(cm, targets, emit) -> torch.Tensor:
+    """The global send-count matrix [W_src, W_dst] on the device: the
+    local rows, gathered."""
+    return cm.replicated_gather(_local_counts(cm, targets, emit))
+
+
+def count_pair(targets1, emit1, targets2, emit2, ctx: CylonContext):
+    """Host (countsL, countsR) global send-count matrices [src, dst] for
+    two shuffles: one gather, one device->host copy."""
+    cm = ctx.comm
+    host = cm.replicated_gather(torch.stack(
+        [_local_counts(cm, targets1, emit1),
+         _local_counts(cm, targets2, emit2)], 1)).cpu().numpy()
+    return host[:, 0], host[:, 1]
 
 
 def _payload_row_bytes(payload: Dict[str, torch.Tensor]) -> int:
@@ -371,8 +394,8 @@ def _flat(d: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: x.reshape(-1) for k, x in d.items()}
 
 
-def _shards(d: Dict[str, torch.Tensor], world: int):
-    return {k: x.view(world, -1) for k, x in d.items()}
+def _shards(d: Dict[str, torch.Tensor], v: int):
+    return {k: x.view(v, -1) for k, x in d.items()}
 
 
 def exchange(payload: Dict[str, torch.Tensor], targets: torch.Tensor,
@@ -386,33 +409,33 @@ def exchange(payload: Dict[str, torch.Tensor], targets: torch.Tensor,
     in "padded" mode (capacity ``world * block``), as one live prefix in
     "compact" mode (capacity ``pow2(recv_max)``, ``block`` 0). A padded
     exchange that chunks (`_chunk_plan`) adds ``"chunks"`` to meta.
-    ``max_block`` caps the per-round block (MAX_BLOCK by default)."""
-    world = ctx.get_world_size()
+    ``max_block`` caps the per-round block (MAX_BLOCK by default).
+    ``counts``, where the caller has it, is the global [W, W] matrix."""
+    cm = ctx.comm
+    world = cm.world
     if world == 1 and counts is None and dense:
         # one shard, every row live: block = pow2(n), counts in-program;
         # only the memory budget (or ``max_block``) binds, there are no
         # rounds
         block1 = _pow2(int(targets.shape[0]))
-        mb1 = _budget_block_cap(payload, 1,
-                                ctx.memory_pool.comm_budget_bytes(),
+        mb1 = _budget_block_cap(payload, 1, ctx.comm_budget_bytes(),
                                 block1 if max_block is None else max_block,
                                 4)
         if block1 <= mb1:
             out, new_emit, ci = _padded_body(
-                1, block1, _shards(payload, 1), targets.view(1, -1),
+                cm, block1, _shards(payload, 1), targets.view(1, -1),
                 emit.view(1, -1))
             return _flat(out), new_emit.reshape(-1), block1, {
                 "mode": "padded", "block": block1, "counts_in": ci}
     if counts is None:
-        counts = _count_matrix(targets, emit, world).cpu().numpy()
+        counts = _count_matrix(cm, targets, emit).cpu().numpy()
     ok, block_p, mb = _padded_route(counts, payload, world,
-                                    ctx.memory_pool.comm_budget_bytes(),
-                                    4, max_block)
-    shards = (_shards(payload, world), targets.view(world, -1),
-              emit.view(world, -1))
+                                    ctx.comm_budget_bytes(), 4, max_block)
+    shards = (_shards(payload, cm.shards), targets.view(cm.shards, -1),
+              emit.view(cm.shards, -1))
     if ok:
         cb, chunks = _chunk_plan(block_p, world, _payload_row_bytes(payload))
-        out, new_emit, ci = _padded_body(world, block_p, *shards,
+        out, new_emit, ci = _padded_body(cm, block_p, *shards,
                                          cb=cb if chunks > 1 else None)
         meta = {"mode": "padded", "block": block_p, "counts_in": ci}
         if chunks > 1:
@@ -424,7 +447,7 @@ def exchange(payload: Dict[str, torch.Tensor], targets: torch.Tensor,
     # a pow2 round count, as in the JAX package
     rounds = _pow2(-(-max(max_pair, 1) // block))
     cap = _pow2(recv_max)
-    out, new_emit, ci = _compact_body(world, block, rounds, cap, *shards)
+    out, new_emit, ci = _compact_body(cm, block, rounds, cap, *shards)
     return _flat(out), new_emit.reshape(-1), cap, {
         "mode": "compact", "block": 0, "counts_in": ci}
 
@@ -453,12 +476,13 @@ def salted_exchange_targets(targets: torch.Tensor, emit: torch.Tensor,
     when its receive total exceeds ``warn_factor`` x the mean (computed in
     float32, as there); a hot destination's rows spread over ``salt``
     consecutive shards by ``fmix32(row index within the shard) % salt``.
-    Returns (salted targets int32 [W * cap], salted counts, raw counts),
-    the two ``[W, W]`` host count matrices fetched together."""
-    world = ctx.get_world_size()
-    t = targets.view(world, -1).to(torch.int32)
-    e = emit.view(world, -1)
-    raw = _count_matrix(t, e, world)
+    Returns (salted targets int32 [V * cap], salted counts, raw counts),
+    the two global ``[W, W]`` host count matrices fetched together."""
+    cm = ctx.comm
+    world = cm.world
+    t = targets.view(cm.shards, -1).to(torch.int32)
+    e = emit.view(cm.shards, -1)
+    raw = _count_matrix(cm, t, e)
     recv = raw.sum(0)
     total = recv.sum().clamp(min=1)
     hot = (recv.to(torch.float32) * float(world)
@@ -469,6 +493,6 @@ def salted_exchange_targets(targets: torch.Tensor, emit: torch.Tensor,
     safe = t.clamp(0, world - 1)
     spread = (safe + sub) % world
     t2 = torch.where(hot[safe.to(torch.int64)] & e, spread, safe)
-    salted = _count_matrix(t2, e, world)
+    salted = _count_matrix(cm, t2, e)
     host = torch.stack([salted, raw]).cpu().numpy()
     return t2.reshape(-1), host[0], host[1]

@@ -82,7 +82,7 @@ def test_shuffle_matches_cylon_tpu(request, world, route):
     td = tdist.shard.distribute(tt, tctx)
     ttargets = tdist._partition_targets_dist(world, [td._columns[0]])
     tcounts, _ = tshuffle.count_pair(ttargets, td.emit_mask(), ttargets,
-                                     td.emit_mask(), world)
+                                     td.emit_mask(), tctx)
     assert np.array_equal(jcounts, tcounts)
 
     # every shard, row by row

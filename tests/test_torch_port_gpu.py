@@ -19,6 +19,7 @@ from cylon_tpu_torch.ops import kernels as K
 from cylon_tpu_torch.ops import order as O
 from cylon_tpu_torch.ops import setops as SO
 from cylon_tpu_torch.parallel import shuffle as S
+from cylon_tpu_torch.parallel.comm import VirtualComm
 from cylon_tpu_torch.status import CylonError
 
 pytestmark = pytest.mark.gpu
@@ -79,7 +80,7 @@ def test_partition_past_the_bucket_limit_raises(cuda):
     world = K.MAX_BUCKETS
     t = torch.zeros(world, 4, dtype=torch.int32, device=cuda)
     with pytest.raises(CylonError, match="not yet ported"):
-        S._padded_partition(world, 1, {"x": t}, t, t == 0)
+        S._padded_partition(VirtualComm(world), 1, {"x": t}, t, t == 0)
 
 
 def _join_inputs(dev, rng, w, na, nb, hash_mode, two_keys):
@@ -1297,3 +1298,57 @@ def test_memory_pool_on_card(cuda):
     assert pool.comm_budget_bytes() == int((total - used1) * 0.25)
     assert pool.peak_bytes() >= used1
     del x
+
+
+def _virtual_exports(device, cases) -> dict:
+    """The virtual world's export of each multi-process case at W = 4 on
+    ``device`` (the card's default routes: K1-K4 launch)."""
+    import torch_port_mp_child as child
+
+    vctx = ct.CylonContext.InitDistributed(
+        ct.VirtualWorldConfig(child.WORLD), device=device)
+    return {case: dict(child.export(t, vctx), **extra)
+            for case in cases
+            for t, extra in [child.run_case(ct, vctx, case)]}
+
+
+def test_one_rank_nccl_group_on_card(cuda):
+    """A process group of one process and four shards on NCCL (the
+    default backend on CUDA, its device cuda:rank) runs every
+    multi-process case as the virtual world does, shard for shard, bit
+    for bit; K1-K4 launch; finalize destroys the group."""
+    import torch.distributed as dist
+    import torch_port_mp_child as child
+
+    exp = _virtual_exports(cuda, child.CASES)
+    pctx = ct.CylonContext.InitDistributed(ct.MultiHostConfig(
+        num_processes=1, shards_per_process=child.WORLD))
+    try:
+        assert pctx.comm.backend == "nccl" and pctx.device.index == 0
+        K.reset_launches()
+        for case in child.CASES:
+            t, extra = child.run_case(ct, pctx, case)
+            child.assert_same_export([dict(child.export(t, pctx), **extra)],
+                                     exp[case])
+        missing = [k for k in ("partition_hist", "partition_scatter",
+                               "join_plan_stream", "join_expand_stream")
+                   if K.LAUNCHES[k] == 0]
+        assert not missing, missing
+    finally:
+        pctx.finalize()
+    assert not dist.is_initialized()
+
+
+def test_two_gloo_processes_share_the_card(cuda, tmp_path):
+    """Two processes of two shards each on cuda:0 (gloo, staged through
+    host memory: NCCL refuses two ranks on one device) equal the virtual
+    world shard for shard on every multi-process case. The processes
+    load the kernels built here."""
+    import torch_port_mp_child as child
+
+    K.build()
+    procs = child.start(tmp_path, 2, 2, "ops", "default", "cuda:0")
+    exp = _virtual_exports(cuda, child.CASES)
+    parts = child.finish(tmp_path, procs, timeout=600)
+    for case in child.CASES:
+        child.assert_same_export([p[case] for p in parts], exp[case])

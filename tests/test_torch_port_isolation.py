@@ -1,6 +1,7 @@
-"""cylon_tpu_torch stands alone: it imports neither jax nor cylon_tpu,
-and its entry points refuse to run on a CUDA-less machine unless asked
-for the CPU."""
+"""cylon_tpu_torch stands alone: it imports neither jax nor cylon_tpu
+(nor does chip_smoke.py, nor the process-group children of the CPU
+tests, tests/torch_port_mp_child.py), and its entry points refuse to
+run on a CUDA-less machine unless asked for the CPU."""
 import ast
 import os
 import subprocess
@@ -12,6 +13,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "cylon_tpu_torch"
+CHILD = ROOT / "tests" / "torch_port_mp_child.py"
 FORBIDDEN = ("jax", "jaxlib", "cylon_tpu")
 
 
@@ -27,19 +29,21 @@ def test_import_leaves_jax_and_cylon_tpu_out():
             " cylon_tpu_torch.ops.setops, cylon_tpu_torch.ops.groupby,"
             " cylon_tpu_torch.ops.aggregates, cylon_tpu_torch.data.strings,"
             " cylon_tpu_torch.io.parquet, cylon_tpu_torch.native,"
-            " cylon_tpu_torch.memory, cylon_tpu_torch.telemetry.knobs;"
+            " cylon_tpu_torch.memory, cylon_tpu_torch.telemetry.knobs,"
+            " torch_port_mp_child;"
             " bad = [m for m in sys.modules"
             " if m.split('.')[0] in ('jax', 'jaxlib', 'cylon_tpu')];"
             " print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        [str(ROOT), str(CHILD.parent)]
+        + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     r = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
 
 
 @pytest.mark.parametrize("path", sorted(
-    [p for p in PACKAGE.rglob("*.py")] + [ROOT / "chip_smoke.py"]),
+    [p for p in PACKAGE.rglob("*.py")] + [ROOT / "chip_smoke.py", CHILD]),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_import_in_source(path):
     tree = ast.parse(path.read_text())

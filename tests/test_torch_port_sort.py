@@ -165,7 +165,7 @@ def _splitters_pair(jctx, tctx, jt, tt, by, asc):
     tl = torder.sort_keys([td._columns[i] for i in idx], asc)
     js = jdist._range_splitters(jctx, [jshard.pin(l, jctx) for l in jl],
                                 jshard.pin(jd.emit_mask(), jctx))
-    ts = tdist._range_splitters(tctx.get_world_size(), tl, td.emit_mask())
+    ts = tdist._range_splitters(tctx, tl, td.emit_mask())
     return ([tuple(int(x) for x in t) for t in js],
             [tuple(int(x) for x in t) for t in ts])
 
