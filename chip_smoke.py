@@ -7,7 +7,7 @@
 
 (``--mp-child RANK`` is how phase 22 starts its two processes.)
 
-Four paths, each at the size of the repo's own benchmark:
+The paths, each at the size of the repo's own benchmark:
 
 * the join: bench.py ``bench_dist_join``, two tables of N = 16,777,216
   rows (``--rows``), an int32 key uniform in [0, N) and one float32
@@ -35,6 +35,10 @@ Four paths, each at the size of the repo's own benchmark:
   a float32 payload; ``Table.join`` at world 1 and ``distributed_join(...,
   force_exchange=True)`` at world 4: K3 in hash mode with 4 verify
   lanes, the key words riding K4 as payload lanes, K1/K2 at world 4);
+* the planned query path: phase 23 runs the groupby path's join ->
+  groupby through ``plan.scan(...).join(...).groupby(...).execute()``
+  (K1-K4), its EXPLAIN ANALYZE, and every plan node kind at small size
+  (K5/K6 through a planned set op);
 * the exchange variants: the ring join on the join's tables (world 4,
   ``comm="ring"``: K3/K4 at every ring step); bench.py
   ``bench_adaptive_join``'s broadcast join (B = 4,194,304 probe rows,
@@ -137,7 +141,31 @@ Phases, in order (any failure exits non-zero; nothing is caught):
      one-process group): K1-K4 launch, the shards equal the virtual
      world's, and 5 walls in turns with phase 2's join on the virtual
      world.
-Phases 10-12 each record the median of 5 steady runs after one warm-up.
+ 23. the planned query path (cylon_tpu_torch.plan), bench.py
+     ``bench_plan_pipeline``'s planned form: 23a, ``plan.scan(left).join(
+     plan.scan(right), on="k").groupby("lt-0", ["rt-4"], ["sum"])
+     .execute()`` on phase 10's tables (2 x P rows, world 4), the launch
+     counters set to 0 just before and read just after (K1-K4 must
+     launch); its groups equal phase 10's eager form's and a numpy
+     groupby of the numpy join (keys exact, sums within tolerance); its
+     exchanges, counted from ``telemetry.collect_phases`` as
+     (``plan.shuffle``, ``shuffle.exchange``) labels, fewer than the eager
+     form's physical exchanges and equal to the reference's CPU count of
+     the same plan (1, 1); the median of 5 steady walls of each form after
+     one warm-up, in turns. 23b, one ``execute(analyze=True)`` of the same
+     query at full size: the PlanReport (``to_dict()`` and ``render()``
+     printed), each executed node's rows equal to the numpy counts (scans
+     and the projection P, the join sum_k cnt_l(k) * cnt_r(k), the groups),
+     its ``shuffle_count`` equal to 23a's, its memory gauges sampled and
+     every span carrying ``hbm_delta``. 23c, every node kind at 3,000 rows
+     a side, world 4 and world 1: scan, filter, project, an explicit
+     shuffle and a salted one, the shuffle join, a broadcast join forced
+     by ``CYLON_JOIN_ALGORITHM=broadcast`` (no K1/K2 launch, no exchange),
+     a join of co-partitioned inputs with both exchanges elided, groupby,
+     union/subtract/intersect (K5 and K6 launch on every world-1 set op)
+     and sort, each equal to the port's eager composition and to numpy.
+Phases 10-12 and 23a each record the median of 5 steady runs after one
+warm-up.
 Tolerances: float sums 1e-5 * sum |x| of the group (+1e-30), float64
 means 1e-12 * sum |x| / count; everything else exact.
 
@@ -338,10 +366,12 @@ def profile_once(fn) -> dict:
         return v if v is not None else getattr(e, "self_cuda_time_total", 0)
 
     # device-side events only (kernels, copies, sets): a CPU op's device
-    # time repeats the time of the kernels it launched
+    # time repeats the time of the kernels it launched, and the spans'
+    # ``cylon:`` ranges (telemetry) span the kernels they enclose
     events = [(e.key, dev_us(e) / 1e3, e.count)
               for e in prof.key_averages()
-              if str(getattr(e, "device_type", "")).endswith("CUDA")]
+              if str(getattr(e, "device_type", "")).endswith("CUDA")
+              and not e.key.startswith("cylon:")]
     busy = sum(ms for _k, ms, _c in events)
     top = sorted((x for x in events if x[1] > 0), key=lambda x: -x[1])[:12]
     # not clamped: a negative share would mean double-counted events
@@ -2111,6 +2141,324 @@ def small_variants_phase(ct, K, D, S) -> dict:
     return out
 
 
+# phase 23a: tests/test_torch_port_plan.py's same_keys case holds the
+# port's (plan.shuffle, shuffle.exchange) counts of this plan equal to
+# cylon_tpu's on the CPU, and test_known_shuffle_counts pins them there
+REFERENCE_PLANNED_COUNTS = (1, 1)
+PIPELINE_KERNELS = ("partition_hist", "partition_scatter",
+                    "join_plan_stream", "join_expand_stream")
+
+
+def exchange_counts(cp) -> tuple:
+    """(plan-level exchange stages, physical exchanges) of a
+    collect_phases run."""
+    return cp.count("plan.shuffle"), cp.count("shuffle.exchange")
+
+
+def pipeline_arrays(n: int):
+    """bench.py bench_plan_pipeline's tables (phase 10's generator)."""
+    rng = np.random.default_rng(9)
+    lk = rng.integers(0, n // 4, n).astype(np.int32)
+    lv = rng.normal(size=n).astype(np.float32)
+    lz = rng.integers(0, 50, n).astype(np.int32)
+    rk = rng.integers(0, n // 4, n).astype(np.int32)
+    rw = rng.normal(size=n).astype(np.float32)
+    return lk, lv, lz, rk, rw
+
+
+def join_groupby_oracle(lk, rk, rw, m: int):
+    """numpy groupby of the numpy join: (group keys, sums, sum |x|, join
+    rows)."""
+    cl = np.bincount(lk, minlength=m).astype(np.float64)
+    cr = np.bincount(rk, minlength=m)
+    keys = np.flatnonzero((cl > 0) & (cr > 0))
+    ref = (cl * np.bincount(rk, weights=rw.astype(np.float64),
+                            minlength=m))[keys]
+    scale = (cl * np.bincount(rk, weights=np.abs(rw).astype(np.float64),
+                              minlength=m))[keys]
+    return keys, ref, scale, int((cl * cr).sum())
+
+
+def check_groups(out, keys, ref, scale, what: str) -> float:
+    """A (key, sum) result against the oracle: keys exact, sums within
+    tolerance; returns the worst error over its bound."""
+    (gk, gkv), (gs, gsv) = live_columns(out)
+    assert gkv.all() and gsv.all(), what
+    order = np.argsort(gk, kind="stable")
+    assert np.array_equal(gk[order], keys), f"{what}: group keys"
+    return check_sums(gs[order], ref, scale, f"{what} sums")
+
+
+def plan_pipeline_phase(ct, K, D, dctx, n: int) -> dict:
+    """Phase 23a: bench.py bench_plan_pipeline's planned form,
+    ``plan.scan(left).join(plan.scan(right), on="k").groupby("lt-0",
+    ["rt-4"], ["sum"]).execute()`` at world 4, in turns with phase 10's
+    eager form on the same tables."""
+    lk, lv, lz, rk, rw = pipeline_arrays(n)
+    left = ct.Table.from_pydict(dctx, {"k": lk, "v": lv, "z": lz})
+    right = ct.Table.from_pydict(dctx, {"k": rk, "w": rw})
+    agg = ct.AggregationOp.SUM
+
+    def eager():
+        j = D.distributed_join(left, right, ct.JoinConfig(
+            ct.JoinType.INNER, [0], [0]))
+        return D.distributed_groupby(j, [0], [4], [agg])
+
+    def query():
+        return ct.plan.scan(left).join(ct.plan.scan(right), on="k") \
+            .groupby("lt-0", ["rt-4"], ["sum"])
+
+    def planned():
+        return query().execute()
+
+    keys, ref, scale, join_rows = join_groupby_oracle(lk, rk, rw, n // 4)
+    sync()
+    with ct.telemetry.collect_phases() as cpe:
+        e_out = eager()
+        sync()
+    eager_counts = exchange_counts(cpe)
+    sync()
+    K.reset_launches()
+    with ct.telemetry.collect_phases() as cpp:
+        t0 = time.perf_counter()
+        p_out = planned()
+        sync()
+        first = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    missing = [k for k in PIPELINE_KERNELS if launches[k] == 0]
+    assert not missing, f"planned pipeline: not launched: {missing}"
+    planned_counts = exchange_counts(cpp)
+    assert planned_counts[1] < eager_counts[1], (planned_counts,
+                                                 eager_counts)
+    assert planned_counts == REFERENCE_PLANNED_COUNTS, planned_counts
+    worst_e = check_groups(e_out, keys, ref, scale, "eager pipeline")
+    worst_p = check_groups(p_out, keys, ref, scale, "planned pipeline")
+    del e_out, p_out
+    walls = in_turns({"eager": eager, "planned": planned})
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    prof = {k: profile_once(f) for k, f in (("eager", eager),
+                                            ("planned", planned))}
+    log(f"phase 23a planned pipeline (2 x {n} rows, world {WORLD}): "
+        f"launches {launches}; (plan.shuffle, shuffle.exchange) planned "
+        f"{planned_counts} == reference {REFERENCE_PLANNED_COUNTS}, eager "
+        f"{eager_counts}; {len(keys)} groups == numpy for both forms "
+        f"(worst error/bound eager {worst_e:.3e}, planned {worst_p:.3e}); "
+        f"first planned run {first:.4f} s; walls in turns (s) {walls}; "
+        f"median eager {med['eager']:.6f}, planned {med['planned']:.6f}, "
+        f"eager / planned {med['eager'] / med['planned']:.3f}")
+    for k, pr in prof.items():
+        log(f"  profile of one {k} run: wall {pr['wall_ms']:.3f} ms, device "
+            f"busy {pr['busy_ms']:.3f} ms (idle share "
+            f"{pr['idle_share']:.4f}); top device time:")
+        for name, ms, calls in pr["top"]:
+            log(f"    {ms:9.3f} ms  x{calls:<3d} {name}")
+    return {"rows": n, "launches": launches, "profile": prof,
+            "planned_counts": list(planned_counts),
+            "eager_counts": list(eager_counts), "groups": int(len(keys)),
+            "join_rows": join_rows, "walls": walls, "median_s": med,
+            "first_planned_wall_s": first,
+            "worst_sum_err_over_bound": {"eager": worst_e,
+                                         "planned": worst_p},
+            "tables": (left, right), "oracle": (keys, ref, scale)}
+
+
+def plan_report_phase(ct, n: int, pipe23: dict) -> dict:
+    """Phase 23b: one ``execute(analyze=True)`` of phase 23a's query at
+    full size: the PlanReport's rows per node against the numpy counts,
+    its shuffle_count against 23a's, the memory gauges sampled and every
+    span carrying ``hbm_delta``."""
+    left, right = pipe23.pop("tables")
+    keys, ref, scale = pipe23.pop("oracle")
+    q = ct.plan.scan(left).join(ct.plan.scan(right), on="k") \
+        .groupby("lt-0", ["rt-4"], ["sum"])
+    out = q.execute(analyze=True)
+    sync()
+    rep = q.last_report
+    check_groups(out, keys, ref, scale, "analyzed pipeline")
+    expect = {"groupby": len(keys), "join": pipe23["join_rows"],
+              "project": n, "scan": n}
+
+    def walk(m):
+        yield m
+        for c in m.children:
+            yield from walk(c)
+
+    rows = [(m.kind, m.rows) for m in walk(rep.root) if m.executed]
+    for kind, r in rows:
+        assert r == expect[kind], (kind, r, expect[kind])
+    assert rep.root.rows == out.row_count
+    assert rep.shuffle_count == pipe23["planned_counts"][0], \
+        (rep.shuffle_count, pipe23["planned_counts"])
+    assert rep.memory and rep.memory["hbm_live_bytes"] > 0, rep.memory
+    no_hbm = [s.name for s in rep.span.walk() if "hbm_delta" not in s.attrs]
+    assert not no_hbm, f"spans without hbm_delta: {no_hbm}"
+    d = rep.to_dict()
+    log(json.dumps({k: v for k, v in d.items() if k != "metrics"},
+                   default=str))
+    log(rep.render())
+    log(f"phase 23b EXPLAIN ANALYZE: node rows {rows} == numpy, "
+        f"shuffle_count {rep.shuffle_count}, {len(list(rep.span.walk()))} "
+        f"spans with hbm_delta, memory {rep.memory}")
+    return {"report": d, "node_rows": rows}
+
+
+def _rows_set(table) -> list:
+    return sorted(set(table_rows(table)), key=repr)
+
+
+def plan_nodes_phase(ct, K, D, lctx, dctx) -> dict:
+    """Phase 23c: every plan node kind at small size, world 4 and world
+    1, each against the port's eager composition and numpy: scan,
+    filter, project; an explicit shuffle, salted too; the shuffle join,
+    a forced broadcast join (CYLON_JOIN_ALGORITHM=broadcast) and a join
+    of co-partitioned inputs with its exchanges elided; groupby; union,
+    subtract, intersect (K5 and K6 launch at world 1); sort."""
+    P = ct.plan
+    rng = np.random.default_rng(23)
+    n = 3000
+    lk = rng.integers(0, 500, n).astype(np.int32)
+    lv = rng.normal(size=n).astype(np.float32)
+    lz = rng.integers(0, 50, n).astype(np.int32)
+    rk = rng.integers(0, 500, n).astype(np.int32)
+    rw = rng.normal(size=n).astype(np.float32)
+    rz = rng.integers(0, 50, n).astype(np.int32)
+    rpos = {}
+    for j, key in enumerate(rk.tolist()):
+        rpos.setdefault(key, []).append(j)
+    # the inner join's (k, v, z, k, w) rows
+    jrows = sorted(((int(lk[i]), float(lv[i]), int(lz[i]), int(rk[j]),
+                     float(rw[j])) for i in range(n)
+                    for j in rpos.get(int(lk[i]), ())), key=repr)
+    checked = {}
+    for world, ctx in ((WORLD, dctx), (1, lctx)):
+        left = ct.Table.from_pydict(ctx, {"k": lk, "v": lv, "z": lz})
+        right = ct.Table.from_pydict(ctx, {"k": rk, "w": rw})
+        done = []
+        # scan -> filter -> project
+        got = P.scan(left).filter(P.col("z") < 25).project(["k", "v"]) \
+            .execute()
+        eager = left.filter_mask(left._columns[2].data < 25).project([0, 1])
+        m = lz < 25
+        ref = sorted(((int(a), float(b)) for a, b in zip(lk[m], lv[m])),
+                     key=repr)
+        assert table_rows(got) == table_rows(eager) == ref, "filter/project"
+        done.append("scan/filter/project")
+        # explicit shuffle, then salted
+        lrows = sorted(((int(a), float(b), int(c))
+                        for a, b, c in zip(lk, lv, lz)), key=repr)
+        got = P.scan(left).shuffle("k").execute()
+        assert table_rows(got) == table_rows(D.shuffle(left, ["k"])) \
+            == lrows, "shuffle"
+        root, _st = P.scan(left).shuffle("k").optimized()
+        sh = next(x for x in P.ir.walk(root) if x.kind == "shuffle")
+        sh.salted = True
+        with ct.telemetry.collect_phases() as cp:
+            got = P.executor.execute(root, ctx)
+        assert table_rows(got) == table_rows(
+            D.shuffle(left, ["k"], salted=True)) == lrows, "salted shuffle"
+        if world > 1:
+            sp = [x for x in cp.spans if x.name == "plan.shuffle.explicit"]
+            assert sp and sp[0].attrs.get("salted") is True, cp.labels
+        done.append("shuffle/salted")
+        # the shuffle join, a forced broadcast join, co-partitioned inputs
+        for algo in ("shuffle", "broadcast"):
+            os.environ["CYLON_JOIN_ALGORITHM"] = algo
+            try:
+                K.reset_launches()
+                with ct.telemetry.collect_phases() as cp:
+                    got = P.scan(left).join(P.scan(right), on="k").execute()
+                launches = dict(K.LAUNCHES)
+            finally:
+                os.environ.pop("CYLON_JOIN_ALGORITHM", None)
+            assert table_rows(got) == table_rows(left.distributed_join(
+                right, "inner", on=["k"])) == jrows, f"{algo} join"
+            assert launches["join_plan_stream"] > 0 \
+                and launches["join_expand_stream"] > 0, (algo, launches)
+            jsp = [x for x in cp.spans if x.name.startswith(
+                ("plan.join", "plan.shuffle.join"))]
+            expect_algo = "local" if world == 1 else algo
+            assert jsp[0].attrs["join_algorithm"] == expect_algo, \
+                (algo, jsp[0].attrs)
+            if world > 1 and algo == "broadcast":
+                assert launches["partition_hist"] == 0 \
+                    and cp.count("shuffle.exchange") == 0, (launches,
+                                                            cp.labels)
+        if world > 1:
+            lp = ct.distribute_by_key(left, ctx, ["k"])
+            rp = ct.distribute_by_key(right, ctx, ["k"])
+            with ct.telemetry.collect_phases() as cp:
+                got = P.scan(lp).join(P.scan(rp), on="k").execute()
+            assert exchange_counts(cp) == (0, 0), cp.labels
+            assert table_rows(got) == jrows, "co-partitioned join"
+        done.append("join shuffle/broadcast" + (
+            "/co-partitioned" if world > 1 else ""))
+        # groupby
+        got = P.scan(left).groupby("k", ["v", "z"], ["sum", "count"]) \
+            .execute()
+        eager = left.groupby(0, [1, 2], ["sum", "count"])
+        (gk, _), (gs, _), (gc, _) = live_columns(got)
+        (ek, _), (es, _), (ec, _) = live_columns(eager)
+        o, oe = np.argsort(gk), np.argsort(ek)
+        keys = np.unique(lk)
+        assert np.array_equal(gk[o], keys) and np.array_equal(ek[oe], keys)
+        assert np.array_equal(gc[o], np.bincount(lk)[keys]) \
+            and np.array_equal(ec[oe], gc[o]), "groupby counts"
+        sums = np.bincount(lk, weights=lv.astype(np.float64))[keys]
+        scale = np.bincount(lk, weights=np.abs(lv).astype(np.float64))[keys]
+        check_sums(gs[o], sums, scale, "planned groupby")
+        check_sums(es[oe], sums, scale, "eager groupby")
+        done.append("groupby")
+        # set ops on (k, z) rows
+        a = ct.Table.from_pydict(ctx, {"k": lk % 64, "z": lz % 8})
+        b = ct.Table.from_pydict(ctx, {"k": rk % 64, "z": rz % 8})
+        sa = set(zip((lk % 64).tolist(), (lz % 8).tolist()))
+        sb = set(zip((rk % 64).tolist(), (rz % 8).tolist()))
+        ref_sets = {"union": sa | sb, "subtract": sa - sb,
+                    "intersect": sa & sb}
+        for op, exp in ref_sets.items():
+            K.reset_launches()
+            got = getattr(P.scan(a), op)(P.scan(b)).execute()
+            sync()
+            launches = dict(K.LAUNCHES)
+            eager = getattr(a, op if world == 1 else f"distributed_{op}")(b)
+            rows = table_rows(got)
+            assert rows == table_rows(eager) == sorted(exp, key=repr), op
+            if world == 1:
+                assert launches["setop_stream"] > 0 \
+                    and launches["stream_compact"] > 0, (op, launches)
+        done.append("union/subtract/intersect")
+        # sort
+        got = P.scan(left).sort("k").execute()
+        eager = D.distributed_sort(left, "k") if world > 1 \
+            else left.sort("k")
+        gkeys = live_columns(got)[0][0]
+        assert np.array_equal(gkeys, np.sort(lk)) and np.array_equal(
+            gkeys, live_columns(eager)[0][0]), "sort order"
+        assert table_rows(got) == lrows, "sort rows"
+        done.append("sort")
+        checked[world] = done
+    log(f"phase 23c plan node kinds ({n} rows a side): world {WORLD} "
+        f"{checked[WORLD]}; world 1 {checked[1]} (K5/K6 launched on each "
+        f"world-1 set op); each equal to the eager composition and numpy")
+    return {"rows": n, "checked": {str(k): v for k, v in checked.items()}}
+
+
+class PhaseClock:
+    """Seconds since the script started at each phase's start."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.marks = []
+
+    def mark(self, phase: str) -> None:
+        self.marks.append((phase, round(time.perf_counter() - self.t0, 2)))
+
+    def spans(self) -> dict:
+        """Seconds each phase took (to the next mark)."""
+        ends = [t for _p, t in self.marks[1:]]
+        return {p: round(e - t, 2) for (p, t), e in zip(self.marks, ends)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=1 << 24,
@@ -2148,6 +2496,8 @@ def main() -> int:
     from cylon_tpu_torch.parallel import dist_ops as D
     from cylon_tpu_torch.parallel import shuffle as S
 
+    clock = PhaseClock()
+    clock.mark("1")
     card = card_line()
     log(card)
     nvcc = subprocess.run([K.nvcc_path(), "--version"], capture_output=True,
@@ -2166,6 +2516,7 @@ def main() -> int:
     expect_rows = numpy_join_count(lk, rk, n)
     sync()
 
+    clock.mark("2")
     # phase 2: the join's main path on the kernel route, counters 0 -> read
     assert all(getattr(m, v) is None for m, v in route_switches())
     K.reset_launches()
@@ -2187,6 +2538,7 @@ def main() -> int:
     log(f"  rows out {rows_k} == numpy count {expect_rows}; "
         f"capacity {out_k.capacity}; first run {wall_k:.4f} s")
 
+    clock.mark("3")
     # phase 3: the plain route, same join
     def dist_join():
         return left.distributed_join(right, "inner", on=["k"],
@@ -2211,6 +2563,7 @@ def main() -> int:
     for name, ms, calls in prof["top"]:
         log(f"    {ms:9.3f} ms  x{calls:<3d} {name}")
 
+    clock.mark("4")
     # phase 4: the world-1 local join, kernel route vs plain route
     lctx = ct.CylonContext.Init()
     l1, r1, _h = make_tables(ct, lctx, n, args.seed)
@@ -2228,10 +2581,14 @@ def main() -> int:
     del l1, r1, left, right
 
     # phases 5-7: the set-op path
+    clock.mark("5")
     setop = setop_main_path(ct, K, args.setop_rows)
+    clock.mark("6")
     dist_union = dist_union_path(ct, K, D, SO, dctx, args.setop_rows)
+    clock.mark("7")
     small_setop_check(ct, lctx, dctx, args.seed + 2)
 
+    clock.mark("8")
     # phase 8: each kernel at the shapes its path gave it
     calls = dict(rec.calls, **setop.pop("calls"))
     results = check_kernels(K, calls)
@@ -2258,6 +2615,7 @@ def main() -> int:
     bad = [k["name"] for k in kernels if k["max_abs_err"] != 0]
     assert not bad, f"kernels disagree with their plain versions: {bad}"
 
+    clock.mark("9")
     # phase 9: a small join against an independent numpy join
     small = 5003
     sl, sr, (slk, slv, srk, srv) = make_tables(ct, dctx, small,
@@ -2275,17 +2633,24 @@ def main() -> int:
 
     # phases 10-13: the compact exchange route, groupby and sort
     del sl, sr, so
+    clock.mark("10")
     pipe = pipeline_phase(ct, K, D, S, dctx, args.pipeline_rows)
+    clock.mark("11")
     groupby = groupby_phase(ct, K, lctx, dctx, args.groupby_rows)
+    clock.mark("12")
     sort = sort_phase(ct, K, D, lctx, dctx, args.groupby_rows)
+    clock.mark("13")
     small_inputs = small_inputs_phase(ct, K, D, S)
 
     # phases 14-16: string columns; then K3 (hash mode) and K4 at phase
     # 14's shapes against their plain versions
+    clock.mark("14")
     string_join = string_join_phase(ct, K, lctx, args.string_rows, 1,
                                     (10, 11))
+    clock.mark("15")
     dist_string_join = string_join_phase(ct, K, dctx, args.string_rows,
                                          WORLD, (20, 21))
+    clock.mark("16")
     string_small = string_small_phase(ct, K, D, lctx, dctx)
     calls = string_join.pop("calls")
     dist_string_join.pop("calls")
@@ -2304,16 +2669,22 @@ def main() -> int:
 
     # phases 17-21: the ring and broadcast joins, the salted shuffle, the
     # chunked exchange
+    clock.mark("17")
     ring = ring_phase(ct, K, D, dctx, n, args.seed)
+    clock.mark("18")
     bcast = broadcast_phase(ct, K, D, S, dctx, args.bcast_rows)
+    clock.mark("19")
     salted = salted_phase(ct, K, D, S, dctx, args.bcast_rows)
+    clock.mark("20")
     chunked = chunked_phase(ct, K, S, dctx, args.shuffle_rows)
+    clock.mark("21")
     small_variants = small_variants_phase(ct, K, D, S)
     log(f"chunk counts of the padded exchanges: phase 2 "
         f"{chunks2['chunks']}, phase 10 {pipe['chunks']['chunks']}, phase "
         f"15 {dist_string_join['chunks']['chunks']}, phase 20 "
         f"{chunked['chunks']}")
 
+    clock.mark("22")
     # phase 22: the process-group backend on phase 2's join, held against
     # the virtual world's output of it (computed here, so that phases
     # 3-21 run on the same card state as before phase 22 existed)
@@ -2331,7 +2702,18 @@ def main() -> int:
                                expect_rows)
     del left_v, right_v
 
+    # phase 23: the planned query path (plan/), in turns with phase 10's
+    # eager form, its EXPLAIN ANALYZE, and every node kind at small size
+    clock.mark("23a")
+    plan23 = plan_pipeline_phase(ct, K, D, dctx, args.pipeline_rows)
+    clock.mark("23b")
+    report23 = plan_report_phase(ct, args.pipeline_rows, plan23)
+    clock.mark("23c")
+    nodes23 = plan_nodes_phase(ct, K, D, lctx, dctx)
+
+    clock.mark("end")
     summary = {"kernels": kernels}
+    log(f"seconds a phase: {clock.spans()}; total {clock.marks[-1][1]} s")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -2354,7 +2736,10 @@ def main() -> int:
                            small_variants=small_variants,
                            shard_digests=digests2,
                            multiprocess=multiprocess,
-                           one_rank_nccl=one_rank_nccl), f, indent=1,
+                           one_rank_nccl=one_rank_nccl,
+                           plan_pipeline=plan23, plan_report=report23,
+                           plan_nodes=nodes23,
+                           phase_seconds=clock.spans()), f, indent=1,
                       default=str)
     log(json.dumps(summary))
     log(card)

@@ -42,6 +42,15 @@ salted=True)`` spreads hot keys over several shards. The context's
 ``memory_pool`` (memory.py) bounds the exchange buffers and picks the
 blocked local join when device memory runs short.
 
+The planned query path (``plan``): ``plan.scan(t)`` builds a lazy
+pipeline (project, filter, shuffle, join, groupby, set ops, sort); the
+optimizer elides exchanges whose input is already hash-placed, localizes
+a groupby on its join's partitioning, prunes unused columns and pushes
+filters below exchanges; ``execute(analyze=True)`` runs it and keeps an
+EXPLAIN ANALYZE report on ``last_report``. Every node runs in a
+``telemetry`` span, its output in the telemetry ledger, under the
+``resilience`` layer's deadline, admission control and retries.
+
 Entry points run on CUDA unless the context is created with
 ``device="cpu"``.
 
@@ -52,20 +61,32 @@ Entry points run on CUDA unless the context is created with
     out = left.distributed_join(right, "inner", on=["k"])
     rows = left.distributed_union(left2)  # left2: left's schema
     sums = out.groupby(0, [1], ["sum"])
+    planned = (ct.plan.scan(left).join(ct.plan.scan(right), on="k")
+               .groupby("lt-0", ["rt-3"], ["sum"]).execute())
 """
 from .config import (CommConfig, CommType, CSVReadOptions, CSVWriteOptions,
                      LocalConfig, MPIConfig, MultiHostConfig,
                      VirtualWorldConfig)
 from .context import CylonContext
+from . import telemetry
 from .data.column import Column
 from .data.table import Table, concat_tables
 from .io.csv import read_csv, read_csv_per_rank, write_csv
 from .io.parquet import read_parquet, read_parquet_per_rank, write_parquet
 from .ops.groupby import AggregationOp
 from .ops.join import JoinAlgorithm, JoinConfig, JoinType
-from .parallel.dist_ops import (distributed_groupby, distributed_sort,
-                                hash_partition, repartition)
-from .status import Code, CylonError, Status
+from .parallel.dist_ops import (distributed_groupby, distributed_join,
+                                distributed_join_ring, distributed_set_op,
+                                distributed_sort, hash_partition,
+                                repartition, shuffle)
+from .parallel.shard import distribute_by_key
+from . import plan
+from .plan import LazyTable, col
+from . import resilience
+from . import table_api
+from .status import (Code, CylonDataError, CylonError, CylonPlanError,
+                     CylonResourceExhausted, CylonTimeoutError,
+                     CylonTransientError, Status)
 
 __all__ = [
     "CommConfig", "CommType", "CSVReadOptions", "CSVWriteOptions",
@@ -75,5 +96,9 @@ __all__ = [
     "JoinAlgorithm", "JoinConfig", "JoinType", "Code", "CylonError",
     "Status", "AggregationOp", "distributed_groupby", "distributed_sort",
     "hash_partition", "repartition", "read_parquet", "read_parquet_per_rank",
-    "write_parquet",
+    "write_parquet", "CylonDataError", "CylonPlanError",
+    "CylonResourceExhausted", "CylonTimeoutError", "CylonTransientError",
+    "LazyTable", "col", "plan", "resilience", "table_api", "telemetry",
+    "distribute_by_key", "distributed_join", "distributed_join_ring",
+    "distributed_set_op", "shuffle",
 ]

@@ -20,7 +20,7 @@ port:
 * ``get_next_sequence`` survives as the op-sequence counter;
 * the context owns one ``MemoryPool`` (memory.py), as in the JAX
   package: the routing guards read its budget, agreed across processes
-  (``comm_budget_bytes``).
+  (``comm_budget_bytes``), and registers it with the telemetry layer.
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ import torch
 
 from .config import (CommConfig, CommType, LocalConfig, MultiHostConfig,
                      VirtualWorldConfig)
+from . import telemetry as _telemetry
 from .memory import MemoryPool
 from .parallel.comm import ProcessGroupComm, VirtualComm
 from .status import Code, CylonError
@@ -143,6 +144,9 @@ class CylonContext:
             self.comm = VirtualComm(config.world_size if self.distributed
                                     and ct == CommType.VIRTUAL else 1)
         self.memory_pool = MemoryPool(self.device)
+        # the span layer's per-span memory attrs and the flight
+        # recorder's watermarks read the last context's pool
+        _telemetry.set_memory_pool(self.memory_pool)
 
     # -- reference API (cylon_context.hpp) --
 

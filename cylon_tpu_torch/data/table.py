@@ -36,6 +36,8 @@ from ..ops import join as _join
 from ..ops import order as _order
 from ..ops import setops as _setops
 from ..status import Code, CylonError
+from ..telemetry import ledger as _ledger
+from ..telemetry import phase as _phase
 from ..util import capacity as _capacity
 from ..util import pow2 as _pow2
 from .column import (Column, align_string_columns, as_varbytes,
@@ -124,6 +126,41 @@ class Table:
     def capacity(self) -> int:
         """Physical (padded) row slots."""
         return len(self._columns[0]) if self._columns else 0
+
+    def buffers(self) -> List[torch.Tensor]:
+        """Every device tensor this table references (row mask, data,
+        validity, varbytes words and starts): the enumeration behind
+        ``nbytes`` and the telemetry ledger's identity set, so zero-copy
+        views (project and filter outputs share their input's columns)
+        do not count their buffers twice."""
+        out = [] if self._row_mask is None else [self._row_mask]
+        for c in self._columns:
+            out.append(c.data)
+            if c.validity is not None:
+                out.append(c.validity)
+            if c.is_varbytes:
+                out.append(c.varbytes.words)
+                out.append(c.varbytes.starts)
+        return out
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes this table's buffers span: shape x itemsize on
+        the host, no device sync."""
+        return sum(int(a.element_size()) * int(a.numel())
+                   for a in self.buffers())
+
+    def clear(self) -> None:
+        """Drop the columns and retire the table's ledger entry.
+        Idempotent: a second call is a no-op, never a second ledger
+        event."""
+        if getattr(self, "_cleared", False):
+            return
+        self._cleared = True
+        _ledger.release(self)
+        self._columns = []
+        self._row_mask = None
+        self._row_count_cache = None
 
     def emit_mask(self) -> torch.Tensor:
         if self._row_mask is None:
@@ -882,6 +919,7 @@ def _join_once(left: Table, right: Table, config: _join.JoinConfig
     ldat, lval, lslots = lane_payload(left._columns)
     rdat, rval, rslots = lane_payload(right._columns, skip=alias)
     ldat, lval, rdat, rval = (_rows(x) for x in (ldat, lval, rdat, rval))
+    seq = left._ctx.get_next_sequence()
 
     # route: the sort-stream path for one 4-byte key, the hash-stream
     # path (JoinAlgorithm.HASH) for multi-column/wide keys, FULL_OUTER as
@@ -914,10 +952,11 @@ def _join_once(left: Table, right: Table, config: _join.JoinConfig
     res = None
     if use_stream or use_hash:
         a_desc, b_desc = _join.plan_lane_descs(ldat, lval, rdat, rval, jt)
-        counts, a_streams, b_streams = _join.plan_program_stream(
-            lbits, lkv, lemit, rbits, rkv, remit, ldat, lval, rdat, rval,
-            jt, a_desc=a_desc, b_desc=b_desc, hash_mode=use_hash)
-        host = counts[0].tolist()
+        with _phase("join.plan", seq):
+            counts, a_streams, b_streams = _join.plan_program_stream(
+                lbits, lkv, lemit, rbits, rkv, remit, ldat, lval, rdat,
+                rval, jt, a_desc=a_desc, b_desc=b_desc, hash_mode=use_hash)
+            host = counts[0].tolist()
         if not (use_hash and host[3] > 0):
             if host[0] < 0:
                 raise CylonError(Code.ExecutionError,
@@ -925,21 +964,24 @@ def _join_once(left: Table, right: Table, config: _join.JoinConfig
                                  "repartition over more shards")
             br = _join.stream_block_rows(left.capacity, right.capacity)
             cap_e = _join.stream_expand_capacity(host[0], br)
-            res = _join.materialize_program_stream(
-                counts, a_streams, b_streams, ldat, lval, rdat, rval, jt,
-                cap_e, a_desc=a_desc, b_desc=b_desc)
+            with _phase("join.materialize", seq):
+                res = _join.materialize_program_stream(
+                    counts, a_streams, b_streams, ldat, lval, rdat, rval,
+                    jt, cap_e, a_desc=a_desc, b_desc=b_desc)
         # else: a 64-bit hash collision: the exact plan route redoes it
     if res is None:
-        counts2, lo, m, bperm, un_mask = _join.join_plan_keys(
-            lbits, lkv, _join._vm(lemit, lkv), rbits, rkv,
-            _join._vm(remit, rkv), jt)
-        n_primary, n_un = counts2[0].tolist()
+        with _phase("join.plan", seq):
+            counts2, lo, m, bperm, un_mask = _join.join_plan_keys(
+                lbits, lkv, _join._vm(lemit, lkv), rbits, rkv,
+                _join._vm(remit, rkv), jt)
+            n_primary, n_un = counts2[0].tolist()
         cap_p = _capacity(n_primary)
         cap_u = _capacity(n_un) if jt == _join.JoinType.FULL_OUTER else 0
         aemit = remit if jt == _join.JoinType.RIGHT else lemit
-        res = _join.materialize_program(
-            lo, m, bperm, un_mask, aemit, ldat, lval, rdat, rval, jt,
-            cap_p, cap_u)
+        with _phase("join.materialize", seq):
+            res = _join.materialize_program(
+                lo, m, bperm, un_mask, aemit, ldat, lval, rdat, rval, jt,
+                cap_p, cap_u)
     # drop the one-shard batch dimension
     lod, lov, rod, rov = ([x[0] for x in part] for part in res[:4])
     emit, lidx, ridx = res[4][0], res[5][0], res[6][0]

@@ -216,6 +216,13 @@ def numpy_dtype(dt: torch.dtype) -> np.dtype:
     return _TORCH_TO_NP[dt]
 
 
+def np_name(dt: torch.dtype) -> str:
+    """The numpy name of a torch dtype ("int32", "float64", "bool", ...):
+    the spelling of the co-partitioning witness and of the plan layer's
+    type strings, the JAX package's own."""
+    return str(_TORCH_TO_NP[dt])
+
+
 def torch_dtype(dt) -> torch.dtype:
     """The torch dtype of a numpy dtype."""
     return _NP_TO_TORCH[np.dtype(dt)]

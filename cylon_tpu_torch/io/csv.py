@@ -16,6 +16,8 @@ from ..config import CSVReadOptions, CSVWriteOptions
 from ..context import CylonContext
 from ..data.column import Column
 from ..data.table import Table, concat_tables
+from ..resilience import inject as _inject
+from ..resilience import retry as _retry
 from ..status import Code, CylonDataError, CylonError
 
 
@@ -89,14 +91,21 @@ def _read_one(ctx: CylonContext, path: str, options: CSVReadOptions) -> Table:
     import pyarrow.csv as pacsv
 
     read_opts, parse_opts, convert_opts = _arrow_options(options)
-    try:
-        at = pacsv.read_csv(path, read_options=read_opts,
-                            parse_options=parse_opts,
-                            convert_options=convert_opts)
-    except OSError as e:
-        raise CylonError(Code.IOError, str(e))
-    except (pa.ArrowInvalid, pa.ArrowException, ValueError) as e:
-        raise CylonDataError(f"malformed CSV {path}: {e}") from e
+
+    def attempt():
+        # one arrival at the fault injector's ingest site per attempt;
+        # IOError and malformed bytes do not retry, transient failures do
+        _inject.fire("ingest", detail=f"csv {path}")
+        try:
+            return pacsv.read_csv(path, read_options=read_opts,
+                                  parse_options=parse_opts,
+                                  convert_options=convert_opts)
+        except OSError as e:
+            raise CylonError(Code.IOError, str(e))
+        except (pa.ArrowInvalid, pa.ArrowException, ValueError) as e:
+            raise CylonDataError(f"malformed CSV {path}: {e}") from e
+
+    at = _retry.run_retryable("ingest", attempt)
     cols = []
     for i, name in enumerate(at.column_names):
         arr = at.column(i).combine_chunks()

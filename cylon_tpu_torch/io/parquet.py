@@ -1,7 +1,8 @@
 """Parquet IO through pyarrow (counterpart of cylon_tpu.io.parquet;
 reference: io/arrow_io.cpp:64-113 and parquet.cpp). pyarrow is imported
-inside the functions. (The JAX package's fault injection and retry hooks
-around the reads are not ported yet.)"""
+inside the functions. Every file read is one arrival at the fault
+injector's ``ingest`` site and runs under the bounded retry policy
+(``run_retryable("ingest")``), as in the JAX package."""
 from __future__ import annotations
 
 from typing import Optional, Sequence, Union
@@ -9,21 +10,28 @@ from typing import Optional, Sequence, Union
 from ..config import ParquetOptions
 from ..context import CylonContext
 from ..data.table import Table, concat_tables
+from ..resilience import inject as _inject
+from ..resilience import retry as _retry
 from ..status import Code, CylonDataError, CylonError
 
 
 def _read_table(path: str):
     """One parquet file -> pyarrow table. A missing file or a permission
-    error is an IOError; malformed bytes a typed CylonDataError."""
+    error is an IOError; malformed bytes a typed CylonDataError (neither
+    retries); a transient failure retries under the bounded policy."""
     import pyarrow as pa
     import pyarrow.parquet as pq
 
-    try:
-        return pq.read_table(path)
-    except OSError as e:
-        raise CylonError(Code.IOError, str(e))
-    except (pa.ArrowInvalid, pa.ArrowException, ValueError) as e:
-        raise CylonDataError(f"malformed parquet {path}: {e}") from e
+    def attempt():
+        _inject.fire("ingest", detail=f"parquet {path}")
+        try:
+            return pq.read_table(path)
+        except OSError as e:
+            raise CylonError(Code.IOError, str(e))
+        except (pa.ArrowInvalid, pa.ArrowException, ValueError) as e:
+            raise CylonDataError(f"malformed parquet {path}: {e}") from e
+
+    return _retry.run_retryable("ingest", attempt)
 
 
 def read_parquet(ctx: CylonContext, path: Union[str, Sequence[str]],

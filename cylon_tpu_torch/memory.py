@@ -31,18 +31,24 @@ class MemoryPool:
         self.comm_fraction = comm_fraction
         # monotonic high-water mark over snapshot() observations
         self._peak_seen = 0
+        # the card's memory, read once (it does not change)
+        self._limit: Optional[int] = None
 
     def _stats(self) -> Optional[Tuple[int, int, int]]:
-        """(live, peak, limit) bytes from the allocator; None off CUDA."""
+        """(live, peak, limit) bytes from the allocator; None off CUDA.
+        Every span reads it twice (its memory attributes) and the
+        exchange on every call, so it reads only what it returns: the
+        allocator's nested stats (``memory_stats()`` flattens every stat
+        in Python) and the cached limit."""
         if self.device.type != "cuda":
             return None
-        # the nested form: memory_stats() flattens every stat in Python,
-        # and the exchange reads the pool on every call
+        if self._limit is None:
+            self._limit = int(torch.cuda.get_device_properties(
+                self.device).total_memory)
         s = torch.cuda.memory_stats_as_nested_dict(self.device)
         alloc = s.get("allocated_bytes", {}).get("all", {})
-        limit = torch.cuda.get_device_properties(self.device).total_memory
         return (int(alloc.get("current", 0)), int(alloc.get("peak", 0)),
-                int(limit))
+                self._limit)
 
     def snapshot(self) -> Tuple[int, int, int]:
         """``(bytes_in_use, peak_bytes, bytes_limit)``; zeros on the CPU."""

@@ -23,7 +23,10 @@ The sources build at first use with ``nvcc -gencode
 arch=compute_90a,code=sm_90a`` into shared libraries with a plain C
 interface under ``cylon_tpu_torch/_build/`` (named by the hash of the
 source and the shared headers, so an edited source rebuilds), loaded with
-ctypes.
+ctypes. The loader is memoized by ``telemetry.counted_cache``: each build
+or load of a library counts once in
+``cylon_kernel_factory_builds_total{factory="load_library"}``, and the
+fault injector's ``compile`` site fires there.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from ..status import Code, CylonError
+from ..telemetry.metrics import counted_cache
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
@@ -74,8 +78,6 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------------------
 # build and binding
 # ---------------------------------------------------------------------------
-
-_LIBS: Dict[str, ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -165,30 +167,30 @@ def build(names: Optional[Sequence[str]] = None) -> Dict[str, float]:
     return seconds
 
 
-def _lib(name: str) -> ctypes.CDLL:
-    lib = _LIBS.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        for fn, args in _SIGNATURES[name].items():
-            f = getattr(lib, fn)
-            f.argtypes = args
-            f.restype = ctypes.c_int
-        lib.kernel_error_string.argtypes = [ctypes.c_int]
-        lib.kernel_error_string.restype = ctypes.c_char_p
-        if name in _STATE_WORDS:
-            fn, args = _STATE_WORDS[name]
-            f = getattr(lib, fn)
-            f.argtypes = args
-            f.restype = ctypes.c_longlong
-        _LIBS[name] = lib
+@counted_cache
+def load_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load one kernel library, its C launchers
+    typed. Memoized: one build or load a library a process."""
+    build([name])
+    lib = ctypes.CDLL(str(_lib_path(name)))
+    for fn, args in _SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = args
+        f.restype = ctypes.c_int
+    lib.kernel_error_string.argtypes = [ctypes.c_int]
+    lib.kernel_error_string.restype = ctypes.c_char_p
+    if name in _STATE_WORDS:
+        fn, args = _STATE_WORDS[name]
+        f = getattr(lib, fn)
+        f.argtypes = args
+        f.restype = ctypes.c_longlong
     return lib
 
 
 def _launch(lib_name: str, fn: str, *args) -> None:
     """Call a C launcher (it returns cudaGetLastError after the launch)
     and raise on any error."""
-    lib = _lib(lib_name)
+    lib = load_library(lib_name)
     rc = getattr(lib, fn)(*args)
     if rc != 0:
         msg = lib.kernel_error_string(rc).decode()
@@ -333,7 +335,7 @@ def partition_scatter(t: torch.Tensor, legs, nbuckets: int,
                                        "counts must be on one device")
     out = torch.empty(len(legs), w, n, dtype=torch.int32, device=t.device)
     tiles = _tiles(n, PARTITION_TILE)
-    lib = _lib("partition")
+    lib = load_library("partition")
     state = torch.empty(lib.scatter_state_words(w, tiles, nbuckets),
                         dtype=torch.int64, device=t.device)
     _launch("partition", "launch_partition_scatter", _ptr(t), _ptrs(legs),
@@ -457,7 +459,7 @@ def join_plan_stream(bits_s: torch.Tensor, tag_s: torch.Tensor, na: int,
                          f"Lb={Lb})")
     dev = bits_s.device
     tiles = _tiles(n, PLAN_TILE)
-    lib = _lib("join_stream")
+    lib = load_library("join_stream")
     state = torch.empty(lib.plan_state_words(w, tiles), dtype=torch.int64,
                         device=dev)
     out_a = torch.empty(3 + La, w, na, dtype=torch.int32, device=dev)
@@ -597,7 +599,7 @@ def stream_compact(mask: torch.Tensor, streams: torch.Tensor,
     counts = torch.empty(w, dtype=torch.int32, device=dev)
     tiles = _tiles(n, COMPACT_TILE)
     slack = -(-(out_len - n) // COMPACT_TILE)
-    lib = _lib("stream_compact")
+    lib = load_library("stream_compact")
     state = torch.empty(lib.compact_state_words(w, tiles), dtype=torch.int64,
                         device=dev)
     _launch("stream_compact", "launch_stream_compact", _ptr(mask),
@@ -697,7 +699,7 @@ def setop_stream(h1_s: torch.Tensor, h2_s: torch.Tensor,
         return _compact_setop(emit, coll, streams, out_len, stream_compact)
     dev = h1_s.device
     tiles = _tiles(n, SETOP_TILE)
-    lib = _lib("setop_stream")
+    lib = load_library("setop_stream")
     state = torch.empty(lib.setop_state_words(w, tiles), dtype=torch.int64,
                         device=dev)
     emit = torch.empty(w, n, dtype=torch.bool, device=dev)

@@ -24,6 +24,14 @@ replicated by construction becomes an explicit collective here
 decision: the count matrices are gathered, the capacities and the
 per-shard routes agreed by an all-reduce, the sort's sample gathered in
 global order, the comm budget agreed as a minimum.
+
+Every materialized output is registered with the telemetry ledger under
+the JAX package's owner labels (``shuffle``, ``distributed_join``,
+``distributed_join_ring``, ``distributed_set_op``,
+``distributed_groupby``, ``distributed_sort``, ``repartition``); the
+join counts the algorithm it ran in ``cylon_join_algorithm_total
+{algo=}`` and the salted shuffle annotates the open span with the raw
+(pre-salt) skew the planner's salting decision reads.
 """
 from __future__ import annotations
 
@@ -46,7 +54,11 @@ from ..ops import setops as _setops
 from ..data.strings import (EXACT_KEY_WORDS, LANE_WORDS_MAX, VarBytes,
                             _nwords, _word_row_map, pair_k_words)
 from ..status import Code, CylonError, not_ported
+from ..telemetry import annotate as _annotate
 from ..telemetry import knobs as _knobs
+from ..telemetry import ledger as _ledger
+from ..telemetry import metrics as _metrics
+from ..telemetry import skew as _skew
 from ..util import bucket_cap as _bucket_cap
 from ..util import capacity as _capacity
 from ..util import pow2_floor as _pow2_floor
@@ -473,20 +485,29 @@ def shuffle(table: Table, hash_columns: Sequence,
     targets = _partition_targets_dist(world, [t._columns[i] for i in idxs])
     emit = t.emit_mask()
     if salted:
-        targets, counts, _raw = salted_exchange_targets(
+        targets, counts, raw = salted_exchange_targets(
             targets, emit, ctx, salt,
             float(_knobs.get("CYLON_SKEW_WARN_FACTOR")))
+        _counter("cylon_salted_exchanges_total").inc()
+        raw_stats = _skew.SkewStats.from_counts(raw)
+        _annotate(salted=True, salt_factor=salt,
+                  skew_raw=round(raw_stats.imbalance, 3)
+                  if raw_stats is not None else None)
         cols, new_emit = _exchange_table(t, targets, emit, ctx,
                                          counts=counts)
         result = Table(cols, ctx, new_emit)
         result._shard_world = world
-        return result
+        return _ledger.track(result, "shuffle")
     cols, new_emit = _exchange_table(t, targets, emit, ctx,
                                      dense=t.row_mask is None)
     result = Table(cols, ctx, new_emit)
     result._shard_world = world
     result._hash_partitioned = sig
-    return result
+    return _ledger.track(result, "shuffle")
+
+
+def _counter(name: str, labels=None):
+    return _metrics.REGISTRY.counter(name, labels)
 
 
 def _shards_opt(xs, v: int) -> tuple:
@@ -507,7 +528,10 @@ def distributed_join(left: Table, right: Table, config: _join.JoinConfig,
     world = ctx.get_world_size()
     if world == 1 and not (force_exchange and ctx.is_distributed()):
         # reference parity: world 1 short-circuits to the local join
-        return table_mod.join(left, right, config)
+        _counter("cylon_join_algorithm_total", {"algo": "local"}).inc()
+        return _ledger.track(table_mod.join(left, right, config),
+                             "distributed_join")
+    _counter("cylon_join_algorithm_total", {"algo": "shuffle"}).inc()
     lidx, ridx = config.left_column_idx, config.right_column_idx
     exact_pairs = []
     if config.exact:
@@ -602,8 +626,9 @@ def distributed_join(left: Table, right: Table, config: _join.JoinConfig,
         result, collided = _exact_post_verify(result, nl, exact_pairs,
                                               config)
         if collided:
-            return _exact_dict_redo(left, right, config, exact_pairs,
-                                    force_exchange)
+            return _ledger.track(
+                _exact_dict_redo(left, right, config, exact_pairs,
+                                 force_exchange), "distributed_join")
     # co-partitioning witness: every emitted row sits on the shard its
     # join-key hash routed it to
     if jt in (_join.JoinType.INNER, _join.JoinType.LEFT):
@@ -612,7 +637,7 @@ def distributed_join(left: Table, right: Table, config: _join.JoinConfig,
     elif jt == _join.JoinType.RIGHT:
         result._hash_partitioned = shard.partition_signature(
             rcols2, tuple(nl + j for j in ridx), world)
-    return result
+    return _ledger.track(result, "distributed_join")
 
 
 def _exact_post_verify(res: Table, nl: int, pairs, config):
@@ -844,7 +869,9 @@ def distributed_join_ring(left: Table, right: Table,
         a, steps, matched, cap_step, cap_extra)
     a_out = _rebuild_join_side(a_t, aod, aov, aidx, a_slots, "a", cm)
     b_out = _rebuild_join_side(b_t, bod, bov, bidx, b_slots, "b", cm)
-    return _join_output(ctx, a_out, b_out, jt != _join.JoinType.RIGHT, emit)
+    return _ledger.track(
+        _join_output(ctx, a_out, b_out, jt != _join.JoinType.RIGHT, emit),
+        "distributed_join_ring")
 
 
 # build sides a broadcast join may replicate, per join type: the probe
@@ -885,9 +912,14 @@ def broadcast_hash_join(left: Table, right: Table,
     cm = ctx.comm
     if cm.world == 1:
         # one shard replicates nothing: the local join is the broadcast
-        return table_mod.join(left, right, config)
-    if _broadcast_eligible(left, right, config, build_side) is not None:
+        _counter("cylon_join_algorithm_total", {"algo": "local"}).inc()
+        return _ledger.track(table_mod.join(left, right, config),
+                             "distributed_join")
+    reason = _broadcast_eligible(left, right, config, build_side)
+    if reason is not None:
+        _annotate(join_algorithm="shuffle", broadcast_fallback=reason)
         return distributed_join(left, right, config)
+    _counter("cylon_join_algorithm_total", {"algo": "broadcast"}).inc()
     left_d = shard.distribute(left, ctx)
     right_d = shard.distribute(right, ctx)
     lcols, rcols = _align_key_columns_dist(
@@ -921,9 +953,11 @@ def broadcast_hash_join(left: Table, right: Table,
         pos, dts, w = sig
         if build_side == 0:
             pos = tuple(b_t.column_count + int(p) for p in pos)
+        # the probe's witness, dtypes spelled as partition_signature
+        # spells them (numpy names)
         out._hash_partitioned = (tuple(int(p) for p in pos), tuple(dts),
                                  int(w))
-    return out
+    return _ledger.track(out, "distributed_join")
 
 
 # ---------------------------------------------------------------------------
@@ -960,7 +994,8 @@ def distributed_set_op(left: Table, right: Table, op: _setops.SetOp,
     world = ctx.get_world_size()
     if world == 1 and not (force_exchange and ctx.is_distributed()):
         # reference parity: world 1 short-circuits to the local set op
-        return table_mod.set_op(left, right, op)
+        return _ledger.track(table_mod.set_op(left, right, op),
+                             "distributed_set_op")
     if left.column_count != right.column_count:
         raise CylonError(Code.Invalid, "set ops need equal schemas")
     cm = ctx.comm
@@ -1026,7 +1061,7 @@ def distributed_set_op(left: Table, right: Table, op: _setops.SetOp,
                               a.name, varbytes=vb)
     result = Table(cols, ctx, (idx >= 0).reshape(-1))
     result._shard_world = world
-    return result
+    return _ledger.track(result, "distributed_set_op")
 
 
 # ---------------------------------------------------------------------------
@@ -1125,7 +1160,7 @@ def repartition(table: Table, ctx: CylonContext) -> Table:
                                      dense=t.row_mask is None)
     result = Table(cols, ctx, new_emit)
     result._shard_world = world
-    return result
+    return _ledger.track(result, "repartition")
 
 
 # ---------------------------------------------------------------------------
@@ -1219,7 +1254,7 @@ def _groupby_table(ctx, key_out, cols, gvalid) -> Table:
     out._shard_world = world
     out._hash_partitioned = shard.partition_signature(
         key_out, tuple(range(len(key_out))), world)
-    return out
+    return _ledger.track(out, "distributed_groupby")
 
 
 def distributed_groupby(table: Table, index_col, aggregate_cols: List,
@@ -1236,8 +1271,9 @@ def distributed_groupby(table: Table, index_col, aggregate_cols: List,
     ctx = table._ctx
     world = ctx.get_world_size()
     if world == 1:
-        return table_mod.groupby_local(table, index_col, aggregate_cols,
-                                       aggregate_ops)
+        return _ledger.track(
+            table_mod.groupby_local(table, index_col, aggregate_cols,
+                                    aggregate_ops), "distributed_groupby")
     t = shard.distribute(table, ctx)
     idx_cols = index_col if isinstance(index_col, (list, tuple)) \
         else [index_col]
@@ -1464,4 +1500,4 @@ def distributed_sort(table: Table, order_by, ascending=True,
                               varbytes=vb)
     out = Table(cols, ctx, semit)
     out._shard_world = world
-    return out
+    return _ledger.track(out, "distributed_sort")

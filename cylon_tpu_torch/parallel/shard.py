@@ -24,7 +24,7 @@ import torch
 from ..context import CylonContext
 from ..data.column import Column, as_varbytes
 from ..data.table import Table
-from ..dtypes import Type
+from ..dtypes import Type, np_name
 from ..status import Code, CylonError, CylonPlanError
 from ..util import capacity as _capacity
 
@@ -126,11 +126,13 @@ def partition_signature(key_cols, idxs, world: int):
     """Hashable co-partitioning witness: a table whose rows were placed by
     hash of these key columns (with these dtypes) can skip a later
     exchange on the same keys. None for string keys (vocabulary
-    unification re-codes them)."""
+    unification re-codes them). The dtypes are spelled by their numpy
+    names, as the JAX package spells them (the plan layer compares them
+    with its type strings)."""
     if any(c.is_string for c in key_cols):
         return None
     return (tuple(int(i) for i in idxs),
-            tuple(str(c.data.dtype) for c in key_cols), int(world))
+            tuple(np_name(c.data.dtype) for c in key_cols), int(world))
 
 
 def host_partition_arrays(t: Table, idxs, world: int):

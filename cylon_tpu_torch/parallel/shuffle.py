@@ -27,6 +27,19 @@ landing is bit-identical to the single-shot route on every live row.
 The memory pool's comm budget caps the per-round block
 (`_budget_block_cap`).
 
+Telemetry and resilience sit at the JAX package's sites, under its
+labels: the count fetches run in ``shuffle.count`` spans, every exchange
+in a ``shuffle.exchange`` span (``mode``, ``rows``, ``bytes_moved``, the
+skew attributes of `telemetry.skew` reduced from the count matrix the
+host already holds, the partition path, the chunk plan) and both padded
+sides of a two-table shuffle in one ``shuffle.exchange_pair`` span; the
+counters ``cylon_shuffle_bytes_total``, ``cylon_rows_exchanged_total``,
+``cylon_collective_launches_total``, ``cylon_partition_path_total{path=}``
+and ``cylon_exchange_chunks_total`` move with them. Each exchange body
+and count fetch runs under ``resilience.retry.run_retryable`` (sites
+``exchange`` and ``exchange.count``), the fault injector's ``exchange``
+choke point firing before every attempt. None of it adds a device sync.
+
 Every per-shard tensor here is this process's ``[V, ...]`` part of the
 world (V = W in the virtual world, parallel/comm.py): targets and the
 count matrix's columns range over the W global shards, and the
@@ -45,8 +58,13 @@ from ..context import CylonContext
 from ..dtypes import movable
 from ..ops import hash as _hash
 from ..ops import kernels as _k
+from ..resilience import inject as _inject
+from ..resilience import retry as _retry
 from ..status import not_ported
 from ..telemetry import knobs as _knobs
+from ..telemetry import metrics as _metrics
+from ..telemetry import skew as _skew
+from ..telemetry import span as _span
 from ..util import pow2 as _pow2
 from ..util import pow2_floor as _pow2_floor
 
@@ -344,12 +362,80 @@ def _count_matrix(cm, targets, emit) -> torch.Tensor:
 
 def count_pair(targets1, emit1, targets2, emit2, ctx: CylonContext):
     """Host (countsL, countsR) global send-count matrices [src, dst] for
-    two shuffles: one gather, one device->host copy."""
+    two shuffles: one gather, one device->host copy, in a
+    ``shuffle.count`` span under the ``exchange.count`` retry policy."""
     cm = ctx.comm
-    host = cm.replicated_gather(torch.stack(
-        [_local_counts(cm, targets1, emit1),
-         _local_counts(cm, targets2, emit2)], 1)).cpu().numpy()
-    return host[:, 0], host[:, 1]
+
+    def compute():
+        with _span("shuffle.count", ctx.get_next_sequence(),
+                   world=cm.world, tables=2):
+            host = cm.replicated_gather(torch.stack(
+                [_local_counts(cm, targets1, emit1),
+                 _local_counts(cm, targets2, emit2)], 1)).cpu().numpy()
+        _metrics.record_host_sync("shuffle.count_pair")
+        _counter("cylon_collective_launches_total").inc()
+        return host[:, 0], host[:, 1]
+
+    return _retry.run_retryable("exchange.count", compute)
+
+
+def _counter(name: str, labels=None):
+    return _metrics.REGISTRY.counter(name, labels)
+
+
+def _payload_nbytes(payload: Dict[str, torch.Tensor]) -> int:
+    """Bytes of a payload of per-row leaves (shape x itemsize, on the
+    host): the ``bytes_moved`` span attribute and the
+    ``cylon_shuffle_bytes_total`` feed."""
+    return sum(x.element_size() * x.numel() for x in payload.values())
+
+
+def _record_exchange(rows: int, nbytes: int, programs: int = 1) -> None:
+    """Metrics of one exchange: payload bytes, live rows moved, and its
+    launches (one a single-shot exchange, one a chunk)."""
+    _counter("cylon_shuffle_bytes_total").inc(nbytes)
+    _counter("cylon_rows_exchanged_total").inc(rows)
+    _counter("cylon_collective_launches_total").inc(programs)
+
+
+def _launch_exchange(fn):
+    """One exchange body under the resilience policy: the fault
+    injector's ``exchange`` choke point fires first (each retry attempt
+    is one arrival), then the body runs under bounded retry. Re-running
+    is safe: the body is a pure function of its input tensors. Runs
+    inside the exchange span, so a recovered stage carries the
+    ``retries`` attribute."""
+    def attempt():
+        _inject.fire("exchange")
+        return fn()
+
+    return _retry.run_retryable("exchange", attempt)
+
+
+def _partition_label(world: int, device, chunked: bool) -> str:
+    """The partition route one padded body takes: "kernel" (K1 + K2) or
+    "sort" (the stable sort; the one-shard single-shot body)."""
+    if world == 1 and not chunked:
+        return "sort"
+    return "kernel" if use_partition_kernel(world, device) else "sort"
+
+
+def _record_partition(sp, *paths: str) -> None:
+    """The partition routes of one exchange span (two for a pair): the
+    ``cylon_partition_path_total{path=}`` counter per side and one
+    ``partition_path`` attribute ("mixed" when the sides differ)."""
+    sp.set(partition_path=paths[0] if len(set(paths)) == 1 else "mixed")
+    for p in paths:
+        _counter("cylon_partition_path_total", {"path": p}).inc()
+
+
+def _record_chunked(sp, chunks: int, cb: int) -> None:
+    """The chunk plan of a chunked exchange: span attributes and the
+    ``cylon_exchange_chunks_total`` counter. (The JAX package's
+    overlap-ratio histogram is left out: the chunks here run one after
+    another on one stream, nothing overlaps.)"""
+    sp.set(chunks=chunks, chunk_block=cb)
+    _counter("cylon_exchange_chunks_total").inc(chunks)
 
 
 def _payload_row_bytes(payload: Dict[str, torch.Tensor]) -> int:
@@ -413,6 +499,7 @@ def exchange(payload: Dict[str, torch.Tensor], targets: torch.Tensor,
     ``counts``, where the caller has it, is the global [W, W] matrix."""
     cm = ctx.comm
     world = cm.world
+    seq = ctx.get_next_sequence()
     if world == 1 and counts is None and dense:
         # one shard, every row live: block = pow2(n), counts in-program;
         # only the memory budget (or ``max_block``) binds, there are no
@@ -422,32 +509,64 @@ def exchange(payload: Dict[str, torch.Tensor], targets: torch.Tensor,
                                 block1 if max_block is None else max_block,
                                 4)
         if block1 <= mb1:
-            out, new_emit, ci = _padded_body(
-                cm, block1, _shards(payload, 1), targets.view(1, -1),
-                emit.view(1, -1))
+            rows = int(targets.shape[0])
+            nbytes = _payload_nbytes(payload)
+            with _span("shuffle.exchange", seq, world=1, mode="padded",
+                       rows=rows, bytes_moved=nbytes):
+                out, new_emit, ci = _launch_exchange(
+                    lambda: _padded_body(cm, block1, _shards(payload, 1),
+                                         targets.view(1, -1),
+                                         emit.view(1, -1)))
+            _record_exchange(rows, nbytes)
             return _flat(out), new_emit.reshape(-1), block1, {
                 "mode": "padded", "block": block1, "counts_in": ci}
     if counts is None:
-        counts = _count_matrix(cm, targets, emit).cpu().numpy()
+        def compute():
+            with _span("shuffle.count", seq, world=world, tables=1):
+                res = _count_matrix(cm, targets, emit).cpu().numpy()
+            _metrics.record_host_sync("shuffle.count")
+            _counter("cylon_collective_launches_total").inc()
+            return res
+
+        counts = _retry.run_retryable("exchange.count", compute)
     ok, block_p, mb = _padded_route(counts, payload, world,
                                     ctx.comm_budget_bytes(), 4, max_block)
     shards = (_shards(payload, cm.shards), targets.view(cm.shards, -1),
               emit.view(cm.shards, -1))
-    if ok:
-        cb, chunks = _chunk_plan(block_p, world, _payload_row_bytes(payload))
-        out, new_emit, ci = _padded_body(cm, block_p, *shards,
-                                         cb=cb if chunks > 1 else None)
-        meta = {"mode": "padded", "block": block_p, "counts_in": ci}
-        if chunks > 1:
-            meta["chunks"] = chunks
-        return _flat(out), new_emit.reshape(-1), world * block_p, meta
-    max_pair = int(counts.max()) if counts.size else 0
-    recv_max = int(counts.sum(axis=0).max()) if counts.size else 0
-    block = min(block_p, mb)
-    # a pow2 round count, as in the JAX package
-    rounds = _pow2(-(-max(max_pair, 1) // block))
-    cap = _pow2(recv_max)
-    out, new_emit, ci = _compact_body(cm, block, rounds, cap, *shards)
+    rows_live = int(counts.sum()) if counts.size else 0
+    nbytes = _payload_nbytes(payload)
+    row_bytes = _payload_row_bytes(payload)
+    # skew rides the count matrix the host already holds (None on one
+    # shard)
+    skew_stats = _skew.observe_exchange(counts, row_bytes)
+    with _span("shuffle.exchange", seq, world=world,
+               mode="padded" if ok else "compact", rows=rows_live,
+               bytes_moved=nbytes) as sp:
+        if skew_stats is not None:
+            sp.set(**skew_stats.span_attrs())
+        if ok:
+            cb, chunks = _chunk_plan(block_p, world, row_bytes)
+            _record_partition(sp, _partition_label(world, targets.device,
+                                                   chunks > 1))
+            out, new_emit, ci = _launch_exchange(
+                lambda: _padded_body(cm, block_p, *shards,
+                                     cb=cb if chunks > 1 else None))
+            meta = {"mode": "padded", "block": block_p, "counts_in": ci}
+            if chunks > 1:
+                meta["chunks"] = chunks
+                _record_chunked(sp, chunks, cb)
+            _record_exchange(rows_live, nbytes, chunks)
+            return _flat(out), new_emit.reshape(-1), world * block_p, meta
+        max_pair = int(counts.max()) if counts.size else 0
+        recv_max = int(counts.sum(axis=0).max()) if counts.size else 0
+        block = min(block_p, mb)
+        # a pow2 round count, as in the JAX package
+        rounds = _pow2(-(-max(max_pair, 1) // block))
+        cap = _pow2(recv_max)
+        sp.set(block=block, rounds=rounds)
+        out, new_emit, ci = _launch_exchange(
+            lambda: _compact_body(cm, block, rounds, cap, *shards))
+    _record_exchange(rows_live, nbytes)
     return _flat(out), new_emit.reshape(-1), cap, {
         "mode": "compact", "block": 0, "counts_in": ci}
 
@@ -458,14 +577,58 @@ def exchange_pair(payload1, targets1, emit1, counts1,
     """Both sides of a two-table shuffle; each result is exchange()'s
     4-tuple. ``counts`` may be None on a one-shard world with dense
     emits (the counts then come from the exchange itself). The JAX
-    package runs both padded bodies in one program unless either side
-    chunks (shuffle.py:769-777); in eager torch one program is two
-    exchanges, so both sides always go through exchange(), which
-    decides each side's route and chunks as that program would."""
-    return (exchange(payload1, targets1, emit1, ctx, counts=counts1,
-                     dense=dense),
-            exchange(payload2, targets2, emit2, ctx, counts=counts2,
-                     dense=dense))
+    package's routing (shuffle.py:749-812): when both sides route padded
+    (at the pair's buffer factor, 8) and neither chunks, both padded
+    bodies run in one ``shuffle.exchange_pair`` span and are retried
+    together (its pair program); otherwise each side goes through
+    exchange(). Either way each side lands as exchange() would land
+    it."""
+    cm = ctx.comm
+    world = cm.world
+    budget = ctx.comm_budget_bytes()
+    sides = ((payload1, targets1, emit1, counts1),
+             (payload2, targets2, emit2, counts2))
+    if world == 1 and counts1 is None and counts2 is None and dense:
+        blocks = [_pow2(int(t.shape[0])) for _p, t, _e, _c in sides]
+        fused = all(b <= _budget_block_cap(p, 1, budget, b, 8)
+                    for (p, _t, _e, _c), b in zip(sides, blocks))
+        rows = sum(int(t.shape[0]) for _p, t, _e, _c in sides)
+    else:
+        routes = [_padded_route(c, p, world, budget, 8)
+                  for p, _t, _e, c in sides]
+        blocks = [b for _ok, b, _mb in routes]
+        fused = all(ok for ok, _b, _mb in routes) and all(
+            _chunk_plan(b, world, _payload_row_bytes(p))[1] == 1
+            for (p, _t, _e, _c), b in zip(sides, blocks))
+        rows = sum(int(c.sum()) for _p, _t, _e, c in sides)
+    if not fused:
+        return tuple(exchange(p, t, e, ctx, counts=c, dense=dense)
+                     for p, t, e, c in sides)
+    seq = ctx.get_next_sequence()
+    nbytes = sum(_payload_nbytes(p) for p, _t, _e, _c in sides)
+    pair_stats = None
+    if counts1 is not None:
+        # per-side histograms carry each table's row width; the span
+        # carries the combined per-destination totals
+        for p, _t, _e, c in sides:
+            _skew.observe_exchange(c, _payload_row_bytes(p))
+        pair_stats = _skew.SkewStats.from_counts(np.asarray(counts1)
+                                                 + np.asarray(counts2))
+    with _span("shuffle.exchange_pair", seq, world=world, mode="padded",
+               rows=rows, bytes_moved=nbytes) as sp:
+        if pair_stats is not None:
+            sp.set(**pair_stats.span_attrs())
+        if counts1 is not None:
+            part = _partition_label(world, targets1.device, False)
+            _record_partition(sp, part, part)
+        res = _launch_exchange(lambda: tuple(
+            _padded_body(cm, b, _shards(p, cm.shards),
+                         t.view(cm.shards, -1), e.view(cm.shards, -1))
+            for (p, t, e, _c), b in zip(sides, blocks)))
+    _record_exchange(rows, nbytes)
+    return tuple((_flat(out), ne.reshape(-1), world * b,
+                  {"mode": "padded", "block": b, "counts_in": ci})
+                 for (out, ne, ci), b in zip(res, blocks))
 
 
 def salted_exchange_targets(targets: torch.Tensor, emit: torch.Tensor,
@@ -477,22 +640,29 @@ def salted_exchange_targets(targets: torch.Tensor, emit: torch.Tensor,
     float32, as there); a hot destination's rows spread over ``salt``
     consecutive shards by ``fmix32(row index within the shard) % salt``.
     Returns (salted targets int32 [V * cap], salted counts, raw counts),
-    the two global ``[W, W]`` host count matrices fetched together."""
+    the two global ``[W, W]`` host count matrices fetched together, under
+    the ``exchange.count`` retry policy."""
     cm = ctx.comm
     world = cm.world
     t = targets.view(cm.shards, -1).to(torch.int32)
     e = emit.view(cm.shards, -1)
-    raw = _count_matrix(cm, t, e)
-    recv = raw.sum(0)
-    total = recv.sum().clamp(min=1)
-    hot = (recv.to(torch.float32) * float(world)
-           > torch.tensor(warn_factor, dtype=torch.float32,
-                          device=t.device) * total.to(torch.float32))
-    iota = torch.arange(t.shape[1], device=t.device)
-    sub = (_hash.fmix32(iota) % salt).to(torch.int32)
-    safe = t.clamp(0, world - 1)
-    spread = (safe + sub) % world
-    t2 = torch.where(hot[safe.to(torch.int64)] & e, spread, safe)
-    salted = _count_matrix(cm, t2, e)
-    host = torch.stack([salted, raw]).cpu().numpy()
-    return t2.reshape(-1), host[0], host[1]
+
+    def compute():
+        raw = _count_matrix(cm, t, e)
+        recv = raw.sum(0)
+        total = recv.sum().clamp(min=1)
+        hot = (recv.to(torch.float32) * float(world)
+               > torch.tensor(warn_factor, dtype=torch.float32,
+                              device=t.device) * total.to(torch.float32))
+        iota = torch.arange(t.shape[1], device=t.device)
+        sub = (_hash.fmix32(iota) % salt).to(torch.int32)
+        safe = t.clamp(0, world - 1)
+        spread = (safe + sub) % world
+        t2 = torch.where(hot[safe.to(torch.int64)] & e, spread, safe)
+        salted = _count_matrix(cm, t2, e)
+        host = torch.stack([salted, raw]).cpu().numpy()
+        _metrics.record_host_sync("shuffle.salt")
+        _counter("cylon_collective_launches_total").inc()
+        return t2.reshape(-1), host[0], host[1]
+
+    return _retry.run_retryable("exchange.count", compute)

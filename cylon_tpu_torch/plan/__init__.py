@@ -1,0 +1,40 @@
+"""Lazy query-plan subsystem: logical IR, optimizer, executor.
+
+The reference shipped its task-graph layer as an unfinished overlay
+(`LogicalTaskPlan` + `ArrowTaskAllToAll`, arrow_task_all_to_all.h:9-57);
+here the layer is completed the way the paper's own cost model demands:
+every distributed op is *local kernel + all-to-all + local kernel*
+(PAPER.md §1, docs/arch.md), so the dominant optimization is running
+FEWER all-to-alls. A `LazyTable` builds a logical plan (`Scan`,
+`Project`, `Filter`, `Join`, `GroupBy`, `SetOp`, `Sort`, `Shuffle`
+nodes) over the `table_api` registry; the optimizer propagates
+partitioning metadata and (1) deletes `Shuffle` nodes whose input is
+already hash-placed on the same keys, (2) prunes unreferenced columns
+below the exchanges, and (3) pushes filters below shuffles so dead rows
+drop in transit; the executor lowers the optimized plan onto the
+existing `dist_ops`/`table_api` primitives (never `ops/` kernels) and
+stamps per-node `telemetry.span` spans, so a plan's shuffle count is
+directly observable in logs and profiler traces as ``plan.shuffle.*``
+labels. `LazyTable.explain(
+analyze=True)` executes the query under a recorder and renders the
+plan annotated with measured rows/bytes/ms per node (EXPLAIN ANALYZE
+— see `plan.report.PlanReport`).
+
+Counterpart of cylon_tpu.plan. The JAX package's task-routing overlay
+(`plan.tasks`, `LogicalTaskPlan`/`task_exchange`) is not ported yet.
+"""
+from . import ir, optimizer, executor, report
+from .ir import (Filter, GroupBy, Join, PlanNode, Project, Scan, SetOp,
+                 Shuffle, Sort, col)
+from .lazy import LazyTable, scan
+from .optimizer import PlanStats, optimize
+from .executor import execute, execute_analyzed
+from .report import NodeMeasure, PlanReport
+
+__all__ = [
+    "Filter", "GroupBy", "Join", "LazyTable",
+    "NodeMeasure", "PlanNode", "PlanReport", "PlanStats", "Project",
+    "Scan", "SetOp", "Shuffle", "Sort", "col", "execute",
+    "execute_analyzed", "executor", "ir", "optimize", "optimizer",
+    "report", "scan",
+]

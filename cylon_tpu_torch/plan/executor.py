@@ -1,0 +1,551 @@
+"""Plan executor: lowers an (optimized) logical plan onto `dist_ops`
+(counterpart of cylon_tpu.plan.executor).
+
+Lowering discipline (enforced by the layering + span-coverage
+checkers): the executor reaches device kernels ONLY through
+`parallel/dist_ops`, `data/table` methods, and `table_api` — never
+`ops/` directly. Every node executes inside a `telemetry.span`; nodes
+that perform an all-to-all exchange use ``plan.shuffle.<kind>`` labels,
+so a plan's real shuffle count is countable from the host log, a
+profiler trace (grep ``plan.shuffle``), or `collect_phases`.
+
+Label honesty is RUNTIME-decided, in both directions: a join whose
+sides all arrive co-partitioned logs ``plan.join`` even when the plan
+kept Shuffle markers, and a join whose sides will exchange logs
+``plan.shuffle.join`` even when the plan carries no markers (an
+unoptimized plan still pays real exchanges — the label must say so).
+The same discipline as `GroupBy.local_ok`: plan metadata alone is
+never trusted for a correctness-bearing skip NOR for an observability
+claim; `_side_exchanges` mirrors `distributed_join`'s witness check.
+
+Shuffle markers below a `Join` are NOT executed standalone: they fold
+into `distributed_join`, whose two-table exchange fetches both sides'
+count matrices in one sync instead of two. A side
+whose marker was elided arrives co-partitioned and `distributed_join`
+skips it via the runtime witness.
+
+EXPLAIN ANALYZE: `execute_analyzed` wraps the run in a ``plan.query``
+root span and records per-node inclusive wall time, output rows/bytes
+and own telemetry labels into a `report.PlanReport`. The default
+`execute` path carries ZERO of this overhead (no recorder, no row-count
+syncs) — analysis is opt-in per query.
+
+Memory observability: every lowering registers its output with the
+telemetry LEDGER (``ledger-coverage`` checker — the memory analog of
+span-coverage), so `cylon_live_table_bytes{owner=plan.*}` attributes
+HBM to query nodes and `execute_analyzed` can render an end-of-query
+leak report (tables allocated under the query's root span and never
+freed). Before running, both paths compute the planner's PRE-FLIGHT
+output-size estimates (report.preflight_estimates); a plan whose
+estimate exceeds the pool's comm budget emits a ``plan.preflight``
+warning span — visible in the trace BEFORE the query OOMs.
+"""
+from __future__ import annotations
+
+import time
+from typing import Optional, Tuple
+
+from .. import table_api, telemetry
+from ..data import table as table_mod
+from ..data.table import Table
+from ..resilience import admission as _admission
+from ..resilience import retry as _resil
+from ..status import Code, CylonPlanError
+from ..telemetry import ledger as _ledger, span as _span
+from . import ir
+
+
+def _world(ctx) -> int:
+    return ctx.get_world_size() if ctx.is_distributed() else 1
+
+
+def _resolve_ctx(plan: ir.PlanNode, ctx):
+    """The context a plan will run under, resolvable BEFORE execution
+    (the executor itself binds lazily from the first Scan)."""
+    if ctx is not None:
+        return ctx
+    for node in ir.walk(plan):
+        if node.kind == "scan" and node.table is not None:
+            return node.table._ctx
+    return None
+
+
+def _preflight(plan: ir.PlanNode, ctx, est=None):
+    """Pre-execution memory check: estimate every node's output bytes
+    from schema widths × propagated row estimates, CALIBRATE against
+    the statistics warehouse (report.calibrate_estimates — measured
+    EWMAs replace static bounds they undercut, never exceed them), and
+    compare against the pool's comm budget. Over-budget plans emit ONE
+    ``plan.preflight`` warning span (attrs: worst node, estimate,
+    budget) and a WARNING log line — the observable moment before a
+    potential OOM. Returns (estimates map, budget). A pre-computed
+    ``est`` map (the service scheduler estimates at SUBMIT time and
+    calibrates at dispatch, keyed by these same node ids) skips the
+    plan walk — calibration is idempotent and the warning span still
+    fires."""
+    from .report import (calibrate_estimates, effective_bytes,
+                         preflight_estimates)
+
+    if est is None:
+        est = preflight_estimates(plan)
+    calibrate_estimates(plan, est, _world(ctx) if ctx is not None else 1)
+    pool = getattr(ctx, "memory_pool", None) if ctx is not None else None
+    # effective budget = pool comm budget clamped by an armed chaos
+    # `pool` fault spec — the [MEM] markers, the warning span AND the
+    # admission controller all see the same number
+    budget = _admission.effective_budget(pool)
+    if not budget:
+        return est, budget
+    over = [n for n in ir.walk(plan)
+            if (b := effective_bytes(est[id(n)])) is not None
+            and b > budget]
+    if over:
+        worst = max(over, key=lambda n: effective_bytes(est[id(n)]))
+        with _span("plan.preflight", over_budget_nodes=len(over),
+                   worst_node=f"{type(worst).__name__}"
+                              f"({worst.args_repr()})",
+                   est_bytes=int(effective_bytes(est[id(worst)])),
+                   comm_budget_bytes=int(budget)):
+            telemetry.logger.warning(
+                "plan.preflight: %d node(s) estimate beyond the comm "
+                "budget (%d B); worst %s at %d B — expect blocked/"
+                "chunked execution or an OOM",
+                len(over), budget, type(worst).__name__,
+                effective_bytes(est[id(worst)]))
+    return est, budget
+
+
+def _admit(plan: ir.PlanNode, ctx, est, budget):
+    """Run the admission controller over the (calibrated) pre-flight
+    estimates: records the decision (counter + log + flight admission
+    ring), stamps the decision + its estimate provenance onto the open
+    ``plan.query`` root span (the query-log digest's
+    ``admission``/``est_bytes``/``est_source`` fields — stamped BEFORE
+    enforce so a shed query's digest still names the decision), and
+    ENFORCES a shed — an over-budget query raises
+    :class:`CylonResourceExhausted` here, before any device work. A
+    degrade decision returns the per-join ``probe_block_rows`` map the
+    executor lowers with."""
+    world = _world(ctx) if ctx is not None else 1
+    decision = _admission.decide(list(ir.walk(plan)), est, budget,
+                                 world)
+    # record() also emits the plan.admission marker span for non-admit
+    # decisions — shared with the service scheduler's dispatch path
+    _admission.record(decision)
+    telemetry.annotate(admission=decision.action,
+                       est_bytes=decision.est_bytes,
+                       est_source=decision.est_source)
+    _admission.enforce(decision)
+    return decision
+
+
+def _stamp_plan_fp(root_span, plan: ir.PlanNode, ctx,
+                   plan_fp=None) -> None:
+    """Make sure the ``plan.query`` root span carries a plan
+    fingerprint — the statistics warehouse's per-query key and the
+    digest's join column. The service path stamps the LOGICAL-plan
+    fingerprint through root_attrs (the plan-cache key space, which
+    drift eviction must match); the library path passes the same
+    logical fingerprint down from ``LazyTable.execute``. Only when
+    neither exists (a raw ``executor.execute`` call on a hand-built
+    plan) is the fingerprint derived from the plan at hand."""
+    if root_span.attrs.get("plan_fp"):
+        return
+    if plan_fp is None:
+        from .fingerprint import fingerprint
+
+        plan_fp = fingerprint(plan, _world(ctx) if ctx is not None
+                              else 1)
+    root_span.set(plan_fp=plan_fp)
+
+
+def execute(plan: ir.PlanNode, ctx=None, decision=None,
+            est=None, plan_fp=None) -> Table:
+    """Execute a plan; returns the result Table (sharded when the
+    context is distributed). ``ctx`` defaults to the first scanned
+    table's context. Runs under the per-query deadline
+    (``CYLON_QUERY_DEADLINE_S``) and the admission controller — a shed
+    query raises :class:`CylonResourceExhausted` before any device
+    work. A pre-made ``decision`` (the service scheduler decides —
+    and records — admission at dispatch time, against the live queue
+    state) skips the internal admission pass but keeps its
+    ``degrade_blocks`` lowering map; a pre-computed ``est`` map rides
+    along so the plan is not re-walked per dispatch.
+
+    The whole run nests under ONE ``plan.query`` root span, same as
+    the analyzed path: every query — service or library mode — closes
+    exactly one root, which is what feeds the flight ring, the
+    structured query log (one digest per query), the per-tenant SLO
+    tracker, and the head-sampling decision. Shed/deadline raises
+    cross the root errored, so the forensic trail matches
+    ``execute_analyzed``."""
+    rctx = _resolve_ctx(plan, ctx)
+    with _span("plan.query") as root_span:
+        _stamp_plan_fp(root_span, plan, rctx, plan_fp)
+        with _resil.query_deadline():
+            est, budget = _preflight(plan, rctx, est=est)
+            if decision is None:
+                decision = _admit(plan, rctx, est, budget)
+            return _Exec(ctx, degrade=decision.degrade_blocks,
+                         est=est).run(plan)
+
+
+def execute_analyzed(plan: ir.PlanNode, ctx=None, stats=None,
+                     decision=None, est=None,
+                     plan_fp=None) -> Tuple[Table, "object"]:
+    """Execute with per-node measurement; returns (Table, PlanReport).
+
+    The whole run nests under one ``plan.query`` span (the report's
+    span tree); HBM gauges are sampled from the context's MemoryPool
+    after the run, the registry snapshot rides along so a results
+    file is one ``report.to_dict()`` away, and the ledger's
+    end-of-query leak report (allocated under this root span, never
+    freed, query result excluded) lands on ``report.leaks``. Deadline
+    expiry and admission sheds raise INSIDE the ``plan.query`` span,
+    so the flight recorder dumps the full forensic state."""
+    from .report import PlanReport, build_measures
+
+    rctx = _resolve_ctx(plan, ctx)
+    with telemetry.collect_phases() as cp:
+        with _span("plan.query") as root_span:
+            _stamp_plan_fp(root_span, plan, rctx, plan_fp)
+            with _resil.query_deadline():
+                est, budget = _preflight(plan, rctx, est=est)
+                if decision is None:
+                    decision = _admit(plan, rctx, est, budget)
+                ex = _Exec(ctx, recorder=_Recorder(cp.labels),
+                           degrade=decision.degrade_blocks, est=est)
+                result = ex.run(plan)
+    leaks = _ledger.leak_report(root_span.span_id,
+                                exclude={id(result)})
+    pool = getattr(ex.ctx, "memory_pool", None) if ex.ctx is not None \
+        else None
+    memory = telemetry.sample_memory(pool) if pool is not None else {}
+    report = PlanReport(
+        root=build_measures(plan, ex._recorder.recs, cp.labels,
+                            spans=cp.spans, est=est, budget=budget),
+        span=root_span,
+        shuffle_count=cp.count("plan.shuffle"),
+        total_ms=root_span.elapsed_ms,
+        world=_world(ex.ctx) if ex.ctx is not None else 1,
+        stats=stats, memory=memory,
+        metrics=telemetry.metrics_snapshot(),
+        leaks=leaks, budget=budget,
+        admission=decision.to_dict())
+    return result, report
+
+
+class _NodeRec:
+    """Raw per-node measurement (label-range indices into the query's
+    collect_phases stream + inclusive ms + output rows/bytes)."""
+
+    __slots__ = ("i0", "i1", "ms", "rows", "nbytes")
+
+
+class _Recorder:
+    def __init__(self, labels):
+        self._labels = labels     # live list of the query's collector
+        self.recs = {}            # id(plan node) -> _NodeRec
+
+    def run(self, node, fn):
+        rec = _NodeRec()
+        rec.i0 = len(self._labels)
+        t0 = time.perf_counter()
+        out = fn(node)
+        rec.ms = (time.perf_counter() - t0) * 1e3
+        rec.i1 = len(self._labels)
+        # row_count syncs ONE scalar per node — the analyze-mode cost
+        rec.rows = out.row_count
+        rec.nbytes = out.nbytes
+        self.recs[id(node)] = rec
+        return out
+
+
+class _Exec:
+    def __init__(self, ctx=None, recorder: Optional[_Recorder] = None,
+                 degrade: Optional[dict] = None,
+                 est: Optional[dict] = None):
+        self.ctx = ctx
+        self._recorder = recorder
+        # id(Join node) -> probe_block_rows, from the admission
+        # controller's degrade decision (blocked/chunked lowering)
+        self._degrade = degrade or {}
+        # the calibrated pre-flight estimate map (report.
+        # calibrate_estimates): carries each stats-tracked node's
+        # sub-fingerprint + the estimate admission used, so the
+        # lowering can stamp them onto its span for the statistics
+        # warehouse to join against the measured output
+        self._est = est or {}
+
+    def _stamp_stats(self, sp, node: ir.PlanNode, out: Table,
+                     inputs: Optional[Tuple[Table, Table]] = None
+                     ) -> None:
+        """Attach the statistics-warehouse feed to a node's span:
+        sub-fingerprint, the (calibrated) estimate that was acted on,
+        and the measured output size. ``bytes_out`` (Table.nbytes) and
+        ``rows_out`` (capacity) are host arithmetic over known shapes
+        — no device sync, so the default execute path stays as cheap
+        as before.
+
+        Two adaptive-execution feeds ride along: the node's worst
+        PRE-MITIGATION exchange skew (folded from its own completed
+        exchange spans, or the ``skew_raw`` attr the salted path
+        annotates — the salting decision must read raw key skew, not
+        its own mitigation), and — for joins, with ``inputs`` — both
+        sides' measured input sizes under the algorithm-invariant
+        decision fingerprint (the broadcast rewrite's evidence base)."""
+        from .report import effective_bytes
+
+        e = self._est.get(id(node))
+        if e is None or "node_fp" not in e:
+            return
+        sp.set(stats_fp=e["node_fp"], stats_kind=node.kind,
+               est_bytes=effective_bytes(e),
+               est_source=e.get("est_source", "static"),
+               bytes_out=int(out.nbytes), rows_out=int(out.capacity))
+        skews = [s.attrs.get("skew_imbalance") for s in sp.walk()
+                 if s is not sp]
+        skews.append(sp.attrs.get("skew_raw"))
+        skews = [float(s) for s in skews if s is not None]
+        if skews:
+            sp.set(skew_max=max(skews))
+        if e.get("decision_fp"):
+            # the rewrite-invariant decision key: skew lands under it
+            # for shuffles, per-side input sizes for joins
+            sp.set(stats_decision_fp=e["decision_fp"])
+            if inputs is not None:
+                lt, rt = inputs
+                sp.set(left_in_bytes=int(lt.nbytes),
+                       right_in_bytes=int(rt.nbytes))
+
+    def run(self, node: ir.PlanNode) -> Table:
+        # node boundaries are the deadline check points: a query past
+        # its budget stops before dispatching the next stage
+        _resil.check_deadline(f"plan.{node.kind}")
+        fn = getattr(self, f"_do_{node.kind}", None)
+        if fn is None:
+            raise CylonPlanError(
+                f"no lowering for {type(node).__name__}",
+                code=Code.NotImplemented)
+        if self._recorder is None:
+            return fn(node)
+        return self._recorder.run(node, fn)
+
+    def _seq(self) -> Optional[int]:
+        return self.ctx.get_next_sequence() if self.ctx is not None else None
+
+    # -- leaves ---------------------------------------------------------
+
+    def _do_scan(self, node: ir.Scan) -> Table:
+        with _span("plan.scan", self._seq()) as sp:
+            t = node.table if node.table is not None \
+                else table_api.get_table(node.table_id)
+            if self.ctx is None:
+                self.ctx = t._ctx
+            sp.set(rows_in=t.capacity, world=_world(self.ctx))
+        # borrowed: the engine did not allocate a scan input — it
+        # counts toward live bytes but never toward a leak report
+        return _ledger.track(t, "plan.scan", borrowed=True)
+
+    # -- row/column ops -------------------------------------------------
+
+    def _do_project(self, node: ir.Project) -> Table:
+        t = self.run(node.children[0])
+        with _span("plan.project", self._seq(), cols=len(node.cols),
+                   rows_in=t.capacity):
+            return _ledger.track(t.project(node.cols), "plan.project")
+
+    def _do_filter(self, node: ir.Filter) -> Table:
+        t = self.run(node.children[0])
+        with _span("plan.filter", self._seq(), rows_in=t.capacity):
+            return _ledger.track(t.filter_mask(node.expr.mask(t)),
+                                 "plan.filter")
+
+    # -- exchanges ------------------------------------------------------
+
+    def _side_exchanges(self, t: Table, keys, other: Table,
+                        other_keys) -> bool:
+        """True when `distributed_join` will exchange THIS side —
+        mirrors its runtime-witness skip check (signature over the
+        ALIGNED key columns vs the stored witness). A promoting
+        alignment only invalidates the side it actually promotes: a
+        side whose dtypes already equal the promoted common dtype
+        keeps its witness and is skipped, while the other side
+        exchanges (its aligned signature carries the promoted dtype
+        string the pre-alignment witness cannot match). The promotion is
+        the port's own (``torch.promote_types``, data/table.py
+        ``_align_pair``), as is the witness check (dist_ops.
+        distributed_join compares the signature of the aligned key
+        columns with the stored witness)."""
+        import torch
+
+        from ..parallel import shard
+
+        for k, ok in zip(keys, other_keys):
+            a, b = t._columns[k], other._columns[ok]
+            if a.is_string or b.is_string:
+                continue  # string keys: partition_signature is None below
+            common = torch.promote_types(a.data.dtype, b.data.dtype)
+            if a.data.dtype != common:
+                return True
+        sig = shard.partition_signature(
+            [t._columns[k] for k in keys], tuple(keys),
+            self.ctx.get_world_size())
+        return sig is None or t._hash_partitioned != sig
+
+    def _do_shuffle(self, node: ir.Shuffle) -> Table:
+        from ..parallel import dist_ops, shard
+
+        t = self.run(node.children[0])
+        if _world(self.ctx) == 1:
+            return t
+        salted = bool(getattr(node, "salted", False))
+        # runtime-witness check BEFORE the span: an already-placed input
+        # makes this a no-op, which must not count as an exchange stage
+        # (a SALTED shuffle always executes — its job is load balance,
+        # which key placement does not provide under hot keys)
+        sig = shard.partition_signature(
+            [t._columns[k] for k in node.keys], tuple(node.keys),
+            self.ctx.get_world_size())
+        if sig is not None and t._hash_partitioned == sig and not salted:
+            return t
+        with _span("plan.shuffle.explicit", self._seq(),
+                   world=_world(self.ctx), rows_in=t.capacity,
+                   **({"salted": True} if salted else {})) as sp:
+            out = _ledger.track(
+                dist_ops.shuffle(t, node.keys, salted=salted),
+                "plan.shuffle")
+            self._stamp_stats(sp, node, out)
+            return out
+
+    def _do_join(self, node: ir.Join) -> Table:
+        l, r = node.children
+        # fold Shuffle markers into the join's own (fused, skippable)
+        # exchange machinery instead of running them standalone
+        lsrc = l.children[0] if isinstance(l, ir.Shuffle) else l
+        rsrc = r.children[0] if isinstance(r, ir.Shuffle) else r
+        lt = self.run(lsrc)
+        rt = self.run(rsrc)
+        world = _world(self.ctx)
+        broadcast = world > 1 and node.algorithm == "broadcast" \
+            and getattr(node, "build_side", None) in (0, 1)
+        # the label reports what the RUNTIME will do, not what the plan
+        # claims: count sides whose witness check will fail inside
+        # distributed_join (markers present or not). A broadcast join
+        # exchanges NOTHING — the build side rides one gather program
+        n_ex = 0
+        if world > 1 and not broadcast:
+            n_ex = int(self._side_exchanges(lt, node.left_on, rt,
+                                            node.right_on)) \
+                + int(self._side_exchanges(rt, node.right_on, lt,
+                                           node.left_on))
+        label = "plan.shuffle.join" if n_ex else "plan.join"
+        algo = "broadcast" if broadcast \
+            else ("shuffle" if world > 1 else "local")
+        # an un-rewritten "broadcast" request (world 1, knob =shuffle,
+        # no build side picked) lowers with the default local hint —
+        # "broadcast" is not a local-kernel algorithm
+        local_alg = "auto" if node.algorithm == "broadcast" \
+            else node.algorithm
+        blk = self._degrade.get(id(node))
+        with _span(label, self._seq(), world=world, how=node.how,
+                   sides_exchanged=n_ex, join_algorithm=algo,
+                   rows_in=lt.capacity + rt.capacity) as sp:
+            if blk:
+                # admission-controller degrade: the blocked/chunked
+                # local join bounds the working set to build side + one
+                # probe block (decided only on world==1 plans, where
+                # distributed_join short-circuits to the local join
+                # anyway — this is that path with an explicit block)
+                sp.set(mode="blocked", probe_block_rows=int(blk))
+                out = _ledger.track(
+                    lt.join(rt, node.how, local_alg,
+                            left_on=list(node.left_on),
+                            right_on=list(node.right_on),
+                            probe_block_rows=int(blk)),
+                    "plan.join")
+            elif broadcast:
+                # adaptive rewrite (or forced knob): replicate the
+                # build side, probe locally — the local-kernel
+                # algorithm hint stays "auto". An ineligible shape
+                # (long varbytes) falls back inside
+                # broadcast_hash_join, which re-annotates the span
+                out = _ledger.track(
+                    lt.distributed_join(
+                        rt, node.how, "auto",
+                        left_on=list(node.left_on),
+                        right_on=list(node.right_on),
+                        comm="broadcast",
+                        build_side=int(node.build_side)),
+                    "plan.join")
+            else:
+                out = _ledger.track(
+                    lt.distributed_join(
+                        rt, node.how, local_alg,
+                        left_on=list(node.left_on),
+                        right_on=list(node.right_on)),
+                    "plan.join")
+            self._stamp_stats(sp, node, out, inputs=(lt, rt))
+            return out
+
+    def _do_groupby(self, node: ir.GroupBy) -> Table:
+        from ..parallel import dist_ops, shard
+
+        t = self.run(node.children[0])
+        ops = [table_mod._as_agg_op(o) for o in node.ops]
+        if _world(self.ctx) == 1:
+            with _span("plan.groupby", self._seq(), world=1,
+                       rows_in=t.capacity) as sp:
+                out = _ledger.track(
+                    table_mod.groupby_local(t, node.keys,
+                                            node.agg_cols, ops),
+                    "plan.groupby")
+                self._stamp_stats(sp, node, out)
+                return out
+        local = False
+        if node.local_ok:
+            # re-verify the plan's claim against the runtime witness —
+            # a false local aggregation would split groups across shards
+            key_cols = [t._columns[k] for k in node.keys]
+            sig = shard.partition_signature(key_cols, tuple(node.keys),
+                                            self.ctx.get_world_size())
+            local = sig is not None and t._hash_partitioned == sig
+        label = "plan.groupby" if local else "plan.shuffle.groupby"
+        with _span(label, self._seq(), world=_world(self.ctx),
+                   local=local, rows_in=t.capacity) as sp:
+            out = _ledger.track(
+                dist_ops.distributed_groupby(
+                    t, node.keys, node.agg_cols, ops,
+                    pre_partitioned=local),
+                "plan.groupby")
+            self._stamp_stats(sp, node, out)
+            return out
+
+    def _do_setop(self, node: ir.SetOp) -> Table:
+        lt = self.run(node.children[0])
+        rt = self.run(node.children[1])
+        if _world(self.ctx) == 1:
+            with _span("plan.setop", self._seq(), world=1, op=node.op,
+                       rows_in=lt.capacity + rt.capacity):
+                return _ledger.track(getattr(lt, node.op)(rt),
+                                     "plan.setop")
+        with _span("plan.shuffle.setop", self._seq(),
+                   world=_world(self.ctx), op=node.op,
+                   rows_in=lt.capacity + rt.capacity):
+            return _ledger.track(
+                getattr(lt, f"distributed_{node.op}")(rt), "plan.setop")
+
+    def _do_sort(self, node: ir.Sort) -> Table:
+        from ..parallel import dist_ops
+
+        t = self.run(node.children[0])
+        if _world(self.ctx) == 1:
+            with _span("plan.sort", self._seq(), world=1,
+                       rows_in=t.capacity):
+                return _ledger.track(t.sort(node.by, node.ascending),
+                                     "plan.sort")
+        with _span("plan.shuffle.sort", self._seq(),
+                   world=_world(self.ctx), rows_in=t.capacity):
+            return _ledger.track(
+                dist_ops.distributed_sort(t, node.by, node.ascending),
+                "plan.sort")

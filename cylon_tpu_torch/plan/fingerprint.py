@@ -1,0 +1,176 @@
+"""Structural fingerprints over the logical plan IR.
+
+Counterpart of cylon_tpu.plan.fingerprint; the type strings are numpy dtype
+names.
+
+Born in ``service/plancache.py`` as the plan-cache key, the structural
+fingerprint turned out to be a property of the PLAN, not of the cache:
+the statistics warehouse (``telemetry/stats.py``) keys measured
+per-query statistics by the same whole-plan fingerprint, and keys
+node-level measurements by per-node SUB-fingerprints of the subtree
+rooted at each shuffle/join/groupby node. Both consumers must agree on
+one key space — so the token tree and the hash live here, in plan/,
+where both the executor (below the service tier) and the plan cache
+(above it) can import them without violating the ``below-service``
+layering contract. ``service/plancache.py`` re-exports
+:func:`fingerprint` unchanged.
+
+What a fingerprint covers (and deliberately excludes) is documented on
+the plan cache, which remains the semantics owner: node kinds, column
+schemas (names, dtypes, widths), join keys/type/algorithm, groupby and
+sort shapes, set-op kind, projection positions, the full filter
+expression (op + literal), each Scan's hash-placement witness *shape*,
+and the world size — never table identities, row counts or contents.
+Row-count blindness is a FEATURE for the statistics store: the same
+dashboard query over a growing table keeps its fingerprint, so its
+measured history accumulates and the drift detector — not a key
+change — is what notices the distribution moving.
+
+Everything is a pure function of the token tree through sha256 — no
+``id()``, no seed-randomized ``hash()`` — so fingerprints are stable
+across processes, which is what lets a persisted statistics file
+warm-start a fresh replica (stats.load) and lets subprocess tests pin
+cross-process equality.
+"""
+from __future__ import annotations
+
+import hashlib
+
+from . import ir
+
+FP_VERSION = 1
+
+# node kinds that get per-node sub-fingerprints in the statistics
+# store: the allocating, exchange-bearing operators whose measured
+# output size is what admission wants to learn (scans are borrowed
+# inputs; project/filter are views)
+STATS_NODE_KINDS = ("shuffle", "join", "groupby")
+
+
+def _expr_tokens(e) -> tuple:
+    """Canonical token tree for a bound filter expression — positions,
+    operators and literals (type + repr, so ``3`` and ``3.0`` differ),
+    never Python object identity."""
+    if isinstance(e, ir.Cmp):
+        return ("cmp", int(e.pos), str(e.op), type(e.value).__name__,
+                repr(e.value))
+    if isinstance(e, ir.BoolOp):
+        return (str(e.op), _expr_tokens(e.a), _expr_tokens(e.b))
+    if isinstance(e, ir.Not):
+        return ("not", _expr_tokens(e.a))
+    return ("expr", repr(e))  # future Expr kinds: repr is still stable
+
+
+def _own_tokens(n: ir.PlanNode, with_algorithm: bool = True) -> tuple:
+    """One node's own token prefix (kind, schema, types, extras) —
+    children excluded. ``with_algorithm=False`` drops the Join
+    algorithm token (the decision-fingerprint normalization: the
+    measured history of a join must survive its own rewrite, or the
+    adaptive loop could never self-correct a mis-learned choice)."""
+    if isinstance(n, ir.Scan):
+        sig = n.witness_sig
+        wit = None if sig is None else (
+            tuple(int(i) for i in sig[0]),
+            tuple(str(d) for d in sig[1]), int(sig[2]))
+        extra: tuple = ("witness", wit, n.width)
+    elif isinstance(n, ir.Project):
+        extra = ("cols", tuple(n.cols))
+    elif isinstance(n, ir.Filter):
+        extra = ("expr", _expr_tokens(n.expr))
+    elif isinstance(n, ir.Shuffle):
+        # NB: the `salted` flag is deliberately NOT a token — a salted
+        # and an unsalted exchange of the same shape share one measured
+        # history, so the salting decision reads pre-mitigation skew
+        # (the exchange records the RAW count matrix) and never flaps
+        extra = ("keys", tuple(n.keys))
+    elif isinstance(n, ir.Join):
+        extra = ("on", tuple(n.left_on), tuple(n.right_on),
+                 str(n.how)) + \
+            ((str(n.algorithm),) if with_algorithm else ())
+    elif isinstance(n, ir.GroupBy):
+        extra = ("agg", tuple(n.keys), tuple(n.agg_cols), tuple(n.ops))
+    elif isinstance(n, ir.SetOp):
+        extra = ("op", str(n.op))
+    elif isinstance(n, ir.Sort):
+        extra = ("by", tuple(n.by), tuple(bool(a) for a in n.ascending))
+    else:
+        extra = ("args", n.args_repr())
+    # schema (column NAMES) is part of the key: names flow into
+    # EXPLAIN/report renders and admission worst-node forensics, so a
+    # plan-cache hit must guarantee the cached template's names are the
+    # query's own — two shapes that differ only in names get two entries
+    return (n.kind, tuple(n.schema), tuple(n.types)) + extra
+
+
+def node_tokens(n: ir.PlanNode) -> tuple:
+    """Canonical token tree for one plan node + its subtree."""
+    return _own_tokens(n) + tuple(node_tokens(c) for c in n.children)
+
+
+def _decision_tokens(n: ir.PlanNode) -> tuple:
+    """Algorithm-invariant token tree: join-side Shuffle markers are
+    stripped and the Join algorithm token dropped, so a shuffle join,
+    its physical plan with inserted exchanges, and its broadcast
+    rewrite all produce the SAME tokens. This is what keys the
+    warehouse's per-join input-size history (``join_input`` entries):
+    the first (exploratory, shuffle) run and every later broadcast run
+    feed one entry, which is what lets a mis-learned broadcast drift,
+    evict and revert instead of replaying its own stale evidence."""
+    kids = n.children
+    if isinstance(n, ir.Join):
+        kids = [c.children[0] if isinstance(c, ir.Shuffle) else c
+                for c in kids]
+        return _own_tokens(n, with_algorithm=False) + \
+            tuple(_decision_tokens(c) for c in kids)
+    return _own_tokens(n) + tuple(_decision_tokens(c) for c in kids)
+
+
+def fingerprint(root: ir.PlanNode, world: int) -> str:
+    """Stable hex fingerprint of a logical plan's STRUCTURE under a
+    given world size — the plan-cache key AND the statistics
+    warehouse's per-query key."""
+    doc = ("cylon-plan-fp", FP_VERSION, int(world), node_tokens(root))
+    return hashlib.sha256(repr(doc).encode("utf-8")).hexdigest()
+
+
+def node_fingerprint(node: ir.PlanNode, world: int) -> str:
+    """Stable hex sub-fingerprint of the subtree rooted at ``node`` —
+    the statistics store's node-level key. A distinct document prefix
+    keeps the two key spaces disjoint (a whole-plan fingerprint can
+    never collide with the sub-fingerprint of an identical-looking
+    subtree). Because the key is the subtree SHAPE, the same join
+    appearing in two different plans shares one measured history —
+    cross-plan learning for free."""
+    doc = ("cylon-node-fp", FP_VERSION, int(world), node_tokens(node))
+    return hashlib.sha256(repr(doc).encode("utf-8")).hexdigest()
+
+
+def shuffle_decision_fingerprint(node: ir.PlanNode, world: int) -> str:
+    """Stable hex fingerprint of a standalone Shuffle's DECISION shape
+    (same ``_decision_tokens`` normalization as joins: join-side
+    exchange markers below it stripped, algorithm tokens dropped) —
+    the key of the warehouse's measured exchange-skew history. Plain
+    ``node_fingerprint`` would fork the key space across the
+    optimizer's own rewrites: the executed (post-elide, possibly
+    broadcast-rewritten) subtree tokens differ from the pre-elide tree
+    the salting decision inspects, and the skew evidence would land
+    where the decision never looks."""
+    doc = ("cylon-shuffle-decision-fp", FP_VERSION, int(world),
+           _decision_tokens(node))
+    return hashlib.sha256(repr(doc).encode("utf-8")).hexdigest()
+
+
+def join_decision_fingerprint(node: ir.PlanNode, world: int) -> str:
+    """Stable hex fingerprint of a Join's DECISION shape — algorithm
+    token dropped and join-side exchange markers stripped (recursively,
+    see ``_decision_tokens``) — under a given world size. The key of
+    the warehouse's measured per-side input sizes (``join_input``
+    entries): identical for the logical plan, the shuffle-inserted
+    physical plan, and the broadcast rewrite, so the adaptive
+    optimizer's evidence base is fed by every execution regardless of
+    which algorithm actually ran. A third disjoint document prefix
+    keeps this key space from ever colliding with plan- or node-level
+    fingerprints."""
+    doc = ("cylon-join-decision-fp", FP_VERSION, int(world),
+           _decision_tokens(node))
+    return hashlib.sha256(repr(doc).encode("utf-8")).hexdigest()

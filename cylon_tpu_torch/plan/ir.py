@@ -1,0 +1,393 @@
+"""Logical-plan IR nodes and the filter expression mini-language
+(counterpart of cylon_tpu.plan.ir).
+
+Every node knows its output ``schema`` (column names) and ``types``
+(numpy dtype names — ``dtypes.np_name`` of the torch dtype, the JAX
+package's spelling — with the sentinel ``"str"`` for string/varbytes
+columns — the optimizer needs exactly one fact about a type: whether a
+hash-placement witness can exist for it, see
+parallel/shard.partition_signature). Column references are POSITIONS,
+resolved from names once at construction by the `LazyTable` facade;
+the projection-pruning pass remaps them wholesale.
+
+``partitioned_by`` (an ordered tuple of output column positions, or
+None) is the optimizer's propagated co-partitioning metadata: "every
+row of this node's output lives on the shard its hash over these key
+columns routes to". It mirrors — and must stay consistent with — the
+runtime witness `Table._hash_partitioned`, because the executor's
+shuffle-skipping lowerings re-verify against the runtime witness
+before trusting it.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple, Union
+
+from ..status import Code, CylonPlanError
+
+# string-typed columns can never carry a hash-placement witness
+# (partition_signature returns None for them: vocabulary unification /
+# lane-count pairing re-codes the hashed bits per pairing)
+STR_TYPE = "str"
+
+
+# ---------------------------------------------------------------------------
+# filter expressions
+# ---------------------------------------------------------------------------
+
+
+class Expr:
+    """Base of the bound filter expression tree (column POSITIONS)."""
+
+    def columns(self) -> set:
+        raise NotImplementedError
+
+    def remap(self, mapping) -> "Expr":
+        raise NotImplementedError
+
+    def mask(self, table):
+        """Evaluate to a bool mask tensor over ``table``'s capacity —
+        same semantics as the eager `Table` comparison operators
+        (comparison AND column validity; boolean combinators are plain
+        elementwise ops)."""
+        raise NotImplementedError
+
+    def __and__(self, other: "Expr") -> "Expr":
+        return BoolOp("and", self, other)
+
+    def __or__(self, other: "Expr") -> "Expr":
+        return BoolOp("or", self, other)
+
+    def __invert__(self) -> "Expr":
+        return Not(self)
+
+
+class Col:
+    """Unbound column reference — the user-facing builder. ``col("x") >
+    3`` constructs a comparison; `LazyTable.filter` binds names to
+    positions against its schema."""
+
+    def __init__(self, ref: Union[str, int]):
+        self.ref = ref
+
+    def _cmp(self, op, value):
+        if isinstance(value, Col) or isinstance(value, Expr):
+            raise CylonPlanError(
+                "column-vs-column predicates: compare against "
+                "literals", code=Code.NotImplemented)
+        return Cmp(self.ref, op, value)
+
+    def __eq__(self, v):  # type: ignore[override]
+        return self._cmp("eq", v)
+
+    def __ne__(self, v):  # type: ignore[override]
+        return self._cmp("ne", v)
+
+    def __lt__(self, v):
+        return self._cmp("lt", v)
+
+    def __gt__(self, v):
+        return self._cmp("gt", v)
+
+    def __le__(self, v):
+        return self._cmp("le", v)
+
+    def __ge__(self, v):
+        return self._cmp("ge", v)
+
+    def __hash__(self):
+        return hash(("Col", self.ref))
+
+
+def col(ref: Union[str, int]) -> Col:
+    """Column reference for `LazyTable.filter` predicates."""
+    return Col(ref)
+
+
+class Cmp(Expr):
+    """column <op> literal. ``pos`` starts as the unbound name/position
+    from `col()`; `bind` resolves it."""
+
+    def __init__(self, pos, op: str, value):
+        self.pos = pos
+        self.op = op
+        self.value = value
+
+    def bind(self, resolver) -> "Cmp":
+        return Cmp(resolver(self.pos), self.op, self.value)
+
+    def columns(self) -> set:
+        return {self.pos}
+
+    def remap(self, mapping) -> "Cmp":
+        return Cmp(mapping[self.pos], self.op, self.value)
+
+    def mask(self, table):
+        from ..data.table import Table
+
+        # route through the eager comparison machinery (dict/varbytes
+        # strings included) so planned filters match eager filters bit
+        # for bit; _compare ANDs column validity into the result
+        sub = Table([table._columns[self.pos]], table._ctx,
+                    table.row_mask)
+        return sub._compare(self.value, self.op)._columns[0].data
+
+    def __repr__(self):
+        return f"c{self.pos} {self.op} {self.value!r}"
+
+
+class BoolOp(Expr):
+    def __init__(self, op: str, a: Expr, b: Expr):
+        self.op = op
+        self.a = a
+        self.b = b
+
+    def bind(self, resolver) -> "BoolOp":
+        return BoolOp(self.op, self.a.bind(resolver), self.b.bind(resolver))
+
+    def columns(self) -> set:
+        return self.a.columns() | self.b.columns()
+
+    def remap(self, mapping) -> "BoolOp":
+        return BoolOp(self.op, self.a.remap(mapping), self.b.remap(mapping))
+
+    def mask(self, table):
+        a, b = self.a.mask(table), self.b.mask(table)
+        return (a & b) if self.op == "and" else (a | b)
+
+    def __repr__(self):
+        return f"({self.a!r} {self.op} {self.b!r})"
+
+
+class Not(Expr):
+    def __init__(self, a: Expr):
+        self.a = a
+
+    def bind(self, resolver) -> "Not":
+        return Not(self.a.bind(resolver))
+
+    def columns(self) -> set:
+        return self.a.columns()
+
+    def remap(self, mapping) -> "Not":
+        return Not(self.a.remap(mapping))
+
+    def mask(self, table):
+        return ~self.a.mask(table)
+
+    def __repr__(self):
+        return f"~{self.a!r}"
+
+
+# ---------------------------------------------------------------------------
+# plan nodes
+# ---------------------------------------------------------------------------
+
+
+class PlanNode:
+    kind = "node"
+
+    def __init__(self, children: Sequence["PlanNode"], schema: List[str],
+                 types: List[str]):
+        self.children = list(children)
+        self.schema = list(schema)
+        self.types = list(types)
+        # ordered output positions this node's rows are hash-placed by,
+        # or None — filled in by the optimizer's propagation pass
+        self.partitioned_by: Optional[Tuple[int, ...]] = None
+
+    @property
+    def width(self) -> int:
+        return len(self.schema)
+
+    def args_repr(self) -> str:
+        return ""
+
+    def __repr__(self):
+        return f"{type(self).__name__}({self.args_repr()})"
+
+
+class Scan(PlanNode):
+    """Leaf: either a direct `Table` reference (``table``), or a
+    `table_api` registry id (``table_id``) re-fetched at run time (late
+    binding — the handle space bindings already use). Schema/types/
+    witness are snapshots taken at construction. Holding the Table
+    directly (rather than auto-registering it) keeps plan construction
+    from pinning device buffers in the process-global registry."""
+
+    kind = "scan"
+
+    def __init__(self, table_id: Optional[str], schema, types,
+                 witness_sig=None, table=None):
+        super().__init__([], schema, types)
+        self.table_id = table_id
+        self.table = table
+        self.witness_sig = witness_sig  # Table._hash_partitioned snapshot
+
+    def __deepcopy__(self, memo):
+        # plans deepcopy before optimization; the referenced Table's
+        # device buffers must be SHARED, never copied
+        new = Scan(self.table_id, list(self.schema), list(self.types),
+                   self.witness_sig, table=self.table)
+        memo[id(self)] = new
+        return new
+
+    def args_repr(self):
+        src = self.table_id if self.table_id is not None else "<inline>"
+        return f"{src!r}, cols={self.schema}"
+
+
+class Project(PlanNode):
+    kind = "project"
+
+    def __init__(self, child: PlanNode, cols: Sequence[int]):
+        self.cols = [int(c) for c in cols]
+        super().__init__([child], [child.schema[c] for c in self.cols],
+                         [child.types[c] for c in self.cols])
+
+    def args_repr(self):
+        return f"cols={self.cols}"
+
+
+class Filter(PlanNode):
+    kind = "filter"
+
+    def __init__(self, child: PlanNode, expr: Expr):
+        super().__init__([child], child.schema, child.types)
+        self.expr = expr
+
+    def args_repr(self):
+        return repr(self.expr)
+
+
+class Shuffle(PlanNode):
+    """Explicit hash repartition by key columns — inserted by the
+    physical-planning pass below joins (and by user `.shuffle()`), then
+    deleted by the elision pass when its input already satisfies it.
+
+    ``salted``: set by the adaptive pass (optimizer.adapt_from_stats)
+    on STANDALONE shuffles whose measured skew crossed the warning
+    threshold — the exchange spreads each hot destination's rows
+    across ``CYLON_SALT_FACTOR`` sub-buckets, so the output is
+    load-balanced but carries NO hash-placement witness (the salt is
+    positional; downstream consumers re-establish placement)."""
+
+    kind = "shuffle"
+
+    def __init__(self, child: PlanNode, keys: Sequence[int]):
+        super().__init__([child], child.schema, child.types)
+        self.keys = [int(k) for k in keys]
+        self.salted = False
+
+    def args_repr(self):
+        return f"keys={self.keys}" + (", salted" if self.salted else "")
+
+
+class Join(PlanNode):
+    """``algorithm`` is the user-facing local-kernel hint ("auto" /
+    "sort" / "hash") — or "broadcast", the adaptive rewrite
+    (optimizer.adapt_from_stats): the ``build_side`` (0=left, 1=right)
+    is replicated to every shard inside one gather program and probed
+    locally, with NO all-to-all on either side. ``build_side`` is set
+    only by the rewrite; a user-forced ``algorithm="broadcast"`` leaves
+    it None until the optimizer picks the side."""
+
+    kind = "join"
+
+    def __init__(self, left: PlanNode, right: PlanNode,
+                 left_on: Sequence[int], right_on: Sequence[int],
+                 how: str = "inner", algorithm: str = "auto"):
+        nl = left.width
+        schema = [f"lt-{i}" for i in range(nl)] \
+            + [f"rt-{nl + j}" for j in range(right.width)]
+        super().__init__([left, right], schema, left.types + right.types)
+        self.left_on = [int(i) for i in left_on]
+        self.right_on = [int(j) for j in right_on]
+        self.how = how
+        self.algorithm = algorithm
+        self.build_side: Optional[int] = None
+
+    def args_repr(self):
+        alg = f", algo={self.algorithm}" \
+            if self.algorithm not in ("auto",) else ""
+        bs = f", build={self.build_side}" \
+            if self.build_side is not None else ""
+        return f"{self.how}, l{self.left_on}=r{self.right_on}{alg}{bs}"
+
+
+class GroupBy(PlanNode):
+    """Hash aggregate. ``ops`` are op-name strings ("sum", "count",
+    "mean", "min", "max") — the lowering converts them; keeping strings
+    here keeps `plan/` free of `ops/` imports (the lint gate)."""
+
+    kind = "groupby"
+
+    _AGG_TYPES = {"count": "int64", "mean": "float64"}
+
+    def __init__(self, child: PlanNode, keys: Sequence[int],
+                 agg_cols: Sequence[int], ops: Sequence[str]):
+        keys = [int(k) for k in keys]
+        agg_cols = [int(a) for a in agg_cols]
+        schema = [child.schema[k] for k in keys] \
+            + [child.schema[a] for a in agg_cols]
+        types = [child.types[k] for k in keys] \
+            + [self._AGG_TYPES.get(o, child.types[a])
+               for a, o in zip(agg_cols, ops)]
+        super().__init__([child], schema, types)
+        self.keys = keys
+        self.agg_cols = agg_cols
+        self.ops = [str(o) for o in ops]
+        # set by the elision pass: input partitioning satisfies the keys,
+        # so the lowering may aggregate per shard with no exchange
+        self.local_ok = False
+
+    def args_repr(self):
+        aggs = list(zip(self.agg_cols, self.ops))
+        return f"keys={self.keys}, aggs={aggs}" + \
+            (", local" if self.local_ok else "")
+
+
+class SetOp(PlanNode):
+    """union | subtract | intersect (op held as the Table method name)."""
+
+    kind = "setop"
+
+    def __init__(self, left: PlanNode, right: PlanNode, op: str):
+        if left.width != right.width:
+            raise CylonPlanError("set ops need equal schemas")
+        super().__init__([left, right], left.schema, left.types)
+        self.op = str(op)
+
+    def args_repr(self):
+        return self.op
+
+
+class Sort(PlanNode):
+    kind = "sort"
+
+    def __init__(self, child: PlanNode, by: Sequence[int], ascending):
+        super().__init__([child], child.schema, child.types)
+        self.by = [int(b) for b in by]
+        self.ascending = list(ascending) \
+            if isinstance(ascending, (list, tuple)) \
+            else [bool(ascending)] * len(self.by)
+
+    def args_repr(self):
+        return f"by={self.by}, asc={self.ascending}"
+
+
+def walk(node: PlanNode):
+    """Pre-order traversal."""
+    yield node
+    for c in node.children:
+        yield from walk(c)
+
+
+def format_plan(node: PlanNode, indent: str = "") -> str:
+    """Indented tree for `LazyTable.explain`."""
+    pb = node.partitioned_by
+    line = f"{indent}{type(node).__name__}({node.args_repr()})" + \
+        (f"  partitioned_by={tuple(pb)}" if pb is not None else "")
+    parts = [line]
+    for c in node.children:
+        parts.append(format_plan(c, indent + "  "))
+    return "\n".join(parts)

@@ -1,0 +1,256 @@
+"""LazyTable — the deferred-execution facade over `table_api`
+(counterpart of cylon_tpu.plan.lazy).
+
+Mirrors the eager `Table` operator surface but BUILDS a logical plan
+instead of executing: `scan` snapshots a registered table's schema (and
+hash-placement witness), each method adds an IR node, and `.execute()`
+optimizes + lowers the whole pipeline in one go — which is where
+multi-op pipelines stop paying one all-to-all per operator (the
+shuffle-elision optimizer, plan/optimizer.py).
+
+    lt = plan.scan(left)              # or plan.scan("registered-id")
+    rt = plan.scan(right)
+    out = (lt.join(rt, on="k")
+             .groupby("lt-0", ["rt-3"], ["sum"])
+             .execute())              # exactly ONE shuffle
+
+Filters use the `col` expression builder: ``t.filter(col("v") > 3)``.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Union
+
+from .. import dtypes, table_api
+from ..data.table import Table
+from ..status import Code, CylonPlanError
+from . import ir
+from .executor import execute as _execute, \
+    execute_analyzed as _execute_analyzed
+from .optimizer import PlanStats, optimize as _optimize
+
+_JOIN_TYPES = ("inner", "left", "right", "outer", "full_outer")
+_AGG_OPS = ("sum", "count", "min", "max", "mean")
+
+# Late-bound optimize memo: the service tier's plan/fingerprint cache
+# (service/plancache.install) registers here so repeated query SHAPES
+# skip re-optimization — in the QueryService AND in plain library-mode
+# collect() loops. A hook instead of an import keeps the layering
+# downward-only (analysis/layering.py `below-service`): plan/ never
+# imports service/. Signature: memo(root, world) -> (root, PlanStats).
+_plan_memo = None
+
+
+def set_plan_memo(memo) -> None:
+    """Register (or clear, with None) the optimize memo hook."""
+    global _plan_memo
+    _plan_memo = memo
+
+
+def _optimize_root(root, world):
+    memo = _plan_memo
+    if memo is not None:
+        return memo(root, world)
+    return _optimize(root, world)
+
+
+def _snapshot(table: Table, table_id=None, inline=None) -> ir.Scan:
+    types = [ir.STR_TYPE if c.is_string else dtypes.np_name(c.data.dtype)
+             for c in table._columns]
+    return ir.Scan(table_id, list(table.column_names), types,
+                   witness_sig=table._hash_partitioned, table=inline)
+
+
+def scan(table_or_id: Union[Table, str], ctx=None) -> "LazyTable":
+    """Start a lazy pipeline from a `Table` (referenced directly — the
+    plan never registers it, so no registry entry outlives the plan) or
+    from an already-registered `table_api` id (re-fetched at execute
+    time)."""
+    if isinstance(table_or_id, str):
+        table = table_api.get_table(table_or_id)
+        node = _snapshot(table, table_id=table_or_id)
+    else:
+        table = table_or_id
+        node = _snapshot(table, inline=table)
+    return LazyTable(node, ctx or table._ctx)
+
+
+class LazyTable:
+    def __init__(self, node: ir.PlanNode, ctx):
+        self._node = node
+        self._ctx = ctx
+
+    # -- introspection --------------------------------------------------
+
+    @property
+    def schema(self) -> List[str]:
+        return list(self._node.schema)
+
+    @property
+    def column_count(self) -> int:
+        return self._node.width
+
+    @property
+    def context(self):
+        """The CylonContext this query will run under — the public
+        handle the service scheduler executes with."""
+        return self._ctx
+
+    scan = staticmethod(scan)
+
+    def _pos(self, c: Union[int, str]) -> int:
+        if isinstance(c, str):
+            try:
+                return self._node.schema.index(c)
+            except ValueError:
+                raise CylonPlanError(f"no column named {c!r}",
+                                     code=Code.KeyError)
+        i = int(c)
+        if not (0 <= i < self._node.width):
+            raise CylonPlanError(f"column {i} out of range",
+                                 code=Code.KeyError)
+        return i
+
+    def _positions(self, cols) -> List[int]:
+        cols = cols if isinstance(cols, (list, tuple)) else [cols]
+        return [self._pos(c) for c in cols]
+
+    def _wrap(self, node: ir.PlanNode) -> "LazyTable":
+        return LazyTable(node, self._ctx)
+
+    # -- relational operators ------------------------------------------
+
+    def project(self, columns) -> "LazyTable":
+        return self._wrap(ir.Project(self._node, self._positions(columns)))
+
+    def __getitem__(self, key):
+        if isinstance(key, (list, tuple)):
+            return self.project(list(key))
+        return self.project([key])
+
+    def filter(self, expr) -> "LazyTable":
+        if isinstance(expr, ir.Col):
+            raise CylonPlanError(
+                "filter needs a predicate, e.g. col('x') > 3")
+        bound = expr.bind(self._pos)
+        return self._wrap(ir.Filter(self._node, bound))
+
+    def shuffle(self, keys) -> "LazyTable":
+        return self._wrap(ir.Shuffle(self._node, self._positions(keys)))
+
+    def join(self, other: "LazyTable", join_type: str = "inner",
+             algorithm: str = "auto", on=None, left_on=None,
+             right_on=None) -> "LazyTable":
+        if join_type not in _JOIN_TYPES:
+            raise CylonPlanError(
+                f"unsupported join type {join_type!r}")
+        if on is not None:
+            lidx = self._positions(on)
+            ridx = other._positions(on)
+        elif left_on is not None and right_on is not None:
+            lidx = self._positions(left_on)
+            ridx = other._positions(right_on)
+        else:
+            raise CylonPlanError(
+                "'on' or 'left_on'+'right_on' required")
+        return self._wrap(ir.Join(self._node, other._node, lidx, ridx,
+                                  join_type, algorithm))
+
+    def groupby(self, index_col, aggregate_cols: Sequence,
+                aggregate_ops: Sequence[str]) -> "LazyTable":
+        keys = self._positions(index_col)
+        aggs = self._positions(list(aggregate_cols))
+        ops = [str(o).lower() for o in aggregate_ops]
+        for o in ops:
+            if o not in _AGG_OPS:
+                raise CylonPlanError(f"unknown aggregate {o!r}")
+        return self._wrap(ir.GroupBy(self._node, keys, aggs, ops))
+
+    def sort(self, by, ascending=True) -> "LazyTable":
+        return self._wrap(ir.Sort(self._node, self._positions(by),
+                                  ascending))
+
+    def union(self, other: "LazyTable") -> "LazyTable":
+        return self._wrap(ir.SetOp(self._node, other._node, "union"))
+
+    def subtract(self, other: "LazyTable") -> "LazyTable":
+        return self._wrap(ir.SetOp(self._node, other._node, "subtract"))
+
+    def intersect(self, other: "LazyTable") -> "LazyTable":
+        return self._wrap(ir.SetOp(self._node, other._node, "intersect"))
+
+    # -- optimize / execute --------------------------------------------
+
+    def _world(self) -> int:
+        return self._ctx.get_world_size() if self._ctx.is_distributed() \
+            else 1
+
+    def _plan_copy(self) -> ir.PlanNode:
+        # the optimizer rewrites in place; keep the logical plan this
+        # LazyTable (and any pipelines built on it) holds pristine
+        import copy
+
+        return copy.deepcopy(self._node)
+
+    def optimized(self):
+        """(optimized plan root, PlanStats) — without executing.
+        Memoized through the plan/fingerprint cache when the service
+        package is loaded (equal-shape plans skip the optimizer; see
+        service/plancache.py)."""
+        return _optimize_root(self._plan_copy(), self._world())
+
+    def plan_fingerprint(self) -> str:
+        """The structural fingerprint of this query's LOGICAL plan
+        (plan/fingerprint.py) — the plan-cache key and the statistics
+        warehouse's per-query key; stable across processes."""
+        from .fingerprint import fingerprint
+
+        return fingerprint(self._node, self._world())
+
+    def explain(self, optimize: bool = True, analyze: bool = False) -> str:
+        """The plan as text. ``analyze=True`` EXECUTES the query
+        (PostgreSQL EXPLAIN ANALYZE semantics) and renders the plan
+        annotated with measured rows/bytes/ms per node; the
+        `plan.report.PlanReport` behind the text is kept on
+        ``self.last_report`` for programmatic use."""
+        if analyze:
+            self.execute(optimize=optimize, analyze=True)
+            return self.last_report.render()
+        if optimize:
+            root, stats = self.optimized()
+            return ir.format_plan(root) + f"\n-- {stats.summary()}"
+        return ir.format_plan(self._node)
+
+    def execute(self, optimize: bool = True,
+                out_id: Optional[str] = None,
+                analyze: bool = False) -> Table:
+        """Optimize, lower, run. The result is a concrete `Table`
+        (registered under ``out_id`` when given, table_api-style).
+        ``analyze=True`` additionally records a per-node EXPLAIN
+        ANALYZE report on ``self.last_report`` (one row-count sync per
+        node — the default path pays nothing)."""
+        root = self._plan_copy()
+        stats: Optional[PlanStats] = None
+        if optimize:
+            root, stats = _optimize_root(root, self._world())
+        # the LOGICAL-plan fingerprint rides to the executor's root
+        # span: the query-log digest's join key, the statistics
+        # warehouse's per-query key, and — critically — the plan-cache
+        # key space drift eviction must match (fingerprinting the
+        # OPTIMIZED root here would fork the key space)
+        fp = self.plan_fingerprint()
+        if analyze:
+            result, report = _execute_analyzed(root, self._ctx,
+                                               stats=stats, plan_fp=fp)
+            self.last_report = report
+        else:
+            result = _execute(root, self._ctx, plan_fp=fp)
+        if stats is not None:
+            self.last_stats = stats
+        if out_id is not None:
+            table_api.put_table(out_id, result)
+        return result
+
+    collect = execute
+
+    def __repr__(self):
+        return f"LazyTable({self._node!r}, cols={self._node.schema})"

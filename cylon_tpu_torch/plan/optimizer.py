@@ -1,0 +1,580 @@
+"""Plan optimizer: physical shuffle insertion + three rewrite passes.
+
+Counterpart of cylon_tpu.plan.optimizer; the type strings are numpy dtype
+names.
+
+Pass order is load-bearing:
+
+1. ``insert_shuffles`` — physical planning: every join side gets an
+   explicit `Shuffle` on its keys (the paper's local/all-to-all/local
+   composition made visible as IR). GroupBy/SetOp/Sort keep their
+   exchanges internal to `dist_ops` (pre-aggregation and range
+   partitioning beat a naive key shuffle), so no node is inserted for
+   them — the elision pass instead decides whether they may skip.
+2. ``pushdown_filters`` — `Filter(Shuffle(x))` → `Shuffle(Filter(x))`:
+   the shuffle's emit mask drops filtered rows IN TRANSIT, so the
+   filter costs one elementwise AND and the exchange moves fewer rows.
+3. ``prune_projections`` — required-column analysis: columns no
+   downstream node references are dropped at the scans (a `Project`
+   over the `Scan`), so fewer payload leaves cross the mesh. All
+   position references (keys, aggregates, exprs) are remapped.
+4. ``elide_shuffles`` — partitioning-metadata propagation: each node's
+   ``partitioned_by`` is computed bottom-up (scan witnesses seed it); a
+   join-side `Shuffle` whose input already satisfies its keys is
+   DELETED (safe: `distributed_join` re-verifies the runtime witness
+   and a stale claim just re-exchanges), a standalone `Shuffle` is kept
+   and skipped at run time after the executor re-checks the witness,
+   and a `GroupBy` whose input satisfies its keys is marked
+   ``local_ok`` (lowered to a per-shard aggregation with no exchange,
+   again after runtime re-verification). Metadata never propagates
+   through string keys or dtype-promoting joins — exactly the cases
+   where the runtime witness (`shard.partition_signature`) is also
+   None, so plan-time claims and run-time skips cannot diverge.
+5. ``adapt_from_stats`` — the cost-based adaptive pass (ROADMAP item
+   1), running BETWEEN pruning and elision: measured build-side sizes
+   from the statistics warehouse rewrite eligible joins to
+   ``algorithm="broadcast"`` (replicate the small side, drop BOTH
+   exchanges), and measured skew sets ``salted=True`` on standalone
+   shuffles. It must precede ``elide_shuffles`` because the rewrite
+   CHANGES a join's output witness (probe placement, not join keys):
+   elision claims derived from the pre-rewrite witnesses would be
+   false plan claims the verifier rejects. See the section comment
+   below.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Set, Tuple
+
+from ..telemetry import knobs as _knobs
+from . import ir
+
+
+@dataclass
+class PlanStats:
+    shuffles_inserted: int = 0
+    shuffles_elided: int = 0
+    groupbys_localized: int = 0
+    filters_pushed: int = 0
+    columns_pruned: int = 0
+    joins_broadcast: int = 0
+    shuffles_salted: int = 0
+    notes: list = field(default_factory=list)
+
+    def summary(self) -> str:
+        adaptive = ""
+        if self.joins_broadcast or self.shuffles_salted:
+            adaptive = (f"; joins broadcast: {self.joins_broadcast}; "
+                        f"exchanges salted: {self.shuffles_salted}")
+        return (f"shuffles: {self.shuffles_inserted} planned, "
+                f"{self.shuffles_elided} elided; "
+                f"groupbys localized: {self.groupbys_localized}; "
+                f"filters pushed below shuffle: {self.filters_pushed}; "
+                f"columns pruned: {self.columns_pruned}" + adaptive)
+
+
+# ---------------------------------------------------------------------------
+# pass 1: physical shuffle insertion
+# ---------------------------------------------------------------------------
+
+
+def insert_shuffles(node: ir.PlanNode, world: int,
+                    stats: PlanStats) -> ir.PlanNode:
+    children = [insert_shuffles(c, world, stats) for c in node.children]
+    node.children = children
+    if isinstance(node, ir.Join) and world > 1:
+        for side, keys in ((0, node.left_on), (1, node.right_on)):
+            c = node.children[side]
+            # an existing same-key Shuffle (user .shuffle()) already is
+            # the physical exchange; different keys still need ours
+            if not (isinstance(c, ir.Shuffle) and c.keys == list(keys)):
+                node.children[side] = ir.Shuffle(c, keys)
+                stats.shuffles_inserted += 1
+    return node
+
+
+# ---------------------------------------------------------------------------
+# pass 2: filter pushdown below shuffle
+# ---------------------------------------------------------------------------
+
+
+def pushdown_filters(node: ir.PlanNode, stats: PlanStats) -> ir.PlanNode:
+    node.children = [pushdown_filters(c, stats) for c in node.children]
+    if isinstance(node, ir.Filter) and \
+            isinstance(node.children[0], ir.Shuffle):
+        sh = node.children[0]
+        # shuffle is schema-identity, so the expr's positions transfer
+        pushed = ir.Filter(sh.children[0], node.expr)
+        stats.filters_pushed += 1
+        return pushdown_filters(ir.Shuffle(pushed, sh.keys), stats)
+    return node
+
+
+# ---------------------------------------------------------------------------
+# pass 3: projection pruning
+# ---------------------------------------------------------------------------
+
+
+def prune_projections(root: ir.PlanNode, stats: PlanStats) -> ir.PlanNode:
+    all_pos = set(range(root.width))
+    new_root, mapping = _prune(root, all_pos, stats)
+    if new_root.width != root.width or \
+            any(mapping[p] != p for p in all_pos):
+        # restore the exact root schema (order and width)
+        new_root = ir.Project(new_root, [mapping[p] for p in range(root.width)])
+    return new_root
+
+
+def _identity(n: int) -> Dict[int, int]:
+    return {i: i for i in range(n)}
+
+
+def _prune(node: ir.PlanNode, required: Set[int], stats: PlanStats
+           ) -> Tuple[ir.PlanNode, Dict[int, int]]:
+    """Rewrite ``node`` so its output contains at least ``required``
+    (possibly fewer columns than before); returns the node plus an
+    old→new position mapping covering ``required``."""
+    if isinstance(node, ir.Scan):
+        if required >= set(range(node.width)):
+            return node, _identity(node.width)
+        keep = sorted(required)
+        stats.columns_pruned += node.width - len(keep)
+        return ir.Project(node, keep), {p: i for i, p in enumerate(keep)}
+
+    if isinstance(node, ir.Project):
+        child_req = {node.cols[p] for p in required}
+        c, m = _prune(node.children[0], child_req, stats)
+        keep = sorted(required)
+        out = ir.Project(c, [m[node.cols[p]] for p in keep])
+        return out, {p: i for i, p in enumerate(keep)}
+
+    if isinstance(node, ir.Filter):
+        need = required | node.expr.columns()
+        c, m = _prune(node.children[0], need, stats)
+        return ir.Filter(c, node.expr.remap(m)), dict(m)
+
+    if isinstance(node, ir.Shuffle):
+        need = required | set(node.keys)
+        c, m = _prune(node.children[0], need, stats)
+        if c.width > len({m[p] for p in need}):
+            # the child kept columns only IT needed (filter predicate
+            # inputs, say) — project them away BEFORE the exchange so
+            # they never cross the mesh
+            keep = sorted({m[p] for p in need})
+            stats.columns_pruned += c.width - len(keep)
+            c = ir.Project(c, keep)
+            m = {p: keep.index(m[p]) for p in need}
+        return ir.Shuffle(c, [m[k] for k in node.keys]), dict(m)
+
+    if isinstance(node, ir.Join):
+        nl = node.children[0].width
+        lneed = {p for p in required if p < nl} | set(node.left_on)
+        rneed = {p - nl for p in required if p >= nl} | set(node.right_on)
+        l, lm = _prune(node.children[0], lneed, stats)
+        r, rm = _prune(node.children[1], rneed, stats)
+        out = ir.Join(l, r, [lm[k] for k in node.left_on],
+                      [rm[k] for k in node.right_on], node.how,
+                      node.algorithm)
+        mapping = {}
+        for p in required:
+            mapping[p] = lm[p] if p < nl else l.width + rm[p - nl]
+        return out, mapping
+
+    if isinstance(node, ir.GroupBy):
+        need = set(node.keys) | set(node.agg_cols)
+        c, m = _prune(node.children[0], need, stats)
+        out = ir.GroupBy(c, [m[k] for k in node.keys],
+                         [m[a] for a in node.agg_cols], node.ops)
+        return out, _identity(node.width)
+
+    if isinstance(node, ir.SetOp):
+        # row identity spans every column — nothing prunable below
+        l, _lm = _prune(node.children[0],
+                        set(range(node.children[0].width)), stats)
+        r, _rm = _prune(node.children[1],
+                        set(range(node.children[1].width)), stats)
+        return ir.SetOp(l, r, node.op), _identity(node.width)
+
+    if isinstance(node, ir.Sort):
+        need = required | set(node.by)
+        c, m = _prune(node.children[0], need, stats)
+        return ir.Sort(c, [m[b] for b in node.by], node.ascending), dict(m)
+
+    raise AssertionError(f"unhandled node {type(node).__name__}")
+
+
+# ---------------------------------------------------------------------------
+# pass 4: partitioning propagation + shuffle elision
+# ---------------------------------------------------------------------------
+
+
+def _hashable_keys(node: ir.PlanNode, keys) -> bool:
+    """A placement witness can only exist for non-string key columns
+    (shard.partition_signature semantics)."""
+    return all(node.types[k] != ir.STR_TYPE for k in keys)
+
+
+def _propagate(node: ir.PlanNode, world: int) -> Optional[Tuple[int, ...]]:
+    pbs = [_propagate(c, world) for c in node.children]
+    pb: Optional[Tuple[int, ...]] = None
+    if isinstance(node, ir.Scan):
+        # trust the snapshot only when it is CONSISTENT with the scan's
+        # own schema (same checks as plan/verify.derive_witness — the
+        # optimizer must never elide on a witness the verifier rejects):
+        # in-range positions, matching dtypes, hashable (non-string)
+        sig = node.witness_sig
+        if sig is not None and sig[2] == world:
+            pos = tuple(int(i) for i in sig[0])
+            if all(p < node.width for p in pos) and \
+                    tuple(sig[1]) == tuple(node.types[p] for p in pos) \
+                    and _hashable_keys(node, pos):
+                pb = pos
+    elif isinstance(node, ir.Project):
+        cpb = pbs[0]
+        if cpb is not None and all(k in node.cols for k in cpb):
+            pb = tuple(node.cols.index(k) for k in cpb)
+    elif isinstance(node, ir.Filter):
+        pb = pbs[0]
+    elif isinstance(node, ir.Shuffle):
+        # a salted exchange spreads hot keys positionally — its output
+        # is load-balanced, never hash-placed (mirror of the runtime:
+        # dist_ops.shuffle withholds the witness on the salted path)
+        if not node.salted and _hashable_keys(node, node.keys):
+            pb = tuple(node.keys)
+    elif isinstance(node, ir.Join) and node.algorithm == "broadcast" \
+            and node.build_side in (0, 1):
+        # broadcast join: probe rows never move, so the PROBE side's
+        # placement survives unchanged (mirror of verify.derive_witness
+        # and of the runtime witness broadcast_hash_join preserves)
+        probe = 1 - node.build_side
+        cpb = pbs[probe]
+        if cpb is not None:
+            nl = node.children[0].width
+            pb = cpb if probe == 0 else tuple(nl + p for p in cpb)
+    elif isinstance(node, ir.Join):
+        l, r = node.children
+        # dtype-equal key pairs only: a promoting alignment hashes the
+        # promoted bits, which the output column (original dtype) would
+        # not reproduce — mirror of the runtime witness's dtype check
+        dtypes_ok = all(l.types[li] == r.types[rj]
+                        for li, rj in zip(node.left_on, node.right_on))
+        if dtypes_ok and world > 1:
+            if node.how in ("inner", "left") and \
+                    _hashable_keys(l, node.left_on):
+                pb = tuple(node.left_on)
+            elif node.how == "right" and _hashable_keys(r, node.right_on):
+                pb = tuple(l.width + j for j in node.right_on)
+    elif isinstance(node, ir.GroupBy):
+        if world > 1 and _hashable_keys(node.children[0], node.keys):
+            pb = tuple(range(len(node.keys)))
+    # SetOp / Sort: no witness survives (set-op output carries no
+    # runtime witness; sort is range-, not hash-partitioned)
+    node.partitioned_by = pb
+    return pb
+
+
+def elide_shuffles(root: ir.PlanNode, world: int,
+                   stats: PlanStats) -> ir.PlanNode:
+    _propagate(root, world)
+
+    def rewrite(node: ir.PlanNode) -> ir.PlanNode:
+        node.children = [rewrite(c) for c in node.children]
+        if isinstance(node, ir.Join):
+            # delete satisfied Shuffle markers under joins only: the
+            # fold into distributed_join re-verifies via the runtime
+            # witness (a stale claim degrades to an extra exchange).
+            # STANDALONE Shuffles are never plan-deleted — the executor
+            # re-checks the runtime witness and skipping there is free
+            # (dist_ops.shuffle skips witnessed inputs anyway), whereas
+            # plan-time deletion would trust a scan-time snapshot that
+            # a registry rebind could invalidate.
+            #
+            # dtype-equal key pairs only: a promoting alignment hashes
+            # the promoted bits on BOTH sides, so a witness recorded
+            # over the unpromoted dtype does not place rows where the
+            # join's exchange would — the runtime signature (which
+            # hashes ALIGNED dtypes) would reject the skip anyway, and
+            # an elision here would just be a false plan claim (the
+            # witness verifier, plan/verify.py, rejects it).
+            l, r = node.children
+            pair_dtypes_ok = all(
+                l.types[li] == r.types[rj]
+                for li, rj in zip(node.left_on, node.right_on))
+            for side in (0, 1):
+                c = node.children[side]
+                if isinstance(c, ir.Shuffle) and pair_dtypes_ok:
+                    cpb = c.children[0].partitioned_by
+                    if cpb is not None and cpb == tuple(c.keys):
+                        node.children[side] = c.children[0]
+                        stats.shuffles_elided += 1
+        if isinstance(node, ir.GroupBy):
+            cpb = node.children[0].partitioned_by
+            if world > 1 and cpb is not None and cpb == tuple(node.keys):
+                node.local_ok = True
+                stats.groupbys_localized += 1
+        return node
+
+    root = rewrite(root)
+    _propagate(root, world)  # refresh metadata on the rewritten tree
+    return root
+
+
+# ---------------------------------------------------------------------------
+# the adaptive pass: adaptive join execution (ROADMAP item 1 — the first pass whose
+# output CHANGES SHAPE based on runtime feedback). Consults the
+# statistics warehouse (telemetry/stats.py), never raw tables:
+#
+# * a Join whose measured build-side input (EWMA x CYLON_STATS_SAFETY,
+#   keyed by the algorithm-invariant join_decision_fingerprint) fits
+#   under CYLON_BROADCAST_MAX_BYTES — with the probe side measured at
+#   least BROADCAST_MIN_RATIO x larger — rewrites to
+#   Join(algorithm="broadcast", build_side=s) and DROPS both side
+#   exchanges: the build side is replicated inside one gather program
+#   and probed locally, zero all-to-all (dist_ops.broadcast_hash_join).
+# * a STANDALONE Shuffle whose measured skew (pre-mitigation imbalance
+#   factor) crossed CYLON_SKEW_WARN_FACTOR sets salted=True: the
+#   exchange spreads each hot destination across CYLON_SALT_FACTOR
+#   sub-buckets, bounding the max shard under Zipfian keys (at the
+#   price of the placement witness, which _propagate then withholds).
+#
+# First execution of a shape finds no qualified statistics and stays
+# shuffle (exploratory); CYLON_JOIN_ALGORITHM=shuffle disables every
+# adaptive rewrite (the exact pre-adaptive program — broadcast kernel
+# factories are never built), =broadcast forces the rewrite on every
+# eligible shape. Soundness is not stats-dependent: replication is
+# always correct, the witness verifier (plan/verify.py) checks every
+# broadcast CLAIM structurally, and a mis-learned choice self-corrects
+# — the first broadcast run measures the true input sizes under the
+# SAME decision fingerprint, drift fires, the plan-cache entry evicts,
+# and the shape reverts to shuffle until re-learned.
+# ---------------------------------------------------------------------------
+
+# sides eligible to be the replicated BUILD side, per join type (in
+# PREFERENCE order — inner defaults to building right): the probe
+# side's rows must cover every row the join emits (unmatched-side
+# emission needs the full table resident, which only the probe is).
+# One of three deliberately-independent copies (verifier + runtime
+# hold the others; layering forbids sharing) — agreement pinned by
+# tests/test_adaptive_join.py::test_broadcast_side_tables_agree
+_BROADCAST_SIDES = {"inner": (1, 0), "left": (1,), "right": (0,)}
+
+# beyond the byte budget, broadcast must also promise an exchange win:
+# the probe side must measure at least this many times the build side,
+# or two same-sized small tables would flap between algorithms for no
+# benefit (and perturb warmed-cache pipelines mid-stream)
+BROADCAST_MIN_RATIO = 4.0
+
+
+def _stats_store():
+    from ..telemetry import stats as _stats
+
+    return _stats
+
+
+def join_algorithm_mode() -> str:
+    mode = _knobs.get("CYLON_JOIN_ALGORITHM")
+    return mode if mode in ("auto", "shuffle", "broadcast") else "auto"
+
+
+def broadcast_choice(node: ir.PlanNode, world: int) -> Optional[int]:
+    """The build side (0|1) a broadcast rewrite would pick for one
+    Join, or None — a pure function of (join shape, knobs, warehouse),
+    shared by the rewrite pass and the plan cache's staleness check.
+    An already-rewritten template (algorithm "broadcast" WITH a build
+    side) re-decides from the live statistics, so a post-drift check
+    sees the choice revert."""
+    if world <= 1 or not isinstance(node, ir.Join):
+        return None
+    mode = join_algorithm_mode()
+    if mode == "shuffle":
+        return None
+    sides = _BROADCAST_SIDES.get(node.how)
+    if not sides:
+        return None
+    user_forced = node.algorithm == "broadcast" and \
+        node.build_side is None
+    if node.algorithm not in ("auto", "broadcast"):
+        return None  # user pinned a local algorithm; leave it alone
+    st = _stats_store()
+    fp = None
+    lb = rb = None
+    limit = int(_knobs.get("CYLON_BROADCAST_MAX_BYTES"))
+    if limit > 0:
+        from .fingerprint import join_decision_fingerprint
+
+        fp = join_decision_fingerprint(node, world)
+        lb, rb = st.join_input_bytes(fp)
+    if mode == "broadcast" or user_forced:
+        # forced: measured sizes only break the tie between two
+        # eligible sides; no statistics are required
+        if len(sides) == 2 and lb is not None and rb is not None:
+            return 0 if lb <= rb else 1
+        return sides[0]
+    if limit <= 0:
+        return None
+    best = None
+    for s in sides:
+        build, probe = (lb, rb) if s == 0 else (rb, lb)
+        if build is None or probe is None:
+            continue
+        if build * st.safety() <= limit \
+                and probe >= BROADCAST_MIN_RATIO * build \
+                and (best is None or build < best[1]):
+            best = (s, build)
+    return best[0] if best is not None else None
+
+
+def salt_choice(node: ir.PlanNode, world: int) -> bool:
+    """Whether a standalone Shuffle's measured skew justifies hot-key
+    salting — pure function of (shape, knobs, warehouse), shared with
+    the plan cache's staleness check. Keyed by the rewrite-invariant
+    ``shuffle_decision_fingerprint`` (the SAME normalization the
+    executor stamps skew under), so elision or broadcast rewrites
+    below the shuffle never fork the evidence away from the lookup."""
+    if world <= 1 or not isinstance(node, ir.Shuffle):
+        return False
+    if int(_knobs.get("CYLON_SALT_FACTOR")) < 2:
+        return False
+    if join_algorithm_mode() == "shuffle":
+        return False  # the "exact pre-adaptive program" escape hatch
+    from .fingerprint import shuffle_decision_fingerprint
+
+    skew = _stats_store().node_skew(
+        shuffle_decision_fingerprint(node, world))
+    return skew is not None and \
+        skew >= float(_knobs.get("CYLON_SKEW_WARN_FACTOR"))
+
+
+def adaptive_knobs() -> tuple:
+    """EVERY knob the two decisions read — part of every cached
+    decision vector, so a flipped knob can never replay a stale
+    algorithm choice out of the plan cache (CYLON_STATS_SAFETY and
+    CYLON_STATS_MIN_OBS gate broadcast_choice through the warehouse
+    reads, so they belong here just as much as the headline knobs)."""
+    st = _stats_store()
+    return (join_algorithm_mode(),
+            int(_knobs.get("CYLON_BROADCAST_MAX_BYTES")),
+            int(_knobs.get("CYLON_SALT_FACTOR")),
+            float(_knobs.get("CYLON_SKEW_WARN_FACTOR")),
+            float(st.safety()), int(st.min_obs()))
+
+
+def decision_vector(root: ir.PlanNode, world: int) -> tuple:
+    """Every adaptive decision this plan's shape resolves to under the
+    CURRENT warehouse + knobs, in walk order. Stable across the
+    rewrite itself (decision fingerprints are algorithm-invariant), so
+    the plan cache can compare the vector recorded at insert time with
+    a fresh one to decide whether a template's algorithm choices are
+    stale (service/plancache.py). Join-side Shuffle markers are
+    EXCLUDED, mirroring adapt_from_stats' applicability — they can
+    never salt, so a cross-plan skew qualification on a shared shape
+    must not evict templates it could not change."""
+    vec = [("knobs",) + adaptive_knobs()]
+
+    def visit(n: ir.PlanNode, parent) -> None:
+        if isinstance(n, ir.Join):
+            vec.append(("join", broadcast_choice(n, world)))
+        elif isinstance(n, ir.Shuffle) and \
+                not isinstance(parent, ir.Join):
+            vec.append(("shuffle", salt_choice(n, world)))
+        for c in n.children:
+            visit(c, n)
+
+    visit(root, None)
+    return tuple(vec)
+
+
+def _would_elide(node: ir.Join, side: int) -> bool:
+    """Mirror of elide_shuffles' join-side deletion condition (on the
+    already-propagated tree): this side's exchange is free, so a
+    broadcast rewrite would trade nothing for a gather."""
+    c = node.children[side]
+    if not isinstance(c, ir.Shuffle):
+        return True  # no marker: the side pays no exchange
+    l, r = node.children
+    pair_dtypes_ok = all(l.types[li] == r.types[rj]
+                         for li, rj in zip(node.left_on, node.right_on))
+    cpb = c.children[0].partitioned_by
+    return pair_dtypes_ok and cpb is not None and cpb == tuple(c.keys)
+
+
+def adapt_from_stats(root: ir.PlanNode, world: int,
+                     stats: PlanStats) -> ir.PlanNode:
+    # runs BEFORE elide_shuffles (pass order is load-bearing): the
+    # broadcast rewrite CHANGES a join's output witness (probe-side
+    # placement instead of join-key placement), so every elision /
+    # local_ok claim must be derived against the post-rewrite tree —
+    # the witness verifier rejects the other order. Propagate first so
+    # the would-elide guard below sees the same metadata elision will.
+    _propagate(root, world)
+
+    def rewrite(node: ir.PlanNode, parent) -> None:
+        for c in node.children:
+            rewrite(c, node)
+        if isinstance(node, ir.Join) and world > 1:
+            side = broadcast_choice(node, world)
+            forced = join_algorithm_mode() == "broadcast" or \
+                node.algorithm == "broadcast"
+            # auto rewrites only fire when the join still PAYS an
+            # exchange on EITHER side: broadcast elides both, so a
+            # free build side with a paying probe is exactly the case
+            # that saves the most (the probe's all-to-all), and only
+            # a fully co-partitioned join — both sides elision-free —
+            # would trade nothing for a gather
+            if side is not None and \
+                    (forced or not (_would_elide(node, side)
+                                    and _would_elide(node, 1 - side))):
+                node.algorithm = "broadcast"
+                node.build_side = side
+                for s in (0, 1):
+                    c = node.children[s]
+                    if isinstance(c, ir.Shuffle):
+                        node.children[s] = c.children[0]
+                # refresh this subtree's metadata so an ENCLOSING
+                # join's would-elide check reads the broadcast
+                # witness, not the stale shuffle-join one
+                _propagate(node, world)
+                stats.joins_broadcast += 1
+                stats.notes.append(
+                    f"join({node.how}) -> broadcast build_side={side} "
+                    f"(measured build fits "
+                    f"CYLON_BROADCAST_MAX_BYTES)")
+        elif isinstance(node, ir.Shuffle) and \
+                not isinstance(parent, ir.Join):
+            # join-side markers need exact placement; only standalone
+            # (load-balancing) exchanges may salt
+            if salt_choice(node, world):
+                node.salted = True
+                stats.shuffles_salted += 1
+                stats.notes.append(
+                    f"shuffle(keys={node.keys}) salted (measured skew "
+                    f">= CYLON_SKEW_WARN_FACTOR)")
+
+    rewrite(root, None)
+    return root
+
+
+def optimize(root: ir.PlanNode, world: int
+             ) -> Tuple[ir.PlanNode, PlanStats]:
+    """Run all passes; returns the optimized plan and its stats.
+
+    With ``CYLON_TPU_VERIFY_PLANS=1`` the optimizer-independent witness
+    verifier (plan/verify.py) re-derives every placement witness over
+    the optimized tree and raises on any elision it cannot justify —
+    the debug-mode soundness backstop (tests/conftest.py enables it, so
+    tier-1 exercises the verifier on every planned pipeline)."""
+    stats = PlanStats()
+    root = insert_shuffles(root, world, stats)
+    root = pushdown_filters(root, stats)
+    root = prune_projections(root, stats)
+    # adapt BEFORE elide: elision claims (deleted join-side markers,
+    # GroupBy.local_ok) must be justified against the witnesses the
+    # REWRITTEN tree actually provides — a broadcast join's output
+    # carries the probe side's placement, not the join keys'
+    root = adapt_from_stats(root, world, stats)
+    root = elide_shuffles(root, world, stats)
+    if _knobs.get("CYLON_TPU_VERIFY_PLANS"):
+        from .verify import check_plan
+
+        check_plan(root, world)
+    return root, stats

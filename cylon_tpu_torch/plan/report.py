@@ -1,0 +1,468 @@
+"""Per-query EXPLAIN ANALYZE reports.
+
+Counterpart of cylon_tpu.plan.report; the type strings are numpy dtype
+names.
+
+`executor.execute_analyzed` records, for every plan node it lowers, the
+inclusive wall time, output rows/bytes, and the telemetry labels the
+node's own lowering emitted (children's labels excluded). This module
+shapes those measurements into a `PlanReport`:
+
+* ``render()`` — the optimized plan tree annotated PostgreSQL
+  EXPLAIN ANALYZE style: one ``(actual time=.. rows=.. bytes=..
+  shuffles=..)`` clause per node, plan-time optimizer stats and the
+  measured totals as trailing ``--`` lines. Shuffle markers folded
+  into a join's fused exchange render as ``(folded into parent
+  exchange)`` — they never execute standalone (executor docstring).
+* ``to_dict()`` — the machine-comparable form (nested node records +
+  global counters) that chip_smoke.py prints, diffable without parsing
+  text.
+* ``span`` — the raw span TREE of the whole query (a telemetry.Span),
+  for JSONL export or programmatic walks.
+
+``shuffle_count`` counts the executed ``plan.shuffle*`` labels and is
+definitionally equal to ``collect_phases.count("plan.shuffle")`` over
+the same execution — both read the same label stream.
+
+Skew columns: exchange spans (``shuffle.exchange*``) carry the
+per-shard skew attributes telemetry/skew.py computed from the count
+matrix; each node's OWN exchange spans fold into a per-node ``skew``
+summary rendered as ``skew(imb=… rows/shard min/med/max=…)``, with a
+``[SKEW]`` marker once the imbalance crosses the configurable warning
+threshold (``CYLON_SKEW_WARN_FACTOR``, default 2.0).
+
+Memory columns: every executed node renders ``est=…`` beside the
+measured ``bytes=…`` — the planner's PRE-FLIGHT output-size estimate
+(``preflight_estimates``: schema widths × propagated row estimates,
+pure host arithmetic, no execution). A ``[MEM]`` marker appears when a
+node's estimate exceeds the pool's ``comm_budget_bytes()`` — the same
+budget the shuffle sizes its rounds against — so a beyond-budget plan
+is visible in the report (and via the executor's pre-execution
+``plan.preflight`` warning span) BEFORE it OOMs. The trailing leak
+lines come from the telemetry ledger: tables allocated under the
+query's root span and never freed.
+
+Time semantics: ``ms`` is INCLUSIVE of children (Postgres "actual
+time"); host-visible wall clock, so async dispatch cost unless the
+node ends in a host sync (see telemetry docstring). Rows are LIVE rows
+(row_count, one scalar sync per node — only paid under analyze).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from . import ir
+
+
+def _human_bytes(n: int) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB"):
+        if abs(n) < 1024 or unit == "GiB":
+            return f"{n:.1f} {unit}" if unit != "B" else f"{n} B"
+        n /= 1024.0
+    return f"{n:.1f} GiB"  # pragma: no cover
+
+
+# ---------------------------------------------------------------------------
+# pre-flight memory estimates (planner-side, no execution)
+# ---------------------------------------------------------------------------
+
+# per-row byte estimate for string/varbytes columns, whose content size
+# the schema cannot know (ir.STR_TYPE erases it): 12 bytes of average
+# content words + 4 of starts — deliberately a round planning number,
+# the measured ``bytes=`` column carries the truth
+STR_BYTES_EST = 16
+
+
+def _row_width_bytes(types: List[str]) -> int:
+    """Estimated bytes per row from a node's type strings: dtype
+    itemsize + 1 validity byte per column; strings at STR_BYTES_EST."""
+    w = 0
+    for t in types:
+        if t == ir.STR_TYPE:
+            w += STR_BYTES_EST
+        else:
+            try:
+                w += int(np.dtype(t).itemsize)
+            except TypeError:  # pragma: no cover - exotic type string
+                w += 8
+        w += 1  # validity / emit-mask share
+    return max(w, 1)
+
+
+def _scan_rows(node: "ir.Scan") -> Optional[int]:
+    t = node.table
+    if t is None and node.table_id is not None:
+        try:
+            from .. import table_api
+
+            t = table_api.get_table(node.table_id)
+        except Exception:  # cylint: disable=errors/broad-swallow — unregistered table: no row estimate
+            return None
+    return int(t.capacity) if t is not None else None
+
+
+def preflight_estimates(root: ir.PlanNode) -> Dict[int, dict]:
+    """``id(node) -> {"rows": int|None, "bytes": int|None}`` for every
+    plan node — schema widths × propagated row estimates, computed on
+    the host BEFORE execution. Deliberately simple upper-bound-ish
+    propagation (no key statistics exist): filters keep their input
+    rows, joins sum both sides, groupbys keep child rows. The point is
+    catching plans whose OUTPUT SCHEMA × input scale already exceeds
+    the comm budget — the class of OOM a pre-flight check can see."""
+    est: Dict[int, dict] = {}
+
+    def rows_of(node) -> Optional[int]:
+        kids = [est[id(c)]["rows"] for c in node.children]
+        if node.kind == "scan":
+            return _scan_rows(node)
+        if any(k is None for k in kids):
+            return None
+        if node.kind == "join":
+            return kids[0] + kids[1]
+        if node.kind == "setop":
+            if node.op == "subtract":
+                return kids[0]
+            if node.op == "intersect":
+                return min(kids)
+            return kids[0] + kids[1]
+        return kids[0]
+
+    for node in reversed(list(ir.walk(root))):  # children before parents
+        r = rows_of(node)
+        est[id(node)] = {
+            "rows": r,
+            "bytes": r * _row_width_bytes(node.types)
+            if r is not None else None,
+        }
+    return est
+
+
+def calibrate_estimates(root: ir.PlanNode, est: Dict[int, dict],
+                        world: int) -> Dict[int, dict]:
+    """Overlay the statistics warehouse onto a pre-flight estimate map
+    (in place; returns it). For every shuffle/join/groupby node the
+    entry gains:
+
+    * ``node_fp``   — the node's structural sub-fingerprint
+      (plan/fingerprint.py), the key the executor stamps onto the
+      node's span so measurements land back in the warehouse;
+    * ``calibrated_bytes`` + ``est_source="measured"`` — once the
+      fingerprint has >= ``CYLON_STATS_MIN_OBS`` successful
+      observations: ``min(static, ewma x CYLON_STATS_SAFETY)``, the
+      estimate admission actually uses. Soundness is structural: never
+      above the static width x row bound, so calibration only relaxes
+      false alarms. Entries without qualified stats keep
+      ``est_source="static"``.
+
+    Idempotent (keyed on ``node_fp`` presence), so the service path —
+    which estimates at submit time but calibrates at DISPATCH time for
+    fresh stats — and the library path — which calibrates inside
+    ``_preflight`` — never double-apply."""
+    from ..telemetry import stats as _stats
+
+    from .fingerprint import (STATS_NODE_KINDS, join_decision_fingerprint,
+                              node_fingerprint,
+                              shuffle_decision_fingerprint)
+
+    for node in ir.walk(root):
+        if node.kind not in STATS_NODE_KINDS:
+            continue
+        e = est.get(id(node))
+        if e is None or "node_fp" in e:
+            continue
+        fp = node_fingerprint(node, world)
+        e["node_fp"] = fp
+        e["est_source"] = "static"
+        if node.kind == "join":
+            # the algorithm-invariant key the adaptive-join decision
+            # reads: the executor stamps it (with both sides' measured
+            # input sizes) onto the join's span, feeding the broadcast
+            # rewrite's evidence base regardless of which algorithm ran
+            e["decision_fp"] = join_decision_fingerprint(node, world)
+        elif node.kind == "shuffle":
+            # same normalization for the salting decision's skew key:
+            # stable across elision and the broadcast rewrite, so the
+            # evidence lands where salt_choice looks
+            e["decision_fp"] = shuffle_decision_fingerprint(node, world)
+        eff, source = _stats.effective_bytes(fp, e.get("bytes"))
+        if source == "measured":
+            e["calibrated_bytes"] = eff
+            e["est_source"] = "measured"
+    return est
+
+
+def effective_bytes(e: dict) -> Optional[int]:
+    """The estimate admission and the [MEM] marker act on: the
+    calibrated value when the warehouse qualified one, the static
+    upper bound otherwise."""
+    cb = e.get("calibrated_bytes")
+    return cb if cb is not None else e.get("bytes")
+
+
+@dataclass
+class NodeMeasure:
+    """One plan node's measured execution (or the reason it has none)."""
+
+    kind: str
+    desc: str                      # Type(args) — matches ir.format_plan
+    partitioned_by: Optional[tuple]
+    executed: bool
+    ms: Optional[float] = None     # inclusive wall time
+    rows: Optional[int] = None     # live output rows
+    bytes: Optional[int] = None    # output device bytes (Table.nbytes)
+    labels: List[str] = field(default_factory=list)  # own labels only
+    children: List["NodeMeasure"] = field(default_factory=list)
+    skew: Optional[dict] = None    # worst own-exchange skew (see below)
+    est_bytes: Optional[int] = None  # pre-flight output-size estimate
+    calibrated_bytes: Optional[int] = None  # stats-informed estimate
+    #                                (min(static, ewma x safety)) when
+    #                                the warehouse qualified one
+    est_source: Optional[str] = None  # "static" | "measured" for nodes
+    #                                the statistics warehouse tracks
+    mem_warn: bool = False         # effective estimate exceeded the
+    #                                comm budget (calibrated when one
+    #                                exists — the same number admission
+    #                                acted on)
+    retries: int = 0               # retried stages under this node's
+    #                                own spans (resilience layer)
+    partition_path: Optional[str] = None  # partition path of this
+    #                                node's own exchanges ("kernel" |
+    #                                "sort" | "mixed" when they differ)
+    join_algorithm: Optional[str] = None  # the algorithm the join's
+    #                                lowering actually ran ("broadcast"
+    #                                | "shuffle" | "local") — the span
+    #                                attr the adaptive pass's choice
+    #                                lands as
+    salted: bool = False           # this node's exchange ran the
+    #                                hot-key salted (sub-bucketed) path
+
+    @property
+    def shuffles(self) -> int:
+        return sum(1 for l in self.labels if l.startswith("plan.shuffle"))
+
+    def line(self) -> str:
+        pb = f"  partitioned_by={tuple(self.partitioned_by)}" \
+            if self.partitioned_by is not None else ""
+        if not self.executed:
+            return f"{self.desc}{pb}  (folded into parent exchange)"
+        sk = ""
+        if self.skew is not None:
+            warn = "  [SKEW]" if self.skew["warn"] else ""
+            sk = (f", skew(imb={self.skew['imbalance']:.2f} rows/shard "
+                  f"min/med/max={self.skew['rows_min']}/"
+                  f"{self.skew['rows_med']}/{self.skew['rows_max']})"
+                  f"{warn}")
+        est = f", est={_human_bytes(self.est_bytes)}" \
+            if self.est_bytes is not None else ""
+        if self.calibrated_bytes is not None:
+            est += f", calibrated={_human_bytes(self.calibrated_bytes)}"
+        mem = "  [MEM]" if self.mem_warn else ""
+        rt = f"  [RETRY×{self.retries}]" if self.retries else ""
+        part = f", part={self.partition_path}" \
+            if self.partition_path is not None else ""
+        algo = f", algo={self.join_algorithm}" \
+            if self.join_algorithm is not None else ""
+        salt = ", salted" if self.salted else ""
+        return (f"{self.desc}{pb}  (actual time={self.ms:.2f} ms, "
+                f"rows={self.rows}, bytes={_human_bytes(self.bytes)}"
+                f"{est}, shuffles={self.shuffles}{algo}{salt}{part}"
+                f"{sk}){mem}{rt}")
+
+    def to_dict(self) -> dict:
+        return {
+            "kind": self.kind, "desc": self.desc,
+            "partitioned_by": list(self.partitioned_by)
+            if self.partitioned_by is not None else None,
+            "executed": self.executed,
+            "ms": round(self.ms, 3) if self.ms is not None else None,
+            "rows": self.rows, "bytes": self.bytes,
+            "est_bytes": self.est_bytes,
+            "calibrated_bytes": self.calibrated_bytes,
+            "est_source": self.est_source,
+            "mem_warn": self.mem_warn,
+            "retries": self.retries,
+            "partition_path": self.partition_path,
+            "join_algorithm": self.join_algorithm,
+            "salted": self.salted,
+            "shuffles": self.shuffles, "labels": list(self.labels),
+            "skew": dict(self.skew) if self.skew is not None else None,
+            "children": [c.to_dict() for c in self.children],
+        }
+
+
+def _fold_skew(spans) -> Optional[dict]:
+    """The WORST skew over a node's own exchange spans (by imbalance),
+    plus the count of exchanges that carried skew attributes — one
+    summary per node, however many physical exchanges its lowering
+    dispatched (a fused join pair is one span; groupby phase A/B are
+    two)."""
+    worst = None
+    n = 0
+    for s in spans:
+        a = getattr(s, "attrs", {})
+        if "skew_imbalance" not in a:
+            continue
+        n += 1
+        if worst is None or a["skew_imbalance"] > worst["skew_imbalance"]:
+            worst = a
+    if worst is None:
+        return None
+    return {"imbalance": float(worst["skew_imbalance"]),
+            "rows_min": int(worst["shard_rows_min"]),
+            "rows_med": int(worst["shard_rows_med"]),
+            "rows_max": int(worst["shard_rows_max"]),
+            "warn": bool(worst["skew_warn"]),
+            "exchanges": n}
+
+
+def _fold_partition_path(spans):
+    """One partition-path label per node: the distinct
+    ``partition_path`` attrs over its own exchange spans ("kernel" or
+    "sort"; "mixed" when one lowering dispatched both), None when no
+    padded exchange ran."""
+    seen = {str(s.attrs["partition_path"]) for s in spans
+            if "partition_path" in getattr(s, "attrs", {})}
+    if not seen:
+        return None
+    return seen.pop() if len(seen) == 1 else "mixed"
+
+
+def build_measures(node: ir.PlanNode, recs: Dict[int, object],
+                   labels: List[str],
+                   spans: Optional[List[object]] = None,
+                   est: Optional[Dict[int, dict]] = None,
+                   budget: Optional[int] = None) -> NodeMeasure:
+    """Shape the executor's per-node records into a NodeMeasure tree.
+
+    ``recs`` maps id(plan node) -> record with (i0, i1, ms, rows,
+    nbytes) where [i0, i1) indexes ``labels``. A node's OWN labels are
+    its inclusive range minus every executed descendant's range —
+    grandchildren under a folded (unexecuted) Shuffle still subtract
+    from the folding join's range. ``spans`` is the collector's Span
+    list, index-aligned with ``labels`` (collect_phases appends both
+    per entered span); the node's own ``shuffle.exchange*`` spans fold
+    into its ``skew`` summary. ``est`` is the preflight_estimates map;
+    ``budget`` the comm budget the ``[MEM]`` marker compares against."""
+    children = [build_measures(c, recs, labels, spans, est, budget)
+                for c in node.children]
+    r = recs.get(id(node))
+    e = (est or {}).get(id(node), {})
+    est_b = e.get("bytes")
+    eff_b = effective_bytes(e)
+    base = dict(kind=node.kind,
+                desc=f"{type(node).__name__}({node.args_repr()})",
+                partitioned_by=node.partitioned_by, children=children,
+                est_bytes=est_b,
+                calibrated_bytes=e.get("calibrated_bytes"),
+                est_source=e.get("est_source"),
+                mem_warn=bool(budget) and eff_b is not None
+                and eff_b > budget)
+    if r is None:
+        return NodeMeasure(executed=False, **base)
+    covered = [False] * (r.i1 - r.i0)
+    for d in ir.walk(node):
+        if d is node:
+            continue
+        dr = recs.get(id(d))
+        if dr is None:
+            continue
+        for i in range(max(dr.i0, r.i0), min(dr.i1, r.i1)):
+            covered[i - r.i0] = True
+    own_idx = [i for i in range(r.i0, r.i1) if not covered[i - r.i0]]
+    own = [labels[i] for i in own_idx]
+    skew = None
+    retries = 0
+    part = None
+    algo = None
+    salted = False
+    if spans is not None:
+        ex_spans = [spans[i] for i in own_idx
+                    if spans[i].name.startswith("shuffle.exchange")]
+        skew = _fold_skew(ex_spans)
+        part = _fold_partition_path(ex_spans)
+        # retried stages annotate their enclosing span (resilience
+        # retry loop) — fold them so the node renders [RETRY×n]
+        retries = sum(int(spans[i].attrs.get("retries", 0))
+                      for i in own_idx)
+        for i in own_idx:
+            a = getattr(spans[i], "attrs", {})
+            if algo is None and a.get("join_algorithm") is not None:
+                algo = str(a["join_algorithm"])
+            if a.get("salted"):
+                salted = True
+    return NodeMeasure(executed=True, ms=r.ms, rows=r.rows,
+                       bytes=r.nbytes, labels=own, skew=skew,
+                       retries=retries, partition_path=part,
+                       join_algorithm=algo, salted=salted, **base)
+
+
+@dataclass
+class PlanReport:
+    """Programmatic EXPLAIN ANALYZE result for one ``collect()``."""
+
+    root: NodeMeasure
+    span: object                   # telemetry.Span tree of the query
+    shuffle_count: int             # == collect_phases.count("plan.shuffle")
+    total_ms: float
+    world: int
+    stats: Optional[object] = None     # optimizer.PlanStats (None when
+    #                                    executed with optimize=False)
+    memory: dict = field(default_factory=dict)   # sampled HBM gauges
+    metrics: dict = field(default_factory=dict)  # registry snapshot
+    leaks: List[dict] = field(default_factory=list)  # ledger leak report
+    budget: Optional[int] = None   # comm_budget_bytes at preflight
+    admission: Optional[dict] = None  # admission-controller decision
+
+    def render(self) -> str:
+        def fmt(m: NodeMeasure, indent: str = "") -> List[str]:
+            out = [indent + m.line()]
+            for c in m.children:
+                out.extend(fmt(c, indent + "  "))
+            return out
+
+        lines = fmt(self.root)
+        if self.stats is not None:
+            lines.append(f"-- {self.stats.summary()}")
+        lines.append(f"-- measured: {self.total_ms:.2f} ms total, "
+                     f"{self.shuffle_count} exchange stage(s), "
+                     f"world={self.world}")
+        if self.admission is not None and \
+                self.admission.get("action") != "admit":
+            lines.append(
+                f"-- admission: {self.admission['action']} "
+                f"({self.admission.get('reason', '')})")
+        for leak in self.leaks:
+            lines.append(
+                f"-- LEAK: {_human_bytes(leak['nbytes'])} "
+                f"owner={leak['owner']} span={leak['span']} "
+                f"(allocated under this query, never freed)")
+        return "\n".join(lines)
+
+    def to_dict(self) -> dict:
+        d = {
+            "total_ms": round(self.total_ms, 3),
+            "shuffle_count": self.shuffle_count,
+            "world": self.world,
+            "plan": self.root.to_dict(),
+            "leaks": [dict(leak) for leak in self.leaks],
+        }
+        if self.budget is not None:
+            d["comm_budget_bytes"] = int(self.budget)
+        if self.admission is not None:
+            d["admission"] = dict(self.admission)
+        if self.stats is not None:
+            d["optimizer"] = {
+                "shuffles_inserted": self.stats.shuffles_inserted,
+                "shuffles_elided": self.stats.shuffles_elided,
+                "groupbys_localized": self.stats.groupbys_localized,
+                "filters_pushed": self.stats.filters_pushed,
+                "columns_pruned": self.stats.columns_pruned,
+            }
+        if self.memory:
+            d["memory"] = dict(self.memory)
+        if self.metrics:
+            d["metrics"] = dict(self.metrics)
+        return d

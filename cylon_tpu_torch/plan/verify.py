@@ -1,0 +1,256 @@
+"""Optimizer-independent witness verification of physical plans.
+
+Counterpart of cylon_tpu.plan.verify; the type strings are numpy dtype
+names.
+
+PR 1's shuffle-elision optimizer made a soundness argument load-bearing:
+deleting a join-side `Shuffle` (or marking a `GroupBy` ``local_ok``) is
+legal ONLY when a hash-placement witness proves the input's rows already
+live on the shards the exchange would have routed them to. The runtime
+re-verifies every skip against `Table._hash_partitioned`, so a wrong
+plan-time claim cannot corrupt results — but it silently degrades into
+an extra exchange and makes `explain()`/`PlanStats` lie. This module
+re-derives the witnesses over an optimized plan FROM FIRST PRINCIPLES —
+sharing no code or annotations with `optimizer.py` (it never reads
+``node.partitioned_by``) — and rejects any elision the derivation
+cannot justify.
+
+Witness semantics (mirrors `parallel/shard.partition_signature`): a
+witness is an ordered tuple of output positions plus their dtypes,
+meaning "every row lives on the shard its hash over these columns
+routes to". String columns never carry one (vocabulary unification and
+lane-count pairing re-code the hashed bits per pairing); a dtype-
+promoting join alignment hashes promoted bits, so a witness only
+justifies skipping a join-side exchange when the key dtypes of BOTH
+sides agree with the witnessed dtypes.
+
+Three consumers:
+
+* standalone — ``verify_plan(root, world)`` returns violation strings;
+* `optimizer.optimize` — debug-mode post-pass assert, enabled by the
+  ``CYLON_TPU_VERIFY_PLANS=1`` env var (tests/conftest.py sets it, so
+  every tier-1 plan execution runs verified);
+* `cylon_tpu.analysis` — the ``witness`` checker family runs it over a
+  canonical pipeline catalog plus randomized and hand-mutated plans.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+from ..status import Code, CylonPlanError
+from . import ir
+
+# (positions, dtypes) — both ordered, positions refer to the node's own
+# output schema
+Witness = Tuple[Tuple[int, ...], Tuple[str, ...]]
+
+
+def _hashable(types: List[str], keys) -> bool:
+    return all(types[k] != ir.STR_TYPE for k in keys)
+
+
+def derive_witness(node: ir.PlanNode, world: int) -> Optional[Witness]:
+    """Bottom-up witness derivation from node semantics alone."""
+    child = [derive_witness(c, world) for c in node.children]
+
+    if isinstance(node, ir.Scan):
+        sig = node.witness_sig
+        if sig is None or sig[2] != world:
+            return None
+        pos = tuple(int(i) for i in sig[0])
+        if any(p >= node.width for p in pos):
+            return None
+        # the snapshot's dtypes must agree with the scan's own schema —
+        # a registry rebind can invalidate the snapshot, and the
+        # executor's runtime re-check is what actually guards that; the
+        # plan-level witness is only as good as a CONSISTENT snapshot
+        if tuple(sig[1]) != tuple(node.types[p] for p in pos):
+            return None
+        if not _hashable(node.types, pos):
+            return None
+        return pos, tuple(sig[1])
+
+    if isinstance(node, ir.Project):
+        w = child[0]
+        if w is None:
+            return None
+        pos, dts = w
+        if not all(k in node.cols for k in pos):
+            return None  # a witness column was projected away
+        return tuple(node.cols.index(k) for k in pos), dts
+
+    if isinstance(node, ir.Filter):
+        return child[0]  # dropping rows never moves the survivors
+
+    if isinstance(node, ir.Shuffle):
+        if node.salted:
+            # a salted exchange spreads hot keys across sub-buckets:
+            # placement is positional, never a hash witness
+            return None
+        if not _hashable(node.types, node.keys):
+            return None
+        pos = tuple(node.keys)
+        return pos, tuple(node.types[k] for k in pos)
+
+    if isinstance(node, ir.Join) and node.algorithm == "broadcast":
+        # a SOUND broadcast join never moves probe rows (the build side
+        # is replicated to every shard), so the probe side's witness
+        # survives position-mapped through the output schema; an
+        # unsound claim yields no witness at all (and verify_plan
+        # rejects the plan outright)
+        if world <= 1 or broadcast_claim_reason(node) is not None:
+            return None
+        probe = 1 - node.build_side
+        w = child[probe]
+        if w is None:
+            return None
+        pos, dts = w
+        if probe == 1:
+            nl = node.children[0].width
+            pos = tuple(nl + p for p in pos)
+        return pos, dts
+
+    if isinstance(node, ir.Join):
+        if world <= 1:
+            return None
+        l, r = node.children
+        # a promoting alignment hashes promoted bits the output columns
+        # (original dtypes) would not reproduce
+        if any(l.types[li] != r.types[rj]
+               for li, rj in zip(node.left_on, node.right_on)):
+            return None
+        if node.how in ("inner", "left") and \
+                _hashable(l.types, node.left_on):
+            pos = tuple(node.left_on)
+            return pos, tuple(l.types[k] for k in pos)
+        if node.how == "right" and _hashable(r.types, node.right_on):
+            pos = tuple(l.width + j for j in node.right_on)
+            return pos, tuple(r.types[j] for j in node.right_on)
+        return None
+
+    if isinstance(node, ir.GroupBy):
+        # distributed groupby leaves every group on its key-hash shard
+        # (exchanged or verified-local); keys sit at output head
+        if world <= 1:
+            return None
+        ctypes = node.children[0].types
+        if not _hashable(ctypes, node.keys):
+            return None
+        pos = tuple(range(len(node.keys)))
+        return pos, tuple(ctypes[k] for k in node.keys)
+
+    # SetOp: output carries no runtime witness; Sort: range-, not
+    # hash-partitioned
+    return None
+
+
+# sides whose replication is a valid justification per join type: the
+# probe side must cover every row the join can emit unmatched, so a
+# LEFT join may only replicate its RIGHT input (and vice versa) — a
+# replicated side's unmatched rows would be emitted once PER SHARD.
+# One of three deliberately-independent copies (the optimizer's choice
+# table and dist_ops' runtime gate hold the others; this one stays
+# optimizer-independent by design) — agreement pinned by
+# tests/test_adaptive_join.py::test_broadcast_side_tables_agree
+_BROADCAST_SIDES = {"inner": (0, 1), "left": (1,), "right": (0,)}
+
+
+def broadcast_claim_reason(node: ir.Join) -> Optional[str]:
+    """None when a Join's ``algorithm="broadcast"`` claim carries a
+    sound replication witness — a declared build side the runtime may
+    legally replicate under this join type. The broadcast lowering
+    (dist_ops.broadcast_hash_join) replicates exactly that side, so a
+    valid claim justifies BOTH inputs reaching the join unexchanged;
+    an invalid one (no build side, or a side whose unmatched rows the
+    join must emit) is rejected outright — a mis-learned rewrite can
+    degrade performance but never soundness."""
+    bs = node.build_side
+    legal = _BROADCAST_SIDES.get(node.how, ())
+    if bs not in legal:
+        return (f"broadcast join lacks a replication witness: "
+                f"build_side={bs!r} is not replicable under "
+                f"how={node.how!r} (legal: {legal or 'none'})")
+    return None
+
+
+def _join_side_ok(side: ir.PlanNode, keys: List[int],
+                  other: ir.PlanNode, other_keys: List[int],
+                  world: int) -> Optional[str]:
+    """None when the side may feed the join without an exchange of its
+    own; otherwise a reason string."""
+    if isinstance(side, ir.Shuffle):
+        if list(side.keys) == list(keys):
+            return None
+        return (f"shuffle keys {side.keys} do not cover join keys "
+                f"{list(keys)}")
+    w = derive_witness(side, world)
+    if w is None:
+        return "no exchange and no derivable placement witness"
+    pos, dts = w
+    if pos != tuple(keys):
+        return (f"witness {pos} does not match join keys {tuple(keys)}")
+    other_dts = tuple(other.types[k] for k in other_keys)
+    if dts != other_dts:
+        return (f"witness dtypes {dts} vs other side's key dtypes "
+                f"{other_dts}: promoting alignment re-hashes, placement "
+                f"not preserved")
+    return None
+
+
+def verify_plan(root: ir.PlanNode, world: int) -> List[str]:
+    """Check a PHYSICAL (post-optimization) plan: every distributed
+    join input and every ``local_ok`` groupby must be justified by an
+    explicit exchange or a re-derived witness. Returns human-readable
+    violations (empty = verified)."""
+    problems: List[str] = []
+
+    def visit(node: ir.PlanNode, path: str):
+        here = f"{path}/{type(node).__name__}"
+        if isinstance(node, ir.Join) and world > 1 and \
+                node.algorithm == "broadcast":
+            reason = broadcast_claim_reason(node)
+            if reason is not None:
+                problems.append(f"{here}: {reason}")
+            # a sound claim justifies both unexchanged inputs: the
+            # runtime replicates the declared build side, so every
+            # probe row sees the full build table locally
+        elif isinstance(node, ir.Join) and world > 1:
+            for label, side, keys, other, okeys in (
+                    ("left", node.children[0], node.left_on,
+                     node.children[1], node.right_on),
+                    ("right", node.children[1], node.right_on,
+                     node.children[0], node.left_on)):
+                reason = _join_side_ok(side, keys, other, okeys, world)
+                if reason is not None:
+                    problems.append(
+                        f"{here}: {label} input "
+                        f"({type(side).__name__}) reaches the join "
+                        f"unexchanged: {reason}")
+        if isinstance(node, ir.GroupBy) and node.local_ok:
+            if world <= 1:
+                problems.append(f"{here}: local_ok set on a 1-wide "
+                                f"mesh plan (meaningless claim)")
+            else:
+                w = derive_witness(node.children[0], world)
+                want = tuple(node.keys)
+                if w is None or w[0] != want:
+                    problems.append(
+                        f"{here}: local_ok groupby without a witness "
+                        f"matching keys {want} "
+                        f"(derived {w[0] if w else None})")
+        for c in node.children:
+            visit(c, here)
+
+    visit(root, "")
+    return problems
+
+
+def check_plan(root: ir.PlanNode, world: int) -> None:
+    """Raise on an unjustified elision (the debug-mode optimizer
+    post-assert)."""
+    problems = verify_plan(root, world)
+    if problems:
+        raise CylonPlanError(
+            "plan-witness verification failed:\n  "
+            + "\n  ".join(problems) + "\n(plan)\n"
+            + ir.format_plan(root))

@@ -1,0 +1,264 @@
+"""The admission controller: admit, degrade, or shed — before running.
+
+Counterpart of cylon_tpu.resilience.admission: the same sites, labels and
+knobs.
+
+PR-5 built the raw material (planner pre-flight estimates + the
+ledger-backed ``live_bytes`` pool fallback) but only used it for a
+warning span; ROADMAP item 2 calls for turning it into a real
+controller with backpressure/shed paths. This module is that
+controller: the plan executor hands it the pre-flight estimate map and
+the pool, and gets back one of three decisions —
+
+* **admit**   — the worst node estimate fits the budget (or no budget
+  is knowable — stats-hidden backend with no ledger history): run
+  unchanged.
+* **degrade** — a Join's estimate exceeds the budget and the blocked/
+  chunked join path can bound the working set (ROADMAP item 4's
+  planner-visible blocked mode): the executor lowers the join with
+  ``probe_block_rows`` sized so one block's working set fits. Only
+  single-shard (world==1) joins degrade today — the distributed join's
+  exchange already bounds its comm buffers via the blockwise path, and
+  its post-exchange working set has no chunked lowering yet.
+* **shed**    — the estimate is beyond ``CYLON_SHED_FACTOR`` (default
+  8×) of the budget: raise :class:`CylonResourceExhausted` BEFORE
+  burning device time the query cannot finish with. Checked before
+  degrade — the blocked path bounds the join's WORKING SET, but the
+  estimate is the OUTPUT size, which degrade still materializes in
+  full. Over budget but under the factor with no degradable node
+  admits with the pre-flight warning.
+
+Budget: ``pool.comm_budget_bytes()`` (a share of the card's free memory
+by the CUDA allocator's counters; None on the CPU, where every query is
+admitted), clamped by the fault injector's ``pool`` site so chaos drills
+exercise both paths deterministically.
+
+Every decision is recorded: a ``cylon_admission_total{decision=}``
+counter, a log line, and an entry in the flight recorder's admission
+ring (``flight.admissions()``, included in crash dumps) — a shed query
+leaves the same forensic trail as a crashed one.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+from ..status import CylonResourceExhausted
+from ..telemetry import flight as _flight
+from ..telemetry import knobs as _knobs
+from ..telemetry import logger as _logger
+from ..telemetry import metrics as _metrics
+from ..telemetry import span as _span
+from . import inject as _inject
+
+DEFAULT_SHED_FACTOR = _knobs.default("CYLON_SHED_FACTOR")
+
+# degraded joins never chunk below this many probe rows per block —
+# sub-1k blocks pay more per-dispatch overhead than they save memory
+MIN_BLOCK_ROWS = 1 << 10
+
+
+def shed_factor() -> float:
+    return _knobs.get("CYLON_SHED_FACTOR")
+
+
+def effective_budget(pool) -> Optional[int]:
+    """The byte budget admission decisions run against: the pool's comm
+    budget (duck-typed — admission never imports memory.py), clamped by
+    an armed ``pool`` fault spec. None = unknowable, admit."""
+    budget = None
+    if pool is not None:
+        try:
+            budget = pool.comm_budget_bytes()
+        except Exception:  # cylint: disable=errors/broad-swallow — a broken pool must not veto admission
+            budget = None
+    clamp = _inject.budget_clamp()
+    if clamp is not None:
+        budget = clamp if budget is None else min(budget, clamp)
+    return budget
+
+
+@dataclass
+class Decision:
+    """One admission decision over one plan."""
+
+    action: str                    # "admit" | "degrade" | "shed"
+    budget: Optional[int] = None
+    est_bytes: Optional[int] = None   # worst node EFFECTIVE estimate
+    worst_node: Optional[str] = None
+    reason: str = ""
+    # provenance of the worst-node estimate the decision acted on:
+    # "static" (width x row upper bound) or "measured" (the statistics
+    # warehouse's EWMA-calibrated value, telemetry/stats.py). Rides
+    # the admission ring and the query-log digest, so a forensic
+    # record always says WHICH estimator admitted or shed the query.
+    est_source: str = "static"
+    # id(join node) -> probe_block_rows for degraded lowerings
+    degrade_blocks: Dict[int, int] = field(default_factory=dict)
+
+    def to_dict(self) -> dict:
+        return {"action": self.action, "budget": self.budget,
+                "est_bytes": self.est_bytes,
+                "est_source": self.est_source,
+                "worst_node": self.worst_node, "reason": self.reason,
+                "degraded_nodes": len(self.degrade_blocks)}
+
+
+def _node_desc(node) -> str:
+    return f"{type(node).__name__}({node.args_repr()})"
+
+
+def _effective(e: dict):
+    """(effective bytes, source) for one estimate entry: the
+    statistics-warehouse calibration when plan/report.py stamped one
+    (``calibrated_bytes`` = min(static, ewma x safety) — never above
+    the static bound), the static width x row estimate otherwise.
+    Duck-typed dict read: admission never imports plan/ or the
+    warehouse — calibration happened upstream."""
+    cb = e.get("calibrated_bytes")
+    if cb is not None:
+        return cb, e.get("est_source", "measured")
+    return e.get("bytes"), "static"
+
+
+def decide(nodes: List[object], est: Dict[int, dict],
+           budget: Optional[int], world: int) -> Decision:
+    """The pure decision function: ``nodes`` is the plan's node list
+    (duck-typed — ``kind``/``args_repr``; admission never imports
+    plan/), ``est`` the (possibly stats-calibrated) pre-flight
+    estimate map keyed by id(node). Every comparison runs against the
+    EFFECTIVE estimate — measured EWMA x safety once a fingerprint has
+    enough observations, static bound otherwise — so a repeat query
+    the warehouse has watched fit in budget is admitted, while the
+    min() with the static bound keeps the decision sound (a measured
+    estimate still over budget sheds exactly like a static one).
+    Raises nothing; the executor enforces a shed decision."""
+    # Scans are excluded: their bytes are ALREADY resident (borrowed
+    # user inputs) — admission controls the allocations a query is
+    # about to make, not history it cannot undo
+    allocating = [(n, *_effective(est.get(id(n), {}))) for n in nodes
+                  if n.kind != "scan"]
+    allocating = [(n, b, src) for n, b, src in allocating
+                  if b is not None]
+    if not budget:
+        # no budget to enforce, but the forensic record still carries
+        # the worst allocating estimate + its provenance — the digest
+        # and admission ring stay joinable against measured truth even
+        # on budget-hidden backends
+        worst = max(allocating, key=lambda p: p[1], default=None)
+        if worst is None:
+            return Decision("admit", budget=budget,
+                            reason="no budget knowable")
+        return Decision("admit", budget=budget, est_bytes=worst[1],
+                        est_source=worst[2],
+                        reason="no budget knowable")
+    over = [(n, b, src) for n, b, src in allocating if b > budget]
+    if not over:
+        # worst ALLOCATING estimate only — a huge borrowed Scan input
+        # must not make an admitted query's forensic record look like
+        # a waved-through 500x overrun
+        worst = max(allocating, key=lambda p: p[1], default=None)
+        if worst is None:
+            return Decision("admit", budget=budget,
+                            reason="within budget")
+        return Decision("admit", budget=budget, est_bytes=worst[1],
+                        est_source=worst[2],
+                        reason="within budget"
+                        + (" (stats-calibrated)"
+                           if worst[2] == "measured" else ""))
+    worst_node, worst_bytes, worst_src = max(over, key=lambda p: p[1])
+    factor = worst_bytes / budget
+    if factor > shed_factor():
+        # beyond the shed factor NOTHING saves the query — the blocked
+        # path bounds the join's WORKING SET, but the estimate is the
+        # OUTPUT size, which degrade still materializes in full. A
+        # MEASURED estimate this far over budget sheds identically:
+        # the warehouse relaxes false alarms, never real ones.
+        return Decision(
+            "shed", budget=budget, est_bytes=worst_bytes,
+            est_source=worst_src,
+            worst_node=_node_desc(worst_node),
+            reason=f"{worst_src} estimate {factor:.1f}x over budget "
+                   f"(shed factor {shed_factor():.1f}, "
+                   f"world={world})")
+    # degrade: an over-budget JOIN can chunk its probe side so one
+    # block's working set fits. Only when EVERY over-budget node is a
+    # degradable join — degrading the join while a downstream node
+    # still blows the budget helps nothing.
+    over_joins = [(n, b) for n, b, _src in over if n.kind == "join"]
+    degradable = world == 1 and over_joins \
+        and all(n.kind == "join" for n, _b, _src in over)
+    if degradable:
+        blocks: Dict[int, int] = {}
+        for n, b in over_joins:
+            rows = est[id(n)].get("rows") or 0
+            if rows <= 0:
+                continue
+            blocks[id(n)] = max(int(rows * budget / b),
+                                MIN_BLOCK_ROWS)
+        if blocks:
+            return Decision(
+                "degrade", budget=budget, est_bytes=worst_bytes,
+                est_source=worst_src,
+                worst_node=_node_desc(worst_node),
+                degrade_blocks=blocks,
+                reason=f"{len(blocks)} join(s) over budget -> "
+                       f"blocked/chunked probe")
+    # moderately over budget with no chunked lowering available: admit
+    # — the exchange bounds its own comm buffers against this budget,
+    # and the pre-flight warning span already flags the risk
+    return Decision("admit", budget=budget, est_bytes=worst_bytes,
+                    est_source=worst_src,
+                    worst_node=_node_desc(worst_node),
+                    reason=f"{worst_src} estimate {factor:.1f}x over "
+                           f"budget, under shed factor — admitted "
+                           f"with warning")
+
+
+def record(decision: Decision, tenant: Optional[str] = None
+           ) -> Decision:
+    """Publish one decision (counter + log + flight admission ring +
+    the ``plan.admission`` marker span for non-admit decisions);
+    returns it for chaining. ``tenant`` (the service scheduler's
+    multi-tenant label) rides the admission-ring entry — a shed
+    query's forensic record says WHOSE query was shed."""
+    _metrics.REGISTRY.counter("cylon_admission_total",
+                              {"decision": decision.action}).inc()
+    # which estimator is steering admission — the closed-loop health
+    # signal (bench surfaces the measured-admit count as
+    # service_pipeline.stats_informed_admits)
+    _metrics.REGISTRY.counter(
+        "cylon_admission_est_source_total",
+        {"source": decision.est_source}).inc()
+    doc = decision.to_dict()
+    if tenant is not None:
+        doc["tenant"] = tenant
+    _flight.record_admission(doc)
+    if decision.action == "admit":
+        _logger.debug("admission: %s (%s)", decision.action,
+                      decision.reason)
+    else:
+        _logger.warning("admission: %s — %s (worst %s, est %s B vs "
+                        "budget %s B)", decision.action,
+                        decision.reason, decision.worst_node,
+                        decision.est_bytes, decision.budget)
+        # the trace-visible marker (docs/telemetry.md): every non-admit
+        # decision — executor-internal OR service-dispatch — emits one
+        # plan.admission span before execution (or the shed raise)
+        with _span("plan.admission", decision=decision.action,
+                   est_bytes=decision.est_bytes,
+                   budget=decision.budget,
+                   worst_node=decision.worst_node or ""):
+            pass
+    return decision
+
+
+def enforce(decision: Decision) -> Decision:
+    """Raise the typed shed error for a shed decision; pass everything
+    else through."""
+    if decision.action == "shed":
+        raise CylonResourceExhausted(
+            f"query shed by admission controller: {decision.reason}; "
+            f"worst node {decision.worst_node} estimated at "
+            f"{decision.est_bytes} B vs budget {decision.budget} B")
+    return decision

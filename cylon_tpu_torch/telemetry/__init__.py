@@ -1,3 +1,61 @@
-"""Telemetry of the port (counterpart of cylon_tpu.telemetry). So far only
-the environment-knob registry (``knobs``); spans, metrics and the rest
-are queued in ROADMAP.md."""
+"""Structured tracing + metrics of the port (counterpart of
+cylon_tpu.telemetry; same span labels, series names, attribute keys and
+knobs).
+
+* ``spans``   — hierarchical, contextvar-nested spans with typed
+  attributes; ``phase``/``collect_phases`` are thin wrappers over it.
+  The profiler carrier is ``torch.profiler.record_function`` plus an
+  NVTX range on CUDA.
+* ``metrics`` — process-local counters (shuffle bytes, rows exchanged,
+  collective launches, kernel-library builds), per-phase latency
+  histograms, and device-memory gauges sampled from
+  ``memory.MemoryPool`` (duck-typed).
+* ``export``  — JSONL span sink and Prometheus text dump.
+* ``skew``    — skew stats reduced from the exchange count matrices the
+  host already holds (no extra sync).
+* ``ledger``  — buffer lifetime ledger (``cylon_live_table_bytes
+  {owner=}``, leak reports).
+* ``flight``  — flight recorder: ring of recent root span trees, crash
+  dumps to ``CYLON_FLIGHT_DIR``.
+* ``querylog``, ``slo``, ``stats``, ``sampling`` — per-query digests,
+  per-tenant latency objectives, the statistics warehouse that feeds
+  the optimizer's adaptive rewrites and admission, head sampling.
+
+The JAX package's compile profiler (``telemetry.profiler``, XLA cost
+analysis) is not ported: it needs a CUDA counterpart of its own.
+"""
+from __future__ import annotations
+
+from .spans import (Span, annotate, collect_phases, current_span,
+                    log_to_stderr, logger, phase, root_attrs, span,
+                    add_sink, remove_sink, add_root_hook,
+                    remove_root_hook)
+from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
+                      REGISTRY, counted_cache, counter, gauge, histogram,
+                      metrics_snapshot, record_host_sync, reset_metrics,
+                      sample_memory, set_memory_pool, get_memory_pool)
+from .export import JsonlSpanSink, prometheus_text, span_to_json
+from . import knobs, ledger, sampling, skew
+from . import flight
+from . import stats
+from . import querylog, slo
+from .skew import SkewStats
+
+__all__ = [
+    # spans
+    "Span", "annotate", "collect_phases", "current_span", "log_to_stderr",
+    "logger", "phase", "root_attrs", "span", "add_sink", "remove_sink",
+    "add_root_hook", "remove_root_hook",
+    # metrics
+    "Counter", "Gauge", "Histogram", "MetricsRegistry", "REGISTRY",
+    "counted_cache", "counter", "gauge", "histogram", "metrics_snapshot",
+    "record_host_sync", "reset_metrics", "sample_memory",
+    "set_memory_pool", "get_memory_pool",
+    # exporters
+    "JsonlSpanSink", "prometheus_text", "span_to_json",
+    # skew + memory-lifetime + failure observability
+    "skew", "SkewStats", "ledger", "flight",
+    "querylog", "slo", "sampling",
+    "stats",
+    "knobs",
+]

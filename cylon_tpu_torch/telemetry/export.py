@@ -1,0 +1,213 @@
+"""Exporters: JSONL span sink + Prometheus text metrics dump (counterpart
+of cylon_tpu.telemetry.export).
+
+Two wire formats, both deliberately boring:
+
+* **JSONL trace** — one JSON object per COMPLETED span, written as
+  spans close (innermost first, so a child's line precedes its
+  parent's). ``parent_id`` links the tree; ``span_id`` 0 is "no
+  parent". Every line is independently parseable — a crashed process
+  leaves a valid prefix, and ``jq``/pandas ingest it directly.
+* **Prometheus text exposition** — the v0.0.4 text format rendered
+  from a MetricsRegistry: counters/gauges as single samples,
+  histograms as cumulative ``_bucket{le=...}`` + ``_sum`` + ``_count``.
+  Scrape-ready, and diff-able across BENCH rounds.
+
+The ``torch.profiler.record_function`` / NVTX carrier is NOT here — it
+lives inside spans.span itself, so profiler labels keep working with no
+exporter configured at all.
+"""
+from __future__ import annotations
+
+import json
+import os
+import threading
+from typing import IO, List, Optional, Union
+
+from . import knobs as _knobs
+from . import spans as _spans
+from .metrics import REGISTRY, MetricsRegistry, format_series
+
+# rotated generations kept beside a size-bounded JSONL file
+# (path.1 = most recent full generation .. path.KEEP = oldest)
+SPAN_LOG_KEEP = 3
+
+
+def span_to_json(span) -> str:
+    """One flat JSONL record for a completed span."""
+    return json.dumps(span.to_dict(), default=str, sort_keys=True)
+
+
+def _span_log_max_bytes() -> int:
+    return _knobs.get("CYLON_SPAN_LOG_MAX_BYTES")
+
+
+def rotate_file(path: str, keep: int = SPAN_LOG_KEEP) -> None:
+    """Shift ``path`` into numbered generations (``path.1`` newest,
+    ``path.keep`` oldest — the PR-6 crash-dump discipline applied to a
+    single growing file): the oldest generation is dropped, each
+    survivor shifts up, ``path`` itself is renamed to ``path.1``. The
+    caller reopens ``path`` fresh. Never raises — rotation is
+    best-effort bookkeeping around the real write path."""
+    try:
+        for i in range(keep, 0, -1):
+            src = path if i == 1 else f"{path}.{i - 1}"
+            dst = f"{path}.{i}"
+            if os.path.exists(src):
+                os.replace(src, dst)
+    except OSError:  # pragma: no cover - raced deletion/permissions
+        _spans.logger.exception("jsonl rotation failed for %s", path)
+
+
+class RotatingJsonlWriter:
+    """Line-oriented writer over a path with size-based rotation: once
+    the current file reaches ``max_bytes`` (default: the live
+    ``CYLON_SPAN_LOG_MAX_BYTES`` knob; 0 = unbounded), it rotates
+    through ``keep`` numbered generations and starts fresh — a
+    long-lived service can stream spans or query digests forever
+    without growing a file without bound. Thread-safe: spans close on
+    whatever thread ran the query (submitters, the service worker),
+    and rotation is a multi-step close/rename/reopen that must never
+    interleave another thread's write against the just-closed handle —
+    every write runs under the writer's RLock."""
+
+    def __init__(self, path: str, max_bytes: Optional[int] = None,
+                 keep: int = SPAN_LOG_KEEP):
+        self.path = path
+        self._max_bytes = max_bytes
+        self.keep = keep
+        self._lock = threading.RLock()
+        self._file: Optional[IO] = None
+        self.lines_written = 0
+        self.rotations = 0
+
+    def max_bytes(self) -> int:
+        return self._max_bytes if self._max_bytes is not None \
+            else _span_log_max_bytes()
+
+    def open(self) -> "RotatingJsonlWriter":
+        with self._lock:
+            self._file = open(self.path, "w", encoding="utf-8")
+        return self
+
+    def write_line(self, line: str, flush: bool = False) -> None:
+        with self._lock:
+            self._file.write(line + "\n")
+            self.lines_written += 1
+            cap = self.max_bytes()
+            if cap and self._file.tell() >= cap:
+                self._file.close()
+                rotate_file(self.path, self.keep)
+                self._file = open(self.path, "w", encoding="utf-8")
+                self.rotations += 1
+            elif flush:
+                self._file.flush()
+
+    def close(self) -> None:
+        with self._lock:
+            if self._file is not None:
+                self._file.close()
+                self._file = None
+
+
+class JsonlSpanSink:
+    """Context manager that streams every completed span to a JSONL
+    file (path or open file object) while active::
+
+        with telemetry.JsonlSpanSink("/tmp/trace.jsonl"):
+            pipe.execute()
+
+    Nesting multiple sinks is fine — each sees every span. A PATH
+    target is size-bounded: past ``max_bytes`` (default: the live
+    ``CYLON_SPAN_LOG_MAX_BYTES`` knob, 0 = unbounded) the file rotates
+    through keep-N numbered generations (``rotate_file``), so a
+    long-lived service tracing at any sample rate cannot grow one
+    file without limit. File-object targets are the caller's to
+    bound."""
+
+    def __init__(self, target: Union[str, IO],
+                 max_bytes: Optional[int] = None,
+                 keep: int = SPAN_LOG_KEEP):
+        self._target = target
+        self._file: Optional[IO] = None
+        self._writer: Optional[RotatingJsonlWriter] = None
+        self._max_bytes = max_bytes
+        self._keep = keep
+        self.spans_written = 0
+        # registration handle: accessing self._write builds a FRESH
+        # bound-method object on every attribute access, so the
+        # identity-based remove_sink must be handed the exact object
+        # add_sink saw
+        self._registered = self._write
+
+    @property
+    def rotations(self) -> int:
+        return self._writer.rotations if self._writer is not None else 0
+
+    def _write(self, span) -> None:
+        if self._writer is not None:
+            self._writer.write_line(span_to_json(span))
+        else:
+            self._file.write(span_to_json(span) + "\n")
+        self.spans_written += 1
+
+    def __enter__(self) -> "JsonlSpanSink":
+        if isinstance(self._target, str):
+            self._writer = RotatingJsonlWriter(
+                self._target, max_bytes=self._max_bytes,
+                keep=self._keep).open()
+        else:
+            self._file = self._target
+        _spans.add_sink(self._registered)
+        return self
+
+    def __exit__(self, *exc):
+        _spans.remove_sink(self._registered)
+        if self._writer is not None:
+            self._writer.close()
+            self._writer = None
+        else:
+            self._file.flush()
+        self._file = None
+        return False
+
+
+def _fmt(v) -> str:
+    # prometheus floats: integers render bare, floats keep precision
+    if isinstance(v, bool):
+        return str(int(v))
+    if isinstance(v, int):
+        return str(v)
+    return repr(float(v))
+
+
+def prometheus_text(registry: Optional[MetricsRegistry] = None) -> str:
+    """Render a registry in the Prometheus text exposition format.
+    Series sort by (name, labels); one ``# TYPE`` line per metric
+    name."""
+    reg = registry or REGISTRY
+    lines: List[str] = []
+    typed = set()
+    for name, labels, m in reg.series():
+        if name not in typed:
+            lines.append(f"# TYPE {name} {m.kind}")
+            typed.add(name)
+        if m.kind in ("counter", "gauge"):
+            lines.append(f"{format_series(name, labels)} {_fmt(m.value)}")
+            continue
+        # histogram: cumulative buckets + sum + count, read as one
+        # locked group so _count always agrees with the +Inf bucket
+        st = m.stats()
+        cum = 0
+        for bound, c in zip(m.buckets, st["counts"]):
+            cum += c
+            lbl = labels + (("le", _fmt(bound)),)
+            lines.append(f"{format_series(name + '_bucket', lbl)} {cum}")
+        cum += st["counts"][-1]
+        lbl = labels + (("le", "+Inf"),)
+        lines.append(f"{format_series(name + '_bucket', lbl)} {cum}")
+        lines.append(f"{format_series(name + '_sum', labels)} "
+                     f"{_fmt(st['sum'])}")
+        lines.append(f"{format_series(name + '_count', labels)} "
+                     f"{st['count']}")
+    return "\n".join(lines) + "\n"

@@ -1,0 +1,289 @@
+"""Query flight recorder: a ring of recent query trees + crash dumps.
+
+Counterpart of cylon_tpu.telemetry.flight: the same names, labels, keys
+and knobs.
+
+An OOM or collective failure on an 8-wide mesh usually kills the whole
+controller process; the log line that would have explained it was never
+written. The flight recorder makes failures diagnosable post-mortem,
+the way an aircraft recorder does — always on, bounded, and dumped to
+disk the moment something goes wrong:
+
+* **ring** — the last ``CYLON_FLIGHT_RING`` (default 16) completed ROOT
+  span trees (whole queries / top-level eager ops), kept in memory via
+  a root-span close hook (spans.add_root_hook). ``recent()`` returns
+  them for interactive post-hoc inspection.
+* **crash dump** — when a root span closes with ``error=True`` and
+  ``CYLON_FLIGHT_DIR`` is set, ONE JSON file is written there
+  containing everything a post-mortem needs:
+
+  - the full span tree of the failed query (attrs included — the
+    ``hbm_delta``/``hbm_peak`` trail shows where memory went);
+  - the **error path**: root → deepest errored span, i.e. the exact
+    in-flight span stack at the moment the exception crossed each
+    frame (inner spans close first on a raise, each marked
+    ``error=True``);
+  - the metrics-registry snapshot (counters, per-phase latencies,
+    host-sync counts — everything docs/telemetry.md catalogs);
+  - MemoryPool watermarks (``snapshot()`` + available/comm budget —
+    ledger-backed on stats-hidden backends, so never blindly zero);
+  - the ledger's outstanding allocation set (which tables were live,
+    who allocated them, under which span);
+  - the CYLON/CUDA/NCCL/TORCH environment and the torch device facts.
+
+Dumps are written only when ``CYLON_FLIGHT_DIR`` names a directory
+(checked at crash time, so tests/operators can arm it dynamically);
+the ring is always on and costs one deque append per root span. The
+dump directory is BOUNDED: after each write the oldest dumps beyond
+``CYLON_FLIGHT_MAX_DUMPS`` (default 32) are rotated out, so a
+crash-looping service cannot fill the disk with forensics.
+
+The resilience layer records into two extension points here:
+
+* **admission ring** — ``record_admission()`` keeps the last ring-size
+  admission-controller decisions (admit/degrade/shed); a shed query
+  leaves the same forensic trail as a crashed one. The ring doubles as
+  the operational event journal: the SLO tracker's ``slo_burn``
+  events and the statistics warehouse's ``stats_drift`` /
+  ``stats_quarantine`` events (telemetry/stats.py) land here too, so
+  every admission-adjacent incident rides crash dumps.
+* **dump sections** — ``add_dump_section(name, provider)`` registers a
+  zero-arg provider whose result is embedded in every crash dump (the
+  fault injector registers its armed-plan/fired-events state, so a
+  chaos dump names its own cause). Providers that raise contribute an
+  error note, never mask the dump.
+"""
+from __future__ import annotations
+
+import itertools
+import json
+import os
+import time
+from collections import deque
+from typing import Callable, Dict, List, Optional
+
+from . import knobs as _knobs
+from . import ledger as _ledger
+from . import metrics as _metrics
+from . import spans as _spans
+
+DUMP_SCHEMA_VERSION = 2
+
+DEFAULT_RING_SIZE = _knobs.default("CYLON_FLIGHT_RING")
+
+DEFAULT_MAX_DUMPS = _knobs.default("CYLON_FLIGHT_MAX_DUMPS")
+
+
+def _ring_size() -> int:
+    return _knobs.get("CYLON_FLIGHT_RING")
+
+
+def _max_dumps() -> int:
+    return _knobs.get("CYLON_FLIGHT_MAX_DUMPS")
+
+
+_ring: deque = deque(maxlen=_ring_size())
+_admissions: deque = deque(maxlen=_ring_size())
+# itertools.count: dump sequence allocation is atomic — root spans can
+# close errored on several threads at once, and a racy `+= 1` would
+# hand two dumps the same filename (the second silently overwrites the
+# first crash's forensics)
+_dump_seq = itertools.count(1)
+
+# crash-dump section providers: name -> zero-arg callable returning a
+# JSON-able value (resilience/inject registers its fault state here)
+_dump_sections: Dict[str, Callable[[], object]] = {}
+
+
+def recent() -> List[object]:
+    """The most recent completed root spans, oldest first."""
+    return list(_ring)
+
+
+def last_dump_path() -> Optional[str]:
+    """Path of the most recent crash dump this process wrote, or None."""
+    return getattr(_on_root_close, "_last_dump", None)
+
+
+def record_admission(doc: dict) -> None:
+    """Append one admission-controller decision to the admission ring
+    (bounded like the query ring; included in every crash dump)."""
+    _admissions.append(dict(doc))
+
+
+def admissions() -> List[dict]:
+    """The most recent admission decisions, oldest first."""
+    return [dict(d) for d in _admissions]
+
+
+def add_dump_section(name: str, provider: Callable[[], object]) -> None:
+    """Register a named crash-dump section: ``provider()`` runs at dump
+    time and its result is embedded under ``sections[name]``. Last
+    registration per name wins."""
+    _dump_sections[name] = provider
+
+
+def remove_dump_section(name: str) -> None:
+    _dump_sections.pop(name, None)
+
+
+def error_path(root) -> List[object]:
+    """Root → deepest errored descendant: the in-flight span stack at
+    failure time (on a raise, inner spans close first with error=True,
+    so the errored chain IS the stack the exception unwound)."""
+    out = []
+    node = root
+    while node is not None:
+        out.append(node)
+        nxt = None
+        for c in node.children:
+            if c.error:
+                nxt = c   # last errored child = innermost at unwind
+        node = nxt
+    return out
+
+
+def _pool_watermarks() -> dict:
+    pool = _metrics.get_memory_pool()
+    if pool is None:
+        return {}
+    try:
+        used, peak, limit = pool.snapshot()
+        return {"bytes_in_use": int(used), "peak_bytes": int(peak),
+                "bytes_limit": int(limit),
+                "available_bytes": pool.available_bytes(),
+                "comm_budget_bytes": pool.comm_budget_bytes()}
+    except Exception:  # pragma: no cover - defensive  # cylint: disable=errors/broad-swallow — watermarks are optional forensics
+        return {}
+
+
+def _environment() -> dict:
+    import torch
+
+    env = {k: v for k, v in os.environ.items()
+           if k.startswith(("CYLON", "CUDA_", "NCCL_", "TORCH_"))}
+    device_name = None
+    try:
+        cuda = torch.cuda.is_available()
+        backend = "cuda" if cuda else "cpu"
+        n_devices = torch.cuda.device_count() if cuda else 0
+        if cuda:
+            device_name = torch.cuda.get_device_name(0)
+    except Exception:  # pragma: no cover - defensive  # cylint: disable=errors/broad-swallow — environment probe is optional forensics
+        backend, n_devices = None, None
+    return {"env": env, "backend": backend, "device_count": n_devices,
+            "device_name": device_name, "torch": torch.__version__,
+            "pid": os.getpid()}
+
+
+def crash_dump_doc(root) -> dict:
+    """The crash-dump document for one errored root span (pure —
+    write_crash_dump serializes it; tests inspect it directly)."""
+    sections = {}
+    for name, provider in list(_dump_sections.items()):
+        try:
+            sections[name] = provider()
+        except Exception as e:  # pragma: no cover - defensive  # cylint: disable=errors/broad-swallow — a failing section provider must not mask the dump
+            sections[name] = {"error": f"{type(e).__name__}: {e}"}
+    return {
+        "kind": "cylon-flight-crash-dump",
+        "version": DUMP_SCHEMA_VERSION,
+        "time_unix": time.time(),
+        "root_label": root.label,
+        "query": root.to_dict(nested=True),
+        "error_path": [s.to_dict() for s in error_path(root)],
+        "metrics": _metrics.metrics_snapshot(),
+        "pool": _pool_watermarks(),
+        "ledger_outstanding": _ledger.outstanding(),
+        "recent_queries": [s.label for s in _ring],
+        "admissions": list(admissions()),
+        "sections": sections,
+        "environment": _environment(),
+    }
+
+
+def write_crash_dump(root, directory: Optional[str] = None
+                     ) -> Optional[str]:
+    """Serialize one errored root span tree to a single JSON file in
+    ``directory`` (default ``CYLON_FLIGHT_DIR``); returns the path, or
+    None when no directory is configured. Never raises — a failing
+    forensics path must not mask the original error."""
+    directory = directory or _knobs.get("CYLON_FLIGHT_DIR")
+    if not directory:
+        return None
+    try:
+        os.makedirs(directory, exist_ok=True)
+        seq = next(_dump_seq)
+        name = (f"cylon-crash-{os.getpid()}-{seq:03d}-"
+                f"{root.name.replace('/', '_')}.json")
+        path = os.path.join(directory, name)
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(crash_dump_doc(root), f, default=str, indent=2,
+                      sort_keys=True)
+        _spans.logger.warning("flight recorder: crash dump written to %s",
+                              path)
+        _on_root_close._last_dump = path
+        _rotate_dumps(directory)
+        return path
+    except Exception:  # pragma: no cover - defensive
+        _spans.logger.exception("flight recorder: crash dump failed")
+        return None
+
+
+def _rotate_dumps(directory: str) -> None:
+    """Bound the dump directory to ``CYLON_FLIGHT_MAX_DUMPS`` files:
+    delete the oldest ``cylon-crash-*.json`` beyond the cap (by mtime,
+    name as the tiebreak) so a crash-looping service cannot fill the
+    disk with forensics. Never raises — rotation is best-effort."""
+    try:
+        cap = _max_dumps()
+        dumps = []
+        for name in os.listdir(directory):
+            if name.startswith("cylon-crash-") and \
+                    name.endswith(".json"):
+                p = os.path.join(directory, name)
+                try:
+                    dumps.append((os.path.getmtime(p), name, p))
+                except OSError:  # pragma: no cover - raced deletion
+                    continue
+        if len(dumps) <= cap:
+            return
+        dumps.sort()
+        for _mtime, _name, p in dumps[:len(dumps) - cap]:
+            try:
+                os.remove(p)
+            except OSError:  # pragma: no cover - raced deletion
+                continue
+        _spans.logger.warning(
+            "flight recorder: rotated %d old crash dump(s) "
+            "(CYLON_FLIGHT_MAX_DUMPS=%d)", len(dumps) - cap, cap)
+    except Exception:  # pragma: no cover - defensive
+        _spans.logger.exception("flight recorder: dump rotation failed")
+
+
+def _on_root_close(root) -> None:
+    if root.error:
+        # dump BEFORE ring insertion so recent_queries lists the
+        # queries that PRECEDED the failure
+        write_crash_dump(root)
+    if root.name in ("plan.preflight", "plan.admission"):
+        # the default execute() path emits these warning/decision
+        # markers as parentless spans; they are not query trees —
+        # letting them into the ring would evict the real query
+        # history the forensics depend on (admission decisions have
+        # their own ring: record_admission)
+        return
+    _ring.append(root)
+
+
+# always on: the hook costs one deque append per root span; dumps are
+# gated on CYLON_FLIGHT_DIR at crash time
+_spans.add_root_hook(_on_root_close)
+
+
+def reset() -> None:
+    """Clear the query + admission rings (test isolation); re-reads the
+    ring-size env."""
+    global _ring, _admissions
+    _ring = deque(maxlen=_ring_size())
+    _admissions = deque(maxlen=_ring_size())

@@ -1,0 +1,264 @@
+"""Buffer lifetime ledger: who owns which table's HBM, and for how long.
+
+Counterpart of cylon_tpu.telemetry.ledger: the same names, labels, keys
+and knobs.
+
+The reference routes every allocation through a ``MemoryPool``
+(reference: cpp/src/cylon/ctx/memory_pool.hpp:25-66), so the runtime
+always knows who holds which buffer. On the card the allocator is
+PyTorch's caching allocator and the pool is passive accounting
+(memory.py) — which left
+the observability stack able to say a query was slow, but not WHERE the
+HBM went or which table leaked it. The ledger closes that gap with
+explicit lifetime events:
+
+* **alloc** — every materializing ``distributed_*`` op and every plan
+  executor lowering registers its output via ``track(table, owner)``
+  (the ``ledger-coverage`` analysis family enforces the coverage, the
+  way ``span-coverage`` enforces spans). The entry records the owner
+  label, device bytes (``Table.nbytes`` — shape math, no sync), the
+  enclosing root span, and a weakref to the table.
+* **free** — ``Table.clear()`` (and therefore ``_free_if_unretained``
+  and ``finalize``) reports the release; a table collected by the
+  garbage collector reports through its weakref callback. Either way
+  the entry retires and the gauge drops.
+
+What this buys:
+
+* ``cylon_live_table_bytes{owner=...}`` gauges — live tracked bytes per
+  owner label, in every Prometheus dump and BENCH artifact;
+* ``live_bytes()`` — the distinct tracked bytes (the JAX package's
+  pool falls back on it where the runtime hides its statistics; the
+  CUDA allocator always has them);
+* ``leak_report(root_id)`` — the end-of-query leak report: tables
+  allocated under the query's root span and never freed
+  (plan/executor.execute_analyzed renders it into EXPLAIN ANALYZE);
+* ``outstanding()`` — the crash-dump "what was in flight" set
+  (telemetry/flight.py).
+
+Entries are weakref-anchored, so the ledger never extends a table's
+lifetime; owner labels must be static strings at the call site (label
+cardinality is the fixed set of operators, never data). ``borrowed=True``
+marks tables the engine did not allocate (plan Scan inputs): they count
+toward ``live_bytes`` but are excluded from leak reports — the user
+holds them by design.
+
+Accounting granularity: an ENTRY's ``nbytes`` is its table's full
+buffer footprint (what a leak pins), while ``live_bytes()`` sums
+DISTINCT live buffers — zero-copy views (project/filter outputs share
+their input's columns) refcount the shared buffers instead of
+double-counting them, so the pool's fallback watermark tracks real
+memory, not table-object multiplicity.
+"""
+from __future__ import annotations
+
+import itertools
+import threading
+import time
+import weakref
+from typing import Dict, List, Optional
+
+from . import metrics as _metrics
+from . import spans as _spans
+
+# RLock: weakref-retire callbacks can fire at any allocation point,
+# including on a thread already inside a ledger critical section
+_lock = threading.RLock()
+_entries: Dict[int, "_Entry"] = {}   # id(table) -> live entry
+_buffers: Dict[int, list] = {}       # id(buffer) -> [refcount, bytes]
+_live_total = 0                      # sum of DISTINCT live buffer bytes
+_event_ids = itertools.count(1)
+
+
+class _Entry:
+    __slots__ = ("event_id", "owner", "nbytes", "root_id", "label",
+                 "borrowed", "t0", "wr", "buf_ids")
+
+    def __init__(self, event_id, owner, nbytes, root_id, label, borrowed):
+        self.event_id = event_id
+        self.owner = owner
+        self.nbytes = nbytes
+        self.root_id = root_id
+        self.label = label
+        self.borrowed = borrowed
+        self.wr = None           # set by track()
+        self.buf_ids = ()        # id() of every referenced buffer
+        self.t0 = time.monotonic()
+
+    def to_dict(self) -> dict:
+        return {"event_id": self.event_id, "owner": self.owner,
+                "nbytes": self.nbytes, "root_id": self.root_id,
+                "span": self.label, "borrowed": self.borrowed,
+                "age_s": round(time.monotonic() - self.t0, 3)}
+
+
+def _gauge(owner: str):
+    return _metrics.REGISTRY.gauge("cylon_live_table_bytes",
+                                   {"owner": owner})
+
+
+def _buffer_bytes(arr) -> int:
+    try:
+        return int(arr.element_size()) * int(arr.numel())
+    except Exception:  # pragma: no cover - exotic leaf  # cylint: disable=errors/broad-swallow — exotic leaf contributes 0 bytes
+        return 0
+
+
+def _charge_buffers(table) -> tuple:
+    """Refcount every buffer of ``table`` into the distinct-buffer map
+    (adding unseen ones to the live total); returns their ids. Tables
+    without a ``buffers()`` enumeration contribute nothing distinct —
+    their entry still carries the footprint. Caller holds _lock; a
+    tracked entry's buffers stay alive exactly as long as the entry
+    (clear() releases BEFORE dropping columns), so raw ids cannot be
+    recycled while held here."""
+    global _live_total
+    try:
+        bufs = table.buffers()
+    except Exception:  # cylint: disable=errors/broad-swallow — no buffers() enumeration: nothing distinct
+        return ()
+    ids = []
+    for b in bufs:
+        k = id(b)
+        ids.append(k)
+        rec = _buffers.get(k)
+        if rec is not None:
+            rec[0] += 1
+        else:
+            nb = _buffer_bytes(b)
+            _buffers[k] = [1, nb]
+            _live_total += nb
+    return tuple(ids)
+
+
+def _discharge_buffers(buf_ids) -> None:
+    """Caller holds _lock."""
+    global _live_total
+    for k in buf_ids:
+        rec = _buffers.get(k)
+        if rec is None:  # pragma: no cover - defensive
+            continue
+        rec[0] -= 1
+        if rec[0] <= 0:
+            _live_total -= rec[1]
+            del _buffers[k]
+
+
+def track(table, owner: str, borrowed: bool = False):
+    """Register one table's buffers under ``owner`` and return the
+    table (so call sites can wrap return expressions). Re-tracking a
+    live table re-attributes it to the NEW owner — the plan executor's
+    ``plan.*`` label supersedes the distributed op's, so leak reports
+    name the query node that allocated, not just the mechanism."""
+    if table is None:
+        return table
+    try:
+        nbytes = int(table.nbytes)
+    except Exception:  # pragma: no cover - defensive (cleared tables)  # cylint: disable=errors/broad-swallow — cleared table tracks at 0 bytes
+        nbytes = 0
+    cur = _spans.current_span()
+    root_id = cur.root_id if cur is not None else 0
+    label = cur.label if cur is not None else None
+    key = id(table)
+    with _lock:
+        old = _entries.get(key)
+        if old is not None and old.wr() is table:
+            # same live object: move the bytes between owner gauges and
+            # refresh the attribution; the weakref (and its callback)
+            # stays — one retire per table, however many tracks
+            g_old = _gauge(old.owner)
+            g_old.set(g_old.value - old.nbytes)
+            old.owner = owner
+            old.nbytes = nbytes
+            old.root_id = root_id or old.root_id
+            old.label = label or old.label
+            # borrowed is STICKY once set: a prior query's result
+            # re-entering as a Scan input is user-held — re-rooting it
+            # under the new query must not turn it into a false leak
+            old.borrowed = borrowed or old.borrowed
+            g = _gauge(owner)
+            g.set(g.value + nbytes)
+            return table
+        entry = _Entry(next(_event_ids), owner, nbytes, root_id, label,
+                       borrowed)
+        entry.wr = weakref.ref(table, lambda _wr, k=key: _retire(k))
+        entry.buf_ids = _charge_buffers(table)
+        _entries[key] = entry
+        g = _gauge(owner)
+        g.set(g.value + nbytes)
+    return table
+
+
+def release(table) -> bool:
+    """Explicit free event (Table.clear / _free_if_unretained). Returns
+    True when a live entry retired; unknown tables are a no-op."""
+    if table is None:
+        return False
+    key = id(table)
+    with _lock:
+        entry = _entries.get(key)
+        if entry is None or entry.wr() is not table:
+            return False
+    _retire(key)
+    return True
+
+
+def _retire(key: int) -> None:
+    with _lock:
+        entry = _entries.pop(key, None)
+        if entry is None:
+            return
+        _discharge_buffers(entry.buf_ids)
+        g = _gauge(entry.owner)
+        g.set(g.value - entry.nbytes)
+
+
+def live_bytes() -> int:
+    """Total DISTINCT tracked live buffer bytes (shared-buffer views
+    refcount, never double-count) — the MemoryPool's external fallback
+    source on backends that hide memory_stats."""
+    return _live_total  # cylint: disable=concurrency/lock-discipline — single int read under the GIL; the watermark fallback tolerates momentary staleness, and taking _lock here would serialize every pool snapshot
+
+
+def outstanding(include_borrowed: bool = True) -> List[dict]:
+    """Every live entry (oldest first) — the crash dump's in-flight
+    allocation set."""
+    with _lock:
+        out = [e.to_dict() for e in _entries.values()
+               if include_borrowed or not e.borrowed]
+    out.sort(key=lambda d: d["event_id"])
+    return out
+
+
+def leak_report(root_id: int, exclude: Optional[set] = None
+                ) -> List[dict]:
+    """Tables allocated under ``root_id``'s span tree and never freed —
+    the end-of-query leak report. ``exclude`` holds id(table) values
+    that are legitimate survivors (the query's own result). Borrowed
+    (Scan-input) entries never count: the user holds them by design."""
+    exclude = exclude or set()
+    with _lock:
+        out = [e.to_dict() for k, e in _entries.items()
+               if e.root_id == root_id and not e.borrowed
+               and k not in exclude]
+    out.sort(key=lambda d: d["event_id"])
+    return out
+
+
+def leak_count() -> int:
+    """Live non-borrowed entries, any root — the BENCH artifact's
+    whole-run leak signal."""
+    with _lock:
+        return sum(1 for e in _entries.values() if not e.borrowed)
+
+
+def reset() -> None:
+    """Drop every entry and zero the owner gauges (test isolation)."""
+    global _live_total
+    with _lock:
+        owners = {e.owner for e in _entries.values()}
+        _entries.clear()
+        _buffers.clear()
+        _live_total = 0
+        for o in owners:
+            _gauge(o).set(0)

@@ -1,0 +1,375 @@
+"""Metrics registry: counters, histograms, gauges (counterpart of
+cylon_tpu.telemetry.metrics; same series names and labels).
+
+The quantitative half of the observability layer — where spans answer
+"what ran and how long", the registry accumulates the signals the
+reference logs and then drops (rows exchanged, shuffle bytes, HBM
+watermarks, program builds). Everything is process-local, cheap
+(plain attribute adds under the GIL), and exported either as a plain
+dict (``snapshot()`` — the BENCH artifact form) or Prometheus text
+(export.prometheus_text).
+
+Well-known series (full catalog: docs/telemetry.md):
+
+* ``cylon_shuffle_bytes_total``       payload bytes through exchanges
+* ``cylon_rows_exchanged_total``      live rows moved by exchanges
+* ``cylon_collective_launches_total`` compiled collective dispatches
+* ``cylon_kernel_factory_builds_total{factory=...}`` kernel-library
+  builds and loads (each miss of the ``counted_cache`` loader in
+  ops/kernels.py builds or loads one CUDA library)
+* ``cylon_phase_latency_ms{phase=...}`` per-span latency histogram
+  (fed by spans.span on every close)
+* ``cylon_hbm_*_bytes`` / ``cylon_comm_budget_bytes`` gauges sampled
+  from a ``memory.MemoryPool`` via ``sample_memory`` (duck-typed —
+  telemetry stays a base-layer leaf and never imports memory.py)
+"""
+from __future__ import annotations
+
+import functools
+import threading
+from typing import Callable, Dict, Optional, Tuple
+
+LabelKey = Tuple[Tuple[str, str], ...]
+
+
+class Counter:
+    """Monotonically increasing value.
+
+    ``inc`` is a read-modify-write: submitter threads, the service
+    worker and GC finalizers all increment concurrently, so it runs
+    under a per-metric RLock (reentrant — a weakref callback firing
+    mid-``inc`` on the same thread must never deadlock)."""
+
+    kind = "counter"
+    __slots__ = ("value", "_lock")
+
+    def __init__(self):
+        self.value = 0
+        self._lock = threading.RLock()
+
+    def inc(self, n=1) -> None:
+        with self._lock:
+            self.value += n
+
+    def zero(self) -> None:
+        with self._lock:
+            self.value = 0
+
+
+class Gauge:
+    """Last-sampled value."""
+
+    kind = "gauge"
+    __slots__ = ("value",)
+
+    def __init__(self):
+        self.value = 0
+
+    def set(self, v) -> None:
+        self.value = v
+
+    def zero(self) -> None:
+        self.value = 0
+
+
+# latency bucket bounds in ms (log-ish spacing spanning one kernel
+# launch to a whole query and beyond)
+DEFAULT_BUCKETS_MS = (0.1, 0.5, 1.0, 5.0, 10.0, 50.0, 100.0, 500.0,
+                      1000.0, 5000.0)
+
+
+class Histogram:
+    """Cumulative-bucket histogram with sum/count/min/max.
+
+    ``observe`` updates six fields; the per-metric RLock keeps the
+    group consistent under concurrent observers (every thread that
+    closes a span feeds the phase-latency series)."""
+
+    kind = "histogram"
+    __slots__ = ("buckets", "counts", "count", "sum", "min", "max",
+                 "_lock")
+
+    def __init__(self, buckets=DEFAULT_BUCKETS_MS):
+        self.buckets = tuple(buckets)
+        self._lock = threading.RLock()
+        self.zero()
+
+    def zero(self) -> None:
+        with self._lock:
+            self.counts = [0] * (len(self.buckets) + 1)  # last = +Inf
+            self.count = 0
+            self.sum = 0.0
+            self.min = None
+            self.max = None
+
+    def observe(self, v: float) -> None:
+        i = 0
+        for i, b in enumerate(self.buckets):
+            if v <= b:
+                break
+        else:
+            i = len(self.buckets)
+        with self._lock:
+            self.counts[i] += 1
+            self.count += 1
+            self.sum += v
+            self.min = v if self.min is None else min(self.min, v)
+            self.max = v if self.max is None else max(self.max, v)
+
+    def stats(self) -> dict:
+        """Consistent read of the six-field group under the same lock
+        the writers hold — a reader interleaving a half-applied
+        observe() would see count/sum disagree (and a _count line
+        disagreeing with the cumulative +Inf bucket in the Prometheus
+        dump)."""
+        with self._lock:
+            return {"count": self.count, "sum": self.sum,
+                    "min": self.min, "max": self.max,
+                    "counts": list(self.counts)}
+
+    def quantile(self, q: float) -> Optional[float]:
+        """Estimate the q-quantile (0..1) by linear interpolation
+        WITHIN the bucket holding the target rank (the
+        histogram_quantile estimator): the bucket's observations are
+        assumed uniform over (lower, upper]. The first bucket
+        interpolates from ``min`` (0 when unknown), the +Inf bucket
+        cannot interpolate and reports ``max``. Returns None on an
+        empty histogram. Reads the count group under the per-metric
+        RLock, so a concurrent observe() never tears the estimate."""
+        st = self.stats()
+        if st["count"] == 0:
+            return None
+        if q <= 0.0:
+            return st["min"]
+        if q >= 1.0:
+            return st["max"]
+        rank = q * st["count"]
+        cum = 0
+        lo = st["min"] if st["min"] is not None else 0.0
+        for bound, c in zip(self.buckets, st["counts"]):
+            if cum + c >= rank and c > 0:
+                lo_eff = min(lo, bound)
+                return lo_eff + (bound - lo_eff) * (rank - cum) / c
+            cum += c
+            lo = bound
+        return st["max"]
+
+
+def _series_key(name: str, labels: Optional[Dict[str, str]]) -> tuple:
+    return name, tuple(sorted((labels or {}).items()))
+
+
+def format_series(name: str, labels: LabelKey) -> str:
+    if not labels:
+        return name
+    inner = ",".join(f'{k}="{v}"' for k, v in labels)
+    return f"{name}{{{inner}}}"
+
+
+class MetricsRegistry:
+    """Name+labels → metric instance. ``reset()`` zeroes IN PLACE so
+    references held by instrumented code (counted_cache closures, span
+    histograms) stay live across test resets."""
+
+    def __init__(self):
+        self._metrics: Dict[tuple, object] = {}
+        # RLock, not Lock: the ledger's weakref-retire callback reaches
+        # gauge() from GC, which can fire on a thread ALREADY inside
+        # _get's critical section (metric construction allocates) — a
+        # non-reentrant lock would deadlock that thread against itself
+        self._lock = threading.RLock()
+
+    def _get(self, cls, name: str, labels=None, **kw):
+        key = _series_key(name, labels)
+        m = self._metrics.get(key)
+        if m is None:
+            with self._lock:
+                m = self._metrics.setdefault(key, cls(**kw))
+        if not isinstance(m, cls):
+            raise TypeError(f"metric {name!r} already registered as "
+                            f"{type(m).__name__}, not {cls.__name__}")
+        return m
+
+    def counter(self, name: str, labels=None) -> Counter:
+        return self._get(Counter, name, labels)
+
+    def gauge(self, name: str, labels=None) -> Gauge:
+        return self._get(Gauge, name, labels)
+
+    def histogram(self, name: str, labels=None,
+                  buckets=DEFAULT_BUCKETS_MS) -> Histogram:
+        return self._get(Histogram, name, labels, buckets=buckets)
+
+    def series(self):
+        """Sorted [(name, labels, metric)] — the exporters' view.
+        Materialized under the registry lock: a concurrent scrape
+        (the obs endpoint's /metrics) must never iterate the metric
+        dict while a submitter thread is registering a new series
+        (RuntimeError: dict changed size during iteration)."""
+        with self._lock:
+            items = list(self._metrics.items())
+        return [(n, l, m)
+                for (n, l), m in sorted(items, key=lambda kv: kv[0])]
+
+    def snapshot(self) -> dict:
+        """Plain JSON-able dict keyed by the rendered series name —
+        counters/gauges map to their value, histograms to
+        {count, sum, min, max}. The BENCH artifact form."""
+        out = {}
+        for name, labels, m in self.series():
+            key = format_series(name, labels)
+            if m.kind == "histogram":
+                st = m.stats()
+                out[key] = {"count": st["count"],
+                            "sum": round(st["sum"], 3),
+                            "min": st["min"], "max": st["max"]}
+            else:
+                out[key] = m.value
+        return out
+
+    def reset(self) -> None:
+        for m in self._metrics.values():
+            m.zero()
+
+
+# the process-global default registry — module-level helpers below and
+# the instrumented call sites (parallel/shuffle.py, spans.py) all feed it
+REGISTRY = MetricsRegistry()
+
+
+def counter(name: str, labels=None) -> Counter:
+    return REGISTRY.counter(name, labels)
+
+
+def gauge(name: str, labels=None) -> Gauge:
+    return REGISTRY.gauge(name, labels)
+
+
+def histogram(name: str, labels=None) -> Histogram:
+    return REGISTRY.histogram(name, labels)
+
+
+def metrics_snapshot() -> dict:
+    return REGISTRY.snapshot()
+
+
+def reset_metrics() -> None:
+    REGISTRY.reset()
+
+
+def observe_phase(name: str, elapsed_ms: float, error: bool = False
+                  ) -> None:
+    """Per-span latency histogram feed (called by spans.span on close;
+    the seq suffix is already stripped — label cardinality stays the
+    static set of span names)."""
+    REGISTRY.histogram("cylon_phase_latency_ms",
+                       {"phase": name}).observe(elapsed_ms)
+    if error:
+        REGISTRY.counter("cylon_phase_errors_total",
+                         {"phase": name}).inc()
+
+
+def record_host_sync(site: str, n: int = 1) -> None:
+    """One device→host round trip at a named choke point — feeds
+    ``cylon_host_syncs_total{site=...}``. The sites are the
+    device-to-host copies of the count matrices and plan counts; this
+    counter makes the round trips per query VISIBLE (each one waits for
+    the device to drain). ``site`` labels must be
+    static strings at the call site — label cardinality is the fixed
+    set of choke points, never data."""
+    REGISTRY.counter("cylon_host_syncs_total", {"site": site}).inc(n)
+
+
+# Process-global MemoryPool handle (duck-typed — telemetry never
+# imports memory.py): CylonContext registers its pool here so the span
+# layer can sample per-span HBM deltas and the flight recorder can dump
+# watermarks without threading the pool through every call site. Last
+# registration wins (one pool per process in practice).
+_memory_pool = None
+
+
+def set_memory_pool(pool) -> None:
+    global _memory_pool
+    _memory_pool = pool
+
+
+def get_memory_pool():
+    return _memory_pool
+
+
+# Build hook: when installed, every counted_cache build passes its
+# result through ``hook(factory_name, built)`` (the JAX package's
+# compile profiler hangs here; its CUDA counterpart is not ported yet).
+# Kept as a late-bound module attribute.
+_factory_build_hook: Optional[Callable] = None
+
+# Fault hook for the chaos injector (resilience/inject.py): when
+# installed, ``hook(factory_name)`` runs BEFORE each counted_cache
+# build and may raise a typed error — the deterministic stand-in for a
+# compile OOM. lru_cache never caches exceptions, so a faulted build
+# rebuilds cleanly on retry. Duck-typed like the build hook: telemetry
+# stays a base-layer leaf and never imports resilience.
+_factory_fault_hook: Optional[Callable] = None
+
+
+def set_factory_build_hook(hook: Optional[Callable]) -> None:
+    global _factory_build_hook
+    _factory_build_hook = hook
+
+
+def set_factory_fault_hook(hook: Optional[Callable]) -> None:
+    global _factory_fault_hook
+    _factory_fault_hook = hook
+
+
+def counted_cache(fn: Callable) -> Callable:
+    """``lru_cache(maxsize=None)`` plus a build counter — the decorator
+    of the kernel-library loader (ops/kernels.py): every cache miss
+    builds (nvcc, first use) or loads one CUDA library, so
+    ``cylon_kernel_factory_builds_total{factory=...}`` counts them; a hot
+    loop that grows it is paying builds, not compute. The chaos fault
+    hook fires before each build."""
+    c = REGISTRY.counter("cylon_kernel_factory_builds_total",
+                         {"factory": fn.__name__})
+
+    def _build(*args, **kwargs):
+        fault = _factory_fault_hook
+        if fault is not None:
+            fault(fn.__name__)  # chaos: may raise an injected error
+        c.inc()
+        out = fn(*args, **kwargs)
+        hook = _factory_build_hook
+        if hook is not None:
+            out = hook(fn.__name__, out)
+        return out
+
+    cached = functools.lru_cache(maxsize=None)(_build)
+    try:
+        functools.update_wrapper(cached, fn)
+    except Exception:  # pragma: no cover - exotic callables  # cylint: disable=errors/broad-swallow — exotic callable keeps its bare wrapper
+        pass
+    return cached
+
+
+def sample_memory(pool, registry: Optional[MetricsRegistry] = None
+                  ) -> dict:
+    """Sample a ``memory.MemoryPool`` into gauges; returns the sampled
+    values as a dict. Duck-typed (bytes_allocated/peak_bytes/
+    bytes_limit/available_bytes/comm_budget_bytes) so the base-leaf
+    layering contract holds — telemetry never imports memory.py.
+    ``available``/``comm_budget`` are None on the CPU; their gauges are
+    then left untouched and the dict carries None."""
+    r = registry or REGISTRY
+    vals = {
+        "hbm_live_bytes": int(pool.bytes_allocated()),
+        "hbm_peak_bytes": int(pool.peak_bytes()),
+        "hbm_limit_bytes": int(pool.bytes_limit()),
+        "hbm_available_bytes": pool.available_bytes(),
+        "comm_budget_bytes": pool.comm_budget_bytes(),
+    }
+    for key, v in vals.items():
+        if v is not None:
+            r.gauge(f"cylon_{key}").set(int(v))
+    r.gauge("cylon_hbm_stats_available").set(
+        int(vals["hbm_available_bytes"] is not None))
+    return vals

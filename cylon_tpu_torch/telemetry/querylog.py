@@ -1,0 +1,238 @@
+"""Structured query log: one digest per completed root query span.
+
+Counterpart of cylon_tpu.telemetry.querylog: the same names, labels, keys
+and knobs.
+
+Traces answer "what happened inside this query"; metrics answer "how
+is the fleet doing"; crash dumps answer "why did it die". What an
+operator tails day to day is the line BETWEEN them: one compact,
+structured record per completed query, carrying the identifiers that
+join the three worlds together — the query id and tenant (the trace
+and crash-dump labels), the plan fingerprint (the plan-cache key), and
+the aggregate signals a single query contributes to the metrics
+(shuffle bytes/rows, retries, peak HBM, worst skew).
+
+Implementation: a root-span close hook (``spans.add_root_hook``) that
+fires for ``plan.query`` roots only — the plan executor wraps BOTH
+execute paths in that root span, so every query produces exactly one
+digest whether it ran through the service, a bare ``collect()``, or
+``explain(analyze=True)``. Eager top-level ops (a direct
+``distributed_join`` call) are operator phases, not queries, and stay
+out of the log. The digest is assembled from the completed span tree —
+which head sampling (telemetry/sampling.py) deliberately keeps in
+memory — so a sampled-OUT query still logs a complete digest; the
+``sampled`` field says whether its full trace was exported.
+
+Two carriers:
+
+* an **in-memory ring** (always on; ``recent()``) sized at
+  ``RING_FACTOR×`` the flight ring — the observability endpoint's
+  ``/queries`` route serves it;
+* an optional **JSONL file** (``enable(path)``) — one
+  ``json.dumps(digest)`` line per query, size-bounded through the
+  shared rotating writer (``CYLON_SPAN_LOG_MAX_BYTES``, keep-N
+  generations) so a long-lived service can tail it forever.
+
+The digest also feeds the per-tenant SLO tracker (telemetry/slo.py) —
+latency observation, objective evaluation, burn accounting — making
+this hook the single choke point where a finished query becomes
+operator-visible state.
+"""
+from __future__ import annotations
+
+import json
+import threading
+import time
+from collections import deque
+from typing import List, Optional
+
+from . import export as _export
+from . import knobs as _knobs
+from . import slo as _slo
+from . import spans as _spans
+from . import stats as _stats
+
+# root span names that ARE queries (everything else a root hook sees —
+# eager op roots, marker spans — is not a query digest)
+QUERY_ROOT_NAMES = ("plan.query",)
+
+# the digest ring holds this multiple of CYLON_FLIGHT_RING entries:
+# digests are ~200 B dicts where flight-ring entries are whole span
+# trees, so /queries can afford deeper history than forensics
+RING_FACTOR = 4
+
+# v2: + est_bytes / est_source (PR 12)
+# v3: + join_algorithms / salted_exchanges (PR 15 — "which queries
+#      went broadcast, and did they win" is joinable offline from the
+#      JSONL alone against exec_ms / shuffle_bytes)
+DIGEST_SCHEMA_VERSION = 3
+
+
+def _ring_size() -> int:
+    return _knobs.get("CYLON_FLIGHT_RING") * RING_FACTOR
+
+
+_lock = threading.RLock()
+_ring: deque = deque(maxlen=_ring_size())
+_writer: Optional[_export.RotatingJsonlWriter] = None
+
+
+def digest(root) -> dict:
+    """Reduce one completed root query span tree to its flat digest
+    record — the query-log line and the ``/queries`` entry."""
+    a = root.attrs
+    shuffle_bytes = 0
+    shuffle_rows = 0
+    shuffles = 0
+    retries = 0
+    peak_hbm: Optional[int] = None
+    skew_max: Optional[float] = None
+    join_algos = set()
+    salted = 0
+    for node in root.walk():
+        at = node.attrs
+        if node.name.startswith("shuffle.exchange"):
+            shuffle_bytes += int(at.get("bytes_moved") or 0)
+            shuffle_rows += int(at.get("rows") or 0)
+        if node.name.startswith("plan.shuffle"):
+            shuffles += 1
+        retries += int(at.get("retries") or 0)
+        hp = at.get("hbm_peak")
+        if hp is not None:
+            peak_hbm = max(peak_hbm or 0, int(hp))
+        si = at.get("skew_imbalance")
+        if si is not None:
+            skew_max = max(skew_max or 0.0, float(si))
+        ja = at.get("join_algorithm")
+        if ja is not None:
+            join_algos.add(str(ja))
+        if at.get("salted"):
+            salted += 1
+    return {
+        "v": DIGEST_SCHEMA_VERSION,
+        "time_unix": round(time.time(), 3),
+        "query_id": a.get("query_id", root.span_id),
+        "tenant": a.get("tenant", "default"),
+        "service": a.get("service"),
+        "root": root.label,
+        "outcome": "error" if root.error else "ok",
+        "exec_ms": round(root.elapsed_ms, 3)
+        if root.elapsed_ms is not None else None,
+        "wait_s": a.get("wait_s"),
+        "admission": a.get("admission"),
+        # the admission estimate + its provenance (static width x row
+        # bound vs measured-EWMA calibration): with these two fields
+        # beside the measured aggregates below, estimated-vs-actual is
+        # joinable OFFLINE from the JSONL alone — before them only the
+        # in-memory flight admission ring carried the estimate
+        "est_bytes": a.get("est_bytes"),
+        "est_source": a.get("est_source"),
+        "plan_cache": a.get("plan_cache"),
+        "plan_fp": a.get("plan_fp"),
+        "shuffles": shuffles,
+        "shuffle_bytes": shuffle_bytes,
+        "shuffle_rows": shuffle_rows,
+        # the algorithms this query's joins actually RAN (runtime-
+        # honest, from the lowering's span attrs) and how many of its
+        # exchanges took the hot-key salted path
+        "join_algorithms": sorted(join_algos),
+        "salted_exchanges": salted,
+        "retries": retries,
+        "peak_hbm_bytes": peak_hbm,
+        "skew_imbalance_max": skew_max,
+        "sampled": bool(a.get("sampled", True)),
+        "sampled_promoted": bool(a.get("sampled_promoted", False)),
+    }
+
+
+def _on_root_close(root) -> None:
+    if root.name not in QUERY_ROOT_NAMES:
+        return
+    try:
+        d = digest(root)
+    except Exception:  # pragma: no cover - defensive
+        _spans.logger.exception("querylog digest failed")
+        return
+    global _ring
+    with _lock:
+        # knob reads are LIVE everywhere else (telemetry/knobs.py
+        # contract) — honor a resized CYLON_FLIGHT_RING here too
+        # instead of latching the import-time maxlen forever
+        size = _ring_size()
+        if _ring.maxlen != size:
+            _ring = deque(_ring, maxlen=size)
+        _ring.append(d)
+        w = _writer
+        if w is not None:
+            try:
+                # flushed per line: digests land at query rate, and an
+                # operator tail -f'ing the log must see a query the
+                # moment it completes
+                w.write_line(json.dumps(d, default=str,
+                                        sort_keys=True), flush=True)
+            except Exception:  # pragma: no cover - defensive
+                _spans.logger.exception("querylog write failed")
+    # the digest is the SLO tracker's feed: per-tenant latency,
+    # objective evaluation, burn accounting (outside our lock — slo
+    # has its own)
+    _slo.observe(d["tenant"], d["exec_ms"] or 0.0,
+                 error=root.error)
+    # ... and the statistics warehouse's: measured per-fingerprint
+    # truth (q-error, drift, stats-informed admission) accumulates at
+    # the same choke point where a finished query becomes operator-
+    # visible state (outside our lock — the store has its own)
+    try:
+        _stats.record_root(root, d)
+    except Exception:  # pragma: no cover - defensive
+        _spans.logger.exception("stats observation failed")
+
+
+# always on, like the flight recorder: the ring costs one deque append
+# per completed query; the file carrier is armed via enable()
+_spans.add_root_hook(_on_root_close)
+
+
+def recent(n: Optional[int] = None) -> List[dict]:
+    """The most recent query digests, oldest first (``n`` caps the
+    tail) — the ``/queries`` payload."""
+    with _lock:
+        out = [dict(d) for d in _ring]
+    return out if n is None else out[-n:]
+
+
+def enable(path: str, max_bytes: Optional[int] = None,
+           keep: int = _export.SPAN_LOG_KEEP) -> None:
+    """Start appending one JSONL digest line per completed query to
+    ``path`` (truncates; size-bounded via the shared rotating writer).
+    Re-enabling swaps the file atomically under the log lock."""
+    w = _export.RotatingJsonlWriter(path, max_bytes=max_bytes,
+                                    keep=keep).open()
+    with _lock:
+        global _writer
+        old, _writer = _writer, w
+    if old is not None:
+        old.close()
+
+
+def disable() -> None:
+    """Stop the file carrier (the ring stays on)."""
+    with _lock:
+        global _writer
+        w, _writer = _writer, None
+    if w is not None:
+        w.close()
+
+
+def lines_written() -> int:
+    """Digest lines written to the enabled file so far (0 when
+    disabled) — the smoke gate's completeness check."""
+    with _lock:
+        return _writer.lines_written if _writer is not None else 0
+
+
+def reset() -> None:
+    """Clear the digest ring (test isolation); re-reads the ring-size
+    knob. The file carrier, if enabled, is untouched."""
+    with _lock:
+        global _ring
+        _ring = deque(maxlen=_ring_size())

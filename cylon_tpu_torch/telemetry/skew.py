@@ -1,0 +1,181 @@
+"""Shuffle skew statistics from the host-fetched send-count matrices.
+
+Counterpart of cylon_tpu.telemetry.skew: the same names, labels, keys
+and knobs.
+
+Every distributed operator here is *local kernel + hash-partition +
+all-to-all + local kernel*, so whole-query time is dominated by the
+exchanges — and an exchange is only as fast as its HOTTEST destination
+shard. The count phase already fetches the full per-(src, dst) matrix
+``counts[s, t]`` to the host (it picks the block geometry), so skew
+observability is FREE: no extra device→host transfer, just arithmetic
+over a [world, world] numpy array the host holds anyway.
+
+``SkewStats.from_counts`` reduces that matrix to the signals that
+matter:
+
+* ``recv_rows[t] = counts[:, t].sum()`` — what shard t must absorb;
+  the padded/compact capacity and the per-shard local-kernel time both
+  track the WORST entry.
+* ``imbalance = recv_max / recv_mean`` — 1.0 is a perfectly uniform
+  hash placement; the padded route's PADDED_WASTE_FACTOR admission and
+  the EXPLAIN ANALYZE skew warning both read in these units.
+* min/median/max shard rows and per-shard received bytes.
+
+The stats ride two carriers (parallel/shuffle.py attaches both):
+
+* span attributes on ``shuffle.exchange*`` spans (``skew_imbalance``,
+  ``shard_rows_min/med/max``, ``skew_warn``) — per-exchange, in the
+  JSONL trace, and surfaced per Shuffle node by plan/report.py in
+  ``LazyTable.explain(analyze=True)``;
+* registry metrics — ``cylon_shuffle_imbalance_factor`` (histogram:
+  max/mean over the run), ``cylon_shuffle_shard_rows`` and
+  ``cylon_shuffle_shard_bytes`` (per-shard histograms).
+
+The warning threshold is ``CYLON_SKEW_WARN_FACTOR`` (default 2.0 —
+matching shuffle.PADDED_WASTE_FACTOR, the point where the exchange
+stops routing padded and starts paying blockwise rounds).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional
+
+import numpy as np
+
+from . import knobs as _knobs
+from . import metrics as _metrics
+
+# imbalance (recv_max/recv_mean) above this renders a [SKEW] warning in
+# EXPLAIN ANALYZE; aligned with shuffle.PADDED_WASTE_FACTOR by default
+DEFAULT_WARN_FACTOR = _knobs.default("CYLON_SKEW_WARN_FACTOR")
+
+# per-shard row-count histogram buckets (rows, log-spaced: one sublane
+# to a full device-scale shard)
+SHARD_ROWS_BUCKETS = (1e2, 1e3, 1e4, 1e5, 1e6, 1e7, 1e8, 1e9)
+
+# per-shard received-bytes histogram buckets (1 KiB .. 16 GiB)
+SHARD_BYTES_BUCKETS = tuple(float(1 << s)
+                            for s in (10, 14, 17, 20, 23, 26, 28, 30,
+                                      32, 34))
+
+# imbalance-factor buckets: 1.0 = uniform, >= warn factor = skewed
+IMBALANCE_BUCKETS = (1.0, 1.1, 1.25, 1.5, 2.0, 3.0, 5.0, 10.0, 100.0)
+
+# full per-shard vectors ride span attrs only up to this mesh width
+SPAN_ATTR_MAX_WORLD = 16
+
+
+def warn_factor() -> float:
+    """The configurable skew-warning threshold (env override)."""
+    return _knobs.get("CYLON_SKEW_WARN_FACTOR")
+
+
+@dataclass
+class SkewStats:
+    """Key-distribution skew of ONE exchange, reduced from its
+    [world, world] send-count matrix (rows: source shard, cols:
+    destination shard)."""
+
+    world: int
+    send_rows: List[int]           # counts.sum(axis=1) — per source
+    recv_rows: List[int]           # counts.sum(axis=0) — per destination
+    bytes_per_row: int             # payload row width (0 = unknown)
+
+    @classmethod
+    def from_counts(cls, counts, bytes_per_row: int = 0
+                    ) -> Optional["SkewStats"]:
+        """Reduce a host count matrix; None when there is nothing to
+        measure (empty matrix or a 1-wide mesh, where every row lands
+        on the only shard and skew is undefined)."""
+        c = np.asarray(counts)
+        if c.ndim != 2 or c.shape[0] < 2 or c.size == 0:
+            return None
+        return cls(world=int(c.shape[0]),
+                   send_rows=[int(v) for v in c.sum(axis=1)],
+                   recv_rows=[int(v) for v in c.sum(axis=0)],
+                   bytes_per_row=int(bytes_per_row))
+
+    # -- derived signals ------------------------------------------------
+
+    @property
+    def total_rows(self) -> int:
+        return sum(self.recv_rows)
+
+    @property
+    def recv_bytes(self) -> List[int]:
+        return [r * self.bytes_per_row for r in self.recv_rows]
+
+    @property
+    def imbalance(self) -> float:
+        """max/mean of per-destination rows; 1.0 = uniform. An empty
+        exchange (0 live rows) reports 1.0 — nothing is hot."""
+        mean = self.total_rows / self.world
+        if mean <= 0:
+            return 1.0
+        return max(self.recv_rows) / mean
+
+    @property
+    def rows_min(self) -> int:
+        return min(self.recv_rows)
+
+    @property
+    def rows_med(self) -> int:
+        return int(np.median(self.recv_rows))
+
+    @property
+    def rows_max(self) -> int:
+        return max(self.recv_rows)
+
+    @property
+    def warn(self) -> bool:
+        return self.imbalance >= warn_factor()
+
+    # -- carriers -------------------------------------------------------
+
+    def span_attrs(self) -> dict:
+        """The attribute form attached to ``shuffle.exchange*`` spans
+        (and read back by plan/report.py for EXPLAIN ANALYZE). Full
+        per-shard send/recv vectors ride along up to
+        SPAN_ATTR_MAX_WORLD — a pod slice's trace stays readable, a
+        wide mesh keeps the summary (the histograms carry the
+        distribution either way)."""
+        attrs = {
+            "skew_imbalance": round(self.imbalance, 3),
+            "shard_rows_min": self.rows_min,
+            "shard_rows_med": self.rows_med,
+            "shard_rows_max": self.rows_max,
+            "skew_warn": self.warn,
+        }
+        if self.world <= SPAN_ATTR_MAX_WORLD:
+            attrs["shard_send_rows"] = list(self.send_rows)
+            attrs["shard_recv_rows"] = list(self.recv_rows)
+            if self.bytes_per_row:
+                attrs["shard_recv_bytes"] = list(self.recv_bytes)
+        return attrs
+
+    def record(self, registry: Optional["_metrics.MetricsRegistry"] = None
+               ) -> None:
+        """Feed the registry histograms — one imbalance observation per
+        exchange, one rows/bytes observation per destination shard."""
+        r = registry or _metrics.REGISTRY
+        r.histogram("cylon_shuffle_imbalance_factor",
+                    buckets=IMBALANCE_BUCKETS).observe(self.imbalance)
+        rows_h = r.histogram("cylon_shuffle_shard_rows",
+                             buckets=SHARD_ROWS_BUCKETS)
+        bytes_h = r.histogram("cylon_shuffle_shard_bytes",
+                              buckets=SHARD_BYTES_BUCKETS)
+        for rows, nbytes in zip(self.recv_rows, self.recv_bytes):
+            rows_h.observe(rows)
+            if self.bytes_per_row:
+                bytes_h.observe(nbytes)
+
+
+def observe_exchange(counts, bytes_per_row: int = 0,
+                     registry=None) -> Optional[SkewStats]:
+    """One-call form for the exchange sites: reduce + record; returns
+    the stats (for span attachment) or None on a 1-wide mesh."""
+    stats = SkewStats.from_counts(counts, bytes_per_row)
+    if stats is not None:
+        stats.record(registry)
+    return stats

@@ -1,0 +1,168 @@
+"""Per-tenant service-level objectives over query latency.
+
+Counterpart of cylon_tpu.telemetry.slo: the same names, labels, keys
+and knobs.
+
+A multi-tenant service needs to answer "is tenant A inside its latency
+SLO right now" without grepping traces. This module keeps, per tenant:
+
+* a **fixed-bucket latency histogram**
+  (``cylon_slo_query_latency_ms{tenant=}``, buckets spanning 1 ms to
+  one minute) fed with every completed query's wall time — p50/p95/p99
+  are estimated by linear interpolation within the bucket
+  (``metrics.Histogram.quantile``);
+* the **declared objective**: ``CYLON_SLO_P95_MS`` is the p95 latency
+  the service promises, ``CYLON_SLO_TARGET`` (default 0.99) the
+  fraction of queries that must meet it. A query *violates* when it
+  errors or exceeds the objective latency;
+* the **error budget**: with target t, the budget is the allowed
+  ``1 - t`` violation share; ``error_budget_remaining`` is the
+  fraction of that allowance still unspent
+  (``1 - violations / (count * (1 - t))``, clamped to [0, 1]).
+
+Exported state (updated on every observation):
+
+* ``cylon_slo_latency_p95_ms{tenant=}`` gauge — the live p95 estimate;
+* ``cylon_slo_error_budget_remaining{tenant=}`` gauge — 1.0 = pristine,
+  0.0 = budget exhausted (only while an objective is declared);
+* **burn events** — each violation under a declared objective lands in
+  the flight recorder's admission ring (``action: "slo_burn"``, with
+  tenant, latency, objective and remaining budget), so an SLO breach
+  leaves the same forensic trail as an admission shed and rides every
+  crash dump.
+
+Fed by the query log's root hook (telemetry/querylog.py) — one
+observation per completed query, tenant read from the root span's
+stamped attrs (``default`` outside the service). ``state()`` is the
+observability endpoint's ``/slo`` payload. Counts are process-lifetime
+(reset() for tests); the budget is an all-time ratio, not a sliding
+window — honest for a v1, documented in docs/service.md.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Dict, Optional
+
+from . import flight as _flight
+from . import knobs as _knobs
+from . import metrics as _metrics
+
+# query-latency buckets in ms: one kernel dispatch to a minute-long
+# analytical query (finer than DEFAULT_BUCKETS_MS in the 100ms..10s
+# band where interactive SLOs live)
+SLO_BUCKETS_MS = (1.0, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 500.0,
+                  1000.0, 2500.0, 5000.0, 10000.0, 30000.0, 60000.0)
+
+DEFAULT_TARGET = _knobs.default("CYLON_SLO_TARGET")
+
+
+def objective_ms() -> Optional[float]:
+    """The declared p95 latency objective, or None (no SLO)."""
+    return _knobs.get("CYLON_SLO_P95_MS")
+
+
+def target() -> float:
+    """The declared SLO target (fraction of queries that must meet
+    the objective), clamped to [0, 1]."""
+    return min(float(_knobs.get("CYLON_SLO_TARGET")), 1.0)
+
+
+def error_budget_remaining(count: int, violations: int,
+                           t: Optional[float] = None) -> float:
+    """Pure budget math: the unspent fraction of the allowed
+    ``1 - target`` violation share, clamped to [0, 1]. A target of
+    1.0 allows zero violations — the budget is binary."""
+    t = target() if t is None else t
+    if count <= 0:
+        return 1.0
+    allowed = count * (1.0 - t)
+    if allowed <= 0.0:
+        return 1.0 if violations == 0 else 0.0
+    return max(0.0, 1.0 - violations / allowed)
+
+
+_lock = threading.RLock()
+# tenant -> {"count", "violations", "burns"} (process-lifetime)
+_tenants: Dict[str, dict] = {}
+
+
+def _hist(tenant: str) -> _metrics.Histogram:
+    return _metrics.REGISTRY.histogram(
+        "cylon_slo_query_latency_ms", {"tenant": tenant},
+        buckets=SLO_BUCKETS_MS)
+
+
+def observe(tenant: str, latency_ms: float, error: bool = False
+            ) -> None:
+    """Record one completed query for ``tenant``: feed its latency
+    histogram, update the p95/budget gauges, and record a burn event
+    when the query violates a declared objective."""
+    h = _hist(tenant)
+    h.observe(float(latency_ms))
+    obj = objective_ms()
+    violated = obj is not None and (error or latency_ms > obj)
+    with _lock:
+        st = _tenants.setdefault(
+            tenant, {"count": 0, "violations": 0, "burns": 0})
+        st["count"] += 1
+        if violated:
+            st["violations"] += 1
+            st["burns"] += 1
+        count, violations = st["count"], st["violations"]
+    p95 = h.quantile(0.95)
+    if p95 is not None:
+        _metrics.REGISTRY.gauge("cylon_slo_latency_p95_ms",
+                                {"tenant": tenant}).set(round(p95, 3))
+    if obj is None:
+        return
+    remaining = error_budget_remaining(count, violations)
+    _metrics.REGISTRY.gauge(
+        "cylon_slo_error_budget_remaining",
+        {"tenant": tenant}).set(round(remaining, 4))
+    if violated:
+        # the burn event rides the flight admission ring (and so every
+        # crash dump): an SLO breach leaves the same forensic trail as
+        # an admission shed
+        _flight.record_admission({
+            "action": "slo_burn", "tenant": tenant,
+            "latency_ms": round(float(latency_ms), 3),
+            "objective_p95_ms": obj, "error": bool(error),
+            "budget_remaining": round(remaining, 4)})
+
+
+def state() -> Dict[str, dict]:
+    """Per-tenant SLO state — the ``/slo`` payload: latency quantile
+    estimates, declared objective, violation counts and remaining
+    error budget (budget fields None while no objective is
+    declared)."""
+    obj = objective_ms()
+    t = target()
+    with _lock:
+        snap = {tenant: dict(st) for tenant, st in _tenants.items()}
+    out: Dict[str, dict] = {}
+    for tenant, st in snap.items():
+        h = _hist(tenant)
+        doc = {
+            "count": st["count"],
+            "p50_ms": h.quantile(0.50),
+            "p95_ms": h.quantile(0.95),
+            "p99_ms": h.quantile(0.99),
+            "objective_p95_ms": obj,
+            "target": t if obj is not None else None,
+            "violations": st["violations"] if obj is not None else None,
+            "burn_events": st["burns"] if obj is not None else None,
+            "error_budget_remaining": error_budget_remaining(
+                st["count"], st["violations"]) if obj is not None
+            else None,
+            "ok": (h.quantile(0.95) or 0.0) <= obj
+            if obj is not None else None,
+        }
+        out[tenant] = doc
+    return out
+
+
+def reset() -> None:
+    """Clear per-tenant counts (test isolation). Registry histograms
+    and gauges are zeroed by ``telemetry.reset_metrics()``."""
+    with _lock:
+        _tenants.clear()

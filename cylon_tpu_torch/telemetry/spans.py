@@ -1,0 +1,395 @@
+"""Hierarchical spans + the phase-timer surface (counterpart of
+cylon_tpu.telemetry.spans; same labels, attributes, sinks, root hooks and
+sampling).
+
+The reference's observability is manual wall-clock timing with glog at
+every operator phase (reference: cpp/src/cylon/table.cpp:320-335 shuffle
+timing; join/join.cpp:101-253 per-phase logs). Here the same discipline
+rides three carriers:
+
+* a ``logging`` logger named ``cylon_tpu_torch`` — every span logs its
+  host-side elapsed time at INFO on exit. CUDA launches are async:
+  unless a span ends in a host sync (the count fetches of the exchange
+  and the join do), the time logged is launch cost, not device time.
+* ``torch.profiler.record_function(f"cylon:{label}")`` while a profiler
+  runs — the same label appears in ``torch.profiler`` traces, where the
+  DEVICE time lives — plus an NVTX range of the same name where CUDA is
+  present (Nsight).
+  ``seq`` carries the context's op sequence number (the reference's MPI
+  edge/tag id, ctx/cylon_context.cpp:94-99).
+* a contextvar-scoped `Span` TREE — spans opened inside another span
+  become its children, carry typed attributes (``rows_in``/``rows_out``,
+  ``bytes_moved``, ``world``, ``mode``, error flag), and feed the
+  registered sinks (export.JsonlSpanSink) and the per-phase latency
+  histogram (metrics) on completion. The plan executor's per-query
+  EXPLAIN ANALYZE report (plan/report.py) is built on this tree.
+
+``phase(name, seq)`` is a span with no attributes (label ``name#seq``,
+one INFO line per span, collect_phases label counting). The body runs
+in try/finally, so a raising phase still records its elapsed time, gains
+an ``error=True`` attribute, logs, and re-raises.
+
+Enable host-side logs with ``logging.getLogger("cylon_tpu_torch").setLevel(
+logging.INFO)`` plus a handler, or ``telemetry.log_to_stderr()``.
+"""
+from __future__ import annotations
+
+import itertools
+import logging
+import time
+from contextlib import contextmanager, nullcontext
+from contextvars import ContextVar
+from dataclasses import dataclass, field
+from typing import Callable, Dict, Iterator, List, Optional
+
+import torch
+
+from . import knobs as _knobs
+from . import metrics as _metrics
+from . import sampling as _sampling
+
+logger = logging.getLogger("cylon_tpu_torch")
+
+# active phase collectors (collect_phases contexts) — every entered
+# span appends its label AND the Span object to each, so callers can
+# COUNT events (e.g. a query plan's shuffles) without wiring a logging
+# handler, and the plan recorder can read back typed attributes (the
+# exchange skew stats) by the same indices
+_collectors: list = []
+
+# completed-span sinks (add_sink/remove_sink); each is called with every
+# Span as it CLOSES — the JSONL exporter registers here
+_sinks: List[Callable] = []
+
+# root-span close hooks: called with every span that closes with NO
+# parent (a whole query tree / top-level eager op). The flight recorder
+# (telemetry/flight.py) registers here to keep its completed-query ring
+# and to write crash dumps when a root span closes errored. Exceptions
+# are logged, never raised.
+_root_hooks: List[Callable] = []
+
+_span_ids = itertools.count(1)
+
+# per-span HBM sampling (hbm_delta/hbm_peak attrs): two pool snapshots
+# per span — two allocator counter reads on CUDA (memory.MemoryPool),
+# zeros on the CPU. CYLON_HBM_SPAN_ATTRS=0 turns it off for latency-critical
+# runs (read live through the knob registry, so it can be flipped at
+# any time); the flight recorder's crash-time watermarks are
+# unaffected (sampled at dump time).
+
+
+def _hbm_attrs_on() -> bool:
+    return _knobs.get("CYLON_HBM_SPAN_ATTRS")
+
+
+_nvtx: Optional[bool] = None
+
+
+def _nvtx_on() -> bool:
+    """NVTX ranges only where CUDA is present (decided once)."""
+    global _nvtx
+    if _nvtx is None:
+        _nvtx = bool(torch.cuda.is_available())
+    return _nvtx
+
+
+@contextmanager
+def _device_trace(label: str) -> Iterator[None]:
+    """The profiler carrier of one span: a ``record_function`` range
+    while a torch.profiler runs (entering one costs ~10 us of host time
+    even when none does, and only a running profiler records it) and, on
+    CUDA, an NVTX range of the same label."""
+    with torch.profiler.record_function(label) \
+            if torch.autograd._profiler_enabled() else nullcontext():
+        if not _nvtx_on():
+            yield
+            return
+        torch.cuda.nvtx.range_push(label)
+        try:
+            yield
+        finally:
+            torch.cuda.nvtx.range_pop()
+
+
+# innermost open span of the current (async/thread) context, or None
+_current: ContextVar[Optional["Span"]] = ContextVar(
+    "cylon_tpu_torch_current_span", default=None)
+
+# attributes stamped onto every ROOT span opened in this context (the
+# service tier sets tenant/query_id here, so EXPLAIN ANALYZE trees,
+# flight-ring entries and crash dumps all say whose query they were) —
+# root-only keeps attr volume flat however deep the query tree is
+_root_attrs: ContextVar[Optional[dict]] = ContextVar(
+    "cylon_tpu_torch_root_attrs", default=None)
+
+
+@dataclass
+class Span:
+    """One timed operation with typed attributes and child spans.
+
+    ``elapsed_ms`` is None while the span is open; ``attrs`` holds the
+    attribute catalog documented in docs/telemetry.md (``rows_in``,
+    ``rows_out``, ``bytes_moved``, ``world``, ``mode``, ``error``...).
+    """
+
+    name: str
+    seq: Optional[int] = None
+    attrs: Dict[str, object] = field(default_factory=dict)
+    children: List["Span"] = field(default_factory=list)
+    span_id: int = 0
+    parent_id: int = 0
+    root_id: int = 0               # the enclosing tree's root span_id
+    elapsed_ms: Optional[float] = None
+    error: bool = False
+    # head-sampling decision (telemetry/sampling.py): decided at the
+    # ROOT from the query_id hash, inherited by every child. False =
+    # this span skips trace sinks + device-trace annotation; the tree
+    # itself is still built (crash dumps / error promotion need it)
+    sampled: bool = True
+    _t0: float = 0.0
+    _hbm0: Optional[int] = None    # pool bytes_in_use at span enter
+
+    @property
+    def label(self) -> str:
+        return f"{self.name}#{self.seq}" if self.seq is not None \
+            else self.name
+
+    def set(self, **attrs) -> "Span":
+        """Attach/overwrite attributes on this span."""
+        self.attrs.update(attrs)
+        return self
+
+    def walk(self) -> Iterator["Span"]:
+        yield self
+        for c in self.children:
+            yield from c.walk()
+
+    def walk_postorder(self) -> Iterator["Span"]:
+        """Children before parents — the order spans CLOSE in, and the
+        order the JSONL exporter promises its lines (error promotion
+        replays a sampled-out tree through the sinks in this order)."""
+        for c in self.children:
+            yield from c.walk_postorder()
+        yield self
+
+    def to_dict(self, nested: bool = False) -> dict:
+        """Flat JSON-able record (parent_id links the tree); pass
+        ``nested=True`` to embed children instead."""
+        d = {"span_id": self.span_id, "parent_id": self.parent_id,
+             "root_id": self.root_id, "name": self.name, "seq": self.seq,
+             "elapsed_ms": self.elapsed_ms, "error": self.error,
+             "attrs": dict(self.attrs)}
+        if nested:
+            d["children"] = [c.to_dict(nested=True) for c in self.children]
+        return d
+
+
+def current_span() -> Optional[Span]:
+    """The innermost open span of this context, or None."""
+    return _current.get()
+
+
+def annotate(**attrs) -> None:
+    """Attach attributes to the innermost open span (no-op outside any
+    span) — lets deep helpers report ``rows``/``bytes`` without
+    threading the Span object through every signature."""
+    s = _current.get()
+    if s is not None:
+        s.attrs.update(attrs)
+
+
+@contextmanager
+def root_attrs(**attrs) -> Iterator[None]:
+    """Stamp ``attrs`` onto every ROOT span opened inside the context
+    (contextvar-scoped, so concurrent submitters/threads never leak
+    labels into each other's queries). Explicit span attrs win on key
+    collision. The service scheduler threads ``tenant``/``query_id``
+    through here — one context manager instead of touching every
+    execute path."""
+    outer = _root_attrs.get()
+    merged = {**outer, **attrs} if outer else dict(attrs)
+    token = _root_attrs.set(merged)
+    try:
+        yield
+    finally:
+        _root_attrs.reset(token)
+
+
+def add_sink(sink: Callable) -> None:
+    """Register a completed-span sink: ``sink(span)`` runs as each span
+    closes (innermost first). Exceptions are logged, never raised."""
+    _sinks.append(sink)
+
+
+def add_root_hook(hook: Callable) -> None:
+    """Register a root-span close hook: ``hook(span)`` runs when a span
+    with no parent closes — the whole tree is complete at that point
+    (children closed first). The flight recorder lives here."""
+    _root_hooks.append(hook)
+
+
+def remove_root_hook(hook: Callable) -> None:
+    for i, h in enumerate(_root_hooks):
+        if h is hook:
+            del _root_hooks[i]
+            break
+
+
+def remove_sink(sink: Callable) -> None:
+    for i, s in enumerate(_sinks):
+        if s is sink:
+            del _sinks[i]
+            break
+
+
+def _emit_to_sinks(s: "Span") -> None:
+    for sink in list(_sinks):
+        try:
+            sink(s)
+        except Exception:  # pragma: no cover - defensive
+            logger.exception("span sink failed")
+
+
+class collect_phases:
+    """Collect every span label entered inside the context — the
+    programmatic mirror of the INFO log stream. ``count(prefix)``
+    answers questions like "how many shuffles did this plan run?"
+    (prefix="plan.shuffle"); labels keep their ``name#seq`` form.
+    ``spans[i]`` is the Span whose label is ``labels[i]`` — attributes
+    set later in the span body (skew stats, rows_out) are visible
+    after it closes, which is how the EXPLAIN ANALYZE recorder reads
+    per-exchange skew without re-threading the objects."""
+
+    def __init__(self):
+        self.labels: list = []
+        self.spans: list = []
+
+    def __enter__(self) -> "collect_phases":
+        _collectors.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        # remove by IDENTITY: list.remove compares by ==, and two nested
+        # collectors with equal contents would remove each other
+        for i, c in enumerate(_collectors):
+            if c is self:
+                del _collectors[i]
+                break
+        return False
+
+    def count(self, prefix: str) -> int:
+        return sum(1 for l in self.labels if l.startswith(prefix))
+
+
+def log_to_stderr(level: int = logging.INFO) -> None:
+    """Convenience: route the phase logs to stderr (idempotent)."""
+    if not any(getattr(h, "_cylon_tpu", False) for h in logger.handlers):
+        handler = logging.StreamHandler()
+        handler.setFormatter(
+            logging.Formatter("%(asctime)s %(name)s %(message)s"))
+        handler._cylon_tpu = True
+        logger.addHandler(handler)
+    logger.setLevel(level)
+
+
+@contextmanager
+def span(name: str, seq: Optional[int] = None, **attrs) -> Iterator[Span]:
+    """Open one span: time it, nest it under the current span, annotate
+    device traces with the same label, feed sinks and the per-phase
+    latency histogram on close. Yields the Span so the body can
+    ``s.set(rows_out=...)``. Exceptions re-raise after the span records
+    ``error=True`` and its elapsed time (the fixed phase() bug)."""
+    parent = _current.get()
+    sid = next(_span_ids)
+    if parent is None:
+        ra = _root_attrs.get()
+        if ra:
+            attrs = {**ra, **attrs}
+        # head sampling decided HERE, once per tree: deterministic on
+        # the stamped query_id (the service scheduler's monotonic id;
+        # this root's span_id outside the service — replayable either
+        # way, never an RNG)
+        sampled = _sampling.decide(attrs.get("query_id", sid))
+        _sampling.record_decision(sampled)
+        if not sampled:
+            attrs = {**attrs, "sampled": False}
+    else:
+        sampled = parent.sampled
+    s = Span(name, seq, dict(attrs), span_id=sid,
+             parent_id=parent.span_id if parent is not None else 0,
+             sampled=sampled)
+    s.root_id = parent.root_id if parent is not None else s.span_id
+    label = s.label
+    for c in _collectors:
+        c.labels.append(label)
+        c.spans.append(s)
+    if parent is not None:
+        parent.children.append(s)
+    # per-span HBM accounting: snapshot the registered pool (duck-typed
+    # — metrics.set_memory_pool) at enter and exit so every span carries
+    # hbm_delta/hbm_peak attrs (the CUDA allocator's counters; zeros
+    # on the CPU, which has no allocator statistics)
+    pool = _metrics.get_memory_pool() if _hbm_attrs_on() else None
+    if pool is not None:
+        try:
+            s._hbm0 = int(pool.snapshot()[0])
+        except Exception:  # pragma: no cover - defensive  # cylint: disable=errors/broad-swallow — pool snapshot failure disables hbm attrs
+            s._hbm0 = None
+    token = _current.set(s)
+    s._t0 = time.perf_counter()
+    try:
+        # sampled-out trees skip the device-trace annotation too — the
+        # profiler label volume is part of the per-span cost the head
+        # decision bounds
+        with _device_trace(f"cylon:{label}") \
+                if s.sampled else nullcontext():
+            yield s
+    except BaseException:
+        s.error = True
+        s.attrs["error"] = True
+        raise
+    finally:
+        s.elapsed_ms = (time.perf_counter() - s._t0) * 1e3
+        _current.reset(token)
+        if s._hbm0 is not None:
+            try:
+                used, peak, _limit = pool.snapshot()
+                s.attrs["hbm_delta"] = int(used) - s._hbm0
+                s.attrs["hbm_peak"] = int(peak)
+            except Exception:  # pragma: no cover - defensive  # cylint: disable=errors/broad-swallow — pool snapshot failure drops hbm attrs
+                pass
+        _metrics.observe_phase(s.name, s.elapsed_ms, error=s.error)
+        if s.sampled:
+            _emit_to_sinks(s)
+        if parent is None:
+            if s.error and not s.sampled:
+                # error promotion: the whole tree is complete (children
+                # closed first) and still in memory — record it to the
+                # sinks post-hoc, children before parents, so the JSONL
+                # trace AND the crash dump read like a fully sampled
+                # query. Forensics never degrade under sampling.
+                s.sampled = True
+                # the sampled attr means "a full trace was exported":
+                # after promotion that is TRUE — the query log's
+                # digest must not tell an operator that the one class
+                # of query GUARANTEED to have a trace has none
+                s.attrs["sampled"] = True
+                s.attrs["sampled_promoted"] = True
+                _sampling.record_promotion()
+                for node in s.walk_postorder():
+                    node.sampled = True
+                    _emit_to_sinks(node)
+            for hook in list(_root_hooks):
+                try:
+                    hook(s)
+                except Exception:  # pragma: no cover - defensive
+                    logger.exception("root-span hook failed")
+        if logger.isEnabledFor(logging.INFO):
+            logger.info("%s %.3f ms%s", label, s.elapsed_ms,
+                        " error=True" if s.error else "")
+
+
+def phase(name: str, seq: Optional[int] = None):
+    """Time one operator phase; annotate device traces with the same
+    label. A span with no attributes."""
+    return span(name, seq)

@@ -1,0 +1,709 @@
+"""The query statistics warehouse: measured truth per plan fingerprint.
+
+Counterpart of cylon_tpu.telemetry.stats: the same names, labels, keys
+and knobs.
+
+Every completed query already leaves a digest (telemetry/querylog.py)
+carrying its plan fingerprint and measured aggregates, and every
+executed shuffle/join/groupby span carries the node's sub-fingerprint
+beside its pre-flight estimate and its measured output size — but
+until this module nothing REMEMBERED any of it: pre-flight estimates
+stayed stat-free width x row upper bounds, so admission kept shedding
+or degrading repeat queries it had already watched fit in budget. The
+warehouse closes that loop (ROADMAP item 1's substrate):
+
+* **store** — thread-safe, keyed two ways: whole-plan fingerprints
+  (``plan/fingerprint.fingerprint`` — the plan-cache key) map query-
+  level metrics (exec_ms, shuffle_bytes, peak_hbm), and per-node
+  SUB-fingerprints (``node_fingerprint`` over shuffle/join/groupby
+  subtrees) map measured output ``bytes``/``rows``. Every metric keeps
+  EWMA / min / max / count. Node keys are subtree shapes, so the same
+  join appearing in two plans shares one measured history.
+* **estimate-accuracy observatory** — each observation with both an
+  estimate and a measurement feeds a per-node-kind q-error histogram
+  ``cylon_estimate_qerror{kind=}`` (``max(est/meas, meas/est)`` — the
+  standard cardinality-estimation accuracy measure, always >= 1); the
+  estimate measured is the one admission actually USED (calibrated
+  when stats qualified, static otherwise), so the series shows the
+  loop tightening as measurements accumulate. EXPLAIN ANALYZE renders
+  the calibrated estimate beside ``est=`` (plan/report.py).
+* **drift detection** — a new measurement deviating more than
+  ``CYLON_STATS_DRIFT_FACTOR`` (ratio, either direction) from an
+  established EWMA fires ``cylon_stats_drift_total``, records a
+  ``stats_drift`` event in the flight admission ring (it rides crash
+  dumps), EVICTS the plan-cache entry through a late-bound hook
+  (``set_plan_evict_hook`` — service/plancache registers, telemetry
+  stays below the service tier), and resets the learned entry so
+  admission falls back to static estimates until the new regime is
+  re-learned. Self-correction, not self-confidence.
+* **stats-informed admission** — ``effective_bytes(node_fp, static)``
+  returns ``min(static, ewma x CYLON_STATS_SAFETY)`` once a node
+  fingerprint has >= ``CYLON_STATS_MIN_OBS`` successful observations
+  (and ``"measured"`` as the source), else the static bound
+  unchanged. Soundness is structural: the effective estimate is never
+  ABOVE the static bound, and a genuinely-over-budget measured EWMA
+  still sheds — the min() only ever relaxes false alarms, never
+  waves through real ones.
+* **persistence** — ``save()`` writes one JSONL line per entry through
+  the shared rotating writer (``CYLON_STATS_PATH``); ``load()``
+  rebuilds the store so a fresh replica warm-starts its estimates
+  (the first piece of ROADMAP item 3c). A corrupt or truncated file
+  is QUARANTINED: renamed to ``<path>.quarantine``, recorded as a
+  typed :class:`CylonDataError` event in the flight admission ring,
+  and the store starts fresh — startup is never blocked by forensics.
+  ``QueryService.start()/close()`` drive both ends.
+
+Fed by the querylog root hook (``record_root`` — one call per
+completed ``plan.query`` root); only successful queries count as
+observations (a shed or errored query measured nothing trustworthy).
+``state()`` is the observability endpoint's ``/stats`` payload.
+
+Layering: a telemetry submodule (imports telemetry siblings + the
+stdlib-only error taxonomy ``status.py`` — the ``telemetry-leaf``
+contract sanctions exactly that pair); plan/ computes the fingerprints
+and stamps them onto spans, service/ registers the eviction hook.
+"""
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+from collections import deque
+from typing import Callable, Dict, List, Optional, Tuple
+
+from ..status import CylonDataError
+from . import export as _export
+from . import flight as _flight
+from . import knobs as _knobs
+from . import metrics as _metrics
+from . import spans as _spans
+
+STATS_SCHEMA_VERSION = 1
+
+# EWMA smoothing: alpha 0.3 weights the last ~5 observations with >80%
+# of the mass — reactive enough for a dashboard workload, smooth
+# enough that one noisy run does not whipsaw admission
+EWMA_ALPHA = 0.3
+
+# q-error histogram buckets (q >= 1 by construction; log-ish spacing —
+# under 2 is a good estimator, 10+ is the planning disaster zone)
+QERROR_BUCKETS = (1.1, 1.25, 1.5, 2.0, 3.0, 5.0, 10.0, 30.0, 100.0,
+                  1000.0)
+
+# bounded ring of recent drift events the /stats route serves (the
+# flight admission ring carries them too, but shares its budget with
+# admission decisions)
+DRIFT_RING = 32
+
+DEFAULT_MIN_OBS = _knobs.default("CYLON_STATS_MIN_OBS")
+DEFAULT_SAFETY = _knobs.default("CYLON_STATS_SAFETY")
+DEFAULT_DRIFT_FACTOR = _knobs.default("CYLON_STATS_DRIFT_FACTOR")
+
+
+def min_obs() -> int:
+    return _knobs.get("CYLON_STATS_MIN_OBS")
+
+
+def safety() -> float:
+    return _knobs.get("CYLON_STATS_SAFETY")
+
+
+def drift_factor() -> float:
+    return _knobs.get("CYLON_STATS_DRIFT_FACTOR")
+
+
+def stats_path() -> Optional[str]:
+    return _knobs.get("CYLON_STATS_PATH")
+
+
+def qerror(est: float, measured: float) -> Optional[float]:
+    """The q-error of one estimate: ``max(est/meas, meas/est)`` — 1.0
+    is perfect, symmetric in over/under-estimation. None when either
+    side is non-positive (no ratio exists)."""
+    if est is None or measured is None or est <= 0 or measured <= 0:
+        return None
+    return max(est / measured, measured / est)
+
+
+class MetricStats:
+    """EWMA / min / max / count for one metric of one fingerprint."""
+
+    __slots__ = ("ewma", "min", "max", "count")
+
+    def __init__(self):
+        self.ewma: Optional[float] = None
+        self.min: Optional[float] = None
+        self.max: Optional[float] = None
+        self.count = 0
+
+    def observe(self, v: float) -> None:
+        v = float(v)
+        self.ewma = v if self.ewma is None else \
+            EWMA_ALPHA * v + (1.0 - EWMA_ALPHA) * self.ewma
+        self.min = v if self.min is None else min(self.min, v)
+        self.max = v if self.max is None else max(self.max, v)
+        self.count += 1
+
+    def reset(self) -> None:
+        self.ewma = self.min = self.max = None
+        self.count = 0
+
+    def to_dict(self) -> dict:
+        return {"ewma": self.ewma, "min": self.min, "max": self.max,
+                "count": self.count}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "MetricStats":
+        m = cls()
+        m.ewma = None if d["ewma"] is None else float(d["ewma"])
+        m.min = None if d["min"] is None else float(d["min"])
+        m.max = None if d["max"] is None else float(d["max"])
+        m.count = int(d["count"])
+        if m.count < 0 or (m.count > 0 and m.ewma is None):
+            raise ValueError(f"inconsistent metric stats: {d}")
+        return m
+
+
+class _Entry:
+    """All metrics of one fingerprint (plan- or node-level)."""
+
+    __slots__ = ("kind", "metrics", "last_unix")
+
+    def __init__(self, kind: Optional[str] = None):
+        self.kind = kind            # node kind for node entries
+        self.metrics: Dict[str, MetricStats] = {}
+        self.last_unix: Optional[float] = None
+
+    def metric(self, name: str) -> MetricStats:
+        m = self.metrics.get(name)
+        if m is None:
+            m = self.metrics[name] = MetricStats()
+        return m
+
+    def obs_count(self) -> int:
+        return max((m.count for m in self.metrics.values()), default=0)
+
+    def to_dict(self) -> dict:
+        return {"kind": self.kind, "last_unix": self.last_unix,
+                "metrics": {k: m.to_dict()
+                            for k, m in sorted(self.metrics.items())}}
+
+
+# metrics drift-checked on node entries: the measured output size and
+# cardinality — the two signals admission consumes. Query-level wall
+# time is NOT drift-checked (warm-up and host-load variance would
+# false-fire it); it is stored for the observatory only.
+_DRIFT_METRICS = ("bytes", "rows")
+
+# metrics drift-checked on join_input (decision) entries: the measured
+# per-side input sizes the broadcast-join rewrite consumes — a drifted
+# build side is exactly the mis-learned-broadcast signal that must
+# evict and revert
+_JOIN_INPUT_METRICS = ("left_bytes", "right_bytes")
+
+# metrics whose qualification (count crossing CYLON_STATS_MIN_OBS) can
+# CHANGE an optimizer decision — broadcast build-side sizes and
+# exchange skew. Crossing (or drifting) any of these bumps the stats
+# EPOCH, which is what tells the plan cache a cached template's
+# algorithm choices may be stale (service/plancache.py re-checks the
+# decision vector instead of replaying the template blindly)
+_ADAPTIVE_METRICS = frozenset(_JOIN_INPUT_METRICS) | {"skew"}
+
+
+class StatsStore:
+    """The thread-safe two-level store. One process-global instance
+    (module functions below) is what the querylog hook feeds and the
+    admission path reads; tests may build private ones."""
+
+    def __init__(self):
+        # RLock: record_root runs in the root-span hook domain (on
+        # whichever thread closed the query) while /stats scrapes and
+        # admission reads race it
+        self._lock = threading.RLock()
+        self._plans: Dict[str, _Entry] = {}
+        self._nodes: Dict[str, _Entry] = {}
+        self._drift: deque = deque(maxlen=DRIFT_RING)
+        self._loaded_from: Optional[str] = None
+        # monotonic counter of "an adaptive decision input changed":
+        # qualification crossings and drift resets of _ADAPTIVE_METRICS
+        # entries, plus warm-start loads. The plan cache records the
+        # epoch each template was optimized under; a mismatch makes a
+        # hit re-check its decision vector instead of replaying a
+        # possibly-stale algorithm choice.
+        self._epoch = 0
+
+    # -- feeding ------------------------------------------------------
+
+    def record_root(self, root, digest: dict) -> None:
+        """One completed ``plan.query`` root: fold its measured truth
+        into the store. Only successful queries observe — a shed or
+        errored query measured nothing trustworthy."""
+        if digest.get("outcome") != "ok":
+            return
+        plan_fp = digest.get("plan_fp")
+        if not plan_fp:
+            return
+        now = time.time()
+        with self._lock:
+            entry = self._plans.get(plan_fp)
+            if entry is None:
+                entry = self._plans[plan_fp] = _Entry()
+            entry.last_unix = now
+            for name in ("exec_ms", "shuffle_bytes", "peak_hbm_bytes"):
+                v = digest.get(name)
+                if v is not None:
+                    entry.metric(name).observe(float(v))
+        for node in root.walk():
+            at = node.attrs
+            fp = at.get("stats_fp")
+            if fp:
+                self._observe_node(
+                    plan_fp, fp, str(at.get("stats_kind") or "node"),
+                    {"bytes": at.get("bytes_out"),
+                     "rows": at.get("rows_out")},
+                    _DRIFT_METRICS, at.get("est_bytes"), now)
+            dfp = at.get("stats_decision_fp")
+            if dfp and at.get("left_in_bytes") is not None:
+                # the join's measured per-side INPUT sizes, keyed by
+                # the algorithm-invariant decision fingerprint — the
+                # broadcast rewrite's evidence base, fed by shuffle
+                # and broadcast executions alike
+                self._observe_node(
+                    plan_fp, dfp, "join_input",
+                    {"left_bytes": at.get("left_in_bytes"),
+                     "right_bytes": at.get("right_in_bytes")},
+                    _JOIN_INPUT_METRICS, None, now)
+            elif dfp and at.get("skew_max") is not None:
+                # a standalone exchange's pre-mitigation skew, keyed
+                # by the SAME rewrite-invariant normalization (the
+                # salted path records the RAW count matrix, so the
+                # salting decision never oscillates on its own
+                # mitigation, and elision below the shuffle never
+                # forks the evidence away from the decision's key)
+                self._observe_node(
+                    plan_fp, dfp, "exchange",
+                    {"skew": at.get("skew_max")}, (), None, now)
+
+    def _observe_node(self, plan_fp: str, node_fp: str, kind: str,
+                      measured: dict, drift_names, est_bytes,
+                      now: float) -> None:
+        q = qerror(est_bytes, measured.get("bytes"))
+        if q is not None:
+            _metrics.REGISTRY.histogram(
+                "cylon_estimate_qerror", {"kind": kind},
+                buckets=QERROR_BUCKETS).observe(q)
+        with self._lock:
+            entry = self._nodes.get(node_fp)
+            if entry is None:
+                entry = self._nodes[node_fp] = _Entry(kind=kind)
+            entry.last_unix = now
+            floor = min_obs()
+            factor = drift_factor()
+            drifted = None
+            for name, v in measured.items():
+                if v is None:
+                    continue
+                m = entry.metric(name)
+                ratio = qerror(m.ewma, float(v)) \
+                    if name in drift_names and m.count >= floor \
+                    else None
+                if ratio is not None and ratio > factor:
+                    drifted = {"metric": name, "ewma": m.ewma,
+                               "measured": float(v),
+                               "factor": round(ratio, 2)}
+                    break
+                warn = _knobs.get("CYLON_SKEW_WARN_FACTOR")
+                was_hot = name == "skew" and m.count >= floor \
+                    and m.ewma is not None and m.ewma >= warn
+                m.observe(float(v))
+                if m.count == floor and name in _ADAPTIVE_METRICS:
+                    # a decision input just QUALIFIED: cached plan
+                    # templates may now choose differently
+                    self._epoch += 1
+                elif name == "skew" and m.count > floor \
+                        and (m.ewma >= warn) != was_hot:
+                    # the qualified skew EWMA crossed the warning
+                    # threshold (either direction): the salting
+                    # decision flips, so cached templates must
+                    # re-decide — skew is deliberately NOT
+                    # drift-checked (a shifting key distribution is a
+                    # salting trigger, not a reason to forget the
+                    # output-size history), so this crossing is its
+                    # epoch signal
+                    self._epoch += 1
+            if drifted is not None:
+                # the learned regime is gone: reset EVERY metric of
+                # this entry and seed fresh from the new measurements
+                # (count 1 < CYLON_STATS_MIN_OBS => admission falls
+                # back to the static bound until re-learned)
+                for m in entry.metrics.values():
+                    m.reset()
+                for name, v in measured.items():
+                    if v is not None:
+                        entry.metric(name).observe(float(v))
+                self._epoch += 1
+                event = {"action": "stats_drift", "plan_fp": plan_fp,
+                         "node_fp": node_fp, "kind": kind,
+                         "time_unix": round(now, 3), **drifted}
+                self._drift.append(event)
+        if drifted is None:
+            return
+        # outside our lock: counter, flight ring and the plan-cache
+        # eviction hook all take their own
+        _metrics.REGISTRY.counter("cylon_stats_drift_total").inc()
+        _flight.record_admission(event)
+        _spans.logger.warning(
+            "stats drift: %s %.3g vs ewma %.3g (%.1fx > %.1fx) on "
+            "node %s — plan %s evicted, stats re-learning",
+            drifted["metric"], drifted["measured"], drifted["ewma"],
+            drifted["factor"], factor, node_fp[:12], plan_fp[:12])
+        hook = _plan_evict_hook
+        if hook is not None:
+            try:
+                hook(plan_fp)
+            except Exception:  # pragma: no cover - defensive
+                _spans.logger.exception("plan evict hook failed")
+
+    # -- admission reads ----------------------------------------------
+
+    def effective_bytes(self, node_fp: Optional[str],
+                        static_bytes: Optional[int]
+                        ) -> Tuple[Optional[int], str]:
+        """The estimate admission should use for one node:
+        ``(min(static, ewma x safety), "measured")`` once the node
+        fingerprint has >= ``CYLON_STATS_MIN_OBS`` observations, else
+        ``(static, "static")``. Never above the static bound."""
+        if node_fp is None or static_bytes is None:
+            return static_bytes, "static"
+        with self._lock:
+            entry = self._nodes.get(node_fp)
+            if entry is None:
+                return static_bytes, "static"
+            m = entry.metrics.get("bytes")
+            if m is None or m.count < min_obs() or m.ewma is None:
+                return static_bytes, "static"
+            ewma = m.ewma
+        eff = min(int(static_bytes), int(ewma * safety()) + 1)
+        return eff, "measured"
+
+    def node_obs(self, node_fp: str) -> int:
+        """Qualified observation count for one node fingerprint."""
+        with self._lock:
+            entry = self._nodes.get(node_fp)
+            m = entry.metrics.get("bytes") if entry is not None else None
+            return m.count if m is not None else 0
+
+    def _qualified_ewma(self, node_fp: str, metric: str
+                        ) -> Optional[float]:
+        """One metric's EWMA, or None until it has >=
+        ``CYLON_STATS_MIN_OBS`` observations (caller holds no lock)."""
+        with self._lock:
+            entry = self._nodes.get(node_fp)
+            m = entry.metrics.get(metric) if entry is not None else None
+            if m is None or m.count < min_obs() or m.ewma is None:
+                return None
+            return m.ewma
+
+    def join_input_bytes(self, decision_fp: Optional[str]
+                         ) -> Tuple[Optional[float], Optional[float]]:
+        """The measured (left, right) input-size EWMAs of one join
+        decision fingerprint — each None until qualified. What the
+        broadcast-join rewrite consumes."""
+        if decision_fp is None:
+            return None, None
+        return (self._qualified_ewma(decision_fp, "left_bytes"),
+                self._qualified_ewma(decision_fp, "right_bytes"))
+
+    def node_skew(self, node_fp: Optional[str]) -> Optional[float]:
+        """The measured exchange-skew EWMA (pre-mitigation imbalance
+        factor) of one node fingerprint, or None until qualified.
+        What the hot-key salting rewrite consumes."""
+        if node_fp is None:
+            return None
+        return self._qualified_ewma(node_fp, "skew")
+
+    def epoch(self) -> int:
+        """Monotonic adaptive-decision epoch: bumps whenever a
+        decision input qualifies, drifts, or warm-starts — the plan
+        cache's staleness signal (see service/plancache.py)."""
+        with self._lock:
+            return self._epoch
+
+    # -- observatory --------------------------------------------------
+
+    def recent_drift(self) -> List[dict]:
+        with self._lock:
+            return [dict(d) for d in self._drift]
+
+    def state(self, top_n: int = 20) -> dict:
+        """The ``/stats`` payload: top-N fingerprints by observation
+        count with their EWMAs, per-kind q-error quantiles, recent
+        drift events, and the live knob values."""
+        with self._lock:
+            plans = sorted(self._plans.items(),
+                           key=lambda kv: -kv[1].obs_count())[:top_n]
+            nodes = sorted(self._nodes.items(),
+                           key=lambda kv: -kv[1].obs_count())[:top_n]
+            doc = {
+                "plans": [{"fp": fp, "obs": e.obs_count(),
+                           **e.to_dict()} for fp, e in plans],
+                "nodes": [{"fp": fp, "obs": e.obs_count(),
+                           **e.to_dict()} for fp, e in nodes],
+                "plan_count": len(self._plans),
+                "node_count": len(self._nodes),
+                "drift_events": [dict(d) for d in self._drift],
+                "loaded_from": self._loaded_from,
+            }
+        doc["qerror"] = qerror_quantiles()
+        doc["config"] = {"min_obs": min_obs(), "safety": safety(),
+                         "drift_factor": drift_factor(),
+                         "path": stats_path()}
+        return doc
+
+    # -- persistence --------------------------------------------------
+
+    def save(self, path: Optional[str] = None) -> Optional[str]:
+        """Snapshot the store as JSONL (header line + one line per
+        entry) through the shared rotating writer. ``path`` defaults
+        to ``CYLON_STATS_PATH``; None/unset means no persistence (a
+        no-op, not an error). Never raises — a failing snapshot must
+        not turn a clean shutdown into a crash."""
+        path = path or stats_path()
+        if not path:
+            return None
+        with self._lock:
+            lines = [json.dumps({"rec": "header",
+                                 "v": STATS_SCHEMA_VERSION,
+                                 "time_unix": round(time.time(), 3)},
+                                sort_keys=True)]
+            for table, name in ((self._plans, "plan"),
+                                (self._nodes, "node")):
+                for fp, e in table.items():
+                    lines.append(json.dumps(
+                        {"rec": name, "fp": fp, **e.to_dict()},
+                        sort_keys=True))
+        try:
+            # generation rotation happens BEFORE the write (the last
+            # snapshot survives as path.1), and the write itself is
+            # unbounded: a snapshot split mid-write by the size-based
+            # in-line rotation would read as a truncated file — and be
+            # quarantined — at the next warm start
+            if os.path.exists(path):
+                _export.rotate_file(path)
+            w = _export.RotatingJsonlWriter(path, max_bytes=0).open()
+            try:
+                for line in lines:
+                    w.write_line(line)
+            finally:
+                w.close()
+        except OSError:
+            _spans.logger.exception("stats save failed for %s", path)
+            return None
+        _spans.logger.info("stats: %d entries saved to %s",
+                           len(lines) - 1, path)
+        return path
+
+    def _parse_snapshot(self, path: str
+                        ) -> Tuple[Dict[str, _Entry], Dict[str, _Entry]]:
+        """Parse one snapshot file into fresh tables; raises
+        :class:`CylonDataError` on ANY malformation (the caller
+        quarantines — a half-trusted statistics file is worse than
+        none)."""
+        plans: Dict[str, _Entry] = {}
+        nodes: Dict[str, _Entry] = {}
+        try:
+            with open(path, encoding="utf-8") as f:
+                raw = f.read().splitlines()
+        except OSError as e:
+            raise CylonDataError(f"stats file unreadable: {e}")
+        if not raw:
+            raise CylonDataError("empty stats file")
+        try:
+            head = json.loads(raw[0])
+        except ValueError as e:
+            raise CylonDataError(f"corrupt stats header: {e}")
+        # a bare scalar/array is valid JSON too — isinstance first, or
+        # .get() raises AttributeError past the quarantine net
+        if not isinstance(head, dict) or head.get("rec") != "header" \
+                or head.get("v") != STATS_SCHEMA_VERSION:
+            raise CylonDataError(
+                f"unrecognized stats header/version: {raw[0][:200]}")
+        for i, line in enumerate(raw[1:], start=2):
+            try:
+                doc = json.loads(line)
+                rec, fp = doc["rec"], doc["fp"]
+                e = _Entry(kind=doc.get("kind"))
+                e.last_unix = doc.get("last_unix")
+                for name, md in (doc.get("metrics") or {}).items():
+                    e.metrics[str(name)] = MetricStats.from_dict(md)
+            except (ValueError, KeyError, TypeError,
+                    AttributeError) as err:
+                raise CylonDataError(
+                    f"corrupt stats line {i}: {type(err).__name__}: "
+                    f"{err}")
+            if rec == "plan":
+                plans[fp] = e
+            elif rec == "node":
+                nodes[fp] = e
+            else:
+                raise CylonDataError(
+                    f"unknown stats record kind {rec!r} (line {i})")
+        return plans, nodes
+
+    def load(self, path: Optional[str] = None) -> int:
+        """Warm-start the store from a saved snapshot; returns the
+        entry count loaded (0 when the path is unset or absent). A
+        corrupt or truncated file — unparseable line, bad schema,
+        wrong version — is QUARANTINED: renamed to
+        ``<path>.quarantine``, recorded as a typed
+        :class:`CylonDataError` event in the flight admission ring,
+        and the store stays fresh. Startup is never blocked on
+        forensics."""
+        path = path or stats_path()
+        if not path or not os.path.exists(path):
+            return 0
+        try:
+            plans, nodes = self._parse_snapshot(path)
+        except CylonDataError as e:
+            self._quarantine(path, e)
+            return 0
+        with self._lock:
+            # loaded entries never clobber LIVE measurements: a store
+            # that already observed this process's own queries keeps
+            # its fresher truth, the snapshot fills the gaps
+            for fp, e in plans.items():
+                self._plans.setdefault(fp, e)
+            for fp, e in nodes.items():
+                self._nodes.setdefault(fp, e)
+            self._loaded_from = path
+            # warm-started evidence can change adaptive choices
+            self._epoch += 1
+        n = len(plans) + len(nodes)
+        _spans.logger.info("stats: warm-started %d entries from %s",
+                           n, path)
+        return n
+
+    def _quarantine(self, path: str, err: CylonDataError) -> None:
+        """Move a corrupt snapshot aside and record the typed event —
+        the file stays on disk for a post-mortem, the store starts
+        fresh, and startup proceeds."""
+        qpath = path + ".quarantine"
+        try:
+            os.replace(path, qpath)
+        except OSError:  # pragma: no cover - raced deletion
+            qpath = None
+        event = {"action": "stats_quarantine",
+                 "error": f"{type(err).__name__}: {err}",
+                 "path": path, "quarantined_to": qpath,
+                 "time_unix": round(time.time(), 3)}
+        _flight.record_admission(event)
+        _metrics.REGISTRY.counter("cylon_stats_quarantine_total").inc()
+        _spans.logger.error(
+            "stats: corrupt snapshot %s quarantined to %s (%s) — "
+            "starting with a fresh store", path, qpath, event["error"])
+
+    def reset(self) -> None:
+        """Drop every learned entry and drift event (test isolation).
+        The epoch BUMPS (never rewinds): cached templates optimized
+        against the dropped evidence are stale, not fresh."""
+        with self._lock:
+            self._plans.clear()
+            self._nodes.clear()
+            self._drift.clear()
+            self._loaded_from = None
+            self._epoch += 1
+
+
+def qerror_quantiles() -> Dict[str, dict]:
+    """Per-node-kind q-error p50/p95 + observation count, read back
+    from the registry histograms — the observatory summary the /stats
+    route and the bench artifact share."""
+    out: Dict[str, dict] = {}
+    for name, labels, m in _metrics.REGISTRY.series():
+        if name != "cylon_estimate_qerror" or m.kind != "histogram":
+            continue
+        kind = dict(labels).get("kind", "")
+        st = m.stats()
+        if st["count"] == 0:
+            continue
+        out[kind] = {"count": st["count"],
+                     "p50": round(m.quantile(0.50), 3),
+                     "p95": round(m.quantile(0.95), 3),
+                     "max": round(st["max"], 3)}
+    return out
+
+
+# Late-bound plan-cache eviction hook (the metrics.set_factory_*_hook
+# pattern): service/plancache registers its invalidate here at import,
+# so drift eviction reaches the cache while telemetry stays below the
+# service tier. Last registration wins; None disarms.
+_plan_evict_hook: Optional[Callable[[str], None]] = None
+
+
+def set_plan_evict_hook(hook: Optional[Callable[[str], None]]) -> None:
+    global _plan_evict_hook
+    _plan_evict_hook = hook
+
+
+# the process-global warehouse — the querylog hook feeds it, the
+# admission path reads it, QueryService.start()/close() persist it
+STORE = StatsStore()
+
+
+def record_root(root, digest: dict) -> None:
+    """Querylog-hook entry point: fold one completed query into the
+    global store."""
+    STORE.record_root(root, digest)
+
+
+def effective_bytes(node_fp: Optional[str], static_bytes: Optional[int]
+                    ) -> Tuple[Optional[int], str]:
+    return STORE.effective_bytes(node_fp, static_bytes)
+
+
+def node_obs(node_fp: str) -> int:
+    return STORE.node_obs(node_fp)
+
+
+def join_input_bytes(decision_fp: Optional[str]
+                     ) -> Tuple[Optional[float], Optional[float]]:
+    return STORE.join_input_bytes(decision_fp)
+
+
+def node_skew(node_fp: Optional[str]) -> Optional[float]:
+    return STORE.node_skew(node_fp)
+
+
+def epoch() -> int:
+    return STORE.epoch()
+
+
+def recent_drift() -> List[dict]:
+    return STORE.recent_drift()
+
+
+def state(top_n: int = 20) -> dict:
+    return STORE.state(top_n)
+
+
+def save(path: Optional[str] = None) -> Optional[str]:
+    return STORE.save(path)
+
+
+def load(path: Optional[str] = None) -> int:
+    return STORE.load(path)
+
+
+def reset() -> None:
+    STORE.reset()
+
+
+def _dump_section() -> dict:
+    """Crash-dump section: the warehouse's shape at failure time (top
+    entries + drift history) — a mis-calibrated admission shows its
+    evidence in the same file as the crash it caused."""
+    return STORE.state(top_n=8)
+
+
+_flight.add_dump_section("stats", _dump_section)

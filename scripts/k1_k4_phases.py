@@ -248,8 +248,8 @@ def main() -> int:
                 t.data_ptr(), hist.data_ptr(), w, n, htiles, nbk, st) == 0
         return go
 
-    committed = {"join_stream": K._lib("join_stream"),
-                 "partition": K._lib("partition")}
+    committed = {"join_stream": K.load_library("join_stream"),
+                 "partition": K.load_library("partition")}
     runs = {"join_expand_stream": (k4, k4_equal, "join_stream"),
             "partition_hist": (k1, lambda: torch.equal(hist, href),
                                "partition")}

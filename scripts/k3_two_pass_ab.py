@@ -132,7 +132,7 @@ def main() -> int:
                     str(vdir / "join_stream.cu")], check=True,
                    stdout=open(vdir / "build.log", "w"),
                    stderr=subprocess.STDOUT)
-    libs = {"single_pass": K._lib("join_stream"),
+    libs = {"single_pass": K.load_library("join_stream"),
             "two_pass": ctypes.CDLL(str(so))}
     for lib in libs.values():
         lib.launch_plan_stream.argtypes = \

@@ -80,9 +80,11 @@ def profile_split(torch, fn, own: set) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    # the spans' ``cylon:`` ranges enclose kernels: not device work
     events = [(e.key, _dev_us(e) / 1e3, e.count)
               for e in prof.key_averages()
-              if str(getattr(e, "device_type", "")).endswith("CUDA")]
+              if str(getattr(e, "device_type", "")).endswith("CUDA")
+              and not e.key.startswith("cylon:")]
     split = {"kernel": 0.0, "copy": 0.0, "memset": 0.0, "glue": 0.0}
     launches = {"kernel": 0, "copy": 0, "memset": 0, "glue": 0}
     for key, ms, count in events:

@@ -65,7 +65,7 @@ def test_partition_kernels_match_plain(cuda, world):
 def test_tile_constants_match_sources(cuda):
     """The wrappers' tile sizes are the sources' own."""
     def c_int(lib, fn):
-        f = getattr(K._lib(lib), fn)
+        f = getattr(K.load_library(lib), fn)
         f.argtypes, f.restype = [], ctypes.c_int
         return f()
 
@@ -1352,3 +1352,69 @@ def test_two_gloo_processes_share_the_card(cuda, tmp_path):
     parts = child.finish(tmp_path, procs, timeout=600)
     for case in child.CASES:
         child.assert_same_export([p[case] for p in parts], exp[case])
+
+
+def _pipeline_rows(ctx, world_tables):
+    """The planned join -> groupby of bench_plan_pipeline at small size,
+    and its (key, sum) rows sorted by key, host numpy."""
+    left, right = world_tables
+    out = ct.plan.scan(left).join(ct.plan.scan(right), on="k") \
+        .groupby("lt-0", ["rt-4"], ["sum"]).execute()
+    live = out.emit_mask()
+    k = out._columns[0].data[live].cpu().numpy()
+    s = out._columns[1].data[live].cpu().numpy().astype(np.float64)
+    o = np.argsort(k)
+    return k[o], s[o]
+
+
+@pytest.mark.parametrize("world", [1, 4])
+def test_planned_pipeline_on_card(cuda, world):
+    """The planned pipeline on the card equals its CPU run: group keys
+    exact, sums within 1e-5 x sum |x| of their group; K1-K4 launch at
+    world 4 (K3/K4 at world 1)."""
+    rng = np.random.default_rng(9)
+    n = 40_000
+    arrays = {"l": {"k": rng.integers(0, n // 4, n).astype(np.int32),
+                    "v": rng.normal(size=n).astype(np.float32),
+                    "z": rng.integers(0, 50, n).astype(np.int32)},
+              "r": {"k": rng.integers(0, n // 4, n).astype(np.int32),
+                    "w": rng.normal(size=n).astype(np.float32)}}
+    res = {}
+    for dev in ("cpu", "cuda"):
+        ctx = ct.CylonContext.InitDistributed(ct.VirtualWorldConfig(world),
+                                              device=dev) \
+            if world > 1 else ct.CylonContext.Init(device=dev)
+        tables = (ct.Table.from_pydict(ctx, arrays["l"]),
+                  ct.Table.from_pydict(ctx, arrays["r"]))
+        K.reset_launches()
+        res[dev] = _pipeline_rows(ctx, tables)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            need = ["join_plan_stream", "join_expand_stream"] + (
+                ["partition_hist", "partition_scatter"] if world > 1 else [])
+            assert all(K.LAUNCHES[k] > 0 for k in need), K.LAUNCHES
+    (kc, sc), (kg, sg) = res["cpu"], res["cuda"]
+    assert np.array_equal(kc, kg)
+    cl = np.bincount(arrays["l"]["k"], minlength=n // 4)
+    scale = np.array([cl[k] * np.abs(arrays["r"]["w"][arrays["r"]["k"] == k]
+                                     ).astype(np.float64).sum() for k in kc])
+    assert np.all(np.abs(sc - sg) <= 2e-5 * scale + 1e-30)
+
+
+def test_spans_carry_hbm_delta_on_card(cuda):
+    """On the card every span of a planned query carries the allocator's
+    hbm_delta and hbm_peak, and the report samples the pool."""
+    ctx = ct.CylonContext.InitDistributed(ct.VirtualWorldConfig(4))
+    rng = np.random.default_rng(3)
+    t = ct.Table.from_pydict(ctx, {
+        "k": rng.integers(0, 500, 20_000).astype(np.int32),
+        "v": rng.normal(size=20_000).astype(np.float32)})
+    q = ct.plan.scan(t).join(ct.plan.scan(t), on="k")
+    q.execute(analyze=True)
+    spans = list(q.last_report.span.walk())
+    assert len(spans) > 3
+    assert all("hbm_delta" in s.attrs and "hbm_peak" in s.attrs
+               for s in spans)
+    assert q.last_report.span.attrs["hbm_peak"] > 0
+    assert q.last_report.memory["hbm_live_bytes"] > 0
+    assert q.last_report.leaks == []

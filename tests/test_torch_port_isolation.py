@@ -30,7 +30,15 @@ def test_import_leaves_jax_and_cylon_tpu_out():
             " cylon_tpu_torch.ops.aggregates, cylon_tpu_torch.data.strings,"
             " cylon_tpu_torch.io.parquet, cylon_tpu_torch.native,"
             " cylon_tpu_torch.memory, cylon_tpu_torch.telemetry.knobs,"
-            " torch_port_mp_child;"
+            " cylon_tpu_torch.telemetry, cylon_tpu_torch.telemetry.spans,"
+            " cylon_tpu_torch.telemetry.flight,"
+            " cylon_tpu_torch.telemetry.stats,"
+            " cylon_tpu_torch.telemetry.querylog,"
+            " cylon_tpu_torch.plan, cylon_tpu_torch.plan.executor,"
+            " cylon_tpu_torch.plan.optimizer, cylon_tpu_torch.plan.report,"
+            " cylon_tpu_torch.plan.lazy, cylon_tpu_torch.resilience,"
+            " cylon_tpu_torch.resilience.admission,"
+            " cylon_tpu_torch.table_api, torch_port_mp_child;"
             " bad = [m for m in sys.modules"
             " if m.split('.')[0] in ('jax', 'jaxlib', 'cylon_tpu')];"
             " print(bad); sys.exit(1 if bad else 0)")
@@ -42,10 +50,22 @@ def test_import_leaves_jax_and_cylon_tpu_out():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_scan_covers_the_new_subpackages():
+    names = {str(p.relative_to(PACKAGE)) for p in PACKAGE.rglob("*.py")}
+    for sub in ("plan/executor.py", "plan/optimizer.py", "plan/lazy.py",
+                "resilience/retry.py", "resilience/admission.py",
+                "telemetry/spans.py", "telemetry/ledger.py",
+                "table_api.py"):
+        assert sub in names
+
+
 @pytest.mark.parametrize("path", sorted(
     [p for p in PACKAGE.rglob("*.py")] + [ROOT / "chip_smoke.py", CHILD]),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_import_in_source(path):
+    """The AST scan covers every module of the package (plan/,
+    resilience/ and telemetry/ included), chip_smoke.py and the
+    process-group child."""
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
