@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py [--rows N] [--setop-rows M] [--pipeline-rows P]
                           [--groupby-rows G] [--string-rows R]
-                          [--bcast-rows B] [--shuffle-rows X] [--seed S]
-                          [--out PATH]
+                          [--bcast-rows B] [--shuffle-rows X]
+                          [--service-rows Q] [--seed S] [--out PATH]
 
 (``--mp-child RANK`` is how phase 22 starts its two processes.)
 
@@ -47,10 +47,22 @@ The paths, each at the size of the repo's own benchmark:
   salted shuffle (B rows, 70% one key: K1/K2); bench.py
   ``bench_shuffle_pipeline``'s chunked exchange (X = 16,777,216 rows,
   ``--shuffle-rows``, 24 bytes a row, a pipeline of at least 4 chunks:
-  K1/K2).
+  K1/K2);
+* the query service: bench.py ``bench_service_pipeline`` (two tables of
+  Q = 4,194,304 rows, ``--service-rows``, ``default_rng(11)``, the
+  planned join -> groupby of phase 23 served 8 times by a
+  ``QueryService`` at world 4: K1-K4), the task exchange on the join's
+  left table (K1/K2), and the edge modules at small size.
 
 Phases, in order (any failure exits non-zero; nothing is caught):
-  1. the card, torch, nvcc, and the build of every kernel from csrc/;
+  1. the card, torch, nvcc, and the build of every kernel from csrc/,
+     with the compile profiler (``telemetry.profiler``) enabled before
+     anything is built or loaded; each of the four libraries is then
+     loaded, and the profile printed: one record a library with its
+     nvcc seconds (> 0 for a library this run built, 0.0 for one loaded
+     from an existing ``_build/``, equal to what the build reported) and
+     the registers, shared memory and spill bytes of every kernel
+     function from its ``-Xptxas -v`` report;
   2. the join's main path: ``Table.distributed_join`` at world 4 on the
      kernel route, with every kernel's launch counter set to 0 just
      before and read just after (each of K1-K4 must have launched), the
@@ -164,8 +176,50 @@ Phases, in order (any failure exits non-zero; nothing is caught):
      a join of co-partitioned inputs with both exchanges elided, groupby,
      union/subtract/intersect (K5 and K6 launch on every world-1 set op)
      and sort, each equal to the port's eager composition and to numpy.
-Phases 10-12 and 23a each record the median of 5 steady runs after one
-warm-up.
+ 24. the query service (``cylon_tpu_torch.service``), the task exchange
+     and the edges: 24a, bench.py ``bench_service_pipeline`` at 2 x Q
+     rows, world 4, on an empty plan cache and statistics warehouse: one
+     direct ``execute()`` with the launch counters 0 -> read (K1-K4 must
+     launch), then in turns, 3 rounds, 8 executes under
+     ``plancache.disabled()`` and 8 queries served by a
+     ``QueryService(start=False)`` (tenants t0 and t1 in turns; submit,
+     ``start()``, ``drain()``, every ``result()``), each wall ending in
+     a synchronize; every served batch launches exactly 8 times the
+     direct query's kernels, builds no kernel library, and gives the
+     plan-cache (hits, misses) the reference gives on the CPU for the
+     same sequence (``REFERENCE_SERVICE_CACHE``); the first batch's 8
+     results equal a numpy groupby of the numpy join (keys exact, sums
+     within tolerance); the medians, the mean and p95 submit->dispatch
+     wait and queries/s printed. 24b, a second served batch while an
+     ``ObsServer(port=0)`` is scraped by two threads cycling through
+     /metrics, /healthz, /queries, /slo and /stats: every response 200
+     and parsed, /healthz showing live device bytes > 0 (some samples
+     while a query runs), /queries one digest per query with its
+     tenant, the results equal numpy, and no query's root leaving a
+     ledger entry once the results are dropped; its wall beside 24a's.
+     24c, the outcomes at 3,000 rows a side: a shed (an armed
+     ``pool:262144:oom`` clamp, typed ``CylonResourceExhausted``, the
+     other tenant's query unaffected), a deadline (``timeout``), an
+     error (a scanned registered table removed before the query runs:
+     ``CylonError(KeyError)``, the next query runs), backpressure
+     (``CYLON_SERVICE_QUEUE_MAX=2`` on a paused service: typed before
+     enqueue), a DRR run of two tenants of unequal cost whose
+     ``dispatch_seq`` equals the CPU's (``REFERENCE_DRR_SEQ``), and a
+     planned union, subtract and intersect served at world 1 (K5 and K6
+     launch, the rows equal numpy). 24d, ``plan.task_exchange`` of phase
+     2's left table (N rows, world 4, task ids ``default_rng(24)`` in
+     [0, 64), the plan {t: t % 4}): K1 and K2 launch, each shard's live
+     rows with their ``__task__`` equal the stable partition of the input
+     in order, the median of 5 walls. 24e, an ``arrow_builder`` table
+     from raw host buffers (int32, float64 with nulls, bool with a
+     validity bitmap, a string column) on the card equal to its buffers;
+     a ``DataLoader`` over 4 CSV partitions written by
+     ``benchutils.generate_keyed_csv`` equal to the files; one
+     ``benchmark_with_repetitions`` timing of phase 2's join in turns
+     with the same wall by hand (its synchronizes seen, the medians
+     within 10%).
+Phases 10-12, 23a and 24d each record the median of 5 steady runs after
+one warm-up.
 Tolerances: float sums 1e-5 * sum |x| of the group (+1e-30), float64
 means 1e-12 * sum |x| / count; everything else exact.
 
@@ -2443,6 +2497,604 @@ def plan_nodes_phase(ct, K, D, lctx, dctx) -> dict:
     return {"rows": n, "checked": {str(k): v for k, v in checked.items()}}
 
 
+# ---------------------------------------------------------------------------
+# the query service, the task exchange and the edges (phase 24)
+# ---------------------------------------------------------------------------
+
+SERVICE_QUERIES = 8
+# 24a's plan-cache (hits, misses) over bench.py bench_service_pipeline's
+# sequence on an empty cache and warehouse: the warm-up execute, the 8
+# executes under plancache.disabled(), the 8 served queries; the JAX
+# package's counts on the CPU for the same sequence
+# (tests/test_torch_port_service.py holds them)
+REFERENCE_SERVICE_CACHE = {"warmup": (0, 1), "sequential": (0, 0),
+                           "service": (8, 0)}
+# 24c's DRR run (quantum 1,024 bytes): one join -> groupby of 4,096 rows
+# a side from tenant "expensive", then three sorts of 64 rows from
+# tenant "cheap"; the dispatch order the JAX package gives on the CPU
+REFERENCE_DRR_SEQ = {"expensive": [4], "cheap": [1, 2, 3]}
+OBS_ROUTES = ("/metrics", "/healthz", "/queries", "/slo", "/stats")
+
+
+def counter_total(ct, prefix: str) -> int:
+    """The sum of every integer series whose key starts with prefix."""
+    return sum(v for k, v in ct.telemetry.metrics_snapshot().items()
+               if k.startswith(prefix) and isinstance(v, int))
+
+
+def cache_counts(ct) -> tuple:
+    return (counter_total(ct, "cylon_plan_cache_hits_total"),
+            counter_total(ct, "cylon_plan_cache_misses_total"))
+
+
+def service_query(ct, left, right):
+    """bench.py bench_service_pipeline's query."""
+    return ct.plan.scan(left).join(ct.plan.scan(right), on="k") \
+        .groupby("lt-0", ["rt-4"], ["sum"])
+
+
+def serve(ct, queries, name: str):
+    """Submit every query to a paused QueryService (tenants t0 and t1 in
+    turns), start it, drain it and take every result: (tickets, results,
+    wall in s, ending in a synchronize)."""
+    from cylon_tpu_torch.service import QueryService
+
+    svc = QueryService(name=name, start=False)
+    t0 = time.perf_counter()
+    tickets = [svc.submit(q, tenant=f"t{i % 2}")
+               for i, q in enumerate(queries)]
+    svc.start()
+    svc.drain(timeout=600)
+    outs = [tk.result(timeout=600) for tk in tickets]
+    sync()
+    wall = time.perf_counter() - t0
+    svc.close()
+    return tickets, outs, wall
+
+
+def service_pipeline_phase(ct, K, dctx, n: int) -> dict:
+    """Phase 24a: bench.py bench_service_pipeline at world 4: a warm-up
+    execute, then in turns, 3 rounds, 8 sequential executes under
+    plancache.disabled() and 8 queries served by a QueryService. Starts
+    from an empty plan cache and statistics warehouse."""
+    from cylon_tpu_torch.service import plancache
+
+    rng = np.random.default_rng(11)
+    lk = rng.integers(0, n // 4, n).astype(np.int32)
+    lv = rng.normal(size=n).astype(np.float32)
+    lz = rng.integers(0, 50, n).astype(np.int32)
+    rk = rng.integers(0, n // 4, n).astype(np.int32)
+    rw = rng.normal(size=n).astype(np.float32)
+    left = ct.Table.from_pydict(dctx, {"k": lk, "v": lv, "z": lz})
+    right = ct.Table.from_pydict(dctx, {"k": rk, "w": rw})
+    keys, ref, scale, _rows = join_groupby_oracle(lk, rk, rw, n // 4)
+    plancache.global_cache().clear()
+    ct.telemetry.stats.reset()
+    c0 = cache_counts(ct)
+    sync()
+    K.reset_launches()
+    direct = service_query(ct, left, right).execute()
+    sync()
+    direct_launches = dict(K.LAUNCHES)
+    missing = [k for k in PIPELINE_KERNELS if direct_launches[k] == 0]
+    assert not missing, f"24a direct query: not launched: {missing}"
+    check_groups(direct, keys, ref, scale, "24a direct query")
+    del direct
+    cache = {"warmup": tuple(np.subtract(cache_counts(ct), c0).tolist())}
+
+    def sequential():
+        with plancache.disabled():
+            for _ in range(SERVICE_QUERIES):
+                out = service_query(ct, left, right).execute()
+                sync()
+                del out
+
+    walls = {"sequential": [], "service": []}
+    waits, launches_svc, builds = [], [], []
+    worst = 0.0
+    for rnd in range(3):
+        for name in (("sequential", "service") if rnd % 2 == 0
+                     else ("service", "sequential")):
+            c1 = cache_counts(ct)
+            if name == "sequential":
+                t0 = time.perf_counter()
+                sequential()
+                walls[name].append(time.perf_counter() - t0)
+                cache[f"sequential{rnd}"] = tuple(
+                    np.subtract(cache_counts(ct), c1).tolist())
+                continue
+            b0 = counter_total(ct, "cylon_kernel_factory_builds_total")
+            K.reset_launches()
+            tickets, outs, wall = serve(
+                ct, [service_query(ct, left, right)
+                     for _ in range(SERVICE_QUERIES)], f"chip-smoke-{rnd}")
+            launches_svc.append(dict(K.LAUNCHES))
+            builds.append(counter_total(
+                ct, "cylon_kernel_factory_builds_total") - b0)
+            cache[f"service{rnd}"] = tuple(
+                np.subtract(cache_counts(ct), c1).tolist())
+            walls[name].append(wall)
+            assert [tk.outcome for tk in tickets] == ["ok"] * len(tickets)
+            waits += [tk.wait_s for tk in tickets]
+            if rnd == 0:
+                for i, out in enumerate(outs):
+                    worst = max(worst, check_groups(
+                        out, keys, ref, scale, f"24a served query {i}"))
+            del tickets, outs
+    expect = {k: SERVICE_QUERIES * v for k, v in direct_launches.items()}
+    assert all(la == expect for la in launches_svc), (launches_svc, expect)
+    assert builds == [0, 0, 0], builds
+    for k, v in cache.items():
+        want = REFERENCE_SERVICE_CACHE[k.rstrip("0123456789")]
+        assert v == want, (k, v, want)
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    wait_stats = {"mean_s": float(np.mean(waits)),
+                  "p95_s": float(np.percentile(waits, 95))}
+    qps = SERVICE_QUERIES / med["service"]
+    log(f"phase 24a service pipeline (2 x {n} rows, world {WORLD}, "
+        f"{SERVICE_QUERIES} queries): direct launches {direct_launches}, "
+        f"each served batch launched 8x that; plan cache (hits, misses) "
+        f"{cache} == reference {REFERENCE_SERVICE_CACHE}; factory builds "
+        f"over each service batch {builds}; {len(keys)} groups == numpy "
+        f"for every served query (worst error/bound {worst:.3e}); walls in "
+        f"turns (s) {walls}; median sequential {med['sequential']:.6f}, "
+        f"service {med['service']:.6f}, sequential / service "
+        f"{med['sequential'] / med['service']:.3f}; submit->dispatch wait "
+        f"mean {wait_stats['mean_s']:.6f} s, p95 {wait_stats['p95_s']:.6f} "
+        f"s; {qps:.3f} queries/s")
+    return {"rows": n, "direct_launches": direct_launches,
+            "service_launches": launches_svc, "cache": cache,
+            "builds_delta": builds, "walls": walls, "median_s": med,
+            "wait": wait_stats, "queries_per_s": qps,
+            "groups": int(len(keys)), "worst_sum_err_over_bound": worst,
+            "tables": (left, right), "oracle": (keys, ref, scale)}
+
+
+def service_obs_phase(ct, pipe24: dict) -> dict:
+    """Phase 24b: a second service pass of 24a's 8 queries while an
+    ObsServer on an ephemeral port is scraped by two threads cycling
+    through its five routes."""
+    import gc
+    import threading
+    import urllib.request
+
+    from cylon_tpu_torch.service import ObsServer, QueryService
+    from cylon_tpu_torch.telemetry import ledger, querylog
+
+    left, right = pipe24.pop("tables")
+    keys, ref, scale = pipe24.pop("oracle")
+    querylog.reset()
+    roots = {}
+
+    def root_hook(s):
+        if s.name == "plan.query" and "query_id" in s.attrs:
+            roots[s.attrs["query_id"]] = s.span_id
+
+    ct.telemetry.add_root_hook(root_hook)
+    svc = QueryService(name="chip-smoke-obs", start=False)
+    obs = ObsServer(service=svc, port=0).start()
+    stop = threading.Event()
+    scrapes = {r: [] for r in OBS_ROUTES}   # each scrape's seconds
+    health, errors = [], []
+
+    def get(route):
+        with urllib.request.urlopen(obs.url(route), timeout=60) as r:
+            return r.status, r.read().decode("utf-8")
+
+    def scraper(first: int):
+        k, tail = first, None
+        while tail is None or k < tail:
+            if tail is None and stop.is_set():
+                tail = k + len(OBS_ROUTES)   # one more full cycle
+            route = OBS_ROUTES[k % len(OBS_ROUTES)]
+            k += 1
+            try:
+                t0 = time.perf_counter()
+                status, body = get(route)
+                dt = time.perf_counter() - t0
+                assert status == 200, (route, status)
+                if route == "/metrics":
+                    assert body.startswith("# TYPE"), body[:80]
+                else:
+                    doc = json.loads(body)
+                    if route == "/healthz":
+                        health.append((doc["service"]["active"],
+                                       doc["pool"]["bytes_in_use"]))
+                scrapes[route].append(dt)
+            except Exception as e:  # noqa: BLE001 - handed to the caller
+                errors.append((route, repr(e)))
+                return
+
+    threads = [threading.Thread(target=scraper, args=(i,))
+               for i in range(2)]
+    for th in threads:
+        th.start()
+    t0 = time.perf_counter()
+    tickets = [svc.submit(service_query(ct, left, right),
+                          tenant=f"t{i % 2}")
+               for i in range(SERVICE_QUERIES)]
+    svc.start()
+    svc.drain(timeout=600)
+    outs = [tk.result(timeout=600) for tk in tickets]
+    sync()
+    wall = time.perf_counter() - t0
+    stop.set()
+    for th in threads:
+        th.join(timeout=120)
+    assert not any(th.is_alive() for th in threads), "a scraper hung"
+    assert not errors, errors
+    status, body = get("/queries")
+    digests = [d for d in json.loads(body)
+               if d.get("query_id") in {tk.query_id for tk in tickets}]
+    obs.close()
+    svc.close()
+    ct.telemetry.remove_root_hook(root_hook)
+    assert sorted((d["query_id"], d["tenant"]) for d in digests) == sorted(
+        (tk.query_id, tk.tenant) for tk in tickets), digests
+    assert health and all(b > 0 for _a, b in health), health[:4]
+    during = sum(1 for a, _b in health if a is not None)
+    assert during > 0, "no /healthz sample while a query ran"
+    assert [tk.outcome for tk in tickets] == ["ok"] * len(tickets)
+    worst = max(check_groups(out, keys, ref, scale, f"24b query {i}")
+                for i, out in enumerate(outs))
+    qids = [tk.query_id for tk in tickets]
+    del tickets, outs
+    gc.collect()
+    leaks = {q: ledger.leak_report(roots[q]) for q in qids}
+    assert all(not v for v in leaks.values()), leaks
+    scrape_ms = {r: {"count": len(v), "median_ms":
+                     1e3 * statistics.median(v) if v else None}
+                 for r, v in scrapes.items()}
+    log(f"phase 24b obs endpoint under load: service wall {wall:.6f} s "
+        f"(24a median {pipe24['median_s']['service']:.6f}); scrapes "
+        f"{scrape_ms}, every one 200 and parsed; {len(health)} /healthz "
+        f"samples with live bytes > 0, {during} while a query ran; "
+        f"/queries has one digest per query with its tenant; results == "
+        f"numpy (worst error/bound {worst:.3e}); no query's root leaks")
+    return {"wall_s": wall, "scrapes": scrape_ms,
+            "healthz_samples": len(health), "healthz_during_query": during,
+            "worst_sum_err_over_bound": worst}
+
+
+def service_outcomes_phase(ct, K, lctx, dctx) -> dict:
+    """Phase 24c: the service's outcomes at small size: a shed, a
+    deadline, an error, backpressure, a DRR run of two tenants of
+    unequal cost at world 4, and planned set ops served at world 1."""
+    from cylon_tpu_torch.resilience import inject
+    from cylon_tpu_torch.service import QueryService
+
+    P = ct.plan
+
+    hosts = {}
+
+    def tables(ctx, n, seed):
+        rng = np.random.default_rng(seed)
+        lk = rng.integers(0, max(n // 4, 1), n).astype(np.int32)
+        lv = rng.normal(size=n).astype(np.float32)
+        lz = rng.integers(0, 50, n).astype(np.int32)
+        rk = rng.integers(0, max(n // 4, 1), n).astype(np.int32)
+        rw = rng.normal(size=n).astype(np.float32)
+        left = ct.Table.from_pydict(ctx, {"k": lk, "v": lv, "z": lz})
+        right = ct.Table.from_pydict(ctx, {"k": rk, "w": rw})
+        hosts[id(left)] = (lk, lz, rk, rw)
+        return left, right
+
+    def pipe(left, right):
+        return P.scan(left).join(P.scan(right), on="k") \
+            .groupby("lt-2", ["rt-4"], ["sum"])
+
+    def check_pipe(out, left, what: str) -> float:
+        """A pipe() result against numpy: the z groups of the join exact,
+        the sums of w within tolerance."""
+        lk, lz, rk, rw = hosts[id(left)]
+        m = int(max(lk.max(), rk.max())) + 1
+        sw = np.bincount(rk, weights=rw.astype(np.float64), minlength=m)
+        sa = np.bincount(rk, weights=np.abs(rw).astype(np.float64),
+                         minlength=m)
+        keys = np.unique(lz[np.bincount(rk, minlength=m)[lk] > 0])
+        ref = np.bincount(lz, weights=sw[lk], minlength=50)[keys]
+        scale = np.bincount(lz, weights=sa[lk], minlength=50)[keys]
+        return check_groups(out, keys, ref, scale, what)
+
+    done = {}
+    left, right = tables(dctx, 3000, 26)
+    check_pipe(pipe(left, right).execute(), left, "24c direct query")
+    # shed: a clamped budget sheds the big join, typed; the small
+    # query of the other tenant runs
+    big_l, big_r = tables(dctx, 1 << 16, 27)
+    svc = QueryService(name="chip-smoke-shed", start=False)
+    inject.arm("pool:262144:oom")
+    try:
+        ok_t = svc.submit(pipe(left, right), tenant="good")
+        shed_t = svc.submit(P.scan(big_l).join(P.scan(big_r), on="k"),
+                            tenant="greedy")
+        svc.drain(timeout=600)
+    finally:
+        inject.disarm()
+    assert ok_t.outcome == "ok" and shed_t.outcome == "shed", (
+        ok_t.outcome, shed_t.outcome)
+    check_pipe(ok_t.result(timeout=60), left, "24c query beside a shed")
+    assert isinstance(shed_t._error, ct.CylonResourceExhausted), \
+        shed_t._error
+    svc.close()
+    done["shed"] = type(shed_t._error).__name__
+    del ok_t, shed_t, big_l, big_r
+    # deadline
+    svc = QueryService(name="chip-smoke-deadline", start=False)
+    tk = svc.submit(pipe(left, right), tenant="late", deadline_s=1e-6)
+    svc.drain(timeout=600)
+    svc.close()
+    assert tk.outcome == "timeout" and isinstance(
+        tk._error, ct.CylonTimeoutError), (tk.outcome, tk._error)
+    done["deadline"] = type(tk._error).__name__
+    # error: a scan of a registered table that is removed before the
+    # query runs (a missing input): typed, the next query runs
+    ct.table_api.put_table("chip-smoke-gone", right)
+    svc = QueryService(name="chip-smoke-error", start=False)
+    bad = svc.submit(P.scan(left).join(P.scan("chip-smoke-gone"), on="k"),
+                     tenant="t")
+    ct.table_api.remove_table("chip-smoke-gone")
+    good = svc.submit(pipe(left, right), tenant="t")
+    svc.drain(timeout=600)
+    svc.close()
+    assert bad.outcome == "error" and isinstance(bad._error, ct.CylonError) \
+        and bad._error.code == ct.Code.KeyError, (bad.outcome, bad._error)
+    assert good.outcome == "ok"
+    check_pipe(good.result(), left, "24c query after an error")
+    done["error"] = f"{type(bad._error).__name__}({bad._error.code.name})"
+    del bad, good
+    # backpressure: a third submission to a paused service of queue
+    # bound 2 is refused before enqueue
+    os.environ["CYLON_SERVICE_QUEUE_MAX"] = "2"
+    try:
+        svc = QueryService(name="chip-smoke-bp", start=False)
+        svc.submit(pipe(left, right), tenant="a")
+        svc.submit(pipe(left, right), tenant="a")
+        try:
+            svc.submit(pipe(left, right), tenant="b")
+            refused = None
+        except ct.CylonResourceExhausted as e:
+            refused = e
+        assert refused is not None and "queue full" in str(refused)
+        assert svc.depth("b") == 0 and svc.depth() == 2
+    finally:
+        os.environ.pop("CYLON_SERVICE_QUEUE_MAX")
+    svc.drain(timeout=600)
+    svc.close()
+    done["backpressure"] = type(refused).__name__
+    # DRR: a byte-weighted quantum lets the cheap tenant overtake
+    os.environ["CYLON_SERVICE_QUANTUM_BYTES"] = "1024"
+    try:
+        el, er = tables(dctx, 4096, 24)
+        sl, _sr = tables(dctx, 64, 25)
+        svc = QueryService(name="chip-smoke-drr", start=False)
+        exp = svc.submit(pipe(el, er), tenant="expensive")
+        cheap = [svc.submit(P.scan(sl).sort("k"), tenant="cheap")
+                 for _ in range(3)]
+        svc.drain(timeout=600)
+        svc.close()
+    finally:
+        os.environ.pop("CYLON_SERVICE_QUANTUM_BYTES")
+    seq = {"expensive": [exp.dispatch_seq],
+           "cheap": [c.dispatch_seq for c in cheap]}
+    assert seq == REFERENCE_DRR_SEQ, seq
+    done["drr"] = seq
+    # planned set ops served at world 1: K5 and K6 launch
+    rng = np.random.default_rng(28)
+    a_k, a_z = rng.integers(0, 64, 3000), rng.integers(0, 8, 3000)
+    b_k, b_z = rng.integers(0, 64, 3000), rng.integers(0, 8, 3000)
+    a = ct.Table.from_pydict(lctx, {"k": a_k.astype(np.int32),
+                                    "z": a_z.astype(np.int32)})
+    b = ct.Table.from_pydict(lctx, {"k": b_k.astype(np.int32),
+                                    "z": b_z.astype(np.int32)})
+    sa = set(zip(a_k.tolist(), a_z.tolist()))
+    sb = set(zip(b_k.tolist(), b_z.tolist()))
+    ref_sets = {"union": sa | sb, "subtract": sa - sb, "intersect": sa & sb}
+    K.reset_launches()
+    tickets, outs, _wall = serve(
+        ct, [getattr(P.scan(a), op)(P.scan(b)) for op in ref_sets],
+        "chip-smoke-setops")
+    launches = dict(K.LAUNCHES)
+    assert launches["setop_stream"] >= 3 and \
+        launches["stream_compact"] >= 3, launches
+    for (op, exp_rows), out in zip(ref_sets.items(), outs):
+        assert table_rows(out) == sorted(exp_rows, key=repr), op
+    done["setops_world1"] = {k: launches[k] for k in
+                             ("setop_stream", "stream_compact")}
+    log(f"phase 24c service outcomes (3,000 rows a side, world {WORLD} and "
+        f"1): {done}")
+    return done
+
+
+def task_exchange_phase(ct, K, dctx, n: int, seed: int) -> dict:
+    """Phase 24d: plan.task_exchange of phase 2's left table (world 4)
+    with task ids from default_rng(24) in [0, 64) and the plan {t: t %
+    4}: K1 and K2 launch, every live row lands on its owner's shard with
+    its ``__task__``, and each shard's rows equal a stable partition of
+    the input in order (the payload is the input as a multiset)."""
+    from cylon_tpu_torch.plan.tasks import LogicalTaskPlan, task_exchange
+
+    left, _right, (lk, lv, _rk, _rv) = make_tables(ct, dctx, n, seed)
+    tasks = np.random.default_rng(24).integers(0, 64, n)
+    plan = LogicalTaskPlan({t: t % WORLD for t in range(64)}, WORLD)
+    sync()
+    K.reset_launches()
+    out = task_exchange(left, tasks, plan, dctx)
+    sync()
+    launches = dict(K.LAUNCHES)
+    assert launches["partition_hist"] > 0 and \
+        launches["partition_scatter"] > 0, launches
+    emit = out.emit_mask()
+    cap = emit.shape[0] // WORLD
+    dev = emit.device
+    owner = torch.from_numpy(tasks % WORLD).to(dev)
+    src = torch.stack([torch.from_numpy(lk).to(dev),
+                       torch.from_numpy(lv.view(np.int32)).to(dev),
+                       torch.from_numpy(tasks.astype(np.int32)).to(dev)], 1)
+    got = torch.stack([out._columns[0].data, out._columns[1].data.view(
+        torch.int32), out._columns[2].data], 1)
+    rows = 0
+    for s in range(WORLD):
+        sl = slice(s * cap, (s + 1) * cap)
+        mine = got[sl][emit[sl]]
+        assert torch.equal(mine, src[owner == s]), f"shard {s}"
+        rows += int(mine.shape[0])
+    assert rows == n == out.row_count, (rows, n)
+    del out, got, src, owner, emit
+
+    def run():
+        return task_exchange(left, tasks, plan, dctx)
+
+    # the device part alone: the exchange of the rows and their ids, with
+    # the ids and targets made once (task_exchange also validates the
+    # ids and builds them on the host, as the reference does)
+    from cylon_tpu_torch.parallel import dist_ops as D
+    from cylon_tpu_torch.parallel import shard as SH
+
+    t = SH.distribute(left, dctx)
+    ids = torch.from_numpy(np.pad(tasks.astype(np.int32),
+                                  (0, t.capacity - n))).to(dev)
+    lut = torch.arange(64, dtype=torch.int32, device=dev) % WORLD
+    targets = torch.take(lut, ids.to(torch.int64))
+
+    def exchange_only():
+        return D._exchange_table(t, targets, t.emit_mask(), dctx,
+                                 {"__task__": ids})
+
+    walls = in_turns({"task_exchange": run, "exchange": exchange_only})
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    log(f"phase 24d task exchange ({n} rows, world {WORLD}, 64 tasks): "
+        f"launches {launches}; every shard's rows == the stable partition "
+        f"of the input, with __task__; walls in turns (s) {walls}, median "
+        f"task_exchange {med['task_exchange']:.6f}, its exchange alone "
+        f"{med['exchange']:.6f}")
+    return {"rows": n, "launches": launches, "walls": walls,
+            "median_s": med}
+
+
+def edges_phase(ct, K, dctx, n: int, seed: int) -> dict:
+    """Phase 24e: arrow_builder from raw host buffers onto the card, a
+    DataLoader over 4 CSV partitions written by benchutils, and one
+    benchmark_with_repetitions timing of phase 2's join against the same
+    wall taken by hand."""
+    import tempfile
+
+    from cylon_tpu_torch import arrow_builder, benchutils
+    from cylon_tpu_torch.dtypes import Type
+    from cylon_tpu_torch.io.dataloader import DataLoader
+
+    # arrow_builder: int32, float64 with nulls, bool with a validity
+    # bitmap, a string column
+    rng = np.random.default_rng(seed)
+    m = 1000
+    ints = rng.integers(-1000, 1000, m).astype(np.int32)
+    floats = rng.normal(size=m)
+    fvalid = rng.random(m) > 0.1
+    bools = rng.random(m) > 0.5
+    bvalid = rng.random(m) > 0.2
+    words = [("w%d" % i) * int(i % 4) for i in rng.integers(0, 500, m)]
+    payload = np.frombuffer("".join(words).encode(), np.uint8)
+    offsets = np.concatenate([[0], np.cumsum([len(w) for w in words])]) \
+        .astype(np.int32)
+
+    def addr(a):
+        return a.ctypes.data, a.nbytes
+
+    bits = {k: np.packbits(v, bitorder="little")
+            for k, v in (("f", fvalid), ("b", bools), ("bv", bvalid))}
+    arrow_builder.begin_table("chip-smoke-raw")
+    arrow_builder.add_column("chip-smoke-raw", "i", int(Type.INT32), m, 0,
+                             0, 0, *addr(ints))
+    arrow_builder.add_column("chip-smoke-raw", "f", int(Type.DOUBLE), m,
+                             int((~fvalid).sum()), *addr(bits["f"]),
+                             *addr(floats))
+    arrow_builder.add_column("chip-smoke-raw", "b", int(Type.BOOL), m,
+                             int((~bvalid).sum()), *addr(bits["bv"]),
+                             *addr(bits["b"]))
+    arrow_builder.add_column("chip-smoke-raw", "s", int(Type.STRING), m, 0,
+                             0, 0, *addr(payload), *addr(offsets))
+    arrow_builder.finish_table("chip-smoke-raw")
+    t = ct.table_api.get_table("chip-smoke-raw")
+    ct.table_api.remove_table("chip-smoke-raw")
+    assert all(c.data.is_cuda for c in t._columns), "not on the card"
+    i_col, f_col, b_col, s_col = t._columns
+    assert np.array_equal(i_col.data.cpu().numpy(), ints)
+    assert np.array_equal(f_col.valid_mask().cpu().numpy(), fvalid)
+    assert np.array_equal(f_col.data.cpu().numpy()[fvalid], floats[fvalid])
+    assert np.array_equal(b_col.valid_mask().cpu().numpy(), bvalid)
+    assert np.array_equal(b_col.data.cpu().numpy(), bools)
+    vb = s_col.varbytes
+    lens = vb.lengths.cpu().numpy()
+    starts = vb.eff_starts().cpu().numpy()
+    raw = vb.words.cpu().numpy().view(np.uint8)
+    got = [raw[4 * s: 4 * s + ln].tobytes().decode()
+           for s, ln in zip(starts, lens)]
+    assert got == words, "string column"
+    # DataLoader over 4 CSV partitions
+    with tempfile.TemporaryDirectory() as d:
+        names = [f"part_{r}.csv" for r in range(4)]
+        for r, f in enumerate(names):
+            benchutils.generate_keyed_csv(1000, 64, os.path.join(d, f),
+                                          seed=r)
+        lctx = ct.CylonContext.Init()
+        dl = DataLoader(lctx, d, names).load()
+        for r, f in enumerate(names):
+            tab = dl.table(r)
+            assert tab._columns[0].data.is_cuda
+            ref = np.loadtxt(os.path.join(d, f), delimiter=",",
+                             skiprows=1)
+            blk = dl.to_numpy_blocks()[r]
+            assert blk.shape == (1000, 2) and np.array_equal(blk, ref), f
+        parts = dl.partitions(4)
+        assert sorted(np.concatenate([p.index for p in parts]).tolist()) \
+            == list(range(1000))
+    # benchmark_with_repetitions against the same wall by hand
+    left, right, _h = make_tables(ct, dctx, n, seed)
+
+    def join():
+        return left.distributed_join(right, "inner", on=["k"],
+                                     force_exchange=True)
+
+    reps = 5
+    real_sync = torch.cuda.synchronize
+    seen = []
+
+    def counted(device=None):
+        seen.append(device)
+        return real_sync(device)
+
+    join()
+    sync()
+    timed = benchutils.benchmark_with_repetitions(reps, "ms")(join)
+    by_hand, by_bench = [], []
+    for rnd in range(3):
+        for which in (("hand", "bench") if rnd % 2 == 0
+                      else ("bench", "hand")):
+            if which == "bench":
+                torch.cuda.synchronize = counted
+                try:
+                    ms, out = timed()
+                finally:
+                    torch.cuda.synchronize = real_sync
+                by_bench.append(ms)
+            else:
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    out = join()
+                    sync()
+                by_hand.append((time.perf_counter() - t0) * 1e3 / reps)
+            del out
+    assert len(seen) == 3 * reps, seen
+    hand, bench = statistics.median(by_hand), statistics.median(by_bench)
+    assert abs(bench - hand) <= 0.1 * hand, (by_bench, by_hand)
+    log(f"phase 24e edges: arrow_builder table of {m} rows (int32, float64 "
+        f"with nulls, bool with a validity bitmap, string) on the card == "
+        f"its buffers; DataLoader over 4 CSV partitions == the files; "
+        f"benchmark_with_repetitions of phase 2's join {by_bench} ms "
+        f"({len(seen)} synchronizes seen) against {by_hand} ms by hand")
+    return {"bench_ms": by_bench, "hand_ms": by_hand}
+
+
 class PhaseClock:
     """Seconds since the script started at each phase's start."""
 
@@ -2476,6 +3128,8 @@ def main() -> int:
                          "the salted shuffle")
     ap.add_argument("--shuffle-rows", type=int, default=1 << 24,
                     help="rows of the chunked exchange")
+    ap.add_argument("--service-rows", type=int, default=1 << 22,
+                    help="rows per table of the served join -> groupby")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="also write the result JSON to this path")
@@ -2498,6 +3152,9 @@ def main() -> int:
 
     clock = PhaseClock()
     clock.mark("1")
+    # the compile profiler records every kernel library this run loads
+    profiler = ct.telemetry.profiler
+    profiler.enable()
     card = card_line()
     log(card)
     nvcc = subprocess.run([K.nvcc_path(), "--version"], capture_output=True,
@@ -2508,6 +3165,20 @@ def main() -> int:
     build_s = K.build()
     log(f"phase 1 build: {time.perf_counter() - t0:.2f} s wall, per source "
         f"{ {k: round(v, 2) for k, v in build_s.items()} }")
+    for name in K.SOURCES:
+        K.load_library(name)
+    compile_profile = profiler.summary()
+    assert sorted(compile_profile) == sorted(K.SOURCES), compile_profile
+    for name, rec in compile_profile.items():
+        assert rec["programs"] == 1 and rec["kernels"], (name, rec)
+        assert rec["compile_s"] == round(build_s[name], 6), (name, rec,
+                                                              build_s)
+    log(f"compile profile: {json.dumps(compile_profile)}")
+    for name, rec in compile_profile.items():
+        for fn, res in rec["kernels"].items():
+            log(f"  {name} {fn}: {res['registers']} registers, "
+                f"{res['smem_bytes']} bytes smem, {res['spill_bytes']} "
+                f"bytes spilled")
 
     n = args.rows
     dctx = ct.CylonContext.InitDistributed(ct.VirtualWorldConfig(WORLD))
@@ -2711,6 +3382,24 @@ def main() -> int:
     clock.mark("23c")
     nodes23 = plan_nodes_phase(ct, K, D, lctx, dctx)
 
+    # phase 24: the query service, the task exchange, the edges
+    clock.mark("24a")
+    service24 = service_pipeline_phase(ct, K, dctx, args.service_rows)
+    clock.mark("24b")
+    obs24 = service_obs_phase(ct, service24)
+    clock.mark("24c")
+    outcomes24 = service_outcomes_phase(ct, K, lctx, dctx)
+    clock.mark("24d")
+    tasks24 = task_exchange_phase(ct, K, dctx, n, args.seed)
+    clock.mark("24e")
+    edges24 = edges_phase(ct, K, dctx, n, args.seed)
+    # phases 2, 10, 23a and 24 launched K1-K4 on the main path; 24a's
+    # service batches and 24d's task exchange add to the join's counts
+    for name in PIPELINE_KERNELS:
+        launches_24 = service24["service_launches"][0][name]
+        log(f"launches of {name}: join {launches[name]}, one 24a service "
+            f"batch {launches_24}, 24d {tasks24['launches'][name]}")
+
     clock.mark("end")
     summary = {"kernels": kernels}
     log(f"seconds a phase: {clock.spans()}; total {clock.marks[-1][1]} s")
@@ -2739,6 +3428,10 @@ def main() -> int:
                            one_rank_nccl=one_rank_nccl,
                            plan_pipeline=plan23, plan_report=report23,
                            plan_nodes=nodes23,
+                           compile_profile=compile_profile,
+                           service_pipeline=service24, service_obs=obs24,
+                           service_outcomes=outcomes24,
+                           task_exchange=tasks24, edges=edges24,
                            phase_seconds=clock.spans()), f, indent=1,
                       default=str)
     log(json.dumps(summary))

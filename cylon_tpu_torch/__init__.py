@@ -51,6 +51,17 @@ EXPLAIN ANALYZE report on ``last_report``. Every node runs in a
 ``telemetry`` span, its output in the telemetry ledger, under the
 ``resilience`` layer's deadline, admission control and retries.
 
+The query service (``service``): ``QueryService`` takes many LazyTable
+queries from many tenants (deficit round-robin queues, dispatch-time
+admission, typed backpressure) and runs them one at a time on one worker
+thread; the plan cache (``service.plancache``) memoizes optimized plans
+by fingerprint, in the service and in library mode alike (importing the
+package installs it); ``service.ObsServer`` serves /metrics, /healthz,
+/queries, /slo and /stats. ``plan.task_exchange`` routes rows to the
+shards owning their tasks; ``telemetry.profiler`` records each kernel
+library's build; ``arrow_builder``, ``io.dataloader`` and
+``benchutils`` are the bindings-facing and benchmark edges.
+
 Entry points run on CUDA unless the context is created with
 ``device="cpu"``.
 
@@ -83,6 +94,8 @@ from .parallel.shard import distribute_by_key
 from . import plan
 from .plan import LazyTable, col
 from . import resilience
+from . import service
+from .service import QueryService, QueryTicket
 from . import table_api
 from .status import (Code, CylonDataError, CylonError, CylonPlanError,
                      CylonResourceExhausted, CylonTimeoutError,
@@ -98,7 +111,8 @@ __all__ = [
     "hash_partition", "repartition", "read_parquet", "read_parquet_per_rank",
     "write_parquet", "CylonDataError", "CylonPlanError",
     "CylonResourceExhausted", "CylonTimeoutError", "CylonTransientError",
-    "LazyTable", "col", "plan", "resilience", "table_api", "telemetry",
+    "LazyTable", "QueryService", "QueryTicket", "col", "plan",
+    "resilience", "service", "table_api", "telemetry",
     "distribute_by_key", "distributed_join", "distributed_join_ring",
     "distributed_set_op", "shuffle",
 ]

@@ -41,13 +41,18 @@ from .status import Code, CylonError
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means CUDA. A CUDA device on a machine without CUDA is an
-    error, never a silent CPU run."""
+    error, never a silent CPU run. A CUDA device always carries its index
+    (``cuda`` becomes ``cuda:<current device>``), so a thread that has
+    not touched CUDA yet (the query service's worker) allocates and
+    launches on the context's card without ``torch.cuda.set_device``."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise CylonError(
             Code.ExecutionError,
             "CUDA is not available; pass device='cpu' "
             "explicitly to run the plain PyTorch versions on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     if dev.type not in ("cuda", "cpu"):
         raise CylonError(Code.Invalid, f"unsupported device {dev}")
     return dev

@@ -6,7 +6,8 @@ pyarrow's C++ CSV reader parses on the host; the parsed columns move to
 the context's device, string columns through the ingest policy of
 data/column.py (dictionary or varbytes). pyarrow and pandas are imported
 inside the functions: the machine with the card has neither, and the
-rest of the port does not need them.
+rest of the port does not need them. Where pyarrow is missing, a CSV of
+numeric columns under a header row is read with numpy.
 """
 from __future__ import annotations
 
@@ -85,9 +86,21 @@ def read_csv_per_rank(ctx: CylonContext, path_pattern: str,
          for i in ctx.local_shard_indices()], ctx)
 
 
+# read options the numpy reader honours (the rest must keep their
+# defaults there)
+_HOST_OPTIONS = ("_delimiter", "_use_threads", "_concurrent_file_reads",
+                 "_block_size")
+
+
 def _read_one(ctx: CylonContext, path: str, options: CSVReadOptions) -> Table:
     import numpy as np
-    import pyarrow as pa
+
+    try:
+        import pyarrow as pa
+    except ImportError:
+        # a machine without pyarrow (the one with the card): numeric
+        # columns through numpy
+        return _read_numeric(ctx, path, options)
     import pyarrow.csv as pacsv
 
     read_opts, parse_opts, convert_opts = _arrow_options(options)
@@ -122,6 +135,57 @@ def _read_one(ctx: CylonContext, path: str, options: CSVReadOptions) -> Table:
                                 else False)
         cols.append(Column.from_numpy(arr.to_numpy(zero_copy_only=False),
                                       name, validity, ctx.device))
+    return Table(cols, ctx)
+
+
+def _read_numeric(ctx: CylonContext, path: str,
+                  options: CSVReadOptions) -> Table:
+    """Read a CSV of numeric columns under a header row with numpy: int64
+    where every value of a column is an integer, float64 otherwise, as
+    pyarrow infers them; an empty field is a null. Anything else raises
+    ``Code.NotImplemented``."""
+    import numpy as np
+
+    default = CSVReadOptions()
+    bad = sorted(k for k, v in vars(options).items()
+                 if k not in _HOST_OPTIONS and v != getattr(default, k))
+    if bad:
+        raise CylonError(Code.NotImplemented,
+                         f"CSV options {bad} need pyarrow")
+    delim = options._delimiter
+
+    def attempt():
+        _inject.fire("ingest", detail=f"csv {path}")
+        try:
+            with open(path) as f:
+                return [ln for ln in f.read().splitlines() if ln]
+        except OSError as e:
+            raise CylonError(Code.IOError, str(e))
+
+    lines = _retry.run_retryable("ingest", attempt)
+    if not lines:
+        raise CylonDataError(f"malformed CSV {path}: no header row")
+    names = lines[0].split(delim)
+    rows = [ln.split(delim) for ln in lines[1:]]
+    if any(len(r) != len(names) for r in rows):
+        raise CylonDataError(f"malformed CSV {path}: ragged rows")
+    cols = []
+    for i, name in enumerate(names):
+        raw = np.array([r[i] for r in rows], dtype=str)
+        valid = raw != ""
+        filled = np.where(valid, raw, "0")
+        try:
+            vals = filled.astype(np.int64)
+        except ValueError:
+            try:
+                vals = filled.astype(np.float64)
+            except ValueError:
+                raise CylonError(Code.NotImplemented,
+                                 f"CSV column {name!r} is not numeric: "
+                                 f"reading it needs pyarrow") from None
+        cols.append(Column.from_numpy(vals, name,
+                                      None if valid.all() else valid,
+                                      ctx.device))
     return Table(cols, ctx)
 
 

@@ -124,6 +124,10 @@ def nvcc_path() -> str:
                      "nvcc not found: the CUDA kernels cannot be built")
 
 
+# nvcc wall seconds of each library this process built (build())
+BUILD_SECONDS: Dict[str, float] = {}
+
+
 def _lib_path(name: str) -> Path:
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(SOURCES[name].read_bytes() + headers
@@ -159,6 +163,7 @@ def build(names: Optional[Sequence[str]] = None) -> Dict[str, float]:
             failed.append(n)
             continue
         os.replace(tmp, _lib_path(n))
+        BUILD_SECONDS[n] = seconds[n]
     if failed:
         report = "\n".join((BUILD_DIR / f"{n}.log").read_text()[-4000:]
                            for n in failed)
@@ -170,9 +175,16 @@ def build(names: Optional[Sequence[str]] = None) -> Dict[str, float]:
 @counted_cache
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load one kernel library, its C launchers
-    typed. Memoized: one build or load a library a process."""
+    typed. Memoized: one build or load a library a process. The handle
+    carries what the compile profiler reads (telemetry/profiler.py):
+    ``cylon_library`` (the name), ``cylon_build_s`` (this process's nvcc
+    wall for it, 0.0 when it was loaded from ``_build/``) and
+    ``cylon_build_log`` (the ``-Xptxas -v`` report of its build)."""
     build([name])
     lib = ctypes.CDLL(str(_lib_path(name)))
+    lib.cylon_library = name
+    lib.cylon_build_s = BUILD_SECONDS.get(name, 0.0)
+    lib.cylon_build_log = str(BUILD_DIR / f"{name}.log")
     for fn, args in _SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.argtypes = args

@@ -326,12 +326,21 @@ def _finish_exchange_table(t: Table, ctx: CylonContext, targets, emit,
     return cols, new_emit
 
 
-def _exchange_table(t: Table, targets, emit, ctx, counts=None,
+def _exchange_table(t: Table, targets, emit, ctx, extra=None, counts=None,
                     dense: bool = False):
-    """Shuffle a whole table's columns. Returns (columns, new_emit)."""
+    """Shuffle a whole table's columns plus optional extra per-row int32
+    tensors (``extra``: name -> flat ``[V * cap]`` tensor, one more K2 leg
+    each). Returns (columns, new_emit, extra_out)."""
     payload, lane_cols = _build_exchange_payload(t)
+    for k, x in (extra or {}).items():
+        if k in payload:
+            raise CylonError(Code.Invalid, f"extra leg {k!r} names a "
+                             f"payload leaf")
+        payload[k] = x
     res = exchange(payload, targets, emit, ctx, counts=counts, dense=dense)
-    return _finish_exchange_table(t, ctx, targets, emit, res, lane_cols)
+    cols, new_emit = _finish_exchange_table(t, ctx, targets, emit, res,
+                                            lane_cols)
+    return cols, new_emit, {k: res[0][k] for k in (extra or {})}
 
 
 def _exchange_table_pair(t1: Table, tg1, e1, c1, t2: Table, tg2, e2, c2,
@@ -493,13 +502,13 @@ def shuffle(table: Table, hash_columns: Sequence,
         _annotate(salted=True, salt_factor=salt,
                   skew_raw=round(raw_stats.imbalance, 3)
                   if raw_stats is not None else None)
-        cols, new_emit = _exchange_table(t, targets, emit, ctx,
-                                         counts=counts)
+        cols, new_emit, _ = _exchange_table(t, targets, emit, ctx,
+                                            counts=counts)
         result = Table(cols, ctx, new_emit)
         result._shard_world = world
         return _ledger.track(result, "shuffle")
-    cols, new_emit = _exchange_table(t, targets, emit, ctx,
-                                     dense=t.row_mask is None)
+    cols, new_emit, _ = _exchange_table(t, targets, emit, ctx,
+                                        dense=t.row_mask is None)
     result = Table(cols, ctx, new_emit)
     result._shard_world = world
     result._hash_partitioned = sig
@@ -581,7 +590,7 @@ def distributed_join(left: Table, right: Table, config: _join.JoinConfig,
             shuffled.append(results[id(p)])
         else:
             shuffled.append(_exchange_table(t, targets, emit, ctx,
-                                            dense=t.row_mask is None))
+                                            dense=t.row_mask is None)[:2])
 
     # key bits from the SHUFFLED columns (elementwise ordered bits; word
     # lanes slice out of the strided layout)
@@ -1020,7 +1029,8 @@ def distributed_set_op(left: Table, right: Table, op: _setops.SetOp,
         cl, cr = count_pair(sides[0][1], sides[0][2], sides[1][1],
                             sides[1][2], ctx)
     (lcols_s, lemit), (rcols_s, remit) = (
-        _exchange_table(view, targets, emit, ctx, counts=cnt, dense=dense)
+        _exchange_table(view, targets, emit, ctx, counts=cnt,
+                        dense=dense)[:2]
         for (view, targets, emit), cnt in zip(sides, (cl, cr)))
 
     def rebits(cols, other):
@@ -1156,8 +1166,8 @@ def repartition(table: Table, ctx: CylonContext) -> Table:
     first = ctx.get_process_rank() * t.capacity
     targets = ((torch.arange(t.capacity, device=ctx.device) + first)
                % world).to(torch.int32)
-    cols, new_emit = _exchange_table(t, targets, t.emit_mask(), ctx,
-                                     dense=t.row_mask is None)
+    cols, new_emit, _ = _exchange_table(t, targets, t.emit_mask(), ctx,
+                                        dense=t.row_mask is None)
     result = Table(cols, ctx, new_emit)
     result._shard_world = world
     return _ledger.track(result, "repartition")
@@ -1231,8 +1241,8 @@ def _groupby_shuffle_agg(ctx: CylonContext, key_columns, value_columns,
     else:
         view = Table(list(key_columns) + list(value_columns), ctx, None)
         targets = _partition_targets_dist(world, key_columns)
-        out_cols, emit_s = _exchange_table(view, targets, emit, ctx,
-                                           dense=dense)
+        out_cols, emit_s, _ = _exchange_table(view, targets, emit, ctx,
+                                              dense=dense)
     nk = len(key_columns)
     kcols_s, vcols_s = out_cols[:nk], out_cols[nk:]
     if col_ids is None:
@@ -1483,8 +1493,8 @@ def distributed_sort(table: Table, order_by, ascending=True,
     emit = t.emit_mask()
     splitters = _range_splitters(ctx, lanes, emit)
     targets = _splitter_targets(lanes, splitters)
-    cols_s, emit_s = _exchange_table(t, targets, emit, ctx,
-                                     dense=t.row_mask is None)
+    cols_s, emit_s, _ = _exchange_table(t, targets, emit, ctx,
+                                        dense=t.row_mask is None)
     # key lanes recomputed from the shuffled columns: they never cross
     # the exchange
     sbits = [l for i, a in zip(idxs, asc)

@@ -20,21 +20,22 @@ analyze=True)` executes the query under a recorder and renders the
 plan annotated with measured rows/bytes/ms per node (EXPLAIN ANALYZE
 — see `plan.report.PlanReport`).
 
-Counterpart of cylon_tpu.plan. The JAX package's task-routing overlay
-(`plan.tasks`, `LogicalTaskPlan`/`task_exchange`) is not ported yet.
+Counterpart of cylon_tpu.plan; `plan.tasks` holds the task-routing
+overlay (`LogicalTaskPlan`/`task_exchange`).
 """
-from . import ir, optimizer, executor, report
+from . import ir, optimizer, executor, report, tasks
 from .ir import (Filter, GroupBy, Join, PlanNode, Project, Scan, SetOp,
                  Shuffle, Sort, col)
 from .lazy import LazyTable, scan
 from .optimizer import PlanStats, optimize
 from .executor import execute, execute_analyzed
 from .report import NodeMeasure, PlanReport
+from .tasks import LogicalTaskPlan, task_exchange
 
 __all__ = [
-    "Filter", "GroupBy", "Join", "LazyTable",
+    "Filter", "GroupBy", "Join", "LazyTable", "LogicalTaskPlan",
     "NodeMeasure", "PlanNode", "PlanReport", "PlanStats", "Project",
     "Scan", "SetOp", "Shuffle", "Sort", "col", "execute",
     "execute_analyzed", "executor", "ir", "optimize", "optimizer",
-    "report", "scan",
+    "report", "scan", "task_exchange", "tasks",
 ]

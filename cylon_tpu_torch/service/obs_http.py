@@ -1,0 +1,249 @@
+"""The observability HTTP endpoint: /metrics, /healthz, /queries, /slo,
+/stats (counterpart of cylon_tpu.service.obs_http).
+
+The metrics registry, the query flight ring and per-tenant accounting
+are otherwise reachable only in-process or post-mortem. This module is
+the live surface: a stdlib ``http.server`` on a daemon thread (zero new
+dependencies, read-only by construction) serving five routes:
+
+* ``GET /metrics``  — the Prometheus v0.0.4 text dump
+  (``export.prometheus_text``) over a lock-consistent registry
+  snapshot (``MetricsRegistry.series`` materializes under the
+  registry lock; histograms read their count group under each
+  metric's own lock) — scrape-ready for a real Prometheus;
+* ``GET /healthz``  — JSON liveness: scheduler worker alive, total and
+  per-tenant queue depths (``QueryService.health()``), memory-pool
+  watermarks (on CUDA the caching allocator's live and peak bytes and
+  the card's memory, read through ``MemoryPool.snapshot``, which is
+  safe to call from this thread while the worker launches); HTTP 200
+  while healthy, 503 once the worker is dead or the service closed
+  (load balancers read the status code alone);
+* ``GET /queries``  — the structured query log's in-memory digest ring
+  (``telemetry/querylog.py``), newest last — ``tail -f`` for
+  completed queries;
+* ``GET /slo``      — per-tenant SLO state (``telemetry/slo.py``):
+  latency quantile estimates, declared objective, remaining error
+  budget;
+* ``GET /stats``    — the query statistics warehouse
+  (``telemetry/stats.py``): top-N plan/node fingerprints with
+  observation counts and EWMAs, per-node-kind q-error p50/p95
+  (estimate accuracy), recent drift events, live knob config —
+  "what has admission learned, and is it still true".
+
+Lifecycle: ``QueryService.start()`` arms it when ``CYLON_OBS_PORT`` is
+nonzero (0 — the default — disables it); ``ObsServer`` can also be
+started standalone against any service-like object (or none: the
+telemetry routes work without a scheduler). ``close()`` shuts the
+server down and JOINS the serve thread, so a closed service leaves no
+thread behind.
+
+Threading: requests are served on ``ThreadingHTTPServer`` daemon
+threads, concurrent with submitters, the executor worker, GC
+finalizers — everything. The routes therefore only READ, through
+already-locked surfaces.
+"""
+from __future__ import annotations
+
+import json
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+
+from ..telemetry import export as _export
+from ..telemetry import knobs as _knobs
+from ..telemetry import logger as _logger
+from ..telemetry import metrics as _metrics
+from ..telemetry import querylog as _querylog
+from ..telemetry import slo as _slo
+from ..telemetry import stats as _stats
+
+DEFAULT_OBS_PORT = _knobs.default("CYLON_OBS_PORT")
+
+ROUTES = ("/metrics", "/healthz", "/queries", "/slo", "/stats")
+
+
+def render_metrics() -> str:
+    """The /metrics payload: the Prometheus text dump over a
+    lock-consistent registry snapshot."""
+    return _export.prometheus_text()
+
+
+def render_healthz(service=None) -> dict:
+    """The /healthz payload: scheduler liveness + queue depths (when a
+    service is attached) and memory-pool watermarks. ``ok`` is the
+    single field a probe needs."""
+    doc: dict = {"ok": True}
+    if service is not None:
+        sh = service.health()
+        doc["service"] = sh
+        doc["ok"] = bool(sh["worker_alive"]) and not sh["closed"]
+    pool = _metrics.get_memory_pool()
+    if pool is not None:
+        try:
+            used, peak, limit = pool.snapshot()
+            doc["pool"] = {"bytes_in_use": int(used),
+                           "peak_bytes": int(peak),
+                           "bytes_limit": int(limit)}
+        except Exception:  # pragma: no cover - defensive  # cylint: disable=errors/broad-swallow — watermarks are optional health detail
+            pass
+    return doc
+
+
+def render_queries() -> list:
+    """The /queries payload: the query log's digest ring, oldest
+    first."""
+    return _querylog.recent()
+
+
+def render_slo() -> dict:
+    """The /slo payload: per-tenant SLO state."""
+    return _slo.state()
+
+
+def render_stats() -> dict:
+    """The /stats payload: the statistics warehouse's state — top
+    fingerprints, q-error quantiles, drift history."""
+    return _stats.state()
+
+
+class _ObsHTTPServer(ThreadingHTTPServer):
+    """ThreadingHTTPServer carrying the service handle for the
+    handler; request threads are daemons so a hung scrape can never
+    block interpreter exit."""
+
+    daemon_threads = True
+    allow_reuse_address = True
+    service = None
+
+
+class _Handler(BaseHTTPRequestHandler):
+    # requests are read-only GETs; every route renders through
+    # already-locked telemetry surfaces (see module docstring)
+
+    def do_GET(self) -> None:  # noqa: N802 - http.server API
+        path = self.path.split("?", 1)[0].rstrip("/") or "/"
+        try:
+            if path == "/metrics":
+                body = render_metrics().encode("utf-8")
+                ctype = "text/plain; version=0.0.4; charset=utf-8"
+                status = 200
+            elif path == "/healthz":
+                doc = render_healthz(self.server.service)
+                body = json.dumps(doc, default=str,
+                                  sort_keys=True).encode("utf-8")
+                ctype = "application/json"
+                status = 200 if doc["ok"] else 503
+            elif path == "/queries":
+                body = json.dumps(render_queries(), default=str,
+                                  sort_keys=True).encode("utf-8")
+                ctype = "application/json"
+                status = 200
+            elif path == "/slo":
+                body = json.dumps(render_slo(), default=str,
+                                  sort_keys=True).encode("utf-8")
+                ctype = "application/json"
+                status = 200
+            elif path == "/stats":
+                body = json.dumps(render_stats(), default=str,
+                                  sort_keys=True).encode("utf-8")
+                ctype = "application/json"
+                status = 200
+            else:
+                body = json.dumps(
+                    {"error": "unknown route",
+                     "routes": list(ROUTES)}).encode("utf-8")
+                ctype = "application/json"
+                status = 404
+        except Exception:
+            _logger.exception("obs endpoint: %s failed", path)
+            body = b'{"error": "internal"}'
+            ctype = "application/json"
+            status = 500
+        try:
+            self.send_response(status)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+        except (BrokenPipeError, ConnectionResetError):
+            # scraper hung up mid-response — routine, not a failure
+            _logger.debug("obs endpoint: client disconnected on %s",
+                          path)
+
+    def log_message(self, fmt, *args) -> None:
+        # route http.server's per-request stderr lines to our logger
+        # at DEBUG — a 1 Hz scraper must not spam a service's stderr
+        _logger.debug("obs endpoint: " + fmt, *args)
+
+
+class ObsServer:
+    """The observability endpoint: bind, serve on a daemon thread,
+    close. ``port=0`` asks the OS for an ephemeral port (``.port``
+    reports the bound one) — the knob's 0 means *disabled* and is the
+    caller's check (``QueryService.start`` never constructs one for
+    port 0)."""
+
+    def __init__(self, service=None, port: Optional[int] = None,
+                 host: str = "127.0.0.1"):
+        self.requested_port = _knobs.get("CYLON_OBS_PORT") \
+            if port is None else int(port)
+        self.host = host
+        self._lock = threading.RLock()
+        self._service = service
+        self._server: Optional[_ObsHTTPServer] = None
+        self._thread: Optional[threading.Thread] = None
+
+    @property
+    def port(self) -> Optional[int]:
+        """The actually-bound TCP port (None before start())."""
+        with self._lock:
+            srv = self._server
+        return srv.server_address[1] if srv is not None else None
+
+    def url(self, route: str = "") -> str:
+        return f"http://{self.host}:{self.port}{route}"
+
+    def start(self) -> "ObsServer":
+        """Bind and serve (idempotent). Raises OSError when the port
+        cannot be bound — the caller decides whether that is fatal."""
+        with self._lock:
+            if self._server is not None:
+                return self
+            srv = _ObsHTTPServer((self.host, self.requested_port),
+                                 _Handler)
+            srv.service = self._service
+            self._server = srv
+            # the serve thread gets the server as an ARGUMENT, never
+            # re-read through self: a close() racing this start()
+            # nulls self._server, and a _serve that then skipped
+            # serve_forever would leave close() blocked forever in
+            # srv.shutdown() (which waits on an event only
+            # serve_forever sets)
+            self._thread = threading.Thread(
+                target=self._serve, args=(srv,), name="cylon-obs",
+                daemon=True)
+            self._thread.start()
+        _logger.info("obs endpoint serving on %s (routes: %s)",
+                     self.url(), ", ".join(ROUTES))
+        return self
+
+    def _serve(self, srv: _ObsHTTPServer) -> None:
+        srv.serve_forever(poll_interval=0.1)
+
+    def close(self, timeout: Optional[float] = None) -> None:
+        """Stop serving and JOIN the serve thread — after close() the
+        concurrency domain sweep sees no live obs thread."""
+        with self._lock:
+            srv, self._server = self._server, None
+            th, self._thread = self._thread, None
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        if th is not None:
+            th.join(timeout)
+
+    def __enter__(self) -> "ObsServer":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.close()

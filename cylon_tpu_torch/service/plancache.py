@@ -1,0 +1,323 @@
+"""Plan/fingerprint cache: repeated query shapes skip the optimizer
+(counterpart of cylon_tpu.service.plancache).
+
+A service absorbing traffic from many users sees the same handful of
+query shapes over and over: dashboards refresh, API endpoints re-issue
+the same join+aggregate with fresh parameters. The optimizer
+(plan/optimizer.py: its rewrite passes plus, in debug mode, the witness
+verifier) would re-derive the same physical plan every time. This module
+keys a bounded LRU of OPTIMIZED plans on a **structural fingerprint** of
+the logical IR tree (plan/fingerprint.py, the same strings as the JAX
+package's for the same plans):
+
+* **what the fingerprint covers** — node kinds, column schemas (names,
+  numpy dtype names, widths), join keys/type/algorithm, groupby
+  keys/aggregates, sort keys/order, set-op kind, projection positions,
+  the full filter expression (op + literal), each Scan's hash-placement
+  witness *shape* (positions + dtypes + world), and the world size.
+* **what it deliberately excludes** — table IDENTITIES (object ids,
+  registry ids, row contents). Two equal-shape queries over different
+  tables fingerprint identically: positions were bound at construction,
+  so the cached physical plan is correct for BOTH.
+
+Cache entries are stored as **stripped templates**: every Scan's table
+reference and registry id is nulled before insertion, so a template
+reaches no Table and no torch tensor and the cache never pins device
+memory (the ledger's leak discipline holds; ``copy.deepcopy`` of a
+template copies host objects only). A hit deep-copies the template and
+REBINDS the incoming query's Scan tables in walk order (the optimizer
+never reorders or duplicates scans, so the order is stable by
+construction).
+
+Verification discipline: a cache must never launder an unverified plan.
+Inserts go through ``optimizer.optimize``, whose
+``CYLON_TPU_VERIFY_PLANS=1`` debug assert verifies the plan at insert
+time; hits RE-verify the rebound plan under the same flag, so a
+hand-poisoned entry is rejected with a typed :class:`CylonPlanError` —
+and evicted — instead of silently executing an unsound elision.
+
+Adaptive staleness: each entry records the statistics-warehouse EPOCH
+and the optimizer's adaptive DECISION VECTOR (broadcast/salt choices,
+plan/optimizer.decision_vector) it was optimized under. A hit whose
+epoch moved re-checks the vector against the live warehouse: unchanged
+decisions refresh the entry (still a hit); changed ones evict and
+re-optimize (``cylon_plan_cache_stale_total``).
+
+Metrics: ``cylon_plan_cache_{hits,misses,evictions,stale}_total``. A hit
+re-fires the same lowerings, whose kernel libraries are already loaded:
+``cylon_kernel_factory_builds_total{factory="load_library"}`` does not
+move.
+
+Library-mode wiring: :func:`install` registers :func:`memo_optimize` as
+``plan.lazy``'s late-bound optimize hook — plan/ never imports service/,
+and even a bare ``LazyTable.collect()`` loop skips re-optimization on
+repeated shapes. ``CYLON_PLAN_CACHE_MAX`` bounds the cache (default 64);
+``0`` disables it entirely.
+"""
+from __future__ import annotations
+
+import copy
+import threading
+from collections import OrderedDict
+from contextlib import contextmanager
+from dataclasses import replace as _dc_replace
+from typing import Optional, Tuple
+
+from ..plan import ir
+# the structural fingerprint lives in plan/fingerprint.py (the
+# statistics warehouse keys by the same function, from below the
+# service tier); re-exported here — this module remains the semantics
+# owner of what the key covers (docstring above)
+from ..plan.fingerprint import FP_VERSION, fingerprint  # noqa: F401
+from ..plan.optimizer import PlanStats, adaptive_knobs as _adaptive_knobs, \
+    decision_vector as _decision_vector, optimize as _optimize
+from ..plan.verify import check_plan as _check_plan
+from ..telemetry import knobs as _knobs
+from ..telemetry import metrics as _metrics
+from ..telemetry import spans as _spans
+from ..telemetry import stats as _stats
+
+DEFAULT_CACHE_MAX = _knobs.default("CYLON_PLAN_CACHE_MAX")
+
+
+def cache_max() -> int:
+    return _knobs.get("CYLON_PLAN_CACHE_MAX")
+
+
+# ---------------------------------------------------------------------------
+# the bounded LRU of optimized-plan templates
+# ---------------------------------------------------------------------------
+
+
+def _scans(root: ir.PlanNode):
+    return [n for n in ir.walk(root) if isinstance(n, ir.Scan)]
+
+
+def _strip_template(root: ir.PlanNode) -> ir.PlanNode:
+    """Deep-copy an optimized plan and null every Scan's table handle —
+    a cached entry must never pin device memory or registry ids
+    (``ir.Scan.__deepcopy__`` shares its Table, so no tensor is
+    copied on the way)."""
+    tmpl = copy.deepcopy(root)
+    for s in _scans(tmpl):
+        s.table = None
+        s.table_id = None
+    return tmpl
+
+
+class PlanCache:
+    """Fingerprint → (optimized-plan template, PlanStats), bounded LRU.
+
+    ``optimize(root, world)`` is the one entry point: a hit rebinds the
+    template's scans to ``root``'s tables (and re-verifies under
+    ``CYLON_TPU_VERIFY_PLANS=1``); a miss runs the real optimizer and
+    inserts a stripped template. Thread-safe — service submitters
+    prepare plans concurrently with the executor worker."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._entries: "OrderedDict[str, tuple]" = OrderedDict()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+
+    def _counter(self, event: str):
+        return _metrics.REGISTRY.counter(
+            f"cylon_plan_cache_{event}_total")
+
+    def optimize(self, root: ir.PlanNode, world: int
+                 ) -> Tuple[ir.PlanNode, PlanStats]:
+        cap = cache_max()
+        if cap <= 0 or _bypassed():
+            _set_last_event(None, "bypass")
+            return _optimize(root, world)
+        fp = fingerprint(root, world)
+        with self._lock:
+            hit = self._entries.get(fp)
+            if hit is not None:
+                self._entries.move_to_end(fp)
+        if hit is not None and self._fresh(fp, hit, world):
+            out = self._rebind(fp, hit, root, world)
+            if out is not None:
+                self._counter("hits").inc()
+                _set_last_event(fp, "hit")
+                return out
+            # structural mismatch (defensive — the fingerprint covers
+            # scan layout, so this means a corrupted entry): drop it
+            # and fall through to a fresh optimize
+            self.invalidate(fp)
+        self._counter("misses").inc()
+        _set_last_event(fp, "miss")
+        opt_root, stats = _optimize(root, world)
+        # the template records the statistics EPOCH and the adaptive
+        # decision vector it was optimized under — the staleness
+        # signal (_fresh) that keeps a cached algorithm choice from
+        # outliving its evidence
+        epoch = _stats.epoch()
+        vec = _decision_vector(opt_root, world)
+        with self._lock:
+            self._entries[fp] = (_strip_template(opt_root), stats,
+                                 epoch, vec)
+            self._entries.move_to_end(fp)
+            while len(self._entries) > cap:
+                self._entries.popitem(last=False)
+                self._counter("evictions").inc()
+        return opt_root, stats
+
+    def _fresh(self, fp: str, entry: tuple, world: int) -> bool:
+        """Is a cached template's ADAPTIVE shape still what the
+        warehouse would decide today? Fast path: the stats epoch (and
+        the adaptive knobs) have not moved since the template was
+        optimized — hit without recomputing anything. Otherwise
+        recompute the decision vector over the template (decision
+        fingerprints are algorithm-invariant, so the rewritten
+        template resolves identically to the pre-rewrite tree): equal
+        means the epoch bump concerned OTHER shapes — refresh the
+        entry's epoch and hit; different means this template's
+        algorithm choices are stale — evict, miss, re-optimize. A
+        drift event therefore re-optimizes instead of replaying the
+        stale choice, and a newly-qualified build side flips a warmed
+        shape to broadcast without waiting for an LRU eviction."""
+        tmpl, stats, epoch, vec = entry
+        now_epoch = _stats.epoch()
+        knobs_now = ("knobs",) + _adaptive_knobs()
+        if epoch == now_epoch and vec and vec[0] == knobs_now:
+            return True
+        try:
+            vec_now = _decision_vector(tmpl, world)
+        except Exception:  # pragma: no cover - defensive
+            _spans.logger.exception(
+                "plan-cache staleness check failed for %s — evicting",
+                fp[:12])
+            self.invalidate(fp)
+            self._counter("stale").inc()
+            return False
+        if vec_now == vec:
+            with self._lock:
+                cur = self._entries.get(fp)
+                if cur is not None and cur[0] is tmpl:
+                    self._entries[fp] = (tmpl, stats, now_epoch, vec)
+            return True
+        self.invalidate(fp)
+        self._counter("stale").inc()
+        return False
+
+    def invalidate(self, fp: str) -> bool:
+        """Drop one entry; True when something was actually removed."""
+        with self._lock:
+            return self._entries.pop(fp, None) is not None
+
+    def _rebind(self, fp: str, entry: tuple, root: ir.PlanNode,
+                world: int) -> Optional[Tuple[ir.PlanNode, PlanStats]]:
+        """Instantiate a cached template for ``root``: deep-copy,
+        rebind scan tables in walk order, and (in debug mode) re-run
+        the witness verifier so a poisoned entry is rejected — evicted
+        and raised as :class:`CylonPlanError` — never executed."""
+        tmpl, stats = entry[0], entry[1]
+        plan = copy.deepcopy(tmpl)
+        dst, src = _scans(plan), _scans(root)
+        if len(dst) != len(src):
+            return None
+        for d, s in zip(dst, src):
+            d.table = s.table
+            d.table_id = s.table_id
+        if _knobs.get("CYLON_TPU_VERIFY_PLANS"):
+            try:
+                _check_plan(plan, world)
+            except Exception:
+                # a cache must never launder an unverified plan: drop
+                # the poisoned entry, then surface the typed error
+                self.invalidate(fp)
+                raise
+        return plan, _dc_replace(stats, notes=list(stats.notes))
+
+
+# per-thread record of the most recent optimize()'s cache fate —
+# (fingerprint, "hit" | "miss" | "bypass"). Thread-local, not global:
+# service submitters optimize concurrently, and each needs ITS query's
+# fate to stamp into the query-log digest (counter deltas would race).
+_last_event = threading.local()
+
+
+def _set_last_event(fp: Optional[str], cache: str) -> None:
+    _last_event.doc = {"plan_fp": fp, "plan_cache": cache}
+
+
+def last_event() -> Optional[dict]:
+    """The calling thread's most recent optimize() cache fate
+    (``{"plan_fp", "plan_cache"}``), or None — the scheduler reads it
+    right after ``query.optimized()`` on the submit thread and stamps
+    it onto the query's root attrs."""
+    return getattr(_last_event, "doc", None)
+
+
+def clear_last_event() -> None:
+    _last_event.doc = None
+
+
+# the process-global cache the library-mode memo and every
+# QueryService share — one fingerprint space per process
+_global = PlanCache()
+
+# bypass depth (plancache.disabled()): bench baselines measure the
+# uncached optimizer without disturbing the global cache's contents
+_bypass = 0
+_bypass_lock = threading.Lock()
+
+
+def global_cache() -> PlanCache:
+    return _global
+
+
+def _bypassed() -> bool:
+    return _bypass > 0  # cylint: disable=concurrency/lock-discipline — advisory GIL-atomic int read on the per-optimize fast path; the bench bypass tolerates one racing query either way
+
+
+@contextmanager
+def disabled():
+    """Temporarily bypass the cache (hits AND inserts) — the bench's
+    sequential-eager baseline measures the uncached optimizer cost."""
+    global _bypass
+    with _bypass_lock:
+        _bypass += 1
+    try:
+        yield
+    finally:
+        with _bypass_lock:
+            _bypass -= 1
+
+
+def memo_optimize(root: ir.PlanNode, world: int
+                  ) -> Tuple[ir.PlanNode, PlanStats]:
+    """The ``plan.lazy`` optimize hook: route every LazyTable
+    optimization through the global fingerprint cache."""
+    return _global.optimize(root, world)
+
+
+def _evict_on_drift(fp: str) -> None:
+    """The statistics warehouse's drift-eviction hook: a measured
+    distribution shift on a fingerprint means the cached optimized
+    template was learned against a world that no longer exists — drop
+    it so the next submission re-optimizes (and the store re-learns
+    from fresh measurements). Counted only when an entry was actually
+    removed — a disabled cache, an already-LRU-evicted entry, or a
+    second drifted node of the same plan must not inflate the
+    evictions series."""
+    if _global.invalidate(fp):
+        _metrics.REGISTRY.counter(
+            "cylon_plan_cache_evictions_total").inc()
+
+
+def install() -> None:
+    """Register the global cache as plan/'s late-bound optimize memo
+    and as the statistics warehouse's drift-eviction target
+    (idempotent; called by ``cylon_tpu_torch.service`` at import)."""
+    from ..plan import lazy as _lazy
+
+    _lazy.set_plan_memo(memo_optimize)
+    _stats.set_plan_evict_hook(_evict_on_drift)

@@ -21,8 +21,9 @@ knobs).
   per-tenant latency objectives, the statistics warehouse that feeds
   the optimizer's adaptive rewrites and admission, head sampling.
 
-The JAX package's compile profiler (``telemetry.profiler``, XLA cost
-analysis) is not ported: it needs a CUDA counterpart of its own.
+* ``profiler`` — the compile-cost profiler: each kernel library's nvcc
+  seconds and its kernels' ptxas resources (registers, shared memory,
+  spills), the CUDA counterpart of the JAX package's XLA cost analysis.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
                       metrics_snapshot, record_host_sync, reset_metrics,
                       sample_memory, set_memory_pool, get_memory_pool)
 from .export import JsonlSpanSink, prometheus_text, span_to_json
-from . import knobs, ledger, sampling, skew
+from . import knobs, ledger, profiler, sampling, skew
 from . import flight
 from . import stats
 from . import querylog, slo
@@ -57,5 +58,5 @@ __all__ = [
     "skew", "SkewStats", "ledger", "flight",
     "querylog", "slo", "sampling",
     "stats",
-    "knobs",
+    "knobs", "profiler",
 ]

@@ -298,9 +298,9 @@ def get_memory_pool():
 
 
 # Build hook: when installed, every counted_cache build passes its
-# result through ``hook(factory_name, built)`` (the JAX package's
-# compile profiler hangs here; its CUDA counterpart is not ported yet).
-# Kept as a late-bound module attribute.
+# result through ``hook(factory_name, built)`` (the compile profiler,
+# telemetry/profiler.py, hangs here). Kept as a late-bound module
+# attribute.
 _factory_build_hook: Optional[Callable] = None
 
 # Fault hook for the chaos injector (resilience/inject.py): when

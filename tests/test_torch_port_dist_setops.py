@@ -40,6 +40,16 @@ def _dist_arrays(seed, n):
 _JAX_DIST = {}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _release_reference_tables():
+    """The cached results are tracked tables of the JAX package's ledger:
+    drop them when the module ends, so that no later test file in this
+    process (pytest-xdist's ``--dist loadfile`` runs several files in one
+    worker) sees them live (ROADMAP queue 3, F6)."""
+    yield
+    _JAX_DIST.clear()
+
+
 def _jax_dist(request, world, op, build):
     key = (world, op)
     if key not in _JAX_DIST:

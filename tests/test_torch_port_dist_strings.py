@@ -36,6 +36,16 @@ N = 64  # rows a table: one shape, so cylon_tpu's programs compile once
 _REF = {}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _release_reference_tables():
+    """The cached results are tracked tables of the JAX package's ledger:
+    drop them when the module ends, so that no later test file in this
+    process (pytest-xdist's ``--dist loadfile`` runs several files in one
+    worker) sees them live (ROADMAP queue 3, F6)."""
+    yield
+    _REF.clear()
+
+
 def _ref(key, fn):
     """cylon_tpu's result of a case, computed once (its programs compile
     per shape; the port's routes reuse it)."""

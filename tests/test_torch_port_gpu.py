@@ -1418,3 +1418,146 @@ def test_spans_carry_hbm_delta_on_card(cuda):
     assert q.last_report.span.attrs["hbm_peak"] > 0
     assert q.last_report.memory["hbm_live_bytes"] > 0
     assert q.last_report.leaks == []
+
+
+def _service_rows(ctx, world_tables, queries: int = 4):
+    """_pipeline_rows's query served by a QueryService (tenants t0 and t1
+    in turns): every served result's (key, sum) rows."""
+    from cylon_tpu_torch.service import QueryService
+
+    left, right = world_tables
+    svc = QueryService(name="gpu-test", start=False)
+    tickets = [svc.submit(ct.plan.scan(left).join(ct.plan.scan(right),
+                                                  on="k")
+                          .groupby("lt-0", ["rt-4"], ["sum"]),
+                          tenant=f"t{i % 2}") for i in range(queries)]
+    svc.start()
+    svc.drain(timeout=600)
+    svc.close()
+    assert [tk.outcome for tk in tickets] == ["ok"] * queries
+    rows = []
+    for tk in tickets:
+        out = tk.result(timeout=60)
+        assert out._columns[0].data.device == ctx.device
+        live = out.emit_mask()
+        k = out._columns[0].data[live].cpu().numpy()
+        s = out._columns[1].data[live].cpu().numpy().astype(np.float64)
+        o = np.argsort(k)
+        rows.append((k[o], s[o]))
+    return rows
+
+
+@pytest.mark.parametrize("world", [1, 4])
+def test_service_on_card(cuda, world):
+    """Queries served by the QueryService's worker thread on the card
+    equal the CPU's served results (keys exact, sums within 1e-5 x sum
+    |x| of their group), K1-K4 launch (K3/K4 at world 1), and the
+    context's device carries its index."""
+    rng = np.random.default_rng(24)
+    n = 40_000
+    arrays = {"l": {"k": rng.integers(0, n // 4, n).astype(np.int32),
+                    "v": rng.normal(size=n).astype(np.float32),
+                    "z": rng.integers(0, 50, n).astype(np.int32)},
+              "r": {"k": rng.integers(0, n // 4, n).astype(np.int32),
+                    "w": rng.normal(size=n).astype(np.float32)}}
+    res = {}
+    for dev in ("cpu", "cuda"):
+        ctx = ct.CylonContext.InitDistributed(ct.VirtualWorldConfig(world),
+                                              device=dev) \
+            if world > 1 else ct.CylonContext.Init(device=dev)
+        if dev == "cuda":
+            assert ctx.device.index is not None
+        tables = (ct.Table.from_pydict(ctx, arrays["l"]),
+                  ct.Table.from_pydict(ctx, arrays["r"]))
+        K.reset_launches()
+        res[dev] = _service_rows(ctx, tables)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            need = ["join_plan_stream", "join_expand_stream"] + (
+                ["partition_hist", "partition_scatter"] if world > 1 else [])
+            assert all(K.LAUNCHES[k] >= 4 for k in need), K.LAUNCHES
+    cl = np.bincount(arrays["l"]["k"], minlength=n // 4)
+    for (kc, sc), (kg, sg) in zip(res["cpu"], res["cuda"]):
+        assert np.array_equal(kc, kg)
+        scale = np.array([cl[k] * np.abs(
+            arrays["r"]["w"][arrays["r"]["k"] == k]).astype(np.float64).sum()
+            for k in kc])
+        assert np.all(np.abs(sc - sg) <= 2e-5 * scale + 1e-30)
+
+
+def test_force_syncs_the_card(cuda, monkeypatch):
+    """benchutils' timer forces a CUDA result with one synchronize of its
+    card, whatever container holds it; a CPU result syncs nothing."""
+    from cylon_tpu_torch import benchutils
+
+    seen = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda device=None: (seen.append(device),
+                                             real(device)))
+    ctx = ct.CylonContext.Init()
+    t = ct.Table.from_pydict(ctx, {"a": np.arange(10)})
+    benchutils._force({"t": t, "x": [torch.ones(3, device=cuda), (t,)]})
+    assert seen == [ctx.device]
+    seen.clear()
+    benchutils._force([torch.ones(3)])
+    assert seen == []
+    ms, out = benchutils.benchmark_with_repetitions(3)(lambda: t)()
+    assert out is t and len(seen) == 3 and ms > 0
+
+
+def test_profiler_records_a_library_load(cuda):
+    """A library loaded while the profiler is on gets one record: its
+    nvcc seconds in this process (0.0 when loaded from _build/) and the
+    ptxas resources of each of its kernels, read from its build log."""
+    from cylon_tpu_torch.telemetry import profiler
+
+    K.build(["stream_compact"])
+    K.load_library.cache_clear()
+    profiler.reset()
+    profiler.enable()
+    try:
+        lib = K.load_library("stream_compact")
+    finally:
+        profiler.disable()
+    assert lib.cylon_library == "stream_compact"
+    recs = profiler.records()
+    assert len(recs) == 1 and recs[0]["factory"] == "stream_compact"
+    assert recs[0]["compile_s"] == round(
+        K.BUILD_SECONDS.get("stream_compact", 0.0), 6)
+    assert recs[0]["flops"] is None and recs[0]["bytes_accessed"] is None
+    kern = recs[0]["kernels"]
+    assert kern and all(v["registers"] > 0 for v in kern.values())
+    assert any("compact" in name for name in kern)
+    profiler.reset()
+
+
+@pytest.mark.parametrize("world", [4, 8])
+def test_task_exchange_on_card(cuda, world):
+    """plan.task_exchange on the card (K1/K2) equals its CPU run shard for
+    shard, in order, the __task__ column included."""
+    from cylon_tpu_torch.plan.tasks import LogicalTaskPlan, task_exchange
+
+    rng = np.random.default_rng(world)
+    n = 50_003
+    arrays = {"v": np.arange(n, dtype=np.int64),
+              "z": rng.normal(size=n).astype(np.float32)}
+    tasks = rng.integers(0, 64, n)
+    plan = LogicalTaskPlan({t: (t * 5) % world for t in range(64)}, world)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ctx = ct.CylonContext.InitDistributed(ct.VirtualWorldConfig(world),
+                                              device=dev)
+        K.reset_launches()
+        r = task_exchange(ct.Table.from_pydict(ctx, arrays), tasks, plan,
+                          ctx)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert K.LAUNCHES["partition_hist"] > 0 \
+                and K.LAUNCHES["partition_scatter"] > 0, K.LAUNCHES
+        emit = r.emit_mask().cpu()
+        out[dev] = (emit, [c.data.cpu() for c in r._columns])
+    (ec, cc), (eg, cg) = out["cpu"], out["cuda"]
+    assert torch.equal(ec, eg)
+    for a, b in zip(cc, cg):
+        assert torch.equal(a[ec], b[eg])

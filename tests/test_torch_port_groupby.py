@@ -171,6 +171,16 @@ def test_groupby_local_matches_cylon_tpu(local_ctx, tctxs, case, keys):
 _JAX_DIST = {}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _release_reference_tables():
+    """The cached results are tracked tables of the JAX package's ledger:
+    drop them when the module ends, so that no later test file in this
+    process (pytest-xdist's ``--dist loadfile`` runs several files in one
+    worker) sees them live (ROADMAP queue 3, F6)."""
+    yield
+    _JAX_DIST.clear()
+
+
 def _jax_dist(key, build):
     if key not in _JAX_DIST:
         _JAX_DIST[key] = build()

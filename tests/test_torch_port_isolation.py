@@ -38,7 +38,14 @@ def test_import_leaves_jax_and_cylon_tpu_out():
             " cylon_tpu_torch.plan.optimizer, cylon_tpu_torch.plan.report,"
             " cylon_tpu_torch.plan.lazy, cylon_tpu_torch.resilience,"
             " cylon_tpu_torch.resilience.admission,"
-            " cylon_tpu_torch.table_api, torch_port_mp_child;"
+            " cylon_tpu_torch.table_api, cylon_tpu_torch.service,"
+            " cylon_tpu_torch.service.scheduler,"
+            " cylon_tpu_torch.service.obs_http,"
+            " cylon_tpu_torch.service.plancache, cylon_tpu_torch.plan.tasks,"
+            " cylon_tpu_torch.parallel.task_plan,"
+            " cylon_tpu_torch.telemetry.profiler,"
+            " cylon_tpu_torch.arrow_builder, cylon_tpu_torch.io.dataloader,"
+            " cylon_tpu_torch.benchutils, torch_port_mp_child;"
             " bad = [m for m in sys.modules"
             " if m.split('.')[0] in ('jax', 'jaxlib', 'cylon_tpu')];"
             " print(bad); sys.exit(1 if bad else 0)")
@@ -55,7 +62,11 @@ def test_scan_covers_the_new_subpackages():
     for sub in ("plan/executor.py", "plan/optimizer.py", "plan/lazy.py",
                 "resilience/retry.py", "resilience/admission.py",
                 "telemetry/spans.py", "telemetry/ledger.py",
-                "table_api.py"):
+                "table_api.py", "service/__init__.py",
+                "service/plancache.py", "service/scheduler.py",
+                "service/obs_http.py", "plan/tasks.py",
+                "parallel/task_plan.py", "telemetry/profiler.py",
+                "arrow_builder.py", "io/dataloader.py", "benchutils.py"):
         assert sub in names
 
 

@@ -172,6 +172,16 @@ def _splitters_pair(jctx, tctx, jt, tt, by, asc):
 
 _JAX_SORTS = {}
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _release_reference_tables():
+    """The cached results are tracked tables of the JAX package's ledger:
+    drop them when the module ends, so that no later test file in this
+    process (pytest-xdist's ``--dist loadfile`` runs several files in one
+    worker) sees them live (ROADMAP queue 3, F6)."""
+    yield
+    _JAX_SORTS.clear()
+
 DIST_SORTS = {
     "one_key": (["k"], True),
     "two_keys_mixed": (["s", "k"], [False, True]),
