@@ -4,6 +4,7 @@
                           [--groupby-rows G] [--string-rows R]
                           [--bcast-rows B] [--shuffle-rows X]
                           [--service-rows Q] [--seed S] [--out PATH]
+                          [--parent-tree DIR]
 
 (``--mp-child RANK`` is how phase 22 starts its two processes.)
 
@@ -218,6 +219,24 @@ Phases, in order (any failure exits non-zero; nothing is caught):
      ``benchmark_with_repetitions`` timing of phase 2's join in turns
      with the same wall by hand (its synchronizes seen, the medians
      within 10%).
+ 25. the static-analysis suite (``cylon_tpu_torch.analysis``) and the
+     distributed ops' telemetry: 25a, ``python3 -m
+     cylon_tpu_torch.analysis --format json`` in a subprocess on this
+     machine, which has no jax: exit 0, no finding, ten families (its
+     collectives catalog on the CPU, the kernels' plain versions), its
+     seconds; 25b, the collectives catalog on CUDA tensors at world 4
+     under its dispatch mode, the launch counters 0 -> read: no finding,
+     each of K1-K6 launched; 25c (run right after phase 8, whose inputs
+     it reuses), each kernel wrapper once at phase 8's shapes under
+     ``torch.cuda.set_sync_debug_mode("error")``: no wrapper syncs; 25d,
+     phase 2's join (2 x N rows, world 4) once under ``collect_phases``:
+     its labels (``#seq`` stripped) and its ``cylon_host_syncs_total``
+     deltas equal ``REFERENCE_JOIN_TELEMETRY``, the reference's on the
+     CPU; with ``--parent-tree DIR`` (a checkout of the parent commit,
+     e.g. ``git archive`` into a directory .gitignore lists) the parent's
+     package is loaded beside this one under another name, its labels
+     and host syncs printed, and the same join of both run in turns (one
+     warm-up each, 9 rounds, medians and the difference printed).
 Phases 10-12, 23a and 24d each record the median of 5 steady runs after
 one warm-up.
 Tolerances: float sums 1e-5 * sum |x| of the group (+1e-30), float64
@@ -3095,6 +3114,177 @@ def edges_phase(ct, K, dctx, n: int, seed: int) -> dict:
     return {"bench_ms": by_bench, "hand_ms": by_hand}
 
 
+# phase 25: the analysis suite on the card, and the distributed ops'
+# telemetry
+
+# phase 2's join under collect_phases on the CPU, in both packages (the
+# reference's labels, #seq stripped, and its cylon_host_syncs_total
+# deltas; pinned by tests/test_torch_port_telemetry_parity.py)
+REFERENCE_JOIN_TELEMETRY = {
+    "labels": {"distributed_join.shuffle": 1, "shuffle.count": 1,
+               "shuffle.exchange_pair": 1, "distributed_join.plan": 1,
+               "distributed_join.materialize": 1},
+    "host_syncs": {"shuffle.count_pair": 1, "join.plan": 1}}
+ANALYSIS_FAMILIES = 10
+ANALYSIS_TIMEOUT_S = 300
+
+
+def host_sync_counts(tel) -> dict:
+    """``cylon_host_syncs_total`` by site."""
+    pre = 'cylon_host_syncs_total{site="'
+    return {k[len(pre):-2]: v for k, v in tel.metrics_snapshot().items()
+            if k.startswith(pre)}
+
+
+def join_telemetry(ct, ctx, n: int, seed: int) -> dict:
+    """Phase 2's join once under collect_phases: its labels (#seq
+    stripped) and host-sync deltas."""
+    import re
+
+    left, right, _h = make_tables(ct, ctx, n, seed)
+    sync()
+    before = host_sync_counts(ct.telemetry)
+    with ct.telemetry.collect_phases() as cp:
+        out = left.distributed_join(right, "inner", on=["k"],
+                                    force_exchange=True)
+        sync()
+    after = host_sync_counts(ct.telemetry)
+    labels = {}
+    for lab in cp.labels:
+        key = re.sub(r"#\d+$", "", lab)
+        labels[key] = labels.get(key, 0) + 1
+    return {"labels": labels, "rows": out.row_count,
+            "host_syncs": {k: v - before.get(k, 0) for k, v in after.items()
+                           if v != before.get(k, 0)}}
+
+
+def analysis_cli_phase() -> dict:
+    """25a: ``python3 -m cylon_tpu_torch.analysis --format json`` in a
+    subprocess on this machine (no jax here): exit 0, ten families."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "cylon_tpu_torch.analysis",
+                        "--format", "json"], cwd=root, capture_output=True,
+                       text=True, timeout=ANALYSIS_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    assert r.returncode == 0, (r.returncode, r.stdout[-4000:],
+                               r.stderr[-4000:])
+    doc = json.loads(r.stdout)
+    assert doc["ok"] and not doc["findings"], doc
+    assert len(doc["checkers"]) == ANALYSIS_FAMILIES, doc["checkers"]
+    log(f"phase 25a analysis suite (subprocess, CPU catalog): exit 0, "
+        f"{len(doc['checkers'])} families, {doc['suppressed']} "
+        f"suppressed, {wall:.2f} s")
+    for note in doc["notes"]:
+        log(f"  note: {note}")
+    return {"seconds": wall, "checkers": doc["checkers"],
+            "suppressed": doc["suppressed"], "notes": doc["notes"]}
+
+
+def analysis_card_phase(K) -> dict:
+    """25b: the collectives catalog on CUDA tensors at world 4 under the
+    dispatch mode, counters 0 -> read: no finding, K1-K6 launched."""
+    from cylon_tpu_torch import analysis as A
+
+    root = os.path.dirname(os.path.abspath(A.__file__))
+    ctx = A.AnalysisContext(os.path.dirname(root), {"device": "cuda"})
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res = A.run_checkers(ctx, ["collectives"])
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    assert res.ok, res.format_text()
+    missing = [k for k in K.KERNELS if launches[k] == 0]
+    assert not missing, f"catalog launched no {missing}: {launches}"
+    log(f"phase 25b collectives catalog on the card: no finding, "
+        f"{res.suppressed} suppressed, launches {launches}, {wall:.2f} s")
+    return {"seconds": wall, "launches": launches, "notes": res.notes}
+
+
+def wrappers_sync_free(K, calls) -> dict:
+    """25c: each kernel wrapper once at phase 8's shapes under
+    ``torch.cuda.set_sync_debug_mode("error")``: a wrapper that syncs
+    raises (the runtime side of hostsync/in-launch)."""
+    sync()
+    before = dict(K.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for name in K.KERNELS:
+            a, kw = calls[name]
+            getattr(K, name)(*a, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sync()
+    launched = {k: K.LAUNCHES[k] - before[k] for k in K.KERNELS}
+    assert all(v >= 1 for v in launched.values()), launched
+    return launched
+
+
+def load_parent_package(tree: str):
+    """The package of another checkout (``tree`` holds
+    ``cylon_tpu_torch/``) under the name ``cylon_tpu_torch_parent``, its
+    kernel libraries copied from this tree's build when the sources are
+    the same (their names are the hash of the sources)."""
+    import importlib.util
+    import shutil
+
+    from cylon_tpu_torch.ops import kernels as K
+
+    pkg = os.path.join(os.path.abspath(tree), "cylon_tpu_torch")
+    if K.BUILD_DIR.is_dir():
+        shutil.copytree(str(K.BUILD_DIR), os.path.join(pkg, "_build"),
+                        dirs_exist_ok=True)
+    spec = importlib.util.spec_from_file_location(
+        "cylon_tpu_torch_parent", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["cylon_tpu_torch_parent"] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def join_telemetry_phase(ct, n: int, seed: int, parent_tree) -> dict:
+    """25d: phase 2's join (2 x n rows, world 4): its labels and
+    host-sync deltas equal REFERENCE_JOIN_TELEMETRY; with a parent tree,
+    the same join of both trees' packages in turns (one process, the
+    parent's package under another name)."""
+    ctx = ct.CylonContext.InitDistributed(ct.VirtualWorldConfig(WORLD))
+    tel = join_telemetry(ct, ctx, n, seed)
+    assert tel["labels"] == REFERENCE_JOIN_TELEMETRY["labels"], tel
+    assert tel["host_syncs"] == REFERENCE_JOIN_TELEMETRY["host_syncs"], tel
+    log(f"phase 25d join (2 x {n} rows, world {WORLD}): labels "
+        f"{tel['labels']} and host syncs {tel['host_syncs']} equal the "
+        f"reference's")
+    res = {"this": tel}
+    if parent_tree is None:
+        log("  no --parent-tree: the wall against the parent is not taken")
+        return res
+    pt = load_parent_package(parent_tree)
+    pt.ops.kernels.build()
+    pctx = pt.CylonContext.InitDistributed(pt.VirtualWorldConfig(WORLD))
+    res["parent"] = join_telemetry(pt, pctx, n, seed)
+    assert res["parent"]["rows"] == tel["rows"]
+    lt, rt, _h = make_tables(ct, ctx, n, seed)
+    lp, rp, _h = make_tables(pt, pctx, n, seed)
+    walls = in_turns({
+        "parent": lambda: lp.distributed_join(rp, "inner", on=["k"],
+                                              force_exchange=True),
+        "this": lambda: lt.distributed_join(rt, "inner", on=["k"],
+                                            force_exchange=True)},
+        rounds=9)
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    res.update(walls_s=walls, median_s=med,
+               delta_ms=(med["this"] - med["parent"]) * 1e3,
+               ratio=med["this"] / med["parent"])
+    log(f"  parent's host syncs {res['parent']['host_syncs']}, labels "
+        f"{res['parent']['labels']}")
+    log(f"  walls in turns (s) {walls}; medians parent "
+        f"{med['parent']:.6f}, this {med['this']:.6f}: "
+        f"{res['delta_ms']:+.3f} ms ({res['ratio']:.4f}x)")
+    return res
+
+
 class PhaseClock:
     """Seconds since the script started at each phase's start."""
 
@@ -3133,6 +3323,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="also write the result JSON to this path")
+    ap.add_argument("--parent-tree", default=None,
+                    help="a checkout of the parent commit: phase 25d "
+                         "times phase 2's join of both trees in turns")
     ap.add_argument("--mp-child", type=int, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--rdv", help=argparse.SUPPRESS)
@@ -3263,7 +3456,7 @@ def main() -> int:
     # phase 8: each kernel at the shapes its path gave it
     calls = dict(rec.calls, **setop.pop("calls"))
     results = check_kernels(K, calls)
-    del rec, calls
+    del rec
     # launches: K1-K4 from the join's main path, K5/K6 summed over the
     # three set ops' kernel-route runs (each counted from 0)
     for name in ("setop_stream", "stream_compact"):
@@ -3285,7 +3478,10 @@ def main() -> int:
     assert [k["name"] for k in kernels] == list(K.KERNELS)
     bad = [k["name"] for k in kernels if k["max_abs_err"] != 0]
     assert not bad, f"kernels disagree with their plain versions: {bad}"
+    # phase 25c runs here, where phase 8's inputs are still held
+    sync_free25 = wrappers_sync_free(K, calls)
 
+    del calls
     clock.mark("9")
     # phase 9: a small join against an independent numpy join
     small = 5003
@@ -3400,6 +3596,18 @@ def main() -> int:
         log(f"launches of {name}: join {launches[name]}, one 24a service "
             f"batch {launches_24}, 24d {tasks24['launches'][name]}")
 
+    # phase 25: the analysis suite, its catalog on the card, the
+    # wrappers' sync check (run after phase 8) and the join's telemetry
+    clock.mark("25a")
+    analysis25 = analysis_cli_phase()
+    clock.mark("25b")
+    card25 = analysis_card_phase(K)
+    log(f"phase 25c each wrapper at phase 8's shapes under "
+        f"set_sync_debug_mode('error') (run after phase 8): no sync, "
+        f"launches {sync_free25}")
+    clock.mark("25d")
+    tel25 = join_telemetry_phase(ct, n, args.seed, args.parent_tree)
+
     clock.mark("end")
     summary = {"kernels": kernels}
     log(f"seconds a phase: {clock.spans()}; total {clock.marks[-1][1]} s")
@@ -3432,6 +3640,9 @@ def main() -> int:
                            service_pipeline=service24, service_obs=obs24,
                            service_outcomes=outcomes24,
                            task_exchange=tasks24, edges=edges24,
+                           analysis_cli=analysis25, analysis_card=card25,
+                           wrappers_sync_free=sync_free25,
+                           join_telemetry=tel25,
                            phase_seconds=clock.spans()), f, indent=1,
                       default=str)
     log(json.dumps(summary))

@@ -1,0 +1,817 @@
+"""Thread-domain race detector for the concurrent service tier
+(counterpart of cylon_tpu.analysis.concurrency, the same domains and
+lock rules; where the JAX package's rules name jax dispatch, the port's
+name ``torch.cuda``).
+
+The service tier makes the engine genuinely multi-threaded: submitter
+threads run optimization/pre-flight concurrently with one executor
+worker, a shared
+plan-cache LRU absorbs hits from every thread, ledger weakref
+finalizers fire wherever GC happens to run, and flight-recorder hooks
+run on whichever thread closes a root span. The reference Cylon
+sidesteps all of this with one-MPI-rank-per-process; our service tier
+cannot — and a race caught by lint is infinitely cheaper than one
+caught under production load.
+
+The pass reuses hostsync's transitive call-graph machinery
+(``core.call_closure``) to compute what each **thread domain** reaches:
+
+* ``worker:<fn>`` — every ``threading.Thread(target=...)`` target (the
+  service executor's ``_run`` loop); serial with itself, concurrent
+  with everything else.
+* ``api`` — the public submitter surface: public methods of every
+  top-level class in a thread-spawning module (``submit``/``close``/
+  ``drain``/ticket accessors), public module functions there, plus the
+  ``DECLARED_ENTRIES`` catalog below (plan cache, ledger surface, fault
+  injector arm/disarm — entry points many user threads call at once).
+  Concurrent with itself.
+* ``finalizer`` — ``weakref.ref``/``weakref.finalize`` callbacks (the
+  ledger's GC retire path): fire on ARBITRARY threads, mid-allocation,
+  even inside another function's critical section. Concurrent with
+  itself and everything else, and additionally **non-reentrant**: it
+  may interrupt a thread that already holds a plain ``threading.Lock``
+  the callback wants.
+* ``hook`` — callbacks registered through ``atexit.register`` and the
+  telemetry hook registrars (``add_root_hook``/``add_sink``/
+  ``add_dump_section``/``set_factory_*_hook``/``set_plan_memo``): they
+  run on whichever thread triggers them.
+
+Rules (all package-relative, suppressible per line like every family):
+
+* ``concurrency/unlocked-shared-write`` — instance-attribute or
+  module-global state written (outside ``__init__``) with NO lock
+  while its access sites span ≥2 domains or a self-concurrent domain.
+* ``concurrency/lock-discipline`` — inferred per attribute: state ever
+  written under a lock must hold that lock at EVERY access; an
+  unlocked read of locked-write state is a torn-read/lost-update site.
+* ``concurrency/blocking-under-lock`` — a blocking call (``time.sleep``,
+  ``.result()``/``.join()``/``.acquire()``/foreign ``.wait()``,
+  ``queue.get`` — the bare zero-arg form blocks indefinitely, the
+  ``block=``/``timeout=`` forms bound it — or a CUDA synchronize
+  (``torch.cuda.synchronize``, a stream's or event's ``synchronize``),
+  directly
+  or transitively through the call graph) made while holding a lock:
+  the serialization/deadlock hazard class. ``held_cv.wait()`` is legal
+  (Condition.wait releases its lock), as are the explicitly
+  non-blocking spellings ``acquire(blocking=False)`` /
+  ``get(block=False)``.
+* ``concurrency/unstamped-contextvar`` — a contextvar ``.get()``
+  reached from a thread-entry domain (worker/finalizer/hook) whose
+  closure never ``set``s it: a fresh thread's context carries the
+  DEFAULT, not the submitter's stamp — exactly the tenant-label /
+  deadline bug class the service tier dodges with ``root_attrs``/
+  ``query_deadline`` re-stamps.
+* ``concurrency/finalizer-hazard`` — finalizer-domain code acquiring a
+  NON-reentrant ``threading.Lock`` (same-thread GC re-entry deadlocks
+  it; use RLock) or touching ``torch.cuda`` (a CUDA call from an
+  arbitrary thread at an arbitrary GC point).
+
+Static limits, by design: calls through local variables/parameters
+(``ticket._finish(...)``) and container-method mutation
+(``list.append``) are invisible — the checker trades recall for a
+near-zero false-positive rate; the dynamic barrier-hammer test in
+tests/test_service.py corroborates from the other side.
+"""
+from __future__ import annotations
+
+import ast
+from typing import Dict, List, Optional, Set, Tuple
+
+from .core import (AnalysisContext, Finding, ModuleIndex, attr_chain,
+                   build_module_index, call_closure, register)
+
+# domains that can run concurrently with THEMSELVES (many user threads
+# in the API; GC/hooks fire wherever)
+SELF_CONCURRENT = ("api", "finalizer", "hook")
+
+# the real package's declared entry-point catalog: public surfaces many
+# threads call that no syntactic Thread/weakref scan can discover
+# (documented in docs/service.md "Threading model"). Entries whose
+# module/function are absent from the scanned tree are ignored, so
+# fixture trees are unaffected.
+DECLARED_ENTRIES: Tuple[Tuple[str, str, str], ...] = (
+    # the plan/fingerprint cache: submitter threads race the LRU
+    ("api", "service.plancache", "PlanCache.optimize"),
+    ("api", "service.plancache", "PlanCache.clear"),
+    ("api", "service.plancache", "PlanCache.invalidate"),
+    ("api", "service.plancache", "memo_optimize"),
+    ("api", "service.plancache", "disabled"),
+    # the ledger's public surface: every executing thread tracks
+    ("api", "telemetry.ledger", "track"),
+    ("api", "telemetry.ledger", "release"),
+    ("api", "telemetry.ledger", "live_bytes"),
+    ("api", "telemetry.ledger", "outstanding"),
+    ("api", "telemetry.ledger", "leak_report"),
+    ("api", "telemetry.ledger", "leak_count"),
+    # chaos arming happens from test and harness threads while workers fire
+    ("api", "resilience.inject", "arm"),
+    ("api", "resilience.inject", "disarm"),
+    ("api", "resilience.inject", "state"),
+    # the observability endpoint: ThreadingHTTPServer spawns one
+    # daemon thread PER REQUEST inside the stdlib (no syntactic
+    # Thread(...) for the scan to find), so the handler entry point
+    # and the route renderers are declared concurrency domains —
+    # scrapes race submitters, the worker, finalizers, everything
+    ("api", "service.obs_http", "_Handler.do_GET"),
+    ("api", "service.obs_http", "render_metrics"),
+    ("api", "service.obs_http", "render_healthz"),
+    ("api", "service.obs_http", "render_queries"),
+    ("api", "service.obs_http", "render_slo"),
+    ("api", "service.obs_http", "ObsServer.close"),
+    # the structured query log: fed by the root-span hook, read by
+    # scrape threads and tests
+    ("api", "telemetry.querylog", "recent"),
+    ("api", "telemetry.querylog", "enable"),
+    ("api", "telemetry.querylog", "disable"),
+    ("api", "telemetry.querylog", "lines_written"),
+    ("api", "telemetry.querylog", "reset"),
+    # the SLO tracker: observed from the hook domain, read by scrapes
+    ("api", "telemetry.slo", "observe"),
+    ("api", "telemetry.slo", "state"),
+    ("api", "telemetry.slo", "reset"),
+    # the statistics warehouse: fed by the querylog root hook, read by
+    # the admission path (submitters + the executor worker), scraped
+    # by /stats request threads, persisted from service lifecycle
+    ("api", "service.obs_http", "render_stats"),
+    ("api", "telemetry.stats", "record_root"),
+    ("api", "telemetry.stats", "effective_bytes"),
+    ("api", "telemetry.stats", "node_obs"),
+    ("api", "telemetry.stats", "recent_drift"),
+    ("api", "telemetry.stats", "state"),
+    ("api", "telemetry.stats", "save"),
+    ("api", "telemetry.stats", "load"),
+    ("api", "telemetry.stats", "reset"),
+)
+
+# hook registrars: a function-valued argument to one of these becomes
+# hook-domain code (runs on whichever thread triggers the hook)
+HOOK_REGISTRARS = ("add_root_hook", "add_sink", "add_dump_section",
+                   "set_factory_fault_hook", "set_factory_build_hook",
+                   "set_plan_memo", "set_plan_evict_hook")
+
+_LOCK_CTORS = {
+    ("threading", "Lock"): False,      # reentrant? no
+    ("threading", "RLock"): True,
+    ("threading", "Condition"): True,  # default wraps an RLock
+    ("Lock",): False,
+    ("RLock",): True,
+    ("Condition",): True,
+}
+
+_THREAD_CTORS = (("threading", "Thread"), ("Thread",))
+_WEAKREF_CBS = (("weakref", "ref"), ("weakref", "finalize"),
+                ("ref",), ("finalize",))
+_CONTEXTVAR_CTORS = (("contextvars", "ContextVar"), ("ContextVar",))
+
+LockKey = Tuple  # ("cls", mod, Cls, attr) | ("mod", mod, name)
+FnKey = Tuple[str, str]  # (module, qualname)
+
+
+# ---------------------------------------------------------------------------
+# package inventory: locks + contextvars
+# ---------------------------------------------------------------------------
+
+
+class _Inventory:
+    def __init__(self, modules: Dict[str, ModuleIndex]):
+        # lock key -> reentrant?
+        self.locks: Dict[LockKey, bool] = {}
+        # (mod, name) of every module-level ContextVar
+        self.contextvars: Set[Tuple[str, str]] = set()
+        # module-level simple-assigned names (the global-state universe)
+        self.globals: Dict[str, Set[str]] = {}
+        for modname, mod in modules.items():
+            g: Set[str] = set()
+            for node in mod.sf.tree.body:
+                if isinstance(node, ast.Assign) and \
+                        len(node.targets) == 1 and \
+                        isinstance(node.targets[0], ast.Name):
+                    name = node.targets[0].id
+                    g.add(name)
+                    if isinstance(node.value, ast.Call):
+                        chain = attr_chain(node.value.func)
+                        if chain in _LOCK_CTORS:
+                            self.locks[("mod", modname, name)] = \
+                                _LOCK_CTORS[chain]
+                        elif chain in _CONTEXTVAR_CTORS:
+                            self.contextvars.add((modname, name))
+                elif isinstance(node, ast.AnnAssign) and \
+                        isinstance(node.target, ast.Name):
+                    g.add(node.target.id)
+                    if isinstance(node.value, ast.Call):
+                        chain = attr_chain(node.value.func)
+                        if chain in _CONTEXTVAR_CTORS:
+                            self.contextvars.add((modname,
+                                                  node.target.id))
+            self.globals[modname] = g
+            # instance locks: self.X = threading.Lock() in any method
+            for qual, fn in mod.methods.items():
+                cls = qual.split(".", 1)[0]
+                for node in ast.walk(fn):
+                    if not (isinstance(node, ast.Assign) and
+                            len(node.targets) == 1):
+                        continue
+                    tgt = node.targets[0]
+                    if not (isinstance(tgt, ast.Attribute) and
+                            isinstance(tgt.value, ast.Name) and
+                            tgt.value.id == "self" and
+                            isinstance(node.value, ast.Call)):
+                        continue
+                    chain = attr_chain(node.value.func)
+                    if chain in _LOCK_CTORS:
+                        self.locks[("cls", modname, cls, tgt.attr)] = \
+                            _LOCK_CTORS[chain]
+
+    def lock_of(self, chain, modname: str, cls: Optional[str]
+                ) -> Optional[LockKey]:
+        """The lock key a with-item / receiver chain names, or None."""
+        if chain is None:
+            return None
+        if len(chain) == 1:
+            key = ("mod", modname, chain[0])
+            return key if key in self.locks else None
+        if len(chain) == 2 and chain[0] == "self" and cls is not None:
+            key = ("cls", modname, cls, chain[1])
+            return key if key in self.locks else None
+        return None
+
+
+# ---------------------------------------------------------------------------
+# per-function lexical scan (lock regions, calls, accesses)
+# ---------------------------------------------------------------------------
+
+
+class _Access:
+    __slots__ = ("name", "write", "line", "held")
+
+    def __init__(self, name, write, line, held):
+        self.name = name
+        self.write = write
+        self.line = line
+        self.held = held
+
+
+class _CallSite:
+    __slots__ = ("node", "chain", "held", "line")
+
+    def __init__(self, node, chain, held, line):
+        self.node = node
+        self.chain = chain
+        self.held = held
+        self.line = line
+
+
+class _FnScan:
+    """One function's lexical facts: every call site and every
+    ``self.X`` / module-global access, each tagged with the lock set
+    held at that point. Nested ``def``/``lambda`` bodies are separate
+    execution scopes (they run LATER, not under the enclosing locks)
+    and are skipped."""
+
+    def __init__(self, fn: ast.AST, mod: ModuleIndex, inv: _Inventory,
+                 qualname: str):
+        self.mod = mod
+        self.cls = qualname.split(".", 1)[0] if "." in qualname else None
+        self.inv = inv
+        self.calls: List[_CallSite] = []
+        self.attr_acc: List[_Access] = []    # self.X accesses
+        self.global_acc: List[_Access] = []  # module-global accesses
+        self.with_locks: List[Tuple] = []    # (lockkey, line, held)
+        self._globals_declared: Set[str] = set()
+        self._locals: Set[str] = set()
+        args = fn.args
+        for a in (list(args.posonlyargs) + list(args.args) +
+                  list(args.kwonlyargs) +
+                  ([args.vararg] if args.vararg else []) +
+                  ([args.kwarg] if args.kwarg else [])):
+            self._locals.add(a.arg)
+        # pre-pass: global decls + local assignments (name shadowing).
+        # Own scope ONLY — a nested def binds its NAME here but its
+        # body is a separate scope, and walking it would let a nested
+        # function's local shadow a same-named module global, hiding
+        # the outer function's global accesses from every shared-state
+        # rule (a false negative in exactly the race class this
+        # checker exists for).
+        stack = list(ast.iter_child_nodes(fn))
+        while stack:
+            node = stack.pop()
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                self._locals.add(node.name)
+                continue
+            if isinstance(node, ast.Lambda):
+                continue
+            if isinstance(node, ast.Global):
+                self._globals_declared.update(node.names)
+            elif isinstance(node, ast.Name) and \
+                    isinstance(node.ctx, (ast.Store,)):
+                self._locals.add(node.id)
+            stack.extend(ast.iter_child_nodes(node))
+        self._locals -= self._globals_declared
+        for stmt in fn.body:
+            self._visit(stmt, frozenset())
+
+    def _is_global(self, name: str) -> bool:
+        if name in self._globals_declared:
+            return True
+        return name in self.inv.globals.get(self.mod.modname, ()) and \
+            name not in self._locals
+
+    def _visit(self, node: ast.AST, held: frozenset) -> None:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.Lambda)):
+            return  # separate execution scope
+        if isinstance(node, (ast.With, ast.AsyncWith)):
+            # items acquire left-to-right: item N's context expression
+            # evaluates with items 1..N-1 already held, so scan each
+            # against the ACCUMULATED set, not the outer one
+            new = set(held)
+            for item in node.items:
+                key = self.inv.lock_of(attr_chain(item.context_expr),
+                                       self.mod.modname, self.cls)
+                if key is not None:
+                    self.with_locks.append((key, node.lineno,
+                                            frozenset(new)))
+                    new.add(key)
+                else:
+                    self._visit(item.context_expr, frozenset(new))
+            for sub in node.body:
+                self._visit(sub, frozenset(new))
+            return
+        if isinstance(node, ast.Call):
+            chain = attr_chain(node.func)
+            if chain is not None:
+                self.calls.append(_CallSite(node, chain, held,
+                                            node.lineno))
+        if isinstance(node, ast.Attribute) and \
+                isinstance(node.value, ast.Name) and \
+                node.value.id == "self":
+            self.attr_acc.append(_Access(
+                node.attr, isinstance(node.ctx, (ast.Store, ast.Del)),
+                node.lineno, held))
+        if isinstance(node, ast.Name) and self._is_global(node.id):
+            self.global_acc.append(_Access(
+                node.id, isinstance(node.ctx, (ast.Store, ast.Del)),
+                node.lineno, held))
+        # container mutation through subscript: self.X[k] = v / X[k] = v
+        if isinstance(node, ast.Subscript) and \
+                isinstance(node.ctx, (ast.Store, ast.Del)):
+            base = node.value
+            if isinstance(base, ast.Attribute) and \
+                    isinstance(base.value, ast.Name) and \
+                    base.value.id == "self":
+                self.attr_acc.append(_Access(base.attr, True,
+                                             node.lineno, held))
+            elif isinstance(base, ast.Name) and \
+                    self._is_global(base.id):
+                self.global_acc.append(_Access(base.id, True,
+                                               node.lineno, held))
+        for child in ast.iter_child_nodes(node):
+            self._visit(child, held)
+
+
+# ---------------------------------------------------------------------------
+# domain discovery
+# ---------------------------------------------------------------------------
+
+
+def _fn_target(arg: ast.AST, mod: ModuleIndex, cls: Optional[str]
+               ) -> List[FnKey]:
+    """Resolve a function-valued argument (Name / self.X / lambda) to
+    (module, qualname) keys; a lambda contributes its callees."""
+    chain = attr_chain(arg)
+    if chain is not None:
+        if len(chain) == 1:
+            name = chain[0]
+            if name in mod.functions:
+                return [(mod.modname, name)]
+            if name in mod.fn_imports:
+                return [mod.fn_imports[name]]
+        elif len(chain) == 2 and chain[0] == "self" and cls is not None:
+            return [(mod.modname, f"{cls}.{chain[1]}")]
+    if isinstance(arg, ast.Lambda):
+        from .core import called_functions
+        return sorted(called_functions(arg.body, mod, None, cls))
+    return []
+
+
+def _discover_domains(modules: Dict[str, ModuleIndex]
+                      ) -> Dict[str, Dict[FnKey, str]]:
+    """Domain name -> seed map {(mod, qualname): description}."""
+    domains: Dict[str, Dict[FnKey, str]] = {}
+
+    def seed(domain: str, key: FnKey, desc: str) -> None:
+        domains.setdefault(domain, {}).setdefault(key, desc)
+
+    for modname, mod in modules.items():
+        spawns_in_module = False
+        # scan every function/method body AND module-level statements
+        bodies = [(None, mod.sf.tree)] + \
+            [(None, f) for f in mod.functions.values()] + \
+            [(q.split(".", 1)[0], f) for q, f in mod.methods.items()]
+        thread_targets: Set[FnKey] = set()
+        for cls, body in bodies:
+            for node in ast.walk(body):
+                if not isinstance(node, ast.Call):
+                    continue
+                chain = attr_chain(node.func)
+                if chain is None:
+                    continue
+                args = list(node.args)
+                kwargs = {k.arg: k.value for k in node.keywords}
+                if chain in _THREAD_CTORS:
+                    tgt = kwargs.get("target") or \
+                        (args[1] if len(args) > 1 else None)
+                    if tgt is not None:
+                        for key in _fn_target(tgt, mod, cls):
+                            name = f"worker:{key[0] or 'pkg'}.{key[1]}"
+                            seed(name, key, key[1])
+                            thread_targets.add(key)
+                            spawns_in_module = True
+                elif chain in _WEAKREF_CBS:
+                    cb = args[1] if len(args) > 1 else \
+                        kwargs.get("callback")
+                    if cb is not None:
+                        for key in _fn_target(cb, mod, cls):
+                            seed("finalizer", key,
+                                 f"GC finalizer {key[1]}")
+                elif chain == ("atexit", "register") and args:
+                    for key in _fn_target(args[0], mod, cls):
+                        seed("hook", key, f"atexit {key[1]}")
+                elif chain[-1] in HOOK_REGISTRARS:
+                    for a in list(args) + list(kwargs.values()):
+                        for key in _fn_target(a, mod, cls):
+                            seed("hook", key,
+                                 f"{chain[-1]} callback {key[1]}")
+        # public submitter surface of thread-spawning modules: public
+        # methods of every public top-level class (minus the thread
+        # targets) + public module functions
+        if spawns_in_module:
+            for qual, fn in mod.methods.items():
+                cls, meth = qual.split(".", 1)
+                if cls.startswith("_"):
+                    continue
+                public = not meth.startswith("_") or \
+                    meth in ("__enter__", "__exit__", "__call__")
+                if public and (modname, qual) not in thread_targets:
+                    seed("api", (modname, qual), qual)
+            for name in mod.functions:
+                if not name.startswith("_"):
+                    seed("api", (modname, name), name)
+
+    # the declared catalog (real-tree entries; absent ones ignored)
+    for domain, modname, qual in DECLARED_ENTRIES:
+        mod = modules.get(modname)
+        if mod is not None and mod.lookup(qual) is not None:
+            seed(domain, (modname, qual), qual)
+    return domains
+
+
+# ---------------------------------------------------------------------------
+# the checker
+# ---------------------------------------------------------------------------
+
+
+_BLOCKING_ATTRS = ("result", "join", "acquire", "wait", "wait_for")
+
+
+def _kwarg_is_false(call: ast.Call, name: str) -> bool:
+    """True when the call passes ``name=False`` literally — the
+    explicit non-blocking spelling of acquire()/queue.get()."""
+    for k in call.keywords:
+        if k.arg == name and isinstance(k.value, ast.Constant) and \
+                k.value.value is False:
+            return True
+    return False
+
+
+def _blocking_primitive(site: _CallSite, inv: _Inventory,
+                        mod: ModuleIndex, cls: Optional[str]
+                        ) -> Optional[str]:
+    """A human-readable description when this call site IS a blocking
+    primitive (ignoring lock context), else None."""
+    chain = site.chain
+    if chain in (("time", "sleep"), ("sleep",)):
+        return "time.sleep"
+    if len(chain) >= 2 and chain[-1] == "synchronize":
+        return f"CUDA synchronize {'.'.join(chain)}"
+    if len(chain) >= 2 and chain[-1] in _BLOCKING_ATTRS:
+        if _kwarg_is_false(site.node, "blocking"):
+            return None  # lock.acquire(blocking=False) never blocks
+        if chain[-1] == "join":
+            # disambiguate Thread.join from the string/os.path shapes:
+            # a 2-chain non-os receiver (`worker.join(t)`) is treated
+            # as a thread, and a longer chain only when it is
+            # self-held (`self._worker.join()` — the canonical
+            # shutdown-deadlock shape) or passes timeout= (str.join
+            # has no kwargs). `sep.join(parts)` under a lock is the
+            # residual false positive; per-line disable covers it.
+            kw = {k.arg for k in site.node.keywords}
+            threadish = (len(chain) == 2 and chain[0] != "os") or \
+                chain[0] == "self" or "timeout" in kw
+            if not threadish:
+                return None
+        return f"{'.'.join(chain)}()"
+    if len(chain) >= 2 and chain[-1] == "get":
+        if _kwarg_is_false(site.node, "block"):
+            return None  # queue.get(block=False) never blocks
+        kw = {k.arg for k in site.node.keywords}
+        if kw & {"timeout", "block"}:
+            return f"{'.'.join(chain)}(block/timeout)"
+        # bare q.get() — no args at all — is the INDEFINITELY-blocking
+        # queue shape (dict/os.environ .get always takes a key).
+        # Zero-arg ContextVar.get() is the other common shape; exclude
+        # receivers whose terminal name is a known module-level
+        # ContextVar (name-level match — good enough for a lint).
+        if not site.node.args and not site.node.keywords:
+            cv_names = {n for _, n in inv.contextvars}
+            if chain[-2] not in cv_names:
+                return f"{'.'.join(chain)}() [bare queue-get shape]"
+    return None
+
+
+def _held_lock_wait(site: _CallSite, inv: _Inventory, mod: ModuleIndex,
+                    cls: Optional[str], held: frozenset) -> bool:
+    """``held_cv.wait()`` — Condition.wait RELEASES its lock, the one
+    legal blocking call under that same lock. ``held`` must be the
+    EFFECTIVE held set (lexical + caller-inherited), else refactoring a
+    cv.wait into a helper only ever called under ``with self._cv:``
+    would false-positive."""
+    chain = site.chain
+    if chain[-1] not in ("wait", "wait_for"):
+        return False
+    key = inv.lock_of(chain[:-1], mod.modname, cls)
+    return key is not None and key in held
+
+
+@register("concurrency")
+def check_concurrency(ctx: AnalysisContext) -> List[Finding]:
+    modules = build_module_index(ctx)
+    package = ctx.package_name
+    inv = _Inventory(modules)
+    domains = _discover_domains(modules)
+    if not domains:
+        ctx.options.setdefault("notes", []).append(
+            "concurrency: no thread domains discovered (no Thread/"
+            "weakref/hook entry points)")
+        return []
+
+    # close each domain over the call graph
+    closures: Dict[str, Dict[FnKey, str]] = {
+        d: call_closure(modules, seeds, package)
+        for d, seeds in domains.items()}
+    fn_domains: Dict[FnKey, Set[str]] = {}
+    fn_desc: Dict[FnKey, str] = {}
+    for d, closed in closures.items():
+        for key, desc in closed.items():
+            fn_domains.setdefault(key, set()).add(d)
+            fn_desc.setdefault(key, desc)
+
+    # lexical scans for every domain function that resolves to source
+    scans: Dict[FnKey, _FnScan] = {}
+    for key in fn_domains:
+        mod = modules.get(key[0])
+        fn = mod.lookup(key[1]) if mod is not None else None
+        if fn is not None:
+            scans[key] = _FnScan(fn, mod, inv, key[1])
+
+    # inherited locks: a function ALL of whose visible call sites hold
+    # lock L runs under L (the _pick_locked "caller holds the lock"
+    # idiom); entry-point seeds are externally invoked -> no locks.
+    from .core import called_functions
+    seeds_all: Set[FnKey] = set()
+    for seed_map in domains.values():
+        seeds_all.update(seed_map)
+    inherited: Dict[FnKey, frozenset] = {k: frozenset() for k in scans}
+    for _ in range(6):
+        changed = False
+        site_locks: Dict[FnKey, List[frozenset]] = {}
+        for key, scan in scans.items():
+            mod = modules[key[0]]
+            self_cls = key[1].split(".", 1)[0] if "." in key[1] else None
+            for site in scan.calls:
+                for callee in called_functions(site.node, mod, modules,
+                                               self_cls):
+                    if callee in scans:
+                        site_locks.setdefault(callee, []).append(
+                            frozenset(site.held) |
+                            inherited.get(key, frozenset()))
+        for key in scans:
+            if key in seeds_all:
+                new = frozenset()
+            else:
+                sites = site_locks.get(key)
+                new = frozenset.intersection(*sites) if sites \
+                    else frozenset()
+            if new != inherited[key]:
+                inherited[key] = new
+                changed = True
+        if not changed:
+            break
+
+    def held_at(key: FnKey, site_held: frozenset) -> frozenset:
+        return frozenset(site_held) | inherited.get(key, frozenset())
+
+    findings: Set[Tuple] = set()  # (rule, path, line, message)
+
+    def add(rule, key, line, message):
+        findings.add((f"concurrency/{rule}",
+                      modules[key[0]].sf.rel, line, message))
+
+    # -- shared-state rules (attrs per class, globals per module) -------
+    def _domains_str(dset: Set[str]) -> str:
+        return "/".join(sorted(dset))
+
+    # group accesses
+    attr_sites: Dict[Tuple[str, str, str], List] = {}
+    global_sites: Dict[Tuple[str, str], List] = {}
+    for key, scan in scans.items():
+        dset = fn_domains[key]
+        in_init = key[1].endswith(".__init__") or \
+            key[1].endswith(".__new__")
+        cls = key[1].split(".", 1)[0] if "." in key[1] else None
+        if cls is not None and not in_init:
+            for acc in scan.attr_acc:
+                attr_sites.setdefault((key[0], cls, acc.name),
+                                      []).append((key, acc, dset))
+        if not in_init:
+            for acc in scan.global_acc:
+                global_sites.setdefault((key[0], acc.name),
+                                        []).append((key, acc, dset))
+
+    def _check_shared(sites, desc):
+        writes = [(k, a, d) for k, a, d in sites if a.write]
+        if not writes:
+            return
+        union: Set[str] = set()
+        for _k, _a, d in sites:
+            union |= d
+        if len(union) < 2 and not (union & set(SELF_CONCURRENT)):
+            return
+        locked_writes = [(k, a, d) for k, a, d in writes
+                         if held_at(k, a.held)]
+        if not locked_writes:
+            seen = set()
+            for k, a, _d in writes:
+                if (k[0], a.line) not in seen:
+                    seen.add((k[0], a.line))
+                    add("unlocked-shared-write", k, a.line,
+                        f"{desc} is written with no lock but is "
+                        f"reachable from the {_domains_str(union)} "
+                        f"thread domains ({fn_desc[k]})")
+            return
+        # the guard is the lock(s) held at EVERY locked write — the
+        # intersection, not the union: two writers under two different
+        # locks do not exclude each other, and a reader must hold the
+        # common write lock, not just "some lock a writer once held"
+        helds = [set(held_at(k, a.held)) for k, a, _d in locked_writes]
+        guard = set.intersection(*helds)
+        if not guard:
+            seen = set()
+            for k, a, _d in locked_writes:
+                if (k[0], a.line) not in seen:
+                    seen.add((k[0], a.line))
+                    add("lock-discipline", k, a.line,
+                        f"{desc} is written under inconsistent locks — "
+                        f"no single lock covers every write, so the "
+                        f"writers do not exclude each other (domains "
+                        f"{_domains_str(union)}; via {fn_desc[k]})")
+            return
+        seen = set()
+        for k, a, _d in sites:
+            if not (held_at(k, a.held) & guard) and \
+                    (k[0], a.line) not in seen:
+                seen.add((k[0], a.line))
+                kind = "written" if a.write else "read"
+                add("lock-discipline", k, a.line,
+                    f"{desc} is written under a lock elsewhere but "
+                    f"{kind} here with no lock (domains "
+                    f"{_domains_str(union)}; via {fn_desc[k]})")
+
+    for (modname, cls, attr), sites in sorted(attr_sites.items()):
+        _check_shared(sites, f"attribute {cls}.{attr}")
+    for (modname, name), sites in sorted(global_sites.items()):
+        if ("mod", modname, name) in inv.locks:
+            continue  # the lock objects themselves
+        _check_shared(sites, f"module global {name}")
+
+    # -- blocking-under-lock (transitive through the call graph) --------
+    blocking: Dict[FnKey, str] = {}
+    for key, scan in scans.items():
+        mod = modules[key[0]]
+        cls = key[1].split(".", 1)[0] if "." in key[1] else None
+        for site in scan.calls:
+            prim = _blocking_primitive(site, inv, mod, cls)
+            if prim is not None and not _held_lock_wait(
+                    site, inv, mod, cls, held_at(key, site.held)):
+                blocking.setdefault(key, prim)
+                break
+    for _ in range(8):
+        changed = False
+        for key, scan in scans.items():
+            if key in blocking:
+                continue
+            mod = modules[key[0]]
+            self_cls = key[1].split(".", 1)[0] if "." in key[1] else None
+            for site in scan.calls:
+                for callee in called_functions(site.node, mod, modules,
+                                               self_cls):
+                    if callee in blocking:
+                        blocking[key] = \
+                            f"{callee[1]} -> {blocking[callee]}"
+                        changed = True
+                        break
+                if key in blocking:
+                    break
+        if not changed:
+            break
+
+    for key, scan in scans.items():
+        mod = modules[key[0]]
+        self_cls = key[1].split(".", 1)[0] if "." in key[1] else None
+        for site in scan.calls:
+            held = held_at(key, site.held)
+            if not held:
+                continue
+            prim = _blocking_primitive(site, inv, mod, self_cls)
+            if prim is not None:
+                if not _held_lock_wait(site, inv, mod, self_cls, held):
+                    add("blocking-under-lock", key, site.line,
+                        f"{prim} while holding a lock "
+                        f"(in {key[1]}, via {fn_desc[key]})")
+                continue
+            for callee in called_functions(site.node, mod, modules,
+                                           self_cls):
+                if callee in blocking:
+                    add("blocking-under-lock", key, site.line,
+                        f"call to {callee[1]} blocks "
+                        f"({blocking[callee]}) while holding a lock "
+                        f"(in {key[1]})")
+                    break
+
+    # -- unstamped contextvar reads in thread-entry domains -------------
+    for domain, closed in closures.items():
+        if domain == "api":
+            continue  # caller context: the submitter's own stamps hold
+        # name-level matching: a contextvar imported into another
+        # module reads as `_var.get()` with the READER's module in the
+        # key, so keying on (declaring_module, name) would blind the
+        # rule to exactly the cross-module reads worker code makes
+        cv_names = {n for _, n in inv.contextvars}
+        sets_: Set[str] = set()
+        reads: List[Tuple[FnKey, str, int]] = []
+        for key in closed:
+            scan = scans.get(key)
+            if scan is None:
+                continue
+            for site in scan.calls:
+                chain = site.chain
+                if len(chain) == 2 and chain[0] in cv_names:
+                    if chain[1] == "set":
+                        sets_.add(chain[0])
+                    elif chain[1] == "get":
+                        reads.append((key, chain[0], site.line))
+        for key, var, line in reads:
+            if var not in sets_:
+                add("unstamped-contextvar", key, line,
+                    f"contextvar {var} read in thread domain "
+                    f"{domain} whose closure never set()s it — a "
+                    f"fresh thread sees the default, not the "
+                    f"submitter's stamp (via {fn_desc[key]})")
+
+    # -- finalizer hazards ----------------------------------------------
+    for key in closures.get("finalizer", {}):
+        scan = scans.get(key)
+        if scan is None:
+            continue
+        mod = modules[key[0]]
+        cls = key[1].split(".", 1)[0] if "." in key[1] else None
+        for lock_key, line, _outer in scan.with_locks:
+            if not inv.locks.get(lock_key, True):
+                add("finalizer-hazard", key, line,
+                    f"GC finalizer path acquires non-reentrant "
+                    f"threading.Lock {lock_key[-1]} — a callback "
+                    f"firing on a thread inside this critical section "
+                    f"deadlocks against itself; use RLock "
+                    f"(via {fn_desc[key]})")
+        for site in scan.calls:
+            chain = site.chain
+            if chain[-1] == "acquire":
+                lk = inv.lock_of(chain[:-1], mod.modname, cls)
+                if lk is not None and not inv.locks.get(lk, True):
+                    add("finalizer-hazard", key, site.line,
+                        f"GC finalizer path acquires non-reentrant "
+                        f"lock {lk[-1]} (via {fn_desc[key]})")
+            elif chain[:2] == ("torch", "cuda"):
+                add("finalizer-hazard", key, site.line,
+                    f"{'.'.join(chain)} touches torch.cuda inside a GC "
+                    f"finalizer — a CUDA call from an arbitrary thread "
+                    f"at an arbitrary GC point (via {fn_desc[key]})")
+
+    ctx.options.setdefault("notes", []).append(
+        "concurrency: domains " + ", ".join(
+            f"{d}={len(c)}" for d, c in sorted(closures.items())) +
+        f"; {len(scans)} functions analyzed, "
+        f"{len(inv.locks)} locks, {len(inv.contextvars)} contextvars")
+
+    return [Finding(rule=r, path=p, line=ln, message=m)
+            for r, p, ln, m in sorted(findings)]

@@ -1,0 +1,316 @@
+"""Layering lints: declarative per-subsystem import contracts
+(counterpart of cylon_tpu.analysis.layering, the same contract table:
+the port keeps every module the contracts name, under the same name).
+
+The paper's *local kernel + shuffle + local kernel* decomposition only
+stays sound while each layer reaches the one below through its declared
+seam (SURVEY §1): device kernels (`ops/`) are reached through
+`parallel/dist_ops`, `data/table`, and `table_api` — the layers that
+own key preparation, shuffle routing, witness semantics and capacity
+policy. Each `LayerContract` below states one such seam as data; the
+checker is a single AST pass that resolves every import (absolute and
+relative) to a package-relative module path and matches it against the
+contract table.
+
+Contracts are matched against the *package root* of the analysis
+context, so the same checker runs against fixture trees with seeded
+violations (tests/analysis_fixtures/).
+"""
+from __future__ import annotations
+
+import ast
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+from .core import (AnalysisContext, Finding, importer_package, register,
+                   resolve_import)
+
+
+@dataclass(frozen=True)
+class LayerContract:
+    """One import ban: modules in ``scope`` must not import any module
+    matching a ``forbid`` prefix (package-relative dotted paths).
+
+    ``scope`` is a subsystem directory ("ops"), or a tuple of top-level
+    module names for file-scoped contracts. ``exempt`` lists filenames
+    inside the scope that are deliberately outside the contract — each
+    with a reason in the table below, because an undocumented exemption
+    is just a hole. ``allow`` lists prefixes carved OUT of ``forbid``:
+    a leaf PACKAGE (telemetry/) forbids everything but must still
+    import its own submodules."""
+
+    name: str
+    scope: Tuple[str, ...]
+    forbid: Tuple[str, ...]
+    reason: str
+    exempt: Tuple[str, ...] = ()
+    allow: Tuple[str, ...] = ()
+
+
+# The cylon_tpu_torch layer map. Order: kernels at the bottom, facades
+# above.
+DEFAULT_CONTRACTS: Tuple[LayerContract, ...] = (
+    LayerContract(
+        name="base-leaf",
+        scope=("status.py", "dtypes.py", "util.py", "native.py",
+               "memory.py"),
+        forbid=("",),  # any intra-package import...
+        allow=("telemetry.knobs",),
+        # ...except the declared knob registry, itself a stdlib-only
+        # leaf (memory.py reads CYLON_HBM_BYTES through it; telemetry
+        # never imports back, so no cycle seed)
+        reason="base-layer modules are leaves: everything imports them, "
+               "so any import back into the package is a cycle seed "
+               "(the stdlib-only knob registry telemetry.knobs is the "
+               "one sanctioned exception)",
+    ),
+    LayerContract(
+        name="telemetry-leaf",
+        scope=("telemetry",),
+        forbid=("",),            # any intra-package import...
+        allow=("telemetry", "status"),
+        # ...except telemetry's own submodules and the error taxonomy:
+        # status.py is itself a pure stdlib leaf (base-leaf contract),
+        # so telemetry -> status cannot seed a cycle — the statistics
+        # warehouse quarantines corrupt snapshots with a typed
+        # CylonDataError event instead of a stringly-typed one
+        reason="telemetry is a base-layer LEAF grown into a package "
+               "(spans/metrics/export): everything instruments through "
+               "it, so any import back into the package is a cycle "
+               "seed — gauges sample MemoryPool duck-typed, never by "
+               "importing memory.py; the stdlib-only error taxonomy "
+               "status.py is the one sanctioned sibling",
+    ),
+    LayerContract(
+        name="ops-leaf",
+        scope=("ops",),
+        forbid=("parallel", "plan", "io", "table_api", "arrow_builder",
+                "context"),
+        reason="ops/ kernels are mesh-oblivious device code; sharding, "
+               "exchange routing and registry policy live strictly above "
+               "them",
+    ),
+    LayerContract(
+        name="data-below-ops",
+        scope=("data",),
+        forbid=("ops", "parallel", "plan", "io", "table_api"),
+        exempt=("table.py",),  # the eager operator facade: Table methods
+        #        ARE the sanctioned seam that lowers onto ops/parallel
+        reason="columnar storage (column/strings/row) must not reach "
+               "into kernels or distribution — only the Table facade "
+               "lowers",
+    ),
+    LayerContract(
+        name="io-no-kernels",
+        scope=("io",),
+        forbid=("ops", "plan"),
+        reason="ingest builds tables and may distribute them, but never "
+               "invokes kernels or plans directly",
+    ),
+    LayerContract(
+        name="parallel-no-plan",
+        scope=("parallel",),
+        forbid=("plan",),
+        exempt=("task_plan.py",),  # legacy shim: absorbed as plan.tasks
+        #        kept only to re-export the moved names
+        reason="the plan subsystem lowers ONTO parallel/; an upward "
+               "import would cycle the lowering contract",
+    ),
+    LayerContract(
+        name="plan-no-ops",
+        scope=("plan",),
+        forbid=("ops",),
+        reason="plan/ reaches device kernels only through dist_ops/"
+               "table_api — a direct ops/ import would bypass lane "
+               "pairing, witness semantics and emit-mask discipline and "
+               "silently fork the execution paths the bit-identity "
+               "tests compare",
+    ),
+    LayerContract(
+        name="resilience-below-exec",
+        scope=("resilience",),
+        forbid=("",),                 # any intra-package import...
+        allow=("resilience", "status", "telemetry"),
+        # ...except its own submodules, the error taxonomy and the
+        # telemetry leaf it records into
+        reason="the resilience layer (inject/retry/admission) sits "
+               "between the base leaves and the execution layers: "
+               "parallel/, plan/ and io/ call INTO it — an import of "
+               "the machinery it wraps would cycle the retry seam",
+    ),
+    LayerContract(
+        name="service-top",
+        scope=("service",),
+        forbid=("",),                 # any intra-package import...
+        allow=("service", "plan", "resilience", "telemetry", "status"),
+        # ...except its own submodules and the seams it schedules
+        # through: plans (optimize/execute/preflight), the admission/
+        # retry machinery, the telemetry leaf and the error taxonomy
+        reason="the service tier is the TOP of the stack: it submits "
+               "plans and records decisions, but must never reach "
+               "device machinery (ops/parallel/data/io) directly — "
+               "execution goes through plan/'s executor seam only",
+    ),
+    LayerContract(
+        name="below-service",
+        scope=("ops", "data", "parallel", "plan", "io", "resilience",
+               "telemetry", "analysis"),
+        forbid=("service",),
+        reason="everything below the service tier must stay importable "
+               "without it; plan/ holds only a late-bound optimize-memo "
+               "hook (lazy.set_plan_memo) that service/ registers — an "
+               "upward import would cycle the scheduler's execution "
+               "seam",
+    ),
+    LayerContract(
+        name="analysis-read-only",
+        scope=("analysis",),
+        forbid=("data", "io", "table_api", "arrow_builder"),
+        reason="the analysis suite inspects plans and traced programs; "
+               "pulling in table storage or ingest would let checkers "
+               "depend on the machinery they are supposed to check",
+    ),
+)
+
+# Modules whose UNDERSCORE names are private to the module: importing or
+# attribute-accessing them from elsewhere is a finding. telemetry's span
+# internals (_collectors, _sinks, _current) are the motivating case — a
+# second writer would race the identity-keyed unregistration discipline.
+# Matching is by PREFIX: after the module→package split, "telemetry"
+# covers telemetry.spans / telemetry.metrics / telemetry.export too
+# (and any future submodule), and every file under telemetry/ is an
+# owner allowed to touch its siblings' internals.
+PRIVATE_MODULES: Tuple[str, ...] = ("telemetry",)
+
+
+def _is_private_target(target: str, private_modules) -> Optional[str]:
+    """The owning private module when ``target`` is one (or a submodule
+    of one), else None."""
+    for pm in private_modules:
+        if target == pm or target.startswith(pm + "."):
+            return pm
+    return None
+
+
+def _matches(target: str, prefix: str) -> bool:
+    if prefix == "":
+        return True
+    return target == prefix or target.startswith(prefix + ".")
+
+
+def _contract_for(rel: str, contracts) -> List[LayerContract]:
+    """Contracts whose scope covers this package-relative file path."""
+    out = []
+    parts = rel.split("/")
+    for c in contracts:
+        if len(parts) == 1:
+            if parts[0] in c.scope:
+                out.append(c)
+        elif parts[0] in c.scope and parts[-1] not in c.exempt:
+            out.append(c)
+    return out
+
+
+def _iter_imports(tree: ast.AST):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name, 0, (alias.name,)
+        elif isinstance(node, ast.ImportFrom):
+            names = tuple(a.name for a in node.names)
+            yield node.lineno, node.module or "", node.level, names
+
+
+@register("layering")
+def check_layering(ctx: AnalysisContext) -> List[Finding]:
+    contracts = ctx.options.get("contracts", DEFAULT_CONTRACTS)
+    private_modules = ctx.options.get("private_modules", PRIVATE_MODULES)
+    package = ctx.package_name
+    findings: List[Finding] = []
+
+    for f in ctx.files():
+        mod = ctx.module_name(f)
+        importer_pkg = importer_package(f.rel, ctx.module_name(f))
+        active = _contract_for(f.rel, contracts)
+        is_private_owner = _is_private_target(mod, private_modules) \
+            is not None
+
+        for lineno, module, level, names in _iter_imports(f.tree):
+            target = resolve_import(module, level, importer_pkg, package)
+            if target is None:
+                continue
+            # the imported name may itself be a submodule
+            # ("from ..ops import join" targets ops.join)
+            sub_targets = [target] + [
+                (target + "." + n) if target else n for n in names]
+            for c in active:
+                hits = [t for t in sub_targets
+                        if any(_matches(t, p) for p in c.forbid)
+                        and not any(_matches(t, a) for a in c.allow)]
+                if hits:
+                    hit = max(hits, key=len)  # most specific module
+                    dotted = f"{package}.{hit}" if hit else package
+                    findings.append(Finding(
+                        rule=f"layering/{c.name}", path=f.rel, line=lineno,
+                        message=f"imports {dotted}: {c.reason}"))
+                    break
+            # private-name imports from privacy-owning modules (or any
+            # of their submodules, post package split)
+            pm = _is_private_target(target, private_modules)
+            if pm is not None and not is_private_owner:
+                for n in names:
+                    if n.startswith("_"):
+                        findings.append(Finding(
+                            rule="layering/private-internals",
+                            path=f.rel, line=lineno,
+                            message=f"imports private name "
+                                    f"{package}.{target}.{n}: only "
+                                    f"{pm}'s own modules may touch "
+                                    f"its internals"))
+
+        if not is_private_owner:
+            findings.extend(_private_attr_access(ctx, f, private_modules))
+    return findings
+
+
+def _private_attr_access(ctx: AnalysisContext, f, private_modules
+                         ) -> List[Finding]:
+    """Flag ``telemetry._collectors``-style attribute reads: find names
+    bound to a privacy-owning module (or any of its submodules — the
+    package form, ``telemetry.spans._collectors``) by import, then any
+    ``name._attr`` access on them."""
+    package = ctx.package_name
+    importer_pkg = importer_package(f.rel, ctx.module_name(f))
+    bound = {}  # local name -> package-relative module path
+    for node in ast.walk(f.tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                target = resolve_import(alias.name, 0, importer_pkg,
+                                         package)
+                if target is not None and \
+                        _is_private_target(target, private_modules):
+                    bound[alias.asname or alias.name.split(".")[-1]] = target
+        elif isinstance(node, ast.ImportFrom):
+            target = resolve_import(node.module or "", node.level,
+                                     importer_pkg, package)
+            if target is None:
+                continue
+            for alias in node.names:
+                sub = (target + "." + alias.name) if target else alias.name
+                if _is_private_target(sub, private_modules):
+                    bound[alias.asname or alias.name] = sub
+    if not bound:
+        return []
+    out = []
+    for node in ast.walk(f.tree):
+        if isinstance(node, ast.Attribute) and \
+                isinstance(node.value, ast.Name) and \
+                node.value.id in bound and node.attr.startswith("_"):
+            mod = bound[node.value.id]
+            pm = _is_private_target(mod, private_modules)
+            out.append(Finding(
+                rule="layering/private-internals", path=f.rel,
+                line=node.lineno,
+                message=f"touches {package}.{mod}.{node.attr}: only "
+                        f"{pm}'s own modules may touch its internals"))
+    return out

@@ -1,0 +1,105 @@
+"""Span-coverage lint: observability-bearing code paths must be spanned
+(counterpart of cylon_tpu.analysis.spancov; the port keeps both scoped
+modules, parallel/dist_ops.py and plan/executor.py).
+
+The telemetry layer is only as good as its coverage: a distributed
+operator that runs outside any span is invisible to the phase log, the
+Perfetto trace, `collect_phases` shuffle counting AND the per-query
+EXPLAIN ANALYZE report — and the gap is silent, because nothing fails.
+This checker makes the coverage contract static:
+
+* every public ``distributed_*`` function in ``parallel/dist_ops.py``
+  must contain at least one ``with``-span (``telemetry.span`` /
+  ``telemetry.phase``, any alias);
+* every executor lowering (``_do_*`` method in ``plan/executor.py``)
+  must do the same — the lowering's span is what carries the
+  ``plan.shuffle.*`` labels the shuffle-count acceptance tests pin.
+
+A span "anywhere in the body" is deliberately the whole bar: several
+operators open their spans conditionally (world-1 short circuits
+return before any exchange), and requiring per-branch coverage would
+force spans around no-op paths the label-honesty discipline
+(executor docstring) explicitly keeps silent. What the lint catches is
+the real failure mode — a NEW operator or lowering added with no
+telemetry at all.
+
+Fixture trees exercise it through the same scope table via
+``options["span_scopes"]``.
+"""
+from __future__ import annotations
+
+import ast
+from typing import List, Tuple
+
+from .core import AnalysisContext, Finding, register
+
+# (package-relative file, kind, name-prefix); kind "function" scans
+# module-level defs, "method" scans defs nested in classes
+DEFAULT_SCOPES: Tuple[Tuple[str, str, str], ...] = (
+    ("parallel/dist_ops.py", "function", "distributed_"),
+    ("plan/executor.py", "method", "_do_"),
+)
+
+# call names that open a span: the telemetry API (span/phase) under the
+# repo's import aliases (_span/_phase), as bare names or attributes
+# (telemetry.span(...))
+_SPAN_CALL_NAMES = frozenset({"span", "_span", "phase", "_phase"})
+
+
+def _is_span_with(stmt: ast.stmt) -> bool:
+    if not isinstance(stmt, (ast.With, ast.AsyncWith)):
+        return False
+    for item in stmt.items:
+        call = item.context_expr
+        if not isinstance(call, ast.Call):
+            continue
+        fn = call.func
+        name = fn.id if isinstance(fn, ast.Name) else \
+            fn.attr if isinstance(fn, ast.Attribute) else None
+        if name in _SPAN_CALL_NAMES:
+            return True
+    return False
+
+
+def _has_span(fn_node: ast.FunctionDef) -> bool:
+    return any(_is_span_with(n) for n in ast.walk(fn_node))
+
+
+def _targets(tree: ast.AST, kind: str, prefix: str):
+    if kind == "function":
+        for node in tree.body:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)) \
+                    and node.name.startswith(prefix):
+                yield node
+        return
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ClassDef):
+            for sub in node.body:
+                if isinstance(sub, (ast.FunctionDef,
+                                    ast.AsyncFunctionDef)) \
+                        and sub.name.startswith(prefix):
+                    yield sub
+
+
+@register("span-coverage")
+def check_span_coverage(ctx: AnalysisContext) -> List[Finding]:
+    scopes = ctx.options.get("span_scopes", DEFAULT_SCOPES)
+    by_rel = {f.rel: f for f in ctx.files()}
+    findings: List[Finding] = []
+    for rel, kind, prefix in scopes:
+        f = by_rel.get(rel)
+        if f is None:
+            continue
+        for fn in _targets(f.tree, kind, prefix):
+            if not _has_span(fn):
+                what = "executor lowering" if kind == "method" \
+                    else "distributed op"
+                findings.append(Finding(
+                    rule="span-coverage/missing-span", path=rel,
+                    line=fn.lineno,
+                    message=f"{what} {fn.name}() runs under no "
+                            f"telemetry span: it is invisible to the "
+                            f"phase log, collect_phases counting and "
+                            f"EXPLAIN ANALYZE — wrap the operative "
+                            f"path in telemetry.span/phase"))
+    return findings

@@ -1,0 +1,819 @@
+"""Kernel-specialization auditor: bounds rebuild cardinality
+(counterpart of cylon_tpu.analysis.specialization).
+
+Every distributed op is *local kernel + shuffle + local kernel*
+(PAPER.md). In the port the kernels are built by ``nvcc``, once per
+source: the one ``counted_cache`` factory, ``ops/kernels.load_library``,
+is keyed by the library name, and each distinct key builds (or loads)
+one shared library, counted in
+``cylon_kernel_factory_builds_total{factory="load_library"}``. The key
+must stay structural; a runtime value reaching it would be one nvcc
+build per distinct value. The auditor classifies every cache-key
+argument of every ``counted_cache`` factory by its *cardinality class*:
+
+* **structural** — mesh, join type, set op, bool mode flags: bounded by
+  the operator surface. Always fine.
+* **schema-bound** — dtype widths, lane counts, column counts,
+  ``max_words``: bounded by schema diversity. Fine, but noted — this is
+  the axis along which compile time scales with schema variety.
+* **bucketed capacity** — a runtime count routed through a recognized
+  bucketing helper (``benchutils.bucket_cap``, ``util.pow2``,
+  ``util.pow2_floor``, ``ops.join.stream_expand_capacity``): bounded to
+  ~1 bucket per octave of data size. Fine.
+* **data-dependent** — a runtime count (``device_get`` fetch,
+  ``.max()``/``.sum()`` reduction) reaching a cache key raw, or through
+  the 16-buckets-per-octave ``util.capacity`` mantissa rounding: one
+  compile per distinct value (or per 4-bit mantissa step). Finding.
+* **unbounded** — cardinality not provable from the derivation chain at
+  all. Finding.
+
+The pass traces each factory call-site argument backwards through
+assignments, tuple unpacks, dict literals and package-local calls
+(reusing core.ModuleIndex — the same shared index the hostsync and
+concurrency closures use), so the finding carries the derivation chain.
+
+Rules:
+
+* ``specialization/unbucketed-capacity`` — a data-dependent cache-key
+  argument not routed through a recognized bucketing helper;
+* ``specialization/unbounded-key`` — a cache-key argument whose
+  cardinality the trace cannot bound (chain in the message);
+* ``specialization/closure-capture`` — a ``jit``/``shard_map`` traced
+  body (the port traces nothing, so only a scanned fixture tree has
+  one) closing over a value bound in an enclosing NON-factory function:
+  nothing pins it in any cache key, so changing it silently retraces
+  (or worse, silently does not). Inside a ``counted_cache`` factory
+  every enclosing binding derives from the cache key and is exempt.
+"""
+from __future__ import annotations
+
+import ast
+from typing import Dict, List, Optional, Set, Tuple
+
+from .core import (AnalysisContext, Finding, ModuleIndex, attr_chain,
+                   build_module_index, register)
+
+# classification lattice (join = max)
+STRUCTURAL, SCHEMA, BUCKETED, DATA, UNBOUNDED = range(5)
+CLASS_NAMES = ("structural", "schema-bound", "bucketed-capacity",
+               "data-dependent", "unbounded")
+
+# recognized bucketing helpers, by package-relative (module, name) and —
+# for single-file fixture trees where imports do not resolve — bare name
+BUCKET_HELPERS_QUAL = {
+    ("benchutils", "bucket_cap"), ("util", "bucket_cap"),
+    ("util", "pow2"), ("util", "pow2_floor"),
+    ("ops.join", "stream_expand_capacity"),
+}
+BUCKET_HELPER_NAMES = {"bucket_cap", "_bucket_cap", "pow2", "_pow2",
+                       "pow2_floor", "_pow2_floor",
+                       "stream_expand_capacity"}
+
+# fine-grained mantissa rounding: bounded, but 16 buckets per octave —
+# deliberately NOT recognized as bucketing for cache keys (the names are
+# reserved: see docs/analysis.md)
+FINE_ROUNDER_NAMES = {"capacity", "_capacity", "_cap"}
+
+# package functions known to return schema descriptors (their bodies
+# use nested defs the generic return-trace cannot follow)
+SCHEMA_FUNCS_QUAL = {("ops.join", "plan_lane_descs"),
+                     ("data.strings", "pair_k_words")}
+SCHEMA_FUNC_NAMES = {"plan_lane_descs", "pair_k_words", "_pair_k"}
+
+# attribute reads that are static schema/shape introspection
+SCHEMA_ATTRS = {"max_words", "dtype", "itemsize", "ndim", "shape",
+                "size", "column_count", "axis_names"}
+
+# device→host runtime-count sources
+DATA_CALL_CHAINS = {("jax", "device_get"), ("np", "asarray"),
+                    ("np", "array"), ("numpy", "asarray"),
+                    ("numpy", "array")}
+DATA_METHODS = {"max", "sum", "min", "item", "tolist"}
+
+# program-building wrap sites for the closure-capture rule (lax control
+# flow combinators are NOT wrap sites: their bodies run under an outer
+# trace whose operands/static args are already accounted for)
+WRAP_CHAINS = {("jax", "jit"), ("jit",), ("shard_map",),
+               ("jax", "experimental", "shard_map", "shard_map")}
+
+_MAX_DEPTH = 24
+
+
+def _own_scope_nodes(fn: ast.AST):
+    """Walk fn's body without descending into nested defs/lambdas — a
+    nested helper's ``return`` is not fn's return."""
+    stack = list(ast.iter_child_nodes(fn))
+    while stack:
+        node = stack.pop()
+        yield node
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.Lambda)):
+            continue
+        stack.extend(ast.iter_child_nodes(node))
+
+
+def _is_counted_cache(fn: ast.AST) -> bool:
+    for dec in fn.decorator_list:
+        chain = attr_chain(dec)
+        if chain is not None and chain[-1] == "counted_cache":
+            return True
+    return False
+
+
+def _params(fn: ast.AST) -> List[ast.arg]:
+    a = fn.args
+    return list(a.posonlyargs) + list(a.args)
+
+
+def _ann_name(ann: Optional[ast.AST]) -> Optional[str]:
+    if isinstance(ann, ast.Name):
+        return ann.id
+    return None
+
+
+class _Result(tuple):
+    """(rank, why) with lattice join."""
+
+    __slots__ = ()
+
+    def __new__(cls, rank, why):
+        return super().__new__(cls, (rank, why))
+
+    @property
+    def rank(self):
+        return self[0]
+
+    @property
+    def why(self):
+        return self[1]
+
+
+def _join(results) -> Optional[_Result]:
+    """Lattice join; None entries (cycle-pruned branches) are ignored,
+    an all-None join is None (caller decides)."""
+    best = None
+    for r in results:
+        if r is None:
+            continue
+        if best is None or r.rank > best.rank:
+            best = r
+    return best
+
+
+class _Tracer:
+    """Backward value trace over the shared ModuleIndex."""
+
+    def __init__(self, modules: Dict[str, ModuleIndex], package: str):
+        self.modules = modules
+        self.package = package
+        # callee (mod, qualname) -> [(caller ModuleIndex, caller fn def
+        # or None, self_cls, Call node)]
+        self.call_sites: Dict[Tuple[str, str], list] = {}
+        # per-module external/import name set
+        self._ext: Dict[str, Set[str]] = {}
+        self._bind_cache: Dict[int, Dict[str, list]] = {}
+        for mod in modules.values():
+            self._index_module(mod)
+
+    # -- indexing ---------------------------------------------------------
+
+    def _index_module(self, mod: ModuleIndex):
+        ext: Set[str] = set()
+        for node in ast.walk(mod.sf.tree):
+            if isinstance(node, ast.Import):
+                for a in node.names:
+                    ext.add(a.asname or a.name.split(".")[0])
+            elif isinstance(node, ast.ImportFrom):
+                for a in node.names:
+                    ext.add(a.asname or a.name)
+        self._ext[mod.modname] = ext
+        # module-level statements EXCLUDING def/class bodies (those are
+        # attributed to their own unit below — double attribution would
+        # re-classify every in-function call in module scope, where its
+        # locals resolve to nothing)
+        units = [(None, None, stmt) for stmt in mod.sf.tree.body
+                 if not isinstance(stmt, (ast.FunctionDef,
+                                          ast.AsyncFunctionDef,
+                                          ast.ClassDef))]
+        units += [(q, None, fn) for q, fn in mod.functions.items()]
+        units += [(q, q.split(".", 1)[0], fn)
+                  for q, fn in mod.methods.items()]
+        for qual, self_cls, body in units:
+            for node in ast.walk(body):
+                if not isinstance(node, ast.Call):
+                    continue
+                target = self.resolve_call(node, mod, self_cls)
+                if target is not None:
+                    self.call_sites.setdefault(target, []).append(
+                        (mod, mod.lookup(qual) if qual else None,
+                         self_cls, node))
+
+    def resolve_call(self, call: ast.Call, mod: ModuleIndex,
+                     self_cls: Optional[str]):
+        chain = attr_chain(call.func)
+        if chain is None:
+            return None
+        if len(chain) == 1:
+            name = chain[0]
+            if name in mod.functions:
+                return (mod.modname, name)
+            if name in mod.fn_imports:
+                return mod.fn_imports[name]
+        elif len(chain) == 2:
+            head, fname = chain
+            if head == "self" and self_cls is not None and \
+                    f"{self_cls}.{fname}" in mod.methods:
+                return (mod.modname, f"{self_cls}.{fname}")
+            if head in mod.mod_aliases:
+                return (mod.mod_aliases[head], fname)
+        return None
+
+    # -- binding tables ---------------------------------------------------
+
+    def _bindings(self, body: ast.AST) -> Dict[str, list]:
+        """name -> [(value expr | None, selectors)] over a function (or
+        module) subtree. None value = bound but untraceable (loop/with
+        targets)."""
+        cached = self._bind_cache.get(id(body))
+        if cached is not None:
+            return cached
+        out: Dict[str, list] = {}
+
+        def bind_target(tgt, value, sel):
+            if isinstance(tgt, ast.Name):
+                out.setdefault(tgt.id, []).append((value, sel))
+            elif isinstance(tgt, (ast.Tuple, ast.List)):
+                for i, elt in enumerate(tgt.elts):
+                    if isinstance(elt, ast.Starred):
+                        bind_target(elt.value, None, [])
+                    else:
+                        bind_target(elt, value, sel + [i])
+
+        for node in ast.walk(body):
+            if isinstance(node, ast.Assign):
+                for tgt in node.targets:
+                    bind_target(tgt, node.value, [])
+            elif isinstance(node, ast.AnnAssign) and node.value is not None:
+                bind_target(node.target, node.value, [])
+            elif isinstance(node, ast.AugAssign):
+                # x op= v: trace the increment only — the prior binding
+                # of x contributes through its own entry
+                bind_target(node.target, node.value, [])
+            elif isinstance(node, ast.For):
+                bind_target(node.target, None, [])
+            elif isinstance(node, ast.With):
+                for item in node.items:
+                    if item.optional_vars is not None:
+                        bind_target(item.optional_vars, None, [])
+        self._bind_cache[id(body)] = out
+        return out
+
+    # -- classification ---------------------------------------------------
+
+    def classify_arg(self, expr: ast.AST, mod: ModuleIndex,
+                     fn: Optional[ast.AST], self_cls: Optional[str]
+                     ) -> _Result:
+        st = {"depth": 0, "visited": set()}
+        r = self._value(expr, [], mod, fn, self_cls, st)
+        return r if r is not None else _Result(UNBOUNDED,
+                                               "cyclic derivation")
+
+    def _value(self, expr, sel, mod, fn, self_cls, st
+               ) -> Optional[_Result]:
+        if st["depth"] > _MAX_DEPTH:
+            return _Result(UNBOUNDED, "derivation deeper than trace "
+                                      "limit")
+        st["depth"] += 1
+        try:
+            return self._value_inner(expr, sel, mod, fn, self_cls, st)
+        finally:
+            st["depth"] -= 1
+
+    def _value_inner(self, expr, sel, mod, fn, self_cls, st):
+        if isinstance(expr, ast.Constant):
+            return _Result(STRUCTURAL, f"constant {expr.value!r}")
+        if isinstance(expr, ast.IfExp):
+            return _join([self._value(expr.body, sel, mod, fn, self_cls,
+                                      st),
+                          self._value(expr.orelse, sel, mod, fn,
+                                      self_cls, st)])
+        if isinstance(expr, (ast.Tuple, ast.List)):
+            if sel:
+                i = sel[0]
+                if isinstance(i, int) and i < len(expr.elts):
+                    return self._value(expr.elts[i], sel[1:], mod, fn,
+                                       self_cls, st)
+                return _Result(UNBOUNDED, "selector out of range")
+            return _join([self._value(e, [], mod, fn, self_cls, st)
+                          for e in expr.elts]) \
+                or _Result(STRUCTURAL, "empty tuple")
+        if isinstance(expr, ast.Dict):
+            if sel and isinstance(sel[0], str):
+                for k, v in zip(expr.keys, expr.values):
+                    if isinstance(k, ast.Constant) and k.value == sel[0]:
+                        return self._value(v, sel[1:], mod, fn,
+                                           self_cls, st)
+                return _Result(UNBOUNDED, f"no dict key {sel[0]!r}")
+            return _Result(UNBOUNDED, "dict value")
+        if isinstance(expr, ast.Name):
+            return self._name(expr.id, sel, mod, fn, self_cls, st)
+        if isinstance(expr, ast.Subscript):
+            if isinstance(expr.value, ast.Attribute) and \
+                    expr.value.attr == "shape":
+                return _Result(SCHEMA, "shape introspection")
+            key = expr.slice
+            if isinstance(key, ast.Constant) and \
+                    isinstance(key.value, (str, int)):
+                return self._value(expr.value, [key.value] + sel, mod,
+                                   fn, self_cls, st)
+            return _Result(UNBOUNDED, "non-constant subscript")
+        if isinstance(expr, ast.Attribute):
+            return self._attribute(expr, mod)
+        if isinstance(expr, ast.Call):
+            return self._call(expr, sel, mod, fn, self_cls, st)
+        if isinstance(expr, ast.BinOp):
+            if isinstance(expr.op, ast.LShift) and \
+                    isinstance(expr.left, ast.Constant):
+                return _Result(BUCKETED, "pow2 by construction "
+                                         "(constant << e)")
+            return _join([self._value(expr.left, [], mod, fn, self_cls,
+                                      st),
+                          self._value(expr.right, [], mod, fn, self_cls,
+                                      st)]) \
+                or _Result(UNBOUNDED, "cyclic arithmetic")
+        if isinstance(expr, ast.UnaryOp):
+            return self._value(expr.operand, [], mod, fn, self_cls, st)
+        if isinstance(expr, (ast.BoolOp, ast.Compare)):
+            return _Result(STRUCTURAL, "boolean expression")
+        if isinstance(expr, ast.Lambda):
+            return _Result(STRUCTURAL, "lambda")
+        return _Result(UNBOUNDED,
+                       f"untraceable {type(expr).__name__} expression")
+
+    def _attribute(self, expr: ast.Attribute, mod: ModuleIndex
+                   ) -> _Result:
+        chain = attr_chain(expr)
+        attr = expr.attr
+        if attr == "mesh":
+            return _Result(STRUCTURAL, "mesh handle")
+        if attr in SCHEMA_ATTRS:
+            return _Result(SCHEMA, f".{attr} schema introspection")
+        if chain is not None and len(chain) >= 2 and attr.isupper():
+            # Enum member access: JoinType.INNER, _setops.SetOp.UNION
+            return _Result(STRUCTURAL,
+                           f"enum/constant member {'.'.join(chain)}")
+        return _Result(UNBOUNDED,
+                       f"opaque attribute "
+                       f"{'.'.join(chain) if chain else attr}")
+
+    def _name(self, name, sel, mod, fn, self_cls, st):
+        # 1. enclosing-function parameter → interprocedural
+        if fn is not None:
+            for p in _params(fn):
+                if p.arg == name:
+                    qual = self._qual_of(mod, fn)
+                    return self._param(mod, fn, qual, p, sel, self_cls,
+                                       st)
+            binds = self._bindings(fn).get(name)
+            if binds:
+                results = []
+                for value, bsel in binds:
+                    if value is None:
+                        results.append(_Result(
+                            UNBOUNDED, f"'{name}' bound by loop/with "
+                                       f"target"))
+                    else:
+                        key = (mod.modname, id(value), tuple(bsel),
+                               tuple(sel))
+                        if key in st["visited"]:
+                            continue
+                        st["visited"].add(key)
+                        r = self._value(value, list(bsel) + sel, mod,
+                                        fn, self_cls, st)
+                        st["visited"].discard(key)
+                        if r is not None:
+                            r = _Result(r.rank, f"{name} = {r.why}")
+                        results.append(r)
+                return _join(results)
+        # 2. module scope
+        if name in mod.functions or name in mod.classes or \
+                name in mod.objects:
+            return _Result(STRUCTURAL, f"module-level callable {name}")
+        if name.isupper():
+            return _Result(STRUCTURAL, f"module constant {name}")
+        mod_binds = self._bindings(mod.sf.tree).get(name)
+        if mod_binds and fn is not None:
+            # module-level assignment visible from the function
+            return self._name(name, sel, mod, None, None, st)
+        if mod_binds:
+            results = []
+            for value, bsel in mod_binds:
+                if value is None:
+                    results.append(_Result(UNBOUNDED,
+                                           f"'{name}' loop target"))
+                else:
+                    results.append(self._value(value, list(bsel) + sel,
+                                               mod, None, None, st))
+            return _join(results)
+        if name in mod.fn_imports:
+            tmod, tname = mod.fn_imports[name]
+            if tname.isupper():
+                return _Result(STRUCTURAL,
+                               f"imported constant {tmod}.{tname}")
+            target = self.modules.get(tmod)
+            if target is not None:
+                if tname in target.functions or tname in target.classes:
+                    return _Result(STRUCTURAL,
+                                   f"imported callable {tmod}.{tname}")
+                tbinds = self._bindings(target.sf.tree).get(tname)
+                if tbinds:
+                    return _join(
+                        [self._value(v, list(bs) + sel, target, None,
+                                     None, st) for v, bs in tbinds
+                         if v is not None])
+            return _Result(UNBOUNDED, f"unresolved import {name}")
+        if name in mod.mod_aliases or name in self._ext.get(mod.modname,
+                                                            ()):
+            return _Result(STRUCTURAL, f"imported module/symbol {name}")
+        if name in ("True", "False", "None"):
+            return _Result(STRUCTURAL, name)
+        return _Result(UNBOUNDED, f"unresolved name '{name}'")
+
+    def _qual_of(self, mod: ModuleIndex, fn: ast.AST) -> Optional[str]:
+        for q, node in mod.functions.items():
+            if node is fn:
+                return q
+        for q, node in mod.methods.items():
+            if node is fn:
+                return q
+        return None
+
+    def _param(self, mod, fn, qual, p: ast.arg, sel, self_cls, st):
+        ann = _ann_name(p.annotation)
+        if ann in ("bool", "str", "float"):
+            return _Result(STRUCTURAL, f"{p.arg}: {ann} parameter")
+        if p.annotation is not None and ann != "int":
+            # enum/config/tuple-typed parameter: bounded by the
+            # operator/schema surface, not by data
+            return _Result(SCHEMA, f"{p.arg}: annotated parameter")
+        if qual is None:
+            return _Result(UNBOUNDED,
+                           f"parameter '{p.arg}' of unindexed function")
+        key = (mod.modname, qual, p.arg, tuple(sel))
+        if key in st["visited"]:
+            return None  # cycle: this branch contributes nothing
+        st["visited"].add(key)
+        try:
+            results = []
+            default = self._param_default(fn, p)
+            if default is not None:
+                results.append(self._value(default, sel, mod, None,
+                                           None, st))
+            sites = self.call_sites.get((mod.modname, qual), [])
+            pos = [q.arg for q in _params(fn)].index(p.arg)
+            for cmod, cfn, ccls, call in sites:
+                arg = self._site_arg(call, pos, p.arg)
+                if arg is None:
+                    continue
+                r = self._value(arg, sel, cmod, cfn, ccls, st)
+                if r is not None:
+                    r = _Result(r.rank,
+                                f"{p.arg}@{cmod.sf.rel}:{call.lineno} "
+                                f"= {r.why}")
+                results.append(r)
+            joined = _join(results)
+            if joined is None:
+                return _Result(UNBOUNDED,
+                               f"parameter '{p.arg}' of {qual} has no "
+                               f"traceable package call site")
+            return joined
+        finally:
+            st["visited"].discard(key)
+
+    @staticmethod
+    def _param_default(fn: ast.AST, p: ast.arg):
+        params = _params(fn)
+        defaults = fn.args.defaults
+        if not defaults:
+            return None
+        offset = len(params) - len(defaults)
+        idx = [q.arg for q in params].index(p.arg)
+        if idx >= offset:
+            return defaults[idx - offset]
+        return None
+
+    @staticmethod
+    def _site_arg(call: ast.Call, pos: int, name: str):
+        for kw in call.keywords:
+            if kw.arg == name:
+                return kw.value
+        if pos < len(call.args) and not any(
+                isinstance(a, ast.Starred) for a in call.args[:pos + 1]):
+            return call.args[pos]
+        return None
+
+    def _call(self, expr: ast.Call, sel, mod, fn, self_cls, st):
+        chain = attr_chain(expr.func)
+        if chain is None:
+            # no Name-rooted chain — but a runtime-reduction method on
+            # ANY expression (np.asarray(...).max()) is still data
+            if isinstance(expr.func, ast.Attribute) and \
+                    expr.func.attr in DATA_METHODS and not expr.args:
+                return _Result(DATA,
+                               f".{expr.func.attr}() runtime reduction")
+            return _Result(UNBOUNDED, "computed callee")
+        target = self.resolve_call(expr, mod, self_cls)
+        name = chain[-1]
+        if (target in BUCKET_HELPERS_QUAL) or \
+                (target is None and name in BUCKET_HELPER_NAMES) or \
+                (target is not None and target[1] in BUCKET_HELPER_NAMES
+                 and self.modules.get(target[0]) is None):
+            return _Result(BUCKETED, f"{name}(...) bucketing helper")
+        if target is not None and target in SCHEMA_FUNCS_QUAL or \
+                name in SCHEMA_FUNC_NAMES:
+            return _Result(SCHEMA, f"{name}(...) schema descriptor")
+        if name in FINE_ROUNDER_NAMES or \
+                (target is not None
+                 and target[1] in FINE_ROUNDER_NAMES):
+            return _Result(
+                DATA, f"{name}(...) — util.capacity's 16-buckets-per-"
+                      f"octave mantissa rounding is NOT a recognized "
+                      f"bucketing helper for cache keys")
+        if chain in DATA_CALL_CHAINS:
+            return _Result(DATA, f"{'.'.join(chain)}() runtime fetch")
+        if len(chain) >= 2 and name in DATA_METHODS and not expr.args:
+            return _Result(DATA, f".{name}() runtime reduction")
+        if chain == ("len",):
+            return _Result(SCHEMA, "len() of a static container")
+        if name in ("int", "abs", "round"):
+            if expr.args:
+                r = self._value(expr.args[0], [], mod, fn, self_cls, st)
+                return r
+            return _Result(STRUCTURAL, f"{name}()")
+        if name in ("min", "max"):
+            return _join([self._value(a, [], mod, fn, self_cls, st)
+                          for a in expr.args]) \
+                or _Result(UNBOUNDED, "cyclic min/max")
+        if target is not None:
+            tmod = self.modules.get(target[0])
+            tdef = tmod.lookup(target[1]) if tmod is not None else None
+            if tdef is not None:
+                key = (target[0], target[1], "return", tuple(sel))
+                if key in st["visited"]:
+                    return None
+                st["visited"].add(key)
+                try:
+                    tcls = target[1].split(".", 1)[0] \
+                        if "." in target[1] else None
+                    rets = [n for n in _own_scope_nodes(tdef)
+                            if isinstance(n, ast.Return)
+                            and n.value is not None]
+                    if not rets:
+                        return _Result(UNBOUNDED,
+                                       f"{name}() returns nothing "
+                                       f"traceable")
+                    joined = _join([self._value(r.value, sel, tmod,
+                                                tdef, tcls, st)
+                                    for r in rets])
+                    if joined is None:
+                        return None
+                    return _Result(joined.rank,
+                                   f"{name}(...) -> {joined.why}")
+                finally:
+                    st["visited"].discard(key)
+        return _Result(UNBOUNDED, f"unresolvable call {name}(...)")
+
+
+# ---------------------------------------------------------------------------
+# closure-capture scan
+# ---------------------------------------------------------------------------
+
+
+def _own_stores(fn: ast.AST) -> Set[str]:
+    """Names bound in fn's OWN scope (params, assignments, imports, for/
+    with targets, nested def names) — not descending into nested defs'
+    bodies, so an inner scope's local never masks an outer capture."""
+    out = {p.arg for p in _params(fn)}
+    a = fn.args
+    if a.vararg:
+        out.add(a.vararg.arg)
+    if a.kwarg:
+        out.add(a.kwarg.arg)
+    out |= {p.arg for p in a.kwonlyargs}
+
+    def walk(node, top):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                  ast.Lambda)):
+                if isinstance(child, (ast.FunctionDef,
+                                      ast.AsyncFunctionDef)):
+                    out.add(child.name)
+                continue
+            if isinstance(child, ast.Name) and \
+                    isinstance(child.ctx, (ast.Store, ast.Del)):
+                out.add(child.id)
+            elif isinstance(child, (ast.Import, ast.ImportFrom)):
+                for al in child.names:
+                    out.add(al.asname or al.name.split(".")[0])
+            elif isinstance(child, ast.comprehension):
+                for n in ast.walk(child.target):
+                    if isinstance(n, ast.Name):
+                        out.add(n.id)
+            walk(child, False)
+
+    walk(fn, True)
+    return out
+
+
+def _all_bound(fn: ast.AST) -> Set[str]:
+    """Every name bound anywhere inside fn (incl. nested scopes)."""
+    out: Set[str] = set()
+    for node in ast.walk(fn):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.Lambda)):
+            out |= {p.arg for p in _params(node)}
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                out.add(node.name)
+        elif isinstance(node, ast.Name) and \
+                isinstance(node.ctx, (ast.Store, ast.Del)):
+            out.add(node.id)
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            for al in node.names:
+                out.add(al.asname or al.name.split(".")[0])
+        elif isinstance(node, ast.comprehension):
+            for n in ast.walk(node.target):
+                if isinstance(n, ast.Name):
+                    out.add(n.id)
+    return out
+
+
+def _module_names(mod: ModuleIndex, ext: Set[str]) -> Set[str]:
+    names = set(mod.functions) | set(mod.classes) | set(mod.objects)
+    names |= set(mod.mod_aliases) | set(mod.fn_imports) | ext
+    for node in mod.sf.tree.body:
+        if isinstance(node, ast.Assign):
+            for tgt in node.targets:
+                for n in ast.walk(tgt):
+                    if isinstance(n, ast.Name):
+                        names.add(n.id)
+        elif isinstance(node, ast.AnnAssign) and \
+                isinstance(node.target, ast.Name):
+            names.add(node.target.id)
+    return names
+
+
+def _scan_closures(mod: ModuleIndex, ext: Set[str]) -> List[Finding]:
+    import builtins
+
+    findings: List[Finding] = []
+    module_names = _module_names(mod, ext)
+    builtin_names = set(dir(builtins))
+
+    # collect (def/lambda node, enclosing def stack) and wrap calls
+    def_stacks: Dict[int, tuple] = {}
+    defs_by_name: List[tuple] = []  # (name, node, stack)
+    wraps: List[tuple] = []         # (call node, stack)
+
+    def visit(node, stack):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                def_stacks[id(child)] = stack
+                defs_by_name.append((child.name, child, stack))
+                visit(child, stack + (child,))
+                continue
+            if isinstance(child, ast.Lambda):
+                def_stacks[id(child)] = stack
+                visit(child, stack + (child,))
+                continue
+            if isinstance(child, ast.Call):
+                chain = attr_chain(child.func)
+                if chain in WRAP_CHAINS and child.args:
+                    wraps.append((child, stack))
+            visit(child, stack)
+
+    visit(mod.sf.tree, ())
+
+    for call, stack in wraps:
+        target = call.args[0]
+        if isinstance(target, ast.Lambda):
+            tnode, tstack = target, stack
+        elif isinstance(target, ast.Name):
+            cands = [(n, d, s) for n, d, s in defs_by_name
+                     if n == target.id
+                     and s == stack[:len(s)]]
+            if not cands:
+                continue
+            _n, tnode, tstack = max(cands, key=lambda c: len(c[2]))
+        else:
+            continue
+        if not tstack:
+            continue  # module-level traced def: no enclosing captures
+        bound = _all_bound(tnode)
+        own_by_frame = [(e, _own_stores(e)) for e in tstack
+                        if isinstance(e, (ast.FunctionDef,
+                                          ast.AsyncFunctionDef))]
+        reported: Set[str] = set()
+        for node in ast.walk(tnode):
+            if not (isinstance(node, ast.Name)
+                    and isinstance(node.ctx, ast.Load)):
+                continue
+            name = node.id
+            if name in bound or name in reported:
+                continue
+            for enc, own in reversed(own_by_frame):  # innermost first
+                if name not in own:
+                    continue
+                if _is_counted_cache(enc):
+                    break  # cache-keyed closure: every binding derives
+                    # from the factory's key tuple
+                reported.add(name)
+                label = getattr(tnode, "name", "<lambda>")
+                findings.append(Finding(
+                    rule="specialization/closure-capture",
+                    path=mod.sf.rel, line=node.lineno,
+                    message=f"traced body '{label}' closes over "
+                            f"'{name}' bound in enclosing non-factory "
+                            f"'{enc.name}' — no cache key pins it, so "
+                            f"a changed value silently retraces (or "
+                            f"stales); pass it as an operand or build "
+                            f"through a counted_cache factory"))
+                break
+    return findings
+
+
+# ---------------------------------------------------------------------------
+# checker
+# ---------------------------------------------------------------------------
+
+
+@register("specialization")
+def check_specialization(ctx: AnalysisContext) -> List[Finding]:
+    modules = build_module_index(ctx)
+    tracer = _Tracer(modules, ctx.package_name)
+    findings: List[Finding] = []
+
+    # counted_cache factories and their defs
+    factories: Dict[Tuple[str, str], ast.AST] = {}
+    for modname, mod in modules.items():
+        for name, fndef in mod.functions.items():
+            if _is_counted_cache(fndef):
+                factories[(modname, name)] = fndef
+
+    census = {c: 0 for c in CLASS_NAMES}
+    audited_sites = 0
+    for key, fndef in sorted(factories.items()):
+        fmod, fname = key
+        params = _params(fndef)
+        sites = tracer.call_sites.get(key, [])
+        for cmod, cfn, ccls, call in sites:
+            audited_sites += 1
+            for i, p in enumerate(params):
+                arg = tracer._site_arg(call, i, p.arg)
+                if arg is None:
+                    continue
+                if p.arg == "mesh":
+                    census["structural"] += 1
+                    continue
+                ann = _ann_name(p.annotation)
+                if ann in ("bool", "str", "float"):
+                    census["structural"] += 1
+                    continue
+                if p.annotation is not None and ann != "int":
+                    census["schema-bound"] += 1
+                    continue
+                res = tracer.classify_arg(arg, cmod, cfn, ccls)
+                census[CLASS_NAMES[res.rank]] += 1
+                if res.rank == DATA:
+                    findings.append(Finding(
+                        rule="specialization/unbucketed-capacity",
+                        path=cmod.sf.rel, line=call.lineno,
+                        message=f"cache-key parameter '{p.arg}' of "
+                                f"{fname} is data-dependent and not "
+                                f"routed through a recognized bucketing "
+                                f"helper (benchutils.bucket_cap / "
+                                f"util.pow2) — one compiled program per "
+                                f"distinct value; derivation: "
+                                f"{res.why}"))
+                elif res.rank == UNBOUNDED:
+                    findings.append(Finding(
+                        rule="specialization/unbounded-key",
+                        path=cmod.sf.rel, line=call.lineno,
+                        message=f"cache-key parameter '{p.arg}' of "
+                                f"{fname}: cardinality not provably "
+                                f"bounded; derivation: {res.why}"))
+        if not sites:
+            ctx.options.setdefault("notes", []).append(
+                f"specialization: factory {fmod or ctx.package_name}."
+                f"{fname} has no package call site (dynamic use only)")
+
+    # closure-capture sweep over every module
+    for modname, mod in modules.items():
+        findings.extend(_scan_closures(mod, tracer._ext.get(modname,
+                                                            set())))
+
+    ctx.options.setdefault("notes", []).append(
+        "specialization: {} counted_cache factories, {} call sites; "
+        "key args: {}".format(
+            len(factories), audited_sites,
+            ", ".join(f"{census[c]} {c}" for c in CLASS_NAMES)))
+    return findings

@@ -32,8 +32,26 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ops.hash import M32, NULL_TAG, as_i32, u32
 from ..util import capacity as _capacity
+
+# the 32-bit hash arithmetic of ops/hash.py, kept here as the JAX
+# package's strings module keeps its own constants: column storage sits
+# below the kernels and imports nothing of ops/
+M32 = 0xFFFFFFFF
+NULL_TAG = 0x9E3779B9
+
+
+def u32(x: torch.Tensor) -> torch.Tensor:
+    """uint32 bits (int32, or any <= 4-byte container) -> int64 value."""
+    if x.dtype == torch.int64:
+        return x & M32
+    return x.to(torch.int64) & ((1 << (8 * x.element_size())) - 1)
+
+
+def as_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 value in [0, 2^32) (or any int64, wrapped) -> int32 bits."""
+    x = x & M32
+    return (x - ((x & 0x80000000) << 1)).to(torch.int32)
 
 # ingest policy: dictionary-encode when the vocabulary is small (device
 # codes sort faster and stay exact); otherwise varbytes

@@ -36,6 +36,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..telemetry.metrics import record_host_sync
+
 
 def all_to_all(send: torch.Tensor) -> torch.Tensor:
     """``jax.lax.all_to_all`` of the ``[W_src, W_dst, ...]`` send stack:
@@ -215,7 +217,10 @@ class ProcessGroupComm:
         dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM,
                                "max": dist.ReduceOp.MAX,
                                "min": dist.ReduceOp.MIN}[op])
-        return t.cpu().numpy()
+        out = t.cpu().numpy()
+        # the port's own site: the processes agreeing a host value
+        record_host_sync("comm.all_reduce")
+        return out
 
     def all_gather_host(self, values) -> np.ndarray:
         """``[P, ...]``: every process's host array of one shape, in rank
@@ -225,7 +230,9 @@ class ProcessGroupComm:
         t = self._host_tensor(values)
         outs = [torch.empty_like(t) for _ in range(self.nproc)]
         dist.all_gather(outs, t)
-        return torch.stack(outs).cpu().numpy()
+        out = torch.stack(outs).cpu().numpy()
+        record_host_sync("comm.all_gather_host")
+        return out
 
     def barrier(self) -> None:
         self.all_reduce(np.zeros(1, np.int64), "sum")

@@ -58,7 +58,9 @@ from ..telemetry import annotate as _annotate
 from ..telemetry import knobs as _knobs
 from ..telemetry import ledger as _ledger
 from ..telemetry import metrics as _metrics
+from ..telemetry import phase as _phase
 from ..telemetry import skew as _skew
+from ..telemetry import span as _span
 from ..util import bucket_cap as _bucket_cap
 from ..util import capacity as _capacity
 from ..util import pow2_floor as _pow2_floor
@@ -228,7 +230,11 @@ def _take_into_shards(src, idx_g: torch.Tensor, cm) -> VarBytes:
         else torch.zeros_like(idx_g)
     lens = torch.where(hit, src.lengths[safe], 0) if src.nrows \
         else torch.zeros(v, m, dtype=torch.int32, device=dev)
-    cap_w = _bucket_cap(agree_max(cm, [nw.sum(1).max() if m else 0])[0])
+    worst = 0
+    if m:
+        worst = int(nw.sum(1).max())
+        _metrics.record_host_sync("varlen.count")
+    cap_w = _bucket_cap(agree_max(cm, [worst])[0])
     starts = _order.cumsum_rows(nw) - nw
     words = torch.zeros(v * cap_w, dtype=torch.int32, device=dev)
     if m and src.nrows:
@@ -386,32 +392,61 @@ def _dist_stream_mode(lkb, rkb, join_type: _join.JoinType,
     return None
 
 
-def _shard_plan(cm, lkb, lkv, lemit, rkb, rkv, remit, ldat, lval, rdat,
-                rval, jt: _join.JoinType):
-    """Phase 1 of the per-shard join over [V, n] key bits, key validity,
-    emits and payload lanes: K3 on the stream route (picked by
-    `_dist_stream_mode`), the plan route otherwise or after a 64-bit
-    hash collision on any shard of any process (agreed through ``cm``).
-    Returns (route, host counts int64 [V, 2] = [n_out, n_unmatched_b],
-    state) for `_shard_materialize`."""
-    mode = _dist_stream_mode(lkb, rkb, jt, lemit.device)
+def _plan_on_device(lkb, lkv, lemit, rkb, rkv, remit, ldat, lval, rdat,
+                    rval, jt: _join.JoinType, stream: bool = True):
+    """The device half of phase 1 of the per-shard join over [V, n] key
+    bits, key validity, emits and payload lanes: K3 on the stream route
+    (picked by `_dist_stream_mode`, unless ``stream`` is False), the plan
+    route otherwise. Returns (route, device counts, state); the stream
+    route's counts are K3's int32 [V, 4] (column 3 flags a 64-bit hash
+    collision when ``state[6]``, the hash mode, is set), the plan route's
+    [V, 2] = [n_out, n_unmatched_b]."""
+    mode = _dist_stream_mode(lkb, rkb, jt, lemit.device) if stream else None
     if mode is not None:
         hash_mode, br = mode
         a_desc, b_desc = _join.plan_lane_descs(ldat, lval, rdat, rval, jt)
         counts, a_streams, b_streams = _join.plan_program_stream(
             lkb, lkv, lemit, rkb, rkv, remit, ldat, lval, rdat, rval, jt,
             a_desc=a_desc, b_desc=b_desc, hash_mode=hash_mode)
-        hc = counts.cpu().numpy().astype(np.int64)
-        collided = hash_mode and agree_max(cm, [hc[:, 3].max()])[0] > 0
-        if not collided:
-            host = np.stack([hc[:, 0], np.zeros_like(hc[:, 0])], 1)
-            return "stream", host, (counts, a_streams, b_streams, a_desc,
-                                    b_desc, br)
-        # else: 64-bit hash collision — recompute via the exact plan route
+        return "stream", counts, (counts, a_streams, b_streams, a_desc,
+                                  b_desc, br, hash_mode)
     counts2, lo, m, bperm, un_mask = _join.join_plan_keys(
         lkb, lkv, lemit, rkb, rkv, remit, jt)
     aemit = remit if jt == _join.JoinType.RIGHT else lemit
-    return "plan", counts2.cpu().numpy(), (lo, m, bperm, un_mask, aemit)
+    return "plan", counts2, (lo, m, bperm, un_mask, aemit)
+
+
+def _host_counts(route: str, hc: np.ndarray) -> np.ndarray:
+    """int64 [V, 2] = [n_out, n_unmatched_b] from fetched plan counts."""
+    hc = hc.astype(np.int64)
+    if route == "plan":
+        return hc
+    return np.stack([hc[:, 0], np.zeros_like(hc[:, 0])], 1)
+
+
+def _collided(cm, route: str, state, hc: np.ndarray) -> bool:
+    """A 64-bit hash collision of the stream route's hash mode on any
+    shard of any process (agreed through ``cm``)."""
+    return route == "stream" and state[6] and \
+        agree_max(cm, [hc[..., 3].max()])[0] > 0
+
+
+def _shard_plan(cm, lkb, lkv, lemit, rkb, rkv, remit, ldat, lval, rdat,
+                rval, jt: _join.JoinType):
+    """Phase 1 of the per-shard join: `_plan_on_device`, its counts
+    fetched (``join.plan``), the plan route again after a hash collision.
+    Returns (route, host counts int64 [V, 2] = [n_out, n_unmatched_b],
+    state) for `_shard_materialize`."""
+    args = (lkb, lkv, lemit, rkb, rkv, remit, ldat, lval, rdat, rval, jt)
+    route, counts, state = _plan_on_device(*args)
+    hc = counts.cpu().numpy()
+    _metrics.record_host_sync("join.plan")
+    if _collided(cm, route, state, hc):
+        # recompute via the exact plan route
+        route, counts, state = _plan_on_device(*args, stream=False)
+        hc = counts.cpu().numpy()
+        _metrics.record_host_sync("join.plan")
+    return route, _host_counts(route, hc), state
 
 
 def _shard_materialize(route: str, state, ldat, lval, rdat, rval,
@@ -421,7 +456,7 @@ def _shard_materialize(route: str, state, ldat, lval, rdat, rval,
     the stream route. Returns (ldat', lval', rdat', rval', emit, lidx,
     ridx), each [W, cap + cap_u]."""
     if route == "stream":
-        counts, a_streams, b_streams, a_desc, b_desc, _br = state
+        counts, a_streams, b_streams, a_desc, b_desc = state[:5]
         return _join.materialize_program_stream(
             counts, a_streams, b_streams, ldat, lval, rdat, rval, jt, cap,
             a_desc=a_desc, b_desc=b_desc)
@@ -447,23 +482,16 @@ def _shard_matched(route: str, state) -> torch.Tensor:
     return state[1] > 0
 
 
-def _shard_join(cm, lkb, lkv, lemit, rkb, rkv, remit, ldat, lval, rdat,
-                rval, jt: _join.JoinType):
-    """The per-shard join of the shuffle and broadcast joins over [V, n]
-    inputs: `_shard_plan`, then `_shard_materialize` at the route's
-    capacity (the JAX package's shapes: the stream route's expansion
-    capacity, the plan route's bucket capacities), from the worst shard
-    of every process."""
-    route, host, state = _shard_plan(cm, lkb, lkv, lemit, rkb, rkv, remit,
-                                     ldat, lval, rdat, rval, jt)
+def _shard_caps(cm, route: str, host: np.ndarray, state,
+                jt: _join.JoinType) -> Tuple[int, int]:
+    """(cap, cap_u) of `_shard_materialize` from the worst shard of every
+    process: the JAX package's shapes, the stream route's expansion
+    capacity or the plan route's bucket capacities."""
     n_out, n_un = agree_max(cm, host.max(axis=0))
     if route == "stream":
-        cap = _join.stream_expand_capacity(n_out, state[5])
-        return _shard_materialize(route, state, ldat, lval, rdat, rval, jt,
-                                  cap)
+        return _join.stream_expand_capacity(n_out, state[5]), 0
     cap_u = _bucket_cap(n_un) if jt == _join.JoinType.FULL_OUTER else 0
-    return _shard_materialize(route, state, ldat, lval, rdat, rval, jt,
-                              _bucket_cap(n_out), cap_u)
+    return _bucket_cap(n_out), cap_u
 
 
 def shuffle(table: Table, hash_columns: Sequence,
@@ -554,43 +582,47 @@ def distributed_join(left: Table, right: Table, config: _join.JoinConfig,
     right_d = shard.distribute(right, ctx)
     lcols, rcols = _align_key_columns_dist(left_d, right_d, lidx, ridx, cm)
 
-    plan = []
-    for t, kcols, kidx, other in ((left_d, lcols, lidx, rcols),
-                                  (right_d, rcols, ridx, lcols)):
-        sig = shard.partition_signature(kcols, kidx, world)
-        if sig is not None and t._hash_partitioned == sig \
-                and not force_exchange:
-            # co-partitioned: rows are already hash-placed
-            plan.append(("skip", t, None, None))
-            continue
-        plan.append(("exchange", t,
-                     _partition_targets_dist(world, kcols, other),
-                     t.emit_mask()))
-    ex = [p for p in plan if p[0] == "exchange"]
-    results = {}
-    if len(ex) == 2:
-        # one count fetch covers both shuffles; a dense one-shard world
-        # needs none (the exchange counts in-program)
-        dense = ex[0][1].row_mask is None and ex[1][1].row_mask is None
-        cl = cr = None
-        if world > 1 or not dense:
-            cl, cr = count_pair(ex[0][2], ex[0][3], ex[1][2], ex[1][3],
-                                ctx)
-        r1, r2 = _exchange_table_pair(ex[0][1], ex[0][2], ex[0][3], cl,
-                                      ex[1][1], ex[1][2], ex[1][3], cr, ctx,
-                                      dense=dense)
-        results[id(ex[0])] = r1
-        results[id(ex[1])] = r2
-    shuffled = []
-    for p in plan:
-        kind, t, targets, emit = p
-        if kind == "skip":
-            shuffled.append((t._columns, t.emit_mask()))
-        elif id(p) in results:
-            shuffled.append(results[id(p)])
-        else:
-            shuffled.append(_exchange_table(t, targets, emit, ctx,
-                                            dense=t.row_mask is None)[:2])
+    seq = ctx.get_next_sequence()
+    with _span("distributed_join.shuffle", seq, world=world,
+               rows_in=left_d.capacity + right_d.capacity) as sp:
+        plan = []
+        for t, kcols, kidx, other in ((left_d, lcols, lidx, rcols),
+                                      (right_d, rcols, ridx, lcols)):
+            sig = shard.partition_signature(kcols, kidx, world)
+            if sig is not None and t._hash_partitioned == sig \
+                    and not force_exchange:
+                # co-partitioned: rows are already hash-placed
+                plan.append(("skip", t, None, None))
+                continue
+            plan.append(("exchange", t,
+                         _partition_targets_dist(world, kcols, other),
+                         t.emit_mask()))
+        ex = [p for p in plan if p[0] == "exchange"]
+        sp.set(sides_exchanged=len(ex), sides_skipped=2 - len(ex))
+        results = {}
+        if len(ex) == 2:
+            # one count fetch covers both shuffles; a dense one-shard
+            # world needs none (the exchange counts in-program)
+            dense = ex[0][1].row_mask is None and ex[1][1].row_mask is None
+            cl = cr = None
+            if world > 1 or not dense:
+                cl, cr = count_pair(ex[0][2], ex[0][3], ex[1][2], ex[1][3],
+                                    ctx)
+            r1, r2 = _exchange_table_pair(ex[0][1], ex[0][2], ex[0][3], cl,
+                                          ex[1][1], ex[1][2], ex[1][3], cr,
+                                          ctx, dense=dense)
+            results[id(ex[0])] = r1
+            results[id(ex[1])] = r2
+        shuffled = []
+        for p in plan:
+            kind, t, targets, emit = p
+            if kind == "skip":
+                shuffled.append((t._columns, t.emit_mask()))
+            elif id(p) in results:
+                shuffled.append(results[id(p)])
+            else:
+                shuffled.append(_exchange_table(
+                    t, targets, emit, ctx, dense=t.row_mask is None)[:2])
 
     # key bits from the SHUFFLED columns (elementwise ordered bits; word
     # lanes slice out of the strided layout)
@@ -615,8 +647,18 @@ def distributed_join(left: Table, right: Table, config: _join.JoinConfig,
     lemit_w, remit_w = lemit.view(v, -1), remit.view(v, -1)
 
     jt = config.type
-    res = _shard_join(cm, lkb_w, lkv_w, lemit_w, rkb_w, rkv_w, remit_w,
-                      ldat, lval, rdat, rval, jt)
+    with _phase("distributed_join.plan", seq):
+        route, host, state = _shard_plan(cm, lkb_w, lkv_w, lemit_w, rkb_w,
+                                         rkv_w, remit_w, ldat, lval, rdat,
+                                         rval, jt)
+        if route == "plan":
+            _annotate(rows_out=int(host[:, 0].sum()))
+    cap, cap_u = _shard_caps(cm, route, host, state, jt)
+    with _phase("distributed_join.materialize", seq) if route == "stream" \
+            else _span("distributed_join.materialize", seq, world=world,
+                       capacity=cap + cap_u):
+        res = _shard_materialize(route, state, ldat, lval, rdat, rval, jt,
+                                 cap, cap_u)
     # flatten the [W, cap] outputs back to the sharded flat layout
     lod, lov, rod, rov, (emit,), (lidx_o,), (ridx_o,) = (
         [x.reshape(-1) for x in part] for part in (
@@ -664,7 +706,9 @@ def _exact_post_verify(res: Table, nl: int, pairs, config):
         out = Table(res._columns, res._ctx, emit & ~bad)
         out._shard_world = res._shard_world
         return out, False
-    return res, agree_max(res._ctx.comm, [bad.any()])[0] > 0
+    collided = bool(bad.any())
+    _metrics.record_host_sync("join.exact_verify")
+    return res, agree_max(res._ctx.comm, [collided])[0] > 0
 
 
 def _exact_dict_redo(left: Table, right: Table, config: _join.JoinConfig,
@@ -772,33 +816,46 @@ def _long_exact_keys(left: Table, right: Table, config) -> bool:
     return False
 
 
-def _ring_plans(cm, a, b, need_matched: bool):
+def _ring_plans(cm, a, b, need_matched: bool, stream: bool = True):
     """The ring's count pass: W INNER plans of the resident a side against
     the b side rotated k times (after step k global shard i holds shard
-    (i - k) % W's block, ``cm.ring_shift``). Returns (pairs int64 [V, W]
-    = rows of (local shard, step), the matched-a mask [V, na] when
-    ``need_matched``, the plans and each step's visiting b payload)."""
+    (i - k) % W's block, ``cm.ring_shift``), every step's counts and the
+    unmatched a rows fetched in ONE device->host copy (``ring.count``, the
+    JAX package's one count program). Returns (pairs int64 [V, W] = rows
+    of (local shard, step), unmatched a rows int64 [V] (0 unless
+    ``need_matched``), the matched-a mask [V, na] when ``need_matched``,
+    the plans and each step's visiting b payload, and whether a stream
+    plan met a hash collision: the caller then runs the pass again with
+    ``stream`` False)."""
     abits, akv, aemit, adat, aval = a
     bbits, bkv, bemit, bdat, bval = b
     world = cm.world
-    pairs = np.zeros((cm.shards, world), dtype=np.int64)
     matched = torch.zeros_like(aemit) if need_matched else None
-    steps = []
+    steps, counts = [], []
     for k in range(world):
-        plan = _shard_plan(cm, abits, akv, aemit, bbits, bkv, bemit, adat,
-                           aval, bdat, bval, _join.JoinType.INNER)
-        route, host, state = plan
-        pairs[:, k] = host[:, 0]
+        route, cnt, state = _plan_on_device(
+            abits, akv, aemit, bbits, bkv, bemit, adat, aval, bdat, bval,
+            _join.JoinType.INNER, stream)
+        counts.append(cnt.to(torch.int64))
         if need_matched:
             matched |= _shard_matched(route, state)
-        steps.append((plan, bdat, bval))
+        steps.append((route, state, bdat, bval))
         if k + 1 < world:
             bbits = tuple(cm.ring_shift(x) for x in bbits)
             bkv, bemit = cm.ring_shift(bkv), cm.ring_shift(bemit)
             bdat = tuple(cm.ring_shift(x) for x in bdat)
             bval = tuple(None if x is None else cm.ring_shift(x)
                          for x in bval)
-    return pairs, matched, steps
+    extra = (aemit & ~matched).sum(1) if need_matched \
+        else torch.zeros(aemit.shape[0], dtype=torch.int64,
+                         device=aemit.device)
+    hc = torch.cat([torch.stack(counts, 1).reshape(cm.shards, -1),
+                    extra.view(-1, 1).to(torch.int64)], 1).cpu().numpy()
+    _metrics.record_host_sync("ring.count")
+    per_step = hc[:, :-1].reshape(cm.shards, world, -1)
+    pairs = per_step[:, :, 0]
+    collided = _collided(cm, route, state, per_step)
+    return pairs, hc[:, -1], matched, steps, collided
 
 
 def _ring_slabs(a, steps, matched, cap_step: int, cap_extra: int):
@@ -809,12 +866,12 @@ def _ring_slabs(a, steps, matched, cap_step: int, cap_extra: int):
     _abits, _akv, aemit, adat, aval = a
     parts = [_shard_materialize(route, state, adat, aval, bdat, bval,
                                 _join.JoinType.INNER, cap_step)
-             for (route, _host, state), bdat, bval in steps]
+             for route, state, bdat, bval in steps]
     if cap_extra:
         un = _join._masked_indices(aemit & ~matched, cap_extra)
         hole = torch.full_like(un, -1)
         parts.append(_join.gather_columns(adat, aval, un)
-                     + _join.gather_columns(steps[0][1], steps[0][2], hole)
+                     + _join.gather_columns(steps[0][2], steps[0][3], hole)
                      + (un >= 0, un, hole))
     cols = [tuple(torch.cat(c, 1) for c in zip(*(p[i] for p in parts)))
             for i in range(4)]
@@ -854,13 +911,20 @@ def distributed_join_ring(left: Table, right: Table,
     *b, b_slots = _prep_join_side(b_t, b_cols, a_cols, cm.shards)
 
     emit_unmatched = jt != _join.JoinType.INNER
-    pairs, matched, steps = _ring_plans(cm, a, b, emit_unmatched)
-    extra = int((a[2] & ~matched).sum(1).max()) if emit_unmatched else 0
+    seq = ctx.get_next_sequence()
+    with _phase("ring_join.count", seq):
+        pairs, extra, matched, steps, collided = _ring_plans(
+            cm, a, b, emit_unmatched)
+        if collided:
+            # a 64-bit hash collision: every step again on the exact
+            # plan route
+            pairs, extra, matched, steps, _ = _ring_plans(
+                cm, a, b, emit_unmatched, stream=False)
     # skew guard: every shard's slab is world * cap_step rows, cap_step
     # set by the worst (shard, step) block of any process; with an
     # absolute floor, so that sparse outputs stay on the ring
     worst_pair, extra, worst_total = agree_max(
-        cm, [pairs.max(), extra, pairs.sum(axis=1).max()])
+        cm, [pairs.max(), extra.max(), pairs.sum(axis=1).max()])
     cap_step = _bucket_cap(worst_pair)
     cap_extra = _bucket_cap(extra) if emit_unmatched else 0
     slab = world * cap_step
@@ -874,8 +938,10 @@ def distributed_join_ring(left: Table, right: Table,
     if skewed or over_budget:
         return distributed_join(left, right, config)
 
-    aod, aov, bod, bov, emit, aidx, bidx = _ring_slabs(
-        a, steps, matched, cap_step, cap_extra)
+    _counter("cylon_join_algorithm_total", {"algo": "ring"}).inc()
+    with _phase("ring_join.materialize", seq):
+        aod, aov, bod, bov, emit, aidx, bidx = _ring_slabs(
+            a, steps, matched, cap_step, cap_extra)
     a_out = _rebuild_join_side(a_t, aod, aov, aidx, a_slots, "a", cm)
     b_out = _rebuild_join_side(b_t, bod, bov, bidx, b_slots, "b", cm)
     return _ledger.track(
@@ -950,10 +1016,22 @@ def broadcast_hash_join(left: Table, right: Table,
     def full(x):
         return None if x is None else cm.gather_full(x)
 
-    aod, aov, bod, bov, emit, aidx, bidx = _shard_join(
-        cm, abits, akv, aemit, tuple(full(x) for x in bbits), full(bkv),
-        full(bemit), adat, aval, tuple(full(x) for x in bdat),
-        tuple(full(x) for x in bval), jt_local)
+    seq = ctx.get_next_sequence()
+    world = cm.world
+    with _span("broadcast_join.plan", seq, world=world,
+               rows_in=a_t.capacity + b_t.capacity,
+               build_rows=b_t.capacity, build_bytes=int(b_t.nbytes)):
+        bdat_f = tuple(full(x) for x in bdat)
+        bval_f = tuple(full(x) for x in bval)
+        route, host, state = _shard_plan(
+            cm, abits, akv, aemit, tuple(full(x) for x in bbits), full(bkv),
+            full(bemit), adat, aval, bdat_f, bval_f, jt_local)
+        _annotate(rows_out=int(host[:, 0].sum()))
+    cap, cap_u = _shard_caps(cm, route, host, state, jt_local)
+    with _span("broadcast_join.materialize", seq, world=world,
+               capacity=cap):
+        aod, aov, bod, bov, emit, aidx, bidx = _shard_materialize(
+            route, state, adat, aval, bdat_f, bval_f, jt_local, cap, cap_u)
     a_out = _rebuild_join_side(a_t, aod, aov, aidx, a_slots, "a", cm)
     b_out = _rebuild_join_side(b_t, bod, bov, bidx, b_slots, "b", cm)
     out = _join_output(ctx, a_out, b_out, build_side == 1, emit)
@@ -1016,22 +1094,26 @@ def distributed_set_op(left: Table, right: Table, op: _setops.SetOp,
     has_validity = [a.validity is not None or b.validity is not None
                     for a, b in zip(lcols, rcols)]
 
-    # exchange only the aligned columns; the row keys are recomputed per
-    # shard from the shuffled columns. Both counts in one host fetch.
-    sides = [(Table(list(cols), ctx, t.row_mask),
-              _partition_targets_dist(world, cols, other), t.emit_mask())
-             for cols, other, t in ((lcols, rcols, left_d),
-                                    (rcols, lcols, right_d))]
-    dense = (world == 1 and left_d.row_mask is None
-             and right_d.row_mask is None)
-    cl = cr = None
-    if not dense:
-        cl, cr = count_pair(sides[0][1], sides[0][2], sides[1][1],
-                            sides[1][2], ctx)
-    (lcols_s, lemit), (rcols_s, remit) = (
-        _exchange_table(view, targets, emit, ctx, counts=cnt,
-                        dense=dense)[:2]
-        for (view, targets, emit), cnt in zip(sides, (cl, cr)))
+    seq = ctx.get_next_sequence()
+    with _span("distributed_set_op.shuffle", seq, world=world,
+               rows_in=left_d.capacity + right_d.capacity, op=str(op)):
+        # exchange only the aligned columns; the row keys are recomputed
+        # per shard from the shuffled columns. Both counts in one host
+        # fetch.
+        sides = [(Table(list(cols), ctx, t.row_mask),
+                  _partition_targets_dist(world, cols, other), t.emit_mask())
+                 for cols, other, t in ((lcols, rcols, left_d),
+                                        (rcols, lcols, right_d))]
+        dense = (world == 1 and left_d.row_mask is None
+                 and right_d.row_mask is None)
+        cl = cr = None
+        if not dense:
+            cl, cr = count_pair(sides[0][1], sides[0][2], sides[1][1],
+                                sides[1][2], ctx)
+        (lcols_s, lemit), (rcols_s, remit) = (
+            _exchange_table(view, targets, emit, ctx, counts=cnt,
+                            dense=dense)[:2]
+            for (view, targets, emit), cnt in zip(sides, (cl, cr)))
 
     def rebits(cols, other):
         # key bits (nulls at the all-ones end for plain columns, word
@@ -1045,20 +1127,23 @@ def distributed_set_op(left: Table, right: Table, op: _setops.SetOp,
         return _shards(bits, v)
 
     lemit_w, remit_w = lemit.view(v, -1), remit.view(v, -1)
-    gl, gr = _order.dense_ranks_two(rebits(lcols_s, rcols_s),
-                                    rebits(rcols_s, lcols_s))
-    counts = torch.stack(list(_setops.setop_counts(
-        gl, gr, lemit_w, remit_w).values()), 1).cpu().numpy()
+    with _phase("distributed_set_op.count", seq):
+        gl, gr = _order.dense_ranks_two(rebits(lcols_s, rcols_s),
+                                        rebits(rcols_s, lcols_s))
+        counts = torch.stack(list(_setops.setop_counts(
+            gl, gr, lemit_w, remit_w).values()), 1).cpu().numpy()
+        _metrics.record_host_sync("setop.count")
     cap = _bucket_cap(agree_max(cm, [counts[:, int(op)].max()])[0])
-    idx = _setops.setop_indices(gl, gr, lemit_w, remit_w, op, cap)
-    # indices address the per-shard concatenation [left; right]
-    dat = [torch.cat([a, b], 1) for a, b in zip(
-        _shards((c.data for c in lcols_s), v),
-        _shards((c.data for c in rcols_s), v))]
-    val = [torch.cat([a, b], 1) for a, b in zip(
-        _shards((c.valid_mask() for c in lcols_s), v),
-        _shards((c.valid_mask() for c in rcols_s), v))]
-    od, ov = _join.gather_columns(dat, val, idx)
+    with _phase("distributed_set_op.materialize", seq):
+        idx = _setops.setop_indices(gl, gr, lemit_w, remit_w, op, cap)
+        # indices address the per-shard concatenation [left; right]
+        dat = [torch.cat([a, b], 1) for a, b in zip(
+            _shards((c.data for c in lcols_s), v),
+            _shards((c.data for c in rcols_s), v))]
+        val = [torch.cat([a, b], 1) for a, b in zip(
+            _shards((c.valid_mask() for c in lcols_s), v),
+            _shards((c.valid_mask() for c in rcols_s), v))]
+        od, ov = _join.gather_columns(dat, val, idx)
     cols = _rebuild_columns([d.reshape(-1) for d in od],
                             [v.reshape(-1) for v in ov], lcols_s,
                             [c.name for c in lcols_s])
@@ -1100,6 +1185,7 @@ def hash_partition(table: Table, hash_columns: Sequence,
     perm = torch.sort(tkey, stable=True).indices
     counts = torch.bincount(tkey.to(torch.int64),
                             minlength=num_partitions + 1).cpu().numpy()
+    _metrics.record_host_sync("hash_partition.counts")
     offs = np.concatenate([[0], np.cumsum(counts[:num_partitions])])
 
     def take(x):
@@ -1229,7 +1315,7 @@ def _key_columns_out(cm, kcols, kout, kvout, safe) -> List[Column]:
 
 
 def _groupby_shuffle_agg(ctx: CylonContext, key_columns, value_columns,
-                         ops, emit, col_ids=None, dense: bool = False,
+                         ops, emit, seq, col_ids=None, dense: bool = False,
                          skip_exchange: bool = False):
     """Shuffle rows by key hash (unless ``skip_exchange``: the caller
     asserts each key's rows already sit on one shard), then aggregate per
@@ -1238,20 +1324,24 @@ def _groupby_shuffle_agg(ctx: CylonContext, key_columns, value_columns,
     cm = ctx.comm
     if skip_exchange:
         out_cols, emit_s = list(key_columns) + list(value_columns), emit
+        _annotate(exchange_skipped=True)
     else:
-        view = Table(list(key_columns) + list(value_columns), ctx, None)
-        targets = _partition_targets_dist(world, key_columns)
-        out_cols, emit_s, _ = _exchange_table(view, targets, emit, ctx,
-                                              dense=dense)
+        with _span("distributed_groupby.shuffle", seq, world=world,
+                   rows_in=int(emit.shape[0])):
+            view = Table(list(key_columns) + list(value_columns), ctx, None)
+            targets = _partition_targets_dist(world, key_columns)
+            out_cols, emit_s, _ = _exchange_table(view, targets, emit, ctx,
+                                                  dense=dense)
     nk = len(key_columns)
     kcols_s, vcols_s = out_cols[:nk], out_cols[nk:]
     if col_ids is None:
         col_ids = tuple(range(len(vcols_s)))
-    kout, kvout, gvalid, agg, safe = _shard_groupby(
-        cm.shards, _group_bits(kcols_s), [c.data for c in kcols_s],
-        [c.valid_mask() for c in kcols_s], emit_s,
-        [c.data for c in vcols_s], [c.validity for c in vcols_s], ops,
-        col_ids, [c.validity is None for c in vcols_s])
+    with _phase("distributed_groupby.aggregate", seq):
+        kout, kvout, gvalid, agg, safe = _shard_groupby(
+            cm.shards, _group_bits(kcols_s), [c.data for c in kcols_s],
+            [c.valid_mask() for c in kcols_s], emit_s,
+            [c.data for c in vcols_s], [c.validity for c in vcols_s], ops,
+            col_ids, [c.validity is None for c in vcols_s])
     return _key_columns_out(cm, kcols_s, kout, kvout, safe), agg, gvalid
 
 
@@ -1292,6 +1382,7 @@ def distributed_groupby(table: Table, index_col, aggregate_cols: List,
     key_columns = [t._columns[i] for i in idx_cols]
     ops = list(aggregate_ops)
     table_mod._check_string_values([t._columns[i] for i in val_cols], ops)
+    seq = ctx.get_next_sequence()
     emit = t.emit_mask()
     MEAN = _groupby.AggregationOp.MEAN
     SUM = _groupby.AggregationOp.SUM
@@ -1300,7 +1391,7 @@ def distributed_groupby(table: Table, index_col, aggregate_cols: List,
     if pre_partitioned or not pre_aggregate:
         key_out, agg, gvalid = _groupby_shuffle_agg(
             ctx, key_columns, [t._columns[vi] for vi in val_cols],
-            tuple(ops), emit, col_ids=tuple(val_cols),
+            tuple(ops), emit, seq, col_ids=tuple(val_cols),
             dense=t.row_mask is None, skip_exchange=pre_partitioned)
         cols = [table_mod._agg_column(arr, av, t._columns[vi], op)
                 for (arr, av), vi, op in zip(agg, val_cols, ops)]
@@ -1320,16 +1411,17 @@ def distributed_groupby(table: Table, index_col, aggregate_cols: List,
             a_entries.append((j, op, False))
             b_ops.append(_groupby.second_phase_op(op))
     srcs = [t._columns[val_cols[j]] for j, _op, _c in a_entries]
-    koutA, kvoutA, gvalidA, aggA, safeA = _shard_groupby(
-        ctx.local_shard_count(), _group_bits(key_columns),
-        [c.data for c in key_columns],
-        [c.valid_mask() for c in key_columns], emit,
-        [src.data.to(torch.float64) if cast else src.data
-         for src, (_j, _op, cast) in zip(srcs, a_entries)],
-        [src.validity for src in srcs],
-        tuple(op for _j, op, _c in a_entries),
-        tuple((val_cols[j], cast) for j, _op, cast in a_entries),
-        [src.validity is None for src in srcs])
+    with _phase("distributed_groupby.pre_aggregate", seq):
+        koutA, kvoutA, gvalidA, aggA, safeA = _shard_groupby(
+            ctx.local_shard_count(), _group_bits(key_columns),
+            [c.data for c in key_columns],
+            [c.valid_mask() for c in key_columns], emit,
+            [src.data.to(torch.float64) if cast else src.data  # cylint: disable=collectives/f64-promotion — MEAN's partial sums are float64, as the JAX package's
+             for src, (_j, _op, cast) in zip(srcs, a_entries)],
+            [src.validity for src in srcs],
+            tuple(op for _j, op, _c in a_entries),
+            tuple((val_cols[j], cast) for j, _op, cast in a_entries),
+            [src.validity is None for src in srcs])
     pkey_cols = _key_columns_out(ctx.comm, key_columns, koutA, kvoutA,
                                  safeA)
     pval_cols = [Column(arr, dtypes.Double(), av, src.name) if cast
@@ -1339,14 +1431,14 @@ def distributed_groupby(table: Table, index_col, aggregate_cols: List,
 
     # phase B: exchange the partials, merge with the second-phase ops
     key_out, aggB, gvalid = _groupby_shuffle_agg(
-        ctx, pkey_cols, pval_cols, tuple(b_ops), gvalidA)
+        ctx, pkey_cols, pval_cols, tuple(b_ops), gvalidA, seq)
     cols = []
     for op, vi, m in zip(ops, val_cols, out_map):
         src = t._columns[vi]
         if m[0] == "mean":
             s_arr, s_av = aggB[m[1]]
             c_arr, c_av = aggB[m[2]]
-            data = s_arr / torch.clamp(c_arr.to(torch.float64), min=1)
+            data = s_arr / torch.clamp(c_arr.to(torch.float64), min=1)  # cylint: disable=collectives/f64-promotion — the mean of float64 partial sums, as the JAX package's
             cols.append(Column(data, table_mod._agg_dtype(src, op),
                                s_av & c_av & (c_arr > 0), src.name))
         else:
@@ -1391,6 +1483,7 @@ def _range_splitters(ctx: CylonContext, lanes: Sequence[torch.Tensor],
                           if l.element_size() == 8
                           else _order.unsigned(l[pos]) for l in lanes]
                          + [emit[pos].to(torch.int64)]).cpu().numpy()
+    _metrics.record_host_sync("sort.splitters")
     if cm.nproc > 1:
         width = int(np.diff(cuts).max())
         padded = np.zeros((packed.shape[0], width), np.int64)
@@ -1490,18 +1583,22 @@ def distributed_sort(table: Table, order_by, ascending=True,
                              "SORT_PREFIX_WORDS words across processes")
         return shard.distribute(t.compact().sort(by, ascending), ctx)
     lanes = [l for col_lanes in per_col for l in col_lanes]
-    emit = t.emit_mask()
-    splitters = _range_splitters(ctx, lanes, emit)
-    targets = _splitter_targets(lanes, splitters)
-    cols_s, emit_s, _ = _exchange_table(t, targets, emit, ctx,
-                                        dense=t.row_mask is None)
-    # key lanes recomputed from the shuffled columns: they never cross
-    # the exchange
-    sbits = [l for i, a in zip(idxs, asc)
-             for l in _dist_order_lanes(cols_s[i], a)]
-    sdat, sval, semit, perm = _shard_sort(cm.shards, sbits, emit_s,
-                                          [c.data for c in cols_s],
-                                          [c.valid_mask() for c in cols_s])
+    seq = ctx.get_next_sequence()
+    with _span("distributed_sort.partition", seq, world=world,
+               rows_in=t.capacity):
+        emit = t.emit_mask()
+        splitters = _range_splitters(ctx, lanes, emit)
+        targets = _splitter_targets(lanes, splitters)
+        cols_s, emit_s, _ = _exchange_table(t, targets, emit, ctx,
+                                            dense=t.row_mask is None)
+    with _phase("distributed_sort.local", seq):
+        # key lanes recomputed from the shuffled columns: they never
+        # cross the exchange
+        sbits = [l for i, a in zip(idxs, asc)
+                 for l in _dist_order_lanes(cols_s[i], a)]
+        sdat, sval, semit, perm = _shard_sort(
+            cm.shards, sbits, emit_s, [c.data for c in cols_s],
+            [c.valid_mask() for c in cols_s])
     cols = _rebuild_columns(sdat, sval, cols_s, [c.name for c in cols_s])
     for ci, c in enumerate(cols_s):
         if c.is_varbytes:

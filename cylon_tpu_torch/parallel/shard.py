@@ -26,6 +26,7 @@ from ..data.column import Column, as_varbytes
 from ..data.table import Table
 from ..dtypes import Type, np_name
 from ..status import Code, CylonError, CylonPlanError
+from ..telemetry.metrics import record_host_sync as _host_sync
 from ..util import capacity as _capacity
 
 # per-shard capacities are rounded to a multiple of 8, as in the JAX
@@ -101,9 +102,14 @@ def _distribute_varbytes(vb, n: int, cap: int, world: int, local):
     estarts = vb.eff_starts()
     rows = [(s * cap, min((s + 1) * cap, n)) for s in range(world)]
     live = [(lo, hi) for lo, hi in rows if lo < hi]
-    bounds = torch.stack([torch.stack([estarts[lo], estarts[hi - 1]
-                                       + _nwords(vb.lengths[hi - 1])])
-                          for lo, hi in live]).cpu().tolist() if live else []
+    bounds = []
+    if live:
+        bounds = torch.stack([torch.stack([estarts[lo], estarts[hi - 1]
+                                           + _nwords(vb.lengths[hi - 1])])
+                              for lo, hi in live]).cpu().tolist()
+        # one copy where the JAX package makes three (words, starts and
+        # lengths, whole)
+        _host_sync("distribute.varbytes")
     spans = iter(bounds)
     slices = [tuple(next(spans)) if lo < hi else (0, 0) for lo, hi in rows]
     wc = _capacity(max(max(w_hi - w_lo for w_lo, w_hi in slices), 1))
@@ -152,6 +158,8 @@ def host_partition_arrays(t: Table, idxs, world: int):
                     if c.is_varbytes else c.data.cpu().numpy())
         valids.append(None if c.validity is None
                       else c.validity.cpu().numpy())
+    _host_sync("ingest.host_partition",
+               len(host) + sum(v is not None for v in valids))
     pre = [t._columns[i].is_varbytes for i in idxs]
     keys = [native.np_varbytes_hash(host[i]) if p else host[i]
             for i, p in zip(idxs, pre)]

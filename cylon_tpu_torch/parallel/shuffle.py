@@ -163,7 +163,7 @@ def _kernel_partition(payload, targets, emit, world: int):
     return out, counts_out, torch.cumsum(c, 1) - c
 
 
-def use_partition_kernel(world: int, device: torch.device) -> bool:
+def use_partition_kernel(world: int, device: torch.device) -> bool:  # cylint: disable=collectives/uncataloged-factory — a route predicate, it issues no collective
     """The partition route of a world >= 2 exchange. On the card a world
     whose world + 1 buckets exceed the kernels' limit raises: the sort
     route is taken only when the caller asks for it."""
@@ -179,7 +179,10 @@ def _padded_body_w1(block: int, payload, targets, emit):
     """One-shard padded body: the all-to-all is the identity; the only
     work is pushing dead rows to the tail (skipped when all rows live)."""
     n = targets.shape[1]
-    if bool(emit.all()):
+    all_live = bool(emit.all())
+    # the port's own fetch: the JAX package decides this in-program
+    _metrics.record_host_sync("shuffle.all_live")
+    if all_live:
         out = payload
         counts_in = torch.full((1, 1), n, dtype=torch.int32,
                                device=targets.device)

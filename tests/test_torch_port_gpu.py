@@ -1561,3 +1561,47 @@ def test_task_exchange_on_card(cuda, world):
     assert torch.equal(ec, eg)
     for a, b in zip(cc, cg):
         assert torch.equal(a[ec], b[eg])
+
+
+def test_collectives_catalog_on_card(cuda):
+    """The analysis suite's collectives catalog on CUDA tensors at world
+    4, under its dispatch mode: no finding, and K1-K6 each launch (the
+    kernel route switches forced on, as on the CPU)."""
+    import os
+
+    from cylon_tpu_torch import analysis as A
+
+    root = os.path.dirname(os.path.abspath(ct.__file__))
+    K.reset_launches()
+    res = A.run_checkers(A.AnalysisContext(root, {"device": "cuda"}),
+                         ["collectives"])
+    torch.cuda.synchronize()
+    assert res.ok, res.format_text()
+    assert all(K.LAUNCHES[k] > 0 for k in K.KERNELS), K.LAUNCHES
+    assert J.STREAM_PLAN is None and SO.STREAM_SETOP is None \
+        and S.PARTITION_KERNEL is None
+
+
+def test_wrappers_do_not_sync(cuda):
+    """Each kernel wrapper, at the inputs a world-4 join and a local
+    UNION give it, launches under set_sync_debug_mode("error") (which
+    does raise on a sync): the runtime side of hostsync/in-launch."""
+    import chip_smoke
+
+    dctx = ct.CylonContext.InitDistributed(ct.VirtualWorldConfig(4))
+    left, right, _h = chip_smoke.make_tables(ct, dctx, 100_000, 0)
+    lctx = ct.CylonContext.Init()
+    a, b, _h = chip_smoke.make_setop_tables(ct, lctx, 100_000, 3)
+    with chip_smoke.Recorder(K) as rec:
+        left.distributed_join(right, "inner", on=["k"], force_exchange=True)
+        a.union(b)
+    torch.cuda.synchronize()
+    assert sorted(rec.calls) == sorted(K.KERNELS)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):
+            torch.ones(1, device=cuda).item()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launched = chip_smoke.wrappers_sync_free(K, rec.calls)
+    assert all(v >= 1 for v in launched.values())
