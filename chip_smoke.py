@@ -6,7 +6,8 @@
                           [--service-rows Q] [--seed S] [--out PATH]
                           [--parent-tree DIR]
 
-(``--mp-child RANK`` is how phase 22 starts its two processes.)
+(``--mp-child RANK`` is how phases 22 and 26d start their two
+processes.)
 
 The paths, each at the size of the repo's own benchmark:
 
@@ -237,6 +238,31 @@ Phases, in order (any failure exits non-zero; nothing is caught):
      package is loaded beside this one under another name, its labels
      and host syncs printed, and the same join of both run in turns (one
      warm-up each, 9 rounds, medians and the difference printed).
+ 26. the host runtime, the C binding, the task exchange on a process
+     group and the examples: 26a, the host library
+     (csrc/host/cylon_host.cpp) built with g++ (its seconds printed),
+     ``native.hash_partition`` of phase 2's left keys (N int32 keys, world
+     4) through the library and through numpy, 3 runs each in turns,
+     targets, counts and order bit-equal; ``distribute_by_key`` of phase
+     2's left table on the card, then its inner join with the right table:
+     one side exchanged (the witness skips the placed side), K1-K4
+     launched, the rows phase 2's numpy count. 26b, that join's (k, v, w)
+     columns written by ``write_csv`` through the host library
+     (``native.CALLS``), read back with numpy: the row count and the
+     column sums equal (integers exactly, floats within 1e-6 of
+     sum |x|); the first 4,194,304 rows written again, and through pandas
+     where pandas exists; the files deleted. 26c, the C binding
+     (csrc/host/cylon_cbind.c) built with gcc and run on ``cuda`` over
+     two CSVs of 1,048,576 rows a side (make_tables' draws): CBIND OK, the
+     row count the numpy count, K3 and K4 launched in the child. 26d,
+     ``plan.task_exchange`` of the join's left table at 4,194,304 rows
+     and 64 tasks on two gloo processes of two shards sharing the card:
+     each shard equal to the virtual world's, K1 and K2 launched in both.
+     26e, the nine examples of examples/torch_port on the card
+     (torch_ddp_demo as two processes), each with the counters 0 -> read:
+     the join example's inner count and the set ops' counts against
+     numpy, K5 and K6 launched by set_ops_example, K1-K6 over the
+     examples.
 Phases 10-12, 23a and 24d each record the median of 5 steady runs after
 one warm-up.
 Tolerances: float sums 1e-5 * sum |x| of the group (+1e-30), float64
@@ -1671,11 +1697,13 @@ def mp_child(args) -> int:
     return 0
 
 
-def mp_phase(args, digests2: dict, expect_rows: int) -> dict:
-    """Phase 22a: the two processes of the gloo group on this card."""
+def run_children(extra, phase: str) -> list:
+    """Start MP_PROCS copies of this script (``--mp-child RANK`` and
+    ``extra``) on a fresh ``file://`` rendezvous, wait for all of them
+    within MP_TIMEOUT_S (a process still running then is killed), fail on
+    a non-zero exit with its log's tail; each process's JSON result."""
     import tempfile
 
-    torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mp_")
     t0 = time.perf_counter()
     procs, logs = [], []
@@ -1684,9 +1712,8 @@ def mp_phase(args, digests2: dict, expect_rows: int) -> dict:
             logs.append(open(os.path.join(tmp, f"child{r}.log"), "w+"))
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--mp-child",
-                 str(r), "--rows", str(args.rows), "--seed", str(args.seed),
-                 "--rdv", os.path.join(tmp, "rdv"), "--child-out",
-                 os.path.join(tmp, f"child{r}.json")],
+                 str(r), *extra, "--rdv", os.path.join(tmp, "rdv"),
+                 "--child-out", os.path.join(tmp, f"child{r}.json")],
                 stdout=logs[-1], stderr=subprocess.STDOUT))
         for p in procs:
             p.wait(timeout=max(MP_TIMEOUT_S - (time.perf_counter() - t0),
@@ -1701,19 +1728,28 @@ def mp_phase(args, digests2: dict, expect_rows: int) -> dict:
         tail = lg.read()[-4000:]
         lg.close()
         assert p.returncode == 0, \
-            f"phase 22a process {r} exited {p.returncode}:\n{tail}"
-    seconds = time.perf_counter() - t0
-    children = []
+            f"phase {phase} process {r} exited {p.returncode}:\n{tail}"
+    out = []
     for r in range(MP_PROCS):
         with open(os.path.join(tmp, f"child{r}.json")) as f:
-            c = json.load(f)
+            out.append(json.load(f))
+    return out
+
+
+def mp_phase(args, digests2: dict, expect_rows: int) -> dict:
+    """Phase 22a: the two processes of the gloo group on this card."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    children = run_children(["--rows", str(args.rows), "--seed",
+                             str(args.seed)], "22a")
+    seconds = time.perf_counter() - t0
+    for r, c in enumerate(children):
         missing = [k for k in JOIN_KERNELS if c["launches"][k] == 0]
         assert not missing, f"process {r}: kernels not launched {missing}"
         assert c["rows"] == expect_rows, (r, c["rows"], expect_rows)
         for s, d in c["digests"].items():
             assert d == digests2[s], \
                 f"process {r} shard {s} differs from the virtual world's"
-        children.append(c)
     assert sorted(s for c in children for s in c["digests"]) == \
         sorted(digests2)
     med = [statistics.median(c["walls_s"]) * 1e3 for c in children]
@@ -3285,6 +3321,309 @@ def join_telemetry_phase(ct, n: int, seed: int, parent_tree) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the host runtime and its CSV writer, the C binding, the task
+# exchange on a process group, the examples
+# ---------------------------------------------------------------------------
+
+CBIND_ROWS = 1 << 20         # 26c: rows a side of the C binding's CSVs
+MP_TASK_ROWS = 1 << 22       # 26d: rows of the task exchange
+MP_TASKS = 64
+CSV_PANDAS_ROWS = 1 << 22    # 26b: rows of the pandas route's timing
+EXAMPLES = ("join_example", "set_ops_example", "groupby_example",
+            "select_project_example", "csv_pipeline_example",
+            "plan_pipeline_example", "string_regimes_demo",
+            "torch_dataloader_demo", "torch_ddp_demo")
+
+
+def host_runtime_phase(ct, K, D, dctx, n: int, seed: int, expect_rows: int
+                       ) -> dict:
+    """26a: the host library's build; native.hash_partition of phase 2's
+    left keys (world 4) through the library and through numpy, in turns
+    (bit-equal); distribute_by_key of the join's left table on the card,
+    then the join: the left side's exchange skipped, the rows phase 2's
+    numpy count. Returns the join's output for 26b."""
+    from cylon_tpu_torch import native
+    from cylon_tpu_torch.parallel import shard as SH
+
+    native.reset_calls()
+    t0 = time.perf_counter()
+    assert native.available(), f"host library: {native.BUILD_ERROR}"
+    log(f"phase 26a host library {os.path.basename(native.lib_path())}: "
+        f"g++ {native.BUILD_SECONDS:.2f} s this process (0.0: built "
+        f"before), first load {time.perf_counter() - t0:.2f} s")
+    left, right, (lk, _lv, _rk, _rv) = make_tables(ct, dctx, n, seed)
+    routes = {"library": native.hash_partition,
+              "numpy": native.np_hash_partition}
+    parts, walls = {}, {"library": [], "numpy": []}
+    for name in ("library", "numpy", "numpy", "library", "library",
+                 "numpy"):
+        t0 = time.perf_counter()
+        parts[name] = routes[name]([lk], [None], WORLD)
+        walls[name].append(time.perf_counter() - t0)
+    for a, b in zip(parts["library"], parts["numpy"]):
+        assert a.dtype == b.dtype and np.array_equal(a, b), \
+            "library and numpy partitions differ"
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    log(f"  hash_partition of {n} int32 keys, world {WORLD}: targets, "
+        f"counts and order bit-equal; walls in turns (s) {walls}; medians "
+        f"library {med['library']:.4f}, numpy {med['numpy']:.4f} "
+        f"({med['numpy'] / med['library']:.2f}x), {native._nthreads()} "
+        f"threads")
+    del parts
+    sync()
+    K.reset_launches()
+    before = native.CALLS["hash_partition"]
+    t0 = time.perf_counter()
+    placed = SH.distribute_by_key(left, dctx, ["k"])
+    sync()
+    placed_s = time.perf_counter() - t0
+    assert native.CALLS["hash_partition"] == before + 1, native.CALLS
+    with CallSpy(D, ["_exchange_table", "_exchange_table_pair"]) as spy:
+        t0 = time.perf_counter()
+        out = placed.distributed_join(right, "inner", on=["k"])
+        sync()
+        join_s = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    assert spy.calls == {"_exchange_table": 1, "_exchange_table_pair": 0}, \
+        f"the placed side was exchanged: {spy.calls}"
+    missing = [k for k in JOIN_KERNELS if launches[k] == 0]
+    assert not missing, f"kernels not launched: {missing}"
+    assert out.row_count == expect_rows, (out.row_count, expect_rows)
+    log(f"  distribute_by_key ({n} rows, world {WORLD}) {placed_s:.4f} s, "
+        f"then the join {join_s:.4f} s: one side exchanged "
+        f"({spy.calls}), rows {expect_rows} == numpy count, launches "
+        f"{launches}")
+    return {"out": out, "hash_partition_s": walls, "median_s": med,
+            "distribute_by_key_s": placed_s, "join_s": join_s,
+            "launches": launches, "build_s": native.BUILD_SECONDS}
+
+
+def csv_writer_phase(ct, out) -> dict:
+    """26b: write_csv of the join's (k, v, w) columns through the host
+    library; read back with numpy: the row count and the per-column sums
+    equal (integers exactly, floats within 1e-6 of sum |x|); the pandas
+    route's time on the first CSV_PANDAS_ROWS rows where pandas exists.
+    The files are deleted."""
+    import shutil
+    import tempfile
+
+    from cylon_tpu_torch import native
+
+    t = out.project([0, 1, 3]).compact()
+    rows = t.row_count
+    cols = [c.data for c in t._columns]
+    sums = [float(c.to(torch.float64).sum()) for c in cols]
+    scale = [float(c.to(torch.float64).abs().sum()) for c in cols]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_csv_")
+    try:
+        path = os.path.join(tmp, "join.csv")
+        before = native.CALLS["write_csv"]
+        sync()
+        t0 = time.perf_counter()
+        t.to_csv(path)
+        write_s = time.perf_counter() - t0
+        assert native.CALLS["write_csv"] == before + 1, "pandas route taken"
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back = np.loadtxt(path, delimiter=",", skiprows=1, dtype=np.float64)
+        read_s = time.perf_counter() - t0
+        assert back.shape == (rows, 3), (back.shape, rows)
+        got = back.sum(0)
+        assert got[0] == sums[0], (got[0], sums[0])
+        for j in (1, 2):
+            assert abs(got[j] - sums[j]) <= 1e-6 * scale[j] + 1e-30, \
+                (j, got[j], sums[j])
+        del back
+        head = t.slice(0, min(CSV_PANDAS_ROWS, rows))
+        t0 = time.perf_counter()
+        head.to_csv(os.path.join(tmp, "head.csv"))
+        head_s = time.perf_counter() - t0
+        try:
+            import pandas  # noqa: F401
+        except ImportError:
+            pandas_s = None
+        else:
+            t0 = time.perf_counter()
+            head.to_pandas().to_csv(os.path.join(tmp, "head_pd.csv"),
+                                    index=False)
+            pandas_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 26b write_csv of {rows} rows x 3 columns ({size} bytes) "
+        f"through the host library: {write_s:.3f} s; numpy read back "
+        f"{read_s:.2f} s, rows and column sums equal; first "
+        f"{head.row_count} rows: library {head_s:.3f} s, pandas "
+        + (f"{pandas_s:.3f} s" if pandas_s is not None
+           else "not installed on this machine"))
+    return {"rows": rows, "bytes": size, "write_s": write_s,
+            "read_s": read_s, "head_rows": head.row_count,
+            "head_library_s": head_s, "head_pandas_s": pandas_s}
+
+
+def cbind_phase(ct, seed: int) -> dict:
+    """26c: the C binding on the card over two CSVs of the join's shape
+    (CBIND_ROWS rows a side, make_tables' draws): CBIND OK, its row count
+    the numpy count, K3 and K4 launched in the child."""
+    import shutil
+    import tempfile
+
+    from cylon_tpu_torch import cbind
+
+    n = CBIND_ROWS
+    t0 = time.perf_counter()
+    binary = cbind.build()
+    build_s = time.perf_counter() - t0
+    hctx = ct.CylonContext.Init("cpu")
+    _l, _r, (lk, lv, rk, rv) = make_tables(ct, hctx, n, seed)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cbind_")
+    try:
+        paths = [os.path.join(tmp, f) for f in ("l.csv", "r.csv", "o.csv")]
+        ct.Table.from_pydict(hctx, {"k": lk, "v": lv}).to_csv(paths[0])
+        ct.Table.from_pydict(hctx, {"k": rk, "w": rv}).to_csv(paths[1])
+        t0 = time.perf_counter()
+        stdout = cbind.execute(*paths, "cuda")
+        run_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rows = int(stdout.split("rows=")[1].split()[0])
+    launches = json.loads(stdout.split("LAUNCHES ")[1].splitlines()[0])
+    expect = numpy_join_count(lk, rk, n)
+    assert rows == expect, (rows, expect)
+    missing = [k for k in ("join_plan_stream", "join_expand_stream")
+               if launches[k] == 0]
+    assert not missing, f"C binding's join launched no {missing}"
+    log(f"phase 26c C binding {os.path.basename(binary)} (gcc "
+        f"{build_s:.2f} s) on cuda, {n} rows a side: CBIND OK rows {rows} "
+        f"== numpy count; child launches {launches}; child run "
+        f"{run_s:.2f} s")
+    return {"rows": rows, "launches": launches, "build_s": build_s,
+            "run_s": run_s}
+
+
+def mp_task_tables(ct, ctx, n: int, seed: int):
+    """26d's inputs: the join's left table at n rows (whole, on every
+    process), its task ids and the plan {t: t % W}."""
+    from cylon_tpu_torch.plan.tasks import LogicalTaskPlan
+
+    left, _right, _h = make_tables(ct, ctx, n, seed)
+    tasks = np.random.default_rng(24).integers(0, MP_TASKS, n)
+    plan = LogicalTaskPlan({t: t % WORLD for t in range(MP_TASKS)}, WORLD)
+    return left, tasks, plan
+
+
+def mp_task_child(args) -> int:
+    """One process of 26d: task_exchange on its shards, its digests."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import cylon_tpu_torch as ct
+    from cylon_tpu_torch.ops import kernels as K
+    from cylon_tpu_torch.plan.tasks import task_exchange
+
+    ctx = ct.CylonContext.InitDistributed(ct.MultiHostConfig(
+        num_processes=MP_PROCS, process_id=args.mp_child, backend="gloo",
+        shards_per_process=MP_SHARDS, init_method=f"file://{args.rdv}"))
+    left, tasks, plan = mp_task_tables(ct, ctx, args.rows, args.seed)
+    sync()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    out = task_exchange(left, tasks, plan, ctx)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    with open(args.child_out, "w") as f:
+        json.dump({"rank": args.mp_child, "launches": launches,
+                   "rows": out.row_count, "wall_s": wall,
+                   "digests": shard_digests(out, ctx.get_rank(),
+                                            MP_SHARDS)}, f)
+    ctx.finalize()
+    return 0
+
+
+def mp_task_phase(ct, args, dctx) -> dict:
+    """26d: task_exchange on two gloo processes of two shards sharing the
+    card: each process's shards equal the virtual world's, K1 and K2
+    launched in both."""
+    from cylon_tpu_torch.plan.tasks import task_exchange
+
+    left, tasks, plan = mp_task_tables(ct, dctx, MP_TASK_ROWS, args.seed)
+    expect = shard_digests(task_exchange(left, tasks, plan, dctx), 0, WORLD)
+    del left
+    torch.cuda.empty_cache()  # the children share the card
+    t0 = time.perf_counter()
+    children = run_children(["--mp-task", "--rows", str(MP_TASK_ROWS),
+                             "--seed", str(args.seed)], "26d")
+    for r, c in enumerate(children):
+        assert c["launches"]["partition_hist"] > 0 and \
+            c["launches"]["partition_scatter"] > 0, (r, c["launches"])
+        assert c["rows"] == MP_TASK_ROWS, (r, c["rows"])
+        for sid, d in c["digests"].items():
+            assert d == expect[sid], \
+                f"process {r} shard {sid} differs from the virtual world's"
+    assert sorted(s for c in children for s in c["digests"]) == \
+        sorted(expect)
+    seconds = time.perf_counter() - t0
+    log(f"phase 26d task_exchange on {MP_PROCS} gloo processes x "
+        f"{MP_SHARDS} shards ({MP_TASK_ROWS} rows, {MP_TASKS} tasks): "
+        f"shards equal the virtual world's; launches "
+        f"{[c['launches'] for c in children]}; walls (s) "
+        f"{[c['wall_s'] for c in children]}; phase {seconds:.2f} s")
+    return {"children": children, "seconds": seconds}
+
+
+def examples_phase(K) -> dict:
+    """26e: the nine port examples on the card (torch_ddp_demo as two
+    processes, the rest in this one), each with the launch counters 0 ->
+    read; their counts checked against numpy where it is cheap; K1-K6
+    launched over the examples, K5 and K6 by set_ops_example."""
+    import importlib.util
+
+    folder = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "examples", "torch_port")
+    torch.cuda.empty_cache()  # the DDP demo's processes share the card
+    res = {}
+    for name in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            f"port_example_{name}", os.path.join(folder, f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        sync()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        got = mod.main()
+        sync()
+        wall = time.perf_counter() - t0
+        res[name] = {"result": got, "launches": dict(K.LAUNCHES),
+                     "wall_s": wall}
+        log(f"phase 26e {name}: OK {got}; launches {res[name]['launches']};"
+            f" {wall:.2f} s")
+    rng = np.random.default_rng(7)
+    ka = rng.integers(0, 50_000, 100_000)
+    rng.normal(100.0, 15.0, 100_000)
+    kb = rng.integers(0, 50_000, 100_000)
+    assert res["join_example"]["result"]["inner"] == \
+        numpy_join_count(ka, kb, 50_000)
+    rng = np.random.default_rng(3)
+    a = np.stack([rng.integers(0, 50, 200), rng.integers(0, 4, 200)], 1)
+    b = np.stack([rng.integers(25, 75, 200), rng.integers(0, 4, 200)], 1)
+    sa, sb = set(map(tuple, a.tolist())), set(map(tuple, b.tolist()))
+    assert res["set_ops_example"]["result"] == {
+        "union": len(sa | sb), "intersect": len(sa & sb),
+        "subtract": len(sa - sb)}, res["set_ops_example"]
+    setop = res["set_ops_example"]["launches"]
+    assert setop["setop_stream"] > 0 and setop["stream_compact"] > 0, setop
+    assert res["groupby_example"]["result"]["groups"] == 1000
+    assert res["plan_pipeline_example"]["result"]["exchange_stages"] == 1
+    assert np.isfinite(res["torch_dataloader_demo"]["result"]["losses"]
+                       ).all()
+    for pid, w in res["torch_ddp_demo"]["result"].items():
+        assert len(w["losses"]) == 2 and np.isfinite(w["losses"]).all(), pid
+    launched = {k for r in res.values() for k, v in r["launches"].items()
+                if v}
+    missing = sorted(set(K.KERNELS) - launched)
+    assert not missing, f"no example launched {missing}"
+    return res
+
+
 class PhaseClock:
     """Seconds since the script started at each phase's start."""
 
@@ -3330,12 +3669,13 @@ def main() -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--rdv", help=argparse.SUPPRESS)
     ap.add_argument("--child-out", help=argparse.SUPPRESS)
+    ap.add_argument("--mp-task", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     if args.mp_child is not None:
-        return mp_child(args)
+        return mp_task_child(args) if args.mp_task else mp_child(args)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import cylon_tpu_torch as ct
     from cylon_tpu_torch.ops import kernels as K
@@ -3608,6 +3948,25 @@ def main() -> int:
     clock.mark("25d")
     tel25 = join_telemetry_phase(ct, n, args.seed, args.parent_tree)
 
+    # phase 26: the host runtime and its CSV writer, the C binding, the
+    # task exchange on a process group, the examples
+    from cylon_tpu_torch import native
+
+    clock.mark("26a")
+    host26 = host_runtime_phase(ct, K, D, dctx, n, args.seed, expect_rows)
+    clock.mark("26b")
+    csv26 = csv_writer_phase(ct, host26.pop("out"))
+    calls26 = dict(native.CALLS)
+    assert calls26["hash_partition"] > 0 and calls26["write_csv"] > 0, \
+        calls26
+    log(f"phase 26a-b host library calls {calls26}")
+    clock.mark("26c")
+    cbind26 = cbind_phase(ct, args.seed)
+    clock.mark("26d")
+    tasks26 = mp_task_phase(ct, args, dctx)
+    clock.mark("26e")
+    examples26 = examples_phase(K)
+
     clock.mark("end")
     summary = {"kernels": kernels}
     log(f"seconds a phase: {clock.spans()}; total {clock.marks[-1][1]} s")
@@ -3643,6 +4002,9 @@ def main() -> int:
                            analysis_cli=analysis25, analysis_card=card25,
                            wrappers_sync_free=sync_free25,
                            join_telemetry=tel25,
+                           host_runtime=dict(host26, calls=calls26),
+                           csv_writer=csv26, cbind=cbind26,
+                           task_exchange_mp=tasks26, examples=examples26,
                            phase_seconds=clock.spans()), f, indent=1,
                       default=str)
     log(json.dumps(summary))

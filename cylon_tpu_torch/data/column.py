@@ -211,7 +211,10 @@ class Column:
             vb = self.varbytes.take(idx)  # negatives -> empty rows
             return Column(vb.lengths, self.dtype, validity, self.name,
                           varbytes=vb)
-        return Column(self.data[safe], self.dtype, validity, self.name,
+        # uint16/32/64 gather as their signed bits (torch has no CUDA
+        # gather for them)
+        data = dtypes.movable(self.data)[safe].view(self.data.dtype)
+        return Column(data, self.dtype, validity, self.name,
                       dictionary=self.dictionary)
 
     def slice(self, start: int, stop: int) -> "Column":

@@ -80,6 +80,9 @@ class Table:
     def columns(self) -> List[Column]:
         return self._columns
 
+    def get_column(self, i: int) -> Column:
+        return self._columns[i]
+
     @property
     def row_mask(self):
         """Row-validity mask: bool [capacity] or None (all rows live)."""
@@ -584,6 +587,18 @@ class Table:
     def __repr__(self) -> str:
         return f"Table({self.row_count}x{self.column_count} " \
                f"cols={self.column_names})"
+
+    def show(self, row1: int = 0, row2: int = -1, col1: int = 0,
+             col2: int = -1) -> None:
+        """Print rows [row1, row2) of columns [col1, col2) (-1: to the
+        end), one tab-separated line a row after the header (pycylon
+        table.pyx show/show_by_range; numpy only, no pandas)."""
+        data = self.to_pydict()
+        names = list(data)[col1:None if col2 == -1 else col2]
+        n = len(next(iter(data.values()))) if data else 0
+        print("\t".join(names))
+        for i in range(row1, n if row2 == -1 else min(row2, n)):
+            print("\t".join(str(data[k][i]) for k in names))
 
 
 _CMP = {

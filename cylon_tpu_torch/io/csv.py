@@ -1,5 +1,5 @@
-"""CSV IO — pyarrow-backed read, pandas write (counterpart of
-cylon_tpu.io.csv).
+"""CSV IO — pyarrow-backed read; write through the host library's
+numeric writer or pandas (counterpart of cylon_tpu.io.csv).
 
 Reference: cpp/src/cylon/io/arrow_io.cpp:34-62 and table.cpp:1019-1064.
 pyarrow's C++ CSV reader parses on the host; the parsed columns move to
@@ -7,7 +7,9 @@ the context's device, string columns through the ingest policy of
 data/column.py (dictionary or varbytes). pyarrow and pandas are imported
 inside the functions: the machine with the card has neither, and the
 rest of the port does not need them. Where pyarrow is missing, a CSV of
-numeric columns under a header row is read with numpy.
+numeric columns under a header row is read with numpy; a table of
+numeric columns is written by the host library (native.py) without
+pandas.
 """
 from __future__ import annotations
 
@@ -191,11 +193,51 @@ def _read_numeric(ctx: CylonContext, path: str,
 
 def write_csv(table: Table, path: str,
               options: Optional[CSVWriteOptions] = None) -> None:
-    """Reference: Table::WriteCSV (table.cpp:429-440, 1091-1142), through
-    pandas on the host."""
+    """Reference: Table::WriteCSV (table.cpp:429-440, 1091-1142). A table
+    of numeric columns (not temporal, of a dtype in
+    ``native.SUPPORTED_CSV_DTYPES``) comes to the host in one fetch
+    (host-sync site ``io.write_csv``) and goes through the host library's
+    multithreaded writer; any other table, or one the writer declines,
+    goes through pandas."""
+    import numpy as np
+    import torch
+
+    from .. import native
+    from ..telemetry.metrics import record_host_sync
+
     options = options or CSVWriteOptions()
-    df = table.to_pandas()
     names = options.GetColumnNames()
+    t = table.compact() if table.row_mask is not None else table
+    cols = t._columns
+    if native.available() and cols \
+            and (names is None or len(names) == len(cols)) \
+            and all(not c.is_string and not c.dtype.is_temporal()
+                    and c.dtype.np_dtype in native.SUPPORTED_CSV_DTYPES
+                    for c in cols):
+        # every column's bytes, then every validity, in one buffer: one
+        # copy from the card
+        parts = [c.data.contiguous().view(torch.uint8).reshape(-1)
+                 for c in cols]
+        parts += [c.validity.view(torch.uint8) for c in cols
+                  if c.validity is not None]
+        flat = torch.cat(parts).cpu().numpy()
+        record_host_sync("io.write_csv")
+        n, at = t.capacity, 0
+        host, valids = [], []
+        for c in cols:
+            nbytes = n * c.dtype.np_dtype.itemsize
+            host.append(flat[at:at + nbytes].view(c.dtype.np_dtype))
+            at += nbytes
+        for c in cols:
+            valids.append(None if c.validity is None
+                          else flat[at:at + n].view(np.bool_))
+            at += 0 if c.validity is None else n
+        out_names = list(names) if names is not None else \
+            [c.name or f"c{i}" for i, c in enumerate(cols)]
+        if native.write_csv_numeric(host, valids, out_names, path,
+                                    options.GetDelimiter()):
+            return
+    df = t.to_pandas()
     if names is not None:
         df.columns = names
     df.to_csv(path, sep=options.GetDelimiter(), index=False)

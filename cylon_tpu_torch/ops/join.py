@@ -67,6 +67,12 @@ class JoinConfig:
         # hash (rows longer than strings.EXACT_KEY_WORDS words)
         self.exact = exact
 
+    # the reference's named constructor (join_config.hpp:48-50), which the
+    # C binding calls
+    @staticmethod
+    def InnerJoin(l, r, algorithm: JoinAlgorithm = JoinAlgorithm.SORT):
+        return JoinConfig(JoinType.INNER, l, r, algorithm)
+
 
 def _as_list(v):
     if isinstance(v, (list, tuple)):

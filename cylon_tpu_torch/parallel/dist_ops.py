@@ -1370,6 +1370,8 @@ def distributed_groupby(table: Table, index_col, aggregate_cols: List,
     groupby."""
     ctx = table._ctx
     world = ctx.get_world_size()
+    # op names ("sum", ...) as Table.groupby takes them
+    aggregate_ops = [table_mod._as_agg_op(o) for o in aggregate_ops]
     if world == 1:
         return _ledger.track(
             table_mod.groupby_local(table, index_col, aggregate_cols,

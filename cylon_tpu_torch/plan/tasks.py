@@ -54,32 +54,48 @@ def task_exchange(table: Table, task_ids, plan: LogicalTaskPlan,
                   ctx: CylonContext = None) -> Table:
     """Deliver each row to the shard owning its task: the insert(+task
     header) / receive-callback protocol of ArrowTaskAllToAll collapses
-    into one routed exchange. ``task_ids``: per-row int array (host).
+    into one routed exchange. ``task_ids``: per-row int array (host), one
+    id a row of the global table (or a slot of its distributed layout).
     Returns the routed table with the task-id column appended as
-    ``__task__`` (receivers filter their own tasks locally)."""
+    ``__task__`` (receivers filter their own tasks locally).
+
+    On a process group every process passes the global table and the
+    global ids, as the JAX package's SPMD programs do: each keeps the ids
+    of its own shards, cut as ``shard.distribute`` cuts the rows, checks
+    its live ids, and the processes agree on the verdict (one
+    ``all_reduce``) before any of them raises, so all raise together or
+    none does."""
     ctx = ctx or table._ctx
-    if ctx.is_multiprocess():
-        raise CylonError(Code.NotImplemented,
-                         "task_exchange on a process group: the task ids "
-                         "of each process's shards are not placed yet")
+    world, v = ctx.get_world_size(), ctx.local_shard_count()
+    cap = table.capacity // v if shard.is_distributed_table(table, ctx) \
+        else shard.shard_capacity(table.capacity, world)
+    total = world * cap
+    local = ctx.local_shard_indices()
+    lo, hi = local[0] * cap, (local[-1] + 1) * cap
     t = shard.distribute(table, ctx)
     host_ids = np.asarray(task_ids).astype(np.int32)
+    mine = host_ids[lo:hi] if ctx.is_multiprocess() else host_ids
     # validate LIVE rows only — dead (masked) slots may carry filler
     # ids and never route
-    live = host_ids
-    if t.row_mask is not None and host_ids.shape[0] == t.capacity:
-        mask = t.row_mask.cpu().numpy()
-        live = host_ids[mask[: host_ids.shape[0]]]
+    live = mine
+    if t.row_mask is not None and host_ids.shape[0] == total:
+        live = mine[t.row_mask.cpu().numpy()[: mine.shape[0]]]
     unknown = set(np.unique(live).tolist()) - set(plan.task_to_worker)
-    if unknown:
+    n_unknown = int(ctx.comm.all_reduce(np.array([len(unknown)], np.int64),
+                                        "sum")[0])
+    if n_unknown:
+        elsewhere = n_unknown - len(unknown)
         raise CylonError(Code.KeyError,
-                         f"task ids not in plan: {sorted(unknown)[:8]}")
-    pad = t.capacity - host_ids.shape[0]
+                         f"task ids not in plan: {sorted(unknown)[:8]}"
+                         + (f" (and {elsewhere} on other processes)"
+                            if elsewhere else ""))
+    pad = total - host_ids.shape[0]
     if pad < 0:
         raise CylonError(Code.Invalid, "task_ids longer than table")
-    # pad to the distributed capacity (dead rows never route)
+    # pad to the distributed capacity (dead rows never route); this
+    # process's shards' slots
     ids = torch.from_numpy(np.concatenate(
-        [host_ids, np.zeros(pad, np.int32)])).to(ctx.device)
+        [host_ids, np.zeros(pad, np.int32)])[lo:hi]).to(ctx.device)
     # task -> worker lookup as a small device tensor (tasks are few)
     max_task = max(plan.task_to_worker) if plan.task_to_worker else 0
     lut = np.zeros(max_task + 1, np.int32)
@@ -91,5 +107,5 @@ def task_exchange(table: Table, task_ids, plan: LogicalTaskPlan,
                                            {"__task__": ids})
     out = Table(cols + [Column(xout["__task__"], dtypes.Int32(), None,
                                "__task__")], ctx, new_emit)
-    out._shard_world = ctx.get_world_size()
+    out._shard_world = world
     return out

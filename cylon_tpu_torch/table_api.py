@@ -188,10 +188,5 @@ def column_count(table_id: str) -> int:
 def show_table(table_id: str, row1: int = 0, row2: int = -1,
                col1: int = 0, col2: int = -1) -> None:
     """Print rows [row1, row2) of columns [col1, col2) (-1: to the end),
-    one tab-separated line a row after the header."""
-    data = get_table(table_id).to_pydict()
-    names = list(data)[col1:None if col2 == -1 else col2]
-    n = len(next(iter(data.values()))) if data else 0
-    print("\t".join(names))
-    for i in range(row1, n if row2 == -1 else min(row2, n)):
-        print("\t".join(str(data[k][i]) for k in names))
+    one tab-separated line a row after the header (``Table.show``)."""
+    get_table(table_id).show(row1, row2, col1, col2)

@@ -1605,3 +1605,93 @@ def test_wrappers_do_not_sync(cuda):
         torch.cuda.set_sync_debug_mode("default")
     launched = chip_smoke.wrappers_sync_free(K, rec.calls)
     assert all(v >= 1 for v in launched.values())
+
+
+def test_write_csv_of_a_cuda_table(cuda, tmp_path):
+    """A world-4 CUDA table (masked rows, a null) writes through the host
+    library in one fetch, byte for byte as its CPU twin does."""
+    from cylon_tpu_torch import native
+
+    rng = np.random.default_rng(26)
+    n = 30_011
+    v = rng.normal(size=n)
+    v[::17] = np.nan
+    arrays = {"k": rng.integers(-9, 9, n).astype(np.int32), "v": v,
+              "f": rng.normal(size=n).astype(np.float32),
+              "u": rng.integers(0, 2**40, n).astype(np.uint64)}
+    texts = {}
+    for dev in ("cpu", "cuda"):
+        ctx = ct.CylonContext.InitDistributed(ct.VirtualWorldConfig(4),
+                                              device=dev)
+        t = ct.Table.from_pydict(ctx, arrays)
+        t = t[t["k"] > -5]
+        before = native.CALLS["write_csv"]
+        t.to_csv(str(tmp_path / f"{dev}.csv"))
+        assert native.CALLS["write_csv"] == before + 1
+        texts[dev] = (tmp_path / f"{dev}.csv").read_text()
+    assert texts["cpu"] == texts["cuda"]
+    assert len(texts["cuda"].splitlines()) == 1 + int(
+        (arrays["k"] > -5).sum())
+
+
+def test_distribute_by_key_on_card(cuda):
+    """distribute_by_key on CUDA: the host library places the rows (its
+    call counted), every shard equals the CPU run's, and the witness lets
+    distributed_join skip that side's exchange."""
+    from cylon_tpu_torch import native
+    from cylon_tpu_torch.parallel import dist_ops as D
+    from cylon_tpu_torch.parallel import shard as SH
+
+    rng = np.random.default_rng(27)
+    n = 200_003
+    arrays = {"k": rng.integers(0, n, n).astype(np.int32),
+              "v": rng.normal(size=n).astype(np.float32)}
+    other = {"k": rng.integers(0, n, n).astype(np.int32),
+             "w": rng.normal(size=n).astype(np.float32)}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ctx = ct.CylonContext.InitDistributed(ct.VirtualWorldConfig(4),
+                                              device=dev)
+        before = native.CALLS["hash_partition"]
+        d = SH.distribute_by_key(ct.Table.from_pydict(ctx, arrays), ctx,
+                                 ["k"])
+        assert native.CALLS["hash_partition"] == before + 1
+        assert D.shuffle(d, ["k"]) is d
+        j = d.distributed_join(ct.Table.from_pydict(ctx, other), "inner",
+                               on=["k"])
+        out[dev] = ([c.data.cpu() for c in d._columns],
+                    d.emit_mask().cpu(), j.row_count)
+    (cc, ec, rc), (cg, eg, rg) = out["cpu"], out["cuda"]
+    assert torch.equal(ec, eg) and rc == rg
+    for a, b in zip(cc, cg):
+        assert torch.equal(a, b)
+
+
+def test_c_binding_on_card(cuda, tmp_path):
+    """The C binding on ``cuda``: its join launches K3 and K4, and its row
+    count and file equal its run on the CPU."""
+    import json
+
+    from cylon_tpu_torch import cbind
+
+    rng = np.random.default_rng(28)
+    paths = []
+    for side in ("l", "r"):
+        n = 20_000
+        k = rng.integers(0, 5000, n)
+        v = rng.normal(size=n)
+        p = tmp_path / f"{side}.csv"
+        p.write_text("k,v\n" + "".join(f"{a},{b!r}\n" for a, b in zip(k, v)))
+        paths.append(str(p))
+    rows, texts = {}, {}
+    for dev in ("cpu", "cuda"):
+        out = tmp_path / f"{dev}.csv"
+        stdout = cbind.execute(*paths, str(out), dev)
+        rows[dev] = int(stdout.split("rows=")[1].split()[0])
+        texts[dev] = sorted(out.read_text().splitlines())
+        launches = json.loads(stdout.split("LAUNCHES ")[1].splitlines()[0])
+        if dev == "cuda":
+            assert launches["join_plan_stream"] > 0
+            assert launches["join_expand_stream"] > 0
+    assert rows["cpu"] == rows["cuda"] > 0
+    assert texts["cpu"] == texts["cuda"]

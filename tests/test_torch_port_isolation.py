@@ -1,9 +1,12 @@
 """cylon_tpu_torch stands alone: it imports neither jax nor cylon_tpu
-(nor does chip_smoke.py, nor the process-group children of the CPU
-tests, tests/torch_port_mp_child.py), and its entry points refuse to
-run on a CUDA-less machine unless asked for the CPU."""
+(nor does chip_smoke.py, nor the port's examples in examples/torch_port/,
+nor the process-group children of the CPU tests,
+tests/torch_port_mp_child.py), its C sources name no module but its own,
+and its entry points refuse to run on a CUDA-less machine unless asked
+for the CPU."""
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -14,6 +17,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "cylon_tpu_torch"
 CHILD = ROOT / "tests" / "torch_port_mp_child.py"
+EXAMPLES = ROOT / "examples" / "torch_port"
 FORBIDDEN = ("jax", "jaxlib", "cylon_tpu")
 
 
@@ -45,7 +49,8 @@ def test_import_leaves_jax_and_cylon_tpu_out():
             " cylon_tpu_torch.parallel.task_plan,"
             " cylon_tpu_torch.telemetry.profiler,"
             " cylon_tpu_torch.arrow_builder, cylon_tpu_torch.io.dataloader,"
-            " cylon_tpu_torch.benchutils, torch_port_mp_child;"
+            " cylon_tpu_torch.benchutils, cylon_tpu_torch.cbind,"
+            " torch_port_mp_child;"
             " bad = [m for m in sys.modules"
             " if m.split('.')[0] in ('jax', 'jaxlib', 'cylon_tpu')];"
             " print(bad); sys.exit(1 if bad else 0)")
@@ -66,17 +71,20 @@ def test_scan_covers_the_new_subpackages():
                 "service/plancache.py", "service/scheduler.py",
                 "service/obs_http.py", "plan/tasks.py",
                 "parallel/task_plan.py", "telemetry/profiler.py",
-                "arrow_builder.py", "io/dataloader.py", "benchutils.py"):
+                "arrow_builder.py", "io/dataloader.py", "benchutils.py",
+                "native.py", "cbind.py"):
         assert sub in names
+    assert len(list(EXAMPLES.glob("*.py"))) == 9
 
 
 @pytest.mark.parametrize("path", sorted(
-    [p for p in PACKAGE.rglob("*.py")] + [ROOT / "chip_smoke.py", CHILD]),
+    [p for p in PACKAGE.rglob("*.py")] + list(EXAMPLES.glob("*.py"))
+    + [ROOT / "chip_smoke.py", CHILD]),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_import_in_source(path):
     """The AST scan covers every module of the package (plan/,
-    resilience/ and telemetry/ included), chip_smoke.py and the
-    process-group child."""
+    resilience/ and telemetry/ included), the port's examples,
+    chip_smoke.py and the process-group child."""
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -89,6 +97,29 @@ def test_no_forbidden_import_in_source(path):
             continue
         bad = [n for n in names if _forbidden(n)]
         assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+# a module name in a C source: an import call's argument, or an import
+# statement in embedded Python text
+_C_MODULES = re.compile(
+    r'PyImport_ImportModule\(\s*"([\w.]+)"|(?:from|import)\s+([\w.]+)')
+
+
+@pytest.mark.parametrize("path", sorted(PACKAGE.rglob("csrc/host/*.c*")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_c_sources_name_only_the_port(path):
+    """The host library and the C binding are the port's own copies: the
+    binding imports ``cylon_tpu_torch`` modules only, and neither source
+    names a module of jax or of cylon_tpu."""
+    src = path.read_text()
+    imported = [m.group(1) for m in _C_MODULES.finditer(src) if m.group(1)]
+    assert all(m.split(".")[0] == "cylon_tpu_torch" for m in imported), \
+        imported
+    words = re.findall(r"[A-Za-z_][\w.]*", src)
+    bad = sorted({w for w in words if _forbidden(w)})
+    assert not bad, f"{path} names {bad}"
+    if path.suffix == ".c":
+        assert "cylon_tpu_torch.table_api" in imported
 
 
 def test_context_without_device_needs_cuda():

@@ -3,6 +3,7 @@ tests/test_torch_port_multiprocess.py and tests/test_torch_port_ingest.py.
 
     python tests/torch_port_mp_child.py ops RANK NPROC SHARDS RDV OUT ROUTE [DEVICE]
     python tests/torch_port_mp_child.py ingest RANK NPROC SHARDS RDV OUT DIR
+    python tests/torch_port_mp_child.py tasks RANK NPROC SHARDS RDV OUT ROUTE
 
 Each process joins a gloo process group through the ``file://``
 rendezvous RDV (no port to race for) with SHARDS shards of its own, W =
@@ -13,7 +14,11 @@ rows and the case's global row count to ``OUT/rank<RANK>.pkl``; ROUTE
 "default" keeps the device's routes; DEVICE is "cpu" (the default) or a
 CUDA device that every process shares (gloo stages its tensors through
 host memory). ``ingest`` reads the per-rank CSV and Parquet files in DIR
-and writes what it read. The parent test starts the processes
+and writes what it read. ``tasks`` runs ``plan.task_exchange`` of one
+global table with its global task ids (TASK_ROWS rows, TASK_COUNT tasks),
+then with one unknown id among process 0's rows (every process must
+raise KeyError), then once more (the group is still in step). The
+parent test starts the processes
 (`start`, `finish`) and runs the same cases on the virtual world
 (``run_case`` with a one-process context) and on cylon_tpu.
 
@@ -358,6 +363,41 @@ def run_ingest(ct, ctx, folder: str) -> dict:
     return out
 
 
+TASK_ROWS, TASK_COUNT = 3001, 9
+
+
+def task_inputs():
+    """(columns, task ids, plan map, the ids with one unknown id) of the
+    task exchange, the same in every process."""
+    rng = np.random.default_rng(13)
+    n = TASK_ROWS
+    cols = {"v": np.arange(n, dtype=np.int64),
+            "z": _floats(rng, n, np.float32),
+            "k": rng.integers(-50, 50, n).astype(np.int32)}
+    tasks = rng.integers(0, TASK_COUNT, n)
+    bad = tasks.copy()
+    bad[17] = TASK_COUNT + 4  # global row 17 lies in shard 0
+    return cols, tasks, {t: (3 * t + 1) % WORLD for t in range(TASK_COUNT)}, \
+        bad
+
+
+def run_tasks(ct, ctx, route: str) -> dict:
+    from cylon_tpu_torch.plan.tasks import LogicalTaskPlan, task_exchange
+
+    set_route(route)
+    cols, tasks, mapping, bad = task_inputs()
+    plan = LogicalTaskPlan(mapping, ctx.get_world_size())
+    out = {"routed": export(task_exchange(ct.Table.from_pydict(ctx, cols),
+                                          tasks, plan, ctx), ctx)}
+    try:
+        task_exchange(ct.Table.from_pydict(ctx, cols), bad, plan, ctx)
+    except ct.CylonError as e:
+        out["unknown"] = (e.code.name, str(e))
+    out["after"] = export(task_exchange(ct.Table.from_pydict(ctx, cols),
+                                        tasks, plan, ctx), ctx)
+    return out
+
+
 def main(argv) -> int:
     mode, rank, nproc, shards, rdv, out_dir, arg = argv[:7]
     device = argv[7] if len(argv) > 7 else "cpu"
@@ -369,8 +409,8 @@ def main(argv) -> int:
     import cylon_tpu_torch.parallel.dist_ops  # noqa: F401 (ct.parallel)
 
     ctx = _context(ct, rank, nproc, shards, rdv, device)
-    result = run_ops(ct, ctx, arg) if mode == "ops" \
-        else run_ingest(ct, ctx, arg)
+    result = {"ops": run_ops, "ingest": run_ingest,
+              "tasks": run_tasks}[mode](ct, ctx, arg)
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(result, f)
     ctx.barrier()
