@@ -263,6 +263,16 @@ Phases, in order (any failure exits non-zero; nothing is caught):
      the join example's inner count and the set ops' counts against
      numpy, K5 and K6 launched by set_ops_example, K1-K6 over the
      examples.
+ 27. the port's drills (scripts/torch_port/), each on ``cuda`` in a fresh
+     process: the telemetry, service, observability and statistics
+     smokes, ``chaos.py --seeds 1`` (all ten scenarios, ``compile``
+     included: one retry or more, never skipped) and
+     ``fuzz_differential.py`` at 12 cases. Each must exit 0 and print
+     its JSON line on ``cuda``; the service smoke's first query must
+     load a kernel library and its later queries none; chaos must launch
+     K1-K4 and the fuzzer K1-K6 with no failing seed. Each drill's wall
+     and launches are printed, and the launches join the kernels line
+     (``drill_launches``).
 Phases 10-12, 23a and 24d each record the median of 5 steady runs after
 one warm-up.
 Tolerances: float sums 1e-5 * sum |x| of the group (+1e-30), float64
@@ -3334,6 +3344,12 @@ EXAMPLES = ("join_example", "set_ops_example", "groupby_example",
             "select_project_example", "csv_pipeline_example",
             "plan_pipeline_example", "string_regimes_demo",
             "torch_dataloader_demo", "torch_ddp_demo")
+# phase 27: each drill of scripts/torch_port and its arguments
+DRILLS = (("smoke_telemetry", ()), ("smoke_service", ()),
+          ("smoke_obs", ()), ("smoke_stats", ()),
+          ("chaos", ("--seeds", "1")),
+          ("fuzz_differential", ("12",)))
+DRILL_TIMEOUT_S = 600
 
 
 def host_runtime_phase(ct, K, D, dctx, n: int, seed: int, expect_rows: int
@@ -3621,6 +3637,47 @@ def examples_phase(K) -> dict:
                 if v}
     missing = sorted(set(K.KERNELS) - launched)
     assert not missing, f"no example launched {missing}"
+    return res
+
+
+def drills_phase(K) -> dict:
+    """27: each drill of scripts/torch_port on ``cuda`` in a fresh
+    process; its JSON line read, its launches checked."""
+    folder = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "scripts", "torch_port")
+    torch.cuda.empty_cache()  # the drills' processes share the card
+    res = {}
+    for name, extra in DRILLS:
+        cmd = [sys.executable, os.path.join(folder, f"{name}.py"), *extra,
+               "--device", "cuda"]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True,
+                           timeout=DRILL_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        assert r.returncode == 0, \
+            f"drill {name} exited {r.returncode}:\n{r.stdout[-4000:]}\n" \
+            f"{r.stderr[-4000:]}"
+        doc = json.loads([l for l in r.stdout.splitlines()
+                          if l.strip()][-1])
+        assert doc["device"] == "cuda", (name, doc)
+        res[name] = dict(doc, process_wall_s=wall)
+        log(f"phase 27 {name}: OK, checks {doc['checks']}; drill wall "
+            f"{doc['wall_s']} s, process wall {wall:.2f} s; launches "
+            f"{doc['launches']}")
+    svc = res["smoke_service"]
+    assert svc["first_query_builds"] >= 1 and \
+        svc["builds_after_first_service_query"] == 0, svc
+    chaos = res["chaos"]
+    ran = chaos["seeds"]["0"]   # JSON keys are strings
+    assert len(ran) == 10 and not any("skipped" in v for v in ran.values()), \
+        ran
+    assert ran["compile"]["retries"] >= 1, ran["compile"]
+    missing = [k for k in JOIN_KERNELS if chaos["launches"][k] == 0]
+    assert not missing, f"chaos launched no {missing}"
+    fuzz = res["fuzz_differential"]
+    assert fuzz["failed_seeds"] == [], fuzz
+    missing = [k for k in K.KERNELS if fuzz["launches"][k] == 0]
+    assert not missing, f"the fuzzer launched no {missing}"
     return res
 
 
@@ -3967,6 +4024,13 @@ def main() -> int:
     clock.mark("26e")
     examples26 = examples_phase(K)
 
+    # phase 27: the drills of scripts/torch_port, each in its own process
+    clock.mark("27")
+    drills27 = drills_phase(K)
+    for row in kernels:
+        row["drill_launches"] = {d: r["launches"][row["name"]]
+                                 for d, r in drills27.items()}
+
     clock.mark("end")
     summary = {"kernels": kernels}
     log(f"seconds a phase: {clock.spans()}; total {clock.marks[-1][1]} s")
@@ -4005,6 +4069,7 @@ def main() -> int:
                            host_runtime=dict(host26, calls=calls26),
                            csv_writer=csv26, cbind=cbind26,
                            task_exchange_mp=tasks26, examples=examples26,
+                           drills=drills27,
                            phase_seconds=clock.spans()), f, indent=1,
                       default=str)
     log(json.dumps(summary))

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import os
 import threading
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -129,6 +129,8 @@ class CylonContext:
 
     def __init__(self, config: Optional[CommConfig] = None,
                  distributed: bool = False, device=None):
+        # the reference's string config map (cylon_context.hpp:31)
+        self._config_map: Dict[str, str] = {}
         self._sequence = 0
         self._lock = threading.Lock()
         self._finalized = False
@@ -150,7 +152,10 @@ class CylonContext:
                                     and ct == CommType.VIRTUAL else 1)
         self.memory_pool = MemoryPool(self.device)
         # the span layer's per-span memory attrs and the flight
-        # recorder's watermarks read the last context's pool
+        # recorder's watermarks read the last context's pool; where the
+        # device has no allocator stats (the CPU) the pool counts the
+        # ledger's tracked-table bytes instead
+        self.memory_pool.set_external_source(_telemetry.ledger.live_bytes)
         _telemetry.set_memory_pool(self.memory_pool)
 
     # -- reference API (cylon_context.hpp) --
@@ -236,6 +241,14 @@ class CylonContext:
 
     def is_distributed(self) -> bool:
         return self.distributed
+
+    def add_config(self, key: str, value: str) -> None:
+        """Reference: CylonContext::AddConfig (string config map)."""
+        self._config_map[key] = value
+
+    def get_config(self, key: str, default: str = "") -> str:
+        """Reference: CylonContext::GetConfig; ``default`` when unset."""
+        return self._config_map.get(key, default)
 
     def comm_budget_bytes(self) -> Optional[int]:
         """The memory pool's comm budget, agreed across processes as

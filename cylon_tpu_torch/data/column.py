@@ -63,6 +63,17 @@ class Column:
         return Column(data, dt, _dev_mask(validity, device), name)
 
     @staticmethod
+    def Make(ctx, name, dtype, values) -> "Column":
+        """Reference: Column::Make / VectorColumn::Make (column.hpp:84-113):
+        a column of ``values`` on the context's device (the CPU without a
+        context), cast to ``dtype`` unless it holds strings."""
+        device = "cpu" if ctx is None else ctx.device
+        c = Column.from_numpy(np.asarray(values), name, device=device)
+        if c.dtype.type != dtype.type and not c.dtype.is_var_width():
+            c = c.astype(dtype)
+        return c
+
+    @staticmethod
     def _encode_strings(arr: np.ndarray, name: str,
                         validity: Optional[np.ndarray], device) -> "Column":
         """The ingest policy: a small vocabulary is dictionary-encoded,

@@ -122,6 +122,10 @@ class Table:
                 f"this process's rows: use the distributed ops, or "
                 f"to_pydict_local() for this process's rows")
 
+    def rows(self) -> int:
+        """Reference: Table::Rows (table.hpp:134)."""
+        return self.row_count
+
     def __len__(self) -> int:
         return self.row_count
 
@@ -164,6 +168,26 @@ class Table:
         self._columns = []
         self._row_mask = None
         self._row_count_cache = None
+
+    def retain_memory(self, retain: bool = True) -> None:
+        """Reference: Table::retainMemory (table.hpp:178). With
+        ``retain=False`` the next distributed operator that consumes this
+        table (shuffle, the shuffle, ring and broadcast joins) clears it
+        after use (reference: Shuffle frees non-retained inputs,
+        table.cpp:207), so its device memory returns to the allocator as
+        soon as nothing else holds it."""
+        self._retain = bool(retain)
+
+    def is_retain(self) -> bool:
+        """Reference: Table::IsRetain (table.hpp:183)."""
+        return getattr(self, "_retain", True)
+
+    def _free_if_unretained(self) -> None:
+        if not self.is_retain():
+            self.clear()
+
+    def finalize(self) -> None:
+        self.clear()
 
     def emit_mask(self) -> torch.Tensor:
         if self._row_mask is None:

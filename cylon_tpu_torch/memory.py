@@ -12,11 +12,14 @@ counterpart of the reference's ``bytes_limit - bytes_in_use``. (``torch.cuda.mem
 bytes would drop as soon as the allocator reserves memory for its cache,
 so they are not used.) On the CPU there are no stats, as on the
 reference's CPU mesh: ``available_bytes`` and ``comm_budget_bytes`` are
-None and no guard binds.
+None and no guard binds, and ``snapshot`` falls back to an external
+live-bytes source (the telemetry ledger's tracked-table bytes, which the
+context registers) with the pool's own high-water mark as the peak, so
+span memory attributes and crash-dump watermarks are not blindly zero.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -33,6 +36,15 @@ class MemoryPool:
         self._peak_seen = 0
         # the card's memory, read once (it does not change)
         self._limit: Optional[int] = None
+        # live-bytes source where the device has no allocator stats (a
+        # zero-arg callable: the telemetry ledger's ``live_bytes``; this
+        # module never imports telemetry)
+        self._external_live: Optional[Callable[[], int]] = None
+
+    def set_external_source(self, fn: Optional[Callable[[], int]]) -> None:
+        """Register the live-bytes provider ``snapshot`` reads when the
+        device has no allocator stats (the CPU)."""
+        self._external_live = fn
 
     def _stats(self) -> Optional[Tuple[int, int, int]]:
         """(live, peak, limit) bytes from the allocator; None off CUDA.
@@ -51,8 +63,20 @@ class MemoryPool:
                 self._limit)
 
     def snapshot(self) -> Tuple[int, int, int]:
-        """``(bytes_in_use, peak_bytes, bytes_limit)``; zeros on the CPU."""
-        used, peak, limit = self._stats() or (0, 0, 0)
+        """``(bytes_in_use, peak_bytes, bytes_limit)``. Without allocator
+        stats (the CPU) the live bytes come from the external source (0
+        without one), the peak is the pool's high-water mark over these
+        observations and the limit is 0."""
+        st = self._stats()
+        if st is not None:
+            used, peak, limit = st
+        else:
+            used = peak = limit = 0
+            if self._external_live is not None:
+                try:
+                    used = int(self._external_live())
+                except Exception:  # pragma: no cover - defensive  # cylint: disable=errors/broad-swallow — broken external source reads as 0 live bytes
+                    used = 0
         self._peak_seen = max(self._peak_seen, used)
         return used, max(peak, self._peak_seen), limit
 

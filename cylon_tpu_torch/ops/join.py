@@ -67,11 +67,35 @@ class JoinConfig:
         # hash (rows longer than strings.EXACT_KEY_WORDS words)
         self.exact = exact
 
-    # the reference's named constructor (join_config.hpp:48-50), which the
-    # C binding calls
+    # the reference's named constructors and getters
+    # (join_config.hpp:48-89); the C binding calls InnerJoin
     @staticmethod
     def InnerJoin(l, r, algorithm: JoinAlgorithm = JoinAlgorithm.SORT):
         return JoinConfig(JoinType.INNER, l, r, algorithm)
+
+    @staticmethod
+    def LeftJoin(l, r, algorithm: JoinAlgorithm = JoinAlgorithm.SORT):
+        return JoinConfig(JoinType.LEFT, l, r, algorithm)
+
+    @staticmethod
+    def RightJoin(l, r, algorithm: JoinAlgorithm = JoinAlgorithm.SORT):
+        return JoinConfig(JoinType.RIGHT, l, r, algorithm)
+
+    @staticmethod
+    def FullOuterJoin(l, r, algorithm: JoinAlgorithm = JoinAlgorithm.SORT):
+        return JoinConfig(JoinType.FULL_OUTER, l, r, algorithm)
+
+    def GetType(self) -> JoinType:
+        return self.type
+
+    def GetAlgorithm(self) -> JoinAlgorithm:
+        return self.algorithm
+
+    def GetLeftColumnIdx(self):
+        return self.left_column_idx
+
+    def GetRightColumnIdx(self):
+        return self.right_column_idx
 
 
 def _as_list(v):
@@ -224,6 +248,17 @@ def join_plan_keys(lbits, lkv, lemit, rbits, rkv, remit,
         n_un = torch.zeros(w, dtype=torch.int64, device=dev)
     counts2 = torch.stack([n_primary, n_un], 1)
     return counts2, lo, m, bperm, un_mask
+
+
+def join_plan_gids(gl, gr, lemit, remit, join_type: JoinType):
+    """Plan from precomputed shared dense int32 key ids ``[W, n]`` (the
+    JAX package's compat wrapper over `join_plan_keys`): negative ids are
+    null sentinels that never match. The ids' uint32 bits with the sign
+    bit flipped ride an int32 container, so ids order as unsigned bits."""
+    sb = -(1 << 31)
+    return join_plan_keys((gl.to(torch.int32) ^ sb,), gl >= 0, lemit,
+                          (gr.to(torch.int32) ^ sb,), gr >= 0, remit,
+                          join_type)
 
 
 def _expand_from_match(lo, m, aemit, bperm, out_size: int,

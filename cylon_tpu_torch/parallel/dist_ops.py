@@ -534,12 +534,15 @@ def shuffle(table: Table, hash_columns: Sequence,
                                             counts=counts)
         result = Table(cols, ctx, new_emit)
         result._shard_world = world
+        table._free_if_unretained()
         return _ledger.track(result, "shuffle")
     cols, new_emit, _ = _exchange_table(t, targets, emit, ctx,
                                         dense=t.row_mask is None)
     result = Table(cols, ctx, new_emit)
     result._shard_world = world
     result._hash_partitioned = sig
+    # reference parity: Shuffle frees non-retained inputs (table.cpp:207)
+    table._free_if_unretained()
     return _ledger.track(result, "shuffle")
 
 
@@ -688,6 +691,8 @@ def distributed_join(left: Table, right: Table, config: _join.JoinConfig,
     elif jt == _join.JoinType.RIGHT:
         result._hash_partitioned = shard.partition_signature(
             rcols2, tuple(nl + j for j in ridx), world)
+    left._free_if_unretained()
+    right._free_if_unretained()
     return _ledger.track(result, "distributed_join")
 
 
@@ -744,6 +749,9 @@ def _exact_dict_redo(left: Table, right: Table, config: _join.JoinConfig,
                 out_cols[pos] = _dist_as_varbytes(c, ctx.comm)
     out = Table(out_cols, ctx, res.row_mask)
     out._shard_world = res._shard_world
+    # the redo is materialized: the unretained originals can go now
+    left._free_if_unretained()
+    right._free_if_unretained()
     return out
 
 
@@ -944,9 +952,11 @@ def distributed_join_ring(left: Table, right: Table,
             a, steps, matched, cap_step, cap_extra)
     a_out = _rebuild_join_side(a_t, aod, aov, aidx, a_slots, "a", cm)
     b_out = _rebuild_join_side(b_t, bod, bov, bidx, b_slots, "b", cm)
-    return _ledger.track(
-        _join_output(ctx, a_out, b_out, jt != _join.JoinType.RIGHT, emit),
-        "distributed_join_ring")
+    result = _join_output(ctx, a_out, b_out, jt != _join.JoinType.RIGHT,
+                          emit)
+    left._free_if_unretained()
+    right._free_if_unretained()
+    return _ledger.track(result, "distributed_join_ring")
 
 
 # build sides a broadcast join may replicate, per join type: the probe
@@ -1044,6 +1054,8 @@ def broadcast_hash_join(left: Table, right: Table,
         # spells them (numpy names)
         out._hash_partitioned = (tuple(int(p) for p in pos), tuple(dts),
                                  int(w))
+    left._free_if_unretained()
+    right._free_if_unretained()
     return _ledger.track(out, "distributed_join")
 
 

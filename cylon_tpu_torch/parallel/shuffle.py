@@ -20,10 +20,10 @@ exchange takes the compact route (the JAX package's ``_exchange_fn``):
 leaf, and every received row lands at its source's running offset in a
 compact output of ``pow2(recv_max)`` rows a shard, live rows a prefix.
 A padded exchange whose payload exceeds CYLON_EXCHANGE_CHUNK_BYTES a
-shard runs in chunks (`_padded_body` with ``cb``, the JAX package's
-overlapped pipeline): each chunk moves ``cb`` rows a (src, dst) pair, so
-the live send stack is ``[W, W, cb]`` instead of ``[W, W, block]``; the
-landing is bit-identical to the single-shot route on every live row.
+shard runs in chunks (`_chunked_body`, the JAX package's overlapped
+pipeline): each chunk moves ``cb`` rows a (src, dst) pair, so the live
+send stack is ``[W, W, cb]`` instead of ``[W, W, block]``; the landing
+is bit-identical to the single-shot route on every live row.
 The memory pool's comm budget caps the per-round block
 (`_budget_block_cap`).
 
@@ -38,7 +38,10 @@ counters ``cylon_shuffle_bytes_total``, ``cylon_rows_exchanged_total``,
 and ``cylon_exchange_chunks_total`` move with them. Each exchange body
 and count fetch runs under ``resilience.retry.run_retryable`` (sites
 ``exchange`` and ``exchange.count``), the fault injector's ``exchange``
-choke point firing before every attempt. None of it adds a device sync.
+choke point firing before every attempt; a chunked exchange dispatches
+each chunk so (the partition with chunk 0, then one a chunk), so a fault
+in the middle of the stream retries that chunk alone. None of it adds a
+device sync.
 
 Every per-shard tensor here is this process's ``[V, ...]`` part of the
 world (V = W in the virtual world, parallel/comm.py): targets and the
@@ -249,42 +252,66 @@ def _padded_partition(cm, block: int, payload, targets, emit):
     return sorted_leaves, counts_in, start, new_emit
 
 
-def _padded_body(cm, block: int, payload, targets, emit,
-                 cb: Optional[int] = None):
+def _padded_body(cm, block: int, payload, targets, emit):
     """The padded-mode exchange over [V, n] per-shard values (``cm`` the
     context's collective backend). Returns (leaves [V, W*block], new
     emit, counts_in int32 [V, W]): source s's rows land at ``[s*block,
-    s*block + counts_in[:, s])``.
-
-    ``cb`` below ``block`` runs it in chunks of ``cb`` rows a (src, dst)
-    pair (the JAX package's chunked pipeline): the chunk at offset o sends
-    the ``[W_src, W_dst, cb]`` stack of rows ``start + o`` straight from
-    the partitioned leaves, so no ``[W, W, block]`` stack is ever built,
-    and lands source s's rows at the static slots ``s * block + o``; a
-    remainder chunk drops the rows past the block. Bit-identical to the
-    single-shot exchange on every live row."""
+    s*block + counts_in[:, s])``."""
     world = cm.world
-    if world == 1 and cb is None:
+    if world == 1:
         return _padded_body_w1(block, payload, targets, emit)
     sorted_leaves, counts_in, start, new_emit = _padded_partition(
         cm, block, payload, targets, emit)
     v = start.shape[0]
-    cb = block if cb is None else cb
-    out = {}
-    for k, x in sorted_leaves.items():
-        xp = _pad_block(x, cb)
-        if cb >= block:
-            recv = cm.all_to_all(_send_block(xp, start, 0, block))
-        else:
-            # the chunks tile [0, block): every slot is written once
-            recv = torch.empty(v, world, block, dtype=movable(x).dtype,
+    out = {k: cm.all_to_all(_send_block(_pad_block(x, block), start, 0,
+                                        block)).view(v, world * block)
+           for k, x in sorted_leaves.items()}
+    return out, new_emit, counts_in
+
+
+def _chunk_step(cm, padded, start, recv, o: int, cb: int) -> None:
+    """One chunk of `_chunked_body`: the ``[W_src, W_dst, cb]`` stack of
+    rows ``start + o`` of every leaf, landed at slots ``o`` onward of each
+    source's block (a remainder chunk drops the rows past the block).
+    Idempotent: it reads the partitioned leaves and writes its own
+    slots."""
+    for k, xp in padded.items():
+        block = recv[k].shape[2]
+        live = min(cb, block - o)
+        recv[k][:, :, o:o + live] = movable(cm.all_to_all(
+            _send_block(xp, start, o, cb)))[:, :, :live]
+
+
+def _chunked_body(cm, block: int, cb: int, payload, targets, emit):
+    """`_padded_body` in chunks of ``cb`` rows a (src, dst) pair (the JAX
+    package's chunked pipeline): no ``[W, W, block]`` send stack is ever
+    built, and source s's rows land at the static slots ``s * block + o``
+    chunk by chunk. Each chunk is one dispatch under the exchange retry
+    policy, as in the JAX package's ``_dispatch_chunked`` (shuffle.py:644):
+    the partition with chunk 0, then one a chunk, so a fault in the
+    middle of the stream retries that chunk alone. Bit-identical to the
+    single-shot exchange on every live row."""
+    world = cm.world
+
+    def first():
+        sorted_leaves, counts_in, start, new_emit = _padded_partition(
+            cm, block, payload, targets, emit)
+        v = start.shape[0]
+        padded = {k: _pad_block(x, cb) for k, x in sorted_leaves.items()}
+        # the chunks tile [0, block): every slot is written once
+        recv = {k: torch.empty(v, world, block, dtype=movable(x).dtype,
                                device=x.device)
-            for o in range(0, block, cb):
-                live = min(cb, block - o)
-                recv[:, :, o:o + live] = movable(cm.all_to_all(
-                    _send_block(xp, start, o, cb)))[:, :, :live]
-            recv = recv.view(x.dtype)
-        out[k] = recv.view(v, world * block)
+                for k, x in sorted_leaves.items()}
+        _chunk_step(cm, padded, start, recv, 0, cb)
+        return padded, start, recv, counts_in, new_emit
+
+    padded, start, recv, counts_in, new_emit = _launch_exchange(first)
+    for o in range(cb, block, cb):
+        _launch_exchange(lambda o=o: _chunk_step(cm, padded, start, recv,
+                                                 o, cb))
+    v = start.shape[0]
+    out = {k: r.view(padded[k].dtype).view(v, world * block)
+           for k, r in recv.items()}
     return out, new_emit, counts_in
 
 
@@ -551,9 +578,11 @@ def exchange(payload: Dict[str, torch.Tensor], targets: torch.Tensor,
             cb, chunks = _chunk_plan(block_p, world, row_bytes)
             _record_partition(sp, _partition_label(world, targets.device,
                                                    chunks > 1))
-            out, new_emit, ci = _launch_exchange(
-                lambda: _padded_body(cm, block_p, *shards,
-                                     cb=cb if chunks > 1 else None))
+            if chunks > 1:
+                out, new_emit, ci = _chunked_body(cm, block_p, cb, *shards)
+            else:
+                out, new_emit, ci = _launch_exchange(
+                    lambda: _padded_body(cm, block_p, *shards))
             meta = {"mode": "padded", "block": block_p, "counts_in": ci}
             if chunks > 1:
                 meta["chunks"] = chunks

@@ -32,6 +32,14 @@ def parse_number(raw: Optional[str], default, lo=None,
     return max(v, lo) if lo is not None else v
 
 
+def env_number(name: str, default, lo=None, as_int: bool = False):
+    """:func:`parse_number` over a live ``os.environ`` read, for a caller
+    that needs the raw policy; the port reads its knobs through a
+    declared :class:`Knob` and :func:`get`."""
+    return parse_number(os.environ.get(name), default, lo=lo,
+                        as_int=as_int)
+
+
 @dataclass(frozen=True)
 class Knob:
     """One declared environment knob: ``kind`` is ``int`` / ``float`` /
@@ -61,6 +69,13 @@ class Knob:
 
     def get(self):
         return self.parse(os.environ.get(self.name))
+
+    def default_str(self) -> str:
+        if self.default is None:
+            return "unset"
+        if self.kind == "bool":
+            return "1" if self.default else "0"
+        return str(self.default)
 
 
 # name -> Knob, in declaration order
@@ -96,6 +111,17 @@ def get(name: str):
 def default(name: str):
     """A declared knob's default."""
     return _require(name).default
+
+
+def render_table() -> str:
+    """The markdown knob-reference table, one row a declared knob
+    (``python -m cylon_tpu_torch.telemetry.knobs`` prints it)."""
+    lines = ["| knob | type | default | description |",
+             "|---|---|---|---|"]
+    for k in KNOBS.values():
+        lines.append(f"| `{k.name}` | {k.kind} | `{k.default_str()}` "
+                     f"| {k.doc} |")
+    return "\n".join(lines)
 
 
 # memory.py (a TPU runtime that hides its stats; CUDA always has them)
@@ -233,3 +259,7 @@ declare("CYLON_SALT_FACTOR", 4, "int",
         "hot-key salting spread of the salted shuffle: each hot "
         "destination's rows split across this many consecutive shards "
         "(pow2-floored); 0 or 1 disables salting", lo=0)
+
+
+if __name__ == "__main__":  # pragma: no cover - doc regeneration
+    print(render_table())

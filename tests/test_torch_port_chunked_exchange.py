@@ -204,3 +204,43 @@ def test_distributed_join_identical_under_overlap(request, monkeypatch,
     assert canon(got) == canon(local)
     assert canon(got) == canon(jl.distributed_join(jr, "inner",
                                                    on="k").to_pandas())
+
+
+@pytest.mark.parametrize("nth", [1, 2, 17])
+def test_fault_mid_chunk_stream(request, monkeypatch, nth):
+    """F19: each chunk of a chunked exchange is one ``exchange`` fault
+    arrival under the retry policy, as in the reference's pipeline
+    (shuffle.py:644): an injected transient fault at arrival ``nth`` of a
+    32-chunk exchange retries that chunk alone; both packages count the
+    same arrivals, and the landing equals the unfaulted exchange."""
+    from cylon_tpu.resilience import inject as jinject
+    from cylon_tpu_torch.resilience import inject as tinject
+
+    jc, tc = jctx(request, 4), tctx(4)
+    payload, targets, emit = _inputs(4, 16384, seed=3)
+    monkeypatch.setenv("CYLON_EXCHANGE_OVERLAP", "1")
+    monkeypatch.setenv("CYLON_EXCHANGE_CHUNK_BYTES", "4096")
+    monkeypatch.setenv("CYLON_RETRY_BACKOFF_S", "0.001")
+    _jbase, counts = _jax_run(jc, payload, targets, emit)
+    base = _torch_run(tc, payload, targets, emit, counts)
+    arrivals = []
+    for inj, run in ((jinject, lambda: _jax_run(jc, payload, targets, emit,
+                                                counts)[0]),
+                     (tinject, lambda: _torch_run(tc, payload, targets,
+                                                  emit, counts))):
+        inj.arm(f"exchange:{nth}:transient")
+        try:
+            res = run()
+            st = inj.state()
+        finally:
+            inj.disarm()
+        assert [f["arrival"] for f in st["fired"]] == [nth]
+        arrivals.append(st["arrivals"]["exchange"])
+        if inj is tinject:
+            tres = res
+        else:
+            jres = res
+    assert arrivals[0] == arrivals[1] == 33
+    _assert_same(jres, tres, f"fault at {nth}")
+    assert tres[3]["chunks"] == 32
+    _assert_single_shot_equal(base, tres)

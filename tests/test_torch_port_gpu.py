@@ -1695,3 +1695,96 @@ def test_c_binding_on_card(cuda, tmp_path):
             assert launches["join_expand_stream"] > 0
     assert rows["cpu"] == rows["cuda"] > 0
     assert texts["cpu"] == texts["cuda"]
+
+
+# -- the drills of scripts/torch_port on the card -------------------------
+
+DRILL_DIR = __import__("pathlib").Path(__file__).resolve().parent.parent \
+    / "scripts" / "torch_port"
+
+
+def _run_drill(name, *args):
+    import json
+    import subprocess
+    import sys
+
+    r = subprocess.run([sys.executable, str(DRILL_DIR / f"{name}.py"),
+                        *args, "--device", "cuda"], capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    doc = json.loads([l for l in r.stdout.splitlines() if l.strip()][-1])
+    assert doc["device"] == "cuda"
+    return doc
+
+
+def test_drill_smoke_telemetry_on_card(cuda):
+    """The telemetry smoke on ``cuda``: the compile profiler records the
+    kernel libraries the process loads, and K1-K4 run its pipeline."""
+    doc = _run_drill("smoke_telemetry")
+    assert doc["compiles"] >= 1 and doc["library_loads"] >= 1
+    assert doc["hbm_peak"] > 0 and doc["dump_bytes_in_use"] > 0
+    assert all(doc["launches"][k] > 0 for k in K.KERNELS[:4])
+
+
+def test_drill_smoke_service_on_card(cuda):
+    """The service smoke on ``cuda``: the process's first query loads a
+    kernel library, no query after the first service query does."""
+    doc = _run_drill("smoke_service")
+    assert doc["first_query_builds"] >= 1
+    assert doc["builds_after_first_service_query"] == 0
+    assert doc["plan_cache_hits"] >= 7
+
+
+def test_drill_smoke_obs_on_card(cuda):
+    doc = _run_drill("smoke_obs")
+    a, b = doc["trace_lines"]
+    assert b < a and doc["sampled_out"] > 0
+
+
+def test_drill_smoke_stats_on_card(cuda):
+    """The statistics smoke on ``cuda`` reaches the CPU's decisions: the
+    real comm budget is far above the clamp, which decides."""
+    doc = _run_drill("smoke_stats")
+    assert doc["decisions"] == ["shed", "ok", "shed"]
+    assert doc["comm_budget"] > doc["clamp"]
+
+
+def test_drill_chaos_on_card(cuda):
+    """One chaos seed on ``cuda`` in a fresh process: all ten scenarios
+    run, ``compile`` retried (a load from the on-disk cache is a build
+    arrival), K1-K4 launched."""
+    doc = _run_drill("chaos", "--seed", "0")
+    ran = doc["scenarios"]
+    assert len(ran) == 10 and not any("skipped" in v for v in ran.values())
+    assert ran["compile"]["retries"] >= 1
+    assert ran["persistent"]["error"] == "CylonTransientError"
+    assert ran["persistent"]["dump_sites"] == ["exchange"]
+    assert all(doc["launches"][k] > 0 for k in K.KERNELS[:4])
+
+
+def test_drill_fuzz_differential_on_card(cuda):
+    """The differential fuzzer on ``cuda`` at 6 cases: no failing seed,
+    K1-K6 launched (K1/K2 in the cases on the kernel route)."""
+    doc = _run_drill("fuzz_differential", "6")
+    assert doc["failed_seeds"] == []
+    assert all(doc["launches"][k] > 0 for k in K.KERNELS), doc["launches"]
+
+
+def test_unretained_inputs_freed_on_card(cuda):
+    """retain_memory(False) on ``cuda``: the shuffle join clears both
+    inputs, which then hold no device tensor."""
+    rng = np.random.default_rng(29)
+    ctx = ct.CylonContext.InitDistributed(ct.VirtualWorldConfig(4),
+                                          device="cuda")
+    n = 100_000
+    a = ct.Table.from_pydict(ctx, {"k": rng.integers(0, n, n).astype(
+        np.int32), "v": rng.normal(size=n).astype(np.float32)})
+    b = ct.Table.from_pydict(ctx, {"k": rng.integers(0, n, n).astype(
+        np.int32), "w": rng.normal(size=n).astype(np.float32)})
+    keep = a.distributed_join(b, "inner", on=["k"]).row_count
+    a.retain_memory(False)
+    b.retain_memory(False)
+    out = a.distributed_join(b, "inner", on=["k"])
+    assert out.row_count == keep > 0
+    assert a.column_count == 0 and b.column_count == 0
+    assert a.nbytes == 0 and b.nbytes == 0

@@ -1,6 +1,7 @@
 """cylon_tpu_torch stands alone: it imports neither jax nor cylon_tpu
 (nor does chip_smoke.py, nor the port's examples in examples/torch_port/,
-nor the process-group children of the CPU tests,
+nor its drills in scripts/torch_port/, nor the process-group children of
+the CPU tests,
 tests/torch_port_mp_child.py), its C sources name no module but its own,
 and its entry points refuse to run on a CUDA-less machine unless asked
 for the CPU."""
@@ -18,6 +19,9 @@ ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "cylon_tpu_torch"
 CHILD = ROOT / "tests" / "torch_port_mp_child.py"
 EXAMPLES = ROOT / "examples" / "torch_port"
+DRILLS = ROOT / "scripts" / "torch_port"
+DRILL_NAMES = ("smoke_telemetry", "smoke_service", "smoke_obs",
+               "smoke_stats", "chaos", "fuzz_differential")
 FORBIDDEN = ("jax", "jaxlib", "cylon_tpu")
 
 
@@ -79,12 +83,12 @@ def test_scan_covers_the_new_subpackages():
 
 @pytest.mark.parametrize("path", sorted(
     [p for p in PACKAGE.rglob("*.py")] + list(EXAMPLES.glob("*.py"))
-    + [ROOT / "chip_smoke.py", CHILD]),
+    + list(DRILLS.glob("*.py")) + [ROOT / "chip_smoke.py", CHILD]),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_import_in_source(path):
     """The AST scan covers every module of the package (plan/,
-    resilience/ and telemetry/ included), the port's examples,
-    chip_smoke.py and the process-group child."""
+    resilience/ and telemetry/ included), the port's examples, its
+    drills, chip_smoke.py and the process-group child."""
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -97,6 +101,37 @@ def test_no_forbidden_import_in_source(path):
             continue
         bad = [n for n in names if _forbidden(n)]
         assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+def test_drills_are_all_there():
+    names = {p.stem for p in DRILLS.glob("*.py")}
+    assert names == set(DRILL_NAMES) | {"drill_common"}
+    assert (DRILLS / "check.sh").exists()
+
+
+@pytest.mark.parametrize("name", DRILL_NAMES)
+def test_drill_help_imports_no_jax(name):
+    """Each drill answers ``--help`` (exit 0) with its modules and the
+    package loaded, and no jax or cylon_tpu module among them."""
+    path = DRILLS / f"{name}.py"
+    code = ("import runpy, sys\n"
+            f"sys.argv = [{str(path)!r}, '--help']\n"
+            f"sys.path.insert(0, {str(DRILLS)!r})\n"
+            "try:\n"
+            f"    runpy.run_path({str(path)!r}, run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code in (0, None), e.code\n"
+            "import cylon_tpu_torch, cylon_tpu_torch.service, "
+            "cylon_tpu_torch.plan, drill_common\n"
+            "bad = [m for m in sys.modules"
+            " if m.split('.')[0] in ('jax', 'jaxlib', 'cylon_tpu')]\n"
+            "print(bad); sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    r = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "usage:" in r.stdout
 
 
 # a module name in a C source: an import call's argument, or an import

@@ -1,7 +1,8 @@
 """cylon_tpu_torch's knob registry and memory pool against cylon_tpu's:
 the four knobs of the exchange layer with the reference's names,
 defaults, floors and parse policy; the pool's CPU answers (no stats, no
-budget, as on the reference's CPU mesh); the comm budget shrinking the
+budget, the ledger's bytes as live bytes, as on the reference's CPU
+mesh); the comm budget shrinking the
 exchange's block cap as the reference's does (shard by shard through
 the compact route it forces); the local join picking the blocked join
 when the pool runs short, with the reference's forced blocked join's
@@ -47,11 +48,16 @@ def test_undeclared_knob_raises():
 
 
 def test_cpu_pool_has_no_budget(request):
+    """No budget on the CPU; the live bytes are the ledger's tracked-table
+    bytes (the reference's external source), the limit 0."""
+    from cylon_tpu_torch.telemetry import ledger
+
     for ctx in (tct.CylonContext.Init(device="cpu"), tctx(4)):
         pool = ctx.memory_pool
         assert pool.available_bytes() is None
         assert pool.comm_budget_bytes() is None
-        assert pool.snapshot() == (0, 0, 0)
+        used, peak, limit = pool.snapshot()
+        assert used == ledger.live_bytes() and peak >= used and limit == 0
     ref = jctx(request, 4).memory_pool
     assert ref.available_bytes() is None and ref.comm_budget_bytes() is None
 
