@@ -27,7 +27,7 @@ The paths, each at the size of the repo's own benchmark:
   right payload by k, whose partials take the compact exchange route)
   and ``bench_groupby`` (G = 16,777,216 rows, ``--groupby-rows``: g in
   [0, 2^20), ``groupby(0, [1, 2, 1], [sum, count, mean])`` at world 1
-  and 4);
+  and 4); the float sums of both through K7 segment_sum;
 * sort: bench.py ``bench_sort`` and ``bench_dist_sort`` (G rows, k in
   [0, 2^31): ``Table.sort`` at world 1, ``distributed_sort(...,
   force_exchange=True)`` at world 4);
@@ -59,7 +59,7 @@ The paths, each at the size of the repo's own benchmark:
 Phases, in order (any failure exits non-zero; nothing is caught):
   1. the card, torch, nvcc, and the build of every kernel from csrc/,
      with the compile profiler (``telemetry.profiler``) enabled before
-     anything is built or loaded; each of the four libraries is then
+     anything is built or loaded; each of the five libraries is then
      loaded, and the profile printed: one record a library with its
      nvcc seconds (> 0 for a library this run built, 0.0 for one loaded
      from an existing ``_build/``, equal to what the build reported) and
@@ -96,11 +96,18 @@ Phases, in order (any failure exits non-zero; nothing is caught):
      version's ms, the library call's ms where one PyTorch call computes
      the same function, and the bound (bytes moved at 3.35 TB/s);
   9. a small world-4 join against an independent numpy join;
- 10. join -> groupby at world 4: K1-K4 launched (counters 0 -> read),
-     the partials' exchange seen on the compact route, the group keys
-     exact and the sums within tolerance against numpy;
- 11. groupby at world 1 and 4 (K1/K2 at world 4): keys and counts exact,
-     sums and means within tolerance against numpy;
+ 10. join -> groupby at world 4: K1-K4 and K7 launched (counters 0 ->
+     read), the partials' exchange seen on the compact route, the group
+     keys exact and the sums within tolerance against numpy, and a
+     second run bit-equal to the first;
+ 11. groupby at world 1 and 4 (K1/K2 at world 4, K7 at both): keys and
+     counts exact, sums and means within tolerance against numpy, a
+     second run bit-equal to the first; then K7 at the world-1 run's
+     shapes (its first call, the float32 SUM) against its plain version
+     bit for bit, timed as in phase 8, beside ``torch.segment_reduce``
+     (the library call), ``index_put_(accumulate=True)`` and
+     ``index_add_`` (the earlier route), each timed and checked for
+     equality with K7's row-order sums and with a second call of itself;
  12. sort at world 1 and 4 (K1/K2 at world 4): the key sequence exact
      against np.sort, the rows equal as a multiset;
  13. small and empty inputs at world 4 and 8 (the compact route): all
@@ -227,8 +234,9 @@ Phases, in order (any failure exits non-zero; nothing is caught):
      collectives catalog on the CPU, the kernels' plain versions), its
      seconds; 25b, the collectives catalog on CUDA tensors at world 4
      under its dispatch mode, the launch counters 0 -> read: no finding,
-     each of K1-K6 launched; 25c (run right after phase 8, whose inputs
-     it reuses), each kernel wrapper once at phase 8's shapes under
+     each of K1-K7 launched; 25c (run right after phase 8, whose inputs
+     it reuses, and K7 after phase 11), each kernel wrapper once at phase
+     8's shapes (K7 at phase 11's) under
      ``torch.cuda.set_sync_debug_mode("error")``: no wrapper syncs; 25d,
      phase 2's join (2 x N rows, world 4) once under ``collect_phases``:
      its labels (``#seq`` stripped) and its ``cylon_host_syncs_total``
@@ -261,7 +269,7 @@ Phases, in order (any failure exits non-zero; nothing is caught):
      26e, the nine examples of examples/torch_port on the card
      (torch_ddp_demo as two processes), each with the counters 0 -> read:
      the join example's inner count and the set ops' counts against
-     numpy, K5 and K6 launched by set_ops_example, K1-K6 over the
+     numpy, K5 and K6 launched by set_ops_example, K1-K7 over the
      examples.
  27. the port's drills (scripts/torch_port/), each on ``cuda`` in a fresh
      process: the telemetry, service, observability and statistics
@@ -270,13 +278,36 @@ Phases, in order (any failure exits non-zero; nothing is caught):
      ``fuzz_differential.py`` at 12 cases. Each must exit 0 and print
      its JSON line on ``cuda``; the service smoke's first query must
      load a kernel library and its later queries none; chaos must launch
-     K1-K4 and the fuzzer K1-K6 with no failing seed. Each drill's wall
+     K1-K4 and the fuzzer K1-K7 with no failing seed. Each drill's wall
      and launches are printed, and the launches join the kernels line
      (``drill_launches``).
+ 28. float group sums and the measuring tools: 28a, a groupby of
+     1,048,576 rows (4,096 keys, float32 values across six orders of
+     magnitude; SUM and MEAN) at world 1 and 4, phase 10's join ->
+     groupby (2 x 524,288 rows, SUM and MEAN) at world 4, and a groupby
+     of 4,194,304 rows in 1, 4 and 64 groups at world 1 and 4, each twice
+     on the card and once with the CPU port (route switches on): every
+     column bit-equal run to run and card to CPU, K7 launched; then the
+     1/4/64-group groupby at 16,777,216 rows on the card: steady walls,
+     and K7 (1 and 64 groups, world 1) against its plain version and the
+     torch forms, bit for bit and timed; 28b, each
+     tool of scripts/torch_port (``TOOL_RUNS``: the scaling sweep at
+     2^21 rows, the engine comparison at 2^20, the shuffle, distributed
+     join, stream join and join profiles at 2^22) on ``cuda`` in its own
+     process: exit 0, its JSON line, the kernels of ``TOOL_KERNELS``
+     launched, every recorded row count equal to numpy's; its numbers
+     printed, its launches added to the kernels line
+     (``tool_launches``); 28c, with ``--parent-tree DIR``, the cost of
+     the row-order sums: phases 10, 11 and 24a's query, phase 12's sorts
+     (a control) and the 1/4/64-group groupby at 16,777,216 rows, world 1
+     and 4, of both trees in turns (one warm-up each, 9 rounds, medians
+     and the difference printed).
 Phases 10-12, 23a and 24d each record the median of 5 steady runs after
 one warm-up.
-Tolerances: float sums 1e-5 * sum |x| of the group (+1e-30), float64
-means 1e-12 * sum |x| / count; everything else exact.
+Tolerances against numpy: float sums 1e-5 * sum |x| of the group
+(+1e-30), float64 means 1e-12 * sum |x| / count; everything else exact.
+The port against itself (a second run, the CPU, a kernel's plain
+version): exact, float sums included.
 
 It prints the kernels line (one JSON object) and the card's name and
 power limit on lines before the last, and as the last line
@@ -703,6 +734,71 @@ def check_kernels(K, calls) -> list:
     return out
 
 
+def check_k7(K, call, reps: int = 7, warm: int = 2) -> dict:
+    """K7 on the inputs of its recorded call (phase 11's world-1 groupby)
+    against its plain version, bit for bit, timed; beside it the torch
+    calls that compute the same sums: ``torch.segment_reduce`` (the
+    library call), ``index_put_(accumulate=True)`` and ``index_add_``
+    (PR 14's route), each timed, held against K7's row-order sums and
+    against a second call of itself; the bytes K7 must move. ``reps``
+    and ``warm``: the timed and untimed calls of each form before the
+    median is taken (each form has run before it is timed)."""
+    (x, gid, emit, s), _kw = call
+    w, n = x.shape
+    got = K.segment_sum(x, gid, emit, s)
+    ref = K.plain_segment_sum(x, gid, emit, s)
+    ibits = torch.int32 if x.element_size() == 4 else torch.int64
+    assert got.dtype == ref.dtype
+    exact = torch.equal(got.view(ibits), ref.view(ibits))
+    err = float((got.double() - ref.double()).abs().max())
+    s1 = s + 1
+    off = torch.arange(w, device=x.device).unsqueeze(-1) * s1
+    slot = (torch.where(emit, gid, s) + off).reshape(-1)
+    lengths = torch.bincount(slot, minlength=w * s1)
+    flat = x.reshape(-1)
+    pos = torch.arange(n, device=x.device)
+    spread = (torch.where(emit, gid, pos % s1) + off).reshape(-1)
+    xz = torch.where(emit, x, 0).reshape(-1)
+
+    def seg_reduce():
+        return torch.segment_reduce(flat, "sum", lengths=lengths,
+                                    unsafe=True).view(w, s1)[:, :s]
+
+    def index_put():
+        return torch.zeros(w * s1, dtype=x.dtype, device=x.device
+                           ).index_put_((spread,), xz, accumulate=True
+                                        ).view(w, s1)[:, :s]
+
+    def index_add():
+        return torch.zeros(w * s1, dtype=x.dtype, device=x.device
+                           ).index_add_(0, spread, xz).view(w, s1)[:, :s]
+
+    others = {}
+    for name, fn in (("segment_reduce", seg_reduce),
+                     ("index_put", index_put), ("index_add", index_add)):
+        a, b = fn(), fn()
+        others[name] = {
+            "ms": cuda_ms(fn, reps=reps, warm=warm),
+            "equal_to_row_order": torch.equal(a.view(ibits),
+                                              got.view(ibits)),
+            "equal_run_to_run": torch.equal(a.view(ibits), b.view(ibits))}
+    live = int(emit.sum())
+    groups = int((gid[emit].max() + 1)) if live else 0
+    return dict(
+        name="segment_sum", err=err, exact=exact,
+        shape=f"{x.dtype} {list(x.shape)}, {s} slots, {groups} groups, "
+        f"{live} live rows",
+        ms=cuda_ms(lambda: K.segment_sum(x, gid, emit, s), reps=reps,
+                   warm=warm),
+        kernel_ms=own_kernel_ms(K, lambda: K.segment_sum(x, gid, emit, s),
+                                reps=min(reps, 5)),
+        plain_ms=cuda_ms(lambda: K.plain_segment_sum(x, gid, emit, s),
+                         reps=reps, warm=warm),
+        library_ms=others["segment_reduce"]["ms"], others=others,
+        bytes=emit.numel() + gid.element_size() * gid.numel()
+        + x.element_size() * (live + w * s))
+
+
 # ---------------------------------------------------------------------------
 # the set-op path
 # ---------------------------------------------------------------------------
@@ -918,6 +1014,16 @@ def live_columns(table) -> list:
             for c in table._columns]
 
 
+def assert_bits_equal(a, b, what: str) -> None:
+    """Two results' live rows equal bit for bit, column by column (the
+    float sums included: K7 adds each group in row order)."""
+    ca, cb = live_columns(a), live_columns(b)
+    assert len(ca) == len(cb), what
+    for i, ((da, va), (db, vb)) in enumerate(zip(ca, cb)):
+        assert np.array_equal(va, vb) and da.dtype == db.dtype and \
+            np.array_equal(da.view(np.uint8), db.view(np.uint8)), (what, i)
+
+
 def check_sums(got, ref, scale, what: str) -> float:
     """Float sums within SUM_RTOL of sum |x|; returns the worst ratio of
     error to its bound."""
@@ -933,12 +1039,7 @@ def pipeline_phase(ct, K, D, S, dctx, n: int) -> dict:
     [SUM]) of the right payload. The join leaves its rows placed by k, so
     the partials' exchange has a diagonal count matrix: it must take the
     compact route, and K1-K4 must launch."""
-    rng = np.random.default_rng(9)
-    lk = rng.integers(0, n // 4, n).astype(np.int32)
-    lv = rng.normal(size=n).astype(np.float32)
-    lz = rng.integers(0, 50, n).astype(np.int32)
-    rk = rng.integers(0, n // 4, n).astype(np.int32)
-    rw = rng.normal(size=n).astype(np.float32)
+    lk, lv, lz, rk, rw = pipeline_arrays(n)
     left = ct.Table.from_pydict(dctx, {"k": lk, "v": lv, "z": lz})
     right = ct.Table.from_pydict(dctx, {"k": rk, "w": rw})
     agg = ct.AggregationOp.SUM
@@ -957,9 +1058,12 @@ def pipeline_phase(ct, K, D, S, dctx, n: int) -> dict:
         first = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     missing = [k for k in ("partition_hist", "partition_scatter",
-                           "join_plan_stream", "join_expand_stream")
-               if launches[k] == 0]
+                           "join_plan_stream", "join_expand_stream",
+                           "segment_sum") if launches[k] == 0]
     assert not missing, f"join -> groupby: not launched: {missing}"
+    again = fn()
+    assert_bits_equal(out, again, "join -> groupby: a second run")
+    del again
     chunks = chunk_report(10, cspy, fn)
     assert spy.rounds, "the partials' exchange did not take the compact route"
     # numpy oracle: group k holds cnt_left(k) copies of each right row
@@ -980,7 +1084,8 @@ def pipeline_phase(ct, K, D, S, dctx, n: int) -> dict:
     walls = steady(fn)
     log(f"phase 10 join -> groupby (2 x {n} rows, world {WORLD}): launches "
         f"{launches}, compact route rounds {spy.rounds}; {len(keys)} groups "
-        f"== numpy, sums within tolerance (worst error/bound {worst:.3e}); "
+        f"== numpy, sums within tolerance (worst error/bound {worst:.3e}) "
+        f"and bit-equal in a second run; "
         f"first run {first:.4f} s; steady walls (s) {walls}; median "
         f"{statistics.median(walls):.6f}, input rows/s "
         f"{2 * n / statistics.median(walls):.4e}")
@@ -989,14 +1094,20 @@ def pipeline_phase(ct, K, D, S, dctx, n: int) -> dict:
             "worst_sum_err_over_bound": worst, "chunks": chunks}
 
 
-def groupby_phase(ct, K, lctx, dctx, n: int) -> dict:
-    """Phase 11: bench.py bench_groupby, groupby(0, [1, 2, 1], ["sum",
-    "count", "mean"]) at world 1 and at world 4 (K1/K2), against numpy:
-    keys and counts exact, sums and means within tolerance."""
+def groupby_arrays(n: int):
+    """bench.py bench_groupby's table (phase 11's generator)."""
     rng = np.random.default_rng(1)
     g = rng.integers(0, 1 << 20, n).astype(np.int32)
     x = rng.normal(size=n).astype(np.float32)
     y = rng.integers(0, 100, n).astype(np.int32)
+    return g, x, y
+
+
+def groupby_phase(ct, K, lctx, dctx, n: int) -> dict:
+    """Phase 11: bench.py bench_groupby, groupby(0, [1, 2, 1], ["sum",
+    "count", "mean"]) at world 1 and at world 4 (K1/K2), against numpy:
+    keys and counts exact, sums and means within tolerance."""
+    g, x, y = groupby_arrays(n)
     cnt = np.bincount(g, minlength=1 << 20)
     keys = np.flatnonzero(cnt)
     x64 = x.astype(np.float64)
@@ -1011,15 +1122,21 @@ def groupby_phase(ct, K, lctx, dctx, n: int) -> dict:
 
         sync()
         K.reset_launches()
-        t0 = time.perf_counter()
-        out = fn()
-        sync()
-        first = time.perf_counter() - t0
+        with Recorder(K) as rec:
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+            first = time.perf_counter() - t0
         launches = dict(K.LAUNCHES)
-        if world > 1:
-            missing = [k for k in ("partition_hist", "partition_scatter")
-                       if launches[k] == 0]
-            assert not missing, f"groupby world {world}: {missing}"
+        if world == 1:
+            res["calls"] = rec.calls["segment_sum"]
+        need = ("partition_hist", "partition_scatter", "segment_sum") \
+            if world > 1 else ("segment_sum",)
+        missing = [k for k in need if launches[k] == 0]
+        assert not missing, f"groupby world {world}: {missing}"
+        again = fn()
+        assert_bits_equal(out, again, f"groupby world {world}: a second run")
+        del again
         cols = live_columns(out)
         assert all(v.all() for _d, v in cols)
         order = np.argsort(cols[0][0], kind="stable")
@@ -1035,7 +1152,8 @@ def groupby_phase(ct, K, lctx, dctx, n: int) -> dict:
         med = statistics.median(walls)
         log(f"phase 11 groupby ({n} rows, world {world}): launches "
             f"{launches}; {len(keys)} groups, keys and counts == numpy, sums "
-            f"(worst error/bound {worst:.3e}) and means within tolerance; "
+            f"(worst error/bound {worst:.3e}) and means within tolerance, "
+            f"every column bit-equal in a second run; "
             f"first run {first:.4f} s; steady walls (s) {walls}; median "
             f"{med:.6f}, rows/s {n / med:.4e}")
         res[f"world{world}"] = {"launches": launches, "first_wall_s": first,
@@ -1045,14 +1163,20 @@ def groupby_phase(ct, K, lctx, dctx, n: int) -> dict:
     return res
 
 
+def sort_arrays(n: int):
+    """bench.py bench_sort's table (phase 12's generator)."""
+    rng = np.random.default_rng(2)
+    k = rng.integers(0, 1 << 31, n).astype(np.int32)
+    v = rng.normal(size=n).astype(np.float32)
+    return k, v
+
+
 def sort_phase(ct, K, D, lctx, dctx, n: int) -> dict:
     """Phase 12: bench.py bench_sort / bench_dist_sort: Table.sort("k") at
     world 1 and distributed_sort(force_exchange=True) at world 4 (K1/K2),
     against np.sort: the key sequence exact across shards in shard order,
     the rows equal as a multiset."""
-    rng = np.random.default_rng(2)
-    k = rng.integers(0, 1 << 31, n).astype(np.int32)
-    v = rng.normal(size=n).astype(np.float32)
+    k, v = sort_arrays(n)
     ks = np.sort(k)
     rows = np.sort((k.astype(np.int64) << 32)
                    | v.view(np.uint32).astype(np.int64))
@@ -2274,9 +2398,10 @@ def exchange_counts(cp) -> tuple:
     return cp.count("plan.shuffle"), cp.count("shuffle.exchange")
 
 
-def pipeline_arrays(n: int):
-    """bench.py bench_plan_pipeline's tables (phase 10's generator)."""
-    rng = np.random.default_rng(9)
+def pipeline_arrays(n: int, seed: int = 9):
+    """bench.py bench_plan_pipeline's tables (phase 10's generator; seed
+    11 is bench_service_pipeline's, phase 24a's)."""
+    rng = np.random.default_rng(seed)
     lk = rng.integers(0, n // 4, n).astype(np.int32)
     lv = rng.normal(size=n).astype(np.float32)
     lz = rng.integers(0, 50, n).astype(np.int32)
@@ -2624,12 +2749,7 @@ def service_pipeline_phase(ct, K, dctx, n: int) -> dict:
     from an empty plan cache and statistics warehouse."""
     from cylon_tpu_torch.service import plancache
 
-    rng = np.random.default_rng(11)
-    lk = rng.integers(0, n // 4, n).astype(np.int32)
-    lv = rng.normal(size=n).astype(np.float32)
-    lz = rng.integers(0, 50, n).astype(np.int32)
-    rk = rng.integers(0, n // 4, n).astype(np.int32)
-    rw = rng.normal(size=n).astype(np.float32)
+    lk, lv, lz, rk, rw = pipeline_arrays(n, 11)
     left = ct.Table.from_pydict(dctx, {"k": lk, "v": lv, "z": lz})
     right = ct.Table.from_pydict(dctx, {"k": rk, "w": rw})
     keys, ref, scale, _rows = join_groupby_oracle(lk, rk, rw, n // 4)
@@ -3229,7 +3349,7 @@ def analysis_cli_phase() -> dict:
 
 def analysis_card_phase(K) -> dict:
     """25b: the collectives catalog on CUDA tensors at world 4 under the
-    dispatch mode, counters 0 -> read: no finding, K1-K6 launched."""
+    dispatch mode, counters 0 -> read: no finding, K1-K7 launched."""
     from cylon_tpu_torch import analysis as A
 
     root = os.path.dirname(os.path.abspath(A.__file__))
@@ -3249,20 +3369,22 @@ def analysis_card_phase(K) -> dict:
 
 
 def wrappers_sync_free(K, calls) -> dict:
-    """25c: each kernel wrapper once at phase 8's shapes under
+    """25c: each kernel wrapper of ``calls`` once at its recorded shapes
+    (phase 8's; K7's from phase 11) under
     ``torch.cuda.set_sync_debug_mode("error")``: a wrapper that syncs
     raises (the runtime side of hostsync/in-launch)."""
+    names = [k for k in K.KERNELS if k in calls]
     sync()
     before = dict(K.LAUNCHES)
     torch.cuda.set_sync_debug_mode("error")
     try:
-        for name in K.KERNELS:
+        for name in names:
             a, kw = calls[name]
             getattr(K, name)(*a, **kw)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     sync()
-    launched = {k: K.LAUNCHES[k] - before[k] for k in K.KERNELS}
+    launched = {k: K.LAUNCHES[k] - before[k] for k in names}
     assert all(v >= 1 for v in launched.values()), launched
     return launched
 
@@ -3271,12 +3393,15 @@ def load_parent_package(tree: str):
     """The package of another checkout (``tree`` holds
     ``cylon_tpu_torch/``) under the name ``cylon_tpu_torch_parent``, its
     kernel libraries copied from this tree's build when the sources are
-    the same (their names are the hash of the sources)."""
+    the same (their names are the hash of the sources). Loaded once a
+    process (phases 25d and 28c share it)."""
     import importlib.util
     import shutil
 
     from cylon_tpu_torch.ops import kernels as K
 
+    if "cylon_tpu_torch_parent" in sys.modules:
+        return sys.modules["cylon_tpu_torch_parent"]
     pkg = os.path.join(os.path.abspath(tree), "cylon_tpu_torch")
     if K.BUILD_DIR.is_dir():
         shutil.copytree(str(K.BUILD_DIR), os.path.join(pkg, "_build"),
@@ -3589,7 +3714,7 @@ def mp_task_phase(ct, args, dctx) -> dict:
 def examples_phase(K) -> dict:
     """26e: the nine port examples on the card (torch_ddp_demo as two
     processes, the rest in this one), each with the launch counters 0 ->
-    read; their counts checked against numpy where it is cheap; K1-K6
+    read; their counts checked against numpy where it is cheap; K1-K7
     launched over the examples, K5 and K6 by set_ops_example."""
     import importlib.util
 
@@ -3681,6 +3806,342 @@ def drills_phase(K) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 28: bit-reproducible float group sums, the measuring tools
+# ---------------------------------------------------------------------------
+
+SUMS_ROWS = 1 << 20          # 28a: rows of the groupby, 2 x half of them
+SUMS_GROUPS = 1 << 12        # for the join -> groupby; keys in [0, 4096)
+SKEW_GROUPS = (1, 4, 64)     # 28a, 28c: keys of the low-cardinality groupby
+SKEW_ROWS = 1 << 22          # 28a: its rows held against the CPU port
+SKEW_TIMED_ROWS = 1 << 24    # 28a, 28c: its rows timed on the card
+SKEW_K7_GROUPS = (1, 64)     # 28a: K7 checked and timed at these
+AB_ROUNDS = 9                # 28c: rounds in turns with the parent
+# 28b: each tool of scripts/torch_port, its arguments, the kernels it must
+# launch
+TOOL_RUNS = (("scaling_sweep", ("21",)), ("compare_competitors", ("20",)),
+             ("profile_shuffle", ("22",)),
+             ("profile_dist_join", ("22", "--bcast-rows-log2", "20")),
+             ("profile_stream", ("22",)), ("profile_join", ("22",)))
+TOOL_KERNELS = {
+    "scaling_sweep": JOIN_KERNELS, "profile_dist_join": JOIN_KERNELS,
+    "profile_shuffle": ("partition_hist", "partition_scatter"),
+    "compare_competitors": ("join_plan_stream", "join_expand_stream",
+                            "segment_sum"),
+    "profile_stream": ("join_plan_stream", "join_expand_stream"),
+    "profile_join": ("join_plan_stream", "join_expand_stream")}
+TOOL_TIMEOUT_S = 300
+
+
+def skew_arrays(n: int, groups: int):
+    """A low-cardinality group-by's table (28a, 28c): keys in [0, groups),
+    float32 values."""
+    rng = np.random.default_rng(28 + groups)
+    g = rng.integers(0, groups, n).astype(np.int32)
+    x = rng.normal(size=n).astype(np.float32)
+    return g, x
+
+
+def sums_phase(ct, K, lctx, dctx) -> dict:
+    """28a: the world-1 and world-4 groupby (SUMS_ROWS rows, SUMS_GROUPS
+    keys, float32 values across six orders of magnitude: SUM and MEAN),
+    the join -> groupby at world 4 (2 x SUMS_ROWS / 2 rows, phase 10's
+    generator) and the low-cardinality groupby at world 1 and 4
+    (SKEW_ROWS rows, SKEW_GROUPS keys: runs long enough for K7's block
+    route), each twice on the card and once with the CPU port (the route
+    switches on, so the CPU runs the plain versions of the kernels
+    through the same call sites and the join's output has the card's row
+    order): every column bit-equal, run to run and card to CPU, K7
+    launched on the card. Then the low-cardinality groupby at
+    SKEW_TIMED_ROWS rows on the card alone: steady walls at world 1 and
+    4, and K7 at world 1's float32 SUM (1 and 64 groups) against its
+    plain version and the torch forms (check_k7, one timed call each:
+    one ``index_put_`` of one group takes ~2 s)."""
+    n = SUMS_ROWS
+    rng = np.random.default_rng(28)
+    g = rng.integers(0, SUMS_GROUPS, n).astype(np.int32)
+    x = (rng.normal(size=n) * rng.choice(np.array([1e-3, 1.0, 1e3]), n)
+         ).astype(np.float32)
+    lk, lv, lz, rk, rw = pipeline_arrays(n // 2)
+    cctx = {1: ct.CylonContext.Init(device="cpu"),
+            WORLD: ct.CylonContext.InitDistributed(
+                ct.VirtualWorldConfig(WORLD), device="cpu")}
+    D = ct.parallel.dist_ops
+
+    def groupby_of(g, x):
+        def groupby(ctx):
+            t = ct.Table.from_pydict(ctx, {"g": g, "x": x})
+            return t.groupby(0, [1, 1], ["sum", "mean"])
+        return groupby
+
+    def pipeline(ctx):
+        left = ct.Table.from_pydict(ctx, {"k": lk, "v": lv, "z": lz})
+        right = ct.Table.from_pydict(ctx, {"k": rk, "w": rw})
+        j = D.distributed_join(left, right, ct.JoinConfig(
+            ct.JoinType.INNER, [0], [0]))
+        return D.distributed_groupby(j, [0], [4, 4], [
+            ct.AggregationOp.SUM, ct.AggregationOp.MEAN])
+
+    cases = [("groupby_w1", groupby_of(g, x), 1),
+             ("groupby_w4", groupby_of(g, x), WORLD),
+             ("join_groupby_w4", pipeline, WORLD)]
+    for groups in SKEW_GROUPS:
+        fn = groupby_of(*skew_arrays(SKEW_ROWS, groups))
+        cases += [(f"skew{groups}_w1", fn, 1), (f"skew{groups}_w4", fn, WORLD)]
+    res = {}
+    for name, fn, world in cases:
+        card_ctx = lctx if world == 1 else dctx
+        sync()
+        K.reset_launches()
+        first = fn(card_ctx)
+        sync()
+        launches = dict(K.LAUNCHES)
+        assert launches["segment_sum"] > 0, (name, launches)
+        second = fn(card_ctx)
+        assert_bits_equal(first, second, f"28a {name}: card run to run")
+        t0 = time.perf_counter()
+        cpu = run_route(True, lambda: fn(cctx[world]))
+        cpu_s = time.perf_counter() - t0
+        assert_bits_equal(first, cpu, f"28a {name}: card vs CPU")
+        res[name] = {"groups": first.row_count, "launches": launches,
+                     "cpu_s": cpu_s}
+        log(f"phase 28a {name}: {first.row_count} groups, SUM and MEAN "
+            f"bit-equal in two runs on the card and to the CPU port "
+            f"({cpu_s:.2f} s there); launches {launches}")
+        del first, second, cpu
+    skew = {}
+    for groups in SKEW_GROUPS:
+        g, x = skew_arrays(SKEW_TIMED_ROWS, groups)
+        for ctx, world in ((lctx, 1), (dctx, WORLD)):
+            t = ct.Table.from_pydict(ctx, {"g": g, "x": x})
+
+            def fn():
+                return t.groupby(0, [1, 1], ["sum", "mean"])
+
+            row = {}
+            if world == 1 and groups in SKEW_K7_GROUPS:
+                with Recorder(K) as rec:
+                    out = fn()
+                r = check_k7(K, rec.calls["segment_sum"], reps=1, warm=0)
+                del rec, out
+                assert r["exact"], f"K7 disagrees with its plain version: {r}"
+                row["k7_check"] = {k: v for k, v in r.items()
+                                   if k != "bytes"}
+                log(f"phase 28a K7 ({r['shape']}): ms {r['ms']:.4f} "
+                    f"kernel_ms {r['kernel_ms']:.4f} plain {r['plain_ms']:.4f}"
+                    f" (on the host) library (segment_reduce) "
+                    f"{r['library_ms']:.4f}; the other torch forms "
+                    f"{r['others']}")
+            walls = steady(fn)
+            row.update(walls_s=walls, median_s=statistics.median(walls))
+            skew[f"skew{groups}_w{world}"] = row
+            log(f"phase 28a groupby SUM, MEAN of {SKEW_TIMED_ROWS} rows, "
+                f"{groups} groups, world {world}: steady walls (s) {walls}; "
+                f"median {row['median_s']:.6f}")
+            del t
+    res["skew_timed"] = skew
+    return res
+
+
+# 28c: the cases timed against the parent tree, each (name, builder): the
+# builder takes a package and its world-1 and world-4 contexts and returns
+# a function that runs the case once
+def ab_cases(args) -> list:
+    def p10(pkg, lctx, dctx):
+        lk, lv, lz, rk, rw = pipeline_arrays(args.pipeline_rows)
+        left = pkg.Table.from_pydict(dctx, {"k": lk, "v": lv, "z": lz})
+        right = pkg.Table.from_pydict(dctx, {"k": rk, "w": rw})
+        D = pkg.parallel.dist_ops
+
+        def run():
+            j = D.distributed_join(left, right, pkg.JoinConfig(
+                pkg.JoinType.INNER, [0], [0]))
+            return D.distributed_groupby(j, [0], [4],
+                                         [pkg.AggregationOp.SUM])
+        return run
+
+    def p11(world):
+        def build(pkg, lctx, dctx):
+            g, x, y = groupby_arrays(args.groupby_rows)
+            t = pkg.Table.from_pydict(lctx if world == 1 else dctx,
+                                      {"g": g, "x": x, "y": y})
+            return lambda: t.groupby(0, [1, 2, 1], ["sum", "count", "mean"])
+        return build
+
+    def p12(world):
+        def build(pkg, lctx, dctx):
+            k, v = sort_arrays(args.groupby_rows)
+            if world == 1:
+                t = pkg.Table.from_pydict(lctx, {"k": k, "v": v})
+                return lambda: t.sort("k")
+            t = pkg.Table.from_pydict(dctx, {"k": k, "v": v})
+            return lambda: pkg.parallel.dist_ops.distributed_sort(
+                t, "k", force_exchange=True)
+        return build
+
+    def p24a(pkg, lctx, dctx):
+        lk, lv, lz, rk, rw = pipeline_arrays(args.service_rows, 11)
+        left = pkg.Table.from_pydict(dctx, {"k": lk, "v": lv, "z": lz})
+        right = pkg.Table.from_pydict(dctx, {"k": rk, "w": rw})
+        return lambda: service_query(pkg, left, right).execute()
+
+    def skew(groups, world):
+        def build(pkg, lctx, dctx):
+            g, x = skew_arrays(SKEW_TIMED_ROWS, groups)
+            t = pkg.Table.from_pydict(lctx if world == 1 else dctx,
+                                      {"g": g, "x": x})
+            return lambda: t.groupby(0, [1, 1], ["sum", "mean"])
+        return build
+
+    cases = [("p10", p10), ("p11_w1", p11(1)), (f"p11_w{WORLD}", p11(WORLD)),
+             ("p12_w1", p12(1)), (f"p12_w{WORLD}", p12(WORLD)),
+             ("p24a", p24a)]
+    for groups in SKEW_GROUPS:
+        cases += [(f"skew{groups}_w1", skew(groups, 1)),
+                  (f"skew{groups}_w{WORLD}", skew(groups, WORLD))]
+    return cases
+
+
+def sums_cost_phase(ct, args) -> dict:
+    """28c, with ``--parent-tree``: what the row-order float sums cost
+    against the parent tree, in turns in this process (the parent's
+    package loaded beside this one, load_parent_package). The cases:
+    ``p10`` phase 10's join -> groupby; ``p11_w1``/``p11_w4`` phase 11's
+    groupby; ``p12_w1``/``p12_w4`` phase 12's sorts, which sum nothing (a
+    control); ``p24a`` phase 24a's query executed directly; and
+    ``skew{G}_w{1,4}`` the SUM and MEAN of SKEW_TIMED_ROWS rows in G
+    groups (skew_arrays), each at phase sizes and with the phases'
+    generators. Each case: both trees' outputs have the same row count;
+    one warm-up a tree, then AB_ROUNDS rounds in turns (in_turns), each
+    wall ending in a synchronize; the medians, their difference and
+    ratio."""
+    pt = load_parent_package(args.parent_tree)
+    pt.ops.kernels.build()
+    ctxs = {pkg: (pkg.CylonContext.Init(),
+                  pkg.CylonContext.InitDistributed(
+                      pkg.VirtualWorldConfig(WORLD)))
+            for pkg in (pt, ct)}
+    res = {}
+    for name, build in ab_cases(args):
+        fns = {"parent": build(pt, *ctxs[pt]), "this": build(ct, *ctxs[ct])}
+        rows = {tree: fn().row_count for tree, fn in fns.items()}
+        assert rows["parent"] == rows["this"], (name, rows)
+        walls = in_turns(fns, rounds=AB_ROUNDS)
+        med = {t: statistics.median(w) for t, w in walls.items()}
+        res[name] = {"rows_out": rows["this"], "walls_s": walls,
+                     "median_s": med,
+                     "delta_ms": (med["this"] - med["parent"]) * 1e3,
+                     "ratio": med["this"] / med["parent"]}
+        log(f"phase 28c {name}: {rows['this']} rows out; medians (ms) "
+            f"parent {med['parent'] * 1e3:.3f}, this "
+            f"{med['this'] * 1e3:.3f}: {res[name]['delta_ms']:+.3f} ms "
+            f"({res[name]['ratio']:.4f}x); walls (s) {walls}")
+        del fns
+    return res
+
+
+def tool_expectations() -> dict:
+    """numpy's row counts for the tools' runs of 28b (their generators,
+    at TOOL_RUNS' sizes)."""
+    out = {}
+    n = 1 << 21
+    sweep = {}
+    for mode, rows in (("strong", lambda w: n),
+                       ("weak", lambda w: (n // 8) * w)):
+        for w in (1, 2, 4, 8):
+            m = rows(w)
+            rng = np.random.default_rng(w)
+            lk = rng.integers(0, m, m)
+            rng.normal(size=m)
+            sweep[(mode, w)] = numpy_join_count(lk, rng.integers(0, m, m), m)
+    out["scaling_sweep"] = sweep
+    m = 1 << 20
+    rng = np.random.default_rng(0)
+    lk = rng.integers(0, m, m).astype(np.int32)
+    rng.normal(size=m)
+    rk = rng.integers(0, m, m).astype(np.int32)
+    rng.normal(size=m)
+    g = rng.integers(0, 1 << 20, m)
+    out["compare_competitors"] = {
+        "join_rows": numpy_join_count(lk, rk, m),
+        "groups": int(np.unique(g).size)}
+    m = 1 << 22
+    rng = np.random.default_rng(0)
+    lk = rng.integers(0, m, m).astype(np.int32)
+    rng.normal(size=m)
+    rk = rng.integers(0, m, m).astype(np.int32)
+    out["join_22"] = numpy_join_count(lk, rk, m)
+    b = 1 << 20
+    rng = np.random.default_rng(21)
+    nb = max(b // 1000, 64)
+    keys = max(nb // 2, 1)
+    bk = rng.integers(0, keys, b)
+    rng.normal(size=b)
+    out["broadcast_20"] = numpy_join_count(bk, rng.integers(0, keys, nb),
+                                           keys)
+    return out
+
+
+def tools_phase(K) -> dict:
+    """28b: each measuring tool of scripts/torch_port on ``cuda`` in its
+    own process (TOOL_RUNS): exit 0, a JSON last line on ``cuda``, the
+    kernels of TOOL_KERNELS launched, every row count it recorded equal
+    to numpy's; its numbers printed."""
+    folder = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "scripts", "torch_port")
+    torch.cuda.empty_cache()  # the tools' processes share the card
+    want = tool_expectations()
+    res = {}
+    for name, extra in TOOL_RUNS:
+        cmd = [sys.executable, os.path.join(folder, f"{name}.py"), *extra,
+               "--device", "cuda"]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True,
+                           timeout=TOOL_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        assert r.returncode == 0, \
+            f"tool {name} exited {r.returncode}:\n{r.stdout[-4000:]}\n" \
+            f"{r.stderr[-4000:]}"
+        doc = json.loads([l for l in r.stdout.splitlines()
+                          if l.strip()][-1])
+        assert doc["device"] == torch.cuda.get_device_name(0), (name, doc)
+        missing = [k for k in TOOL_KERNELS[name] if doc["launches"][k] == 0]
+        assert not missing, f"tool {name} launched no {missing}"
+        if name == "scaling_sweep":
+            for mode in ("strong", "weak"):
+                for pt in doc["modes"][mode]["worlds"]:
+                    assert pt["dist_join_rows_out"] == \
+                        want[name][(mode, pt["world"])], (mode, pt)
+        elif name == "compare_competitors":
+            for e, got in doc["engines"].items():
+                for k, v in want[name].items():
+                    assert got.get(k, v) == v, (e, k, got.get(k), v)
+            assert "join_rows" in doc["engines"]["cylon_tpu_torch"]
+        elif name == "profile_shuffle":
+            assert doc["rows_out"] == doc["n_rows"] == 1 << 22, doc
+        elif name == "profile_dist_join":
+            assert doc["rows_out"] == want["join_22"], doc
+            assert doc["broadcast_rows_out"] == want["broadcast_20"], doc
+            assert doc["route"] == "stream", doc
+        else:
+            key = "n_out" if name == "profile_stream" else "n_primary"
+            assert doc[key] == want["join_22"], (name, doc)
+        res[name] = dict(doc, process_wall_s=wall)
+        shown = {k: v for k, v in doc.items()
+                 if k not in ("launches", "modes", "engines", "diagnosis")}
+        log(f"phase 28b {name} {' '.join(extra)}: OK, process wall "
+            f"{wall:.2f} s; launches {doc['launches']}; {shown}")
+        if name == "scaling_sweep":
+            for mode in ("strong", "weak"):
+                for pt in doc["modes"][mode]["worlds"]:
+                    log(f"  {mode} {pt}")
+            log(f"  diagnosis: {doc['diagnosis']}")
+        if name == "compare_competitors":
+            for e, got in doc["engines"].items():
+                log(f"  {e}: {got}")
+    return res
+
+
 class PhaseClock:
     """Seconds since the script started at each phase's start."""
 
@@ -3721,7 +4182,8 @@ def main() -> int:
                     help="also write the result JSON to this path")
     ap.add_argument("--parent-tree", default=None,
                     help="a checkout of the parent commit: phase 25d "
-                         "times phase 2's join of both trees in turns")
+                         "times phase 2's join of both trees in turns, "
+                         "phase 28c the group-by cases")
     ap.add_argument("--mp-child", type=int, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--rdv", help=argparse.SUPPRESS)
@@ -3872,7 +4334,8 @@ def main() -> int:
             f"kernel_ms {r['kernel_ms']:.4f} plain "
             f"{r['plain_ms']:.4f} bound {bound:.4f} library "
             f"{r['library_ms']} max_abs_err {r['err']}")
-    assert [k["name"] for k in kernels] == list(K.KERNELS)
+    # K7 joins the line after phase 11, whose groupby gives its shapes
+    assert [k["name"] for k in kernels] == list(K.KERNELS[:6])
     bad = [k["name"] for k in kernels if k["max_abs_err"] != 0]
     assert not bad, f"kernels disagree with their plain versions: {bad}"
     # phase 25c runs here, where phase 8's inputs are still held
@@ -3901,6 +4364,26 @@ def main() -> int:
     pipe = pipeline_phase(ct, K, D, S, dctx, args.pipeline_rows)
     clock.mark("11")
     groupby = groupby_phase(ct, K, lctx, dctx, args.groupby_rows)
+    # K7 at phase 11's world-1 shapes (the float32 SUM) against its plain
+    # version, bit for bit; launches from that run (counters 0 -> read)
+    k7_call = groupby.pop("calls")
+    r = check_k7(K, k7_call)
+    assert r["exact"], f"K7 disagrees with its plain version: {r}"
+    bound = r["bytes"] / HBM_BYTES_PER_S * 1e3
+    kernels.append(dict(table["segment_sum"],
+                        launches=groupby["world1"]["launches"]["segment_sum"],
+                        max_abs_err=r["err"], ms=r["ms"],
+                        kernel_ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+                        bound_ms=bound, bound_by="bytes",
+                        library_ms=r["library_ms"]))
+    log(f"phase 11 kernel check segment_sum ({r['shape']}): ms "
+        f"{r['ms']:.4f} kernel_ms {r['kernel_ms']:.4f} plain "
+        f"{r['plain_ms']:.4f} (on the host) bound {bound:.4f} library "
+        f"(segment_reduce) {r['library_ms']:.4f} max_abs_err {r['err']}; "
+        f"the other torch forms {r['others']}")
+    groupby["k7_check"] = {k: v for k, v in r.items() if k != "bytes"}
+    sync_free25.update(wrappers_sync_free(K, {"segment_sum": k7_call}))
+    del k7_call
     clock.mark("12")
     sort = sort_phase(ct, K, D, lctx, dctx, args.groupby_rows)
     clock.mark("13")
@@ -3999,9 +4482,10 @@ def main() -> int:
     analysis25 = analysis_cli_phase()
     clock.mark("25b")
     card25 = analysis_card_phase(K)
-    log(f"phase 25c each wrapper at phase 8's shapes under "
-        f"set_sync_debug_mode('error') (run after phase 8): no sync, "
-        f"launches {sync_free25}")
+    assert sorted(sync_free25) == sorted(K.KERNELS), sync_free25
+    log(f"phase 25c each wrapper at phase 8's shapes (K7 at phase 11's) "
+        f"under set_sync_debug_mode('error') (run after phase 8 and 11): "
+        f"no sync, launches {sync_free25}")
     clock.mark("25d")
     tel25 = join_telemetry_phase(ct, n, args.seed, args.parent_tree)
 
@@ -4031,7 +4515,26 @@ def main() -> int:
         row["drill_launches"] = {d: r["launches"][row["name"]]
                                  for d, r in drills27.items()}
 
+    # phase 28: float group sums bit-equal run to run and to the CPU
+    # port; the measuring tools of scripts/torch_port, each in its own
+    # process
+    clock.mark("28a")
+    sums28 = sums_phase(ct, K, lctx, dctx)
+    clock.mark("28b")
+    tools28 = tools_phase(K)
+    for row in kernels:
+        row["tool_launches"] = {t: r["launches"][row["name"]]
+                                for t, r in tools28.items()}
+    clock.mark("28c")
+    cost28 = None
+    if args.parent_tree is None:
+        log("phase 28c: no --parent-tree: the sums' cost against the "
+            "parent is not taken")
+    else:
+        cost28 = sums_cost_phase(ct, args)
+
     clock.mark("end")
+    assert [k["name"] for k in kernels] == list(K.KERNELS)
     summary = {"kernels": kernels}
     log(f"seconds a phase: {clock.spans()}; total {clock.marks[-1][1]} s")
     if args.out:
@@ -4069,7 +4572,8 @@ def main() -> int:
                            host_runtime=dict(host26, calls=calls26),
                            csv_writer=csv26, cbind=cbind26,
                            task_exchange_mp=tasks26, examples=examples26,
-                           drills=drills27,
+                           drills=drills27, group_sums=sums28,
+                           tools=tools28, group_sums_cost=cost28,
                            phase_seconds=clock.spans()), f, indent=1,
                       default=str)
     log(json.dumps(summary))

@@ -3,9 +3,12 @@ cylon_tpu.ops.groupby).
 
 The rows are sorted into contiguous groups (dead rows last), each group
 gets a dense id in key order, and every aggregate is one segment
-reduction (``scatter_reduce_``/``index_add_``) over those sorted ids. The
-JAX package's Pallas group-by was removed in favour of its XLA segment
-path, so torch ops are the port: there is no hand-written kernel here.
+reduction over those sorted ids: float sums through K7
+(``kernels.segment_sum``), which adds each group's rows in row order as
+the JAX package's sorted ``segment_sum`` does, so they are
+bit-reproducible on the card and equal the CPU's; integer sums and
+counts through ``index_add_`` (exact in any order); MIN/MAX through
+``scatter_reduce_`` on integer order keys.
 
 Everything runs batched over a leading shard dimension: 1-D inputs are
 one shard, ``[W, n]`` inputs are W shards whose group ids are offset by
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from ..dtypes import bits_container, movable, numpy_dtype
+from . import kernels as _kernels
 from .order import cumsum_rows, lexsort_indices, row_neq_sorted
 
 
@@ -138,11 +142,14 @@ def _segment_reducer(gid_s: torch.Tensor, emit_s: torch.Tensor,
                      num_segments: int) -> Callable:
     """reduce(x, how, init) -> [W, num_segments]: the segment reduction
     of ``x`` [W, n] over the sorted group ids; ``how`` one of "sum",
-    "amin", "amax". Callers give dead rows the identity, so a dead row
-    may land in any slot: dead row i goes to slot ``i % (num_segments +
-    1)``, spread out, since one slot for all of them serialises the
-    atomics (51 ms for the 33 M dead rows of the join -> groupby cell's
-    partials on an H100, scripts/profile_port_groupby.py)."""
+    "amin", "amax". A float sum is K7, which reads live rows only and
+    adds each group in row order. The other reductions are atomics in no
+    fixed order, exact for integers and for min/max. Callers give dead
+    rows the identity, so a dead row may land in any slot there: dead row
+    i goes to slot ``i % (num_segments + 1)``, spread out, since one slot
+    for all of them serialises the atomics (51 ms for the 33 M dead rows
+    of the join -> groupby cell's partials on an H100,
+    scripts/profile_port_groupby.py)."""
     w, n = gid_s.shape
     s1 = num_segments + 1
     pos = torch.arange(n, device=gid_s.device)
@@ -150,6 +157,9 @@ def _segment_reducer(gid_s: torch.Tensor, emit_s: torch.Tensor,
     seg = (torch.where(emit_s, gid_s, pos % s1) + off).reshape(-1)
 
     def reduce(x: torch.Tensor, how: str, init) -> torch.Tensor:
+        if how == "sum" and x.dtype.is_floating_point:
+            return _kernels.segment_sum(x.contiguous(), gid_s, emit_s,
+                                        num_segments)
         out = torch.full((w * s1,), init, dtype=x.dtype, device=x.device)
         if how == "sum":
             out.index_add_(0, seg, x.reshape(-1))

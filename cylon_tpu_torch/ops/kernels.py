@@ -10,6 +10,7 @@ cylon_tpu.ops.tpu_kernels).
 | K4 join_expand_stream | join_expand_stream (:706)            | csrc/join_stream.cu  |
 | K5 setop_stream    | setop_stream (:544)                     | csrc/setop_stream.cu |
 | K6 stream_compact  | stream_compact (:241)                   | csrc/stream_compact.cu |
+| K7 segment_sum     | float SUM of cylon_tpu/ops/groupby.py:140 | csrc/segment_sum.cu |
 
 Each wrapper takes tensors with a leading shard dimension ``[W, n]`` (one
 launch covers every shard of the virtual world) and 32-bit streams as
@@ -50,7 +51,8 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = {"partition": CSRC / "partition.cu",
            "join_stream": CSRC / "join_stream.cu",
            "setop_stream": CSRC / "setop_stream.cu",
-           "stream_compact": CSRC / "stream_compact.cu"}
+           "stream_compact": CSRC / "stream_compact.cu",
+           "segment_sum": CSRC / "segment_sum.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -65,7 +67,8 @@ COMPACT_TILE = 4096     # elements per K6 tile (csrc/stream_compact.cu TILE)
 IDX_MASK = (1 << 29) - 1  # the row index field of a stream tag
 
 KERNELS = ("partition_hist", "partition_scatter", "join_plan_stream",
-           "join_expand_stream", "setop_stream", "stream_compact")
+           "join_expand_stream", "setop_stream", "stream_compact",
+           "segment_sum")
 # launches per wrapper since the last reset_launches()
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
@@ -102,13 +105,17 @@ _SIGNATURES = {
         "launch_stream_compact": [_P, _P, _I, _I, _L, _L, _I, _I,
                                   ctypes.c_uint, _P, _P, _P, _P],
     },
+    "segment_sum": {
+        "launch_segment_sum": [_P, _P, _P, _I, _I, _L, _L, _P, _P, _P],
+    },
 }
 # the 64-bit words of a single-pass kernel's tile state: (W, tiles) -> n,
 # and (W, tiles, nbuckets) -> n for K2
 _STATE_WORDS = {"join_stream": ("plan_state_words", [_I, _I]),
                 "setop_stream": ("setop_state_words", [_I, _I]),
                 "stream_compact": ("compact_state_words", [_I, _I]),
-                "partition": ("scatter_state_words", [_I, _I, _I])}
+                "partition": ("scatter_state_words", [_I, _I, _I]),
+                "segment_sum": ("sum_state_words", [_I, _L])}
 
 
 def nvcc_path() -> str:
@@ -723,6 +730,71 @@ def setop_stream(h1_s: torch.Tensor, h2_s: torch.Tensor,
     return _compact_setop(emit, coll, streams, out_len, stream_compact)
 
 
+# ---------------------------------------------------------------------------
+# K7 segment_sum
+# ---------------------------------------------------------------------------
+
+_SUM_DTYPES = {torch.float16: 0, torch.float32: 1, torch.float64: 2}
+
+
+def _host_segment_sum(x: torch.Tensor, gid_s: torch.Tensor,
+                      emit_s: torch.Tensor, num_segments: int
+                      ) -> torch.Tensor:
+    """K7 on CPU tensors: ``index_add_`` on the host adds in index order,
+    so each group's live rows are summed in row order from +0.0."""
+    w, _n = x.shape
+    off = torch.arange(w, dtype=torch.int64).unsqueeze(-1) * num_segments
+    out = torch.zeros(w * num_segments, dtype=x.dtype)
+    out.index_add_(0, (gid_s + off)[emit_s], x[emit_s])
+    return out.view(w, num_segments)
+
+
+def plain_segment_sum(x: torch.Tensor, gid_s: torch.Tensor,
+                      emit_s: torch.Tensor, num_segments: int
+                      ) -> torch.Tensor:
+    """Plain version of K7, on any device: the host's row-order sum of a
+    copy of the inputs (no torch op on the card sums a group in row
+    order), returned on the inputs' device."""
+    return _host_segment_sum(x.cpu(), gid_s.cpu(), emit_s.cpu(),
+                             num_segments).to(x.device)
+
+
+def segment_sum(x: torch.Tensor, gid_s: torch.Tensor, emit_s: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """K7: per shard, the sum of each group's live rows, in row order.
+
+    ``x`` is a contiguous float16/32/64 [W, n] tensor sorted into groups
+    with its live rows (``emit_s``, bool [W, n]) first; ``gid_s`` int64
+    [W, n] their dense group ids, which do not decrease along the live
+    rows and are below ``num_segments``. Returns x.dtype [W,
+    num_segments], +0.0 in the slots of groups that do not exist. The
+    order is the JAX package's sorted ``segment_sum``: the card's sums
+    equal the CPU's bit for bit, run after run. On the card: two memsets
+    and two launches (a thread per group, then a block per group of more
+    than 256 rows, which adds the rest from shared memory)."""
+    if x.dtype not in _SUM_DTYPES:
+        raise CylonError(Code.Invalid, f"segment_sum sums float16/32/64, "
+                                       f"got {x.dtype}")
+    _check(x, "segment_sum values", x.dtype)
+    _check(gid_s, "segment_sum group ids", torch.int64, x.shape)
+    _check(emit_s, "segment_sum emit", torch.bool, x.shape)
+    w, n = x.shape
+    s = int(num_segments)
+    if not x.is_cuda:
+        return _host_segment_sum(x, gid_s, emit_s, s)
+    if gid_s.device != x.device or emit_s.device != x.device:
+        raise CylonError(Code.Invalid, "segment_sum: inputs must be on one "
+                                       "device")
+    out = torch.empty(w, s, dtype=x.dtype, device=x.device)
+    state = torch.empty(load_library("segment_sum").sum_state_words(w, n),
+                        dtype=torch.int64, device=x.device)
+    _launch("segment_sum", "launch_segment_sum", _ptr(x), _ptr(gid_s),
+            _ptr(emit_s), _SUM_DTYPES[x.dtype], w, n, s, _ptr(out),
+            _ptr(state), _stream(x))
+    LAUNCHES["segment_sum"] += 1
+    return out
+
+
 def kernel_table() -> List[dict]:
     """Static description of the ported kernels: name, source, the TPU
     kernel each replaces."""
@@ -747,4 +819,7 @@ def kernel_table() -> List[dict]:
         {"name": "stream_compact", "route": "cuda",
          "source": rel["stream_compact"],
          "replaces": "cylon_tpu/ops/tpu_kernels.py:241"},
+        {"name": "segment_sum", "route": "cuda",
+         "source": rel["segment_sum"],
+         "replaces": "cylon_tpu/ops/groupby.py:140"},
     ]

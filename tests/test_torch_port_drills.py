@@ -42,7 +42,8 @@ def test_smoke_on_cpu(name):
     assert doc["wall_s"] > 0
     assert set(doc["launches"]) == {
         "partition_hist", "partition_scatter", "join_plan_stream",
-        "join_expand_stream", "setop_stream", "stream_compact"}
+        "join_expand_stream", "setop_stream", "stream_compact",
+        "segment_sum"}
     assert not any(doc["launches"].values()), doc["launches"]
     if name == "smoke_telemetry":
         # the ledger-backed pool: nonzero memory on the CPU, and no

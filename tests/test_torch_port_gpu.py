@@ -1,4 +1,4 @@
-"""cylon_tpu_torch kernels K1-K6 against their plain PyTorch versions on
+"""cylon_tpu_torch kernels K1-K7 against their plain PyTorch versions on
 the card, bit for bit.
 
 Needs CUDA: every test here is marked ``gpu`` and skips without a card.
@@ -641,8 +641,9 @@ def test_partition_hist_unaligned_base(cuda, nb):
 # the compact exchange route, groupby, aggregates and sort on the card,
 # each against the same port on the CPU with the same inputs. Tolerance 0
 # except float SUM (1e-5 * sum |x| of the group, plus 1e-30) and MEAN
-# (1e-12 * sum |x| / count): float atomics on the card add in no fixed
-# order.
+# (1e-12 * sum |x| / count), kept from before K7 summed each group in row
+# order; the bit-equality of the sums is pinned by
+# test_group_sums_bit_reproducible_on_card.
 # ---------------------------------------------------------------------------
 
 SUM_RTOL, MEAN_RTOL = 1e-5, 1e-12
@@ -1565,7 +1566,7 @@ def test_task_exchange_on_card(cuda, world):
 
 def test_collectives_catalog_on_card(cuda):
     """The analysis suite's collectives catalog on CUDA tensors at world
-    4, under its dispatch mode: no finding, and K1-K6 each launch (the
+    4, under its dispatch mode: no finding, and K1-K7 each launch (the
     kernel route switches forced on, as on the CPU)."""
     import os
 
@@ -1583,9 +1584,10 @@ def test_collectives_catalog_on_card(cuda):
 
 
 def test_wrappers_do_not_sync(cuda):
-    """Each kernel wrapper, at the inputs a world-4 join and a local
-    UNION give it, launches under set_sync_debug_mode("error") (which
-    does raise on a sync): the runtime side of hostsync/in-launch."""
+    """Each kernel wrapper, at the inputs a world-4 join, a local UNION
+    and a groupby's float SUM give it, launches under
+    set_sync_debug_mode("error") (which does raise on a sync): the
+    runtime side of hostsync/in-launch."""
     import chip_smoke
 
     dctx = ct.CylonContext.InitDistributed(ct.VirtualWorldConfig(4))
@@ -1595,6 +1597,7 @@ def test_wrappers_do_not_sync(cuda):
     with chip_smoke.Recorder(K) as rec:
         left.distributed_join(right, "inner", on=["k"], force_exchange=True)
         a.union(b)
+        left.groupby(0, [1], ["sum"])
     torch.cuda.synchronize()
     assert sorted(rec.calls) == sorted(K.KERNELS)
     torch.cuda.set_sync_debug_mode("error")
@@ -1788,3 +1791,153 @@ def test_unretained_inputs_freed_on_card(cuda):
     assert out.row_count == keep > 0
     assert a.column_count == 0 and b.column_count == 0
     assert a.nbytes == 0 and b.nbytes == 0
+
+
+# ---------------------------------------------------------------------------
+# K7 segment_sum and bit-reproducible float group sums (F17)
+# ---------------------------------------------------------------------------
+
+
+def _segment_inputs(dev, rng, w, n, dtype, case):
+    """[W, n] sorted K7 inputs: live rows first (a random prefix a
+    shard, one shard empty in "empty_shard"), dense group ids; values
+    across six orders of magnitude, so any other summation order changes
+    the last bits."""
+    x = rng.normal(size=(w, n)) * rng.choice(np.array([1e-3, 1.0, 1e3]),
+                                             (w, n))
+    live = rng.integers(0, n + 1, w)
+    live[0] = n
+    if case == "empty_shard":
+        live[-1] = 0
+    emit = np.arange(n)[None, :] < live[:, None]
+    if case == "one_group":
+        starts = np.zeros((w, n), bool)
+    elif case == "singletons":
+        starts = np.ones((w, n), bool)
+    elif case == "edges":   # runs ending just before, at and after the
+        # row where a start thread hands its group on (256) and the ends
+        # of the block route's chunks (1,120 rows)
+        lens = np.array([255, 256, 257, 1375, 1376, 1377, 2495, 2496, 2497,
+                         1, 8, 9])
+        ends = np.cumsum(np.tile(lens, n // int(lens.sum()) + 1))
+        starts = np.zeros((w, n), bool)
+        starts[:, ends[ends < n]] = True
+    else:   # runs of 1 to ~n/3 rows
+        starts = rng.random((w, n)) < 0.05
+        starts[:, n // 3:n // 3 + n // 4] = False
+    starts[:, 0] = True
+    gid = np.cumsum(starts & emit, 1) - 1
+    gid = np.where(emit, gid, gid.max(1, keepdims=True))
+    return (torch.from_numpy(x).to(dtype).to(dev),
+            torch.from_numpy(gid.astype(np.int64)).to(dev),
+            torch.from_numpy(emit).to(dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32,
+                                   torch.float64])
+@pytest.mark.parametrize("case,w,n", [("mixed", 4, 100_003),
+                                      ("one_group", 2, 300_000),
+                                      ("edges", 2, 40_000),
+                                      ("singletons", 3, 50_000),
+                                      ("empty_shard", 4, 7),
+                                      ("mixed", 1, 1)])
+def test_segment_sum_matches_plain(cuda, dtype, case, w, n):
+    """K7 against its plain version (the host's row-order sum) bit for
+    bit, and against itself in a second launch."""
+    rng = np.random.default_rng(hash((case, w, n)) % 2**32)
+    x, gid, emit = _segment_inputs(cuda, rng, w, n, dtype, case)
+    s = max(n, 1)
+    K.reset_launches()
+    got = K.segment_sum(x, gid, emit, s)
+    again = K.segment_sum(x, gid, emit, s)
+    assert K.LAUNCHES["segment_sum"] == 2
+    ref = K.plain_segment_sum(x, gid, emit, s)
+    bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()]
+    assert got.dtype == dtype and got.shape == (w, s)
+    assert torch.equal(got.view(bits), ref.view(bits))
+    assert torch.equal(got.view(bits), again.view(bits))
+
+
+def _bits_rows(t):
+    live = t.emit_mask().cpu().numpy()
+    return [(c.valid_mask().cpu().numpy()[live],
+             c.data.cpu().numpy()[live].view(np.uint8)) for c in t._columns]
+
+
+@pytest.mark.parametrize("world", [0, 4])
+@pytest.mark.parametrize("what", ["groupby", "join_groupby"])
+def test_group_sums_bit_reproducible_on_card(cuda, world, what):
+    """The float SUM and MEAN of a groupby (world 1 and 4) and of a join
+    -> groupby (world 4) run twice on the card: bit-equal to each other
+    and to the CPU port's with the route switches on (same call sites,
+    the kernels' plain versions)."""
+    from cylon_tpu_torch.parallel import dist_ops as D
+
+    if what == "join_groupby" and world == 0:
+        pytest.skip("the join -> groupby runs at world 4")
+    rng = np.random.default_rng(17)
+    n = 200_000
+    g = rng.integers(0, 300, n).astype(np.int32)
+    x = (rng.normal(size=n) * rng.choice(np.array([1e-3, 1.0, 1e3]), n)
+         ).astype(np.float32)
+    # the join: 50,000 rows a side, keys in [0, 20,000): ~125,000 rows
+    ka = rng.integers(0, 20_000, 50_000).astype(np.int32)
+    kb = rng.integers(0, 20_000, 50_000).astype(np.int32)
+    gctx, cctx = _ctx_pair(cuda, world)
+
+    def run(ctx):
+        if what == "groupby":
+            return _table(ctx, {"g": g, "x": x}).groupby(
+                0, [1, 1], ["sum", "mean"])
+        a = _table(ctx, {"k": ka, "x": x[:50_000]})
+        b = _table(ctx, {"k": kb, "y": x[-50_000:]})
+        j = D.distributed_join(a, b, ct.JoinConfig(ct.JoinType.INNER, [0],
+                                                   [0]))
+        return D.distributed_groupby(j, [0], [3, 3], [ct.AggregationOp.SUM,
+                                                      ct.AggregationOp.MEAN])
+
+    first, second = _bits_rows(run(gctx)), _bits_rows(run(gctx))
+    switches = (J.STREAM_PLAN, S.PARTITION_KERNEL)
+    J.STREAM_PLAN = S.PARTITION_KERNEL = True
+    try:
+        cpu = _bits_rows(run(cctx))
+    finally:
+        J.STREAM_PLAN, S.PARTITION_KERNEL = switches
+    for a, b, c in zip(first, second, cpu):
+        for i in range(2):
+            assert np.array_equal(a[i], b[i]) and np.array_equal(a[i], c[i])
+
+
+TOOL_ARGS = {"scaling_sweep": ["14"], "compare_competitors": ["14"],
+             "profile_shuffle": ["16"],
+             "profile_dist_join": ["16", "--bcast-rows-log2", "16"],
+             "profile_stream": ["16"], "profile_join": ["16"]}
+TOOL_KERNELS = {"scaling_sweep": K.KERNELS[:4],
+                "profile_dist_join": K.KERNELS[:4],
+                "profile_shuffle": K.KERNELS[:2],
+                "compare_competitors": ("join_plan_stream",
+                                        "join_expand_stream", "segment_sum"),
+                "profile_stream": K.KERNELS[2:4],
+                "profile_join": K.KERNELS[2:4]}
+
+
+@pytest.mark.parametrize("tool", sorted(TOOL_ARGS))
+def test_tool_on_card(cuda, tool, tmp_path):
+    """Each measuring tool of scripts/torch_port on ``cuda`` at a small
+    size: exit 0, its JSON line (also written to ``--out``), its kernels
+    launched."""
+    import json
+    import subprocess
+    import sys
+
+    out = tmp_path / f"{tool}.json"
+    r = subprocess.run([sys.executable, str(DRILL_DIR / f"{tool}.py"),
+                        *TOOL_ARGS[tool], "--device", "cuda", "--out",
+                        str(out)], capture_output=True, text=True,
+                       timeout=600)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    doc = json.loads([l for l in r.stdout.splitlines() if l.strip()][-1])
+    assert doc == json.loads(out.read_text())
+    assert doc.get("backend", "cuda") == "cuda"
+    assert all(doc["launches"][k] > 0 for k in TOOL_KERNELS[tool]), \
+        doc["launches"]

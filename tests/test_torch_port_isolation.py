@@ -1,7 +1,7 @@
 """cylon_tpu_torch stands alone: it imports neither jax nor cylon_tpu
 (nor does chip_smoke.py, nor the port's examples in examples/torch_port/,
-nor its drills in scripts/torch_port/, nor the process-group children of
-the CPU tests,
+nor its drills and measuring tools in scripts/torch_port/, nor the
+process-group children of the CPU tests,
 tests/torch_port_mp_child.py), its C sources name no module but its own,
 and its entry points refuse to run on a CUDA-less machine unless asked
 for the CPU."""
@@ -21,7 +21,9 @@ CHILD = ROOT / "tests" / "torch_port_mp_child.py"
 EXAMPLES = ROOT / "examples" / "torch_port"
 DRILLS = ROOT / "scripts" / "torch_port"
 DRILL_NAMES = ("smoke_telemetry", "smoke_service", "smoke_obs",
-               "smoke_stats", "chaos", "fuzz_differential")
+               "smoke_stats", "chaos", "fuzz_differential",
+               "scaling_sweep", "compare_competitors", "profile_shuffle",
+               "profile_dist_join", "profile_stream", "profile_join")
 FORBIDDEN = ("jax", "jaxlib", "cylon_tpu")
 
 
@@ -111,7 +113,7 @@ def test_drills_are_all_there():
 
 @pytest.mark.parametrize("name", DRILL_NAMES)
 def test_drill_help_imports_no_jax(name):
-    """Each drill answers ``--help`` (exit 0) with its modules and the
+    """Each drill and measuring tool answers ``--help`` (exit 0) with its modules and the
     package loaded, and no jax or cylon_tpu module among them."""
     path = DRILLS / f"{name}.py"
     code = ("import runpy, sys\n"
