@@ -302,6 +302,35 @@ Phases, in order (any failure exits non-zero; nothing is caught):
      (a control) and the 1/4/64-group groupby at 16,777,216 rows, world 1
      and 4, of both trees in turns (one warm-up each, 9 rounds, medians
      and the difference printed).
+ 29. worlds past K1/K2's bucket limit (world + 1 <= 256 buckets), which
+     take the stable sort's partition on the card as the JAX package
+     takes its sort route past its kernel's limit: 29a phase 2's join (2 x
+     N rows, force_exchange) at world 256, the counters 0 -> read (K1/K2
+     launched 0 times, K3/K4 launched), the rows phase 2's numpy count
+     and equal to a world-4 run's as a bit-exact multiset, then 3 rounds
+     in turns with the world-4 kernel route; 29b at 65,536 rows and world
+     256, a groupby (SUM, COUNT, the integer SUM; K7 launched), a sort and
+     a distributed UNION, each without K1/K2 and equal to world 4's (the
+     groupby's float sums within tolerance of world 4's, the rest exact);
+     29c a join of 2 x 1,048,576 rows at world 512, as 29a.
+ 30. the paths of a table spread over processes, on phase 22a's two
+     gloo processes of two shards sharing the card (``--mp-child R
+     --mp-spread``), each process building only its own shards: 30a
+     ``sum/count/min/max/mean`` of phase 11's G-row table on the int32
+     key, the float32 payload and it as float64; 30b the exact left join
+     of 2 x 524,288 rows of 76-byte keys with content-hash collisions
+     forced between pairs of keys (``pair_colliding``), which redoes
+     itself once on one vocabulary gathered from both processes (K1-K4
+     launched); 30c ``distributed_sort`` of 524,288 rows of 76-80-byte
+     keys (the host sort; K1/K2 launched), descending, then an int32
+     ascending. The virtual world of 4 shards runs the same inputs on
+     the card: the two processes' scalars equal each other's bit for
+     bit, the virtual world's exactly for integers, counts and MIN/MAX,
+     within PERF.md section 2's bound for float SUM and MEAN; every shard
+     of 30b equals the virtual world's as a row multiset and of 30c in
+     order (`shard_digests` of each column's values, varbytes by their
+     lengths and content hashes); the redo's rows are the true left join's count
+     and the sort's keys descend.
 Phases 10-12, 23a and 24d each record the median of 5 steady runs after
 one warm-up.
 Tolerances against numpy: float sums 1e-5 * sum |x| of the group
@@ -1736,29 +1765,45 @@ def chunk_report(phase: int, spy, fn) -> dict:
     return out
 
 
-def shard_digests(table, first: int, nshards: int) -> dict:
+def shard_digests(table, first: int, nshards: int,
+                  ordered: bool = False) -> dict:
     """{global shard: [live rows, sha256 of its rows]} of a table's
-    ``nshards`` shards, the first of them global shard ``first``: each
-    shard's live rows sorted by every column's bits (and validity), so
-    the digest is the shard's row multiset, whatever its slot order."""
+    ``nshards`` shards, the first of them global shard ``first``: every
+    column's values and validity (varbytes by their lengths and content
+    hashes), the rows in slot order (``ordered``) or sorted (the shard's
+    row multiset, whatever its slot order)."""
     import hashlib
 
+    from cylon_tpu_torch.data import strings
     from cylon_tpu_torch.ops import order
 
     emit = table.emit_mask()
     cap = emit.shape[0] // nshards
+    bits = {4: torch.int32, 8: torch.int64}
+    lanes = []
+    for c in table._columns:
+        valid = c.valid_mask()
+        if c.is_varbytes:
+            vb = c.varbytes
+            vals = [vb.lengths, *strings._hash_rows(
+                vb.words, vb.eff_starts(), vb.lengths, vb.max_words)]
+        else:
+            d = c.data
+            vals = [d.view(bits[d.element_size()])
+                    if d.element_size() in bits else d]
+        # a null row's data is not its value: zeroed, so values count only
+        lanes += [torch.where(valid, x, 0) for x in vals]
+        lanes.append(valid.to(torch.int32))
     out = {}
     for j in range(nshards):
         live = emit[j * cap:(j + 1) * cap].nonzero().flatten() + j * cap
-        cols = []
-        for c in table._columns:
-            d = c.data[live]
-            cols += [d.view(torch.int32) if d.element_size() == 4 else d,
-                     c.valid_mask()[live].to(torch.int32)]
-        perm = order.lexsort_indices(cols)
+        cols = [x[live] for x in lanes]
+        if not ordered:
+            perm = order.lexsort_indices(cols)
+            cols = [x[perm] for x in cols]
         h = hashlib.sha256()
         for x in cols:
-            h.update(x[perm].cpu().numpy().tobytes())
+            h.update(x.cpu().numpy().tobytes())
         out[str(first + j)] = [int(live.numel()), h.hexdigest()]
     return out
 
@@ -4142,6 +4187,358 @@ def tools_phase(K) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 29-30: worlds past K1/K2's bucket limit; the paths of a table
+# spread over processes
+# ---------------------------------------------------------------------------
+
+BIG_WORLD, WIDE_WORLD = 256, 512  # 29: past K1/K2's MAX_BUCKETS - 1 = 255
+BIG_WORLD_ROWS = 1 << 16     # 29b: groupby, sort and union at world 256
+WIDE_JOIN_ROWS = 1 << 20     # 29c: rows a side of the world-512 join
+# 30b/c: rows a side of the redo, the sort's; 2^19, not 2^20: at 2^20
+# the script took 569.15 s (phase 30 66.04 s), past the 520 s it aims at
+SPREAD_ROWS = 1 << 19
+SPREAD_AGGS = ("sum", "count", "min", "max", "mean")
+PARTITION_KERNELS = ("partition_hist", "partition_scatter")
+PLAN_KERNELS = ("join_plan_stream", "join_expand_stream")
+
+
+def host_tables(ct, ctx, host):
+    """make_tables' tables from its host arrays, in another context."""
+    lk, lv, rk, rv = host
+    return (ct.Table.from_pydict(ctx, {"k": lk, "v": lv}),
+            ct.Table.from_pydict(ctx, {"k": rk, "w": rv}))
+
+
+def counted(K, fn):
+    """fn()'s result, synchronized, with the launch counters set to 0
+    just before and read just after, and its wall (s)."""
+    sync()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, dict(K.LAUNCHES), time.perf_counter() - t0
+
+
+def assert_sort_route(launches, what: str) -> None:
+    """Past the bucket limit: no K1/K2 launch, K3/K4 where given."""
+    assert all(launches[k] == 0 for k in PARTITION_KERNELS), \
+        (what, launches)
+
+
+def big_world_phase(ct, K, D, SO, dctx, args, host, expect_rows) -> dict:
+    """Phase 29: virtual worlds of 256 and 512 shards on the card, which
+    take the stable sort's partition (K1/K2 take world + 1 <= 256
+    buckets): 29a phase 2's join at world 256 (K1/K2 0 launches, K3/K4
+    launched, rows phase 2's numpy count and world 4's rows as a
+    bit-exact multiset, walls in turns with phase 2's world-4 kernel
+    route); 29b a groupby (K7), a sort and a union at world 256 against
+    world 4's; 29c a join at world 512."""
+    t0 = time.perf_counter()
+    res = {}
+    wctx = ct.CylonContext.InitDistributed(ct.VirtualWorldConfig(BIG_WORLD))
+    left, right = host_tables(ct, wctx, host)
+    l4, r4 = host_tables(ct, dctx, host)
+
+    def join_big():
+        return left.distributed_join(right, "inner", on=["k"],
+                                     force_exchange=True)
+
+    def join4():
+        return l4.distributed_join(r4, "inner", on=["k"],
+                                   force_exchange=True)
+
+    out, launches, first = counted(K, join_big)
+    assert_sort_route(launches, "29a")
+    assert all(launches[k] > 0 for k in PLAN_KERNELS), launches
+    assert out.row_count == expect_rows, (out.row_count, expect_rows)
+    out4, launches4, _w = counted(K, join4)
+    assert all(launches4[k] > 0 for k in PARTITION_KERNELS), launches4
+    assert_same_rows(out, out4, "29a: world 256 vs world 4")
+    del out, out4
+    walls = in_turns({"world4_kernel_route": join4,
+                      f"world{BIG_WORLD}_sort_route": join_big}, rounds=3)
+    med = {k: statistics.median(v) * 1e3 for k, v in walls.items()}
+    log(f"phase 29a join at world {BIG_WORLD} (2 x {args.rows} rows, "
+        f"force_exchange): launches {launches}; rows {expect_rows} == "
+        f"numpy, equal to world {WORLD}'s as a multiset; first run "
+        f"{first:.4f} s; median ms in turns {med}; walls (s) {walls}; "
+        f"{card_line()}")
+    res["join"] = {"launches": launches, "world4_launches": launches4,
+                   "first_wall_s": first, "walls_s": walls,
+                   "median_ms": med}
+    del left, right, l4, r4
+
+    m = BIG_WORLD_ROWS
+    g, x, y = groupby_arrays(m)
+    k, v = sort_arrays(m)
+    small = {}
+    for ctx, world in ((wctx, BIG_WORLD), (dctx, WORLD)):
+        t = ct.Table.from_pydict(ctx, {"g": g, "x": x, "y": y})
+        st = ct.Table.from_pydict(ctx, {"k": k, "v": v})
+        a, b, packed = make_setop_tables(ct, ctx, m, 6)
+        small[world] = {
+            "groupby": counted(K, lambda: t.groupby(
+                0, [1, 2, 2], ["sum", "count", "sum"])),
+            "sort": counted(K, lambda: D.distributed_sort(
+                st, "k", force_exchange=True)),
+            "union": counted(K, lambda: D.distributed_set_op(
+                a, b, SO.SetOp.UNION, force_exchange=True))}
+    big, w4 = small[BIG_WORLD], small[WORLD]
+    for name, (_o, launches, _w) in big.items():
+        assert_sort_route(launches, f"29b {name}")
+    assert big["groupby"][1]["segment_sum"] > 0, big["groupby"][1]
+    # groupby: keys, counts and the integer sums exact, the float sums
+    # within tolerance of world 4's (their partials add in other orders)
+    gb = [sorted_live(o) for o in (big["groupby"][0], w4["groupby"][0])]
+    for i in (0, 2, 3):
+        assert np.array_equal(gb[0][i], gb[1][i]), f"29b groupby col {i}"
+    cnt = np.bincount(g, minlength=1 << 20)
+    scale = np.bincount(g, weights=np.abs(x.astype(np.float64)),
+                        minlength=1 << 20)[gb[0][0]]
+    worst = check_sums(gb[0][1], gb[1][1].astype(np.float64), scale,
+                       "29b groupby sums")
+    assert np.array_equal(gb[0][2], cnt[gb[0][0]])
+    # sort: the key sequence exact, the rows equal as a multiset
+    (sk, _skv), (sv, _svv) = live_columns(big["sort"][0])
+    assert np.array_equal(sk, np.sort(k)), "29b sort: key sequence"
+    assert_same_rows(big["sort"][0], w4["sort"][0], "29b sort rows")
+    expect_union = numpy_setop_rows(*packed)["UNION"].size
+    assert big["union"][0].row_count == expect_union
+    assert_same_rows(big["union"][0], w4["union"][0], "29b union rows")
+    res["small"] = {name: {"launches": big[name][1],
+                           "wall_s": big[name][2],
+                           "world4_wall_s": w4[name][2]} for name in big}
+    log(f"phase 29b world {BIG_WORLD} at {m} rows: groupby (keys, counts "
+        f"exact; sums worst error/bound {worst:.3e} against world "
+        f"{WORLD}'s), sort (key sequence == np.sort) and union ({expect_union}"
+        f" rows == numpy) equal world {WORLD}'s; "
+        f"{ {n: r['launches'] for n, r in res['small'].items()} }; walls "
+        f"(s) world {BIG_WORLD} / {WORLD}: "
+        f"{ {n: (round(r['wall_s'], 4), round(r['world4_wall_s'], 4)) for n, r in res['small'].items()} }")
+    del small, big, w4
+
+    wide = ct.CylonContext.InitDistributed(ct.VirtualWorldConfig(WIDE_WORLD))
+    lw, rw, hw = make_tables(ct, wide, WIDE_JOIN_ROWS, args.seed + 29)
+    l4, r4 = host_tables(ct, dctx, hw)
+    out, launches, wall = counted(K, lambda: lw.distributed_join(
+        rw, "inner", on=["k"], force_exchange=True))
+    assert_sort_route(launches, "29c")
+    assert all(launches[k] > 0 for k in PLAN_KERNELS), launches
+    expect = numpy_join_count(hw[0], hw[2], WIDE_JOIN_ROWS)
+    assert out.row_count == expect, (out.row_count, expect)
+    assert_same_rows(out, l4.distributed_join(r4, "inner", on=["k"],
+                                              force_exchange=True),
+                     "29c: world 512 vs world 4")
+    res["wide_join"] = {"world": WIDE_WORLD, "rows": WIDE_JOIN_ROWS,
+                        "launches": launches, "wall_s": wall}
+    res["seconds"] = time.perf_counter() - t0
+    log(f"phase 29c join at world {WIDE_WORLD} (2 x {WIDE_JOIN_ROWS} "
+        f"rows): launches {launches}; rows {expect} == numpy, equal to "
+        f"world {WORLD}'s; first run {wall:.4f} s; phase "
+        f"{res['seconds']:.2f} s")
+    return res
+
+
+def sorted_live(table) -> list:
+    """A groupby result's live columns (host numpy), rows in key order."""
+    cols = live_columns(table)
+    order = np.argsort(cols[0][0], kind="stable")
+    return [d[order] for d, _v in cols]
+
+
+def mp_helpers():
+    """tests/torch_port_mp_child.py, whose long keys (``LONG_KEY``, 76
+    bytes: past EXACT_KEY_WORDS and SORT_PREFIX_WORDS), collision-forcing
+    hash (``pair_colliding``) and scalar tokens and bounds phase 30
+    shares with the CPU tests' process-group cases."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_port_mp_child
+
+    return torch_port_mp_child
+
+
+def spread_inputs(n_agg: int, n: int, seed: int) -> dict:
+    """Phase 30's host inputs: phase 11's table (g int32, x float32; d is
+    x as float64), the redo's two sides and the sort's table."""
+    g, x, _y = groupby_arrays(n_agg)
+    rng = np.random.default_rng(seed + 30)
+    long_key = mp_helpers().LONG_KEY
+
+    def keys(ids, pad=False):
+        return np.array([long_key.format(i) + ("x" * (i % 5) if pad else "")
+                         for i in ids.tolist()], object)
+
+    lid = rng.integers(0, 2 * n, n)
+    rid = rng.integers(0, 2 * n, n)
+    sid = rng.integers(0, n // 2, n)
+    return {"agg": {"g": g, "x": x, "d": x.astype(np.float64)},
+            "left": {"k": keys(lid), "v": rng.integers(
+                -1000, 1000, n).astype(np.int64)},
+            "right": {"k": keys(rid), "w": rng.normal(size=n).astype(
+                np.float32)},
+            "sort": {"k": keys(sid, pad=True), "v": rng.integers(
+                -5, 5, n).astype(np.int32), "f": rng.normal(size=n).astype(
+                    np.float32)},
+            "ids": (lid, rid, sid)}
+
+
+def local_shards(ct, ctx, cols: dict):
+    """The context's shards of a table whose rows every process holds, as
+    phase 22's processes build theirs: one table a local shard through
+    assemble_process_local (the virtual world builds all four)."""
+    from cylon_tpu_torch.parallel import shard
+
+    n = len(next(iter(cols.values())))
+    cap = shard.shard_capacity(n, ctx.get_world_size())
+    return shard.assemble_process_local(
+        [ct.Table.from_pydict(ctx, {k: a[s * cap:(s + 1) * cap]
+                                    for k, a in cols.items()})
+         for s in ctx.local_shard_indices()], ctx)
+
+
+def spread_cases(ct, K, ctx, inputs: dict) -> dict:
+    """Phase 30's three paths in ``ctx`` (a process of the gloo group, or
+    the virtual world of 4 shards): 30a the scalar aggregates of phase
+    11's table, 30b the exact left join under forced collisions (its
+    redo), 30c the host sort of the long keys, descending, then the int32
+    payload ascending. Each shard's rows as digests, the scalars as
+    bits, launches and walls."""
+    from cylon_tpu_torch.data import strings
+    from cylon_tpu_torch.parallel import dist_ops as D
+
+    MPC = mp_helpers()
+    first, nloc = ctx.get_rank(), ctx.local_shard_count()
+    res = {}
+    t = local_shards(ct, ctx, inputs["agg"])
+    sync()
+    t0 = time.perf_counter()
+    aggs = {f"{op}({c})": MPC._scalar(getattr(t, op)(c), c)
+            for c in inputs["agg"] for op in SPREAD_AGGS}
+    sync()
+    res["agg"] = {"values": aggs, "wall_s": time.perf_counter() - t0}
+    del t
+    real, redo = strings._hash_rows, D._exact_dict_redo
+    redos = []
+
+    def spy(*a):
+        redos.append(1)
+        return redo(*a)
+
+    strings._hash_rows, D._exact_dict_redo = MPC.pair_colliding(real), spy
+    try:
+        left = local_shards(ct, ctx, inputs["left"])
+        right = local_shards(ct, ctx, inputs["right"])
+        out, launches, wall = counted(K, lambda: left.distributed_join(
+            right, "left", on=["k"], exact=True, force_exchange=True))
+    finally:
+        strings._hash_rows, D._exact_dict_redo = real, redo
+    assert redos == [1], f"the exact join redid itself {len(redos)} times"
+    res["exact_redo"] = {"rows": out.row_count, "launches": launches,
+                         "wall_s": wall, "digests": shard_digests(
+                             out, first, nloc)}
+    del out, left, right
+    st = local_shards(ct, ctx, inputs["sort"])
+    out, launches, wall = counted(K, lambda: D.distributed_sort(
+        st, ["k", "v"], [False, True]))
+    res["long_sort"] = {"rows": out.row_count, "launches": launches,
+                        "wall_s": wall, "digests": shard_digests(
+                            out, first, nloc, ordered=True)}
+    res["sorted_table"] = out
+    return res
+
+
+def mp_spread_child(args) -> int:
+    """One process of phase 30: its shards of phase 30's inputs, the
+    three paths, what it saw to ``--child-out``."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import cylon_tpu_torch as ct
+    from cylon_tpu_torch.ops import kernels as K
+
+    unbuilt = [s for s in K.SOURCES if not K._lib_path(s).exists()]
+    assert not unbuilt, f"kernels not built by phase 1: {unbuilt}"
+    ctx = ct.CylonContext.InitDistributed(ct.MultiHostConfig(
+        num_processes=MP_PROCS, process_id=args.mp_child, backend="gloo",
+        shards_per_process=MP_SHARDS, init_method=f"file://{args.rdv}"))
+    res = spread_cases(ct, K, ctx, spread_inputs(args.groupby_rows,
+                                                 args.rows, args.seed))
+    del res["sorted_table"]
+    with open(args.child_out, "w") as f:
+        json.dump(dict(res, rank=args.mp_child), f)
+    ctx.finalize()
+    return 0
+
+
+def spread_phase(ct, K, dctx, args) -> dict:
+    """Phase 30: phase 22a's two gloo processes of two shards on this
+    card run the paths of a table spread over processes (30a scalar
+    aggregates of phase 11's table, 30b the exact join's collision redo,
+    30c the long-key host sort); the virtual world of 4 shards runs the
+    same inputs on the card; every process's scalars equal each other's,
+    integers and MIN/MAX equal the virtual world's, float SUM and MEAN
+    within PERF.md section 2's bound of it; every shard of 30b equals
+    the virtual world's as a row multiset, of 30c in order."""
+    torch.cuda.empty_cache()  # the children share the card
+    t0 = time.perf_counter()
+    children = run_children(["--mp-spread", "--rows", str(SPREAD_ROWS),
+                             "--groupby-rows", str(args.groupby_rows),
+                             "--seed", str(args.seed)], "30")
+    child_s = time.perf_counter() - t0
+    inputs = spread_inputs(args.groupby_rows, SPREAD_ROWS, args.seed)
+    exp = spread_cases(ct, K, dctx, inputs)
+    # the bounds of the float SUMs and MEANs, from the inputs
+    MPC = mp_helpers()
+    bounds = MPC.float_bounds(inputs["agg"], {},
+                              {c: SPREAD_AGGS for c in inputs["agg"]})
+    for r, c in enumerate(children):
+        got = c["agg"]["values"]
+        MPC.assert_aggs_close(got, children[0]["agg"]["values"], {},
+                              f"30a process {r} against process 0")
+        MPC.assert_aggs_close(got, exp["agg"]["values"], bounds,
+                              f"30a process {r} against the virtual world")
+        for case in ("exact_redo", "long_sort"):
+            assert c[case]["rows"] == exp[case]["rows"], (r, case)
+            for sid, d in c[case]["digests"].items():
+                assert d == exp[case]["digests"][sid], \
+                    f"30 {case}: process {r} shard {sid} differs"
+        assert all(c["exact_redo"]["launches"][k] > 0 for k in JOIN_KERNELS), \
+            c["exact_redo"]["launches"]
+        assert all(c["long_sort"]["launches"][k] > 0
+                   for k in PARTITION_KERNELS), c["long_sort"]["launches"]
+    for case in ("exact_redo", "long_sort"):
+        assert sorted(s for c in children for s in c[case]["digests"]) == \
+            sorted(exp[case]["digests"])
+    # the virtual world's own checks: the redo's rows are the true left
+    # join's count; the sort's keys descend
+    lid, rid, _sid = inputs["ids"]
+    cnt = np.bincount(rid, minlength=2 * SPREAD_ROWS)
+    assert exp["exact_redo"]["rows"] == int(np.maximum(cnt[lid], 1).sum())
+    keys = exp.pop("sorted_table").to_pydict()["k"].tolist()
+    assert keys == sorted(inputs["sort"]["k"].tolist(), reverse=True), \
+        "30c: the virtual world's keys do not descend"
+    seconds = time.perf_counter() - t0
+    walls = {case: [c[case]["wall_s"] for c in children]
+             for case in ("agg", "exact_redo", "long_sort")}
+    log(f"phase 30 {MP_PROCS} gloo processes x {MP_SHARDS} shards on one "
+        f"card: 30a {len(SPREAD_AGGS) * 3} scalar aggregates of "
+        f"{args.groupby_rows} rows (the same in both processes; integers, "
+        f"counts, MIN/MAX == the virtual world's, float SUM/MEAN within "
+        f"the bound), 30b the exact left join of 2 x {SPREAD_ROWS} rows of "
+        f"76-byte keys under forced collisions ({exp['exact_redo']['rows']}"
+        f" rows, redone once), 30c the host sort of {SPREAD_ROWS} rows of "
+        f"76-80-byte keys: every shard equal to the virtual world's; "
+        f"launches {[{k: c[k]['launches'] for k in ('exact_redo', 'long_sort')} for c in children]}"
+        f"; process walls (s) {walls}; virtual world walls (s) "
+        f"{ {k: exp[k]['wall_s'] for k in walls} }; children "
+        f"{child_s:.2f} s, phase {seconds:.2f} s; {card_line()}")
+    return {"children": children, "virtual": exp, "seconds": seconds,
+            "walls_s": walls}
+
+
 class PhaseClock:
     """Seconds since the script started at each phase's start."""
 
@@ -4189,12 +4586,16 @@ def main() -> int:
     ap.add_argument("--rdv", help=argparse.SUPPRESS)
     ap.add_argument("--child-out", help=argparse.SUPPRESS)
     ap.add_argument("--mp-task", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--mp-spread", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     if args.mp_child is not None:
-        return mp_task_child(args) if args.mp_task else mp_child(args)
+        if args.mp_task:
+            return mp_task_child(args)
+        return mp_spread_child(args) if args.mp_spread else mp_child(args)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import cylon_tpu_torch as ct
     from cylon_tpu_torch.ops import kernels as K
@@ -4533,6 +4934,25 @@ def main() -> int:
     else:
         cost28 = sums_cost_phase(ct, args)
 
+    # phase 29: worlds of 256 and 512 shards (the sort's partition);
+    # phase 30: the paths of a table spread over two processes
+    clock.mark("29")
+    big29 = big_world_phase(ct, K, D, SO, dctx, args, host, expect_rows)
+    clock.mark("30")
+    spread30 = spread_phase(ct, K, dctx, args)
+    for row in kernels:
+        name = row["name"]
+        row["phase29_launches"] = dict(
+            {f"world{BIG_WORLD}_join": big29["join"]["launches"][name],
+             f"world{WIDE_WORLD}_join":
+                 big29["wide_join"]["launches"][name]},
+            **{f"world{BIG_WORLD}_{op}": r["launches"][name]
+               for op, r in big29["small"].items()})
+        row["phase30_launches"] = {
+            case: sum(c[case]["launches"][name]
+                      for c in spread30["children"])
+            for case in ("exact_redo", "long_sort")}
+
     clock.mark("end")
     assert [k["name"] for k in kernels] == list(K.KERNELS)
     summary = {"kernels": kernels}
@@ -4574,6 +4994,7 @@ def main() -> int:
                            task_exchange_mp=tasks26, examples=examples26,
                            drills=drills27, group_sums=sums28,
                            tools=tools28, group_sums_cost=cost28,
+                           big_worlds=big29, spread=spread30,
                            phase_seconds=clock.spans()), f, indent=1,
                       default=str)
     log(json.dumps(summary))

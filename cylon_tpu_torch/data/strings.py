@@ -213,12 +213,12 @@ class VarBytes:
     def to_host(self, as_str: bool = True) -> np.ndarray:
         """Decode to a host object array of str (or bytes)."""
         raw = self.words.cpu().numpy().view(np.uint8).tobytes()
-        starts = self.eff_starts().cpu().numpy()
-        lengths = self.lengths.cpu().numpy()
-        out = np.empty(len(starts), object)
-        for i in range(len(starts)):
-            b = raw[starts[i] * 4: starts[i] * 4 + lengths[i]]
-            out[i] = b.decode("utf-8", errors="replace") if as_str else b
+        starts = (self.eff_starts().to(torch.int64) * 4).cpu().tolist()
+        lengths = self.lengths.cpu().tolist()
+        rows = [raw[s:s + n] for s, n in zip(starts, lengths)]
+        out = np.empty(len(rows), object)
+        out[:] = [b.decode("utf-8", errors="replace") for b in rows] \
+            if as_str else rows
         return out
 
     # ------------------------------------------------------------------

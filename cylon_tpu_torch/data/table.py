@@ -461,14 +461,24 @@ class Table:
     # -- aggregates (pycylon table.pyx:485-522) --
 
     def _agg(self, column, op: str) -> "Table":
-        self._require_whole(f"the scalar {op}")
+        """One scalar aggregate as a one-row table. A distributed table's
+        flat columns hold every shard of this process: one reduction
+        spans them all. A table spread over several processes reduces
+        each process's rows and combines the partials, in rank order, in
+        every process (every process must ask; each gets the same
+        table)."""
         col = column if isinstance(column, Column) \
             else self._columns[self._col_index(column)]
         if self.row_mask is not None:
             col = col.with_validity(col.valid_mask() & self.emit_mask())
-        # a distributed table's flat columns hold every shard: one
-        # reduction spans them all
-        value = _aggregates.agg_scalar(col, op)
+        from ..parallel import comm as _comm
+
+        # a table that is not spread is whole in this process: a comm of
+        # one process gathers only its own partial
+        cm = self._ctx.comm if self._spread() else _comm.VirtualComm(1)
+        value = _aggregates.agg_scalar(
+            col, op, lambda a: _comm.all_gather_rows(cm, a),
+            lambda items: _comm.all_gather_bytes(cm, items))
         return Table.from_pydict(self._ctx, {col.name: [value]})
 
     def sum(self, column) -> "Table":
@@ -712,7 +722,12 @@ def _sort_keys_mixed(cols: Sequence[Column], asc: Sequence[bool]):
 def _host_rank_codes(c: Column, ascending: bool) -> np.ndarray:
     """A column's stable sort rank on the host: equal values share a
     code, nulls last in either direction (pandas' sort_values order)."""
-    vals = c.to_numpy()
+    return rank_codes(c.to_numpy(), ascending)
+
+
+def rank_codes(vals: np.ndarray, ascending: bool) -> np.ndarray:
+    """`_host_rank_codes` of a column's host values (``Column.to_numpy``:
+    nulls None, or NaN in a float column)."""
     if vals.dtype != object:
         null = np.isnan(vals) if vals.dtype.kind == "f" \
             else np.zeros(len(vals), bool)
@@ -720,7 +735,16 @@ def _host_rank_codes(c: Column, ascending: bool) -> np.ndarray:
         null = np.array([v is None or (isinstance(v, float) and v != v)
                          for v in vals], dtype=bool)
     codes = np.empty(len(vals), np.int64)
-    uniq, inv = np.unique(vals[~null], return_inverse=True)
+    live = vals[~null]
+    if vals.dtype == object:
+        # np.unique(return_inverse) of objects, by a dict of the distinct
+        # values (one sort of those, not of every row)
+        uniq = _sorted_distinct(live)
+        code = {v: i for i, v in enumerate(uniq.tolist())}
+        inv = np.fromiter((code[v] for v in live.tolist()), np.int64,
+                          len(live))
+    else:
+        uniq, inv = np.unique(live, return_inverse=True)
     inv = inv.reshape(-1)
     codes[~null] = inv if ascending else len(uniq) - 1 - inv
     codes[null] = len(uniq)
@@ -1078,7 +1102,8 @@ def _exact_dict_fallback_join(left: Table, right: Table,
         a, b = left._columns[li], right._columns[rj]
         kw = pair_k_words(a, b)
         if kw is not None and kw > EXACT_KEY_WORDS:
-            lcols2[li], rcols2[rj] = _dict_encode_pair(a, b)
+            # a local table is whole in this process: nothing to gather
+            lcols2[li], rcols2[rj] = _dict_encode_pair(a, b, lambda v: v)
     cfg = _join.JoinConfig(config.type, config.left_column_idx,
                            config.right_column_idx, config.algorithm,
                            exact=False)
@@ -1086,25 +1111,42 @@ def _exact_dict_fallback_join(left: Table, right: Table,
                       Table(rcols2, right._ctx, right.row_mask), cfg)
 
 
-def _dict_encode_pair(a: Column, b: Column) -> Tuple[Column, Column]:
+def _dict_encode_pair(a: Column, b: Column, gather
+                      ) -> Tuple[Column, Column]:
     """Two varbytes key columns as dictionary columns over ONE shared
     sorted vocabulary (the collision recovery of exact=True, local and
-    distributed)."""
+    distributed). ``gather`` takes this process's distinct values (a
+    host object array) and returns every process's, so that each process
+    of columns spread over processes builds the same vocabulary and
+    encodes its own rows (at one process it returns them as they are)."""
     filler = b"" if a.dtype.type == dtypes.Type.BINARY else ""
 
     def _safe_host(c):
-        return np.array([filler if v is None else v for v in c.to_numpy()],
-                        dtype=object)
+        return np.array([filler if v is None else v
+                         for v in c.to_numpy().tolist()], dtype=object)
 
     sa, sb = _safe_host(a), _safe_host(b)
-    vocab = np.unique(np.concatenate([sa, sb]))
+    vocab = _sorted_distinct(gather(_sorted_distinct(
+        np.concatenate([sa, sb]))))
+    code = {v: i for i, v in enumerate(vocab.tolist())}
 
     def enc(c, s):
-        return Column(torch.from_numpy(np.searchsorted(vocab, s).astype(
-            np.int32)).to(c.data.device), c.dtype, c.validity, c.name,
-            dictionary=vocab)
+        codes = np.fromiter((code[v] for v in s.tolist()), np.int32,
+                            len(s))
+        return Column(torch.from_numpy(codes).to(c.data.device), c.dtype,
+                      c.validity, c.name, dictionary=vocab)
 
     return enc(a, sa), enc(b, sb)
+
+
+def _sorted_distinct(values: np.ndarray) -> np.ndarray:
+    """``np.unique`` of a host object array (str or bytes), by a set and
+    one sort of the distinct values: the same array, without sorting
+    every row."""
+    distinct = sorted(set(values.tolist()))
+    out = np.empty(len(distinct), object)
+    out[:] = distinct
+    return out
 
 
 def join_blocked(left: Table, right: Table, config: _join.JoinConfig,

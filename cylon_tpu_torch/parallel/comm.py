@@ -19,7 +19,10 @@ Both take and return the same shapes, with V = W in the virtual world:
 ``[V, ...] -> [W, ...]``, ``ring_shift`` ``[V, ...] -> [V, ...]``,
 ``gather_full`` ``[V, n, ...] -> [V, W * n, ...]``; ``all_reduce`` (sum,
 max, min) and ``all_gather_host`` agree small host values, which the
-virtual world already holds for every shard.
+virtual world already holds for every shard; `all_gather_rows` and
+`all_gather_bytes` bring every process's host array or byte strings of
+any length (the scalar aggregates' partials, the exact redo's keys, the
+long-key sort's keys).
 
 The process group sends every tensor as its bytes (a uint8 view), so any
 dtype crosses. NCCL moves CUDA tensors where they lie (one card a
@@ -236,6 +239,39 @@ class ProcessGroupComm:
 
     def barrier(self) -> None:
         self.all_reduce(np.zeros(1, np.int64), "sum")
+
+
+def all_gather_rows(comm, values: np.ndarray) -> list:
+    """Every process's 1-D host array of one dtype and any length, in
+    rank order: the lengths first, then the rows as bytes, each process's
+    padded to the longest (``all_gather_host`` takes one shape)."""
+    a = np.ascontiguousarray(values).reshape(-1)
+    if comm.nproc == 1:
+        return [a]
+    size = a.dtype.itemsize
+    n = comm.all_gather_host(np.array([a.shape[0]], np.int64))[:, 0]
+    buf = np.zeros(max(int(n.max()), 1) * size, np.uint8)
+    buf[:a.nbytes] = a.view(np.uint8)
+    every = comm.all_gather_host(buf)
+    return [every[p, :int(n[p]) * size].view(a.dtype)
+            for p in range(comm.nproc)]
+
+
+def all_gather_bytes(comm, items: Sequence) -> list:
+    """Every process's list of byte strings (None allowed), in rank
+    order: the lengths first (-1 for None), then one flat uint8 buffer
+    of the bytes, both through `all_gather_rows`."""
+    lens = np.array([-1 if b is None else len(b) for b in items], np.int64)
+    flat = np.frombuffer(b"".join(b for b in items if b is not None),
+                         np.uint8)
+    out = []
+    for ln, buf in zip(all_gather_rows(comm, lens),
+                       all_gather_rows(comm, flat)):
+        ends = np.cumsum(np.maximum(ln, 0))
+        raw = buf.tobytes()
+        out.append([None if k < 0 else raw[e - k:e]
+                    for k, e in zip(ln, ends)])
+    return out
 
 
 def agree_max(comm, values: Sequence[int]) -> list:

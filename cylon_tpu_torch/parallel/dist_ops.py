@@ -35,6 +35,7 @@ join counts the algorithm it ran in ``cylon_join_algorithm_total
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -45,7 +46,7 @@ from ..context import CylonContext
 from ..data import table as table_mod
 from ..data.column import Column, string_key_arrays
 from ..data.table import Table
-from ..dtypes import movable
+from ..dtypes import Type, movable
 from ..ops import groupby as _groupby
 from ..ops import hash as _hash
 from ..ops import join as _join
@@ -53,7 +54,7 @@ from ..ops import order as _order
 from ..ops import setops as _setops
 from ..data.strings import (EXACT_KEY_WORDS, LANE_WORDS_MAX, VarBytes,
                             _nwords, _word_row_map, pair_k_words)
-from ..status import Code, CylonError, not_ported
+from ..status import Code, CylonError
 from ..telemetry import annotate as _annotate
 from ..telemetry import knobs as _knobs
 from ..telemetry import ledger as _ledger
@@ -65,7 +66,7 @@ from ..util import bucket_cap as _bucket_cap
 from ..util import capacity as _capacity
 from ..util import pow2_floor as _pow2_floor
 from . import shard
-from .comm import agree_max
+from .comm import agree_max, all_gather_bytes, all_gather_rows
 from .shuffle import (count_pair, exchange, exchange_pair,
                       salted_exchange_targets)
 
@@ -696,6 +697,21 @@ def distributed_join(left: Table, right: Table, config: _join.JoinConfig,
     return _ledger.track(result, "distributed_join")
 
 
+def _gather_strings(cm, values, as_str: bool) -> np.ndarray:
+    """Every process's host strings (str, or bytes when not ``as_str``;
+    None a null), in rank order, as one object array: their bytes
+    through `comm.all_gather_bytes` (at one process: ``values``)."""
+    if cm.nproc == 1:
+        return np.asarray(values, dtype=object)
+    enc = [v if v is None or not as_str else v.encode("utf-8")
+           for v in values]
+    every = [x for part in all_gather_bytes(cm, enc) for x in part]
+    out = np.empty(len(every), object)
+    out[:] = [x if x is None or not as_str else x.decode("utf-8")
+              for x in every]
+    return out
+
+
 def _exact_post_verify(res: Table, nl: int, pairs, config):
     """Byte verification of exact=True long varbytes keys after the
     exchange: both key columns sit row-aligned in the output, so it is one
@@ -722,18 +738,18 @@ def _exact_dict_redo(left: Table, right: Table, config: _join.JoinConfig,
     each colliding key pair re-encoded over ONE shared sorted vocabulary
     (a host round trip, paid only after a detected collision), the
     distributed join redone on the exact codes, and the redone key
-    columns lifted back to varbytes so the schema matches. (A table
-    spread over several processes would need one vocabulary over every
-    process's keys: not ported.)"""
+    columns lifted back to varbytes so the schema matches. Across
+    processes every process gathers every process's distinct key bytes
+    (`_gather_strings`), builds the same vocabulary as the virtual world
+    and encodes its own rows."""
     ctx = left._ctx
-    if ctx.is_multiprocess():
-        raise not_ported("the exact join's collision redo across "
-                         "processes")
     nl = left.column_count
     lcols2, rcols2 = list(left._columns), list(right._columns)
     for li, rj in pairs:
+        as_str = left._columns[li].dtype.type != Type.BINARY
         lcols2[li], rcols2[rj] = table_mod._dict_encode_pair(
-            left._columns[li], right._columns[rj])
+            left._columns[li], right._columns[rj],
+            functools.partial(_gather_strings, ctx.comm, as_str=as_str))
     cfg = _join.JoinConfig(config.type, config.left_column_idx,
                            config.right_column_idx, config.algorithm,
                            exact=False)
@@ -1575,12 +1591,12 @@ def distributed_sort(table: Table, order_by, ascending=True,
     then sort every shard. Shard i's rows all precede shard i+1's, so the
     global order is (shard, position); nulls last. Varbytes keys sort on
     big-endian prefix words + length; rows past SORT_PREFIX_WORDS words
-    take the host sort, then redistribute. ``force_exchange`` runs the
+    take the host sort, then redistribute (across processes,
+    `_host_sort_spread`). ``force_exchange`` runs the
     whole composition on a one-shard world too. (The JAX package
     memoizes the splitters per source column; the port samples on every
     call.)"""
     ctx = table._ctx
-    cm = ctx.comm
     t = shard.distribute(table, ctx) if ctx.is_distributed() else table
     by = order_by if isinstance(order_by, (list, tuple)) else [order_by]
     idxs = [t._col_index(c) for c in by]
@@ -1593,8 +1609,8 @@ def distributed_sort(table: Table, order_by, ascending=True,
                for i, a in zip(idxs, asc)]
     if any(l is None for l in per_col):
         if ctx.is_multiprocess():
-            raise not_ported("the host sort of varbytes keys past "
-                             "SORT_PREFIX_WORDS words across processes")
+            return _ledger.track(_host_sort_spread(t, idxs, asc, ctx),
+                                 "distributed_sort")
         return shard.distribute(t.compact().sort(by, ascending), ctx)
     lanes = [l for col_lanes in per_col for l in col_lanes]
     seq = ctx.get_next_sequence()
@@ -1610,9 +1626,18 @@ def distributed_sort(table: Table, order_by, ascending=True,
         # cross the exchange
         sbits = [l for i, a in zip(idxs, asc)
                  for l in _dist_order_lanes(cols_s[i], a)]
-        sdat, sval, semit, perm = _shard_sort(
-            cm.shards, sbits, emit_s, [c.data for c in cols_s],
-            [c.valid_mask() for c in cols_s])
+        out = _sorted_shards(ctx, cols_s, emit_s, sbits)
+    return _ledger.track(out, "distributed_sort")
+
+
+def _sorted_shards(ctx, cols_s, emit_s, sbits) -> Table:
+    """The exchanged columns with every shard's rows stably sorted by the
+    key lanes ``sbits`` (dead rows last): the local stage of both
+    distributed sorts."""
+    cm = ctx.comm
+    sdat, sval, semit, perm = _shard_sort(
+        cm.shards, sbits, emit_s, [c.data for c in cols_s],
+        [c.valid_mask() for c in cols_s])
     cols = _rebuild_columns(sdat, sval, cols_s, [c.name for c in cols_s])
     for ci, c in enumerate(cols_s):
         if c.is_varbytes:
@@ -1620,5 +1645,67 @@ def distributed_sort(table: Table, order_by, ascending=True,
             cols[ci] = Column(vb.lengths, c.dtype, sval[ci], c.name,
                               varbytes=vb)
     out = Table(cols, ctx, semit)
-    out._shard_world = world
-    return _ledger.track(out, "distributed_sort")
+    out._shard_world = ctx.get_world_size()
+    return out
+
+
+def _host_keys_spread(cm, cols) -> list:
+    """``Column.to_numpy`` of every process's rows of each key column of
+    ``cols`` (each process passes its own live rows), concatenated in
+    rank order: varbytes rows cross as their bytes (`_gather_strings`),
+    other columns as their data and validity (`comm.all_gather_rows`).
+    One host sync a sort, however many key columns."""
+    _metrics.record_host_sync("distributed_sort.host_keys")
+    out = []
+    for col in cols:
+        if col.is_varbytes:
+            out.append(_gather_strings(cm, col.to_numpy().tolist(),
+                                       col.dtype.type != Type.BINARY))
+            continue
+        data = np.concatenate(all_gather_rows(cm, col.data.cpu().numpy()))
+        valid = None
+        if col.validity is not None:
+            valid = torch.from_numpy(np.concatenate(all_gather_rows(
+                cm, col.validity.cpu().numpy())))
+        out.append(Column(torch.from_numpy(data), col.dtype, valid,
+                          col.name, dictionary=col.dictionary).to_numpy())
+    return out
+
+
+def _host_sort_spread(t: Table, idxs, asc, ctx) -> Table:
+    """The host sort of a table spread over processes (varbytes keys past
+    SORT_PREFIX_WORDS words): every process gathers every live row's key
+    values in global order (rank, then shard, then row, the order of the
+    virtual world's ``compact``), ranks them with the virtual world's
+    stable host sort, sends each of its rows to the shard
+    ``shard.distribute`` gives that rank, and every shard orders its rows
+    by rank, so each shard holds the virtual world's rows in its
+    order."""
+    cm = ctx.comm
+    world = ctx.get_world_size()
+    seq = ctx.get_next_sequence()
+    with _span("distributed_sort.partition", seq, world=world,
+               rows_in=t.capacity):
+        emit = t.emit_mask()
+        live = torch.nonzero(emit).flatten()
+        n_me = int(live.numel())
+        counts = cm.all_gather_host(np.array([n_me], np.int64))[:, 0]
+        keys = _host_keys_spread(cm, [t._columns[i].take(live)
+                                      for i in idxs])
+        codes = [table_mod.rank_codes(v, a) for v, a in zip(keys, asc)]
+        n = int(counts.sum())
+        rank = np.empty(n, np.int64)
+        rank[np.lexsort(tuple(reversed(codes)))] = np.arange(n)
+        first = int(counts[:cm.rank].sum())
+        mine = torch.from_numpy(rank[first:first + n_me]).to(
+            emit.device, torch.int32)
+        targets = torch.zeros(emit.shape[0], dtype=torch.int32,
+                              device=emit.device)
+        ranks = torch.zeros_like(targets)
+        targets[live] = mine // shard.shard_capacity(n, world)
+        ranks[live] = mine
+        cols_s, emit_s, extra = _exchange_table(
+            t, targets, emit, ctx, extra={"rank": ranks},
+            dense=t.row_mask is None)
+    with _phase("distributed_sort.local", seq):
+        return _sorted_shards(ctx, cols_s, emit_s, [extra["rank"]])

@@ -63,7 +63,6 @@ from ..ops import hash as _hash
 from ..ops import kernels as _k
 from ..resilience import inject as _inject
 from ..resilience import retry as _retry
-from ..status import not_ported
 from ..telemetry import knobs as _knobs
 from ..telemetry import metrics as _metrics
 from ..telemetry import skew as _skew
@@ -86,9 +85,11 @@ PADDED_WASTE_FACTOR = 2
 # the stable sort; True forces the kernel wrappers, which run their plain
 # versions on the CPU. The TPU route's world <= 16 cap does not carry
 # over: the Hopper scatter reads its input once whatever the world, so
-# every world whose world + 1 buckets fit the kernel (world <= 255) takes
-# the kernel route; a larger world raises on the card unless this is
-# False.
+# every world whose world + 1 buckets fit the kernels (world <= 255)
+# takes the kernel route. A larger world takes the stable sort on every
+# device, even when this is True, as the JAX package takes its sort past
+# its kernel's bucket limit: K1/K2 keep per-thread arrays and one scan
+# thread a bucket, sized for MAX_BUCKETS.
 PARTITION_KERNEL: Optional[bool] = None
 
 
@@ -167,14 +168,13 @@ def _kernel_partition(payload, targets, emit, world: int):
 
 
 def use_partition_kernel(world: int, device: torch.device) -> bool:  # cylint: disable=collectives/uncataloged-factory — a route predicate, it issues no collective
-    """The partition route of a world >= 2 exchange. On the card a world
-    whose world + 1 buckets exceed the kernels' limit raises: the sort
-    route is taken only when the caller asks for it."""
-    if PARTITION_KERNEL is False:
+    """The partition route of a world >= 2 exchange: K1 + K2 (True) or
+    the stable sort (False). A world whose world + 1 buckets exceed the
+    kernels' limit takes the sort on every device, whatever
+    PARTITION_KERNEL says: the route follows the world size, never a
+    failure (``cylon_partition_path_total{path=}`` counts it)."""
+    if PARTITION_KERNEL is False or world + 1 > _k.MAX_BUCKETS:
         return False
-    if device.type == "cuda" and world + 1 > _k.MAX_BUCKETS:
-        raise not_ported(f"a partition of {world + 1} buckets on the card "
-                         f"(K1/K2 take at most {_k.MAX_BUCKETS})")
     return PARTITION_KERNEL is True or device.type == "cuda"
 
 

@@ -24,6 +24,12 @@ learning across three optimized runs.
 
 The distributed joins run K1-K4 on CUDA, the local set ops K5/K6.
 
+Results compare exactly: keys, counts, row counts and every cell that no
+add made (joins and set ops gather their inputs' values). A float group
+SUM, whose adds run in another order on another route or plan, is held
+within PERF.md section 2's bound, ``1e-5 * sum |x|`` of its group plus
+``1e-30``, the sum of ``|x|`` taken from the drawn input.
+
 Usage: python scripts/torch_port/fuzz_differential.py [n_cases=40]
 [base_seed=0] [--device cuda|cpu]
 
@@ -69,17 +75,116 @@ def rand_table(rng, n, kind, extra):
     return d
 
 
+# PERF.md section 2's bound on a float SUM whose adds may run in another
+# order: |a - b| <= SUM_RTOL * sum |x| of the group + SUM_ATOL, the sum of
+# |x| taken from the drawn input, never from either result
+SUM_RTOL = 1e-5
+SUM_ATOL = 1e-30
+
+
+def _null(v) -> bool:
+    return v is None or (isinstance(v, (float, np.floating)) and v != v)
+
+
+def cell(v) -> str:
+    """One cell as an exact token: nulls as one token, floats by their
+    full value, everything else by str."""
+    if _null(v):
+        return "<null>"
+    if isinstance(v, (float, np.floating)):
+        return repr(float(v))
+    return str(v)
+
+
 def canon(df):
+    """A frame's rows as a sorted list of tuples of exact cell tokens: the
+    results compared with it add no floats (joins and set ops gather
+    their inputs' values), so every cell compares exactly."""
     df = df.copy()
     df.columns = range(len(df.columns))
-    rows = []
-    for t in df.itertuples(index=False):
-        # stringify EVERY cell so mixed null/str/float columns sort
-        rows.append(tuple(
-            "<null>" if v is None or v != v else
-            (f"{float(v):.3f}" if isinstance(v, (float, np.floating))
-             else str(v)) for v in t))
-    return sorted(rows)
+    return sorted(tuple(cell(v) for v in t)
+                  for t in df.itertuples(index=False))
+
+
+def group_key(v):
+    """A group key as a dict key: None for a null, a Python int for an
+    integer, the value itself otherwise."""
+    if _null(v):
+        return None
+    if isinstance(v, (int, np.integer)):
+        return int(v)
+    return v
+
+
+def check_groups(got, exp, bound, what: str) -> None:
+    """Two group results of (key, float SUM, COUNT) rows: the same keys
+    and counts exactly, and each SUM within its group's ``bound`` (key ->
+    allowed difference)."""
+    assert len(got) == len(exp), f"{what}: {len(got)} != {len(exp)} groups"
+
+    def rows(df):
+        out = {}
+        for k, s, c in df.itertuples(index=False):
+            out[group_key(k)] = (float(s), int(c))
+        assert len(out) == len(df), f"{what}: a key repeats"
+        return out
+
+    a, b = rows(got), rows(exp)
+    assert sorted(map(repr, a)) == sorted(map(repr, b)), f"{what}: keys"
+    for k, (sa, ca) in a.items():
+        sb, cb = b[k]
+        assert ca == cb, f"{what}: count of key {k!r}: {ca} != {cb}"
+        if _null(sa) or _null(sb):   # a group of null values only
+            assert _null(sa) and _null(sb), f"{what}: sum of key {k!r}"
+            continue
+        assert abs(sa - sb) <= bound[k], \
+            f"{what}: sum of key {k!r}: {sa!r} vs {sb!r} (bound {bound[k]})"
+
+
+def sum_bounds(keys, x) -> dict:
+    """{group key: SUM_RTOL * sum |x| + SUM_ATOL} of the groups of
+    ``keys`` (nulls one group) over the values ``x``."""
+    import pandas as pd
+
+    a = pd.DataFrame({"k": keys, "a": np.abs(np.asarray(x, np.float64))})
+    s = a.groupby("k", dropna=False, sort=False)["a"].sum()
+    return {group_key(k): SUM_RTOL * float(v) + SUM_ATOL
+            for k, v in s.items()}
+
+
+def check_group_sums(gd, gl, ld, seed) -> None:
+    """The distributed against the local groupby SUM/COUNT of the left
+    table's ``v`` by ``k``."""
+    check_groups(gd, gl, sum_bounds(ld["k"], ld["v"]),
+                 f"groupby seed={seed}")
+
+
+def plan_sum_bounds(ld, rd, jt) -> dict:
+    """The bounds of the plan's groupby of the join's ``rt-3`` (the right
+    table's ``w``) by ``lt-0`` (the left key; null for a right row no
+    left row matched), from the drawn tables."""
+    import pandas as pd
+
+    left = pd.DataFrame({"g": ld["k"], "k": ld["k"]})
+    right = pd.DataFrame({"k": rd["k"], "w": rd["w"]})
+    j = left.merge(right, on="k", how=jt)
+    w = j["w"].to_numpy(np.float64)
+    w = np.where(np.isnan(w), 0.0, w)   # a null w adds nothing
+    g = [None if _null(v) else int(v) for v in j["g"]]
+    return sum_bounds(np.array(g, object), w)
+
+
+def check_plan_rows(got, ref, c, seed, run) -> None:
+    """The optimized plan's rows against the unoptimized plan's: exact
+    cells, except the groupby's float SUMs, held per key within their
+    bound."""
+    what = (f"lazy plan optimized!=unoptimized seed={seed} run={run} "
+            f"mode={c['mode']} salt={c['salt']}")
+    if not c["with_gb"]:
+        assert canon(got) == canon(ref), what
+        return
+    check_groups(got, ref, plan_sum_bounds(c["ld"], c["rd"], c["jt"]),
+                 what)
 
 
 def case_draws(seed):
@@ -169,11 +274,7 @@ def one_case(seed):
         gp = pd.DataFrame(ld).groupby("k", dropna=False)["v"].agg(
             ["sum", "count"])
         assert len(gd) == len(gl) == len(gp), f"groupby len seed={seed}"
-        a = gd.sort_values(gd.columns[0]).reset_index(drop=True)
-        b = gl.sort_values(gl.columns[0]).reset_index(drop=True)
-        np.testing.assert_allclose(
-            a.iloc[:, 1].astype(float), b.iloc[:, 1].astype(float),
-            rtol=1e-4, err_msg=f"groupby sum seed={seed}")
+        check_group_sums(gd, gl, ld, seed)
 
         # distributed sort
         sd = ct.distributed_sort(lt_d, "k")
@@ -251,9 +352,7 @@ def lazy_plan_case(seed):
         # every run must match the unoptimized plan
         for run in range(3):
             got = pipe().execute().to_pandas()
-            assert canon(got) == canon(ref), \
-                f"lazy plan optimized!=unoptimized seed={seed} " \
-                f"run={run} mode={mode} salt={salt}"
+            check_plan_rows(got, ref, c, seed, run)
         if not with_gb:
             jp = pd.DataFrame(ld).merge(pd.DataFrame(rd), on="k", how=jt)
             assert len(ref) == len(jp), \

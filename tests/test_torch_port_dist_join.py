@@ -16,7 +16,6 @@ from cylon_tpu_torch.ops import join as tjoin
 from cylon_tpu_torch.ops import kernels as K
 from cylon_tpu_torch.parallel import dist_ops as tdist
 from cylon_tpu_torch.parallel import shuffle as tshuffle
-from cylon_tpu_torch.status import CylonError
 
 from test_torch_port_join import assert_rows_bit_equal
 
@@ -153,15 +152,18 @@ def test_interop_carries_a_distributed_reference_table(dist_ctx):
 
 @pytest.mark.parametrize("forced", [None, True])
 def test_partition_on_the_card_never_takes_the_sort(monkeypatch, forced):
-    """On a CUDA device the partition takes K1/K2 up to their bucket limit
-    and raises past it; the stable sort runs there only when
-    PARTITION_KERNEL is False. On the CPU the default is the sort."""
+    """On a CUDA device the partition takes K1/K2 up to their bucket
+    limit; below it the stable sort runs there only when PARTITION_KERNEL
+    is False. Past the limit every device takes the stable sort, even
+    when PARTITION_KERNEL is True (the JAX package's route past its
+    kernel's limit). On the CPU the default is the sort."""
     monkeypatch.setattr(tshuffle, "PARTITION_KERNEL", forced)
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     limit = K.MAX_BUCKETS - 1
     assert tshuffle.use_partition_kernel(limit, cuda)
-    with pytest.raises(CylonError, match="not yet ported"):
-        tshuffle.use_partition_kernel(limit + 1, cuda)
-    assert tshuffle.use_partition_kernel(limit + 1, cpu) is bool(forced)
+    assert tshuffle.use_partition_kernel(limit + 1, cuda) is False
+    assert tshuffle.use_partition_kernel(limit, cpu) is bool(forced)
+    assert tshuffle.use_partition_kernel(limit + 1, cpu) is False
     monkeypatch.setattr(tshuffle, "PARTITION_KERNEL", False)
+    assert not tshuffle.use_partition_kernel(limit, cuda)
     assert not tshuffle.use_partition_kernel(limit + 1, cuda)

@@ -20,7 +20,6 @@ from cylon_tpu_torch.ops import order as O
 from cylon_tpu_torch.ops import setops as SO
 from cylon_tpu_torch.parallel import shuffle as S
 from cylon_tpu_torch.parallel.comm import VirtualComm
-from cylon_tpu_torch.status import CylonError
 
 pytestmark = pytest.mark.gpu
 
@@ -74,13 +73,31 @@ def test_tile_constants_match_sources(cuda):
     assert c_int("join_stream", "expand_tile_rows") == K.EXPAND_TILE
 
 
-def test_partition_past_the_bucket_limit_raises(cuda):
-    """Past K1/K2's bucket limit the partition raises on the card; it does
-    not take the stable sort."""
+def test_partition_past_the_bucket_limit_takes_the_sort(cuda):
+    """Past K1/K2's bucket limit the partition takes the stable sort on
+    the card (the JAX package's route past its kernel's limit), even with
+    PARTITION_KERNEL True: no K1/K2 launch, and the layout is the sort's.
+    (It raised before the sort route was taken there.)"""
     world = K.MAX_BUCKETS
-    t = torch.zeros(world, 4, dtype=torch.int32, device=cuda)
-    with pytest.raises(CylonError, match="not yet ported"):
-        S._padded_partition(VirtualComm(world), 1, {"x": t}, t, t == 0)
+    rng = np.random.default_rng(3)
+    t = torch.from_numpy(rng.integers(0, world, (world, 40)).astype(
+        np.int32)).to(cuda)
+    x = torch.from_numpy(rng.normal(size=(world, 40)).astype(
+        np.float32)).to(cuda)
+    emit = t % 7 != 0
+    old = S.PARTITION_KERNEL
+    S.PARTITION_KERNEL = True
+    K.reset_launches()
+    try:
+        got = S._padded_partition(VirtualComm(world), 1, {"x": x}, t, emit)
+    finally:
+        S.PARTITION_KERNEL = old
+    assert K.LAUNCHES["partition_hist"] == K.LAUNCHES[
+        "partition_scatter"] == 0
+    exp, counts, start = S._bucket_sort({"x": x}, t, emit, world)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0]["x"], exp["x"])
+    assert torch.equal(got[2], start)
 
 
 def _join_inputs(dev, rng, w, na, nb, hash_mode, two_keys):
@@ -1308,9 +1325,7 @@ def _virtual_exports(device, cases) -> dict:
 
     vctx = ct.CylonContext.InitDistributed(
         ct.VirtualWorldConfig(child.WORLD), device=device)
-    return {case: dict(child.export(t, vctx), **extra)
-            for case in cases
-            for t, extra in [child.run_case(ct, vctx, case)]}
+    return {case: child.run_export(ct, vctx, case) for case in cases}
 
 
 def test_one_rank_nccl_group_on_card(cuda):
@@ -1328,8 +1343,7 @@ def test_one_rank_nccl_group_on_card(cuda):
         assert pctx.comm.backend == "nccl" and pctx.device.index == 0
         K.reset_launches()
         for case in child.CASES:
-            t, extra = child.run_case(ct, pctx, case)
-            child.assert_same_export([dict(child.export(t, pctx), **extra)],
+            child.assert_same_export([child.run_export(ct, pctx, case)],
                                      exp[case])
         missing = [k for k in ("partition_hist", "partition_scatter",
                                "join_plan_stream", "join_expand_stream")
@@ -1941,3 +1955,77 @@ def test_tool_on_card(cuda, tool, tmp_path):
     assert doc.get("backend", "cuda") == "cuda"
     assert all(doc["launches"][k] > 0 for k in TOOL_KERNELS[tool]), \
         doc["launches"]
+
+
+def _multiset_bits(table) -> list:
+    d = table.to_pydict()
+    return sorted(zip(*((v.view(np.int32) if v.dtype == np.float32 else v)
+                        .tolist() for v in d.values())))
+
+
+@pytest.mark.parametrize("world", [256, 512])
+def test_world_past_the_bucket_limit_on_card(cuda, world):
+    """A virtual world of 256 shards or more on the card takes the stable
+    sort's partition (K1/K2 take world + 1 <= MAX_BUCKETS buckets): the
+    join launches K3/K4 and no K1/K2, and its rows equal world 4's."""
+    rng = np.random.default_rng(world)
+    n = 1 << 16
+    cols = ({"k": rng.integers(0, n, n).astype(np.int32),
+             "v": rng.normal(size=n).astype(np.float32)},
+            {"k": rng.integers(0, n, n).astype(np.int32),
+             "w": rng.normal(size=n).astype(np.float32)})
+    out = {}
+    for w in (world, 4):
+        ctx = ct.CylonContext.InitDistributed(ct.VirtualWorldConfig(w),
+                                              device=cuda)
+        left, right = (ct.Table.from_pydict(ctx, c) for c in cols)
+        K.reset_launches()
+        out[w] = left.distributed_join(right, "inner", on=["k"],
+                                       force_exchange=True)
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        if w == world:
+            assert launches["partition_hist"] == 0
+            assert launches["partition_scatter"] == 0
+        else:
+            assert launches["partition_hist"] > 0
+            assert launches["partition_scatter"] > 0
+        assert launches["join_plan_stream"] > 0
+        assert launches["join_expand_stream"] > 0
+    assert out[world].row_count > 0
+    assert _multiset_bits(out[world]) == _multiset_bits(out[4])
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_scalar_float_sums_repeat_on_card(cuda, dtype):
+    """A scalar float SUM and MEAN on the card (a torch reduction, not
+    K7's row order): the same bits in 5 runs, and within PERF.md section
+    2's bound of the CPU port's (SUM 1e-5 * sum |x| + 1e-30, MEAN 1e-12 *
+    sum |x| / count), on a world-4 table and a local one."""
+    rng = np.random.default_rng(7)
+    n = (1 << 20) + 3
+    x = rng.normal(size=n).astype(dtype)
+    x[::11] = -0.0
+    valid = rng.random(n) < 0.9
+    scale = float(np.abs(x[valid].astype(np.float64)).sum())
+    bound = {"sum": 1e-5 * scale + 1e-30,
+             "mean": 1e-12 * scale / int(valid.sum())}
+
+    def table(dev, world):
+        from cylon_tpu_torch.parallel import shard
+
+        ctx = ct.CylonContext.InitDistributed(ct.VirtualWorldConfig(
+            world), device=dev) if world else ct.CylonContext.Init(dev)
+        t = ct.Table([ct.Column.from_numpy(x, "x", valid, ctx.device)], ctx)
+        return shard.distribute(t, ctx) if world else t
+
+    for world in (0, 4):
+        t, tc = table(cuda, world), table("cpu", world)
+        for op in ("sum", "mean"):
+            runs = [getattr(t, op)("x").to_pydict()["x"][0]
+                    for _ in range(5)]
+            bits = {np.float64(v).view(np.int64).item() for v in runs}
+            assert len(bits) == 1, (world, op, runs)
+            cpu = getattr(tc, op)("x").to_pydict()["x"][0]
+            assert abs(float(runs[0]) - float(cpu)) <= bound[op], \
+                (world, op, runs[0], cpu)

@@ -22,6 +22,16 @@ against
   -0.0 and NaN; -0.0 is mapped to +0.0 on both sides (the reference's
   export loses its sign on a mesh, ROADMAP queue 3, F2).
 
+The agg case's scalar aggregates (every process must get the same) are
+held against both within PERF.md section 2's bound for float SUM and
+MEAN and exactly otherwise; against cylon_tpu without the MIN/MAX of a
+column holding a valid NaN (F3). The exact join under forced hash
+collisions (``exact_redo``) redoes itself on one vocabulary gathered
+from every process: against the virtual world shard for shard, against
+cylon_tpu's exact join of the same input (which collides nowhere) as
+the whole result's rows. The long-key sort (``long_sort``, the host
+sort) is held in order against both.
+
 The sort's splitters are held against both. Each child has a timeout of
 its own. The children run while this process computes cylon_tpu's
 results, which take most of the file's time (~50 s of ~60).
@@ -46,7 +56,11 @@ import torch_port_mp_child as child
 # layout -> (processes, shards a process, route)
 LAYOUTS = {"2x2": (2, 2, "kernel"), "4x1": (4, 1, "default")}
 CHILD_TIMEOUT = 300
-ORDERED = ("shuffle", "salted", "chunked")
+ORDERED = ("shuffle", "salted", "chunked", "long_sort")
+# the agg case's aggregates not held against cylon_tpu: its sharded
+# scalar MIN/MAX drop a shard whose partial is NaN (ROADMAP queue 3, F3);
+# the port's NaN wins, as its single-process form's does
+F3_AGGS = ("min(x)", "max(x)")
 
 
 @pytest.fixture(scope="module")
@@ -87,8 +101,7 @@ def virtual():
             child.set_route(route)
             out[route] = {}
             for case in child.CASES:
-                table, extra = child.run_case(tct, ctx, case)
-                out[route][case] = dict(child.export(table, ctx), **extra)
+                out[route][case] = child.run_export(tct, ctx, case)
     finally:
         tjoin.STREAM_PLAN, tshuffle.PARTITION_KERNEL = old
     return out
@@ -133,6 +146,21 @@ def _jrun(jc, case):
         return jdist.distributed_groupby(
             _jbuild(jc, data["t"]), 0, [1, 1, 2, 2, 2],
             [JA.SUM, JA.COUNT, JA.SUM, JA.MIN, JA.MAX]), {}
+    if case == "agg":
+        t = _jbuild(jc, data["t"])
+        return None, {"agg": {f"{op}({c})": child._scalar(getattr(t, op)(c),
+                                                          c)
+                              for c, ops in child.AGG_OPS.items()
+                              for op in ops}}
+    if case == "exact_redo":
+        # no forced collision here: the reference's exact join is the
+        # true join, which the port's redo must give
+        left, right = _jbuild(jc, data["l"]), _jbuild(jc, data["r"])
+        return left.distributed_join(right, "left", on=["k"], exact=True,
+                                     force_exchange=True), {}
+    if case == "long_sort":
+        return jdist.distributed_sort(_jbuild(jc, data["t"]), ["k", "v"],
+                                      [False, True]), {}
     if case == "sort":
         t = _jbuild(jc, data["t"])
         lanes = jdist._dist_order_lanes(jc, t._columns[0], True)
@@ -153,6 +181,12 @@ def reference(dist_ctx):
     out = {}
     for case in child.CASES:
         t, extra = _jrun(dist_ctx, case)
+        if t is None:
+            out[case] = (None, extra)
+            continue
+        if case == "exact_redo":
+            out[case] = ([t.to_pandas()], extra)
+            continue
         emit = np.asarray(t.emit_mask())
         sid = np.flatnonzero(emit) // (emit.shape[0] // child.WORLD)
         df = t.to_pandas()
@@ -170,6 +204,8 @@ def test_shards_equal_virtual_world(runs, virtual, layout, case):
     exp = virtual[LAYOUTS[layout][2]][case]
     if case == "chunked":
         assert max(exp["chunks"]) > 1, "the exchange did not chunk"
+    if case == "exact_redo":
+        assert exp["redo"] == 1, "the exact join did not redo itself"
     child.assert_same_export(runs[layout][case], exp)
 
 
@@ -203,9 +239,23 @@ def _rows(df: pd.DataFrame) -> list:
 def test_shards_match_reference(runs, reference, layout, case):
     """Every shard against cylon_tpu's shard: the same rows in the same
     order after a shuffle, the same bit-exact row multiset otherwise."""
+    ref_frames, ref_extra = reference[case]
+    if case == "agg":
+        got = runs[layout][case][0]["agg"]
+        bounds = child.agg_bounds()
+        child.assert_aggs_close(
+            {k: v for k, v in got.items() if k not in F3_AGGS},
+            {k: v for k, v in ref_extra["agg"].items()
+             if k not in F3_AGGS}, bounds, "processes against cylon_tpu")
+        return
     got = child.merged(runs[layout][case])
-    ref_frames, _extra = reference[case]
     names = list(got["cols"])
+    if case == "exact_redo":
+        # the whole result: the redo places rows by dictionary codes
+        df = pd.DataFrame({i: pd.Series(got["cols"][n])
+                           for i, n in enumerate(names)})
+        assert sorted(_rows(_f2(df))) == sorted(_rows(_f2(ref_frames[0])))
+        return
     for s, ref in enumerate(ref_frames):
         keep = got["sid"] == s
         df = pd.DataFrame({i: pd.Series(got["cols"][n][keep])

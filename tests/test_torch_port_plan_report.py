@@ -210,3 +210,44 @@ def test_partition_signature_numpy_names(pkgs, dtype):
         sigs[k] = mod.partition_signature(
             [t._columns[1], t._columns[0]], (1, 0), 4)
     assert sigs["torch"] == sigs["jax"] == ((1, 0), (dtype, dtype), 4)
+
+
+@pytest.mark.parametrize("world", [0, 4])
+def test_f18_statistics_record_capacity_as_the_reference(pkgs, world):
+    """F18 (a reference behaviour, pinned and left alone): the executor's
+    statistics feed records each node's output capacity as ``rows_out``
+    and ``Table.nbytes`` as ``bytes_out``, not its live rows, in both
+    packages (the port's plan/executor.py ``_stamp_stats``, as
+    cylon_tpu/plan/executor.py's). The same 8,192-row planned join with 64
+    matches records the same ``rows_out`` and ``bytes_out`` in both."""
+    n = 1 << 13
+    got = {}
+    for k, P in pkgs.items():
+        ctx = P.ctx[world]
+        left = P.ct.Table.from_pydict(ctx, {
+            "k": np.arange(n, dtype=np.int32),
+            "v": np.arange(n, dtype=np.float32)})
+        right = P.ct.Table.from_pydict(ctx, {
+            "k": np.arange(n, dtype=np.int32) + n - 64,
+            "w": np.arange(n, dtype=np.int64)})
+        seen = []
+
+        def sink(s, seen=seen):
+            if "rows_out" in s.attrs and "stats_kind" in s.attrs:
+                seen.append((s.attrs["stats_kind"], s.attrs["rows_out"],
+                             s.attrs["bytes_out"]))
+
+        P.tel.add_sink(sink)
+        try:
+            out = P.plan.scan(left).join(P.plan.scan(right),
+                                         on="k").execute()
+        finally:
+            P.tel.remove_sink(sink)
+        got[k] = (sorted(seen), out.row_count, out.capacity)
+    assert got["torch"] == got["jax"]
+    seen, live, capacity = got["torch"]
+    assert live == 64
+    # the join's rows_out is its output's capacity (its live rows on the
+    # CPU's plan route at world 1; a whole expansion block on the card's
+    # stream route)
+    assert [r for kind, r, _b in seen if kind == "join"] == [capacity]

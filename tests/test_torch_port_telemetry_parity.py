@@ -19,7 +19,8 @@ port fetches a varbytes column's shard bounds in one copy
 
 The port's own sites, which the JAX package does not have, are listed in
 PORT_ONLY_SITES; the CSV writer's is held by a case here, the process
-group's by tests/test_torch_port_multiprocess.py's runs.
+group's and the long-key sort's across processes by
+tests/test_torch_port_multiprocess.py's runs.
 """
 import re
 from collections import Counter
@@ -49,7 +50,7 @@ SITE = re.compile(r'^cylon_host_syncs_total\{site="([^"]+)"\}$')
 # a table's columns (the JAX package's writer fetches without counting),
 # and the processes agreeing a host value on a process group
 PORT_ONLY_SITES = ("io.write_csv", "comm.all_reduce",
-                   "comm.all_gather_host")
+                   "comm.all_gather_host", "distributed_sort.host_keys")
 
 
 @pytest.fixture(scope="module")

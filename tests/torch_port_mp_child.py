@@ -9,7 +9,11 @@ Each process joins a gloo process group through the ``file://``
 rendezvous RDV (no port to race for) with SHARDS shards of its own, W =
 NPROC * SHARDS. ``ops`` builds this process's shards of every case in
 CASES from the case's seed, runs the case, and writes its shards' live
-rows and the case's global row count to ``OUT/rank<RANK>.pkl``; ROUTE
+rows and the case's global row count to ``OUT/rank<RANK>.pkl`` (the agg
+case writes its scalars instead: every process must get the same);
+``exact_redo`` forces content-hash collisions (`pair_colliding`), so the
+exact join redoes itself on one vocabulary gathered from every process;
+``long_sort`` sorts keys past the device prefix bound on the host; ROUTE
 "kernel" forces the kernel wrappers (their plain versions on the CPU),
 "default" keeps the device's routes; DEVICE is "cpu" (the default) or a
 CUDA device that every process shares (gloo stages its tensors through
@@ -45,7 +49,20 @@ SETOP_CASES = ("union", "subtract", "intersect")
 SMALL_CASES = {"small0": 0, "small1": 1, "small3": 3}
 CASES = (["shuffle"] + list(JOIN_CASES) + list(SETOP_CASES)
          + ["groupby", "sort", "salted", "chunked", "strings"]
-         + list(SMALL_CASES))
+         + list(SMALL_CASES) + ["agg", "exact_redo", "long_sort"])
+# the agg case: each column's scalar aggregates
+AGG_OPS = {"k": ("sum", "count", "min", "max", "mean"),
+           "v": ("sum", "count", "min", "max", "mean"),
+           "x": ("sum", "count", "min", "max", "mean"),
+           "y": ("sum", "count", "min", "max", "mean"),
+           "z": ("sum", "min", "max"),
+           "s": ("count", "min", "max")}
+# PERF.md section 2: a float SUM within SUM_RTOL * sum |x| + SUM_ATOL of
+# another order's, a MEAN within MEAN_RTOL * sum |x| / count
+SUM_RTOL, SUM_ATOL, MEAN_RTOL = 1e-5, 1e-30, 1e-12
+# the long keys of exact_redo and long_sort: 76 bytes (19 words), past
+# EXACT_KEY_WORDS and SORT_PREFIX_WORDS; their last byte is a digit
+LONG_KEY = "L" * 68 + "{:08d}"
 # the chunked case's CYLON_EXCHANGE_CHUNK_BYTES: several chunks at 2,000
 # rows
 CHUNK_BYTES = "4096"
@@ -116,7 +133,55 @@ def case_data(name: str) -> dict:
                                      object)
             return cols, {"k": rng.random(n) < 0.9}
         return {"l": side(300, "v"), "r": side(260, "w")}
+    if name == "agg":
+        n = 600
+        # v: NaN is a null (no validity given); x: a valid NaN (NaN
+        # wins SUM, MIN and MAX); y: -0.0 among nulls; z: zeros of both
+        # signs (MIN -0.0, MAX +0.0)
+        y = rng.normal(size=n)
+        y[::9] = -0.0
+        return {"t": ({"k": rng.integers(-90, 90, n).astype(np.int32),
+                       "v": _floats(rng, n, np.float32),
+                       "x": _floats(rng, n, np.float64), "y": y,
+                       "z": np.where(rng.random(n) < 0.5, -0.0, 0.0),
+                       "s": np.array([f"s{int(i):03d}" + "é" * int(i % 3)
+                                      for i in rng.integers(0, 400, n)],
+                                     object)},
+                      {"k": rng.random(n) < 0.9, "x": rng.random(n) < 0.95,
+                       "y": rng.random(n) < 0.8, "s": rng.random(n) < 0.9})}
+    if name == "exact_redo":
+        def side(n, span, pay):
+            keys = np.array([LONG_KEY.format(int(i)) for i in
+                             rng.integers(0, span, n)], object)
+            return ({"k": keys, pay: rng.integers(0, 1000, n).astype(
+                np.int64)}, {"k": rng.random(n) < 0.9})
+        return {"l": side(300, 200, "v"), "r": side(260, 200, "w")}
+    if name == "long_sort":
+        n = 500
+        keys = np.array([LONG_KEY.format(int(i)) + "x" * int(i % 5)
+                         for i in rng.integers(0, 150, n)], object)
+        return {"t": ({"k": keys, "v": rng.integers(-5, 5, n).astype(
+            np.int32), "f": _floats(rng, n, np.float32)},
+            {"k": rng.random(n) < 0.9})}
     raise KeyError(name)
+
+
+def pair_colliding(real):
+    """A content hash under which two long keys that differ only in the
+    lowest bit of their last byte collide (the 76-byte LONG_KEY rows: the
+    digits 2m and 2m + 1), every other pair keeping its real hash: the
+    exact join's collision redo then runs without an output of every
+    row pair."""
+    import torch
+
+    def hashed(words, starts, lengths, max_words):
+        nw = (lengths.to(torch.int64) + 3) >> 2
+        last = (starts.to(torch.int64) + nw - 1)[lengths > 0]
+        w = words.clone()
+        w[last] = w[last] & ~(1 << 24)
+        return real(w, starts, lengths, max_words)
+
+    return hashed
 
 
 def shard_slices(n: int, world: int) -> list:
@@ -196,6 +261,45 @@ def run_case(ct, ctx, name: str):
         return dist_ops.distributed_groupby(
             build(ct, ctx, data["t"]), 0, [1, 1, 2, 2, 2],
             [A.SUM, A.COUNT, A.SUM, A.MIN, A.MAX]), extra
+    if name == "agg":
+        t = build(ct, ctx, data["t"])
+        extra["agg"] = {f"{op}({c})": _scalar(getattr(t, op)(c), c)
+                        for c, ops in AGG_OPS.items() for op in ops}
+        return None, extra
+    if name == "exact_redo":
+        from cylon_tpu_torch.data import strings
+
+        real, redo = strings._hash_rows, dist_ops._exact_dict_redo
+        redos = []
+
+        def spy(*a):
+            redos.append(1)
+            return redo(*a)
+
+        strings._hash_rows = pair_colliding(real)
+        dist_ops._exact_dict_redo = spy
+        try:
+            left, right = build(ct, ctx, data["l"]), build(ct, ctx,
+                                                           data["r"])
+            out = left.distributed_join(right, "left", on=["k"],
+                                        exact=True, force_exchange=True)
+        finally:
+            strings._hash_rows, dist_ops._exact_dict_redo = real, redo
+        extra["redo"] = len(redos)
+        return out, extra
+    if name == "long_sort":
+        from cylon_tpu_torch.telemetry import metrics
+
+        t = build(ct, ctx, data["t"])
+        before = metrics.metrics_snapshot()
+        out = dist_ops.distributed_sort(t, ["k", "v"], [False, True])
+        after = metrics.metrics_snapshot()
+        site = 'cylon_host_syncs_total{site="distributed_sort.host_keys"}'
+        # the key gather across processes: one host sync a sort, however
+        # many key columns; the virtual world sorts on its host without it
+        extra["host_keys"] = after.get(site, 0) - before.get(site, 0)
+        assert extra["host_keys"] == int(ctx.is_multiprocess()), extra
+        return out, extra
     if name == "sort":
         from cylon_tpu_torch.ops import order
 
@@ -206,6 +310,72 @@ def run_case(ct, ctx, name: str):
                                                         t.emit_mask())]
         return dist_ops.distributed_sort(t, "k"), extra
     raise KeyError(name)
+
+
+def scalar_value(v):
+    """A scalar aggregate's value as a JSON-able token that compares: a
+    float as ["f", its float64 bits] (NaN and -0.0 compare), a numpy
+    integer as int, anything else as it is."""
+    if isinstance(v, (float, np.floating)):
+        return ["f", int(np.float64(v).view(np.int64))]
+    if isinstance(v, (np.integer, np.bool_)):
+        return v.item()
+    return v
+
+
+def _scalar(table, name: str):
+    """The value of a one-row scalar table, as `scalar_value` gives it."""
+    assert table.row_count == 1 and table.column_names == [name], \
+        (table.row_count, table.column_names)
+    return scalar_value(table.to_pydict()[name][0])
+
+
+def float_bounds(cols: dict, valid: dict, ops: dict) -> dict:
+    """{aggregate: allowed difference} of the scalar aggregates ``ops``
+    ({column: names}) of ``cols`` (validity ``valid``; a NaN of the input
+    is a null): a float SUM's and MEAN's PERF.md section 2 bounds, from
+    the input; 0 (exact) for every other."""
+    out = {}
+    for c, names in ops.items():
+        a = cols[c]
+        out.update({f"{op}({c})": 0.0 for op in names})
+        if a.dtype.kind != "f":
+            continue
+        m = valid.get(c, np.ones(len(a), bool)) & ~np.isnan(a)
+        s = float(np.abs(a[m].astype(np.float64)).sum())
+        for op in names:
+            if op == "sum":
+                out[f"{op}({c})"] = SUM_RTOL * s + SUM_ATOL
+            elif op == "mean":
+                out[f"{op}({c})"] = MEAN_RTOL * s / max(int(m.sum()), 1)
+    return out
+
+
+def agg_bounds() -> dict:
+    """`float_bounds` of the agg case's input."""
+    cols, valid = case_data("agg")["t"]
+    return float_bounds(cols, valid, AGG_OPS)
+
+
+def _as_float(v) -> float:
+    return float(np.int64(v[1]).view(np.float64))
+
+
+def assert_aggs_close(got: dict, exp: dict, bounds: dict,
+                      what: str) -> None:
+    """Two sets of scalars as `scalar_value` gives them: the same
+    aggregates; floats within ``bounds`` where it gives one above 0 (NaN
+    equals NaN), everything else equal (floats bit for bit, -0.0 apart
+    from +0.0)."""
+    assert sorted(got) == sorted(exp), what
+    for k, e in exp.items():
+        g = got[k]
+        if isinstance(e, list) and bounds.get(k, 0.0) > 0:
+            a, b = _as_float(g), _as_float(e)
+            assert (a != a and b != b) or abs(a - b) <= bounds[k], \
+                (what, k, a, b, bounds[k])
+        else:
+            assert g == e, (what, k, g, e)
 
 
 def export(table, ctx) -> dict:
@@ -219,6 +389,13 @@ def export(table, ctx) -> dict:
         if cap else np.zeros(0, np.int64)
     return {"sid": sid, "cols": table.to_pydict_local(),
             "names": table.column_names, "rows": table.row_count}
+
+
+def run_export(ct, ctx, name: str) -> dict:
+    """`run_case` and `export` of its result: this process's shards and
+    the case's extras (the agg case: its scalars only)."""
+    table, extra = run_case(ct, ctx, name)
+    return extra if table is None else dict(export(table, ctx), **extra)
 
 
 def set_route(route: str) -> None:
@@ -246,10 +423,18 @@ def assert_same_export(parts: list, exp: dict) -> None:
     """Every process's shards (``parts``, one export a process) equal the
     one-process export ``exp`` shard for shard, bit for bit and in order,
     and every process counts the global rows."""
+    if "agg" in exp:
+        # the same scalar table in every process; within the contract's
+        # bound of the virtual world's
+        for p in parts:
+            assert p["agg"] == parts[0]["agg"]
+        assert_aggs_close(parts[0]["agg"], exp["agg"], agg_bounds(),
+                          "processes against the virtual world")
+        return
     for p in parts:
         assert p["rows"] == exp["rows"], (p["rows"], exp["rows"])
         assert p["names"] == exp["names"]
-        for key in ("splitters", "chunks"):
+        for key in ("splitters", "chunks", "redo"):
             assert p.get(key) == exp.get(key), key
     got = merged(parts)
     assert np.array_equal(got["sid"], exp["sid"])
@@ -316,8 +501,7 @@ def run_ops(ct, ctx, route: str) -> dict:
     set_route(route)
     out = {}
     for name in CASES:
-        table, extra = run_case(ct, ctx, name)
-        out[name] = dict(export(table, ctx), **extra)
+        out[name] = run_export(ct, ctx, name)
     return out
 
 
