@@ -103,11 +103,13 @@ Phases, in order (any failure exits non-zero; nothing is caught):
  11. groupby at world 1 and 4 (K1/K2 at world 4, K7 at both): keys and
      counts exact, sums and means within tolerance against numpy, a
      second run bit-equal to the first; then K7 at the world-1 run's
-     shapes (its first call, the float32 SUM) against its plain version
-     bit for bit, timed as in phase 8, beside ``torch.segment_reduce``
-     (the library call), ``index_put_(accumulate=True)`` and
-     ``index_add_`` (the earlier route), each timed and checked for
-     equality with K7's row-order sums and with a second call of itself;
+     shapes against its plain version bit for bit, timed as in phase 8:
+     the run's one K7 call (the float32 SUM and MEAN's float64 sum of one
+     column, the kernels line's numbers), and its first column alone,
+     beside ``torch.segment_reduce`` (the library call),
+     ``index_put_(accumulate=True)`` and ``index_add_`` (the earlier
+     route), each timed and checked for equality with K7's row-order sums
+     and with a second call of itself;
  12. sort at world 1 and 4 (K1/K2 at world 4): the key sequence exact
      against np.sort, the rows equal as a multiset;
  13. small and empty inputs at world 4 and 8 (the compact route): all
@@ -289,8 +291,12 @@ Phases, in order (any failure exits non-zero; nothing is caught):
      on the card and once with the CPU port (route switches on): every
      column bit-equal run to run and card to CPU, K7 launched; then the
      1/4/64-group groupby at 16,777,216 rows on the card: steady walls,
-     and K7 (1 and 64 groups, world 1) against its plain version and the
-     torch forms, bit for bit and timed; 28b, each
+     and at world 1 K7 launched exactly once a groupby and its call
+     against its plain version, bit for bit and timed beside
+     ``torch.segment_reduce``, with the byte bound and the chain bound
+     (the longest group's rows times the ns a dependent add that the
+     one-group timing gives, beside 4 cycles at the card's highest SM
+     clock); the 1- and 64-group groupby under torch.profiler; 28b, each
      tool of scripts/torch_port (``TOOL_RUNS``: the scaling sweep at
      2^21 rows, the engine comparison at 2^20, the shuffle, distributed
      join, stream join and join profiles at 2^22) on ``cuda`` in its own
@@ -301,7 +307,7 @@ Phases, in order (any failure exits non-zero; nothing is caught):
      the row-order sums: phases 10, 11 and 24a's query, phase 12's sorts
      (a control) and the 1/4/64-group groupby at 16,777,216 rows, world 1
      and 4, of both trees in turns (one warm-up each, 9 rounds, medians
-     and the difference printed).
+     and the difference printed), then 28a's profile of both trees.
  29. worlds past K1/K2's bucket limit (world + 1 <= 256 buckets), which
      take the stable sort's partition on the card as the JAX package
      takes its sort route past its kernel's limit: 29a phase 2's join (2 x
@@ -763,69 +769,122 @@ def check_kernels(K, calls) -> list:
     return out
 
 
-def check_k7(K, call, reps: int = 7, warm: int = 2) -> dict:
-    """K7 on the inputs of its recorded call (phase 11's world-1 groupby)
-    against its plain version, bit for bit, timed; beside it the torch
-    calls that compute the same sums: ``torch.segment_reduce`` (the
-    library call), ``index_put_(accumulate=True)`` and ``index_add_``
-    (PR 14's route), each timed, held against K7's row-order sums and
-    against a second call of itself; the bytes K7 must move. ``reps``
+def k7_args(K, call):
+    """(columns, gid, emit, slots, accumulator dtypes) of a recorded K7
+    call, in its list form."""
+    a, kw = call
+    accs = a[4] if len(a) > 4 else kw.get("accs")
+    _single, xs, accs = K._sum_args(a[0], accs)
+    return xs, a[1], a[2], a[3], accs
+
+
+def check_k7(K, call, reps: int = 7, warm: int = 2,
+             others: bool = True) -> dict:
+    """K7 on the inputs of a recorded call (its list form: every float
+    sum of one groupby) against its plain version, bit for bit, timed;
+    beside it ``torch.segment_reduce`` (the library call, once a column
+    on the column widened to its accumulator, the times summed) and, with
+    ``others``, for the first column ``index_put_(accumulate=True)`` and
+    ``index_add_`` (the earlier route), each timed, held against K7's
+    row-order sums and against a second call of itself; the bytes K7 must
+    move (every emit byte, each live row's gid and distinct source
+    values, every column's slots) and the longest group's rows. ``reps``
     and ``warm``: the timed and untimed calls of each form before the
     median is taken (each form has run before it is timed)."""
-    (x, gid, emit, s), _kw = call
-    w, n = x.shape
-    got = K.segment_sum(x, gid, emit, s)
-    ref = K.plain_segment_sum(x, gid, emit, s)
-    ibits = torch.int32 if x.element_size() == 4 else torch.int64
-    assert got.dtype == ref.dtype
-    exact = torch.equal(got.view(ibits), ref.view(ibits))
-    err = float((got.double() - ref.double()).abs().max())
+    xs, gid, emit, s, accs = k7_args(K, call)
+    w, n = gid.shape
+
+    def k7():
+        return K.segment_sum(xs, gid, emit, s, accs)
+
+    got = k7()
+    ref = K.plain_segment_sum(xs, gid, emit, s, accs)
+    ibits = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    exact = all(torch.equal(a.view(ibits[a.element_size()]),
+                            b.view(ibits[b.element_size()]))
+                for a, b in zip(got, ref))
+    err = max(float((a.double() - b.double()).abs().max()) for a, b in
+              zip(got, ref))
     s1 = s + 1
-    off = torch.arange(w, device=x.device).unsqueeze(-1) * s1
+    off = torch.arange(w, device=gid.device).unsqueeze(-1) * s1
     slot = (torch.where(emit, gid, s) + off).reshape(-1)
     lengths = torch.bincount(slot, minlength=w * s1)
-    flat = x.reshape(-1)
-    pos = torch.arange(n, device=x.device)
-    spread = (torch.where(emit, gid, pos % s1) + off).reshape(-1)
-    xz = torch.where(emit, x, 0).reshape(-1)
+    longest = int(lengths.view(w, s1)[:, :s].max()) if s else 0
+    wide = [x.to(a).reshape(-1) for x, a in zip(xs, accs)]
 
-    def seg_reduce():
+    def seg_reduce(flat):
         return torch.segment_reduce(flat, "sum", lengths=lengths,
                                     unsafe=True).view(w, s1)[:, :s]
 
-    def index_put():
-        return torch.zeros(w * s1, dtype=x.dtype, device=x.device
-                           ).index_put_((spread,), xz, accumulate=True
-                                        ).view(w, s1)[:, :s]
+    library_ms = sum(cuda_ms(lambda f=f: seg_reduce(f), reps=reps,
+                             warm=warm) for f in wide)
+    first = {}
+    if others:
+        x0, got0 = xs[0], got[0]
+        b0 = ibits[x0.element_size()]
+        pos = torch.arange(n, device=gid.device)
+        spread = (torch.where(emit, gid, pos % s1) + off).reshape(-1)
+        xz = torch.where(emit, x0, 0).reshape(-1)
 
-    def index_add():
-        return torch.zeros(w * s1, dtype=x.dtype, device=x.device
-                           ).index_add_(0, spread, xz).view(w, s1)[:, :s]
+        def index_put():
+            return torch.zeros(w * s1, dtype=x0.dtype, device=x0.device
+                               ).index_put_((spread,), xz, accumulate=True
+                                            ).view(w, s1)[:, :s]
 
-    others = {}
-    for name, fn in (("segment_reduce", seg_reduce),
-                     ("index_put", index_put), ("index_add", index_add)):
-        a, b = fn(), fn()
-        others[name] = {
-            "ms": cuda_ms(fn, reps=reps, warm=warm),
-            "equal_to_row_order": torch.equal(a.view(ibits),
-                                              got.view(ibits)),
-            "equal_run_to_run": torch.equal(a.view(ibits), b.view(ibits))}
+        def index_add():
+            return torch.zeros(w * s1, dtype=x0.dtype, device=x0.device
+                               ).index_add_(0, spread, xz).view(w, s1)[:, :s]
+
+        for name, fn in (("segment_reduce", lambda: seg_reduce(
+                x0.reshape(-1))), ("index_put", index_put),
+                ("index_add", index_add)):
+            a, b = fn(), fn()
+            first[name] = {
+                "ms": cuda_ms(fn, reps=reps, warm=warm),
+                "equal_to_row_order": torch.equal(a.view(b0),
+                                                  got0.view(b0)),
+                "equal_run_to_run": torch.equal(a.view(b0), b.view(b0))}
     live = int(emit.sum())
-    groups = int((gid[emit].max() + 1)) if live else 0
+    groups = int(lengths.view(w, s1)[:, :s].count_nonzero())
+    srcs = {(x.data_ptr(), x.dtype): x.element_size() for x in xs}
     return dict(
         name="segment_sum", err=err, exact=exact,
-        shape=f"{x.dtype} {list(x.shape)}, {s} slots, {groups} groups, "
-        f"{live} live rows",
-        ms=cuda_ms(lambda: K.segment_sum(x, gid, emit, s), reps=reps,
-                   warm=warm),
-        kernel_ms=own_kernel_ms(K, lambda: K.segment_sum(x, gid, emit, s),
-                                reps=min(reps, 5)),
-        plain_ms=cuda_ms(lambda: K.plain_segment_sum(x, gid, emit, s),
+        shape=f"{[str(x.dtype) for x in xs]} into "
+        f"{[str(a) for a in accs]} {list(gid.shape)}, {s} slots, {groups} "
+        f"groups, {live} live rows, the longest {longest}",
+        columns=len(xs), longest=longest,
+        ms=cuda_ms(k7, reps=reps, warm=warm),
+        kernel_ms=own_kernel_ms(K, k7, reps=min(reps, 5)),
+        plain_ms=cuda_ms(lambda: K.plain_segment_sum(xs, gid, emit, s, accs),
                          reps=reps, warm=warm),
-        library_ms=others["segment_reduce"]["ms"], others=others,
-        bytes=emit.numel() + gid.element_size() * gid.numel()
-        + x.element_size() * (live + w * s))
+        library_ms=library_ms, others=first,
+        bytes=emit.numel() + (gid.element_size() + sum(srcs.values()))
+        * live + sum(w * s * a.itemsize for a in accs))
+
+
+def k7_phase11(K, groupby: dict, k7_call) -> dict:
+    """K7 at phase 11's world-1 shapes against its plain version, bit
+    for bit (check_k7): the recorded call (every float sum of the
+    groupby: the float32 SUM and MEAN's float64 sum of one column), and
+    its first column alone, with the other torch forms. Returns the
+    call's numbers for the kernels line; launches from phase 11's
+    world-1 run (counters 0 -> read)."""
+    xs, gid, emit, s, accs = k7_args(K, k7_call)
+    for what, call in (("single", ((xs[:1], gid, emit, s, accs[:1]), {})),
+                       ("call", k7_call)):
+        r = check_k7(K, call, others=what == "single")
+        assert r["exact"], f"K7 disagrees with its plain version: {r}"
+        r["bound_ms"] = r.pop("bytes") / HBM_BYTES_PER_S * 1e3
+        groupby[f"k7_check_{what}"] = r
+        log(f"phase 11 kernel check segment_sum, {what} ({r['shape']}): ms "
+            f"{r['ms']:.4f} kernel_ms {r['kernel_ms']:.4f} plain "
+            f"{r['plain_ms']:.4f} (on the host) bound {r['bound_ms']:.4f} "
+            f"library (segment_reduce) {r['library_ms']:.4f} max_abs_err "
+            f"{r['err']}; the other torch forms {r['others']}")
+    return dict(launches=groupby["world1"]["launches"]["segment_sum"],
+                max_abs_err=r["err"], ms=r["ms"], kernel_ms=r["kernel_ms"],
+                plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by="bytes", library_ms=r["library_ms"])
 
 
 # ---------------------------------------------------------------------------
@@ -3860,7 +3919,8 @@ SUMS_GROUPS = 1 << 12        # for the join -> groupby; keys in [0, 4096)
 SKEW_GROUPS = (1, 4, 64)     # 28a, 28c: keys of the low-cardinality groupby
 SKEW_ROWS = 1 << 22          # 28a: its rows held against the CPU port
 SKEW_TIMED_ROWS = 1 << 24    # 28a, 28c: its rows timed on the card
-SKEW_K7_GROUPS = (1, 64)     # 28a: K7 checked and timed at these
+SKEW_K7_GROUPS = (1, 4, 64)  # 28a: K7 checked and timed at these
+SKEW_PROFILE_GROUPS = (1, 64)  # 28a, 28c: the groupby profiled at these
 AB_ROUNDS = 9                # 28c: rounds in turns with the parent
 # 28b: each tool of scripts/torch_port, its arguments, the kernels it must
 # launch
@@ -3887,6 +3947,84 @@ def skew_arrays(n: int, groups: int):
     return g, x
 
 
+def max_sm_clock_mhz() -> float:
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0])
+
+
+def skew_k7_check(K, fn, groups: int, ns_add: dict,
+                  clock_mhz: float) -> dict:
+    """28a: one groupby (fn) at world 1 with the counters 0 -> read (K7
+    launched exactly once for its SUM and MEAN), then K7 on the recorded
+    call against its plain version (check_k7: ms, kernel ms, the byte
+    bound, segment_reduce's ms). At one group, each column alone is
+    timed too: its kernel ms over the group's rows is the ns a dependent
+    add of its accumulator type (``ns_add``). The chain bound: the
+    longest group's rows times the slowest column's ns an add, beside 4
+    cycles an add at the card's highest SM clock."""
+    sync()
+    K.reset_launches()
+    with Recorder(K) as rec:
+        out = fn()
+    sync()
+    launches = dict(K.LAUNCHES)
+    call = rec.calls["segment_sum"]
+    del rec, out
+    assert launches["segment_sum"] == 1, launches
+    r = check_k7(K, call, reps=3, warm=1, others=False)
+    assert r["exact"], f"K7 disagrees with its plain version: {r}"
+    r["bound_ms"] = r.pop("bytes") / HBM_BYTES_PER_S * 1e3
+    r["launches"] = launches
+    xs, gid, emit, s, accs = k7_args(K, call)
+    if groups == 1:
+        for x, a in zip(xs, accs):
+            ms = own_kernel_ms(K, lambda x=x, a=a: K.segment_sum(
+                [x], gid, emit, s, [a]), reps=3)
+            ns_add[str(a)] = ms * 1e6 / r["longest"]
+    r["ns_add"] = dict(ns_add)
+    r["chain_bound_ms"] = r["longest"] * max(ns_add[str(a)]
+                                             for a in accs) / 1e6
+    r["four_cycles_ms"] = r["longest"] * 4 / (clock_mhz * 1e3)
+    log(f"phase 28a K7, {groups} groups ({r['shape']}): launches "
+        f"{launches['segment_sum']} in the groupby; ms {r['ms']:.4f} "
+        f"kernel_ms {r['kernel_ms']:.4f} plain {r['plain_ms']:.4f} (on "
+        f"the host) bound {r['bound_ms']:.4f} (bytes), chain bound "
+        f"{r['chain_bound_ms']:.4f} ({r['longest']} rows x ns an add "
+        f"{ns_add}; 4 cycles at {clock_mhz:.0f} MHz: "
+        f"{r['four_cycles_ms']:.4f}); library (segment_reduce) "
+        f"{r['library_ms']:.4f}")
+    return r
+
+
+def skew_profiles(pkg, ctx) -> dict:
+    """28a: the low-cardinality groupby (SUM and MEAN of SKEW_TIMED_ROWS
+    float32 rows in 1 and 64 groups, world 1) under torch.profiler after
+    one warm-up: wall, device busy and idle share, the top device-time
+    entries (profile_once). ``pkg`` is this tree's package or the parent
+    tree's (28c), ``ctx`` its world-1 context."""
+    out = {}
+    for groups in SKEW_PROFILE_GROUPS:
+        g, x = skew_arrays(SKEW_TIMED_ROWS, groups)
+        t = pkg.Table.from_pydict(ctx, {"g": g, "x": x})
+
+        def fn():
+            return t.groupby(0, [1, 1], ["sum", "mean"])
+
+        fn()
+        prof = profile_once(fn)
+        out[groups] = prof
+        log(f"phase 28a profile ({pkg.__name__}, {groups} groups, world 1): "
+            f"wall {prof['wall_ms']:.3f} ms, device busy "
+            f"{prof['busy_ms']:.3f} ms (idle share "
+            f"{prof['idle_share']:.4f}); top device time:")
+        for name, ms, calls in prof["top"]:
+            log(f"    {ms:9.3f} ms  x{calls:<3d} {name}")
+        del t
+    return out
+
+
 def sums_phase(ct, K, lctx, dctx) -> dict:
     """28a: the world-1 and world-4 groupby (SUMS_ROWS rows, SUMS_GROUPS
     keys, float32 values across six orders of magnitude: SUM and MEAN),
@@ -3899,9 +4037,9 @@ def sums_phase(ct, K, lctx, dctx) -> dict:
     order): every column bit-equal, run to run and card to CPU, K7
     launched on the card. Then the low-cardinality groupby at
     SKEW_TIMED_ROWS rows on the card alone: steady walls at world 1 and
-    4, and K7 at world 1's float32 SUM (1 and 64 groups) against its
-    plain version and the torch forms (check_k7, one timed call each:
-    one ``index_put_`` of one group takes ~2 s)."""
+    4, K7's one call a world-1 groupby (SKEW_K7_GROUPS) against its plain
+    version with its bounds (skew_k7_check), and the world-1 groupby
+    under torch.profiler (skew_profiles)."""
     n = SUMS_ROWS
     rng = np.random.default_rng(28)
     g = rng.integers(0, SUMS_GROUPS, n).astype(np.int32)
@@ -3955,6 +4093,8 @@ def sums_phase(ct, K, lctx, dctx) -> dict:
             f"({cpu_s:.2f} s there); launches {launches}")
         del first, second, cpu
     skew = {}
+    clock_mhz = max_sm_clock_mhz()
+    ns_add = {}   # accumulator dtype -> ns a dependent add (one group)
     for groups in SKEW_GROUPS:
         g, x = skew_arrays(SKEW_TIMED_ROWS, groups)
         for ctx, world in ((lctx, 1), (dctx, WORLD)):
@@ -3965,18 +4105,8 @@ def sums_phase(ct, K, lctx, dctx) -> dict:
 
             row = {}
             if world == 1 and groups in SKEW_K7_GROUPS:
-                with Recorder(K) as rec:
-                    out = fn()
-                r = check_k7(K, rec.calls["segment_sum"], reps=1, warm=0)
-                del rec, out
-                assert r["exact"], f"K7 disagrees with its plain version: {r}"
-                row["k7_check"] = {k: v for k, v in r.items()
-                                   if k != "bytes"}
-                log(f"phase 28a K7 ({r['shape']}): ms {r['ms']:.4f} "
-                    f"kernel_ms {r['kernel_ms']:.4f} plain {r['plain_ms']:.4f}"
-                    f" (on the host) library (segment_reduce) "
-                    f"{r['library_ms']:.4f}; the other torch forms "
-                    f"{r['others']}")
+                row["k7_check"] = skew_k7_check(K, fn, groups, ns_add,
+                                                clock_mhz)
             walls = steady(fn)
             row.update(walls_s=walls, median_s=statistics.median(walls))
             skew[f"skew{groups}_w{world}"] = row
@@ -3985,6 +4115,7 @@ def sums_phase(ct, K, lctx, dctx) -> dict:
                 f"median {row['median_s']:.6f}")
             del t
     res["skew_timed"] = skew
+    res["profile"] = skew_profiles(ct, lctx)
     return res
 
 
@@ -4082,6 +4213,9 @@ def sums_cost_phase(ct, args) -> dict:
             f"{med['this'] * 1e3:.3f}: {res[name]['delta_ms']:+.3f} ms "
             f"({res[name]['ratio']:.4f}x); walls (s) {walls}")
         del fns
+    # 28a's profile of both trees, the parent's first
+    res["profile"] = {tree: skew_profiles(pkg, ctxs[pkg][0])
+                      for tree, pkg in (("parent", pt), ("this", ct))}
     return res
 
 
@@ -4765,24 +4899,11 @@ def main() -> int:
     pipe = pipeline_phase(ct, K, D, S, dctx, args.pipeline_rows)
     clock.mark("11")
     groupby = groupby_phase(ct, K, lctx, dctx, args.groupby_rows)
-    # K7 at phase 11's world-1 shapes (the float32 SUM) against its plain
-    # version, bit for bit; launches from that run (counters 0 -> read)
+    # K7 at phase 11's world-1 shapes against its plain version, bit for
+    # bit; launches from that run (counters 0 -> read)
     k7_call = groupby.pop("calls")
-    r = check_k7(K, k7_call)
-    assert r["exact"], f"K7 disagrees with its plain version: {r}"
-    bound = r["bytes"] / HBM_BYTES_PER_S * 1e3
     kernels.append(dict(table["segment_sum"],
-                        launches=groupby["world1"]["launches"]["segment_sum"],
-                        max_abs_err=r["err"], ms=r["ms"],
-                        kernel_ms=r["kernel_ms"], plain_ms=r["plain_ms"],
-                        bound_ms=bound, bound_by="bytes",
-                        library_ms=r["library_ms"]))
-    log(f"phase 11 kernel check segment_sum ({r['shape']}): ms "
-        f"{r['ms']:.4f} kernel_ms {r['kernel_ms']:.4f} plain "
-        f"{r['plain_ms']:.4f} (on the host) bound {bound:.4f} library "
-        f"(segment_reduce) {r['library_ms']:.4f} max_abs_err {r['err']}; "
-        f"the other torch forms {r['others']}")
-    groupby["k7_check"] = {k: v for k, v in r.items() if k != "bytes"}
+                        **k7_phase11(K, groupby, k7_call)))
     sync_free25.update(wrappers_sync_free(K, {"segment_sum": k7_call}))
     del k7_call
     clock.mark("12")

@@ -3,12 +3,15 @@ cylon_tpu.ops.groupby).
 
 The rows are sorted into contiguous groups (dead rows last), each group
 gets a dense id in key order, and every aggregate is one segment
-reduction over those sorted ids: float sums through K7
-(``kernels.segment_sum``), which adds each group's rows in row order as
-the JAX package's sorted ``segment_sum`` does, so they are
-bit-reproducible on the card and equal the CPU's; integer sums and
-counts through ``index_add_`` (exact in any order); MIN/MAX through
-``scatter_reduce_`` on integer order keys.
+reduction over those sorted ids: every float sum of a call in one K7
+launch (``kernels.segment_sum``), which adds each group's rows in row
+order as the JAX package's sorted ``segment_sum`` does, so they are
+bit-reproducible on the card and equal the CPU's; first rows, counts and
+integer sums from the group boundaries (the sort is stable, so a group's
+first sorted row is its first original row; a count is the gap between
+two starts, an integer sum a difference of int64 cumsums, which wraps as
+the reference's sum does); MIN/MAX through ``scatter_reduce_`` on integer
+order keys.
 
 Everything runs batched over a leading shard dimension: 1-D inputs are
 one shard, ``[W, n]`` inputs are W shards whose group ids are offset by
@@ -140,15 +143,13 @@ def presort_groups(keys: Sequence[torch.Tensor], emit: torch.Tensor,
 
 def _segment_reducer(gid_s: torch.Tensor, emit_s: torch.Tensor,
                      num_segments: int) -> Callable:
-    """reduce(x, how, init) -> [W, num_segments]: the segment reduction
-    of ``x`` [W, n] over the sorted group ids; ``how`` one of "sum",
-    "amin", "amax". A float sum is K7, which reads live rows only and
-    adds each group in row order. The other reductions are atomics in no
-    fixed order, exact for integers and for min/max. Callers give dead
-    rows the identity, so a dead row may land in any slot there: dead row
-    i goes to slot ``i % (num_segments + 1)``, spread out, since one slot
-    for all of them serialises the atomics (51 ms for the 33 M dead rows
-    of the join -> groupby cell's partials on an H100,
+    """reduce(x, how, init) -> [W, num_segments]: the segment MIN or MAX
+    (``how`` "amin" or "amax") of ``x`` [W, n] over the sorted group ids,
+    by ``scatter_reduce_`` atomics, exact in any order. Callers give dead
+    rows the identity, so a dead row may land in any slot: dead row i goes
+    to slot ``i % (num_segments + 1)``, spread out, since one slot for all
+    of them serialises the atomics (51 ms for the 33 M dead rows of the
+    join -> groupby cell's partials on an H100,
     scripts/profile_port_groupby.py)."""
     w, n = gid_s.shape
     s1 = num_segments + 1
@@ -157,17 +158,72 @@ def _segment_reducer(gid_s: torch.Tensor, emit_s: torch.Tensor,
     seg = (torch.where(emit_s, gid_s, pos % s1) + off).reshape(-1)
 
     def reduce(x: torch.Tensor, how: str, init) -> torch.Tensor:
-        if how == "sum" and x.dtype.is_floating_point:
-            return _kernels.segment_sum(x.contiguous(), gid_s, emit_s,
-                                        num_segments)
         out = torch.full((w * s1,), init, dtype=x.dtype, device=x.device)
-        if how == "sum":
-            out.index_add_(0, seg, x.reshape(-1))
-        else:
-            out.scatter_reduce_(0, seg, x.reshape(-1), how)
+        out.scatter_reduce_(0, seg, x.reshape(-1), how)
         return out.view(w, s1)[:, :num_segments]
 
     return reduce
+
+
+# slots past the groups' (and one more) that a boundary scatter sends the
+# other rows to, spread out: one slot for all of them would serialise the
+# writes
+_SPREAD_SLOTS = 4096
+
+
+def _start_slots(gid_s: torch.Tensor, emit_s: torch.Tensor,
+                 num_segments: int) -> torch.Tensor:
+    """int64 [W, n]: each group's first sorted row's slot (its gid), and
+    for every other row a spread slot past num_segments + 1."""
+    n = gid_s.shape[-1]
+    start = emit_s.clone()
+    start[:, 1:] &= gid_s[:, 1:] != gid_s[:, :-1]
+    junk = torch.arange(n, device=gid_s.device) % _SPREAD_SLOTS \
+        + (num_segments + 1)
+    return torch.where(start, gid_s, junk)
+
+
+def _scatter_starts(slots: torch.Tensor, values: torch.Tensor,
+                    num_segments: int, fill) -> torch.Tensor:
+    """[W, num_segments + 1]: ``values`` ([W, n] or [n]) at each group's
+    first row in its slot (one write a slot), ``fill`` (a scalar or [W,
+    1]) in the slots of groups that do not exist and in the last; one
+    scatter."""
+    w, n = slots.shape
+    out = torch.empty((w, num_segments + 1 + min(n, _SPREAD_SLOTS)),
+                      dtype=values.dtype, device=slots.device)
+    if isinstance(fill, torch.Tensor):
+        out.copy_(fill.expand_as(out))
+    else:   # a Python scalar: no copy to the device, which would wait
+        out.fill_(fill)
+    out.scatter_(1, slots, values.expand(w, n))
+    return out[:, :num_segments + 1]
+
+
+def _group_bounds(slots: torch.Tensor, emit_s: torch.Tensor,
+                  num_segments: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(first, end) int64 [W, num_segments]: group g's sorted rows are
+    [first, end): groups are dense and live rows a prefix, so group g
+    ends where g + 1 starts and the last at the shard's live count, which
+    also fills the slots of groups that do not exist (first = end)."""
+    n = slots.shape[-1]
+    starts = _scatter_starts(slots, torch.arange(n, device=slots.device),
+                             num_segments, emit_s.sum(-1, keepdim=True))
+    return starts[:, :-1], starts[:, 1:]
+
+
+def _bounded_sum(x: torch.Tensor, first: torch.Tensor,
+                 end: torch.Tensor) -> torch.Tensor:
+    """int64 [W, S]: the sum of x [W, n] (integers, 0 where unused) over
+    rows [first, end) of each slot, a difference of one exclusive int64
+    cumsum over the rows of every shard in turn; it wraps modulo 2^64, so
+    the sum wraps as any order of adds does."""
+    w, n = x.shape
+    c = torch.empty(w * n + 1, dtype=torch.int64, device=x.device)
+    c[:1].zero_()
+    torch.cumsum(x.reshape(-1), 0, dtype=torch.int64, out=c[1:])
+    off = torch.arange(w, device=x.device).unsqueeze(-1) * n
+    return c[end + off] - c[first + off]
 
 
 def sorted_segment_aggregate(gid_s: torch.Tensor, emit_s: torch.Tensor,
@@ -183,14 +239,18 @@ def sorted_segment_aggregate(gid_s: torch.Tensor, emit_s: torch.Tensor,
     Repeated sub-reductions run once (``col_ids`` name each value's
     source column): SUM/MIN/MAX/COUNT repeated on one column, MEAN
     reusing COUNT's tally; all-valid columns (``all_valid``) share one
-    count and skip the any-valid pass (it equals group_valid).
+    count and skip the any-valid pass (it equals group_valid). Every
+    float sum (a float column's SUM, MEAN's float64 sum) goes into one K7
+    call.
 
     Returns (rep, group_valid, [(agg, agg_valid)]): rep[w, g] the first
     original row of group g (``n`` past the last group), MEAN a float64
     array, COUNT int64 of the non-null values."""
     n = gid_s.shape[-1]
-    reduce = _segment_reducer(gid_s, emit_s, num_segments)
-    rep = reduce(torch.where(emit_s, iota_s, n), "amin", n)
+    # the sort is stable, so a group's first sorted row holds its first
+    # original row
+    slots = _start_slots(gid_s, emit_s, num_segments)
+    rep = _scatter_starts(slots, iota_s, num_segments, n)[:, :-1]
     group_valid = rep < n
 
     sub: Dict[tuple, torch.Tensor] = {}
@@ -201,6 +261,39 @@ def sorted_segment_aggregate(gid_s: torch.Tensor, emit_s: torch.Tensor,
             hit = sub[key] = compute()
         return hit
 
+    def bounds():
+        return memo(("bounds",), lambda: _group_bounds(
+            slots, emit_s, num_segments))
+
+    def used(arr, vmask, cid):
+        """arr where the row is valid, else 0; sums read live rows only
+        (K7 its live rows, _bounded_sum the groups' rows), so an
+        all-valid column goes as it is."""
+        if vmask is None:
+            return arr
+        return memo(("used", cid),
+                    lambda: torch.where(emit_s & vmask, arr, 0))
+
+    # every float sum of the call, keyed (column, accumulator dtype), in
+    # one K7 launch
+    fsums: Dict[tuple, Tuple[torch.Tensor, torch.dtype]] = {}
+    for arr, vmask, op, cid in zip(values_s, valids_s, ops, col_ids):
+        if op == AggregationOp.SUM and arr.dtype.is_floating_point:
+            fsums.setdefault(("fsum", cid, arr.dtype),
+                             (used(arr, vmask, cid), arr.dtype))
+        elif op == AggregationOp.MEAN:
+            x = used(arr, vmask, cid)
+            if x.dtype not in _kernels.SUM_DTYPES:
+                x = memo(("f64", cid), lambda: x.to(torch.float64))
+            fsums.setdefault(("fsum", cid, torch.float64),
+                             (x, torch.float64))
+    if fsums:
+        sums = _kernels.segment_sum([x for x, _a in fsums.values()], gid_s,
+                                    emit_s, num_segments,
+                                    [a for _x, a in fsums.values()])
+        sub.update(zip(fsums, sums))
+
+    reduce = None
     results: List[Tuple[torch.Tensor, torch.Tensor]] = []
     for arr, vmask, op, cid, av in zip(values_s, valids_s, ops, col_ids,
                                        all_valid):
@@ -208,34 +301,40 @@ def sorted_segment_aggregate(gid_s: torch.Tensor, emit_s: torch.Tensor,
         vkey = "all" if av else cid
 
         def count(use=use, vkey=vkey):
+            first, end = bounds()
+            if vkey == "all":
+                return memo(("count", vkey), lambda: end - first)
             return memo(("count", vkey),
-                        lambda: reduce(use.to(torch.int64), "sum", 0))
+                        lambda: _bounded_sum(use, first, end))
 
         if op == AggregationOp.COUNT:
             results.append((count(), group_valid))
             continue
         if op == AggregationOp.MEAN:
-            s = memo(("msum", cid), lambda: reduce(
-                torch.where(use, arr, 0).to(torch.float64), "sum", 0))
+            s = sub[("fsum", cid, torch.float64)]
             c = count().to(torch.float64)
             results.append((s / torch.clamp(c, min=1),
                             group_valid & (c > 0)))
             continue
-        ident = _identity_for(op, arr.dtype)
-        x = torch.where(use, arr, torch.full((), ident, dtype=arr.dtype,
-                                             device=arr.device))
-        how = {AggregationOp.SUM: "sum", AggregationOp.MIN: "amin",
-               AggregationOp.MAX: "amax"}[op]
-        if how == "sum":
-            out = memo((how, cid), lambda: reduce(x, how, ident))
+        if op == AggregationOp.SUM:
+            if arr.dtype.is_floating_point:
+                out = sub[("fsum", cid, arr.dtype)]
+            else:
+                first, end = bounds()
+                out = memo(("isum", cid), lambda: _bounded_sum(
+                    used(arr, vmask, cid), first, end).to(arr.dtype))
         else:
+            if reduce is None:
+                reduce = _segment_reducer(gid_s, emit_s, num_segments)
+            ident = _identity_for(op, arr.dtype)
+            x = torch.where(use, arr, torch.full((), ident, dtype=arr.dtype,
+                                                 device=arr.device))
+            how = "amin" if op == AggregationOp.MIN else "amax"
             out = memo((how, cid), lambda: _minmax(reduce, x, how, ident,
                                                    use))
         if av:
             # all rows valid: a group's value is valid iff the group is
             results.append((out, group_valid))
         else:
-            anyv = memo(("anyv", cid), lambda: reduce(
-                use.to(torch.int32), "amax", 0))
-            results.append((out, group_valid & (anyv > 0)))
+            results.append((out, group_valid & (count() > 0)))
     return rep, group_valid, results

@@ -106,7 +106,8 @@ _SIGNATURES = {
                                   ctypes.c_uint, _P, _P, _P, _P],
     },
     "segment_sum": {
-        "launch_segment_sum": [_P, _P, _P, _I, _I, _L, _L, _P, _P, _P],
+        "launch_segment_sum": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _L,
+                               _L, _P, _P],
     },
 }
 # the 64-bit words of a single-pass kernel's tile state: (W, tiles) -> n,
@@ -115,7 +116,7 @@ _STATE_WORDS = {"join_stream": ("plan_state_words", [_I, _I]),
                 "setop_stream": ("setop_state_words", [_I, _I]),
                 "stream_compact": ("compact_state_words", [_I, _I]),
                 "partition": ("scatter_state_words", [_I, _I, _I]),
-                "segment_sum": ("sum_state_words", [_I, _L])}
+                "segment_sum": ("sum_state_words", [_I, _L, _I])}
 
 
 def nvcc_path() -> str:
@@ -224,6 +225,11 @@ def _ptr(x: Optional[torch.Tensor]):
 def _ptrs(xs: Sequence[torch.Tensor]):
     """A C array of the tensors' device pointers (a kernel's lane table)."""
     return (ctypes.c_void_p * max(len(xs), 1))(*[x.data_ptr() for x in xs])
+
+
+def _ints(vals: Sequence[int]):
+    """A C array of ints (a kernel's per-column codes)."""
+    return (ctypes.c_int * max(len(vals), 1))(*vals)
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -734,14 +740,35 @@ def setop_stream(h1_s: torch.Tensor, h2_s: torch.Tensor,
 # K7 segment_sum
 # ---------------------------------------------------------------------------
 
-_SUM_DTYPES = {torch.float16: 0, torch.float32: 1, torch.float64: 2}
+SUM_DTYPES = {torch.float16: 0, torch.float32: 1, torch.float64: 2}
+MAX_SUM_COLUMNS = 32   # columns a K7 launch (csrc/segment_sum.cu MAXC)
+
+
+def _sum_args(xs, accs):
+    """(single, columns, accumulator dtypes) of a K7 call: ``xs`` one
+    tensor or a list, ``accs`` None (each column's own dtype) or one
+    dtype a column, as wide as it or wider."""
+    single = isinstance(xs, torch.Tensor)
+    xs = [xs] if single else list(xs)
+    accs = [x.dtype for x in xs] if accs is None else list(accs)
+    if not xs or len(accs) != len(xs):
+        raise CylonError(Code.Invalid, f"segment_sum: {len(xs)} columns, "
+                                       f"{len(accs)} accumulator types")
+    for x, a in zip(xs, accs):
+        if x.dtype not in SUM_DTYPES or a not in SUM_DTYPES \
+                or a.itemsize < x.dtype.itemsize:
+            raise CylonError(Code.Invalid, f"segment_sum sums float16/32/64 "
+                                           f"into as wide a float, got "
+                                           f"{x.dtype} into {a}")
+    return single, xs, accs
 
 
 def _host_segment_sum(x: torch.Tensor, gid_s: torch.Tensor,
                       emit_s: torch.Tensor, num_segments: int
                       ) -> torch.Tensor:
-    """K7 on CPU tensors: ``index_add_`` on the host adds in index order,
-    so each group's live rows are summed in row order from +0.0."""
+    """One column of K7 on CPU tensors: ``index_add_`` on the host adds in
+    index order, so each group's live rows are summed in row order from
+    +0.0."""
     w, _n = x.shape
     off = torch.arange(w, dtype=torch.int64).unsqueeze(-1) * num_segments
     out = torch.zeros(w * num_segments, dtype=x.dtype)
@@ -749,50 +776,81 @@ def _host_segment_sum(x: torch.Tensor, gid_s: torch.Tensor,
     return out.view(w, num_segments)
 
 
-def plain_segment_sum(x: torch.Tensor, gid_s: torch.Tensor,
-                      emit_s: torch.Tensor, num_segments: int
-                      ) -> torch.Tensor:
+def plain_segment_sum(xs, gid_s: torch.Tensor, emit_s: torch.Tensor,
+                      num_segments: int, accs=None):
     """Plain version of K7, on any device: the host's row-order sum of a
-    copy of the inputs (no torch op on the card sums a group in row
-    order), returned on the inputs' device."""
-    return _host_segment_sum(x.cpu(), gid_s.cpu(), emit_s.cpu(),
-                             num_segments).to(x.device)
+    copy of the inputs, each column widened to its accumulator type first
+    (exact), returned on the inputs' device (no torch op on the card sums
+    a group in row order). The same forms as ``segment_sum``."""
+    single, xs, accs = _sum_args(xs, accs)
+    gid, emit = gid_s.cpu(), emit_s.cpu()
+    out = [_host_segment_sum(x.cpu().to(a), gid, emit, int(num_segments)
+                             ).to(x.device) for x, a in zip(xs, accs)]
+    return out[0] if single else out
 
 
-def segment_sum(x: torch.Tensor, gid_s: torch.Tensor, emit_s: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
-    """K7: per shard, the sum of each group's live rows, in row order.
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x, or a copy of it on a 16-byte boundary (K7 copies rows in
+    16-byte pieces)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
-    ``x`` is a contiguous float16/32/64 [W, n] tensor sorted into groups
-    with its live rows (``emit_s``, bool [W, n]) first; ``gid_s`` int64
-    [W, n] their dense group ids, which do not decrease along the live
-    rows and are below ``num_segments``. Returns x.dtype [W,
-    num_segments], +0.0 in the slots of groups that do not exist. The
-    order is the JAX package's sorted ``segment_sum``: the card's sums
-    equal the CPU's bit for bit, run after run. On the card: two memsets
-    and two launches (a thread per group, then a block per group of more
-    than 256 rows, which adds the rest from shared memory)."""
-    if x.dtype not in _SUM_DTYPES:
-        raise CylonError(Code.Invalid, f"segment_sum sums float16/32/64, "
-                                       f"got {x.dtype}")
-    _check(x, "segment_sum values", x.dtype)
-    _check(gid_s, "segment_sum group ids", torch.int64, x.shape)
-    _check(emit_s, "segment_sum emit", torch.bool, x.shape)
-    w, n = x.shape
+
+def segment_sum(xs, gid_s: torch.Tensor, emit_s: torch.Tensor,
+                num_segments: int, accs=None):
+    """K7: per shard and column, the sum of each group's live rows, in
+    row order.
+
+    ``xs`` is one contiguous float16/32/64 [W, n] tensor or a list of
+    them, sorted into groups with the live rows (``emit_s``, bool [W, n])
+    first; ``gid_s`` int64 [W, n] their dense group ids, which do not
+    decrease along the live rows and are below ``num_segments``.
+    ``accs``: each column's accumulator dtype (default its own; a wider
+    one reads the column in its own type, and widening is exact). Returns
+    one [W, num_segments] tensor a column (a tensor for a tensor), +0.0
+    in the slots of groups that do not exist. The order is the JAX
+    package's sorted ``segment_sum``: the card's sums equal the CPU's bit
+    for bit, run after run. On the card: one launch (a short and a long
+    kernel) for up to MAX_SUM_COLUMNS columns, the columns sharing each
+    row's group test and the chains of a long group running side by
+    side; a tensor given twice is read once."""
+    single, xs, accs = _sum_args(xs, accs)
+    _check(gid_s, "segment_sum group ids", torch.int64)
+    _check(emit_s, "segment_sum emit", torch.bool, gid_s.shape)
+    for x in xs:
+        _check(x, "segment_sum values", x.dtype, gid_s.shape)
+    w, n = gid_s.shape
     s = int(num_segments)
-    if not x.is_cuda:
-        return _host_segment_sum(x, gid_s, emit_s, s)
-    if gid_s.device != x.device or emit_s.device != x.device:
+    if not gid_s.is_cuda:
+        out = [_host_segment_sum(x.to(a), gid_s, emit_s, s)
+               for x, a in zip(xs, accs)]
+        return out[0] if single else out
+    dev = gid_s.device
+    if emit_s.device != dev or any(x.device != dev for x in xs):
         raise CylonError(Code.Invalid, "segment_sum: inputs must be on one "
                                        "device")
-    out = torch.empty(w, s, dtype=x.dtype, device=x.device)
-    state = torch.empty(load_library("segment_sum").sum_state_words(w, n),
-                        dtype=torch.int64, device=x.device)
-    _launch("segment_sum", "launch_segment_sum", _ptr(x), _ptr(gid_s),
-            _ptr(emit_s), _SUM_DTYPES[x.dtype], w, n, s, _ptr(out),
-            _ptr(state), _stream(x))
-    LAUNCHES["segment_sum"] += 1
-    return out
+    out = [torch.empty(w, s, dtype=a, device=dev) for a in accs]
+    gid_a, emit_a = _aligned(gid_s), _aligned(emit_s)
+    lib = load_library("segment_sum")
+    for lo in range(0, len(xs), MAX_SUM_COLUMNS):
+        cols = range(lo, min(lo + MAX_SUM_COLUMNS, len(xs)))
+        srcs: List[torch.Tensor] = []
+        where: Dict[tuple, int] = {}
+        col_src = []
+        for c in cols:
+            key = (xs[c].data_ptr(), xs[c].dtype)
+            if key not in where:
+                where[key] = len(srcs)
+                srcs.append(_aligned(xs[c]))
+            col_src.append(where[key])
+        state = torch.empty(lib.sum_state_words(w, n, len(cols)),
+                            dtype=torch.int64, device=dev)
+        _launch("segment_sum", "launch_segment_sum", _ptrs(srcs),
+                _ints([SUM_DTYPES[x.dtype] for x in srcs]), len(srcs),
+                _ints(col_src), _ints([SUM_DTYPES[accs[c]] for c in cols]),
+                _ptrs([out[c] for c in cols]), len(cols), _ptr(gid_a),
+                _ptr(emit_a), w, n, s, _ptr(state), _stream(gid_s))
+        LAUNCHES["segment_sum"] += 1
+    return out[0] if single else out
 
 
 def kernel_table() -> List[dict]:

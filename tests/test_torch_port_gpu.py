@@ -1922,6 +1922,98 @@ def test_group_sums_bit_reproducible_on_card(cuda, world, what):
             assert np.array_equal(a[i], b[i]) and np.array_equal(a[i], c[i])
 
 
+# K7's list form: every float-sum column of a group-by in one launch
+
+# group lengths around the list form's boundaries: 16-row chunk
+# alignment, LONG (256 rows past a tile), a 1,024-row chunk and a
+# 2,048-row tile
+K7_EDGE_LENGTHS = np.array([1, 15, 16, 17, 255, 256, 257, 1023, 1024, 1025,
+                            2047, 2048, 2049, 2303, 2304, 2305, 4097])
+
+
+def _list_inputs(dev, rng, w, n, case):
+    """[W, n] sorted K7 inputs (as _segment_inputs) and five columns: a
+    float16, a float32 and a float64 source, the float32 one summed into
+    float32 and into float64, the float16 one into float16 and float64."""
+    if case == "tile_edges":
+        ends = np.cumsum(np.tile(K7_EDGE_LENGTHS, n // int(
+            K7_EDGE_LENGTHS.sum()) + 1))
+        live = np.full(w, n)
+        live[-1] = n - 3001
+        emit = np.arange(n)[None, :] < live[:, None]
+        starts = np.zeros((w, n), bool)
+        starts[:, ends[ends < n]] = True
+        starts[:, 0] = True
+        gid = np.cumsum(starts & emit, 1) - 1
+        gid = np.where(emit, gid, gid.max(1, keepdims=True))
+        x = rng.normal(size=(w, n)) * rng.choice(
+            np.array([1e-3, 1.0, 1e3]), (w, n))
+        x, gid, emit = (torch.from_numpy(x).to(dev),
+                        torch.from_numpy(gid.astype(np.int64)).to(dev),
+                        torch.from_numpy(emit).to(dev))
+    else:
+        x, gid, emit = _segment_inputs(dev, rng, w, n, torch.float64, case)
+    h, f = (x / 64).to(torch.float16), x.to(torch.float32)
+    cols = [h, f, f, x, h]
+    accs = [torch.float16, torch.float32, torch.float64, torch.float64,
+            torch.float64]
+    return cols, accs, gid, emit
+
+
+@pytest.mark.parametrize("case,w,n", [("one_group", 1, 1 << 22),
+                                      ("mixed", 4, 100_003),
+                                      ("tile_edges", 2, 60_000),
+                                      ("singletons", 3, 50_000),
+                                      ("empty_shard", 4, 7)])
+def test_segment_sum_columns_match_plain(cuda, case, w, n):
+    """One list launch over five columns of three value types and
+    accumulators as wide or wider: each column equals its plain version
+    bit for bit, and a second launch; one launch is counted."""
+    rng = np.random.default_rng(hash((case, w, n, "cols")) % 2**32)
+    cols, accs, gid, emit = _list_inputs(cuda, rng, w, n, case)
+    s = max(n, 1) if case != "one_group" else 1
+    K.reset_launches()
+    got = K.segment_sum(cols, gid, emit, s, accs)
+    again = K.segment_sum(cols, gid, emit, s, accs)
+    assert K.LAUNCHES["segment_sum"] == 2
+    ref = K.plain_segment_sum(cols, gid, emit, s, accs)
+    for c, acc in enumerate(accs):
+        bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            acc.itemsize]
+        assert got[c].dtype == acc and got[c].shape == (w, s)
+        assert torch.equal(got[c].view(bits), ref[c].view(bits)), c
+        assert torch.equal(got[c].view(bits), again[c].view(bits)), c
+
+
+@pytest.mark.parametrize("groups", [1, 4, 64])
+def test_groupby_one_k7_launch_and_boundary_aggregates(cuda, groups):
+    """A SUM + MEAN (+ COUNT and an integer SUM) groupby at world 1
+    launches K7 once; every output column is bit-equal run to run and to
+    the CPU port's (same call sites, the kernels' plain versions)."""
+    rng = np.random.default_rng(groups)
+    n = 1 << 20
+    arrays = {"g": rng.integers(0, groups, n).astype(np.int32),
+              "x": (rng.normal(size=n) * 1e3).astype(np.float32),
+              "y": rng.integers(2**31 - 100, 2**31 - 1, n).astype(np.int32)}
+    valid = {"y": rng.random(n) < 0.7}
+    gctx, cctx = _ctx_pair(cuda, 0)
+
+    def run(ctx):
+        return _table(ctx, arrays, valid).groupby(
+            0, [1, 1, 2, 2, 2], ["sum", "mean", "count", "sum", "min"])
+
+    K.reset_launches()
+    first = run(gctx)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["segment_sum"] == 1, dict(K.LAUNCHES)
+    second, cpu = _bits_rows(run(gctx)), _bits_rows(run(cctx))
+    first = _bits_rows(first)
+    assert len(first[0][0]) == groups
+    for a, b, c in zip(first, second, cpu):
+        for i in range(2):
+            assert np.array_equal(a[i], b[i]) and np.array_equal(a[i], c[i])
+
+
 TOOL_ARGS = {"scaling_sweep": ["14"], "compare_competitors": ["14"],
              "profile_shuffle": ["16"],
              "profile_dist_join": ["16", "--bcast-rows-log2", "16"],
