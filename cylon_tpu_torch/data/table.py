@@ -33,11 +33,13 @@ from ..context import CylonContext
 from ..ops import aggregates as _aggregates
 from ..ops import groupby as _groupby
 from ..ops import join as _join
+from ..ops import kernels as _kernels
 from ..ops import order as _order
 from ..ops import setops as _setops
 from ..status import Code, CylonError
 from ..telemetry import ledger as _ledger
 from ..telemetry import phase as _phase
+from ..telemetry import record_host_sync as _host_sync
 from ..util import capacity as _capacity
 from ..util import pow2 as _pow2
 from .column import (Column, align_string_columns, as_varbytes,
@@ -397,9 +399,7 @@ class Table:
         the blocked join (``join_blocked``)."""
         blk = kwargs.pop("probe_block_rows", None)
         cfg = self._make_join_config(table, join_type, algorithm, kwargs)
-        if blk:
-            return join_blocked(self, table, cfg, int(blk))
-        return join(self, table, cfg)
+        return join(self, table, cfg, probe_block_rows=blk)
 
     def distributed_join(self, table: "Table", join_type: str = "inner",
                          algorithm: str = "auto", **kwargs) -> "Table":
@@ -861,24 +861,34 @@ def _rows(xs) -> tuple:
 # ---------------------------------------------------------------------------
 
 
-def join(left: Table, right: Table, config: _join.JoinConfig) -> Table:
+def join(left: Table, right: Table, config: _join.JoinConfig,
+         probe_block_rows: Optional[int] = None) -> Table:
     """Local join: two phases (plan, then materialize) with only the
-    output counts crossing to the host; the result keeps a static
-    capacity with padding rows masked by ``row_mask``. When the estimated
-    plan memory exceeds half of the memory pool's free bytes and the
-    probe side has more than 2^20 rows, the probe side runs in blocks
-    (``join_blocked``; ``Table.join(probe_block_rows=)`` forces it)."""
-    left._require_whole("a local join")
-    right._require_whole("a local join")
-    est = _join_plan_bytes_estimate(left, right)
-    avail = left._ctx.memory_pool.available_bytes()
-    probe_cap = right.capacity if config.type == _join.JoinType.RIGHT \
-        else left.capacity
-    if avail and est > avail // 2 and probe_cap > (1 << 20):
-        blk = max((1 << 20),
-                  probe_cap // max(2 * est // max(avail, 1), 2))
-        return join_blocked(left, right, config, int(blk))
-    return _join_once(left, right, config)
+    output counts crossing to the host (the op's one host sync,
+    ``join.plan``); the result keeps a static capacity with padding rows
+    masked by ``row_mask``. When the estimated plan memory exceeds half
+    of the memory pool's free bytes and the probe side has more than 2^20
+    rows, the probe side runs in blocks of ``probe_block_rows``
+    (``join_blocked``; ``Table.join(probe_block_rows=)`` forces it).
+
+    One ``join`` span a call, whatever the route, holds the stages'
+    spans: ``join.prepare``, ``join.plan`` (on the stream route the
+    parent of ``join.plan.hash``, ``join.plan.sort`` and
+    ``join.plan.stream``), ``join.materialize`` and ``join.rebuild``."""
+    with _phase("join"):
+        left._require_whole("a local join")
+        right._require_whole("a local join")
+        if probe_block_rows:
+            return join_blocked(left, right, config, int(probe_block_rows))
+        est = _join_plan_bytes_estimate(left, right)
+        avail = left._ctx.memory_pool.available_bytes()
+        probe_cap = right.capacity if config.type == _join.JoinType.RIGHT \
+            else left.capacity
+        if avail and est > avail // 2 and probe_cap > (1 << 20):
+            blk = max((1 << 20),
+                      probe_cap // max(2 * est // max(avail, 1), 2))
+            return join_blocked(left, right, config, int(blk))
+        return _join_once(left, right, config)
 
 
 def _join_plan_bytes_estimate(left: Table, right: Table) -> int:
@@ -971,18 +981,21 @@ def _alias_right_keys(left: Table, right: Table, config) -> dict:
 
 def _join_once(left: Table, right: Table, config: _join.JoinConfig
                ) -> Table:
-    lcols, rcols = align_key_columns(left, right, config.left_column_idx,
-                                     config.right_column_idx)
-    lkeys, lkvalid, raw = _expanded_keys(lcols, rcols)
-    rkeys, rkvalid, _ = _expanded_keys(rcols, lcols)
-    lbits, lkv = _join.key_bits(_rows(lkeys), _rows(lkvalid), raw)
-    rbits, rkv = _join.key_bits(_rows(rkeys), _rows(rkvalid), raw)
-    lemit, remit = _row(left.row_mask), _row(right.row_mask)
-    alias = _alias_right_keys(left, right, config)
-    ldat, lval, lslots = lane_payload(left._columns)
-    rdat, rval, rslots = lane_payload(right._columns, skip=alias)
-    ldat, lval, rdat, rval = (_rows(x) for x in (ldat, lval, rdat, rval))
     seq = left._ctx.get_next_sequence()
+    with _phase("join.prepare", seq):
+        lcols, rcols = align_key_columns(left, right,
+                                         config.left_column_idx,
+                                         config.right_column_idx)
+        lkeys, lkvalid, raw = _expanded_keys(lcols, rcols)
+        rkeys, rkvalid, _ = _expanded_keys(rcols, lcols)
+        lbits, lkv = _join.key_bits(_rows(lkeys), _rows(lkvalid), raw)
+        rbits, rkv = _join.key_bits(_rows(rkeys), _rows(rkvalid), raw)
+        lemit, remit = _row(left.row_mask), _row(right.row_mask)
+        alias = _alias_right_keys(left, right, config)
+        ldat, lval, lslots = lane_payload(left._columns)
+        rdat, rval, rslots = lane_payload(right._columns, skip=alias)
+        ldat, lval, rdat, rval = (_rows(x)
+                                  for x in (ldat, lval, rdat, rval))
 
     # route: the sort-stream path for one 4-byte key, the hash-stream
     # path (JoinAlgorithm.HASH) for multi-column/wide keys, FULL_OUTER as
@@ -1014,12 +1027,23 @@ def _join_once(left: Table, right: Table, config: _join.JoinConfig
 
     res = None
     if use_stream or use_hash:
-        a_desc, b_desc = _join.plan_lane_descs(ldat, lval, rdat, rval, jt)
         with _phase("join.plan", seq):
-            counts, a_streams, b_streams = _join.plan_program_stream(
-                lbits, lkv, lemit, rbits, rkv, remit, ldat, lval, rdat,
-                rval, jt, a_desc=a_desc, b_desc=b_desc, hash_mode=use_hash)
-            host = counts[0].tolist()
+            with _phase("join.plan.hash", seq):
+                a_desc, b_desc = _join.plan_lane_descs(ldat, lval, rdat,
+                                                       rval, jt)
+                keys = _join.stream_sort_keys(
+                    lbits, lkv, lemit, rbits, rkv, remit, ldat, lval, rdat,
+                    rval, jt, a_desc=a_desc, b_desc=b_desc,
+                    hash_mode=use_hash)
+            with _phase("join.plan.sort", seq):
+                kw = _join.stream_sort(keys)
+                del keys
+            with _phase("join.plan.stream", seq):
+                counts, a_streams, b_streams = _kernels.join_plan_stream(
+                    **kw)
+                del kw
+                host = counts[0].tolist()
+                _host_sync("join.plan")
         if not (use_hash and host[3] > 0):
             if host[0] < 0:
                 raise CylonError(Code.ExecutionError,
@@ -1038,6 +1062,7 @@ def _join_once(left: Table, right: Table, config: _join.JoinConfig
                 lbits, lkv, _join._vm(lemit, lkv), rbits, rkv,
                 _join._vm(remit, rkv), jt)
             n_primary, n_un = counts2[0].tolist()
+            _host_sync("join.plan")
         cap_p = _capacity(n_primary)
         cap_u = _capacity(n_un) if jt == _join.JoinType.FULL_OUTER else 0
         aemit = remit if jt == _join.JoinType.RIGHT else lemit
@@ -1045,16 +1070,17 @@ def _join_once(left: Table, right: Table, config: _join.JoinConfig
             res = _join.materialize_program(
                 lo, m, bperm, un_mask, aemit, ldat, lval, rdat, rval, jt,
                 cap_p, cap_u)
-    # drop the one-shard batch dimension
-    lod, lov, rod, rov = ([x[0] for x in part] for part in res[:4])
-    emit, lidx, ridx = res[4][0], res[5][0], res[6][0]
     nl = left.column_count
-    cols = rebuild_join_columns(left._columns, lod, lov, lslots, lidx,
-                                [f"lt-{i}" for i in range(nl)])
-    cols += rebuild_join_columns(
-        right._columns, rod, rov, rslots, ridx,
-        [f"rt-{nl + j}" for j in range(right.column_count)],
-        alias=alias, aliased_to=cols)
+    with _phase("join.rebuild", seq):
+        # drop the one-shard batch dimension
+        lod, lov, rod, rov = ([x[0] for x in part] for part in res[:4])
+        emit, lidx, ridx = res[4][0], res[5][0], res[6][0]
+        cols = rebuild_join_columns(left._columns, lod, lov, lslots, lidx,
+                                    [f"lt-{i}" for i in range(nl)])
+        cols += rebuild_join_columns(
+            right._columns, rod, rov, rslots, ridx,
+            [f"rt-{nl + j}" for j in range(right.column_count)],
+            alias=alias, aliased_to=cols)
     if config.exact:
         emit, collided = _exact_verify_keys(config, lcols, rcols, lidx, ridx,
                                             emit)
@@ -1262,37 +1288,56 @@ def groupby_local(table: Table, index_col, aggregate_cols: List,
                   aggregate_ops: List) -> Table:
     """Sort the rows into groups (one lexsort by dead flag and key bits,
     a key's validity a key of its own), fetch the group count (the op's
-    one host sync), then one segment reduction per distinct (column, op).
-    The output holds ``pow2(groups)`` rows in key order, its padding dead
-    in ``row_mask``."""
-    table._require_whole("a local groupby")
-    idx_cols = index_col if isinstance(index_col, (list, tuple)) \
-        else [index_col]
-    idx_cols = [table._col_index(c) for c in idx_cols]
-    val_cols = [table._col_index(c) for c in aggregate_cols]
-    ops = list(aggregate_ops)
-    _check_string_values([table._columns[i] for i in val_cols], ops)
-    keys = _group_key_arrays([table._columns[i] for i in idx_cols])
-    values = [table._columns[i].data for i in val_cols]
-    valids = [table._columns[i].validity for i in val_cols]
-    values_s, valids_s, emit_s, iota_s, gid_s, ng = \
-        _groupby.presort_groups(keys, table.emit_mask(), values, valids)
-    num_groups = max(int(ng[0]), 1)
-    cap = _pow2(num_groups)
-    rep, group_valid, results = _groupby.sorted_segment_aggregate(
-        gid_s, emit_s, iota_s, values_s, valids_s, cap, ops, val_cols,
-        [table._columns[i].validity is None for i in val_cols])
-    rep, group_valid = rep[0], group_valid[0]
-    safe = torch.clamp(rep, max=max(table.capacity - 1, 0))
-    out_cols = []
-    for i in idx_cols:
-        g = table._columns[i].take(safe)
-        out_cols.append(g if table._columns[i].validity is None
-                        else g.with_validity(g.validity & group_valid))
-    for (arr, avalid), vi, op in zip(results, val_cols, ops):
-        out_cols.append(_agg_column(arr[0], avalid[0] & group_valid,
-                                    table._columns[vi], op))
-    return Table(out_cols, table._ctx, group_valid)
+    one host sync, ``groupby.count``), then one segment reduction per
+    distinct (column, op). The output holds ``pow2(groups)`` rows in key
+    order, its padding dead in ``row_mask``.
+
+    One ``groupby`` span a call holds the stages' spans:
+    ``groupby.keys``, ``groupby.sort``, ``groupby.gather``,
+    ``groupby.aggregate`` (the fetch first) and ``groupby.rebuild``."""
+    with _phase("groupby"):
+        table._require_whole("a local groupby")
+        idx_cols = index_col if isinstance(index_col, (list, tuple)) \
+            else [index_col]
+        idx_cols = [table._col_index(c) for c in idx_cols]
+        val_cols = [table._col_index(c) for c in aggregate_cols]
+        ops = list(aggregate_ops)
+        _check_string_values([table._columns[i] for i in val_cols], ops)
+        values = [table._columns[i].data for i in val_cols]
+        valids = [table._columns[i].validity for i in val_cols]
+        with _phase("groupby.keys"):
+            keys = _group_key_arrays([table._columns[i] for i in idx_cols])
+            skeys, emit = _groupby.group_sort_keys(keys, table.emit_mask())
+        with _phase("groupby.sort"):
+            perm = _order.lexsort_indices(skeys)
+        with _phase("groupby.gather"):
+            values_s, valids_s, emit_s, iota_s, gid_s, ng = \
+                _groupby.sorted_groups(perm, skeys[1:], emit, values,
+                                       valids)
+            del skeys, emit
+        # the fetch opens the aggregate: entered while the device still
+        # gathers, the span's bookkeeping keeps out of the idle window
+        # that follows the sync
+        with _phase("groupby.aggregate"):
+            num_groups = max(int(ng[0]), 1)
+            _host_sync("groupby.count")
+            rep, group_valid, results = _groupby.sorted_segment_aggregate(
+                gid_s, emit_s, iota_s, values_s, valids_s,
+                _pow2(num_groups), ops, val_cols,
+                [table._columns[i].validity is None for i in val_cols])
+        with _phase("groupby.rebuild"):
+            rep, group_valid = rep[0], group_valid[0]
+            safe = torch.clamp(rep, max=max(table.capacity - 1, 0))
+            out_cols = []
+            for i in idx_cols:
+                g = table._columns[i].take(safe)
+                out_cols.append(g if table._columns[i].validity is None
+                                else g.with_validity(g.validity
+                                                     & group_valid))
+            for (arr, avalid), vi, op in zip(results, val_cols, ops):
+                out_cols.append(_agg_column(arr[0], avalid[0] & group_valid,
+                                            table._columns[vi], op))
+        return Table(out_cols, table._ctx, group_valid)
 
 
 # ---------------------------------------------------------------------------

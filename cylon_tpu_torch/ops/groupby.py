@@ -121,11 +121,25 @@ def presort_groups(keys: Sequence[torch.Tensor], emit: torch.Tensor,
     id of the last live group or -1), iota_s the original row of each
     sorted row, n_groups int64 [W] on the device (the caller's only host
     sync)."""
-    emit = _batched(emit)
-    keys = [_batched(k) for k in keys]
-    dead = (~emit).to(torch.uint8)
-    perm = lexsort_indices([dead] + keys)
+    skeys, emit = group_sort_keys(keys, emit)
+    return sorted_groups(lexsort_indices(skeys), skeys[1:], emit, values,
+                         valids)
 
+
+def group_sort_keys(keys: Sequence[torch.Tensor], emit: torch.Tensor):
+    """The lexsort keys of ``presort_groups``, each ``[W, n]``: the dead
+    flag, then ``keys``; and ``emit`` as ``[W, n]``."""
+    emit = _batched(emit)
+    return [(~emit).to(torch.uint8)] + [_batched(k) for k in keys], emit
+
+
+def sorted_groups(perm: torch.Tensor, keys: Sequence[torch.Tensor],
+                  emit: torch.Tensor, values: Sequence[torch.Tensor],
+                  valids: Sequence[Optional[torch.Tensor]]):
+    """The rest of ``presort_groups`` once the lexsort's ``perm`` is
+    known: the gathers of every operand, the group boundaries and ids,
+    and the group count (``[W, n]`` keys and emit as ``group_sort_keys``
+    gives them). Returns what ``presort_groups`` returns."""
     def take(x):
         return movable(x).gather(-1, perm).view(x.dtype)
 

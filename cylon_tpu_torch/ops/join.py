@@ -140,11 +140,15 @@ def _side_flags(na: int, nb: int, like: torch.Tensor) -> torch.Tensor:
                                   device=like.device)], 1)
 
 
+def _bits_tag_key(bits: torch.Tensor, tag: torch.Tensor) -> torch.Tensor:
+    """The packed int64 key that sorts [W, n] rows by (unsigned 32-bit
+    bits, tag) in ONE sort (tags are unique, so no tie remains)."""
+    return ((unsigned(bits) << 32) | tag) ^ _SIGN64
+
+
 def _sort_by_bits_tag(bits: torch.Tensor, tag: torch.Tensor) -> torch.Tensor:
-    """Permutation sorting [W, n] rows by (unsigned 32-bit bits, tag): ONE
-    sort of the packed int64 key (tags are unique, so no tie remains)."""
-    key = ((unsigned(bits) << 32) | tag) ^ _SIGN64
-    return torch.sort(key, dim=1).indices
+    """Permutation sorting [W, n] rows by (unsigned 32-bit bits, tag)."""
+    return torch.sort(_bits_tag_key(bits, tag), dim=1).indices
 
 
 # ---------------------------------------------------------------------------
@@ -522,6 +526,20 @@ def stream_plan_inputs(lbits, lkv, lemit, rbits, rkv, remit,
                        a_desc=(), b_desc=(), hash_mode: bool = False
                        ) -> dict:
     """The sort of the stream route: K3's keyword arguments."""
+    return stream_sort(stream_sort_keys(
+        lbits, lkv, lemit, rbits, rkv, remit, ldat, lval, rdat, rval,
+        join_type, a_desc, b_desc, hash_mode))
+
+
+def stream_sort_keys(lbits, lkv, lemit, rbits, rkv, remit,
+                     ldat, lval, rdat, rval, join_type: JoinType,
+                     a_desc=(), b_desc=(), hash_mode: bool = False
+                     ) -> dict:
+    """The first half of ``stream_plan_inputs``, everything before its
+    sorts: the row tags, the payload lanes, and the packed sort keys (in
+    hash mode the key bits' u32 lanes and their two hash streams).
+    ``stream_sort`` takes the dict and pops the sort keys, so they are
+    freed once sorted."""
     lemit = _vm(lemit, lkv)
     remit = _vm(remit, rkv)
     if join_type == JoinType.RIGHT:
@@ -546,8 +564,10 @@ def stream_plan_inputs(lbits, lkv, lemit, rbits, rkv, remit,
         al = a_lanes[s] if s < len(a_lanes) else z.expand(w, na)
         bl = b_lanes[s] if s < len(b_lanes) else z.expand(w, nb)
         lanes.append(torch.cat([al, bl], 1))
+    out = dict(tag=tag, lanes=lanes, na=na, nb=nb,
+               emit_unmatched_a=join_type != JoinType.INNER,
+               n_a_lanes=len(a_lanes), n_b_lanes=len(b_lanes))
 
-    unmatched = join_type != JoinType.INNER
     if hash_mode:
         # every key column flattens to u32 lanes (8-byte bits split
         # hi/lo), hashed into two independent 32-bit streams
@@ -561,27 +581,38 @@ def stream_plan_inputs(lbits, lkv, lemit, rbits, rkv, remit,
                 kb.append(unsigned(cat))
         h1, h2 = hash2_streams(kb, live)
         # (h1, h2, tag) order: a stable sort by h1 after one by (h2, tag)
-        perm = torch.sort(((h2 << 32) | tag) ^ _SIGN64, dim=1).indices
-        perm = perm.gather(1, torch.sort(h1.gather(1, perm), dim=1,
-                                         stable=True).indices)
-        return dict(
-            bits_s=as_i32(h1.gather(1, perm)),
-            tag_s=as_i32(tag.gather(1, perm)), na=na, nb=nb,
-            emit_unmatched_a=unmatched,
-            lanes=[x.gather(1, perm) for x in lanes],
-            n_a_lanes=len(a_lanes), n_b_lanes=len(b_lanes),
-            bits2_s=as_i32(h2.gather(1, perm)),
-            verify_lanes=[as_i32(x.gather(1, perm)) for x in kb])
+        out.update(key=((h2 << 32) | tag) ^ _SIGN64, h1=h1, h2=h2, kb=kb)
+        return out
 
     bits = torch.cat([abits[0], bbits[0]], 1)
     bits = torch.where(live, bits, torch.full((), -1, dtype=bits.dtype,
                                               device=bits.device))
-    perm = _sort_by_bits_tag(bits, tag)
-    return dict(bits_s=bits.gather(1, perm),
-                tag_s=as_i32(tag.gather(1, perm)), na=na, nb=nb,
-                emit_unmatched_a=unmatched,
-                lanes=[x.gather(1, perm) for x in lanes],
-                n_a_lanes=len(a_lanes), n_b_lanes=len(b_lanes))
+    out.update(key=_bits_tag_key(bits, tag), bits=bits)
+    return out
+
+
+def stream_sort(keys: dict) -> dict:
+    """The second half of ``stream_plan_inputs``: the sorts of
+    ``stream_sort_keys``'s packed keys (popped from ``keys``) and the
+    gathers of the key bits, tags and lanes by their permutation. Returns
+    K3's keyword arguments."""
+    tag, lanes = keys["tag"], keys["lanes"]
+    out = {k: keys[k] for k in ("na", "nb", "emit_unmatched_a",
+                                "n_a_lanes", "n_b_lanes")}
+    perm = torch.sort(keys.pop("key"), dim=1).indices
+    if "h1" in keys:
+        h1, h2 = keys["h1"], keys["h2"]
+        perm = perm.gather(1, torch.sort(h1.gather(1, perm), dim=1,
+                                         stable=True).indices)
+        out.update(bits_s=as_i32(h1.gather(1, perm)),
+                   bits2_s=as_i32(h2.gather(1, perm)),
+                   verify_lanes=[as_i32(x.gather(1, perm))
+                                 for x in keys["kb"]])
+    else:
+        out["bits_s"] = keys["bits"].gather(1, perm)
+    out.update(tag_s=as_i32(tag.gather(1, perm)),
+               lanes=[x.gather(1, perm) for x in lanes])
+    return out
 
 
 def materialize_program_stream(counts, a_streams, b_streams,

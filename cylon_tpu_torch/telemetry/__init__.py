@@ -5,7 +5,14 @@ knobs).
 * ``spans``   — hierarchical, contextvar-nested spans with typed
   attributes; ``phase``/``collect_phases`` are thin wrappers over it.
   The profiler carrier is ``torch.profiler.record_function`` plus an
-  NVTX range on CUDA.
+  NVTX range on CUDA. While a torch profiler runs on CUDA (no knob), a
+  span also times itself on the device with a pair of pooled CUDA
+  events, enter to exit on the current stream (its children and the
+  device's idle time inside it included), folded without blocking into
+  ``cylon_span_device_ms_total{span=}`` and ``cylon_span_timed_total
+  {span=}``; ``span_device_times()`` synchronizes once and returns
+  ``{name: (ms, count)}``. With no profiler, and on the CPU, no event is
+  recorded and neither counter moves.
 * ``metrics`` — process-local counters (shuffle bytes, rows exchanged,
   collective launches, kernel-library builds), per-phase latency
   histograms, and device-memory gauges sampled from
@@ -30,7 +37,7 @@ from __future__ import annotations
 from .spans import (Span, annotate, collect_phases, current_span,
                     log_to_stderr, logger, phase, root_attrs, span,
                     add_sink, remove_sink, add_root_hook,
-                    remove_root_hook)
+                    remove_root_hook, span_device_times)
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
                       REGISTRY, counted_cache, counter, gauge, histogram,
                       metrics_snapshot, record_host_sync, reset_metrics,
@@ -46,7 +53,7 @@ __all__ = [
     # spans
     "Span", "annotate", "collect_phases", "current_span", "log_to_stderr",
     "logger", "phase", "root_attrs", "span", "add_sink", "remove_sink",
-    "add_root_hook", "remove_root_hook",
+    "add_root_hook", "remove_root_hook", "span_device_times",
     # metrics
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "REGISTRY",
     "counted_cache", "counter", "gauge", "histogram", "metrics_snapshot",

@@ -6,8 +6,10 @@ Two wire formats, both deliberately boring:
 * **JSONL trace** — one JSON object per COMPLETED span, written as
   spans close (innermost first, so a child's line precedes its
   parent's). ``parent_id`` links the tree; ``span_id`` 0 is "no
-  parent". Every line is independently parseable — a crashed process
-  leaves a valid prefix, and ``jq``/pandas ingest it directly.
+  parent"; ``start_ns``/``end_ns`` are on torch.profiler's host clock,
+  so a trace overlays a device trace. Every line is independently
+  parseable — a crashed process leaves a valid prefix, and
+  ``jq``/pandas ingest it directly.
 * **Prometheus text exposition** — the v0.0.4 text format rendered
   from a MetricsRegistry: counters/gauges as single samples,
   histograms as cumulative ``_bucket{le=...}`` + ``_sum`` + ``_count``.
@@ -34,8 +36,11 @@ SPAN_LOG_KEEP = 3
 
 
 def span_to_json(span) -> str:
-    """One flat JSONL record for a completed span."""
-    return json.dumps(span.to_dict(), default=str, sort_keys=True)
+    """One flat JSONL record for a completed span, with its host stamps
+    ``start_ns``/``end_ns`` on torch.profiler's clock (spans.py)."""
+    d = span.to_dict()
+    d["start_ns"], d["end_ns"] = span.start_ns, span.end_ns
+    return json.dumps(d, default=str, sort_keys=True)
 
 
 def _span_log_max_bytes() -> int:

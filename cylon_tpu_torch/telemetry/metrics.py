@@ -19,6 +19,10 @@ Well-known series (full catalog: docs/telemetry.md):
   ops/kernels.py builds or loads one CUDA library)
 * ``cylon_phase_latency_ms{phase=...}`` per-span latency histogram
   (fed by spans.span on every close)
+* ``cylon_span_device_ms_total{span=...}`` / ``cylon_span_timed_total
+  {span=...}`` each span's device milliseconds and the spans timed,
+  recorded only while a torch profiler runs on CUDA (spans.py;
+  ``spans.span_device_times`` reads them)
 * ``cylon_hbm_*_bytes`` / ``cylon_comm_budget_bytes`` gauges sampled
   from a ``memory.MemoryPool`` via ``sample_memory`` (duck-typed —
   telemetry stays a base-layer leaf and never imports memory.py)

@@ -17,6 +17,27 @@ rides three carriers:
   present (Nsight).
   ``seq`` carries the context's op sequence number (the reference's MPI
   edge/tag id, ctx/cylon_context.cpp:94-99).
+* the span's DEVICE time, while a torch profiler runs on a CUDA machine
+  (the test that decides the ``record_function``,
+  ``torch.autograd._profiler_enabled()``; no knob): a timing CUDA event
+  from a reused pool is recorded on the current stream first thing as
+  the span enters and another last thing as it exits. The time from the
+  enter event to the exit event includes the span's children, its own
+  bookkeeping and any time the device idles inside the span. Finished
+  pairs are folded, without blocking, into
+  ``cylon_span_device_ms_total{span=<name>}`` and
+  ``cylon_span_timed_total{span=<name>}``; ``span_device_times()``
+  synchronizes once, folds the rest and returns ``{name: (ms, count)}``.
+  With no profiler running, and on the CPU, a span records no event and
+  touches neither counter.
+* ``start_ns``/``end_ns`` on every span: ``time.time_ns()``, the clock
+  torch.profiler stamps its host events with (``c10::getTime()``, the
+  system clock since the Unix epoch, to which it converts its
+  ``_get_approximate_time`` readings). The JSONL export carries them, so
+  a span lines up with its ``record_function`` range in a device trace:
+  that range starts at the profile's
+  ``profiler.kineto_results.trace_start_ns()`` plus the event's
+  ``time_range.start`` in microseconds.
 * a contextvar-scoped `Span` TREE — spans opened inside another span
   become its children, carry typed attributes (``rows_in``/``rows_out``,
   ``bytes_moved``, ``world``, ``mode``, error flag), and feed the
@@ -34,13 +55,15 @@ logging.INFO)`` plus a handler, or ``telemetry.log_to_stderr()``.
 """
 from __future__ import annotations
 
+import collections
 import itertools
 import logging
+import threading
 import time
-from contextlib import contextmanager, nullcontext
+from contextlib import contextmanager
 from contextvars import ContextVar
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -93,22 +116,104 @@ def _nvtx_on() -> bool:
     return _nvtx
 
 
+class _DeviceTimer:
+    """Device time of spans from pairs of timing CUDA events.
+
+    ``start()`` records an event on the current stream and returns it
+    with its device; ``stop(name, start)`` records the closing one and
+    queues the pair.
+    Events come from a pool kept per device and go back to it once their
+    pair is folded: no ``cudaEventCreate`` a span once the pool holds
+    what is in flight. ``fold()`` adds each finished pair's time, oldest
+    first, to ``cylon_span_device_ms_total{span=}`` and
+    ``cylon_span_timed_total{span=}``, and stops at the first pair still
+    running (``cudaEventQuery``, which never blocks); ``fold(wait=True)``
+    synchronizes the device once and folds every pair."""
+
+    def __init__(self):
+        self._free: Dict[int, list] = {}
+        self._pending: collections.deque = collections.deque()
+        self._lock = threading.Lock()
+
+    def _event(self):
+        dev = torch.cuda.current_device()
+        with self._lock:
+            free = self._free.get(dev)
+            if free:
+                return dev, free.pop()
+        return dev, torch.cuda.Event(enable_timing=True)
+
+    def start(self):
+        dev, ev = self._event()
+        ev.record()
+        return dev, ev
+
+    def stop(self, name: str, start) -> None:
+        dev, ev = self._event()
+        ev.record()
+        with self._lock:
+            self._pending.append((name, start, (dev, ev)))
+        self.fold()
+
+    def fold(self, wait: bool = False) -> None:
+        if wait:
+            with self._lock:
+                devs = {dev for _n, (dev, _a), _b in self._pending}
+            for dev in devs:
+                torch.cuda.synchronize(dev)
+        with self._lock:
+            while self._pending:
+                name, (dev, a), (_d, b) = self._pending[0]
+                if not b.query():
+                    break
+                self._pending.popleft()
+                ms = a.elapsed_time(b)
+                self._free.setdefault(dev, []).extend((a, b))
+                _metrics.REGISTRY.counter("cylon_span_device_ms_total",
+                                          {"span": name}).inc(ms)
+                _metrics.REGISTRY.counter("cylon_span_timed_total",
+                                          {"span": name}).inc()
+
+
+# the process's span timer: the one writer of the cylon_span_* counters
+_timer = _DeviceTimer()
+
+
+def span_device_times() -> Dict[str, Tuple[float, int]]:
+    """``{span name: (device ms, spans timed)}`` of every span timed so
+    far (see the module docstring: timed only while a torch profiler
+    runs on CUDA; a span's time includes its children's and the device's
+    idle time inside it). Synchronizes the device once when pairs are
+    still in flight, folds them, and reads the two counters; ``{}`` where
+    nothing was timed, as on the CPU."""
+    _timer.fold(wait=True)
+    ms = {}
+    counts = {}
+    for name, labels, m in _metrics.REGISTRY.series():
+        if name == "cylon_span_device_ms_total":
+            ms[dict(labels)["span"]] = float(m.value)
+        elif name == "cylon_span_timed_total" and m.value:
+            counts[dict(labels)["span"]] = int(m.value)
+    return {k: (ms.get(k, 0.0), n) for k, n in counts.items()}
+
+
 @contextmanager
-def _device_trace(label: str) -> Iterator[None]:
-    """The profiler carrier of one span: a ``record_function`` range
-    while a torch.profiler runs (entering one costs ~10 us of host time
-    even when none does, and only a running profiler records it) and, on
-    CUDA, an NVTX range of the same label."""
-    with torch.profiler.record_function(label) \
-            if torch.autograd._profiler_enabled() else nullcontext():
-        if not _nvtx_on():
-            yield
-            return
-        torch.cuda.nvtx.range_push(label)
-        try:
-            yield
-        finally:
+def _device_trace(s: "Span", rf) -> Iterator[None]:
+    """The carriers around one span's body: on CUDA an NVTX range of the
+    span's label, and the host's end stamp; as the body ends, the span's
+    ``record_function`` range ``rf`` (None when no profiler runs or the
+    span is sampled out) closes."""
+    nvtx = s.sampled and _nvtx_on()
+    if nvtx:
+        torch.cuda.nvtx.range_push(f"cylon:{s.label}")
+    try:
+        yield
+    finally:
+        if nvtx:
             torch.cuda.nvtx.range_pop()
+        s.end_ns = time.time_ns()
+        if rf is not None:
+            rf.__exit__(None, None, None)
 
 
 # innermost open span of the current (async/thread) context, or None
@@ -140,6 +245,9 @@ class Span:
     parent_id: int = 0
     root_id: int = 0               # the enclosing tree's root span_id
     elapsed_ms: Optional[float] = None
+    # host stamps on torch.profiler's clock (module docstring)
+    start_ns: Optional[int] = None
+    end_ns: Optional[int] = None
     error: bool = False
     # head-sampling decision (telemetry/sampling.py): decided at the
     # ROOT from the query_id hash, inherited by every child. False =
@@ -319,12 +427,28 @@ def span(name: str, seq: Optional[int] = None, **attrs) -> Iterator[Span]:
              parent_id=parent.span_id if parent is not None else 0,
              sampled=sampled)
     s.root_id = parent.root_id if parent is not None else s.span_id
+    # the span times itself on the device while a torch profiler runs on
+    # CUDA (the module docstring): its events go first on enter and last
+    # on exit, so its own bookkeeping falls inside it, not between siblings
+    profiling = s.sampled and torch.autograd._profiler_enabled()
+    timer_start = _timer.start() if profiling and _nvtx_on() else None
     label = s.label
     for c in _collectors:
         c.labels.append(label)
         c.spans.append(s)
     if parent is not None:
         parent.children.append(s)
+    # the profiler range (a ``record_function`` while a torch.profiler
+    # runs: entering one costs ~10 us of host time even when none does,
+    # and only a running profiler records it) opens before the span's own
+    # bookkeeping, so that a device gap while the host does it is named
+    # by the span; sampled-out trees skip it, as the profiler label
+    # volume is part of the per-span cost the head decision bounds
+    rf = torch.profiler.record_function(f"cylon:{label}") \
+        if profiling else None
+    if rf is not None:
+        rf.__enter__()
+    s.start_ns = time.time_ns()
     # per-span HBM accounting: snapshot the registered pool (duck-typed
     # — metrics.set_memory_pool) at enter and exit so every span carries
     # hbm_delta/hbm_peak attrs (the CUDA allocator's counters; zeros
@@ -338,11 +462,7 @@ def span(name: str, seq: Optional[int] = None, **attrs) -> Iterator[Span]:
     token = _current.set(s)
     s._t0 = time.perf_counter()
     try:
-        # sampled-out trees skip the device-trace annotation too — the
-        # profiler label volume is part of the per-span cost the head
-        # decision bounds
-        with _device_trace(f"cylon:{label}") \
-                if s.sampled else nullcontext():
+        with _device_trace(s, rf):
             yield s
     except BaseException:
         s.error = True
@@ -387,6 +507,8 @@ def span(name: str, seq: Optional[int] = None, **attrs) -> Iterator[Span]:
         if logger.isEnabledFor(logging.INFO):
             logger.info("%s %.3f ms%s", label, s.elapsed_ms,
                         " error=True" if s.error else "")
+        if timer_start is not None:
+            _timer.stop(name, timer_start)
 
 
 def phase(name: str, seq: Optional[int] = None):

@@ -103,6 +103,11 @@ def _script_spans(tel):
         d = json.loads(line)
         for k in MASK:
             d.pop(k)
+        if tel is ttel:
+            # the port's host stamps on torch.profiler's clock, which the
+            # JAX package's records do not carry
+            start, end = d.pop("start_ns"), d.pop("end_ns")
+            assert 0 < start <= end
         lines.append(d)
     return lines, root.label, [s.name for s in root.walk_postorder()]
 
