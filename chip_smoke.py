@@ -59,7 +59,7 @@ The paths, each at the size of the repo's own benchmark:
 Phases, in order (any failure exits non-zero; nothing is caught):
   1. the card, torch, nvcc, and the build of every kernel from csrc/,
      with the compile profiler (``telemetry.profiler``) enabled before
-     anything is built or loaded; each of the five libraries is then
+     anything is built or loaded; each of the six libraries is then
      loaded, and the profile printed: one record a library with its
      nvcc seconds (> 0 for a library this run built, 0.0 for one loaded
      from an existing ``_build/``, equal to what the build reported) and
@@ -121,7 +121,7 @@ Phases, in order (any failure exits non-zero; nothing is caught):
      verify lanes), the rows (ks, left payload, right payload) equal to a
      numpy join on ks, the median of 5 steady walls, 2R / wall rows/s and
      one profile; then K3 and K4 at phase 14's shapes against their plain
-     versions, bit for bit;
+     versions, bit for bit (K8, the keys' hash stage, must launch too);
  16. strings at small size against Python from the same integer ids:
      dictionary and varbytes storage, nulls, empty strings, non-ASCII
      text and BINARY values, keys of 1-3, 11 and 19-20 words; all four
@@ -236,9 +236,9 @@ Phases, in order (any failure exits non-zero; nothing is caught):
      collectives catalog on the CPU, the kernels' plain versions), its
      seconds; 25b, the collectives catalog on CUDA tensors at world 4
      under its dispatch mode, the launch counters 0 -> read: no finding,
-     each of K1-K7 launched; 25c (run right after phase 8, whose inputs
-     it reuses, and K7 after phase 11), each kernel wrapper once at phase
-     8's shapes (K7 at phase 11's) under
+     each of K1-K8 launched; 25c (run right after phase 8, whose inputs
+     it reuses, K7 after phase 11 and K8 after phase 14), each kernel
+     wrapper once at phase 8's shapes (K7 at phase 11's, K8 at 14's) under
      ``torch.cuda.set_sync_debug_mode("error")``: no wrapper syncs; 25d,
      phase 2's join (2 x N rows, world 4) once under ``collect_phases``:
      its labels (``#seq`` stripped) and its ``cylon_host_syncs_total``
@@ -271,7 +271,7 @@ Phases, in order (any failure exits non-zero; nothing is caught):
      26e, the nine examples of examples/torch_port on the card
      (torch_ddp_demo as two processes), each with the counters 0 -> read:
      the join example's inner count and the set ops' counts against
-     numpy, K5 and K6 launched by set_ops_example, K1-K7 over the
+     numpy, K5 and K6 launched by set_ops_example, K1-K8 over the
      examples.
  27. the port's drills (scripts/torch_port/), each on ``cuda`` in a fresh
      process: the telemetry, service, observability and statistics
@@ -280,7 +280,7 @@ Phases, in order (any failure exits non-zero; nothing is caught):
      ``fuzz_differential.py`` at 12 cases. Each must exit 0 and print
      its JSON line on ``cuda``; the service smoke's first query must
      load a kernel library and its later queries none; chaos must launch
-     K1-K4 and the fuzzer K1-K7 with no failing seed. Each drill's wall
+     K1-K4 and the fuzzer K1-K8 with no failing seed. Each drill's wall
      and launches are printed, and the launches join the kernels line
      (``drill_launches``).
  28. float group sums and the measuring tools: 28a, a groupby of
@@ -337,6 +337,14 @@ Phases, in order (any failure exits non-zero; nothing is caught):
      order (`shard_digests` of each column's values, varbytes by their
      lengths and content hashes); the redo's rows are the true left join's count
      and the sort's keys descend.
+ 31. (run after phase 16) K8 ``join_hash_keys``, the hash stage of the
+     join's hash stream, at the join cell's shape (2 x 100,000,000 int64
+     keys, world 1, every row live, no emit mask) and at 2 x 2^24 rows
+     (10% null keys, 15% of rows not emitted), against its plain version
+     bit for bit, timed as in phase 8 (the kernels line's numbers are the
+     cell shape's); then a world-1 inner join on an int64 key at 2 x 2^24
+     rows: K8 and K3 launch once (counters 0 -> read), the rows the numpy
+     count, the median of 5 steady walls.
 Phases 10-12, 23a and 24d each record the median of 5 steady runs after
 one warm-up.
 Tolerances against numpy: float sums 1e-5 * sum |x| of the group
@@ -1547,7 +1555,7 @@ def string_join_phase(ct, K, ctx, n: int, world: int, seeds) -> dict:
         first = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     chunks = chunk_report(phase, cspy, fn) if world > 1 else None
-    need = ["join_plan_stream", "join_expand_stream"] + (
+    need = ["join_hash_keys", "join_plan_stream", "join_expand_stream"] + (
         ["partition_hist", "partition_scatter"] if world > 1 else [])
     missing = [k for k in need if launches[k] == 0]
     assert not missing, f"string join world {world}: not launched {missing}"
@@ -1571,6 +1579,81 @@ def string_join_phase(ct, K, ctx, n: int, world: int, seeds) -> dict:
             "k3_calls": hm.calls, "out_rows": rows, "first_wall_s": first,
             "walls": walls, "rows_per_s": 2 * n / med, "profile": prof,
             "calls": rec.calls, "chunks": chunks}
+
+
+HASH_KEY_ROWS = (100_000_000, 1 << 24)  # phase 31's rows a side
+
+
+def hash_keys_phase(ct, K) -> dict:
+    """Phase 31: K8 at HASH_KEY_ROWS against its plain version, timed;
+    then a world-1 join on an int64 key launches it once."""
+    from cylon_tpu_torch.ops import join as J
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    checks = []
+    for n in HASH_KEY_ROWS:
+        torch.cuda.empty_cache()
+        masked = n != HASH_KEY_ROWS[0]
+
+        def side():
+            k = torch.randint(0, n, (1, n), device="cuda", generator=gen)
+            valid = torch.rand(1, n, device="cuda", generator=gen) >= 0.1
+            bits, kv = J.key_bits([k], [valid if masked else None])
+            emit = torch.rand(1, n, device="cuda", generator=gen) >= 0.15
+            return bits, kv, emit if masked else None
+
+        args = (*side(), *side())
+        got = K.join_hash_keys(*args)
+        ref = K.plain_join_hash_keys(*args)
+        sync()
+        names = ("tag", "h1", "h2", "key")
+        equal = len(got["kb"]) == len(ref["kb"]) and all(
+            torch.equal(x, y) for x, y in zip(
+                [got[k] for k in names] + got["kb"],
+                [ref[k] for k in names] + ref["kb"]))
+        del got, ref
+        # read the key, its validity (and the emit mask); write the tag,
+        # the two lanes, h1, h2 and the key, 8 bytes each
+        nbytes = 2 * n * (8 + 1 + masked + 8 * 6)
+        r = dict(name="join_hash_keys", err=0 if equal else 1,
+                 shape=f"2 x [1, {n}] int64 keys"
+                 + (", null keys and an emit mask" if masked else ""),
+                 ms=cuda_ms(lambda: K.join_hash_keys(*args)),
+                 kernel_ms=own_kernel_ms(K, lambda: K.join_hash_keys(*args)),
+                 plain_ms=cuda_ms(lambda: K.plain_join_hash_keys(*args)),
+                 library_ms=None,
+                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+        del args
+        checks.append(r)
+        log(f"phase 31 kernel check join_hash_keys ({r['shape']}): ms "
+            f"{r['ms']:.4f} kernel_ms {r['kernel_ms']:.4f} plain "
+            f"{r['plain_ms']:.4f} bound {r['bound_ms']:.4f} equal {equal}")
+    assert all(r["err"] == 0 for r in checks), \
+        "join_hash_keys disagrees with its plain version"
+    torch.cuda.empty_cache()
+    m = HASH_KEY_ROWS[1]
+    rng = np.random.default_rng(31)
+    lk, rk = rng.integers(0, m, m), rng.integers(0, m, m)
+    ctx = ct.CylonContext.Init()
+    left = ct.Table.from_pydict(ctx, {"k": lk, "v": rng.random(m)})
+    right = ct.Table.from_pydict(ctx, {"k": rk, "w": rng.random(m)})
+
+    def fn():
+        return left.join(right, "inner", on="k")
+
+    sync()
+    K.reset_launches()
+    rows = fn().row_count
+    launches = dict(K.LAUNCHES)
+    assert launches["join_hash_keys"] == 1 \
+        and launches["join_plan_stream"] == 1, launches
+    expect = numpy_join_count(lk, rk, m)
+    assert rows == expect, (rows, expect)
+    walls = steady(fn)
+    log(f"phase 31 int64-key join (2 x {m} rows, world 1): launches "
+        f"{launches}; {rows} rows == numpy count; steady walls (s) {walls}")
+    return {"checks": checks, "launches": launches, "out_rows": rows,
+            "walls": walls}
 
 
 class StringPolicy:
@@ -3453,7 +3536,7 @@ def analysis_cli_phase() -> dict:
 
 def analysis_card_phase(K) -> dict:
     """25b: the collectives catalog on CUDA tensors at world 4 under the
-    dispatch mode, counters 0 -> read: no finding, K1-K7 launched."""
+    dispatch mode, counters 0 -> read: no finding, K1-K8 launched."""
     from cylon_tpu_torch import analysis as A
 
     root = os.path.dirname(os.path.abspath(A.__file__))
@@ -3818,7 +3901,7 @@ def mp_task_phase(ct, args, dctx) -> dict:
 def examples_phase(K) -> dict:
     """26e: the nine port examples on the card (torch_ddp_demo as two
     processes, the rest in this one), each with the launch counters 0 ->
-    read; their counts checked against numpy where it is cheap; K1-K7
+    read; their counts checked against numpy where it is cheap; K1-K8
     launched over the examples, K5 and K6 by set_ops_example."""
     import importlib.util
 
@@ -4934,7 +5017,20 @@ def main() -> int:
             f"{r['err']}")
     bad = [r["name"] for r in string_kernels if r["err"] != 0]
     assert not bad, f"kernels disagree at phase 14's shapes: {bad}"
+    sync_free25.update(wrappers_sync_free(
+        K, {"join_hash_keys": calls["join_hash_keys"]}))
     del calls
+
+    # phase 31: K8 at the join cell's shape and at 2^24, and its launch
+    # on a join
+    clock.mark("31")
+    hash31 = hash_keys_phase(ct, K)
+    k8 = hash31["checks"][0]
+    kernels.append(dict(
+        table["join_hash_keys"], launches=hash31["launches"][
+            "join_hash_keys"], max_abs_err=k8["err"], ms=k8["ms"],
+        kernel_ms=k8["kernel_ms"], plain_ms=k8["plain_ms"],
+        bound_ms=k8["bound_ms"], bound_by="bytes", library_ms=None))
 
     # phases 17-21: the ring and broadcast joins, the salted shuffle, the
     # chunked exchange
@@ -5005,9 +5101,9 @@ def main() -> int:
     clock.mark("25b")
     card25 = analysis_card_phase(K)
     assert sorted(sync_free25) == sorted(K.KERNELS), sync_free25
-    log(f"phase 25c each wrapper at phase 8's shapes (K7 at phase 11's) "
-        f"under set_sync_debug_mode('error') (run after phase 8 and 11): "
-        f"no sync, launches {sync_free25}")
+    log(f"phase 25c each wrapper at phase 8's shapes (K7 at phase 11's, "
+        f"K8 at 14's) under set_sync_debug_mode('error') (run after phases "
+        f"8, 11 and 14): no sync, launches {sync_free25}")
     clock.mark("25d")
     tel25 = join_telemetry_phase(ct, n, args.seed, args.parent_tree)
 
@@ -5094,6 +5190,7 @@ def main() -> int:
                            dist_string_join=dist_string_join,
                            string_small=string_small,
                            string_kernels=string_kernels,
+                           hash_keys=hash31,
                            join_chunks=chunks2, ring_join=ring,
                            broadcast_join=bcast, salted_shuffle=salted,
                            chunked_exchange=chunked,

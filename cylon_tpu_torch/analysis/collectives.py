@@ -83,10 +83,11 @@ class EntryPoint:
 _ROWS = 320
 
 
-def _tables(ctx, seed: int, strings: bool = False):
+def _tables(ctx, seed: int, strings: bool = False, wide: bool = False):
     """Two tables of _ROWS seeded rows each: int32 key ``k`` (64
-    values), float32 ``v`` (``w`` on the right), and with ``strings`` a
-    varbytes column ``s`` of distinct 10-40 byte values."""
+    values; int64 with ``wide``, which a join hashes), float32 ``v``
+    (``w`` on the right), and with ``strings`` a varbytes column ``s`` of
+    distinct 10-40 byte values."""
     import numpy as np
 
     from ..data.table import Table  # cylint: disable=layering/analysis-read-only — the catalog builds the tables its operators run on (the port has no jaxpr to read abstractly)
@@ -94,7 +95,8 @@ def _tables(ctx, seed: int, strings: bool = False):
     rng = np.random.default_rng(seed)
     out = []
     for side, val in ((0, "v"), (1, "w")):
-        d = {"k": rng.integers(0, 64, _ROWS).astype(np.int32),
+        d = {"k": rng.integers(0, 64, _ROWS).astype(
+                 np.int64 if wide else np.int32),
              val: rng.normal(size=_ROWS).astype(np.float32)}
         if strings:
             d["s"] = np.array([f"{side}-{i:05d}-" + "x" * int(m)
@@ -177,9 +179,9 @@ def default_entry_points() -> List[EntryPoint]:
             return D.shuffle(a, ["k"], salted=salted_)
         return run
 
-    def join(how, strings=False):
+    def join(how, strings=False, wide=False):
         def run(ctx):
-            a, b = _tables(ctx, 9, strings)
+            a, b = _tables(ctx, 9, strings, wide)
             return D.distributed_join(a, b, _join_config(how))
         return run
 
@@ -233,6 +235,9 @@ def default_entry_points() -> List[EntryPoint]:
         E("join_inner", _DO, "distributed_join", join("INNER")),
         E("join_full_outer", _DO, "distributed_join", join("FULL_OUTER")),
         E("join_strings", _DO, "distributed_join", join("LEFT", True)),
+        # an int64 key: the hash stream (K8 on the card)
+        E("join_int64_key", _DO, "distributed_join",
+          join("INNER", wide=True)),
         E("ring_inner", _DO, "distributed_join_ring", ring("INNER")),
         E("ring_left", _DO, "distributed_join_ring", ring("LEFT")),
         E("broadcast_inner", _DO, "broadcast_hash_join", bcast),

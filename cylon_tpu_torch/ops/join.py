@@ -29,7 +29,7 @@ import torch
 from ..dtypes import movable
 from ..util import bucket_cap
 from . import kernels as _k
-from .hash import as_i32, hash2_streams
+from .hash import as_i32
 from .order import all_ones, lexsort_indices, ordered_bits_raw, unsigned
 
 
@@ -428,8 +428,8 @@ def stream_plan_applicable(lkeys, rkeys, join_type: JoinType) -> bool:
     return _stream_on(lkeys[0].device)
 
 
-# sort-operand budget for the hash path: key-verify lanes
-MAX_HASH_KEY_LANES = 6
+# sort-operand budget for the hash path: key-verify lanes (K8's limit)
+MAX_HASH_KEY_LANES = _k.MAX_HASH_LANES
 
 
 def _key_lane_count(x: torch.Tensor) -> int:
@@ -537,11 +537,10 @@ def stream_sort_keys(lbits, lkv, lemit, rbits, rkv, remit,
                      ) -> dict:
     """The first half of ``stream_plan_inputs``, everything before its
     sorts: the row tags, the payload lanes, and the packed sort keys (in
-    hash mode the key bits' u32 lanes and their two hash streams).
+    hash mode K8 ``join_hash_keys``: the tags, the key bits' u32 lanes,
+    their two hash streams and the packed key in one pass).
     ``stream_sort`` takes the dict and pops the sort keys, so they are
     freed once sorted."""
-    lemit = _vm(lemit, lkv)
-    remit = _vm(remit, rkv)
     if join_type == JoinType.RIGHT:
         abits, akv, aemit = rbits, rkv, remit
         bbits, bkv, bemit = lbits, lkv, lemit
@@ -550,44 +549,34 @@ def stream_sort_keys(lbits, lkv, lemit, rbits, rkv, remit,
         abits, akv, aemit = lbits, lkv, lemit
         bbits, bkv, bemit = rbits, rkv, remit
         adat, aval, bdat, bval = ldat, lval, rdat, rval
-    w, na = aemit.shape
-    nb = bemit.shape[1]
-    live = torch.cat([aemit & akv, bemit & bkv], 1)
-    emit = torch.cat([aemit, bemit], 1)
-    tag = _pack_tag(_side_flags(na, nb, live), emit, live)
+    w, na = akv.shape
+    nb = bkv.shape[1]
+    if hash_mode:
+        # every key column flattens to u32 lanes (8-byte bits split
+        # hi/lo), hashed into two independent 32-bit streams; (h1, h2,
+        # tag) order: a stable sort by h1 after one by (h2, tag)
+        out = _k.join_hash_keys(abits, akv, aemit, bbits, bkv, bemit)
+    else:
+        aemit, bemit = _vm(aemit, akv), _vm(bemit, bkv)
+        live = torch.cat([aemit & akv, bemit & bkv], 1)
+        emit = torch.cat([aemit, bemit], 1)
+        tag = _pack_tag(_side_flags(na, nb, live), emit, live)
+        bits = torch.cat([abits[0], bbits[0]], 1)
+        bits = torch.where(live, bits, torch.full((), -1, dtype=bits.dtype,
+                                                  device=bits.device))
+        out = dict(tag=tag, key=_bits_tag_key(bits, tag), bits=bits)
 
     a_lanes = _side_lanes(adat, aval, a_desc)
     b_lanes = _side_lanes(bdat, bval, b_desc)
     lanes = []
     for s in range(max(len(a_lanes), len(b_lanes))):
-        z = torch.zeros(w, 1, dtype=torch.int32, device=live.device)
+        z = torch.zeros(w, 1, dtype=torch.int32, device=akv.device)
         al = a_lanes[s] if s < len(a_lanes) else z.expand(w, na)
         bl = b_lanes[s] if s < len(b_lanes) else z.expand(w, nb)
         lanes.append(torch.cat([al, bl], 1))
-    out = dict(tag=tag, lanes=lanes, na=na, nb=nb,
+    out.update(lanes=lanes, na=na, nb=nb,
                emit_unmatched_a=join_type != JoinType.INNER,
                n_a_lanes=len(a_lanes), n_b_lanes=len(b_lanes))
-
-    if hash_mode:
-        # every key column flattens to u32 lanes (8-byte bits split
-        # hi/lo), hashed into two independent 32-bit streams
-        kb = []
-        for a, b in zip(abits, bbits):
-            cat = torch.cat([a, b], 1)
-            if cat.element_size() == 8:
-                kb.append((cat >> 32) & 0xFFFFFFFF)
-                kb.append(cat & 0xFFFFFFFF)
-            else:
-                kb.append(unsigned(cat))
-        h1, h2 = hash2_streams(kb, live)
-        # (h1, h2, tag) order: a stable sort by h1 after one by (h2, tag)
-        out.update(key=((h2 << 32) | tag) ^ _SIGN64, h1=h1, h2=h2, kb=kb)
-        return out
-
-    bits = torch.cat([abits[0], bbits[0]], 1)
-    bits = torch.where(live, bits, torch.full((), -1, dtype=bits.dtype,
-                                              device=bits.device))
-    out.update(key=_bits_tag_key(bits, tag), bits=bits)
     return out
 
 

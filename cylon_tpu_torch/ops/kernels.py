@@ -11,6 +11,7 @@ cylon_tpu.ops.tpu_kernels).
 | K5 setop_stream    | setop_stream (:544)                     | csrc/setop_stream.cu |
 | K6 stream_compact  | stream_compact (:241)                   | csrc/stream_compact.cu |
 | K7 segment_sum     | float SUM of cylon_tpu/ops/groupby.py:140 | csrc/segment_sum.cu |
+| K8 join_hash_keys  | none: XLA's fusion of cylon_tpu/ops/join.py:598-631 | csrc/join_hash_keys.cu |
 
 Each wrapper takes tensors with a leading shard dimension ``[W, n]`` (one
 launch covers every shard of the virtual world) and 32-bit streams as
@@ -44,6 +45,8 @@ import torch
 
 from ..status import Code, CylonError
 from ..telemetry.metrics import counted_cache
+from .hash import hash2_streams
+from .order import unsigned
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
@@ -52,7 +55,8 @@ SOURCES = {"partition": CSRC / "partition.cu",
            "join_stream": CSRC / "join_stream.cu",
            "setop_stream": CSRC / "setop_stream.cu",
            "stream_compact": CSRC / "stream_compact.cu",
-           "segment_sum": CSRC / "segment_sum.cu"}
+           "segment_sum": CSRC / "segment_sum.cu",
+           "join_hash_keys": CSRC / "join_hash_keys.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -65,10 +69,11 @@ SETOP_TILE = 2816       # elements per K5 tile (csrc/setop_stream.cu TILE)
 MAX_PLAN_LANES = 8      # K3 payload and verify lane limit (join_stream.cu)
 COMPACT_TILE = 4096     # elements per K6 tile (csrc/stream_compact.cu TILE)
 IDX_MASK = (1 << 29) - 1  # the row index field of a stream tag
+MAX_HASH_LANES = 6      # K8 key columns and u32 lanes (join_hash_keys.cu)
 
 KERNELS = ("partition_hist", "partition_scatter", "join_plan_stream",
            "join_expand_stream", "setop_stream", "stream_compact",
-           "segment_sum")
+           "segment_sum", "join_hash_keys")
 # launches per wrapper since the last reset_launches()
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
@@ -108,6 +113,10 @@ _SIGNATURES = {
     "segment_sum": {
         "launch_segment_sum": [_P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _L,
                                _L, _P, _P],
+    },
+    "join_hash_keys": {
+        "launch_join_hash_keys": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                                  _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
 }
 # the 64-bit words of a single-pass kernel's tile state: (W, tiles) -> n,
@@ -222,9 +231,10 @@ def _ptr(x: Optional[torch.Tensor]):
     return None if x is None else x.data_ptr()
 
 
-def _ptrs(xs: Sequence[torch.Tensor]):
-    """A C array of the tensors' device pointers (a kernel's lane table)."""
-    return (ctypes.c_void_p * max(len(xs), 1))(*[x.data_ptr() for x in xs])
+def _ptrs(xs: Sequence[Optional[torch.Tensor]]):
+    """A C array of the tensors' device pointers (a kernel's lane table;
+    None is a null pointer)."""
+    return (ctypes.c_void_p * max(len(xs), 1))(*[_ptr(x) for x in xs])
 
 
 def _ints(vals: Sequence[int]):
@@ -853,6 +863,126 @@ def segment_sum(xs, gid_s: torch.Tensor, emit_s: torch.Tensor,
     return out[0] if single else out
 
 
+# ---------------------------------------------------------------------------
+# K8 join_hash_keys
+# ---------------------------------------------------------------------------
+
+_SIGN64 = -(1 << 63)
+
+
+def _hash_key_inputs(abits, akv, aemit, bbits, bkv, bemit):
+    """K8's inputs checked: (abits, bbits) as lists, else raise."""
+    abits, bbits = list(abits), list(bbits)
+    if akv.dtype != torch.bool or bkv.dtype != torch.bool \
+            or akv.dim() != 2 or bkv.dim() != 2 \
+            or akv.shape[0] != bkv.shape[0]:
+        raise CylonError(Code.Invalid, f"join_hash_keys: key validity "
+                                       f"wants bool [W, na] and [W, nb], got "
+                                       f"{tuple(akv.shape)} {akv.dtype} and "
+                                       f"{tuple(bkv.shape)} {bkv.dtype}")
+    if not abits or len(abits) != len(bbits):
+        raise CylonError(Code.Invalid, f"join_hash_keys: {len(abits)} and "
+                                       f"{len(bbits)} key columns")
+    for i, (x, y) in enumerate(zip(abits, bbits)):
+        if x.dtype != y.dtype or x.dtype == torch.bool \
+                or x.dtype.is_floating_point or x.dtype.is_complex \
+                or x.shape != akv.shape or y.shape != bkv.shape:
+            raise CylonError(Code.Invalid, f"join_hash_keys: key column {i} "
+                             f"wants integer bits of one dtype shaped like "
+                             f"the key validity, got {tuple(x.shape)} "
+                             f"{x.dtype} and {tuple(y.shape)} {y.dtype}")
+    lanes = sum(2 if x.element_size() == 8 else 1 for x in abits)
+    if lanes > MAX_HASH_LANES:
+        raise CylonError(Code.Invalid, f"join_hash_keys takes at most "
+                                       f"{MAX_HASH_LANES} u32 lanes, got "
+                                       f"{lanes}")
+    for m, kv in ((aemit, akv), (bemit, bkv)):
+        if m is not None and (m.dtype != torch.bool or m.shape != kv.shape):
+            raise CylonError(Code.Invalid, f"join_hash_keys: an emit mask "
+                                           f"wants bool {tuple(kv.shape)}, "
+                                           f"got {tuple(m.shape)} {m.dtype}")
+    if akv.shape[1] + bkv.shape[1] >= (1 << 29):
+        raise CylonError(Code.Invalid, "join_hash_keys: per-shard rows "
+                                       "must fit the 29-bit tag")
+    tensors = [*abits, *bbits, akv, bkv, aemit, bemit]
+    if len({x.device for x in tensors if x is not None}) != 1:
+        raise CylonError(Code.Invalid, "join_hash_keys: inputs must be on "
+                                       "one device")
+    return abits, bbits
+
+
+def plain_join_hash_keys(abits, akv, aemit, bbits, bkv, bemit) -> dict:
+    """Plain version of K8 (see ``join_hash_keys``): the int64 torch
+    chain."""
+    na = akv.shape[1]
+    n = na + bkv.shape[1]
+    emit = torch.cat([torch.ones_like(akv) if aemit is None else aemit,
+                      torch.ones_like(bkv) if bemit is None else bemit], 1)
+    live = emit & torch.cat([akv, bkv], 1)
+    iota = torch.arange(n, dtype=torch.int64, device=akv.device)
+    tag = ((iota < na).to(torch.int64) << 31) | (emit.to(torch.int64) << 30) \
+        | (live.to(torch.int64) << 29) | iota
+    kb = []
+    for a, b in zip(abits, bbits):
+        cat = torch.cat([a, b], 1)
+        if cat.element_size() == 8:
+            kb.append((cat >> 32) & 0xFFFFFFFF)
+            kb.append(cat & 0xFFFFFFFF)
+        else:
+            kb.append(unsigned(cat))
+    h1, h2 = hash2_streams(kb, live)
+    return dict(tag=tag, kb=kb, h1=h1, h2=h2, key=((h2 << 32) | tag) ^ _SIGN64)
+
+
+def join_hash_keys(abits, akv: torch.Tensor, aemit: Optional[torch.Tensor],
+                   bbits, bkv: torch.Tensor, bemit: Optional[torch.Tensor]
+                   ) -> dict:
+    """K8: the hash stage of the join's hash-stream route, per shard, over
+    the concatenation [a rows | b rows] (n = na + nb < 2^29).
+
+    ``abits``/``bbits``: the sides' key bits, 1 to MAX_HASH_LANES u32
+    lanes' worth of integer [W, na] / [W, nb] columns (one dtype a column
+    on both sides), as ``ops/join.key_bits`` gives them; ``akv``/``bkv``
+    bool key validity; ``aemit``/``bemit`` bool emit masks or None (every
+    row emits).
+
+    Returns int64 [W, n] tensors: ``tag`` = ``side<<31 | emit<<30 |
+    live<<29 | iota`` (side 1 on a rows, live = emit & kv), ``kb`` the
+    key's u32 lanes (an 8-byte column's hi and lo bits, a narrower one's
+    unsigned value), ``h1``/``h2`` the two 32-bit row hashes
+    (``hash.hash2_streams``: all-ones at rows not live) and ``key`` =
+    ``((h2 << 32) | tag) ^ (1 << 63)``, the packed sort key. On the card:
+    one launch."""
+    abits, bbits = _hash_key_inputs(abits, akv, aemit, bbits, bkv, bemit)
+    if not akv.is_cuda:
+        return plain_join_hash_keys(abits, akv, aemit, bbits, bkv, bemit)
+    w, na = akv.shape
+    nb = bkv.shape[1]
+    dev = akv.device
+
+    def out():
+        return torch.empty(w, na + nb, dtype=torch.int64, device=dev)
+
+    tag, h1, h2, key = out(), out(), out(), out()
+    kb, hi, lo = [], [], []
+    for x in abits:
+        hi.append(out())
+        lo.append(out() if x.element_size() == 8 else None)
+        kb += [t for t in (hi[-1], lo[-1]) if t is not None]
+    abits = [x.contiguous() for x in abits]
+    bbits = [x.contiguous() for x in bbits]
+    masks = [None if m is None else m.contiguous()
+             for m in (akv, bkv, aemit, bemit)]
+    _launch("join_hash_keys", "launch_join_hash_keys", _ptrs(abits),
+            _ptrs(bbits), _ints([x.element_size() for x in abits]),
+            len(abits), _ptrs(hi), _ptrs(lo), *[_ptr(m) for m in masks],
+            _ptr(tag), _ptr(h1), _ptr(h2), _ptr(key), w, na, nb,
+            torch.cuda.get_device_properties(dev).multi_processor_count,
+            _stream(akv))
+    LAUNCHES["join_hash_keys"] += 1
+    return dict(tag=tag, kb=kb, h1=h1, h2=h2, key=key)
+
+
 def kernel_table() -> List[dict]:
     """Static description of the ported kernels: name, source, the TPU
     kernel each replaces."""
@@ -880,4 +1010,7 @@ def kernel_table() -> List[dict]:
         {"name": "segment_sum", "route": "cuda",
          "source": rel["segment_sum"],
          "replaces": "cylon_tpu/ops/groupby.py:140"},
+        {"name": "join_hash_keys", "route": "cuda",
+         "source": rel["join_hash_keys"],
+         "replaces": "cylon_tpu/ops/join.py:598"},
     ]

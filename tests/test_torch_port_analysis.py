@@ -493,7 +493,7 @@ def test_port_suite_clean_with_ten_families(port_full):
     assert tail == {"rc": 0, "bad": []}, r.stdout[-3000:] + r.stderr
     assert doc["ok"] is True and doc["findings"] == []
     assert len(doc["checkers"]) == 10
-    assert any(n.startswith("collectives: 22 catalog entries")
+    assert any(n.startswith("collectives: 23 catalog entries")
                for n in doc["notes"])
 
 

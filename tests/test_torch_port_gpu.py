@@ -1,4 +1,4 @@
-"""cylon_tpu_torch kernels K1-K7 against their plain PyTorch versions on
+"""cylon_tpu_torch kernels K1-K8 against their plain PyTorch versions on
 the card, bit for bit.
 
 Needs CUDA: every test here is marked ``gpu`` and skips without a card.
@@ -20,6 +20,7 @@ from cylon_tpu_torch.ops import order as O
 from cylon_tpu_torch.ops import setops as SO
 from cylon_tpu_torch.parallel import shuffle as S
 from cylon_tpu_torch.parallel.comm import VirtualComm
+from cylon_tpu_torch.status import CylonError
 
 pytestmark = pytest.mark.gpu
 
@@ -71,6 +72,7 @@ def test_tile_constants_match_sources(cuda):
     assert c_int("partition", "tile_rows") == K.PARTITION_TILE
     assert c_int("join_stream", "plan_tile_rows") == K.PLAN_TILE
     assert c_int("join_stream", "expand_tile_rows") == K.EXPAND_TILE
+    assert c_int("join_hash_keys", "hash_key_columns") == K.MAX_HASH_LANES
 
 
 def test_partition_past_the_bucket_limit_takes_the_sort(cuda):
@@ -118,6 +120,109 @@ def _join_inputs(dev, rng, w, na, nb, hash_mode, two_keys):
     lv = (lval, torch.ones_like(lval))
     rv = (torch.ones_like(remit), torch.ones_like(remit))
     return lbits, lkv, lemit, rbits, rkv, remit, ldat, lv, rdat, rv
+
+
+# K8's cases: (key dtypes, world, masks, join type); the key columns'
+# u32 lanes number 2, 3, 6, 2, 3 and 3
+HASH_KEY_CASES = {
+    "int64": ((np.int64,), 1, False, J.JoinType.INNER),
+    "int32_int64": ((np.int32, np.int64), 1, False, J.JoinType.INNER),
+    "six_lanes": ((np.int64, np.float64, np.int16, np.bool_), 1, True,
+                  J.JoinType.LEFT),
+    "masks": ((np.int64,), 1, True, J.JoinType.INNER),
+    "right": ((np.int32, np.int64), 1, True, J.JoinType.RIGHT),
+    "world2": ((np.int64, np.int32), 2, True, J.JoinType.INNER),
+}
+
+
+def hash_key_case(case, rows, dev):
+    """K8's inputs of one case, as a join hands them to
+    ``stream_sort_keys``: (lbits, lkv, lemit, rbits, rkv, remit, join
+    type), ``rows`` rows a side over the shards (the right side a third
+    more), keys drawn with repeats and every sign."""
+    dtypes, w, masks, jt = HASH_KEY_CASES[case]
+    rng = np.random.default_rng(sorted(HASH_KEY_CASES).index(case))
+    sides = []
+    for n in (rows // w, rows // w + rows // (3 * w)):
+        keys = []
+        for dt in dtypes:
+            if dt == np.bool_:
+                x = rng.random((w, n)) < 0.5
+            elif np.issubdtype(dt, np.floating):
+                x = rng.normal(size=(w, n)).astype(dt)
+                x[rng.random((w, n)) < 0.05] = -0.0
+            else:
+                info = np.iinfo(dt)
+                x = rng.integers(info.min, info.max, (w, n), dtype=dt,
+                                 endpoint=True)
+                x[:, ::3] = x[:, :1]    # repeats across the shard
+            keys.append(torch.from_numpy(x).to(dev))
+        valid = [torch.from_numpy(rng.random((w, n)) < 0.9).to(dev)
+                 if masks else None for _ in dtypes]
+        emit = torch.from_numpy(rng.random((w, n)) < 0.85).to(dev) \
+            if masks else None
+        bits, kv = J.key_bits(keys, valid)
+        sides.append((bits, kv, emit))
+    (lb, lkv, lem), (rb, rkv, rem) = sides
+    return lb, lkv, lem, rb, rkv, rem, jt
+
+
+def hash_key_sides(lb, lkv, lem, rb, rkv, rem, jt):
+    """K8's (a, b) argument triples: RIGHT probes with the right side."""
+    a, b = (lb, lkv, lem), (rb, rkv, rem)
+    return (b, a) if jt == J.JoinType.RIGHT else (a, b)
+
+
+def assert_hash_keys_equal(got, ref):
+    """K8's five outputs bit for bit, int64 [W, n] each."""
+    assert len(got["kb"]) == len(ref["kb"])
+    for x, y in zip([got[k] for k in ("tag", "h1", "h2", "key")] + got["kb"],
+                    [ref[k] for k in ("tag", "h1", "h2", "key")] + ref["kb"]):
+        assert x.dtype == y.dtype == torch.int64 and x.shape == y.shape
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("case", sorted(HASH_KEY_CASES))
+def test_join_hash_keys_match_plain(cuda, case):
+    """K8 at 2^23 rows a side (over the shards) against its plain version
+    on the card, all five outputs bit for bit."""
+    args = hash_key_case(case, 1 << 23, cuda)
+    a, b = hash_key_sides(*args)
+    K.reset_launches()
+    got = K.join_hash_keys(*a, *b)
+    ref = K.plain_join_hash_keys(*a, *b)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["join_hash_keys"] == 1
+    assert_hash_keys_equal(got, ref)
+
+
+def test_join_hash_keys_rejects_on_card(cuda):
+    """The wrapper raises on a float key, keys and validity on two
+    devices, and a validity of the wrong width."""
+    lb, lkv, lem, rb, rkv, rem, _jt = hash_key_case("masks", 4096, cuda)
+    bad = [((lb[0].double(),), lkv, lem, (rb[0].double(),), rkv, rem),
+           (lb, lkv.cpu(), lem, rb, rkv, rem),
+           (lb, lkv[:, 1:], lem, rb, rkv, rem)]
+    for args in bad:
+        with pytest.raises(CylonError):
+            K.join_hash_keys(*args)
+
+
+def test_hash_route_join_launches_k8_on_card(cuda):
+    """A world-1 join on an int64 key takes the hash stream: K8 launches
+    once, and the rows equal the CPU's (the plain version's)."""
+    rng = np.random.default_rng(8)
+    n = 300_000
+    la = {"k": rng.integers(0, n, n), "v": rng.random(n)}
+    ra = {"k": rng.integers(0, n, n + 77), "w": rng.random(n + 77)}
+    gctx, cctx = _ctx_pair(cuda, 0)
+    for how in ("inner", "left", "right"):
+        K.reset_launches()
+        got = _table(gctx, la).join(_table(gctx, ra), how, on=["k"])
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["join_hash_keys"] == 1, (how, K.LAUNCHES)
+        exp = _table(cctx, la).join(_table(cctx, ra), how, on=["k"])
+        assert np.array_equal(_row_multiset(got), _row_multiset(exp)), how
 
 
 @pytest.mark.parametrize("jt,hash_mode", [
@@ -1580,7 +1685,7 @@ def test_task_exchange_on_card(cuda, world):
 
 def test_collectives_catalog_on_card(cuda):
     """The analysis suite's collectives catalog on CUDA tensors at world
-    4, under its dispatch mode: no finding, and K1-K7 each launch (the
+    4, under its dispatch mode: no finding, and K1-K8 each launch (the
     kernel route switches forced on, as on the CPU)."""
     import os
 
@@ -1598,20 +1703,24 @@ def test_collectives_catalog_on_card(cuda):
 
 
 def test_wrappers_do_not_sync(cuda):
-    """Each kernel wrapper, at the inputs a world-4 join, a local UNION
-    and a groupby's float SUM give it, launches under
-    set_sync_debug_mode("error") (which does raise on a sync): the
-    runtime side of hostsync/in-launch."""
+    """Each kernel wrapper, at the inputs a world-4 join, a local UNION,
+    a groupby's float SUM and a world-1 join on an int64 key (the hash
+    stream) give it, launches under set_sync_debug_mode("error") (which
+    does raise on a sync): the runtime side of hostsync/in-launch."""
     import chip_smoke
 
     dctx = ct.CylonContext.InitDistributed(ct.VirtualWorldConfig(4))
     left, right, _h = chip_smoke.make_tables(ct, dctx, 100_000, 0)
     lctx = ct.CylonContext.Init()
     a, b, _h = chip_smoke.make_setop_tables(ct, lctx, 100_000, 3)
+    rng = np.random.default_rng(9)
+    wide = _table(lctx, {"k": rng.integers(0, 50_000, 100_000),
+                         "v": rng.random(100_000)})
     with chip_smoke.Recorder(K) as rec:
         left.distributed_join(right, "inner", on=["k"], force_exchange=True)
         a.union(b)
         left.groupby(0, [1], ["sum"])
+        wide.join(wide, "inner", on=["k"])
     torch.cuda.synchronize()
     assert sorted(rec.calls) == sorted(K.KERNELS)
     torch.cuda.set_sync_debug_mode("error")

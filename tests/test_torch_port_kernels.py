@@ -1,5 +1,6 @@
 """The plain versions of kernels K1-K4 in cylon_tpu_torch against the JAX
-package's Pallas kernels, run in interpret mode on the CPU, bit for bit.
+package's Pallas kernels, run in interpret mode on the CPU, bit for bit;
+K8's plain version and wrapper checks against the former torch formula.
 
 K3/K4 run eagerly under the Pallas interpreter (block_rows=8, ~300 rows a
 side): one module-scoped fixture per case computes both packages' plans
@@ -17,8 +18,12 @@ from cylon_tpu.parallel import shuffle as jshuffle
 
 from cylon_tpu_torch.ops import join as tjoin
 from cylon_tpu_torch.ops import kernels as K
+from cylon_tpu_torch.ops.hash import hash2_streams
+from cylon_tpu_torch.ops.order import unsigned
 from cylon_tpu_torch.parallel import shuffle as tshuffle
 from cylon_tpu_torch.status import CylonError
+from test_torch_port_gpu import (HASH_KEY_CASES, assert_hash_keys_equal,
+                                 hash_key_case, hash_key_sides)
 
 
 def _t(x):
@@ -247,3 +252,70 @@ def test_left_stream_matches_xla_plan(hash_mode):
     tl, tr = tl[0].numpy(), tr[0].numpy()
     assert sorted(zip(tl[tl >= 0].tolist(), tr[tl >= 0].tolist())) == ref
 
+
+
+# ---------------------------------------------------------------------------
+# K8 join_hash_keys
+# ---------------------------------------------------------------------------
+
+def _old_hash_keys(abits, akv, aemit, bbits, bkv, bemit):
+    """The hash branch of ``stream_sort_keys`` as it was before K8: the
+    tag by ``_pack_tag``, the hi/lo split, ``hash2_streams``, the packed
+    key."""
+    aemit, bemit = tjoin._vm(aemit, akv), tjoin._vm(bemit, bkv)
+    na, nb = akv.shape[1], bkv.shape[1]
+    live = torch.cat([aemit & akv, bemit & bkv], 1)
+    emit = torch.cat([aemit, bemit], 1)
+    tag = tjoin._pack_tag(tjoin._side_flags(na, nb, live), emit, live)
+    kb = []
+    for a, b in zip(abits, bbits):
+        cat = torch.cat([a, b], 1)
+        if cat.element_size() == 8:
+            kb += [(cat >> 32) & 0xFFFFFFFF, cat & 0xFFFFFFFF]
+        else:
+            kb.append(unsigned(cat))
+    h1, h2 = hash2_streams(kb, live)
+    return dict(tag=tag, kb=kb, h1=h1, h2=h2,
+                key=((h2 << 32) | tag) ^ -(1 << 63))
+
+
+@pytest.mark.parametrize("case", sorted(HASH_KEY_CASES))
+def test_plain_join_hash_keys_matches_old_formula(case):
+    """K8's plain version, and ``stream_sort_keys`` in hash mode through
+    the wrapper, equal the former torch formula bit for bit."""
+    args = hash_key_case(case, 3000, "cpu")
+    a, b = hash_key_sides(*args)
+    ref = _old_hash_keys(*a, *b)
+    assert_hash_keys_equal(K.plain_join_hash_keys(*a, *b), ref)
+    lb, lkv, lem, rb, rkv, rem, jt = args
+    keys = tjoin.stream_sort_keys(lb, lkv, lem, rb, rkv, rem, (), (), (),
+                                  (), jt, hash_mode=True)
+    assert_hash_keys_equal(keys, ref)
+    assert keys["na"] == a[1].shape[1] and keys["nb"] == b[1].shape[1]
+
+
+def _bad_hash_inputs(what):
+    lb, lkv, lem, rb, rkv, rem, _jt = hash_key_case("masks", 300, "cpu")
+    if what == "float_key":
+        return (lb[0].double(),), lkv, lem, (rb[0].double(),), rkv, rem
+    if what == "dtypes_differ":
+        return lb, lkv, lem, (rb[0].to(torch.int32),), rkv, rem
+    if what == "validity_not_bool":
+        return lb, lkv.to(torch.uint8), lem, rb, rkv, rem
+    if what == "shape":
+        return lb, lkv[:, 1:], lem, rb, rkv, rem
+    if what == "emit_shape":
+        return lb, lkv, lem, rb, rkv, rem[:, 1:]
+    if what == "device":
+        return lb, lkv, lem, rb, rkv.to("meta"), rem
+    if what == "seven_lanes":
+        return lb * 4, lkv, lem, rb * 4, rkv, rem
+    raise KeyError(what)
+
+
+@pytest.mark.parametrize("what", ["float_key", "dtypes_differ",
+                                  "validity_not_bool", "shape", "emit_shape",
+                                  "device", "seven_lanes"])
+def test_join_hash_keys_rejects(what):
+    with pytest.raises(CylonError):
+        K.join_hash_keys(*_bad_hash_inputs(what))
