@@ -38,6 +38,7 @@ from ..ops import order as _order
 from ..ops import setops as _setops
 from ..status import Code, CylonError
 from ..telemetry import ledger as _ledger
+from ..telemetry import metrics as _metrics
 from ..telemetry import phase as _phase
 from ..telemetry import record_host_sync as _host_sync
 from ..util import capacity as _capacity
@@ -1362,18 +1363,66 @@ def set_op(left: Table, right: Table, op) -> Table:
     """Local union/subtract/intersect. The stream route (one sort on a
     full-row hash, then K5/K6) takes lane-packable schemas (dictionary
     strings ride as their codes); the dense-ranks route is the general
-    (varbytes) and the hash-collision fallback."""
-    left._require_whole("a local set op")
-    right._require_whole("a local set op")
-    lcols, rcols = _aligned_setop_columns(left, right)
-    out = _setops.setop_stream_table(left, right, lcols, rcols, op)
-    if out is not None:
-        return out
-    gl, gr = row_gids(left, right)
-    rows = _setops.setop_rows(gl, gr, left.emit_mask(), right.emit_mask(),
-                              op)
-    return Table([_merge_pair(a, b).take(rows) for a, b in zip(lcols, rcols)],
-                 left._ctx)
+    (varbytes) and the hash-collision fallback.
+
+    One ``setop`` span a call holds the stages' spans: ``setop.prepare``,
+    then on the stream route ``setop.hash``, ``setop.sort``,
+    ``setop.stream`` (K5 with K6, and the counts fetch, the route's one
+    host sync, counted at the distributed set op's site ``setop.count``)
+    and ``setop.materialize``; the dense-ranks route, general or after a
+    collision, is ``setop.dense``. ``cylon_setop_route_total{route=stream
+    |dense|collision}`` counts the route each call took."""
+    with _phase("setop"):
+        left._require_whole("a local set op")
+        right._require_whole("a local set op")
+        with _phase("setop.prepare"):
+            lcols, rcols = _aligned_setop_columns(left, right)
+            descs = _setops.setop_lane_descs(lcols, rcols)
+            stream = _setops.setop_stream_applicable(
+                left.capacity + right.capacity, descs, left._ctx.device)
+            if stream:
+                lanes = _setops.setop_stream_lanes(lcols, rcols, descs)
+        route = "dense"
+        if stream:
+            out = _set_op_stream(left, right, lcols, descs, lanes, op)
+            route = "collision" if out is None else "stream"
+        _metrics.REGISTRY.counter("cylon_setop_route_total",
+                                  {"route": route}).inc()
+        if route == "stream":
+            return out
+        with _phase("setop.dense"):
+            gl, gr = row_gids(left, right)
+            rows = _setops.setop_rows(gl, gr, left.emit_mask(),
+                                      right.emit_mask(), op)
+            return Table([_merge_pair(a, b).take(rows)
+                          for a, b in zip(lcols, rcols)], left._ctx)
+
+
+def _set_op_stream(left: Table, right: Table, lcols, descs, lanes, op
+                   ) -> Optional[Table]:
+    """The stream route's stages under their spans; None where the row
+    hash collided (the caller takes the dense-ranks route)."""
+    with _phase("setop.hash"):
+        hashed = _setops.setop_stream_hash(*lanes, left.emit_mask()[None],
+                                           right.emit_mask()[None])
+        # the stack holds the lanes now: free the caller's before the sort
+        for side in lanes:
+            side.clear()
+    with _phase("setop.sort"):
+        sorted_in = _setops.setop_stream_sort(*hashed)
+        del hashed
+    out_len = _setops.stream_out_len(left.capacity, right.capacity)
+    with _phase("setop.stream"):
+        counts, streams = _kernels.setop_stream(*sorted_in, int(op), out_len)
+        del sorted_in
+        n_out, n_coll = counts[0].tolist()
+        _host_sync("setop.count")
+    if n_coll > 0:
+        return None
+    with _phase("setop.materialize"):
+        cols, emit = _setops.setop_stream_columns(descs, lcols, streams,
+                                                  n_out, out_len)
+        return Table(cols, left._ctx, emit)
 
 
 def concat_tables(tables: Sequence[Table], ctx: CylonContext) -> Table:

@@ -219,14 +219,25 @@ def stream_out_len(nl: int, nr: int) -> int:
     return (rows + stream_block_rows(nl, nr) + 8) * 128
 
 
-def setop_stream_inputs(lane_l: Sequence[torch.Tensor],
-                        lane_r: Sequence[torch.Tensor],
-                        lemit: torch.Tensor, remit: torch.Tensor):
-    """The tag, the row hash and the sort of the stream route: K5's
-    (h1_s, h2_s, streams_s), where streams_s is the int32 [1 + L, W, n]
-    stack of the tag (row 0) and the lanes, gathered by the sort in one
-    go so that K5 hands it to its compaction as it is. Lanes are int32
-    [W, nl] and [W, nr], emit masks bool."""
+def setop_stream_lanes(lcols, rcols, descs):
+    """Both sides' canonical lanes for the lane plan ``descs``: two lists
+    of int32 [1, n] tensors, the left's and the right's."""
+    lane_l, lane_r = [], []
+    for (kind, _), a, b in zip(descs, lcols, rcols):
+        lane_l.extend(x[None] for x in _col_lanes(
+            a, b.validity is not None, kind))
+        lane_r.extend(x[None] for x in _col_lanes(
+            b, a.validity is not None, kind))
+    return lane_l, lane_r
+
+
+def setop_stream_hash(lane_l: Sequence[torch.Tensor],
+                      lane_r: Sequence[torch.Tensor],
+                      lemit: torch.Tensor, remit: torch.Tensor):
+    """The hash stage of the stream route: the int32 [1 + L, W, n] stack
+    of the tag (row 0) and the lanes, and the row hash. Returns (h1, h2,
+    streams, side, live): h1/h2 int64 values in [0, 2^32), side and live
+    bool [W, n]. Lanes are int32 [W, nl] and [W, nr], emit masks bool."""
     w, nl = lemit.shape
     nr = remit.shape[1]
     dev = lemit.device
@@ -240,8 +251,15 @@ def setop_stream_inputs(lane_l: Sequence[torch.Tensor],
     for k, (a, b) in enumerate(zip(lane_l, lane_r)):
         torch.cat([a, b], 1, out=streams[1 + k])
     h1, h2 = _hash.hash2_streams(list(streams[1:]), live)
-    # (h1, h2, tag) order: tag order is (side, live, iota) order, a stable
-    # sort by side * 2 + live; then a stable sort by the packed hash pair
+    return h1, h2, streams, side, live
+
+
+def setop_stream_sort(h1, h2, streams, side, live):
+    """The sort stage of the stream route: K5's (h1_s, h2_s, streams_s),
+    the stream in (h1, h2, tag) order, the stack gathered in one go so
+    that K5 hands it to its compaction as it is."""
+    # tag order is (side, live, iota) order, a stable sort by side * 2 +
+    # live; then a stable sort by the packed hash pair
     perm = torch.sort((side.to(torch.uint8) << 1) | live.to(torch.uint8),
                       dim=1, stable=True).indices
     key = (((h1 << 32) | h2) ^ _SIGN64).gather(1, perm)
@@ -251,6 +269,16 @@ def setop_stream_inputs(lane_l: Sequence[torch.Tensor],
             streams.gather(2, perm.unsqueeze(0).expand_as(streams)))
 
 
+def setop_stream_inputs(lane_l: Sequence[torch.Tensor],
+                        lane_r: Sequence[torch.Tensor],
+                        lemit: torch.Tensor, remit: torch.Tensor):
+    """The tag, the row hash and the sort of the stream route: K5's
+    (h1_s, h2_s, streams_s), where streams_s is the int32 [1 + L, W, n]
+    stack of the tag (row 0) and the lanes."""
+    return setop_stream_sort(*setop_stream_hash(lane_l, lane_r, lemit,
+                                                remit))
+
+
 def _setop_stream_program(lane_l, lane_r, lemit, remit, op: SetOp,
                           out_len: int):
     """``setop_stream_inputs`` then K5: returns K5's (counts, streams)."""
@@ -258,37 +286,16 @@ def _setop_stream_program(lane_l, lane_r, lemit, remit, op: SetOp,
                                                 remit), int(op), out_len)
 
 
-def setop_stream_table(left, right, lcols, rcols, op: SetOp):
-    """The stream route of a local set op. Returns the result Table, or
-    None when the route does not apply or the hash collided (the caller
-    takes the dense-ranks route). ``lcols``/``rcols`` are the
-    schema-ALIGNED columns."""
+def setop_stream_columns(descs, lcols, streams, n_out: int, out_len: int):
+    """The result's columns from K5's compacted streams: (columns, emit
+    mask) at ``capacity(n_out)`` rows, clamped to ``out_len``."""
     from ..data.column import Column
-    from ..data.table import Table
 
-    descs = setop_lane_descs(lcols, rcols)
-    nl, nr = left.capacity, right.capacity
-    dev = left._ctx.device
-    if not setop_stream_applicable(nl + nr, descs, dev):
-        return None
-    lane_l, lane_r = [], []
-    for (kind, _), a, b in zip(descs, lcols, rcols):
-        lane_l.extend(x[None] for x in _col_lanes(
-            a, b.validity is not None, kind))
-        lane_r.extend(x[None] for x in _col_lanes(
-            b, a.validity is not None, kind))
-    out_len = stream_out_len(nl, nr)
-    counts, streams = _setop_stream_program(
-        lane_l, lane_r, left.emit_mask()[None], right.emit_mask()[None], op,
-        out_len)
-    n_out, n_coll = counts[0].tolist()
-    if n_coll > 0:
-        return None
     # capacity() rounds n_out up by up to ~6%, which can pass the stream
     # length when n_out is close to n: clamp (it is always >= n_out)
     cap = min(_capacity(n_out), out_len)
     flat = [s[0, :cap] for s in streams[1:]]  # drop the idx stream
-    emit = torch.arange(cap, device=dev) < n_out
+    emit = torch.arange(cap, device=streams.device) < n_out
     cols = []
     k = 0
     for (kind, has_v), a in zip(descs, lcols):
@@ -315,4 +322,4 @@ def setop_stream_table(left, right, lcols, rcols, op: SetOp):
             k += 1
         cols.append(Column(data, a.dtype, validity, a.name,
                            dictionary=a.dictionary))
-    return Table(cols, left._ctx, emit)
+    return cols, emit

@@ -2301,3 +2301,93 @@ def test_stage_spans_hold_the_op_device_time(cuda, op):
     cover = sum(m for m, _c in leaves) / ms
     assert 0.90 <= cover <= 1.001, (cover, leaves, ms)
     assert abs(ms - whole) <= 0.10 * whole, (ms, whole)
+
+
+SETOP_LEAVES = ("setop.prepare", "setop.hash", "setop.sort", "setop.stream",
+                "setop.materialize", "setop.dense")
+
+
+def _plain_distinct_union(cols):
+    """The distinct rows of [left; right], columns ``cols`` (pairs of
+    tensors), in the bits' lexicographic order: -0.0 made +0.0, a stable
+    sort a column from the last, the first row of each run kept."""
+    xs = [torch.cat(p) for p in cols]
+    xs = [torch.where(x == 0, torch.zeros_like(x), x) for x in xs]
+    bits = [x.view(torch.int64) for x in xs]
+    perm = torch.arange(len(xs[0]), device=xs[0].device)
+    for b in reversed(bits):
+        perm = perm[torch.sort(b[perm], stable=True).indices]
+    same = torch.ones(len(perm) - 1, dtype=torch.bool, device=perm.device)
+    for b in bits:
+        s = b[perm]
+        same &= s[1:] == s[:-1]
+    keep = torch.ones(len(perm), dtype=torch.bool, device=perm.device)
+    keep[1:] = ~same
+    return [x[perm[keep]] for x in xs]
+
+
+def test_union_stream_route_on_card(cuda):
+    """``Table.distributed_union`` at world 1 of 2^23 rows a side (int64
+    key, float64 payload, the union cell's schema, a tenth of the right
+    side copying left rows) on the card: the stream route, K5 and K6 once
+    each and no dense ranks; the rows equal the plain reference's bit for
+    bit; under torch.profiler the ``setop`` leaves hold at least 95% of
+    the op span's device ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cylon_tpu_torch import telemetry as tel
+
+    n = 1 << 23
+    g = torch.Generator(device=cuda)
+    g.manual_seed(2 ** 31 + 22)
+    k = [torch.randint(0, n, (n,), generator=g, device=cuda) for _ in "lr"]
+    v = [torch.rand(n, generator=g, device=cuda, dtype=torch.float64)
+         for _ in "lr"]
+    v[0][::1000] = 0.0
+    v[1][::999] = -0.0
+    k[1][: n // 10], v[1][: n // 10] = k[0][: n // 10], v[0][: n // 10]
+    ctx = ct.CylonContext.InitDistributed(ct.VirtualWorldConfig(1),
+                                          device=cuda)
+    left, right = (ct.Table([ct.Column(k[i], ct.dtypes.Int64(), None, "k"),
+                             ct.Column(v[i], ct.dtypes.Double(), None, "v")],
+                            ctx) for i in range(2))
+
+    def routes():
+        return {key: val for key, val in tel.metrics_snapshot().items()
+                if key.startswith("cylon_setop_route_total")}
+
+    left.distributed_union(right)
+    torch.cuda.synchronize()
+    before, was = tel.span_device_times(), routes()
+    K.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        out = left.distributed_union(right)
+        torch.cuda.synchronize()
+    got = tel.span_device_times()
+    assert K.LAUNCHES["setop_stream"] == 1
+    assert K.LAUNCHES["stream_compact"] == 1
+    now = routes()
+    assert {key: now[key] - was.get(key, 0) for key in now
+            if now[key] != was.get(key, 0)} == \
+        {'cylon_setop_route_total{route="stream"}': 1}
+
+    def delta(name):
+        w = before.get(name, (0.0, 0))
+        return got.get(name, (0.0, 0))[0] - w[0], \
+            got.get(name, (0.0, 0))[1] - w[1]
+
+    ms, count = delta("setop")
+    assert count == 1 and delta("setop.dense")[1] == 0
+    cover = sum(delta(s)[0] for s in SETOP_LEAVES) / ms
+    assert 0.95 <= cover <= 1.001, (cover, ms)
+
+    live = torch.nonzero(out.emit_mask()).flatten()
+    prog = [c.data[live] for c in out.columns()]
+    ref = _plain_distinct_union([(k[0], k[1]), (v[0], v[1])])
+    assert len(prog[0]) == len(ref[0]) < 2 * n - n // 10 + 1
+    perm = torch.arange(len(prog[0]), device=cuda)
+    for x in reversed(prog):
+        perm = perm[torch.sort(x.view(torch.int64)[perm], stable=True
+                               ).indices]
+    for x, y in zip(prog, ref):
+        assert torch.equal(x[perm].view(torch.int64), y.view(torch.int64))

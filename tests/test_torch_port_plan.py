@@ -47,10 +47,13 @@ from cylon_tpu_torch.plan import verify as tverify
 
 SUM_RTOL = 1e-5
 LABEL_PREFIXES = ("plan.", "shuffle.", "join.")
-# the port's stage spans of its local join, which the JAX package does not
-# open (tests/test_torch_port_stage_spans.py holds them)
+# the port's stage spans of its local join and local set op, which the JAX
+# package does not open (tests/test_torch_port_stage_spans.py and
+# tests/test_torch_port_setop_spans.py hold them)
 PORT_ONLY_SPANS = ("join.prepare", "join.plan.hash", "join.plan.sort",
-                   "join.plan.stream", "join.rebuild")
+                   "join.plan.stream", "join.rebuild", "setop",
+                   "setop.prepare", "setop.hash", "setop.sort",
+                   "setop.stream", "setop.materialize", "setop.dense")
 
 
 @pytest.fixture(scope="module", autouse=True)
