@@ -345,6 +345,16 @@ Phases, in order (any failure exits non-zero; nothing is caught):
      cell shape's); then a world-1 inner join on an int64 key at 2 x 2^24
      rows: K8 and K3 launch once (counters 0 -> read), the rows the numpy
      count, the median of 5 steady walls.
+ 32. (run after phase 31) K9 ``setop_hash_rows``, the hash stage of the
+     set ops' stream route, at the union cell's shape (2 x 100,000,000
+     rows of an int64 and a float64 column, world 1, no validity, no emit
+     mask) and at 2 x 2^24 rows (int64, float64, int16 with 10% nulls on
+     the left, float32; 15% of rows not emitted), against its plain
+     version bit for bit, timed as in phase 8 (the kernels line's numbers
+     are the cell shape's); then UNION, SUBTRACT and INTERSECT of phase
+     5's tables at 2 x 2^24 rows (seed 32): K9 and K5 launch once each
+     (counters 0 -> read), the rows the numpy count; the union's median
+     of 5 steady walls.
 Phases 10-12, 23a and 24d each record the median of 5 steady runs after
 one warm-up.
 Tolerances against numpy: float sums 1e-5 * sum |x| of the group
@@ -1654,6 +1664,97 @@ def hash_keys_phase(ct, K) -> dict:
         f"{launches}; {rows} rows == numpy count; steady walls (s) {walls}")
     return {"checks": checks, "launches": launches, "out_rows": rows,
             "walls": walls}
+
+
+SETOP_HASH_ROWS = (100_000_000, 1 << 24)  # phase 32's rows a side
+
+
+def setop_hash_inputs(n: int, gen, mixed: bool):
+    """K9's arguments for two sides of n rows: the union cell's schema
+    (int64 k, float64 v; no validity, no emit masks), or with ``mixed``
+    also an int16 column with nulls on the left, a float32 one, and emit
+    masks."""
+    def side(nulls: bool):
+        k = torch.randint(0, n, (1, n), device="cuda", generator=gen)
+        v = torch.rand(1, n, device="cuda", generator=gen,
+                       dtype=torch.float64)
+        data, valid = [k, v], [None, None]
+        if mixed:
+            h = torch.randint(-300, 300, (1, n), device="cuda",
+                              generator=gen).to(torch.int16)
+            f = v.to(torch.float32)
+            hv = torch.rand(1, n, device="cuda", generator=gen) >= 0.1
+            data += [h, f]
+            valid += [hv if nulls else None, None]
+        emit = torch.rand(1, n, device="cuda", generator=gen) >= 0.15
+        return data, valid, emit if mixed else None
+
+    (ld, lv, le), (rd, rv, re) = side(True), side(False)
+    descs = (("w", False), ("w", False)) + (
+        (("n", True), ("d", False)) if mixed else ())
+    return ld, lv, le, rd, rv, re, descs
+
+
+def setop_hash_phase(ct, K) -> dict:
+    """Phase 32: K9 at SETOP_HASH_ROWS against its plain version, timed;
+    then each local set op at 2 x 2^24 rows launches it once."""
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    checks = []
+    for n in SETOP_HASH_ROWS:
+        torch.cuda.empty_cache()
+        mixed = n != SETOP_HASH_ROWS[0]
+        args = setop_hash_inputs(n, gen, mixed)
+        got = K.setop_hash_rows(*args)
+        ref = K.plain_setop_hash_rows(*args)
+        sync()
+        equal = all(x.dtype == y.dtype and torch.equal(x, y)
+                    for x, y in zip(got, ref))
+        del got, ref
+        # read the columns, the emit bytes and the left's validity bytes
+        # (where there are); write the tag and the lanes as 4-byte words
+        # and the two 32-bit hashes
+        ld, lv, le, _rd, _rv, _re, descs = args
+        lanes = sum((2 if kind == "w" else 1) + has_v
+                    for kind, has_v in descs)
+        row = sum(x.element_size() for x in ld) + 4 * (1 + lanes) + 8 \
+            + mixed
+        nbytes = 2 * n * row + n * mixed
+        r = dict(name="setop_hash_rows", err=0 if equal else 1,
+                 shape=f"2 x [1, {n}], " + ", ".join(
+                     str(x.dtype).replace("torch.", "") for x in ld)
+                 + (" (nulls on the left, emit masks)" if mixed else ""),
+                 ms=cuda_ms(lambda: K.setop_hash_rows(*args)),
+                 kernel_ms=own_kernel_ms(K, lambda: K.setop_hash_rows(
+                     *args)),
+                 plain_ms=cuda_ms(lambda: K.plain_setop_hash_rows(*args)),
+                 library_ms=None,
+                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+        del args
+        checks.append(r)
+        log(f"phase 32 kernel check setop_hash_rows ({r['shape']}): ms "
+            f"{r['ms']:.4f} kernel_ms {r['kernel_ms']:.4f} plain "
+            f"{r['plain_ms']:.4f} bound {r['bound_ms']:.4f} equal {equal}")
+    assert all(r["err"] == 0 for r in checks), \
+        "setop_hash_rows disagrees with its plain version"
+    torch.cuda.empty_cache()
+    m = SETOP_HASH_ROWS[1]
+    ctx = ct.CylonContext.Init()
+    a, b, (pa, pb) = make_setop_tables(ct, ctx, m, 32)
+    expect = {k: v.size for k, v in numpy_setop_rows(pa, pb).items()}
+    del pa, pb
+    launches = {}
+    for name in SETOP_OPS:
+        sync()
+        K.reset_launches()
+        rows = getattr(a, name.lower())(b).row_count
+        launches[name] = dict(K.LAUNCHES)
+        assert launches[name]["setop_hash_rows"] == 1 \
+            and launches[name]["setop_stream"] == 1, launches[name]
+        assert rows == expect[name], (name, rows, expect[name])
+    walls = steady(lambda: a.union(b))
+    log(f"phase 32 set ops (2 x {m} rows, world 1): launches {launches}; "
+        f"rows == numpy; union steady walls (s) {walls}")
+    return {"checks": checks, "launches": launches, "walls": walls}
 
 
 class StringPolicy:
@@ -5032,6 +5133,18 @@ def main() -> int:
         kernel_ms=k8["kernel_ms"], plain_ms=k8["plain_ms"],
         bound_ms=k8["bound_ms"], bound_by="bytes", library_ms=None))
 
+    # phase 32: K9 at the union cell's shape and at 2^24, and its launch
+    # on each set op
+    clock.mark("32")
+    hash32 = setop_hash_phase(ct, K)
+    k9 = hash32["checks"][0]
+    kernels.append(dict(
+        table["setop_hash_rows"], launches=sum(
+            v["setop_hash_rows"] for v in hash32["launches"].values()),
+        max_abs_err=k9["err"], ms=k9["ms"], kernel_ms=k9["kernel_ms"],
+        plain_ms=k9["plain_ms"], bound_ms=k9["bound_ms"],
+        bound_by="bytes", library_ms=None))
+
     # phases 17-21: the ring and broadcast joins, the salted shuffle, the
     # chunked exchange
     clock.mark("17")
@@ -5190,7 +5303,7 @@ def main() -> int:
                            dist_string_join=dist_string_join,
                            string_small=string_small,
                            string_kernels=string_kernels,
-                           hash_keys=hash31,
+                           hash_keys=hash31, setop_hash=hash32,
                            join_chunks=chunks2, ring_join=ring,
                            broadcast_join=bcast, salted_shuffle=salted,
                            chunked_exchange=chunked,

@@ -1365,13 +1365,15 @@ def set_op(left: Table, right: Table, op) -> Table:
     strings ride as their codes); the dense-ranks route is the general
     (varbytes) and the hash-collision fallback.
 
-    One ``setop`` span a call holds the stages' spans: ``setop.prepare``,
-    then on the stream route ``setop.hash``, ``setop.sort``,
-    ``setop.stream`` (K5 with K6, and the counts fetch, the route's one
-    host sync, counted at the distributed set op's site ``setop.count``)
-    and ``setop.materialize``; the dense-ranks route, general or after a
-    collision, is ``setop.dense``. ``cylon_setop_route_total{route=stream
-    |dense|collision}`` counts the route each call took."""
+    One ``setop`` span a call holds the stages' spans: ``setop.prepare``
+    (alignment, the lane plan, the route), then on the stream route
+    ``setop.hash`` (K9: the tag, the lanes and the row hash from the
+    columns), ``setop.sort``, ``setop.stream`` (K5 with K6, and the counts
+    fetch, the route's one host sync, counted at the distributed set op's
+    site ``setop.count``) and ``setop.materialize``; the dense-ranks
+    route, general or after a collision, is ``setop.dense``.
+    ``cylon_setop_route_total{route=stream|dense|collision}`` counts the
+    route each call took."""
     with _phase("setop"):
         left._require_whole("a local set op")
         right._require_whole("a local set op")
@@ -1380,11 +1382,9 @@ def set_op(left: Table, right: Table, op) -> Table:
             descs = _setops.setop_lane_descs(lcols, rcols)
             stream = _setops.setop_stream_applicable(
                 left.capacity + right.capacity, descs, left._ctx.device)
-            if stream:
-                lanes = _setops.setop_stream_lanes(lcols, rcols, descs)
         route = "dense"
         if stream:
-            out = _set_op_stream(left, right, lcols, descs, lanes, op)
+            out = _set_op_stream(left, right, lcols, rcols, descs, op)
             route = "collision" if out is None else "stream"
         _metrics.REGISTRY.counter("cylon_setop_route_total",
                                   {"route": route}).inc()
@@ -1398,16 +1398,13 @@ def set_op(left: Table, right: Table, op) -> Table:
                           for a, b in zip(lcols, rcols)], left._ctx)
 
 
-def _set_op_stream(left: Table, right: Table, lcols, descs, lanes, op
+def _set_op_stream(left: Table, right: Table, lcols, rcols, descs, op
                    ) -> Optional[Table]:
     """The stream route's stages under their spans; None where the row
     hash collided (the caller takes the dense-ranks route)."""
     with _phase("setop.hash"):
-        hashed = _setops.setop_stream_hash(*lanes, left.emit_mask()[None],
-                                           right.emit_mask()[None])
-        # the stack holds the lanes now: free the caller's before the sort
-        for side in lanes:
-            side.clear()
+        hashed = _setops.setop_stream_hash(descs, lcols, rcols,
+                                           left.row_mask, right.row_mask)
     with _phase("setop.sort"):
         sorted_in = _setops.setop_stream_sort(*hashed)
         del hashed

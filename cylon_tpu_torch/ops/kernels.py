@@ -12,6 +12,7 @@ cylon_tpu.ops.tpu_kernels).
 | K6 stream_compact  | stream_compact (:241)                   | csrc/stream_compact.cu |
 | K7 segment_sum     | float SUM of cylon_tpu/ops/groupby.py:140 | csrc/segment_sum.cu |
 | K8 join_hash_keys  | none: XLA's fusion of cylon_tpu/ops/join.py:598-631 | csrc/join_hash_keys.cu |
+| K9 setop_hash_rows | none: XLA's fusion of cylon_tpu/ops/setops.py:183 and cylon_tpu/ops/hash.py:91 | csrc/setop_hash_rows.cu |
 
 Each wrapper takes tensors with a leading shard dimension ``[W, n]`` (one
 launch covers every shard of the virtual world) and 32-bit streams as
@@ -45,7 +46,7 @@ import torch
 
 from ..status import Code, CylonError
 from ..telemetry.metrics import counted_cache
-from .hash import hash2_streams
+from .hash import as_i32, hash2_streams
 from .order import unsigned
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -56,7 +57,8 @@ SOURCES = {"partition": CSRC / "partition.cu",
            "setop_stream": CSRC / "setop_stream.cu",
            "stream_compact": CSRC / "stream_compact.cu",
            "segment_sum": CSRC / "segment_sum.cu",
-           "join_hash_keys": CSRC / "join_hash_keys.cu"}
+           "join_hash_keys": CSRC / "join_hash_keys.cu",
+           "setop_hash_rows": CSRC / "setop_hash_rows.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -70,10 +72,11 @@ MAX_PLAN_LANES = 8      # K3 payload and verify lane limit (join_stream.cu)
 COMPACT_TILE = 4096     # elements per K6 tile (csrc/stream_compact.cu TILE)
 IDX_MASK = (1 << 29) - 1  # the row index field of a stream tag
 MAX_HASH_LANES = 6      # K8 key columns and u32 lanes (join_hash_keys.cu)
+MAX_SETOP_LANES = 12    # K9 columns and u32 lanes (setop_hash_rows.cu MAXL)
 
 KERNELS = ("partition_hist", "partition_scatter", "join_plan_stream",
            "join_expand_stream", "setop_stream", "stream_compact",
-           "segment_sum", "join_hash_keys")
+           "segment_sum", "join_hash_keys", "setop_hash_rows")
 # launches per wrapper since the last reset_launches()
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
@@ -117,6 +120,10 @@ _SIGNATURES = {
     "join_hash_keys": {
         "launch_join_hash_keys": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                                   _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "setop_hash_rows": {
+        "launch_setop_hash_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
+                                   _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
 }
 # the 64-bit words of a single-pass kernel's tile state: (W, tiles) -> n,
@@ -983,6 +990,211 @@ def join_hash_keys(abits, akv: torch.Tensor, aemit: Optional[torch.Tensor],
     return dict(tag=tag, kb=kb, h1=h1, h2=h2, key=key)
 
 
+# ---------------------------------------------------------------------------
+# K9 setop_hash_rows
+# ---------------------------------------------------------------------------
+
+# how K9 widens a column's elements (csrc/setop_hash_rows.cu Mode)
+_MODE_BOOL, _MODE_UNSIGNED, _MODE_SIGNED, _MODE_FLOAT = range(4)
+
+
+def _lane_kind(dt: torch.dtype) -> Optional[str]:
+    """The lane kind of ``ops/setops.setop_lane_descs`` a column of dtype
+    ``dt`` takes, or None where it takes none."""
+    if dt == torch.bool:
+        return "b"
+    if dt.is_complex:
+        return None
+    return {1: "n", 2: "n", 4: "d", 8: "w"}.get(
+        torch.empty((), dtype=dt).element_size())
+
+
+def _lane_mode(dt: torch.dtype) -> int:
+    if dt == torch.bool:
+        return _MODE_BOOL
+    if dt.is_floating_point:
+        return _MODE_FLOAT
+    return _MODE_SIGNED if dt in (torch.int8, torch.int16) \
+        else _MODE_UNSIGNED
+
+
+def _zero_normalized(x: torch.Tensor) -> torch.Tensor:
+    """-0.0 -> +0.0, so equal float values have equal bits."""
+    return torch.where(x == 0, torch.zeros((), dtype=x.dtype,
+                                           device=x.device), x)
+
+
+def _col_lanes(x: torch.Tensor, valid: Optional[torch.Tensor],
+               other_has_v: bool, kind: str) -> List[torch.Tensor]:
+    """Canonical 32-bit lanes (int32 tensors) of one side's column ``x``
+    with validity ``valid`` (or None): equal VALUES give equal lane bits
+    (floats: -0.0 normalized; null cells: forced 0, the validity lane
+    carrying the distinction). Narrow integers widen as
+    ``astype(uint32)`` does: signed ones sign-extend."""
+    if x.dtype.is_floating_point:
+        x = _zero_normalized(x)
+    if kind == "b":
+        bits = [x.to(torch.int32)]
+    elif kind == "n":
+        if x.dtype in (torch.float16, torch.uint16):
+            # float16: a bitcast, not a value cast (1.25 and 1.5 differ)
+            bits = [x.view(torch.int16).to(torch.int32) & 0xFFFF]
+        else:
+            bits = [x.to(torch.int32)]
+    elif kind == "w":
+        u = x.view(torch.int64)
+        bits = [as_i32(u >> 32), as_i32(u)]
+    else:
+        bits = [x.view(torch.int32)]
+    if valid is not None or other_has_v:
+        vm = torch.ones_like(x, dtype=torch.bool) if valid is None else valid
+        bits = [torch.where(vm, b, 0) for b in bits]
+        bits.append(vm.to(torch.int32))
+    return bits
+
+
+def setop_stack_hash(lane_l: Sequence[torch.Tensor],
+                     lane_r: Sequence[torch.Tensor],
+                     lemit: torch.Tensor, remit: torch.Tensor):
+    """The stack and the row hash from the sides' lanes: the int32 [1 + L,
+    W, n] stack of the tag (row 0) and the lanes, and (h1, h2, streams,
+    side, live) as ``setop_hash_rows`` returns them. Lanes are int32 [W,
+    nl] and [W, nr], emit masks bool."""
+    w, nl = lemit.shape
+    nr = remit.shape[1]
+    dev = lemit.device
+    live = torch.cat([lemit, remit], 1)
+    side = torch.cat([torch.ones(w, nl, dtype=torch.bool, device=dev),
+                      torch.zeros(w, nr, dtype=torch.bool, device=dev)], 1)
+    streams = torch.empty(1 + len(lane_l), w, nl + nr, dtype=torch.int32,
+                          device=dev)
+    streams[0] = (side.to(torch.int32) << 31) | (live.to(torch.int32) << 29) \
+        | torch.arange(nl + nr, dtype=torch.int32, device=dev)
+    for k, (a, b) in enumerate(zip(lane_l, lane_r)):
+        torch.cat([a, b], 1, out=streams[1 + k])
+    h1, h2 = hash2_streams(list(streams[1:]), live)
+    return h1, h2, streams, side, live
+
+
+def _setop_hash_inputs(ldata, lvalid, lemit, rdata, rvalid, remit, descs):
+    """K9's inputs checked: the lists and the lane count, else raise."""
+    ldata, lvalid = list(ldata), list(lvalid)
+    rdata, rvalid = list(rdata), list(rvalid)
+    descs = list(descs)
+    if not descs or not len(descs) == len(ldata) == len(lvalid) \
+            == len(rdata) == len(rvalid):
+        raise CylonError(Code.Invalid, f"setop_hash_rows: {len(descs)} "
+                                       f"lane descriptors for {len(ldata)} "
+                                       f"and {len(rdata)} columns")
+    if any(x.dim() != 2 for x in ldata + rdata) \
+            or ldata[0].shape[0] != rdata[0].shape[0]:
+        raise CylonError(Code.Invalid, "setop_hash_rows: columns want [W, "
+                                       "nl] and [W, nr] shapes")
+    lshape, rshape = ldata[0].shape, rdata[0].shape
+    lanes = 0
+    for i, ((kind, has_v), a, av, b, bv) in enumerate(
+            zip(descs, ldata, lvalid, rdata, rvalid)):
+        if a.dtype != b.dtype or _lane_kind(a.dtype) != kind \
+                or a.shape != lshape or b.shape != rshape:
+            raise CylonError(Code.Invalid, f"setop_hash_rows: column {i} "
+                             f"wants one dtype of lane kind {kind!r} shaped "
+                             f"{tuple(lshape)} and {tuple(rshape)}, got "
+                             f"{tuple(a.shape)} {a.dtype} and "
+                             f"{tuple(b.shape)} {b.dtype}")
+        if bool(has_v) != (av is not None or bv is not None) or any(
+                v is not None and (v.dtype != torch.bool or v.shape != x.shape)
+                for v, x in ((av, a), (bv, b))):
+            raise CylonError(Code.Invalid, f"setop_hash_rows: column {i}'s "
+                             f"validity wants bool shaped like the column, "
+                             f"on a side where the plan has a validity lane")
+        lanes += (2 if kind == "w" else 1) + (1 if has_v else 0)
+    if lanes > MAX_SETOP_LANES:
+        raise CylonError(Code.Invalid, f"setop_hash_rows takes at most "
+                                       f"{MAX_SETOP_LANES} u32 lanes, got "
+                                       f"{lanes}")
+    for m, shape in ((lemit, lshape), (remit, rshape)):
+        if m is not None and (m.dtype != torch.bool or m.shape != shape):
+            raise CylonError(Code.Invalid, f"setop_hash_rows: an emit mask "
+                                           f"wants bool {tuple(shape)}, got "
+                                           f"{tuple(m.shape)} {m.dtype}")
+    if lshape[1] + rshape[1] >= (1 << 29):
+        raise CylonError(Code.Invalid, "setop_hash_rows: per-shard rows "
+                                       "must fit the 29-bit tag")
+    tensors = [*ldata, *lvalid, *rdata, *rvalid, lemit, remit]
+    if len({x.device for x in tensors if x is not None}) != 1:
+        raise CylonError(Code.Invalid, "setop_hash_rows: inputs must be on "
+                                       "one device")
+    return ldata, lvalid, rdata, rvalid, descs, lanes
+
+
+def plain_setop_hash_rows(ldata, lvalid, lemit, rdata, rvalid, remit,
+                          descs):
+    """Plain version of K9 (see ``setop_hash_rows``): each column's lanes
+    by ``_col_lanes``, then ``setop_stack_hash``."""
+    lane_l, lane_r = [], []
+    for (kind, _), a, av, b, bv in zip(descs, ldata, lvalid, rdata, rvalid):
+        lane_l.extend(_col_lanes(a, av, bv is not None, kind))
+        lane_r.extend(_col_lanes(b, bv, av is not None, kind))
+    lemit = torch.ones_like(ldata[0], dtype=torch.bool) if lemit is None \
+        else lemit
+    remit = torch.ones_like(rdata[0], dtype=torch.bool) if remit is None \
+        else remit
+    return setop_stack_hash(lane_l, lane_r, lemit, remit)
+
+
+def setop_hash_rows(ldata, lvalid, lemit: Optional[torch.Tensor], rdata,
+                    rvalid, remit: Optional[torch.Tensor], descs):
+    """K9: the hash stage of the set ops' stream route, per shard, over the
+    concatenation [left rows | right rows] (n = nl + nr < 2^29).
+
+    ``ldata``/``rdata``: the aligned column pairs' storage, [W, nl] and
+    [W, nr] tensors (one dtype a pair; dictionary strings as their int32
+    codes); ``lvalid``/``rvalid``: each column's bool validity or None;
+    ``lemit``/``remit``: bool emit masks or None (every row emits);
+    ``descs``: the lane plan of ``ops/setops.setop_lane_descs``, a
+    (kind, has_validity) pair a column, at most MAX_SETOP_LANES lanes.
+
+    Returns (h1, h2, streams, side, live): ``streams`` the int32 [1 + L,
+    W, n] stack, row 0 the tag ``side<<31 | live<<29 | iota`` and rows 1..L
+    the columns' canonical u32 lanes (``_col_lanes``); ``h1``/``h2`` the
+    two 32-bit row hashes (``hash.hash2_streams`` over the lanes: int64
+    values in [0, 2^32), all-ones at rows not live); ``side`` (True on left
+    rows) and ``live`` (the emit masks) bool [W, n]. On the card: one
+    launch."""
+    ldata, lvalid, rdata, rvalid, descs, lanes = _setop_hash_inputs(
+        ldata, lvalid, lemit, rdata, rvalid, remit, descs)
+    if not ldata[0].is_cuda:
+        return plain_setop_hash_rows(ldata, lvalid, lemit, rdata, rvalid,
+                                     remit, descs)
+    w, nl = ldata[0].shape
+    nr = rdata[0].shape[1]
+    dev = ldata[0].device
+    stack = torch.empty(1 + lanes, w, nl + nr, dtype=torch.int32,
+                        device=dev)
+    h1, h2 = (torch.empty(w, nl + nr, dtype=torch.int64, device=dev)
+              for _ in range(2))
+    side, live = (torch.empty(w, nl + nr, dtype=torch.bool, device=dev)
+                  for _ in range(2))
+
+    def contiguous(xs):
+        return [None if x is None else x.contiguous() for x in xs]
+
+    ldata, lvalid, rdata, rvalid = (contiguous(xs) for xs in
+                                    (ldata, lvalid, rdata, rvalid))
+    lemit, remit = contiguous([lemit, remit])
+    _launch("setop_hash_rows", "launch_setop_hash_rows", _ptrs(ldata),
+            _ptrs(rdata), _ptrs(lvalid), _ptrs(rvalid),
+            _ints([x.element_size() for x in ldata]),
+            _ints([_lane_mode(x.dtype) for x in ldata]),
+            _ints([int(bool(has_v)) for _kind, has_v in descs]), len(ldata),
+            _ptr(lemit), _ptr(remit), _ptr(stack), _ptr(h1), _ptr(h2),
+            _ptr(side), _ptr(live), w, nl, nr,
+            torch.cuda.get_device_properties(dev).multi_processor_count,
+            _stream(ldata[0]))
+    LAUNCHES["setop_hash_rows"] += 1
+    return h1, h2, stack, side, live
+
+
 def kernel_table() -> List[dict]:
     """Static description of the ported kernels: name, source, the TPU
     kernel each replaces."""
@@ -1013,4 +1225,9 @@ def kernel_table() -> List[dict]:
         {"name": "join_hash_keys", "route": "cuda",
          "source": rel["join_hash_keys"],
          "replaces": "cylon_tpu/ops/join.py:598"},
+        {"name": "setop_hash_rows", "route": "cuda",
+         "source": rel["setop_hash_rows"],
+         "replaces": "none: XLA's fusion of cylon_tpu/ops/setops.py:183 "
+                     "(_col_lanes) and cylon_tpu/ops/hash.py:91 "
+                     "(hash2_streams)"},
     ]

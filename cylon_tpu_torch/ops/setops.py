@@ -12,6 +12,8 @@ pairs under a row comparator. Two routes, as in the JAX package:
 * the stream route: one sort of the rows by a 2x32-bit full-row hash,
   the row payload riding along as 32-bit lanes, then kernel K5
   (``setop_stream``, whose compaction is kernel K6 ``stream_compact``).
+  The tag, the lanes and the hash come from the columns in one pass of
+  kernel K9 (``setop_hash_rows``).
   The lanes double as hash-verify lanes: a collision sends the op back to
   the dense-ranks route, so the result is exact.
 
@@ -21,7 +23,7 @@ components compare equal to each other (validity is part of the key).
 from __future__ import annotations
 
 import enum
-from typing import List, Optional, Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -127,8 +129,9 @@ def setop_rows(gl, gr, lemit, remit, op: SetOp) -> torch.Tensor:
 # K6 run their plain versions
 STREAM_SETOP: Optional[bool] = None
 
-# lane budget of the stream route (the TPU sort took 3 keys + the lanes)
-MAX_SETOP_LANES = 12
+# lane budget of the stream route (the TPU sort took 3 keys + the lanes;
+# K9 takes as many)
+MAX_SETOP_LANES = _k.MAX_SETOP_LANES
 
 
 def setop_lane_descs(lcols, rcols):
@@ -177,40 +180,6 @@ def setop_stream_applicable(n_total: int, descs,
     return device.type == "cuda"
 
 
-def _zero_normalized(x: torch.Tensor) -> torch.Tensor:
-    """-0.0 -> +0.0, so equal float values have equal bits."""
-    return torch.where(x == 0, torch.zeros((), dtype=x.dtype,
-                                           device=x.device), x)
-
-
-def _col_lanes(col, other_has_v: bool, kind: str) -> List[torch.Tensor]:
-    """Canonical 32-bit lanes (int32 tensors) of one side's column: equal
-    VALUES give equal lane bits (floats: -0.0 normalized; null cells:
-    forced 0, the validity lane carrying the distinction). Narrow
-    integers widen as ``astype(uint32)`` does: signed ones sign-extend."""
-    x = col.data
-    if x.dtype.is_floating_point:
-        x = _zero_normalized(x)
-    if kind == "b":
-        bits = [x.to(torch.int32)]
-    elif kind == "n":
-        if x.dtype in (torch.float16, torch.uint16):
-            # float16: a bitcast, not a value cast (1.25 and 1.5 differ)
-            bits = [x.view(torch.int16).to(torch.int32) & 0xFFFF]
-        else:
-            bits = [x.to(torch.int32)]
-    elif kind == "w":
-        u = x.view(torch.int64)
-        bits = [_hash.as_i32(u >> 32), _hash.as_i32(u)]
-    else:
-        bits = [x.view(torch.int32)]
-    if col.validity is not None or other_has_v:
-        vm = col.valid_mask()
-        bits = [torch.where(vm, b, 0) for b in bits]
-        bits.append(vm.to(torch.int32))
-    return bits
-
-
 def stream_out_len(nl: int, nr: int) -> int:
     """The TPU kernel's output stream length, ``(rows_for(n) + BR + 8) *
     128``: the result's capacity is clamped to it, so the port's results
@@ -219,39 +188,22 @@ def stream_out_len(nl: int, nr: int) -> int:
     return (rows + stream_block_rows(nl, nr) + 8) * 128
 
 
-def setop_stream_lanes(lcols, rcols, descs):
-    """Both sides' canonical lanes for the lane plan ``descs``: two lists
-    of int32 [1, n] tensors, the left's and the right's."""
-    lane_l, lane_r = [], []
-    for (kind, _), a, b in zip(descs, lcols, rcols):
-        lane_l.extend(x[None] for x in _col_lanes(
-            a, b.validity is not None, kind))
-        lane_r.extend(x[None] for x in _col_lanes(
-            b, a.validity is not None, kind))
-    return lane_l, lane_r
+def setop_stream_hash(descs, lcols, rcols, lemit: Optional[torch.Tensor],
+                      remit: Optional[torch.Tensor]):
+    """The hash stage of the stream route over the aligned column pairs
+    (K9 ``kernels.setop_hash_rows``, one shard): the int32 [1 + L, 1, n]
+    stack of the tag (row 0) and the canonical lanes, and the row hash.
+    Returns (h1, h2, streams, side, live): h1/h2 int64 values in [0,
+    2^32), side and live bool [1, n]. ``lemit``/``remit``: the tables' row
+    masks, or None where every row is live."""
+    def side(cols, emit):
+        return ([c.data[None] for c in cols],
+                [None if c.validity is None else c.validity[None]
+                 for c in cols],
+                None if emit is None else emit[None])
 
-
-def setop_stream_hash(lane_l: Sequence[torch.Tensor],
-                      lane_r: Sequence[torch.Tensor],
-                      lemit: torch.Tensor, remit: torch.Tensor):
-    """The hash stage of the stream route: the int32 [1 + L, W, n] stack
-    of the tag (row 0) and the lanes, and the row hash. Returns (h1, h2,
-    streams, side, live): h1/h2 int64 values in [0, 2^32), side and live
-    bool [W, n]. Lanes are int32 [W, nl] and [W, nr], emit masks bool."""
-    w, nl = lemit.shape
-    nr = remit.shape[1]
-    dev = lemit.device
-    live = torch.cat([lemit, remit], 1)
-    side = torch.cat([torch.ones(w, nl, dtype=torch.bool, device=dev),
-                      torch.zeros(w, nr, dtype=torch.bool, device=dev)], 1)
-    streams = torch.empty(1 + len(lane_l), w, nl + nr, dtype=torch.int32,
-                          device=dev)
-    streams[0] = (side.to(torch.int32) << 31) | (live.to(torch.int32) << 29) \
-        | torch.arange(nl + nr, dtype=torch.int32, device=dev)
-    for k, (a, b) in enumerate(zip(lane_l, lane_r)):
-        torch.cat([a, b], 1, out=streams[1 + k])
-    h1, h2 = _hash.hash2_streams(list(streams[1:]), live)
-    return h1, h2, streams, side, live
+    return _k.setop_hash_rows(*side(lcols, lemit), *side(rcols, remit),
+                              descs)
 
 
 def setop_stream_sort(h1, h2, streams, side, live):
@@ -272,11 +224,12 @@ def setop_stream_sort(h1, h2, streams, side, live):
 def setop_stream_inputs(lane_l: Sequence[torch.Tensor],
                         lane_r: Sequence[torch.Tensor],
                         lemit: torch.Tensor, remit: torch.Tensor):
-    """The tag, the row hash and the sort of the stream route: K5's
-    (h1_s, h2_s, streams_s), where streams_s is the int32 [1 + L, W, n]
-    stack of the tag (row 0) and the lanes."""
-    return setop_stream_sort(*setop_stream_hash(lane_l, lane_r, lemit,
-                                                remit))
+    """The tag, the row hash and the sort of the stream route from the
+    sides' lanes (the JAX package's program's inputs): K5's (h1_s, h2_s,
+    streams_s), where streams_s is the int32 [1 + L, W, n] stack of the
+    tag (row 0) and the lanes."""
+    return setop_stream_sort(*_k.setop_stack_hash(lane_l, lane_r, lemit,
+                                                  remit))
 
 
 def _setop_stream_program(lane_l, lane_r, lemit, remit, op: SetOp,

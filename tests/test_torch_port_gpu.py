@@ -1,4 +1,4 @@
-"""cylon_tpu_torch kernels K1-K8 against their plain PyTorch versions on
+"""cylon_tpu_torch kernels K1-K9 against their plain PyTorch versions on
 the card, bit for bit.
 
 Needs CUDA: every test here is marked ``gpu`` and skips without a card.
@@ -73,6 +73,7 @@ def test_tile_constants_match_sources(cuda):
     assert c_int("join_stream", "plan_tile_rows") == K.PLAN_TILE
     assert c_int("join_stream", "expand_tile_rows") == K.EXPAND_TILE
     assert c_int("join_hash_keys", "hash_key_columns") == K.MAX_HASH_LANES
+    assert c_int("setop_hash_rows", "setop_hash_lanes") == K.MAX_SETOP_LANES
 
 
 def test_partition_past_the_bucket_limit_takes_the_sort(cuda):
@@ -223,6 +224,199 @@ def test_hash_route_join_launches_k8_on_card(cuda):
         assert K.LAUNCHES["join_hash_keys"] == 1, (how, K.LAUNCHES)
         exp = _table(cctx, la).join(_table(cctx, ra), how, on=["k"])
         assert np.array_equal(_row_multiset(got), _row_multiset(exp)), how
+
+
+# K9's cases: (column dtypes, world, the side(s) whose even-numbered
+# columns have nulls, emit masks, each side's rows as (a, b) in rows * a +
+# b); "dict" is a dictionary string column's int32 codes
+SETOP_HASH_CASES = {
+    "int64": (("int64",), 1, None, False, ((1, 3), (1, 0))),
+    "float64": (("float64",), 1, None, False, ((1, 3), (1, 0))),
+    "float32": (("float32",), 1, None, False, ((1, 3), (1, 0))),
+    "int32": (("int32",), 1, None, False, ((1, 3), (1, 0))),
+    "int16": (("int16",), 1, None, False, ((1, 3), (1, 0))),
+    "int8": (("int8",), 1, None, False, ((1, 3), (1, 0))),
+    "uint8": (("uint8",), 1, None, False, ((1, 3), (1, 0))),
+    "float16": (("float16",), 1, None, False, ((1, 3), (1, 0))),
+    "bool": (("bool", "int32"), 1, None, False, ((1, 3), (1, 0))),
+    "dict": (("dict", "int64"), 1, None, False, ((1, 3), (1, 0))),
+    "left_validity": (("int64", "float32", "int8"), 1, "left", False,
+                      ((1, 0), (1, 5))),
+    "right_validity": (("float64", "uint16"), 1, "right", True,
+                       ((1, 1), (0.5, 7))),
+    "emit_world2": (("int64", "float64"), 2, None, True, ((1, 0), (1, 0))),
+    "twelve_lanes": (("int64", "float64", "float16", "bool", "dict",
+                      "uint64"), 1, "both", True, ((1, 9), (0.75, 1))),
+    "ragged": (("int32", "float64"), 3, "left", True, ((0, 1001), (0, 77))),
+    "empty_left": (("int64", "float32"), 1, "right", True, ((0, 0), (1, 1))),
+}
+_NAN64 = (0x7FF8000000000001, 0xFFF0000000000123, 0x7FF0000000000000)
+_NAN32 = (0x7FC00001, 0xFF800123, 0x7F800000)
+_NAN16 = (0x7E01, 0xFC05, 0x7C00)
+
+
+def _draw_column(rng, name, w, n):
+    """A column of dtype ``name`` with repeats, every sign, and for floats
+    -0.0, +0.0 and NaNs with payloads (and infinities)."""
+    if name == "bool":
+        return rng.random((w, n)) < 0.5
+    if name == "dict":
+        return rng.integers(0, 50, (w, n)).astype(np.int32)
+    dt = np.dtype(name)
+    if dt.kind == "f":
+        x = rng.normal(size=(w, n)).astype(dt)
+        x[rng.random((w, n)) < 0.05] = -0.0
+        x[rng.random((w, n)) < 0.05] = 0.0
+        nans = {8: (_NAN64, np.uint64), 4: (_NAN32, np.uint32),
+                2: (_NAN16, np.uint16)}[dt.itemsize]
+        bits = x.view(nans[1])
+        for i, pattern in enumerate(nans[0]):
+            bits[:, i::97] = pattern
+        return x
+    info = np.iinfo(dt)
+    x = rng.integers(info.min, info.max, (w, n), dtype=dt, endpoint=True)
+    x[:, ::3] = x[:, :1]    # repeats across the shard
+    return x
+
+
+def setop_hash_case(case, rows, dev):
+    """K9's arguments of one case: (ldata, lvalid, lemit, rdata, rvalid,
+    remit, descs), the sides' rows ``rows * a + b`` over the shards."""
+    names, w, nulls, masks, sizes = SETOP_HASH_CASES[case]
+    rng = np.random.default_rng(sorted(SETOP_HASH_CASES).index(case))
+    sides = []
+    for which, (a, b) in zip(("left", "right"), sizes):
+        n = int(rows * a + b) // w
+        data = [torch.from_numpy(_draw_column(rng, nm, w, n)).to(dev)
+                for nm in names]
+        has = nulls in (which, "both")
+        valid = [torch.from_numpy(rng.random((w, n)) < 0.8).to(dev)
+                 if has and i % 2 == 0 else None for i in range(len(names))]
+        emit = torch.from_numpy(rng.random((w, n)) < 0.85).to(dev) \
+            if masks else None
+        sides.append((data, valid, emit))
+    (ld, lv, le), (rd, rv, re) = sides
+    def kind(x):
+        return "b" if x.dtype == torch.bool else \
+            {1: "n", 2: "n", 4: "d", 8: "w"}[x.element_size()]
+
+    descs = tuple((kind(x), a is not None or b is not None)
+                  for x, a, b in zip(ld, lv, rv))
+    return ld, lv, le, rd, rv, re, descs
+
+
+def assert_setop_hash_equal(got, ref):
+    """K9's five outputs (h1, h2, stack, side, live) bit for bit."""
+    assert len(got) == len(ref) == 5
+    for x, y in zip(got, ref):
+        assert x.dtype == y.dtype and x.shape == y.shape, (x.shape, y.shape)
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("case", sorted(SETOP_HASH_CASES))
+def test_setop_hash_rows_match_plain(cuda, case):
+    """K9 at ~2^20 rows a side against its plain version on the card,
+    all five outputs bit for bit."""
+    args = setop_hash_case(case, 1 << 20, cuda)
+    K.reset_launches()
+    got = K.setop_hash_rows(*args)
+    ref = K.plain_setop_hash_rows(*args)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["setop_hash_rows"] == 1
+    assert_setop_hash_equal(got, ref)
+    if case == "twelve_lanes":
+        assert got[2].shape[0] == 1 + K.MAX_SETOP_LANES
+
+
+def test_setop_hash_rows_rejects_on_card(cuda):
+    """The wrapper raises on inputs on two devices and on a lane kind
+    that is not the column's."""
+    ld, lv, le, rd, rv, re, descs = setop_hash_case("int64", 4096, cuda)
+    bad = [(ld, lv, le, [rd[0].cpu()], rv, re, descs),
+           (ld, lv, le, rd, rv, re, (("d", False),))]
+    for args in bad:
+        with pytest.raises(CylonError):
+            K.setop_hash_rows(*args)
+
+
+def _set_op_rows(table):
+    """A table's live rows as one int64 [2 x columns, m] tensor in
+    lexicographic order: each column's bits (0 at a null) and its
+    validity."""
+    live = torch.nonzero(table.emit_mask()).flatten()
+    keys = []
+    for c in table.columns():
+        x = c.data[live]
+        bits = x.to(torch.int64) if x.dtype == torch.bool \
+            else x.view(ct.dtypes.bits_container(x.dtype)).to(torch.int64)
+        valid = c.valid_mask()[live]
+        keys += [torch.where(valid, bits, 0), valid.to(torch.int64)]
+    perm = torch.arange(len(live), device=live.device)
+    for k in reversed(keys):
+        perm = perm[torch.sort(k[perm], stable=True).indices]
+    return torch.stack([k[perm] for k in keys])
+
+
+def set_op_tables(dev, n: int):
+    """Two tables of n rows (int64 k, float64 v, a dictionary string
+    column s, an int16 column h with nulls on the right), drawn with
+    repeats; the right's first quarter copies the left's."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(2 ** 31 + 23)
+
+    def draw(high, dtype=torch.int64):
+        return [torch.randint(0, high, (n,), generator=g, device=dev,
+                              dtype=dtype) for _ in "lr"]
+
+    k, s, h = draw(max(n // 4, 1)), draw(3, torch.int32), \
+        draw(5, torch.int16)
+    v = [x.double() / 4 for x in draw(4)]
+    hv = [None, torch.rand(n, generator=g, device=dev) >= 0.1]
+    q = n // 4
+    for cols in (k, v, s, h):
+        cols[1][:q] = cols[0][:q]
+    vocab = np.array(["ab", "cd", "ef"])
+    ctx = ct.CylonContext.Init(device=dev)
+    return tuple(ct.Table([
+        ct.Column(k[i], ct.dtypes.Int64(), None, "k"),
+        ct.Column(v[i], ct.dtypes.Double(), None, "v"),
+        ct.Column(s[i], ct.dtypes.String(), None, "s", dictionary=vocab),
+        ct.Column(h[i], ct.dtypes.Int16(), hv[i], "h")], ctx)
+        for i in range(2))
+
+
+@pytest.mark.parametrize("op", ["union", "subtract", "intersect"])
+def test_set_ops_launch_k9_once_on_card(cuda, op):
+    """A local set op of 2^23 rows a side (``set_op_tables``) takes the
+    stream route on the card and launches K9 once; its rows equal the
+    dense-ranks route's."""
+    from cylon_tpu_torch import telemetry as tel
+
+    left, right = set_op_tables(cuda, 1 << 23)
+
+    def routes():
+        return {key: val for key, val in tel.metrics_snapshot().items()
+                if key.startswith("cylon_setop_route_total")}
+
+    was = routes()
+    K.reset_launches()
+    out = getattr(left, op)(right)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["setop_hash_rows"] == 1, K.LAUNCHES
+    assert K.LAUNCHES["setop_stream"] == 1, K.LAUNCHES
+    now = routes()
+    assert {key: now[key] - was.get(key, 0) for key in now
+            if now[key] != was.get(key, 0)} == \
+        {'cylon_setop_route_total{route="stream"}': 1}
+    old = SO.STREAM_SETOP
+    SO.STREAM_SETOP = False
+    try:
+        dense = getattr(left, op)(right)
+    finally:
+        SO.STREAM_SETOP = old
+    got, exp = _set_op_rows(out), _set_op_rows(dense)
+    assert got.shape[1] > 0
+    assert torch.equal(got, exp)
 
 
 @pytest.mark.parametrize("jt,hash_mode", [
@@ -1685,7 +1879,7 @@ def test_task_exchange_on_card(cuda, world):
 
 def test_collectives_catalog_on_card(cuda):
     """The analysis suite's collectives catalog on CUDA tensors at world
-    4, under its dispatch mode: no finding, and K1-K8 each launch (the
+    4, under its dispatch mode: no finding, and K1-K9 each launch (the
     kernel route switches forced on, as on the CPU)."""
     import os
 
@@ -2327,17 +2521,20 @@ def _plain_distinct_union(cols):
 
 
 def test_union_stream_route_on_card(cuda):
-    """``Table.distributed_union`` at world 1 of 2^23 rows a side (int64
+    """``Table.distributed_union`` at world 1 of 2^25 rows a side (int64
     key, float64 payload, the union cell's schema, a tenth of the right
-    side copying left rows) on the card: the stream route, K5 and K6 once
-    each and no dense ranks; the rows equal the plain reference's bit for
-    bit; under torch.profiler the ``setop`` leaves hold at least 95% of
-    the op span's device ms."""
+    side copying left rows) on the card: the stream route, K9, K5 and K6
+    once each and no dense ranks; the rows equal the plain reference's
+    bit for bit; under torch.profiler the ``setop`` leaves hold at least
+    95% of the op span's device ms. (~1.5 ms of span bookkeeping with the
+    card idle lies outside the leaves: with K9 a 2^23-row union takes ~14
+    ms, of which the leaves hold ~89%, so the size keeps the device's
+    work in front, as the cell's 2 x 1e8 rows do.)"""
     from torch.profiler import ProfilerActivity, profile
 
     from cylon_tpu_torch import telemetry as tel
 
-    n = 1 << 23
+    n = 1 << 25
     g = torch.Generator(device=cuda)
     g.manual_seed(2 ** 31 + 22)
     k = [torch.randint(0, n, (n,), generator=g, device=cuda) for _ in "lr"]
@@ -2364,6 +2561,7 @@ def test_union_stream_route_on_card(cuda):
         out = left.distributed_union(right)
         torch.cuda.synchronize()
     got = tel.span_device_times()
+    assert K.LAUNCHES["setop_hash_rows"] == 1
     assert K.LAUNCHES["setop_stream"] == 1
     assert K.LAUNCHES["stream_compact"] == 1
     now = routes()

@@ -1,18 +1,24 @@
 """The plain versions of kernels K1-K4 in cylon_tpu_torch against the JAX
 package's Pallas kernels, run in interpret mode on the CPU, bit for bit;
-K8's plain version and wrapper checks against the former torch formula.
+K8's plain version and wrapper checks against the former torch formula;
+K9's plain version against the JAX package's lanes and row hash, and its
+wrapper checks.
 
 K3/K4 run eagerly under the Pallas interpreter (block_rows=8, ~300 rows a
 side): one module-scoped fixture per case computes both packages' plans
 once. The LEFT case is held against the JAX package's XLA plan (its
 interpreter twin would double this file's time)."""
+import types
+
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
 
+from cylon_tpu.ops import hash as jhash
 from cylon_tpu.ops import join as jjoin
+from cylon_tpu.ops import setops as jsetops
 from cylon_tpu.ops import tpu_kernels as tk
 from cylon_tpu.parallel import shuffle as jshuffle
 
@@ -21,9 +27,11 @@ from cylon_tpu_torch.ops import kernels as K
 from cylon_tpu_torch.ops.hash import hash2_streams
 from cylon_tpu_torch.ops.order import unsigned
 from cylon_tpu_torch.parallel import shuffle as tshuffle
-from cylon_tpu_torch.status import CylonError
-from test_torch_port_gpu import (HASH_KEY_CASES, assert_hash_keys_equal,
-                                 hash_key_case, hash_key_sides)
+from cylon_tpu_torch.status import Code, CylonError
+from test_torch_port_gpu import (HASH_KEY_CASES, SETOP_HASH_CASES,
+                                 assert_hash_keys_equal,
+                                 assert_setop_hash_equal, hash_key_case,
+                                 hash_key_sides, setop_hash_case)
 
 
 def _t(x):
@@ -319,3 +327,104 @@ def _bad_hash_inputs(what):
 def test_join_hash_keys_rejects(what):
     with pytest.raises(CylonError):
         K.join_hash_keys(*_bad_hash_inputs(what))
+
+
+# ---------------------------------------------------------------------------
+# K9 setop_hash_rows
+# ---------------------------------------------------------------------------
+
+
+def _jax_setop_hash(ld, lv, le, rd, rv, re, descs, w):
+    """Shard ``w`` of the JAX package's stream program before its sort:
+    its tag, the lanes of ``cylon_tpu.ops.setops._col_lanes`` and
+    ``hash2_streams``, as uint32 numpy arrays (tag, h1, h2, lanes...)."""
+    def col(x, v):
+        data = jnp.asarray(x[w].numpy())
+        valid = None if v is None else jnp.asarray(v[w].numpy())
+        return types.SimpleNamespace(
+            data=data, validity=valid,
+            valid_mask=lambda: jnp.ones(data.shape, bool) if valid is None
+            else valid)
+
+    lanes = []
+    for (kind, _), a, av, b, bv in zip(descs, ld, lv, rd, rv):
+        pa = jsetops._col_lanes(col(a, av), bv is not None, kind)
+        pb = jsetops._col_lanes(col(b, bv), av is not None, kind)
+        lanes += [jnp.concatenate([x, y]) for x, y in zip(pa, pb)]
+    nl, nr = ld[0].shape[1], rd[0].shape[1]
+    emit = [np.ones(m, bool) if e is None else e[w].numpy()
+            for e, m in ((le, nl), (re, nr))]
+    live = jnp.asarray(np.concatenate(emit))
+    tag = (jnp.concatenate([jnp.full(nl, jnp.uint32(1 << 31)),
+                            jnp.zeros(nr, jnp.uint32)])
+           | (live.astype(jnp.uint32) << 29)
+           | jnp.arange(nl + nr, dtype=jnp.uint32))
+    h1, h2 = jhash.hash2_streams(lanes, live)
+    return [np.asarray(x) for x in [tag, h1, h2] + lanes], np.asarray(live)
+
+
+@pytest.mark.parametrize("case", sorted(SETOP_HASH_CASES))
+def test_plain_setop_hash_rows_matches_jax(case):
+    """K9's plain version, and the wrapper on the CPU, equal the JAX
+    package's tag, ``_col_lanes`` and ``hash2_streams`` on the same rows,
+    shard by shard, bit for bit."""
+    args = setop_hash_case(case, 3000, "cpu")
+    got = K.setop_hash_rows(*args)
+    assert_setop_hash_equal(got, K.plain_setop_hash_rows(*args))
+    h1, h2, stack, side, live = got
+    nl = args[0][0].shape[1]
+    for w in range(stack.shape[1]):
+        ref, jlive = _jax_setop_hash(*args, w)
+        mine = [stack[0, w], h1[w], h2[w]] + list(stack[1:, w])
+        assert len(mine) == len(ref)
+        for x, y in zip(mine, ref):
+            assert np.array_equal(x.numpy().astype(np.int64) & 0xFFFFFFFF,
+                                  y.astype(np.int64))
+        assert np.array_equal(live[w].numpy(), jlive)
+        assert side[w, :nl].all() and not side[w, nl:].any()
+
+
+def _bad_setop_hash_inputs(what):
+    ld, lv, le, rd, rv, re, descs = setop_hash_case("twelve_lanes", 300,
+                                                    "cpu")
+    if what == "no_columns":
+        return [], [], le, [], [], re, ()
+    if what == "descs_count":
+        return ld, lv, le, rd, rv, re, descs + (("d", False),)
+    if what == "dtypes_differ":
+        return ld, lv, le, [rd[0].to(torch.int32)] + rd[1:], rv, re, descs
+    if what == "kind":
+        return ld, lv, le, rd, rv, re, (("d", True),) + descs[1:]
+    if what == "validity_not_bool":
+        return ld, [lv[0].to(torch.uint8)] + lv[1:], le, rd, rv, re, descs
+    if what == "validity_without_lane":
+        return ld, lv, le, rd, rv, re, ((descs[0][0], False),) + descs[1:]
+    if what == "shape":
+        return [ld[0][:, 1:]] + ld[1:], lv, le, rd, rv, re, descs
+    if what == "world":
+        return ld, lv, le, [x.expand(2, -1) for x in rd], rv, re, descs
+    if what == "emit_shape":
+        return ld, lv, le, rd, rv, re[:, 1:], descs
+    if what == "emit_not_bool":
+        return ld, lv, le.to(torch.int32), rd, rv, re, descs
+    if what == "device":
+        return ld, lv, le, rd, rv, re.to("meta"), descs
+    if what == "thirteen_lanes":
+        x = torch.zeros(1, 4, dtype=torch.int64)
+        return ([x] * 6 + [x.to(torch.int32)], [None] * 7, None,
+                [x] * 6 + [x.to(torch.int32)], [None] * 7, None,
+                (("w", False),) * 6 + (("d", False),))
+    if what == "rows_2_29":
+        x = torch.zeros(1, 1, dtype=torch.int32).expand(1, 1 << 28)
+        return [x], [None], None, [x], [None], None, (("d", False),)
+    raise KeyError(what)
+
+
+@pytest.mark.parametrize("what", [
+    "no_columns", "descs_count", "dtypes_differ", "kind",
+    "validity_not_bool", "validity_without_lane", "shape", "world",
+    "emit_shape", "emit_not_bool", "device", "thirteen_lanes", "rows_2_29"])
+def test_setop_hash_rows_rejects(what):
+    with pytest.raises(CylonError) as err:
+        K.setop_hash_rows(*_bad_setop_hash_inputs(what))
+    assert err.value.code == Code.Invalid
