@@ -22,6 +22,7 @@ payload rides the join as word lanes and comes out strided.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -998,79 +999,51 @@ def _join_once(left: Table, right: Table, config: _join.JoinConfig
         ldat, lval, rdat, rval = (_rows(x)
                                   for x in (ldat, lval, rdat, rval))
 
-    # route: the sort-stream path for one 4-byte key, the hash-stream
-    # path (JoinAlgorithm.HASH) for multi-column/wide keys, FULL_OUTER as
-    # LEFT plus the unmatched-build tail; the plan route is the general
-    # fallback (forced off, hash collisions, other shapes)
-    alg = config.algorithm
     jt = config.type
     # FULL_OUTER as LEFT + a tail of unmatched right rows found on the key
-    # bits, except for exact=True on content-hash keys: a collision would
-    # hide unmatched rows from the tail, so the plan route (verified and
-    # redone on exact codes) takes those
+    # bits where a stream route could run the LEFT join, except for
+    # exact=True on content-hash keys: a collision would hide unmatched
+    # rows from the tail, so the plan route (verified and redone on exact
+    # codes) takes those
     exact_hashed = config.exact and _long_key_pairs(config, lcols, rcols)
-    if jt == _join.JoinType.FULL_OUTER and not exact_hashed and (
-            _join.stream_plan_applicable(lbits, rbits, _join.JoinType.LEFT)
-            or _join.hash_stream_applicable(lbits, rbits,
-                                            _join.JoinType.LEFT)):
+    if jt == _join.JoinType.FULL_OUTER and not exact_hashed and \
+            _join.join_route(lbits, rbits, _join.JoinType.LEFT,
+                             _join.JoinAlgorithm.AUTO) != "plan":
         sub = _join.JoinConfig(_join.JoinType.LEFT, config.left_column_idx,
-                               config.right_column_idx, alg,
+                               config.right_column_idx, config.algorithm,
                                exact=config.exact)
         out = _join_once(left, right, sub)
         return _append_unmatched_right(left, right, config, out,
                                        (lcols, rcols))
-    use_stream = (alg != _join.JoinAlgorithm.HASH
-                  and _join.stream_plan_applicable(lbits, rbits, jt))
-    use_hash = (not use_stream
-                and alg in (_join.JoinAlgorithm.HASH,
-                            _join.JoinAlgorithm.AUTO)
-                and _join.hash_stream_applicable(lbits, rbits, jt))
+    args = (lbits, lkv, lemit, rbits, rkv, remit, ldat, lval, rdat, rval, jt)
+    rows = []
 
-    res = None
-    if use_stream or use_hash:
+    def fetch(counts):
+        # in the plan's last stage span, as the card finishes it
+        rows[:] = counts.tolist()
+        _host_sync("join.plan")
+
+    # a 64-bit hash collision: the exact plan route plans again
+    for route in (_join.join_route(lbits, rbits, jt, config.algorithm),
+                  "plan"):
         with _phase("join.plan", seq):
-            with _phase("join.plan.hash", seq):
-                a_desc, b_desc = _join.plan_lane_descs(ldat, lval, rdat,
-                                                       rval, jt)
-                keys = _join.stream_sort_keys(
-                    lbits, lkv, lemit, rbits, rkv, remit, ldat, lval, rdat,
-                    rval, jt, a_desc=a_desc, b_desc=b_desc,
-                    hash_mode=use_hash)
-            with _phase("join.plan.sort", seq):
-                kw = _join.stream_sort(keys)
-                del keys
-            with _phase("join.plan.stream", seq):
-                counts, a_streams, b_streams = _kernels.join_plan_stream(
-                    **kw)
-                del kw
-                host = counts[0].tolist()
-                _host_sync("join.plan")
-        if not (use_hash and host[3] > 0):
-            if host[0] < 0:
-                raise CylonError(Code.ExecutionError,
-                                 "join output exceeds 2^31 rows per shard; "
-                                 "repartition over more shards")
-            br = _join.stream_block_rows(left.capacity, right.capacity)
-            cap_e = _join.stream_expand_capacity(host[0], br)
-            with _phase("join.materialize", seq):
-                res = _join.materialize_program_stream(
-                    counts, a_streams, b_streams, ldat, lval, rdat, rval,
-                    jt, cap_e, a_desc=a_desc, b_desc=b_desc)
-        # else: a 64-bit hash collision: the exact plan route redoes it
-    if res is None:
-        with _phase("join.plan", seq):
-            counts2, lo, m, bperm, un_mask = _join.join_plan_keys(
-                lbits, lkv, _join._vm(lemit, lkv), rbits, rkv,
-                _join._vm(remit, rkv), jt)
-            n_primary, n_un = counts2[0].tolist()
-            _host_sync("join.plan")
-        cap_p = _capacity(n_primary)
+            plan = _join.plan_join(route, *args, fetch=fetch,
+                                   stage=functools.partial(_phase, seq=seq))
+            host, collided = plan.read_counts(rows)
+        if not collided:
+            break
+    n_out, n_un = host[0]
+    if plan.route == "plan":
+        cap = _capacity(n_out)
         cap_u = _capacity(n_un) if jt == _join.JoinType.FULL_OUTER else 0
-        aemit = remit if jt == _join.JoinType.RIGHT else lemit
-        with _phase("join.materialize", seq):
-            res = _join.materialize_program(
-                lo, m, bperm, un_mask, aemit, ldat, lval, rdat, rval, jt,
-                cap_p, cap_u)
+    elif n_out < 0:
+        raise CylonError(Code.ExecutionError,
+                         "join output exceeds 2^31 rows per shard; "
+                         "repartition over more shards")
+    else:
+        cap, cap_u = _join.stream_expand_capacity(n_out, plan.block_rows), 0
+    with _phase("join.materialize", seq):
+        res = plan.materialize(ldat, lval, rdat, rval, cap, cap_u)
     nl = left.column_count
     with _phase("join.rebuild", seq):
         # drop the one-shard batch dimension

@@ -6,13 +6,17 @@ Every function here works on tensors with a leading SHARD dimension,
 shards of the virtual world in one call. Two routes, as in the JAX
 package:
 
-* the plan route (``join_plan_keys`` + ``join_materialize_gids``): one
+* the plan route (``join_plan_keys`` + ``JoinPlan.materialize``): one
   fused sort of the concatenated key bits with the packed tag
   ``side<<31 | live<<29 | iota``, then scans, scatters and gathers —
   plain PyTorch, the counterpart of the JAX package's XLA plan;
-* the stream route (``plan_program_stream`` +
-  ``materialize_program_stream``): the same sort, then the plan kernel
-  K3 and the expansion kernel K4 of ops/kernels.py.
+* the stream route (``plan_program_stream`` + ``JoinPlan.materialize``):
+  the same sort, then the plan kernel K3 and the expansion kernel K4 of
+  ops/kernels.py.
+
+The local join and every per-shard join of parallel/dist_ops.py take
+their route and plan from one planner at the end of this module
+(``join_route``, ``plan_join``, ``JoinPlan``).
 
 ``jax.lax.sort`` with several keys becomes one stable ``torch.sort`` of a
 packed int64 key ``((bits << 32) | tag) ^ (1 << 63)`` where one 32-bit
@@ -21,8 +25,10 @@ elsewhere; payload rides as a gather by the permutation.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import enum
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -324,23 +330,6 @@ def _masked_indices(mask: torch.Tensor, out_size: int) -> torch.Tensor:
         torch.int32)
 
 
-def join_materialize_gids(lo, m, bperm, un_mask, aemit, join_type: JoinType,
-                          cap_p: int, cap_u: int):
-    """(lidx, ridx, emit) at static capacity [W, cap_p + cap_u] from a
-    plan's arrays; padding carries (-1, -1, False)."""
-    aidx, bidx = _expand_from_match(lo, m, aemit, bperm, cap_p,
-                                    join_type != JoinType.INNER)
-    if join_type == JoinType.FULL_OUTER:
-        un = _masked_indices(un_mask, cap_u)
-        aidx = torch.cat([aidx, torch.full_like(un, -1)], 1)
-        bidx = torch.cat([bidx, un], 1)
-    if join_type == JoinType.RIGHT:
-        lidx, ridx = bidx, aidx
-    else:
-        lidx, ridx = aidx, bidx
-    return lidx, ridx, (lidx >= 0) | (ridx >= 0)
-
-
 def gather_columns(dat, val, idx: torch.Tensor):
     """Batch -1 -> null gather over [W, n] columns by [W, m] indices: new
     validity = source validity at the gathered row AND a real index.
@@ -357,18 +346,6 @@ def gather_columns(dat, val, idx: torch.Tensor):
         out_d.append(movable(d).gather(1, safe).view(d.dtype))
         out_v.append(hit if v is None else (v.gather(1, safe) & hit))
     return tuple(out_d), tuple(out_v)
-
-
-def materialize_program(lo, m, bperm, un_mask, aemit, ldat, lval, rdat,
-                        rval, join_type: JoinType, cap_p: int, cap_u: int):
-    """The plan route's materialization: plan arrays -> index pairs -> gather
-    every payload column. Returns (ldat', lval', rdat', rval', emit,
-    lidx, ridx)."""
-    lidx, ridx, emit = join_materialize_gids(
-        lo, m, bperm, un_mask, _vm(aemit, lo), join_type, cap_p, cap_u)
-    lod, lov = gather_columns(ldat, lval, lidx)
-    rod, rov = gather_columns(rdat, rval, ridx)
-    return lod, lov, rod, rov, emit, lidx, ridx
 
 
 def _vm(v, like):
@@ -394,10 +371,9 @@ def key_bits(keys, valids, raw=None):
 
 
 # ---------------------------------------------------------------------------
-# stream route: the sort, then kernels K3 (plan) and K4 (expansion).
-# Applicability: INNER/LEFT/RIGHT (FULL_OUTER runs as LEFT plus an
-# unmatched-build tail in data/table.py), per-shard rows < 2^29; one
-# 4-byte key sorts on its bits, other key shapes on a 2x32-bit row hash.
+# stream and hash routes: the sort, then kernels K3 (plan) and K4
+# (expansion); `join_route` says which route a join takes (FULL_OUTER
+# runs as LEFT plus an unmatched-build tail in data/table.py)
 # ---------------------------------------------------------------------------
 
 # None = auto (the kernel route on CUDA); False disables the stream route
@@ -412,43 +388,8 @@ def _stream_on(device: torch.device) -> bool:
     return device.type == "cuda"
 
 
-def stream_plan_applicable(lkeys, rkeys, join_type: JoinType) -> bool:
-    """Single 4-byte non-bool key, INNER/LEFT/RIGHT, both sides non-empty
-    (keys or key bits, [W, n] or 1-D)."""
-    if STREAM_PLAN is False or join_type == JoinType.FULL_OUTER:
-        return False
-    if len(lkeys) != 1:
-        return False
-    if lkeys[0].element_size() != 4 or rkeys[0].element_size() != 4 \
-            or lkeys[0].dtype == torch.bool:
-        return False
-    na, nb = lkeys[0].shape[-1], rkeys[0].shape[-1]
-    if na == 0 or nb == 0 or na + nb >= (1 << 29):
-        return False
-    return _stream_on(lkeys[0].device)
-
-
-# sort-operand budget for the hash path: key-verify lanes (K8's limit)
+# sort-operand budget for the hash route: key-verify lanes (K8's limit)
 MAX_HASH_KEY_LANES = _k.MAX_HASH_LANES
-
-
-def _key_lane_count(x: torch.Tensor) -> int:
-    return 2 if x.element_size() == 8 else 1
-
-
-def hash_stream_applicable(lkeys, rkeys, join_type: JoinType) -> bool:
-    """The hash-stream route covers multi-column and 8-byte keys: rows
-    sort by a 2x32-bit row hash, true key bits ride as verify lanes, and
-    any within-run mismatch sends the join back to the exact plan route
-    (reference hash join: arrow_hash_kernels.hpp:48-225)."""
-    if STREAM_PLAN is False or join_type == JoinType.FULL_OUTER:
-        return False
-    na, nb = lkeys[0].shape[-1], rkeys[0].shape[-1]
-    if na == 0 or nb == 0 or na + nb >= (1 << 29):
-        return False
-    if sum(_key_lane_count(x) for x in lkeys) > MAX_HASH_KEY_LANES:
-        return False
-    return _stream_on(lkeys[0].device)
 
 
 # payload slots that ride the plan sort as 32-bit lanes; columns beyond
@@ -507,35 +448,39 @@ def _side_lanes(dat, val, desc):
 
 def plan_program_stream(lbits, lkv, lemit, rbits, rkv, remit,
                         ldat, lval, rdat, rval, join_type: JoinType,
-                        a_desc=(), b_desc=(), hash_mode: bool = False):
+                        a_desc=(), b_desc=(), hash_mode: bool = False,
+                        stage=contextlib.nullcontext, fetch=None):
     """Phase 1 of the stream route over [W, n] inputs (key bits and key
     validity as ``key_bits`` returns them): one sort with the payload
     lanes riding along, then the plan kernel K3. Returns (counts int32
     [W, 4], a_streams, b_streams) as ops/kernels.join_plan_stream does.
+    ``stage(label)`` opens the span of each stage and ``fetch(counts)``
+    runs in the last (the local join's ``join.plan.*`` spans and its
+    count fetch; by default neither).
 
     hash_mode: rows sort by a 2x32-bit row hash (two sort keys for any
     key shape); the true key bits ride as verify lanes and counts[:, 3]
     reports within-run mismatches for the caller's exact fallback."""
-    return _k.join_plan_stream(**stream_plan_inputs(
-        lbits, lkv, lemit, rbits, rkv, remit, ldat, lval, rdat, rval,
-        join_type, a_desc, b_desc, hash_mode))
-
-
-def stream_plan_inputs(lbits, lkv, lemit, rbits, rkv, remit,
-                       ldat, lval, rdat, rval, join_type: JoinType,
-                       a_desc=(), b_desc=(), hash_mode: bool = False
-                       ) -> dict:
-    """The sort of the stream route: K3's keyword arguments."""
-    return stream_sort(stream_sort_keys(
-        lbits, lkv, lemit, rbits, rkv, remit, ldat, lval, rdat, rval,
-        join_type, a_desc, b_desc, hash_mode))
+    with stage("join.plan.hash"):
+        keys = stream_sort_keys(lbits, lkv, lemit, rbits, rkv, remit, ldat,
+                                lval, rdat, rval, join_type, a_desc, b_desc,
+                                hash_mode)
+    with stage("join.plan.sort"):
+        kw = stream_sort(keys)
+        del keys
+    with stage("join.plan.stream"):
+        out = _k.join_plan_stream(**kw)
+        del kw
+        if fetch is not None:
+            fetch(out[0])
+    return out
 
 
 def stream_sort_keys(lbits, lkv, lemit, rbits, rkv, remit,
                      ldat, lval, rdat, rval, join_type: JoinType,
                      a_desc=(), b_desc=(), hash_mode: bool = False
                      ) -> dict:
-    """The first half of ``stream_plan_inputs``, everything before its
+    """The first stage of ``plan_program_stream``, everything before its
     sorts: the row tags, the payload lanes, and the packed sort keys (in
     hash mode K8 ``join_hash_keys``: the tags, the key bits' u32 lanes,
     their two hash streams and the packed key in one pass).
@@ -581,7 +526,7 @@ def stream_sort_keys(lbits, lkv, lemit, rbits, rkv, remit,
 
 
 def stream_sort(keys: dict) -> dict:
-    """The second half of ``stream_plan_inputs``: the sorts of
+    """The second stage of ``plan_program_stream``: the sorts of
     ``stream_sort_keys``'s packed keys (popped from ``keys``) and the
     gathers of the key bits, tags and lanes by their permutation. Returns
     K3's keyword arguments."""
@@ -604,47 +549,154 @@ def stream_sort(keys: dict) -> dict:
     return out
 
 
-def materialize_program_stream(counts, a_streams, b_streams,
-                               ldat, lval, rdat, rval,
-                               join_type: JoinType, cap_e: int,
-                               a_desc=(), b_desc=()):
-    """Phase 2 of the stream route: the compacted plan -> output rows via
-    the expansion kernel K4. Lane columns unpack from K4's lane outputs;
-    the rest gather by the materialized indices. Returns (ldat', lval',
-    rdat', rval', emit, lidx, ridx), each [W, cap_e]."""
-    aidx, bidx, a_lane_outs, b_lane_outs = _k.join_expand_stream(
-        counts, a_streams, b_streams, cap_e)
-    valid = aidx >= 0
-    bhit = bidx >= 0
-    lidx, ridx = (bidx, aidx) if join_type == JoinType.RIGHT \
-        else (aidx, bidx)
-    if join_type == JoinType.RIGHT:
-        adat, aval, bdat, bval = rdat, rval, ldat, lval
-    else:
-        adat, aval, bdat, bval = ldat, lval, rdat, rval
+def _lane_columns(dat, val, desc, lane_outs, idx, hit):
+    """One side's output columns: those ``desc`` put in lanes from K4's
+    ``lane_outs`` (``hit``: ``idx >= 0``), the rest gathered by ``idx``."""
+    od: list = [None] * len(dat)
+    ov: list = [None] * len(dat)
+    for (ci, kind), lane in zip(desc, lane_outs):
+        if kind == "d":
+            od[ci] = lane.view(dat[ci].dtype)
+            if val[ci] is None:
+                ov[ci] = hit
+        else:
+            ov[ci] = (lane != 0) & hit
+    fb = [ci for ci in range(len(dat)) if od[ci] is None]
+    if fb:
+        fbd, fbv = gather_columns([dat[ci] for ci in fb],
+                                  [val[ci] for ci in fb], idx)
+        for k, ci in enumerate(fb):
+            od[ci], ov[ci] = fbd[k], fbv[k]
+    return tuple(od), tuple(ov)
 
-    def unpack(dat, val, desc, lane_outs, hit, idx):
-        od: list = [None] * len(dat)
-        ov: list = [None] * len(dat)
-        for (ci, kind), lane in zip(desc, lane_outs):
-            if kind == "d":
-                od[ci] = lane.view(dat[ci].dtype)
-                if val[ci] is None:
-                    ov[ci] = hit
-            else:
-                ov[ci] = (lane != 0) & hit
-        fb = [ci for ci in range(len(dat)) if od[ci] is None]
-        if fb:
-            fbd, fbv = gather_columns([dat[ci] for ci in fb],
-                                      [val[ci] for ci in fb], idx)
-            for k, ci in enumerate(fb):
-                od[ci], ov[ci] = fbd[k], fbv[k]
-        return tuple(od), tuple(ov)
 
-    aod, aov = unpack(adat, aval, a_desc, a_lane_outs, valid, aidx)
-    bod, bov = unpack(bdat, bval, b_desc, b_lane_outs, bhit, bidx)
-    if join_type == JoinType.RIGHT:
-        lod, lov, rod, rov = bod, bov, aod, aov
-    else:
-        lod, lov, rod, rov = aod, aov, bod, bov
-    return lod, lov, rod, rov, valid, lidx, ridx
+# ---------------------------------------------------------------------------
+# the planner of the local join and of every per-shard join of
+# parallel/dist_ops.py: `join_route`, then `plan_join` on the device, the
+# caller's fetch of ``JoinPlan.counts`` (inside the plan's last stage
+# where the caller passes it as ``fetch``), then `JoinPlan.materialize`
+# ---------------------------------------------------------------------------
+
+
+def join_route(lbits, rbits, join_type: JoinType,
+               algorithm: JoinAlgorithm) -> str:
+    """A join's route over [W, n] key bits: "stream" (one 4-byte key; SORT
+    or AUTO), "hash" (keys within K8's lane budget sort on a 2x32-bit row
+    hash, reference arrow_hash_kernels.hpp:48-225; HASH or AUTO) or
+    "plan", the general route (stream routes off, FULL_OUTER, an empty
+    side, 2^29 rows a shard, other keys). Distributed joins pass AUTO."""
+    na, nb = lbits[0].shape[-1], rbits[0].shape[-1]
+    if not _stream_on(lbits[0].device) or join_type == JoinType.FULL_OUTER \
+            or na == 0 or nb == 0 or na + nb >= (1 << 29):
+        return "plan"
+    if algorithm != JoinAlgorithm.HASH and len(lbits) == 1 \
+            and lbits[0].element_size() == rbits[0].element_size() == 4:
+        return "stream"
+    lanes = sum(2 if b.element_size() == 8 else 1 for b in lbits)
+    if algorithm != JoinAlgorithm.SORT and lanes <= MAX_HASH_KEY_LANES:
+        return "hash"
+    return "plan"
+
+
+@dataclasses.dataclass(frozen=True)
+class JoinPlan:
+    """A join planned on the device over [W, n] inputs (`plan_join`); the
+    caller fetches ``counts``: K3's int32 [W, 4] on the stream and hash
+    routes, [W, 2] = [n_out, n_unmatched_b] on the plan route."""
+
+    route: str
+    join_type: JoinType
+    counts: torch.Tensor
+    # the stream and hash routes: K3's groups, their payload lanes and
+    # the JAX package's block rows (its expansion capacities)
+    a_streams: Optional[torch.Tensor] = None
+    b_streams: Optional[torch.Tensor] = None
+    a_desc: tuple = ()
+    b_desc: tuple = ()
+    block_rows: int = 0
+    # the plan route's arrays (`join_plan_keys`) and the probe's emits
+    lo: Optional[torch.Tensor] = None
+    m: Optional[torch.Tensor] = None
+    bperm: Optional[torch.Tensor] = None
+    un_mask: Optional[torch.Tensor] = None
+    aemit: Optional[torch.Tensor] = None
+
+    def read_counts(self, rows: list) -> Tuple[list, bool]:
+        """Fetched ``counts`` rows (``counts.tolist()``; the ring stacks
+        its steps' rows) as [n_out, n_unmatched_b] rows, and whether the
+        hash route met a 64-bit hash collision (a within-run key
+        mismatch): the plan route then plans again. Plain lists: the
+        local join reads them with the card idle."""
+        if self.route == "plan":
+            return rows, False
+        return ([[r[0], 0] for r in rows],
+                self.route == "hash" and any(r[3] > 0 for r in rows))
+
+    def materialize(self, ldat, lval, rdat, rval, cap: int, cap_u: int = 0):
+        """Phase 2 at ``cap`` rows a shard (plus ``cap_u`` unmatched build
+        rows on the plan route's FULL_OUTER): the (a, b) row pairs from K4
+        or the plan route's expansion, then each column from its lanes or
+        gathered. Returns (ldat', lval', rdat', rval', emit, lidx, ridx),
+        [W, cap + cap_u], padded (-1, -1, False)."""
+        jt = self.join_type
+        if self.route == "plan":
+            aidx, bidx = _expand_from_match(
+                self.lo, self.m, self.aemit, self.bperm, cap,
+                jt != JoinType.INNER)
+            if jt == JoinType.FULL_OUTER:
+                un = _masked_indices(self.un_mask, cap_u)
+                aidx = torch.cat([aidx, torch.full_like(un, -1)], 1)
+                bidx = torch.cat([bidx, un], 1)
+            lanes, emit, bhit = ((), ()), (aidx >= 0) | (bidx >= 0), None
+        else:
+            aidx, bidx, *lanes = _k.join_expand_stream(
+                self.counts, self.a_streams, self.b_streams, cap)
+            emit, bhit = aidx >= 0, bidx >= 0
+        right = jt == JoinType.RIGHT
+        adat, aval, bdat, bval = (rdat, rval, ldat, lval) if right \
+            else (ldat, lval, rdat, rval)
+        a = _lane_columns(adat, aval, self.a_desc, lanes[0], aidx, emit)
+        b = _lane_columns(bdat, bval, self.b_desc, lanes[1], bidx, bhit)
+        (lod, lov), (rod, rov) = (b, a) if right else (a, b)
+        lidx, ridx = (bidx, aidx) if right else (aidx, bidx)
+        return lod, lov, rod, rov, emit, lidx, ridx
+
+    def matched(self) -> torch.Tensor:
+        """bool [W, na]: the probe rows an INNER plan matched (K3's group
+        A rows, the plan route's ``m > 0``)."""
+        if self.route == "plan":
+            return self.m > 0
+        w, na = self.a_streams.shape[1:]
+        idx = self.a_streams[0].to(torch.int64)
+        pos = torch.arange(na, device=idx.device)
+        emits = pos < self.counts[:, 1:2].to(torch.int64)
+        # entries past n_emit go to spare slots of their own: one shared
+        # overflow slot would serialise their stores on the card
+        hit = torch.zeros(w, 2 * na, dtype=torch.bool, device=idx.device)
+        hit.scatter_(1, torch.where(emits, idx, na + pos), True)
+        return hit[:, :na]
+
+
+def plan_join(route: str, lbits, lkv, lemit, rbits, rkv, remit, ldat, lval,
+              rdat, rval, join_type: JoinType,
+              stage=contextlib.nullcontext, fetch=None) -> JoinPlan:
+    """Phase 1 on ``route`` (`join_route`'s, or "plan" to redo a hash
+    collision) over [W, n] key bits and validity (`key_bits`), emits
+    (None: all) and payload: `plan_program_stream` (with its ``stage``
+    and ``fetch``) or `join_plan_keys`, then ``fetch(counts)``."""
+    if route == "plan":
+        lemit, remit = _vm(lemit, lkv), _vm(remit, rkv)
+        counts, lo, m, bperm, un_mask = join_plan_keys(
+            lbits, lkv, lemit, rbits, rkv, remit, join_type)
+        if fetch is not None:
+            fetch(counts)
+        return JoinPlan(route, join_type, counts, lo=lo, m=m, bperm=bperm,
+                        un_mask=un_mask, aemit=remit
+                        if join_type == JoinType.RIGHT else lemit)
+    a_desc, b_desc = plan_lane_descs(ldat, lval, rdat, rval, join_type)
+    counts, a_streams, b_streams = plan_program_stream(
+        lbits, lkv, lemit, rbits, rkv, remit, ldat, lval, rdat, rval,
+        join_type, a_desc, b_desc, hash_mode=route == "hash", stage=stage,
+        fetch=fetch)
+    return JoinPlan(route, join_type, counts, a_streams, b_streams, a_desc,
+                    b_desc, stream_block_rows(lkv.shape[1], rkv.shape[1]))

@@ -372,126 +372,32 @@ def _shards(xs, v: int) -> tuple:
     return tuple(x.view(v, -1) for x in xs)
 
 
-def _dist_stream_mode(lkb, rkb, join_type: _join.JoinType,
-                      device: torch.device) -> Optional[Tuple[bool, int]]:
-    """None (the plan route) or (hash_mode, block_rows) when the per-shard
-    stream route applies to [W, na] and [W, nb] key bits: on CUDA the
-    kernel route K3/K4, where the JAX package picks its Pallas kernels on
-    a TPU."""
-    if not _join._stream_on(device) \
-            or join_type == _join.JoinType.FULL_OUTER:
-        return None
-    na = int(lkb[0].shape[1])
-    nb = int(rkb[0].shape[1])
-    if na == 0 or nb == 0 or na + nb >= (1 << 29):
-        return None
-    if len(lkb) == 1 and lkb[0].element_size() == 4:
-        return (False, _join.stream_block_rows(na, nb))
-    lanes = sum(2 if b.element_size() == 8 else 1 for b in lkb)
-    if lanes <= _join.MAX_HASH_KEY_LANES:
-        return (True, _join.stream_block_rows(na, nb))
-    return None
-
-
-def _plan_on_device(lkb, lkv, lemit, rkb, rkv, remit, ldat, lval, rdat,
-                    rval, jt: _join.JoinType, stream: bool = True):
-    """The device half of phase 1 of the per-shard join over [V, n] key
-    bits, key validity, emits and payload lanes: K3 on the stream route
-    (picked by `_dist_stream_mode`, unless ``stream`` is False), the plan
-    route otherwise. Returns (route, device counts, state); the stream
-    route's counts are K3's int32 [V, 4] (column 3 flags a 64-bit hash
-    collision when ``state[6]``, the hash mode, is set), the plan route's
-    [V, 2] = [n_out, n_unmatched_b]."""
-    mode = _dist_stream_mode(lkb, rkb, jt, lemit.device) if stream else None
-    if mode is not None:
-        hash_mode, br = mode
-        a_desc, b_desc = _join.plan_lane_descs(ldat, lval, rdat, rval, jt)
-        counts, a_streams, b_streams = _join.plan_program_stream(
-            lkb, lkv, lemit, rkb, rkv, remit, ldat, lval, rdat, rval, jt,
-            a_desc=a_desc, b_desc=b_desc, hash_mode=hash_mode)
-        return "stream", counts, (counts, a_streams, b_streams, a_desc,
-                                  b_desc, br, hash_mode)
-    counts2, lo, m, bperm, un_mask = _join.join_plan_keys(
-        lkb, lkv, lemit, rkb, rkv, remit, jt)
-    aemit = remit if jt == _join.JoinType.RIGHT else lemit
-    return "plan", counts2, (lo, m, bperm, un_mask, aemit)
-
-
-def _host_counts(route: str, hc: np.ndarray) -> np.ndarray:
-    """int64 [V, 2] = [n_out, n_unmatched_b] from fetched plan counts."""
-    hc = hc.astype(np.int64)
-    if route == "plan":
-        return hc
-    return np.stack([hc[:, 0], np.zeros_like(hc[:, 0])], 1)
-
-
-def _collided(cm, route: str, state, hc: np.ndarray) -> bool:
-    """A 64-bit hash collision of the stream route's hash mode on any
-    shard of any process (agreed through ``cm``)."""
-    return route == "stream" and state[6] and \
-        agree_max(cm, [hc[..., 3].max()])[0] > 0
-
-
-def _shard_plan(cm, lkb, lkv, lemit, rkb, rkv, remit, ldat, lval, rdat,
-                rval, jt: _join.JoinType):
-    """Phase 1 of the per-shard join: `_plan_on_device`, its counts
-    fetched (``join.plan``), the plan route again after a hash collision.
-    Returns (route, host counts int64 [V, 2] = [n_out, n_unmatched_b],
-    state) for `_shard_materialize`."""
-    args = (lkb, lkv, lemit, rkb, rkv, remit, ldat, lval, rdat, rval, jt)
-    route, counts, state = _plan_on_device(*args)
-    hc = counts.cpu().numpy()
-    _metrics.record_host_sync("join.plan")
-    if _collided(cm, route, state, hc):
-        # recompute via the exact plan route
-        route, counts, state = _plan_on_device(*args, stream=False)
-        hc = counts.cpu().numpy()
+def _fetched_plan(cm, *args) -> Tuple[_join.JoinPlan, np.ndarray]:
+    """The per-shard join planned (`ops/join.plan_join`, AUTO's route) and
+    its counts fetched (``join.plan``); again on the plan route after a
+    hash collision on any shard of any process. Returns (plan, host
+    counts int64 [V, 2] = [n_out, n_unmatched_b])."""
+    lkb, rkb, jt = args[0], args[3], args[-1]
+    for route in (_join.join_route(lkb, rkb, jt, _join.JoinAlgorithm.AUTO),
+                  "plan"):
+        plan = _join.plan_join(route, *args)
+        host, collided = plan.read_counts(plan.counts.tolist())
         _metrics.record_host_sync("join.plan")
-    return route, _host_counts(route, hc), state
+        # only the hash route can collide: the others agree on nothing
+        if route != "hash" or not agree_max(cm, [collided])[0]:
+            return plan, np.array(host, dtype=np.int64)
 
 
-def _shard_materialize(route: str, state, ldat, lval, rdat, rval,
-                       jt: _join.JoinType, cap: int, cap_u: int = 0):
-    """Phase 2 of the per-shard join at ``cap`` output rows a shard (plus
-    ``cap_u`` unmatched build rows on the plan route's FULL_OUTER): K4 on
-    the stream route. Returns (ldat', lval', rdat', rval', emit, lidx,
-    ridx), each [W, cap + cap_u]."""
-    if route == "stream":
-        counts, a_streams, b_streams, a_desc, b_desc = state[:5]
-        return _join.materialize_program_stream(
-            counts, a_streams, b_streams, ldat, lval, rdat, rval, jt, cap,
-            a_desc=a_desc, b_desc=b_desc)
-    lo, m, bperm, un_mask, aemit = state
-    return _join.materialize_program(lo, m, bperm, un_mask, aemit, ldat,
-                                     lval, rdat, rval, jt, cap, cap_u)
-
-
-def _shard_matched(route: str, state) -> torch.Tensor:
-    """bool [V, na]: the probe rows an INNER plan matched (K3's group A
-    rows, the plan route's ``m > 0``)."""
-    if route == "stream":
-        counts, a_streams = state[0], state[1]
-        w, na = a_streams.shape[1:]
-        idx = a_streams[0].to(torch.int64)
-        pos = torch.arange(na, device=idx.device)
-        emits = pos < counts[:, 1:2].to(torch.int64)
-        # entries past n_emit go to spare slots of their own: one shared
-        # overflow slot would serialise their stores on the card
-        hit = torch.zeros(w, 2 * na, dtype=torch.bool, device=idx.device)
-        hit.scatter_(1, torch.where(emits, idx, na + pos), True)
-        return hit[:, :na]
-    return state[1] > 0
-
-
-def _shard_caps(cm, route: str, host: np.ndarray, state,
-                jt: _join.JoinType) -> Tuple[int, int]:
-    """(cap, cap_u) of `_shard_materialize` from the worst shard of every
-    process: the JAX package's shapes, the stream route's expansion
+def _shard_caps(cm, plan: _join.JoinPlan, host: np.ndarray
+                ) -> Tuple[int, int]:
+    """(cap, cap_u) of ``plan.materialize`` from the worst shard of every
+    process: the JAX package's shapes, the stream routes' expansion
     capacity or the plan route's bucket capacities."""
     n_out, n_un = agree_max(cm, host.max(axis=0))
-    if route == "stream":
-        return _join.stream_expand_capacity(n_out, state[5]), 0
-    cap_u = _bucket_cap(n_un) if jt == _join.JoinType.FULL_OUTER else 0
+    if plan.route != "plan":
+        return _join.stream_expand_capacity(n_out, plan.block_rows), 0
+    cap_u = _bucket_cap(n_un) \
+        if plan.join_type == _join.JoinType.FULL_OUTER else 0
     return _bucket_cap(n_out), cap_u
 
 
@@ -652,17 +558,15 @@ def distributed_join(left: Table, right: Table, config: _join.JoinConfig,
 
     jt = config.type
     with _phase("distributed_join.plan", seq):
-        route, host, state = _shard_plan(cm, lkb_w, lkv_w, lemit_w, rkb_w,
-                                         rkv_w, remit_w, ldat, lval, rdat,
-                                         rval, jt)
-        if route == "plan":
+        plan, host = _fetched_plan(cm, lkb_w, lkv_w, lemit_w, rkb_w, rkv_w,
+                                   remit_w, ldat, lval, rdat, rval, jt)
+        if plan.route == "plan":
             _annotate(rows_out=int(host[:, 0].sum()))
-    cap, cap_u = _shard_caps(cm, route, host, state, jt)
-    with _phase("distributed_join.materialize", seq) if route == "stream" \
+    cap, cap_u = _shard_caps(cm, plan, host)
+    with _phase("distributed_join.materialize", seq) if plan.route != "plan" \
             else _span("distributed_join.materialize", seq, world=world,
                        capacity=cap + cap_u):
-        res = _shard_materialize(route, state, ldat, lval, rdat, rval, jt,
-                                 cap, cap_u)
+        res = plan.materialize(ldat, lval, rdat, rval, cap, cap_u)
     # flatten the [W, cap] outputs back to the sharded flat layout
     lod, lov, rod, rov, (emit,), (lidx_o,), (ridx_o,) = (
         [x.reshape(-1) for x in part] for part in (
@@ -777,8 +681,8 @@ def _exact_dict_redo(left: Table, right: Table, config: _join.JoinConfig,
 # (b) side either rotates around the ring, one shard's block a step
 # (comm.ring_shift), or is replicated to every shard (comm.gather_full).
 # Each step, or the one broadcast probe, is the shuffle join's per-shard
-# join (`_shard_plan` / `_shard_materialize`), so on the card it runs K3
-# and K4.
+# join (`ops/join.plan_join`, ``JoinPlan.materialize``), so on the card it
+# runs K3 and K4.
 # ---------------------------------------------------------------------------
 
 # the ring join routes to the shuffle join when its output slab overshoots
@@ -840,30 +744,29 @@ def _long_exact_keys(left: Table, right: Table, config) -> bool:
     return False
 
 
-def _ring_plans(cm, a, b, need_matched: bool, stream: bool = True):
-    """The ring's count pass: W INNER plans of the resident a side against
-    the b side rotated k times (after step k global shard i holds shard
-    (i - k) % W's block, ``cm.ring_shift``), every step's counts and the
-    unmatched a rows fetched in ONE device->host copy (``ring.count``, the
-    JAX package's one count program). Returns (pairs int64 [V, W] = rows
-    of (local shard, step), unmatched a rows int64 [V] (0 unless
-    ``need_matched``), the matched-a mask [V, na] when ``need_matched``,
-    the plans and each step's visiting b payload, and whether a stream
-    plan met a hash collision: the caller then runs the pass again with
-    ``stream`` False)."""
+def _ring_plans(cm, a, b, need_matched: bool, route: str):
+    """The ring's count pass: W INNER plans on ``route`` of the resident a
+    side against the b side rotated k times (after step k global shard i
+    holds shard (i - k) % W's block, ``cm.ring_shift``), every step's
+    counts and the unmatched a rows fetched in ONE device->host copy
+    (``ring.count``, the JAX package's one count program). Returns (pairs
+    int64 [V, W] = rows of (local shard, step), unmatched a rows int64
+    [V] (0 unless ``need_matched``), the matched-a mask [V, na] when
+    ``need_matched``, the plans and each step's visiting b payload, and
+    whether a hash route plan met a hash collision: the caller then runs
+    the pass again on the plan route)."""
     abits, akv, aemit, adat, aval = a
     bbits, bkv, bemit, bdat, bval = b
     world = cm.world
     matched = torch.zeros_like(aemit) if need_matched else None
     steps, counts = [], []
     for k in range(world):
-        route, cnt, state = _plan_on_device(
-            abits, akv, aemit, bbits, bkv, bemit, adat, aval, bdat, bval,
-            _join.JoinType.INNER, stream)
-        counts.append(cnt.to(torch.int64))
+        plan = _join.plan_join(route, abits, akv, aemit, bbits, bkv, bemit,
+                               adat, aval, bdat, bval, _join.JoinType.INNER)
+        counts.append(plan.counts.to(torch.int64))
         if need_matched:
-            matched |= _shard_matched(route, state)
-        steps.append((route, state, bdat, bval))
+            matched |= plan.matched()
+        steps.append((plan, bdat, bval))
         if k + 1 < world:
             bbits = tuple(cm.ring_shift(x) for x in bbits)
             bkv, bemit = cm.ring_shift(bkv), cm.ring_shift(bemit)
@@ -876,9 +779,10 @@ def _ring_plans(cm, a, b, need_matched: bool, stream: bool = True):
     hc = torch.cat([torch.stack(counts, 1).reshape(cm.shards, -1),
                     extra.view(-1, 1).to(torch.int64)], 1).cpu().numpy()
     _metrics.record_host_sync("ring.count")
-    per_step = hc[:, :-1].reshape(cm.shards, world, -1)
-    pairs = per_step[:, :, 0]
-    collided = _collided(cm, route, state, per_step)
+    rows, collided = plan.read_counts(
+        hc[:, :-1].reshape(cm.shards * world, -1).tolist())
+    collided = route == "hash" and agree_max(cm, [collided])[0] > 0
+    pairs = np.array(rows, dtype=np.int64)[:, 0].reshape(cm.shards, world)
     return pairs, hc[:, -1], matched, steps, collided
 
 
@@ -888,14 +792,13 @@ def _ring_slabs(a, steps, matched, cap_step: int, cap_extra: int):
     (a data, a validity, b data, b validity, emit, a idx, b idx), each
     [W, world * cap_step + cap_extra]."""
     _abits, _akv, aemit, adat, aval = a
-    parts = [_shard_materialize(route, state, adat, aval, bdat, bval,
-                                _join.JoinType.INNER, cap_step)
-             for route, state, bdat, bval in steps]
+    parts = [plan.materialize(adat, aval, bdat, bval, cap_step)
+             for plan, bdat, bval in steps]
     if cap_extra:
         un = _join._masked_indices(aemit & ~matched, cap_extra)
         hole = torch.full_like(un, -1)
         parts.append(_join.gather_columns(adat, aval, un)
-                     + _join.gather_columns(steps[0][2], steps[0][3], hole)
+                     + _join.gather_columns(steps[0][1], steps[0][2], hole)
                      + (un >= 0, un, hole))
     cols = [tuple(torch.cat(c, 1) for c in zip(*(p[i] for p in parts)))
             for i in range(4)]
@@ -937,13 +840,13 @@ def distributed_join_ring(left: Table, right: Table,
     emit_unmatched = jt != _join.JoinType.INNER
     seq = ctx.get_next_sequence()
     with _phase("ring_join.count", seq):
-        pairs, extra, matched, steps, collided = _ring_plans(
-            cm, a, b, emit_unmatched)
-        if collided:
-            # a 64-bit hash collision: every step again on the exact
-            # plan route
-            pairs, extra, matched, steps, _ = _ring_plans(
-                cm, a, b, emit_unmatched, stream=False)
+        # a 64-bit hash collision: every step again on the exact plan route
+        for route in (_join.join_route(a[0], b[0], _join.JoinType.INNER,
+                                       _join.JoinAlgorithm.AUTO), "plan"):
+            pairs, extra, matched, steps, collided = _ring_plans(
+                cm, a, b, emit_unmatched, route)
+            if not collided:
+                break
     # skew guard: every shard's slab is world * cap_step rows, cap_step
     # set by the worst (shard, step) block of any process; with an
     # absolute floor, so that sparse outputs stay on the ring
@@ -1049,15 +952,15 @@ def broadcast_hash_join(left: Table, right: Table,
                build_rows=b_t.capacity, build_bytes=int(b_t.nbytes)):
         bdat_f = tuple(full(x) for x in bdat)
         bval_f = tuple(full(x) for x in bval)
-        route, host, state = _shard_plan(
+        plan, host = _fetched_plan(
             cm, abits, akv, aemit, tuple(full(x) for x in bbits), full(bkv),
             full(bemit), adat, aval, bdat_f, bval_f, jt_local)
         _annotate(rows_out=int(host[:, 0].sum()))
-    cap, cap_u = _shard_caps(cm, route, host, state, jt_local)
+    cap, cap_u = _shard_caps(cm, plan, host)
     with _span("broadcast_join.materialize", seq, world=world,
                capacity=cap):
-        aod, aov, bod, bov, emit, aidx, bidx = _shard_materialize(
-            route, state, adat, aval, bdat_f, bval_f, jt_local, cap, cap_u)
+        aod, aov, bod, bov, emit, aidx, bidx = plan.materialize(
+            adat, aval, bdat_f, bval_f, cap, cap_u)
     a_out = _rebuild_join_side(a_t, aod, aov, aidx, a_slots, "a", cm)
     b_out = _rebuild_join_side(b_t, bod, bov, bidx, b_slots, "b", cm)
     out = _join_output(ctx, a_out, b_out, build_side == 1, emit)

@@ -16,10 +16,10 @@ after one warm-up, each ending in ``torch.cuda.synchronize()``:
 * ``exchange_left_s`` / ``exchange_right_s``: each side's table exchange
   with its counts given (K1 + K2);
 * ``plan_plus_sync_s``: the shuffled sides' key bits and payload lanes,
-  the stream sort and K3 (``dist_ops._shard_plan``), with its count
-  fetch;
+  the stream sort and K3 (``ops/join.plan_join`` through
+  ``dist_ops._fetched_plan``), with its count fetch;
 * ``materialize_s``: the agreed capacity, K4 and the output lanes and
-  gathers (``dist_ops._shard_materialize``);
+  gathers (``JoinPlan.materialize``);
 * ``sum_phases_s``, and ``join_wall_s`` the whole
   ``distributed_join(..., force_exchange=True)`` beside it;
 * ``broadcast_s``: ``broadcast_hash_join(..., build_side=1)`` at
@@ -134,17 +134,16 @@ def main(argv=None) -> dict:
 
     def plan():
         inputs = plan_inputs()
-        return inputs, D._shard_plan(cm, *inputs, jt)
+        return inputs, D._fetched_plan(cm, *inputs, jt)
 
     res["plan_plus_sync_s"] = best(plan)
-    inputs, (route, host, state) = plan()
-    res["route"] = route
+    inputs, (jplan, host) = plan()
+    res["route"] = jplan.route
     ldat, lval, rdat, rval = inputs[6:]
 
     def materialize():
-        cap, cap_u = D._shard_caps(cm, route, host, state, jt)
-        return D._shard_materialize(route, state, ldat, lval, rdat, rval,
-                                    jt, cap, cap_u)
+        cap, cap_u = D._shard_caps(cm, jplan, host)
+        return jplan.materialize(ldat, lval, rdat, rval, cap, cap_u)
 
     res["materialize_s"] = best(materialize)
     res["sum_phases_s"] = (res["keybits_targets_both_s"]

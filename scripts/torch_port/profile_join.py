@@ -71,11 +71,11 @@ def main(argv=None) -> dict:
     cap = J.stream_expand_capacity(res["n_primary"],
                                    J.stream_block_rows(n, n))
     res["cap"] = cap
-    res["materialize_s"] = best(lambda: J.materialize_program_stream(
-        counts, a_s, b_s, *payload, jt, cap, a_desc=a_desc, b_desc=b_desc))
+    plan = J.JoinPlan("stream", jt, counts, a_s, b_s, a_desc, b_desc)
+    res["materialize_s"] = best(lambda: plan.materialize(*payload, cap))
     res["expand_s"] = best(lambda: K.join_expand_stream(counts, a_s, b_s,
                                                         cap))
-    del counts, a_s, b_s
+    del counts, a_s, b_s, plan
 
     # micro-benchmarks on the stream sort's permutation of the 2n rows
     bits = torch.cat([left._columns[0].data, right._columns[0].data]

@@ -9,12 +9,12 @@ route's phases. Each is the best of 3 runs after one warm-up, each ending
 in ``torch.cuda.synchronize()``:
 
 * ``keybits_sort_s``: the key bits and the stream sort, the payload
-  lanes riding along (``join.stream_plan_inputs``);
+  lanes riding along (``join.stream_sort_keys`` + ``join.stream_sort``);
 * ``plan_kernel_s``: K3 alone on the sorted stream;
 * ``plan_s``: both, as ``join.plan_program_stream`` runs them (the JAX
   script's "plan");
 * ``materialize_s``: K4 and the output lanes and gathers
-  (``join.materialize_program_stream``, the JAX script's
+  (``join.JoinPlan.materialize``, the JAX script's
   "materialize"); ``expand_s``: K4 alone (its "expand");
   ``gathers_s``: the difference, the lane unpack and the gathers of the
   columns that do not ride K4;
@@ -66,8 +66,8 @@ def stream_args(left, right):
     def keybits_sort():
         lbits, lkv = J.key_bits(T._rows([left._columns[0].data]), (None,))
         rbits, rkv = J.key_bits(T._rows([right._columns[0].data]), (None,))
-        return J.stream_plan_inputs(lbits, lkv, None, rbits, rkv, None,
-                                    *payload, jt, a_desc, b_desc)
+        return J.stream_sort(J.stream_sort_keys(
+            lbits, lkv, None, rbits, rkv, None, *payload, jt, a_desc, b_desc))
 
     return keybits_sort, payload, (a_desc, b_desc)
 
@@ -105,9 +105,8 @@ def main(argv=None) -> dict:
     cap_e = J.stream_expand_capacity(res["n_out"],
                                      J.stream_block_rows(n, n))
     res["cap_e"] = cap_e
-    res["materialize_s"] = best(lambda: J.materialize_program_stream(
-        counts, a_s, b_s, *payload, jt, cap_e, a_desc=a_desc,
-        b_desc=b_desc))
+    plan = J.JoinPlan("stream", jt, counts, a_s, b_s, a_desc, b_desc)
+    res["materialize_s"] = best(lambda: plan.materialize(*payload, cap_e))
     res["expand_s"] = best(lambda: K.join_expand_stream(counts, a_s, b_s,
                                                         cap_e))
     res["gathers_s"] = max(res["materialize_s"] - res["expand_s"], 0.0)

@@ -426,7 +426,8 @@ def test_join_kernels_match_plain(cuda, jt, hash_mode):
     rng = np.random.default_rng(int(jt) + 10 * hash_mode)
     args = _join_inputs(cuda, rng, 3, 40_000, 50_000, hash_mode, hash_mode)
     a_desc, b_desc = J.plan_lane_descs(*args[6:], jt)
-    kw = J.stream_plan_inputs(*args, jt, a_desc, b_desc, hash_mode)
+    kw = J.stream_sort(J.stream_sort_keys(*args, jt, a_desc, b_desc,
+                                          hash_mode))
     got = K.join_plan_stream(**kw)
     ref = K.plain_join_plan_stream(**kw)
     torch.cuda.synchronize()
@@ -643,9 +644,9 @@ def test_plan_stream_lookback_stress(cuda, case, world, jt, hash_mode):
     rdat = (t(rk), t(rng.normal(size=rk.shape).astype(np.float32)))
     lv = rv = (None, None)
     a_desc, b_desc = J.plan_lane_descs(ldat, lv, rdat, rv, jt)
-    kw = J.stream_plan_inputs(lbits, lkv, t(lemit), rbits, rkv, t(remit),
-                              ldat, lv, rdat, rv, jt, a_desc, b_desc,
-                              hash_mode)
+    kw = J.stream_sort(J.stream_sort_keys(
+        lbits, lkv, t(lemit), rbits, rkv, t(remit), ldat, lv, rdat, rv, jt,
+        a_desc, b_desc, hash_mode))
     if case == "w8_1000_tiles":
         assert kw["bits_s"].shape[1] >= 1000 * K.PLAN_TILE
     ref = K.plain_join_plan_stream(**kw)
@@ -838,8 +839,9 @@ def _expand_plan(dev, rng, case, w, jt, hash_mode, La, Lb):
     b = (bbits, bkv, torch.ones_like(t(bk), dtype=torch.bool), (t(bk),),
          (None,))
     left, right = (b, p) if jt == J.JoinType.RIGHT else (p, b)
-    kw = J.stream_plan_inputs(*left[:3], *right[:3], left[3], left[4],
-                              right[3], right[4], jt, (), (), hash_mode)
+    kw = J.stream_sort(J.stream_sort_keys(
+        *left[:3], *right[:3], left[3], left[4], right[3], right[4], jt, (),
+        (), hash_mode))
     n = kw["bits_s"].shape[1]
     kw["lanes"] = [t(rng.integers(-2**31, 2**31, (w, n), dtype=np.int64)
                      .astype(np.int32)) for _ in range(max(La, Lb))]
@@ -1413,9 +1415,9 @@ def test_k3_hash_mode_six_verify_lanes(cuda):
     ldat, lval, rdat, rval = (T._rows(x) for x in (ldat, lval, rdat, rval))
     a_desc, b_desc = J.plan_lane_descs(ldat, lval, rdat, rval,
                                        J.JoinType.INNER)
-    kw = J.stream_plan_inputs(lbits, lv, None, rbits, rv, None, ldat, lval,
-                              rdat, rval, J.JoinType.INNER, a_desc, b_desc,
-                              hash_mode=True)
+    kw = J.stream_sort(J.stream_sort_keys(
+        lbits, lv, None, rbits, rv, None, ldat, lval, rdat, rval,
+        J.JoinType.INNER, a_desc, b_desc, hash_mode=True))
     assert len(kw["verify_lanes"]) == 6 and len(kw["lanes"]) == 7
     _plan_equal(K.plain_join_plan_stream(**kw), K.join_plan_stream(**kw))
 

@@ -18,9 +18,11 @@ port fetches a varbytes column's shard bounds in one copy
 ``device_get`` calls (it counts 3).
 
 The port's own sites, which the JAX package does not have, are listed in
-PORT_ONLY_SITES; the CSV writer's is held by a case here, the process
-group's and the long-key sort's across processes by
-tests/test_torch_port_multiprocess.py's runs.
+PORT_ONLY_SITES; the CSV writer's and the local group-by's are held by
+cases here, the process group's and the long-key sort's across processes
+by tests/test_torch_port_multiprocess.py's runs. At world 1 the
+distributed join and group-by run the local ones, whose stage spans and
+one fetch each are the port's own: a case here holds their counts.
 """
 import re
 from collections import Counter
@@ -48,8 +50,9 @@ N = 400
 SITE = re.compile(r'^cylon_host_syncs_total\{site="([^"]+)"\}$')
 # host-sync sites of the port alone: the numeric CSV writer's one fetch of
 # a table's columns (the JAX package's writer fetches without counting),
-# and the processes agreeing a host value on a process group
-PORT_ONLY_SITES = ("io.write_csv", "comm.all_reduce",
+# the local group-by's one fetch of its group count, and the processes
+# agreeing a host value on a process group
+PORT_ONLY_SITES = ("io.write_csv", "groupby.count", "comm.all_reduce",
                    "comm.all_gather_host", "distributed_sort.host_keys")
 
 
@@ -256,3 +259,39 @@ def test_write_csv_counts_its_own_site(ctxs, tmp_path, strings):
             3 * t_syncs.pop("distribute.varbytes")
     assert t_syncs == j_syncs
     assert not set(j_syncs) & set(PORT_ONLY_SITES)
+
+
+# the world-1 distributed join and group-by: the local ops' spans, in
+# order (the join's plan stages open on the kernel route alone), and
+# their one fetch each
+WORLD1 = {
+    "join_inner": (_join("INNER"), "join.plan", (
+        "join", "join.prepare", "join.plan", "join.plan.hash",
+        "join.plan.sort", "join.plan.stream", "join.materialize",
+        "join.rebuild")),
+    "groupby_sum": (_groupby(False, ("SUM",)), "groupby.count", (
+        "groupby", "groupby.keys", "groupby.sort", "groupby.gather",
+        "groupby.aggregate", "groupby.rebuild")),
+}
+
+
+@pytest.mark.parametrize("route", ["plain", "kernel"])
+@pytest.mark.parametrize("case", sorted(WORLD1))
+def test_world1_port_sites_and_stage_spans(monkeypatch, case, route):
+    """At one shard the port's own telemetry: the local op's stage spans
+    once each and one fetch at its site (``join.plan``, the JAX package's
+    name; ``groupby.count``, the port's), so a planner that drops,
+    doubles or renames a site or a span fails here."""
+    from cylon_tpu_torch.parallel import shuffle as tshuffle
+
+    run, site, labels = WORLD1[case]
+    if route == "kernel":
+        monkeypatch.setattr(tjoin, "STREAM_PLAN", True)
+        monkeypatch.setattr(tshuffle, "PARTITION_KERNEL", True)
+    else:
+        labels = tuple(x for x in labels if not x.startswith("join.plan."))
+    ctx = tct.CylonContext.InitDistributed(tct.VirtualWorldConfig(1),
+                                           device="cpu")
+    t_labels, t_syncs = _observe("torch", ctx, run)
+    assert t_labels == Counter(labels)
+    assert t_syncs == {site: 1}
