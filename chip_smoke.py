@@ -355,6 +355,17 @@ Phases, in order (any failure exits non-zero; nothing is caught):
      5's tables at 2 x 2^24 rows (seed 32): K9 and K5 launch once each
      (counters 0 -> read), the rows the numpy count; the union's median
      of 5 steady walls.
+ 33. (run after phase 32) K10 ``permute_rows``, the stream routes' sort
+     stages with the rows as records, at both cells' shapes: the join
+     cell's (the hash stream of 2 x 100,000,000 int64 keys, every row
+     live) and the union cell's (phase 32's inputs): each stage against
+     its plain version bit for bit; the stage's K10 launches timed with
+     the sorts' permutations fixed (ms: CUDA events around the launches;
+     kernel ms: their own launches), the plain gathers and narrowings
+     they replace timed alike, and the bound (an index and each word
+     handed on, read and written, at 3.35 TB/s); then an int64-key join
+     and UNION, SUBTRACT and INTERSECT at 2 x 2^24 rows launch K10 3, 2,
+     2 and 2 times (counters 0 -> read).
 Phases 10-12, 23a and 24d each record the median of 5 steady runs after
 one warm-up.
 Tolerances against numpy: float sums 1e-5 * sum |x| of the group
@@ -1755,6 +1766,147 @@ def setop_hash_phase(ct, K) -> dict:
     log(f"phase 32 set ops (2 x {m} rows, world 1): launches {launches}; "
         f"rows == numpy; union steady walls (s) {walls}")
     return {"checks": checks, "launches": launches, "walls": walls}
+
+
+PERMUTE_ROWS = 100_000_000   # phase 33's rows a side: both cells' shapes
+
+
+def _stage_equal(got, ref) -> bool:
+    """Two sort stages' outputs (tensors, lists of them, counts) bit for
+    bit."""
+    if isinstance(ref, dict):
+        got, ref = [got[k] for k in sorted(ref)], [ref[k] for k in sorted(ref)]
+    if len(got) != len(ref):
+        return False
+    for x, y in zip(got, ref):
+        if isinstance(y, torch.Tensor):
+            if x.dtype != y.dtype or x.shape != y.shape \
+                    or not torch.equal(x, y):
+                return False
+        elif isinstance(y, (list, tuple)):
+            if not _stage_equal(x, y):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def _k10_check(K, name, shape, equal, k10, plain, words, rows) -> dict:
+    """One cell's row of phase 33: the stage's K10 launches and the plain
+    gathers they replace, timed; the bound counts an index and ``words``
+    words read and written a row."""
+    r = dict(name="permute_rows", stage=name, shape=shape,
+             err=0 if equal else 1, ms=cuda_ms(k10),
+             kernel_ms=own_kernel_ms(K, k10), plain_ms=cuda_ms(plain),
+             library_ms=None,
+             bound_ms=rows * (8 + 8 * words) / HBM_BYTES_PER_S * 1e3)
+    log(f"phase 33 kernel check permute_rows, {name} ({shape}): ms "
+        f"{r['ms']:.4f} kernel_ms {r['kernel_ms']:.4f} plain gathers "
+        f"{r['plain_ms']:.4f} bound {r['bound_ms']:.4f} equal {equal}")
+    return r
+
+
+def permute_rows_phase(ct, K) -> dict:
+    """Phase 33: K10 at both cells' shapes against the plain sort stages,
+    timed; then its launches on a join and on each set op."""
+    from cylon_tpu_torch.ops import join as J
+    from cylon_tpu_torch.ops import setops as SO
+    from cylon_tpu_torch.ops.hash import as_i32
+
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    n = PERMUTE_ROWS
+    checks = []
+    torch.cuda.empty_cache()
+    sides = []
+    for _ in range(2):
+        k = torch.randint(0, n, (1, n), device="cuda", generator=gen)
+        bits, kv = J.key_bits([k], [None])
+        sides += [bits, kv, None]
+        del k
+
+    def keys():
+        return J.stream_sort_keys(*sides, [], [], [], [], J.JoinType.INNER,
+                                  hash_mode=True)
+
+    equal = _stage_equal(J.record_stream_sort(keys()),
+                         J.plain_stream_sort(keys()))
+    kd = keys()
+    words = [kd["h1"], kd["h2"], kd["tag"], *kd["kb"]]
+    nw = len(words)
+    perm1 = torch.sort(kd.pop("key"), dim=1).indices
+    rows, _ = K.permute_rows(words)
+    rows, key = K.permute_rows(rows, perm1, nw, key=1)
+    perm2 = torch.sort(key, dim=1, stable=True).indices
+    del rows, key
+
+    def k10():
+        rec, _ = K.permute_rows(words)
+        rec, _key = K.permute_rows(rec, perm1, nw, key=1)
+        return K.permute_rows(rec, perm2, nw, split=True)
+
+    def plain():
+        h1 = kd["h1"].gather(1, perm1)
+        perm = perm1.gather(1, perm2)
+        return h1, [as_i32(x.gather(1, perm)) for x in words]
+
+    checks.append(_k10_check(
+        K, "join", f"2 x [1, {n}] int64 keys, hash stream, {nw} words", equal,
+        k10, plain, nw, 2 * n))
+    del kd, words, perm1, perm2, sides
+    torch.cuda.empty_cache()
+    h1, h2, stack, side, live = K.setop_hash_rows(*setop_hash_inputs(
+        n, gen, False))
+    equal = _stage_equal(SO.record_setop_stream_sort(h1, h2, stack, side,
+                                                     live),
+                         SO.plain_setop_stream_sort(h1, h2, stack, side,
+                                                    live))
+    nw = 2 + len(stack)
+    perm1 = SO._side_live_order(side, live)
+    rows, key = K.permute_rows([h1, h2, *stack], perm1, key=2)
+    perm2 = torch.sort(key, dim=1, stable=True).indices
+    del rows, key
+
+    def k10_union():
+        rec, _key = K.permute_rows([h1, h2, *stack], perm1, key=2)
+        return K.permute_rows(rec, perm2, nw, split=True)
+
+    def plain_union():
+        key = (((h1 << 32) | h2) ^ -(1 << 63)).gather(1, perm1)
+        perm = perm1.gather(1, perm2)
+        return key, as_i32(h1.gather(1, perm)), as_i32(h2.gather(1, perm)), \
+            stack.gather(2, perm.unsqueeze(0).expand_as(stack))
+
+    checks.append(_k10_check(
+        K, "union", f"2 x [1, {n}], int64 + float64, {nw} words", equal,
+        k10_union, plain_union, nw, 2 * n))
+    del h1, h2, stack, side, live, perm1, perm2
+    assert all(r["err"] == 0 for r in checks), \
+        "the sort stages with K10 disagree with their plain versions"
+    torch.cuda.empty_cache()
+    m = 1 << 24
+    rng = np.random.default_rng(33)
+    ctx = ct.CylonContext.Init()
+    left = ct.Table.from_pydict(ctx, {"k": rng.integers(0, m, m),
+                                      "v": rng.random(m)})
+    right = ct.Table.from_pydict(ctx, {"k": rng.integers(0, m, m),
+                                       "w": rng.random(m)})
+    sync()
+    K.reset_launches()
+    left.join(right, "inner", on="k")
+    sync()
+    launches = {"JOIN": K.LAUNCHES["permute_rows"]}
+    del left, right
+    a, b, _host = make_setop_tables(ct, ctx, m, 33)
+    for name in SETOP_OPS:
+        sync()
+        K.reset_launches()
+        getattr(a, name.lower())(b)
+        sync()
+        launches[name] = K.LAUNCHES["permute_rows"]
+    assert launches == {"JOIN": 3, "UNION": 2, "SUBTRACT": 2,
+                        "INTERSECT": 2}, launches
+    log(f"phase 33 K10 launches at 2 x {m} rows, world 1: {launches}")
+    return {"checks": checks, "launches": launches}
 
 
 class StringPolicy:
@@ -5145,6 +5297,18 @@ def main() -> int:
         plain_ms=k9["plain_ms"], bound_ms=k9["bound_ms"],
         bound_by="bytes", library_ms=None))
 
+    # phase 33: K10 at both cells' shapes, and its launches on a join and
+    # each set op
+    clock.mark("33")
+    perm33 = permute_rows_phase(ct, K)
+    k10 = perm33["checks"]
+    kernels.append(dict(
+        table["permute_rows"], launches=sum(perm33["launches"].values()),
+        max_abs_err=max(r["err"] for r in k10),
+        **{key: [r[key] for r in k10] for key in (
+            "stage", "ms", "kernel_ms", "plain_ms", "bound_ms")},
+        bound_by="bytes", library_ms=None))
+
     # phases 17-21: the ring and broadcast joins, the salted shuffle, the
     # chunked exchange
     clock.mark("17")
@@ -5304,6 +5468,7 @@ def main() -> int:
                            string_small=string_small,
                            string_kernels=string_kernels,
                            hash_keys=hash31, setop_hash=hash32,
+                           permute_rows=perm33,
                            join_chunks=chunks2, ring_join=ring,
                            broadcast_join=bcast, salted_shuffle=salted,
                            chunked_exchange=chunked,

@@ -527,9 +527,18 @@ def stream_sort_keys(lbits, lkv, lemit, rbits, rkv, remit,
 
 def stream_sort(keys: dict) -> dict:
     """The second stage of ``plan_program_stream``: the sorts of
-    ``stream_sort_keys``'s packed keys (popped from ``keys``) and the
-    gathers of the key bits, tags and lanes by their permutation. Returns
-    K3's keyword arguments."""
+    ``stream_sort_keys``'s packed keys (popped from ``keys``) and the key
+    bits, tags and lanes in their order. Returns K3's keyword arguments.
+    On the card the rows move as records (``record_stream_sort``, K10);
+    elsewhere ``plain_stream_sort``, which gives the same tensors."""
+    if not keys["tag"].is_cuda:
+        return plain_stream_sort(keys)
+    return record_stream_sort(keys)
+
+
+def plain_stream_sort(keys: dict) -> dict:
+    """``stream_sort`` by torch gathers: each stream gathered by the
+    sorts' permutation, then narrowed."""
     tag, lanes = keys["tag"], keys["lanes"]
     out = {k: keys[k] for k in ("na", "nb", "emit_unmatched_a",
                                 "n_a_lanes", "n_b_lanes")}
@@ -546,6 +555,43 @@ def stream_sort(keys: dict) -> dict:
         out["bits_s"] = keys["bits"].gather(1, perm)
     out.update(tag_s=as_i32(tag.gather(1, perm)),
                lanes=[x.gather(1, perm) for x in lanes])
+    return out
+
+
+def record_stream_sort(keys: dict) -> dict:
+    """``stream_sort`` with the rows as records of 32-bit words (K10
+    ``kernels.permute_rows``): the tag, the key words and the lanes packed
+    into one record a row, the records moved by each sort's permutation,
+    the last move split into K3's int32 streams. The sorts are
+    ``plain_stream_sort``'s, so the order is the same. ``keys``' streams
+    are popped as soon as the pack has read them."""
+    out = {k: keys[k] for k in ("na", "nb", "emit_unmatched_a",
+                                "n_a_lanes", "n_b_lanes")}
+    hash_mode = "h1" in keys
+    if hash_mode:
+        nk = len(keys["kb"])
+        words = [keys.pop("h1"), keys.pop("h2"), keys.pop("tag"),
+                 *keys.pop("kb"), *keys.pop("lanes")]
+    else:
+        bits = keys.pop("bits")
+        words = [bits.view(torch.int32), keys.pop("tag"), *keys.pop("lanes")]
+    nw = len(words)
+    rows, _ = _k.permute_rows(words)
+    del words
+    perm = torch.sort(keys.pop("key"), dim=1).indices
+    if hash_mode:
+        # then a stable sort by h1 (word 0), its key written by the move
+        rows, key = _k.permute_rows(rows, perm, nw, key=1)
+        perm = torch.sort(key, dim=1, stable=True).indices
+        del key
+    s, _ = _k.permute_rows(rows, perm, nw, split=True)
+    del rows, perm
+    if hash_mode:
+        out.update(bits_s=s[0], bits2_s=s[1], tag_s=s[2],
+                   verify_lanes=list(s[3:3 + nk]), lanes=list(s[3 + nk:]))
+    else:
+        out.update(bits_s=s[0].view(bits.dtype), tag_s=s[1],
+                   lanes=list(s[2:]))
     return out
 
 

@@ -13,6 +13,7 @@ cylon_tpu.ops.tpu_kernels).
 | K7 segment_sum     | float SUM of cylon_tpu/ops/groupby.py:140 | csrc/segment_sum.cu |
 | K8 join_hash_keys  | none: XLA's fusion of cylon_tpu/ops/join.py:598-631 | csrc/join_hash_keys.cu |
 | K9 setop_hash_rows | none: XLA's fusion of cylon_tpu/ops/setops.py:183 and cylon_tpu/ops/hash.py:91 | csrc/setop_hash_rows.cu |
+| K10 permute_rows   | none: the payload operands of XLA's jax.lax.sort, cylon_tpu/ops/join.py:632, :645 and cylon_tpu/ops/setops.py:239 | csrc/permute_rows.cu |
 
 Each wrapper takes tensors with a leading shard dimension ``[W, n]`` (one
 launch covers every shard of the virtual world) and 32-bit streams as
@@ -58,7 +59,8 @@ SOURCES = {"partition": CSRC / "partition.cu",
            "stream_compact": CSRC / "stream_compact.cu",
            "segment_sum": CSRC / "segment_sum.cu",
            "join_hash_keys": CSRC / "join_hash_keys.cu",
-           "setop_hash_rows": CSRC / "setop_hash_rows.cu"}
+           "setop_hash_rows": CSRC / "setop_hash_rows.cu",
+           "permute_rows": CSRC / "permute_rows.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -73,10 +75,13 @@ COMPACT_TILE = 4096     # elements per K6 tile (csrc/stream_compact.cu TILE)
 IDX_MASK = (1 << 29) - 1  # the row index field of a stream tag
 MAX_HASH_LANES = 6      # K8 key columns and u32 lanes (join_hash_keys.cu)
 MAX_SETOP_LANES = 12    # K9 columns and u32 lanes (setop_hash_rows.cu MAXL)
+MAX_ROW_WORDS = 17      # K10 words a row (permute_rows.cu MAXW): the join's
+                        # 3 + 6 key lanes + 8 shared lanes
 
 KERNELS = ("partition_hist", "partition_scatter", "join_plan_stream",
            "join_expand_stream", "setop_stream", "stream_compact",
-           "segment_sum", "join_hash_keys", "setop_hash_rows")
+           "segment_sum", "join_hash_keys", "setop_hash_rows",
+           "permute_rows")
 # launches per wrapper since the last reset_launches()
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
@@ -124,6 +129,10 @@ _SIGNATURES = {
     "setop_hash_rows": {
         "launch_setop_hash_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
                                    _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "permute_rows": {
+        "launch_permute_rows": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _P],
     },
 }
 # the 64-bit words of a single-pass kernel's tile state: (W, tiles) -> n,
@@ -1195,6 +1204,134 @@ def setop_hash_rows(ldata, lvalid, lemit: Optional[torch.Tensor], rdata,
     return h1, h2, stack, side, live
 
 
+# ---------------------------------------------------------------------------
+# K10 permute_rows
+# ---------------------------------------------------------------------------
+
+
+def record_words(words: int) -> int:
+    """The int32 width of a K10 record of ``words`` words: whole 16-byte
+    granules."""
+    return -(-words // 4) * 4
+
+
+def _permute_inputs(src, idx, words, key):
+    """K10's inputs checked: (src, words, [W, n], key), else raise."""
+    if isinstance(src, torch.Tensor):
+        if src.dtype != torch.int32 or src.dim() != 3 \
+                or src.shape[2] not in [record_words(k) for k in
+                                        range(1, MAX_ROW_WORDS + 1)]:
+            raise CylonError(Code.Invalid, f"permute_rows: a record source "
+                             f"wants int32 [W, n, 4 x granules], got "
+                             f"{tuple(src.shape)} {src.dtype}")
+        words = src.shape[2] if words is None else words
+        if record_words(words) != src.shape[2]:
+            raise CylonError(Code.Invalid, f"permute_rows: {words} words do "
+                             f"not fill records of {src.shape[2]}")
+        shape, tensors = tuple(src.shape[:2]), [src]
+    else:
+        src = list(src)
+        if not src or words not in (None, len(src)):
+            raise CylonError(Code.Invalid, f"permute_rows: {len(src)} "
+                                           f"streams for {words} words")
+        shape, words, tensors = tuple(src[0].shape), len(src), list(src)
+        for i, x in enumerate(src):
+            if x.dtype not in (torch.int32, torch.int64) or x.dim() != 2 \
+                    or tuple(x.shape) != shape:
+                raise CylonError(Code.Invalid, f"permute_rows: stream {i} "
+                                 f"wants int32 or int64 {list(shape)}, got "
+                                 f"{tuple(x.shape)} {x.dtype}")
+    if not 0 < words <= MAX_ROW_WORDS:
+        raise CylonError(Code.Invalid, f"permute_rows takes 1 to "
+                                       f"{MAX_ROW_WORDS} words, got {words}")
+    if idx is not None:
+        if idx.dtype != torch.int64 or tuple(idx.shape) != shape:
+            raise CylonError(Code.Invalid, f"permute_rows: the index wants "
+                             f"int64 {list(shape)}, got {tuple(idx.shape)} "
+                             f"{idx.dtype}")
+        tensors.append(idx)
+    if key not in (0, 1, 2) or key > words:
+        raise CylonError(Code.Invalid, f"permute_rows: a key of the first "
+                                       f"one or two of {words} words, got "
+                                       f"{key!r}")
+    if shape[1] >= (1 << 29):
+        raise CylonError(Code.Invalid, "permute_rows: per-shard rows must "
+                                       "fit the 29-bit tag")
+    if len({x.device for x in tensors}) != 1:
+        raise CylonError(Code.Invalid, "permute_rows: inputs must be on one "
+                                       "device")
+    return src, words, shape, key
+
+
+def plain_permute_rows(src, idx=None, words=None, split=False, key=0):
+    """Plain version of K10 (see ``permute_rows``): the words stacked,
+    gathered by ``idx`` and laid out."""
+    src, words, (w, n), key = _permute_inputs(src, idx, words, key)
+    if isinstance(src, torch.Tensor):
+        rows = src[:, :, :words]
+    else:
+        rows = torch.stack([as_i32(x) if x.dtype == torch.int64 else x
+                            for x in src], 2)
+    if idx is not None:
+        rows = rows.gather(1, idx.unsqueeze(2).expand(w, n, words))
+    out_key = None
+    if key:
+        hi = rows[:, :, 0].to(torch.int64)
+        out_key = hi & 0xFFFFFFFF if key == 1 else (
+            (hi << 32) | (rows[:, :, 1].to(torch.int64) & 0xFFFFFFFF)
+        ) ^ _SIGN64
+    if split:
+        return rows.permute(2, 0, 1).contiguous(), out_key
+    out = torch.zeros(w, n, record_words(words), dtype=torch.int32,
+                      device=rows.device)
+    out[:, :, :words] = rows
+    return out, out_key
+
+
+def permute_rows(src, idx: Optional[torch.Tensor] = None,
+                 words: Optional[int] = None, split: bool = False,
+                 key: int = 0):
+    """K10: one pass that moves each shard's rows as records of 32-bit
+    words, per shard (n < 2^29 rows a shard).
+
+    ``src``: the words, either a list of int32 or int64 [W, n] streams
+    (an int64 one carries its word in its low 32 bits, as a value in [0,
+    2^32)) or an int32 [W, n, record_words(words)] record array (``words``
+    its words). Output row i reads row i, or row ``idx[w, i]`` of an int64
+    [W, n] permutation (as ``torch.sort`` returns it).
+
+    Returns (out, key_out): ``out`` the rows as an int32 [W, n,
+    record_words(words)] record array (words past the last 0), or with
+    ``split`` as an int32 [words, W, n] array, one plane a word;
+    ``key_out`` the next sort's int64 key from the first ``key`` words:
+    with 1 the value of word 0 in [0, 2^32), with 2 ``((w0 << 32) | w1)
+    ^ (1 << 63)``; with 0 None. On the card: one launch."""
+    src, words, (w, n), key = _permute_inputs(src, idx, words, key)
+    records = isinstance(src, torch.Tensor)
+    lead = src if records else src[0]
+    if not lead.is_cuda:
+        return plain_permute_rows(src, idx, words, split, key)
+    dev = lead.device
+    if split:
+        out = torch.empty(words, w, n, dtype=torch.int32, device=dev)
+    else:
+        out = torch.empty(w, n, record_words(words), dtype=torch.int32,
+                          device=dev)
+    out_key = torch.empty(w, n, dtype=torch.int64, device=dev) if key \
+        else None
+    rec = src.contiguous() if records else None
+    streams = [] if records else [x.contiguous() for x in src]
+    idx = None if idx is None else idx.contiguous()
+    _launch("permute_rows", "launch_permute_rows", _ptrs(streams),
+            _ints([x.element_size() for x in streams]), words, _ptr(rec),
+            _ptr(idx), None if split else _ptr(out),
+            _ptr(out) if split else None, _ptr(out_key), key, w, n,
+            torch.cuda.get_device_properties(dev).multi_processor_count,
+            _stream(lead))
+    LAUNCHES["permute_rows"] += 1
+    return out, out_key
+
+
 def kernel_table() -> List[dict]:
     """Static description of the ported kernels: name, source, the TPU
     kernel each replaces."""
@@ -1230,4 +1367,9 @@ def kernel_table() -> List[dict]:
          "replaces": "none: XLA's fusion of cylon_tpu/ops/setops.py:183 "
                      "(_col_lanes) and cylon_tpu/ops/hash.py:91 "
                      "(hash2_streams)"},
+        {"name": "permute_rows", "route": "cuda",
+         "source": rel["permute_rows"],
+         "replaces": "none: the payload operands of XLA's jax.lax.sort, "
+                     "cylon_tpu/ops/join.py:632, :645 and "
+                     "cylon_tpu/ops/setops.py:239"},
     ]

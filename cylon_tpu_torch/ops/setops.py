@@ -208,12 +208,42 @@ def setop_stream_hash(descs, lcols, rcols, lemit: Optional[torch.Tensor],
 
 def setop_stream_sort(h1, h2, streams, side, live):
     """The sort stage of the stream route: K5's (h1_s, h2_s, streams_s),
-    the stream in (h1, h2, tag) order, the stack gathered in one go so
-    that K5 hands it to its compaction as it is."""
+    the stream in (h1, h2, tag) order, the stack in one piece so that K5
+    hands it to its compaction as it is. On the card the rows move as
+    records (``record_setop_stream_sort``, K10); elsewhere
+    ``plain_setop_stream_sort``, which gives the same tensors."""
+    if not h1.is_cuda:
+        return plain_setop_stream_sort(h1, h2, streams, side, live)
+    return record_setop_stream_sort(h1, h2, streams, side, live)
+
+
+def record_setop_stream_sort(h1, h2, streams, side, live):
+    """``setop_stream_sort`` with the rows as records of 32-bit words (K10
+    ``kernels.permute_rows``): h1, h2 and the stack packed in the first
+    sort's order with the second sort's key, then moved by the second
+    sort's permutation and split. The sorts are
+    ``plain_setop_stream_sort``'s, so the order is the same."""
+    rows, key = _k.permute_rows([h1, h2, *streams], _side_live_order(
+        side, live), key=2)
+    perm = torch.sort(key, dim=1, stable=True).indices
+    del key
+    s, _ = _k.permute_rows(rows, perm, 2 + len(streams), split=True)
+    return s[0], s[1], s[2:]
+
+
+def _side_live_order(side, live):
     # tag order is (side, live, iota) order, a stable sort by side * 2 +
-    # live; then a stable sort by the packed hash pair
-    perm = torch.sort((side.to(torch.uint8) << 1) | live.to(torch.uint8),
+    # live
+    return torch.sort((side.to(torch.uint8) << 1) | live.to(torch.uint8),
                       dim=1, stable=True).indices
+
+
+def plain_setop_stream_sort(h1, h2, streams, side, live):
+    """``setop_stream_sort`` by torch gathers: the packed key gathered by
+    the first sort's permutation, then h1, h2 and the stack by the
+    composed one."""
+    perm = _side_live_order(side, live)
+    # then a stable sort by the packed hash pair
     key = (((h1 << 32) | h2) ^ _SIGN64).gather(1, perm)
     perm = perm.gather(1, torch.sort(key, dim=1, stable=True).indices)
     return (_hash.as_i32(h1.gather(1, perm)),

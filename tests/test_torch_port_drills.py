@@ -43,7 +43,7 @@ def test_smoke_on_cpu(name):
     assert set(doc["launches"]) == {
         "partition_hist", "partition_scatter", "join_plan_stream",
         "join_expand_stream", "setop_stream", "stream_compact",
-        "segment_sum", "join_hash_keys", "setop_hash_rows"}
+        "segment_sum", "join_hash_keys", "setop_hash_rows", "permute_rows"}
     assert not any(doc["launches"].values()), doc["launches"]
     if name == "smoke_telemetry":
         # the ledger-backed pool: nonzero memory on the CPU, and no

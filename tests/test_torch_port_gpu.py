@@ -1,4 +1,4 @@
-"""cylon_tpu_torch kernels K1-K9 against their plain PyTorch versions on
+"""cylon_tpu_torch kernels K1-K10 against their plain PyTorch versions on
 the card, bit for bit.
 
 Needs CUDA: every test here is marked ``gpu`` and skips without a card.
@@ -74,6 +74,7 @@ def test_tile_constants_match_sources(cuda):
     assert c_int("join_stream", "expand_tile_rows") == K.EXPAND_TILE
     assert c_int("join_hash_keys", "hash_key_columns") == K.MAX_HASH_LANES
     assert c_int("setop_hash_rows", "setop_hash_lanes") == K.MAX_SETOP_LANES
+    assert c_int("permute_rows", "permute_row_words") == K.MAX_ROW_WORDS
 
 
 def test_partition_past_the_bucket_limit_takes_the_sort(cuda):
@@ -2436,12 +2437,14 @@ STAGE_LEAVES = {
 }
 
 
-# rows a side: under a profiler an op pays ~0.5-1 ms of host time outside
+# rows a side: under a profiler an op pays ~0.5-2 ms of host time outside
 # its stages (its own span's bookkeeping, its argument checks, the route
 # choice) with the device idle, so the stages hold 86-91% of a 2^22-row
-# join or group-by and 91-98% at 2^24 on an H100; these sizes keep the
-# device's work in front, as the benchmark's cells do (98.7-99.8%)
-STAGE_ROWS_LOG2 = {"join": 23, "groupby": 25}
+# join or group-by and 91-98% at 2^24 on an H100; since the join's sort
+# stage moves its rows as records (K10) a 2^23-row join takes ~13 ms on
+# the card, of which they hold ~86%; these sizes keep the device's work
+# in front, as the benchmark's cells do (98.7-99.8%)
+STAGE_ROWS_LOG2 = {"join": 25, "groupby": 25}
 
 
 @pytest.mark.parametrize("op", sorted(STAGE_LEAVES))
@@ -2497,6 +2500,186 @@ def test_stage_spans_hold_the_op_device_time(cuda, op):
     cover = sum(m for m, _c in leaves) / ms
     assert 0.90 <= cover <= 1.001, (cover, leaves, ms)
     assert abs(ms - whole) <= 0.10 * whole, (ms, whole)
+
+
+# K10's join cases: (key columns, world, (na, nb) rows a shard, payload
+# columns a side (int32 and float32: lanes), validity (key and payload
+# nulls, emit masks), join type, hash mode); the hash cases' key lanes
+# number 1, 2, 6 and 3, their payload lanes 0, 1, 8 and 4; "six_lanes"
+# fills a record's 17 words
+PERMUTE_JOIN_CASES = {
+    "hash_int32": (("int32",), 1, (40_003, 52_001), 0, False,
+                   J.JoinType.INNER, True),
+    "hash_int64": (("int64",), 1, (70_001, 65_537), 1, False,
+                   J.JoinType.INNER, True),
+    "hash_six_lanes": (("int64", "float64", "int16", "bool"), 1,
+                       (33_333, 44_444), 4, True, J.JoinType.LEFT, True),
+    "hash_mixed_world4": (("int32", "int64"), 4, (10_007, 9_001), 2, True,
+                          J.JoinType.RIGHT, True),
+    "hash_empty_side": (("int64",), 1, (0, 5_003), 1, False,
+                        J.JoinType.INNER, True),
+    "bits": (("int32",), 1, (50_001, 61_003), 1, False, J.JoinType.INNER,
+             False),
+    "bits_world4": (("int32",), 4, (12_289, 8_191), 3, True,
+                    J.JoinType.LEFT, False),
+}
+
+
+def permute_join_case(case, dev):
+    """``stream_sort_keys``'s arguments of one K10 join case (keys with
+    repeats, so equal hashes meet)."""
+    names, w, sizes, ncols, nulls, jt, hash_mode = PERMUTE_JOIN_CASES[case]
+    rng = np.random.default_rng(sorted(PERMUTE_JOIN_CASES).index(case))
+    sides = []
+    for n in sizes:
+        keys = [torch.from_numpy(_draw_column(rng, nm, w, n)).to(dev)
+                for nm in names]
+        valid = [torch.from_numpy(rng.random((w, n)) < 0.9).to(dev)
+                 if nulls else None for _ in names]
+        bits, kv = J.key_bits(keys, valid)
+        emit = torch.from_numpy(rng.random((w, n)) < 0.85).to(dev) \
+            if nulls else None
+        dat = [torch.from_numpy(_draw_column(
+            rng, ("int32", "float32")[i % 2], w, n)).to(dev)
+            for i in range(ncols)]
+        val = [torch.from_numpy(rng.random((w, n)) < 0.8).to(dev)
+               if nulls else None for _ in range(ncols)]
+        sides.append((bits, kv, emit, dat, val))
+    (lb, lkv, lem, ld, lv), (rb, rkv, rem, rd, rv) = sides
+    a_desc, b_desc = J.plan_lane_descs(ld, lv, rd, rv, jt)
+    return (lb, lkv, lem, rb, rkv, rem, ld, lv, rd, rv, jt, a_desc, b_desc,
+            hash_mode)
+
+
+def assert_sort_stage_equal(got, ref):
+    """Two sort stages' outputs bit for bit: tensors (values, dtypes,
+    shapes), lists of them, and the rest."""
+    if isinstance(ref, dict):
+        assert set(got) == set(ref)
+        got, ref = [got[k] for k in sorted(ref)], [ref[k] for k in sorted(ref)]
+    assert len(got) == len(ref)
+    for x, y in zip(got, ref):
+        if isinstance(y, torch.Tensor):
+            assert x.dtype == y.dtype and x.shape == y.shape, (x.shape,
+                                                               y.shape)
+            assert torch.equal(x, y)
+        elif isinstance(y, list):
+            assert_sort_stage_equal(x, y)
+        else:
+            assert x == y
+
+
+@pytest.mark.parametrize("case", sorted(PERMUTE_JOIN_CASES))
+def test_stream_sort_records_match_plain(cuda, case):
+    """The join's sort stage with K10 (3 launches in hash mode, 2 in bits
+    mode) against ``plain_stream_sort`` on the card, bit for bit."""
+    args = permute_join_case(case, cuda)
+    K.reset_launches()
+    got = J.stream_sort(J.stream_sort_keys(*args))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["permute_rows"] == (3 if args[-1] else 2)
+    assert_sort_stage_equal(got, J.plain_stream_sort(
+        J.stream_sort_keys(*args)))
+
+
+@pytest.mark.parametrize("case", sorted(SETOP_HASH_CASES))
+def test_setop_stream_sort_records_match_plain(cuda, case):
+    """The set op's sort stage with K10 (2 launches) against
+    ``plain_setop_stream_sort`` on the card, bit for bit, on K9's cases
+    (1 to 12 lanes, nulls, emit masks, repeated rows)."""
+    hashed = K.setop_hash_rows(*setop_hash_case(case, 1 << 20, cuda))
+    K.reset_launches()
+    got = SO.setop_stream_sort(*hashed)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["permute_rows"] == 2
+    assert_sort_stage_equal(got, SO.plain_setop_stream_sort(*hashed))
+
+
+def test_permute_rows_matches_plain(cuda):
+    """Each form of K10 (streams or records in, with and without an
+    index, records or split out, either key) against its plain version,
+    at every record width and W = 3."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(10)
+    w, n = 3, 100_003
+    for words in (1, 4, 5, 9, 13, K.MAX_ROW_WORDS):
+        src = [torch.randint(-2**31, 2**31, (w, n), generator=g,
+                             device=cuda) for _ in range(words)]
+        src = [x if k % 3 else x.to(torch.int32) for k, x in enumerate(src)]
+        idx = torch.argsort(torch.rand(w, n, generator=g, device=cuda), 1)
+        for args in ((src, None), (src, idx)):
+            for kw in ({}, {"split": True}, {"key": 1},
+                       {"key": min(words, 2), "split": True}):
+                got = K.permute_rows(*args, **kw)
+                ref = K.plain_permute_rows(*args, **kw)
+                assert_sort_stage_equal(
+                    [x for x in got if x is not None],
+                    [x for x in ref if x is not None])
+        rec = K.plain_permute_rows(src)[0]
+        for kw in ({"split": True}, {"key": min(words, 2)}):
+            assert_sort_stage_equal(
+                [x for x in K.permute_rows(rec, idx, words, **kw)
+                 if x is not None],
+                [x for x in K.plain_permute_rows(rec, idx, words, **kw)
+                 if x is not None])
+    torch.cuda.synchronize()
+
+
+def test_permute_rows_rejects_on_card(cuda):
+    """The wrapper raises on inputs on two devices and on a stream of
+    another shape."""
+    x = torch.zeros(1, 8, dtype=torch.int64, device=cuda)
+    for args in (([x], torch.zeros(1, 8, dtype=torch.int64)),
+                 ([x, x[:, 1:]], None)):
+        with pytest.raises(CylonError):
+            K.permute_rows(*args)
+
+
+def _launch_tables(dev, case):
+    n = 1 << 23
+    if case.startswith("join"):
+        rng = np.random.default_rng(25)
+        dt = np.int64 if case == "join_int64" else np.int32
+        ctx = ct.CylonContext.Init(device=dev)
+        return (_table(ctx, {"k": rng.integers(0, n, n).astype(dt),
+                             "v": rng.random(n)}),
+                _table(ctx, {"k": rng.integers(0, n, n + 77).astype(dt),
+                             "w": rng.random(n + 77).astype(np.float32)}))
+    return set_op_tables(dev, n)
+
+
+# K10 launches a query: a hash-stream join (an int64 key), a sort-stream
+# join (one int32 key), each set op on the stream route
+PERMUTE_LAUNCHES = {"join_int64": 3, "join_int32": 2, "union": 2,
+                    "subtract": 2, "intersect": 2}
+
+
+@pytest.mark.parametrize("case", sorted(PERMUTE_LAUNCHES))
+def test_sort_stage_launches_k10_on_card(cuda, case, monkeypatch):
+    """A 2^23-row local join or set op launches K10 the counted number of
+    times, and its result equals the plain sort stage's bit for bit."""
+    left, right = _launch_tables(cuda, case)
+
+    def run():
+        if case.startswith("join"):
+            return left.join(right, "inner", on=["k"])
+        return getattr(left, case)(right)
+
+    K.reset_launches()
+    got = run()
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["permute_rows"] == PERMUTE_LAUNCHES[case], K.LAUNCHES
+    monkeypatch.setattr(J, "stream_sort", J.plain_stream_sort)
+    monkeypatch.setattr(SO, "setop_stream_sort", SO.plain_setop_stream_sort)
+    K.reset_launches()
+    ref = run()
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["permute_rows"] == 0
+    assert got.capacity == ref.capacity and got.row_count > 0
+    assert torch.equal(got.emit_mask(), ref.emit_mask())
+    for x, y in zip(got.columns(), ref.columns()):
+        assert torch.equal(x.data, y.data)
+        assert torch.equal(x.valid_mask(), y.valid_mask())
 
 
 SETOP_LEAVES = ("setop.prepare", "setop.hash", "setop.sort", "setop.stream",

@@ -2,7 +2,9 @@
 package's Pallas kernels, run in interpret mode on the CPU, bit for bit;
 K8's plain version and wrapper checks against the former torch formula;
 K9's plain version against the JAX package's lanes and row hash, and its
-wrapper checks.
+wrapper checks; K10's wrapper checks, and the sort stages (plain and
+through K10's plain version) against the operands the JAX package's
+``jax.lax.sort`` hands its Pallas kernels.
 
 K3/K4 run eagerly under the Pallas interpreter (block_rows=8, ~300 rows a
 side): one module-scoped fixture per case computes both packages' plans
@@ -28,10 +30,12 @@ from cylon_tpu_torch.ops.hash import hash2_streams
 from cylon_tpu_torch.ops.order import unsigned
 from cylon_tpu_torch.parallel import shuffle as tshuffle
 from cylon_tpu_torch.status import Code, CylonError
-from test_torch_port_gpu import (HASH_KEY_CASES, SETOP_HASH_CASES,
-                                 assert_hash_keys_equal,
-                                 assert_setop_hash_equal, hash_key_case,
-                                 hash_key_sides, setop_hash_case)
+from test_torch_port_gpu import (HASH_KEY_CASES, PERMUTE_JOIN_CASES,
+                                 SETOP_HASH_CASES, assert_hash_keys_equal,
+                                 assert_setop_hash_equal,
+                                 assert_sort_stage_equal, hash_key_case,
+                                 hash_key_sides, permute_join_case,
+                                 setop_hash_case)
 
 
 def _t(x):
@@ -428,3 +432,173 @@ def test_setop_hash_rows_rejects(what):
     with pytest.raises(CylonError) as err:
         K.setop_hash_rows(*_bad_setop_hash_inputs(what))
     assert err.value.code == Code.Invalid
+
+
+# ---------------------------------------------------------------------------
+# K10 permute_rows and the sort stages
+# ---------------------------------------------------------------------------
+
+
+def _bad_permute_inputs(what):
+    x = torch.zeros(2, 8, dtype=torch.int64)
+    rec = torch.zeros(2, 8, 8, dtype=torch.int32)
+    idx = torch.zeros(2, 8, dtype=torch.int64)
+    return {
+        "no_streams": ([],),
+        "stream_dtype": ([x, x.to(torch.float32)],),
+        "stream_int16": ([x.to(torch.int16)],),
+        "stream_shape": ([x, x[:, 1:]],),
+        "stream_dim": ([x, x[0]],),
+        "eighteen_words": ([x] * (K.MAX_ROW_WORDS + 1),),
+        "words_for_streams": ([x, x], None, 3),
+        "record_dtype": (rec.to(torch.int64), None, 5),
+        "record_width": (torch.zeros(2, 8, 6, dtype=torch.int32), None, 5),
+        "record_words": (rec, None, 4),
+        "record_past_max": (torch.zeros(2, 8, 24, dtype=torch.int32),),
+        "index_dtype": ([x], idx.to(torch.int32)),
+        "index_shape": ([x], idx[:, 1:]),
+        "key_past_words": ([x], None, None, False, 2),
+        "key_three_words": ([x, x, x], None, None, False, 3),
+        "rows_2_29": ([torch.zeros(1, 1, dtype=torch.int32).expand(
+            1, 1 << 29)],),
+        "device": ([x], idx.to("meta")),
+    }[what]
+
+
+@pytest.mark.parametrize("what", [
+    "no_streams", "stream_dtype", "stream_int16", "stream_shape",
+    "stream_dim", "eighteen_words", "words_for_streams", "record_dtype",
+    "record_width", "record_words", "record_past_max", "index_dtype",
+    "index_shape", "key_past_words", "key_three_words", "rows_2_29", "device"])
+def test_permute_rows_rejects(what):
+    with pytest.raises(CylonError) as err:
+        K.permute_rows(*_bad_permute_inputs(what))
+    assert err.value.code == Code.Invalid
+
+
+class _Sorted(Exception):
+    """Raised by a stand-in for a Pallas kernel once it holds its sorted
+    inputs."""
+
+
+def _capture_kernel(monkeypatch, name):
+    """Replace the JAX package's Pallas kernel ``name`` with one that keeps
+    the sorted operands it is handed and stops the program."""
+    got = {}
+
+    def keep(*args, **kw):
+        got.update(args=args, kw=kw)
+        raise _Sorted
+
+    monkeypatch.setattr(tk, name, keep)
+    return got
+
+
+def _u32(x):
+    return np.asarray(x).reshape(-1).view(np.uint32)
+
+
+@pytest.mark.parametrize("hash_mode", [False, True])
+def test_plain_stream_sort_matches_jax_sort(monkeypatch, hash_mode):
+    """``plain_stream_sort`` (the CPU's sort stage) and the record route
+    through K10's plain version hand K3 the operands that the JAX
+    package's ``jax.lax.sort`` hands its Pallas plan kernel
+    (cylon_tpu/ops/join.py:632, :645) on the same rows: key bits, tags,
+    hashes, verify and payload lanes, bit for bit."""
+    jt = jjoin.JoinType.LEFT
+    lk, lkval, lemit, rk, remit, ldat, lval, rdat, rval = _inputs(
+        25, hash_mode)
+    nk = len(lk)
+    jargs = ([_j(x) for x in ldat], [_j(x) for x in lval],
+             [_j(x) for x in rdat], [_j(x) for x in rval])
+    a_desc, b_desc = jjoin.plan_lane_descs(*jargs, jt)
+    got = _capture_kernel(monkeypatch, "join_plan_stream")
+    with pytest.raises(_Sorted):
+        jjoin.plan_program_stream(
+            tuple(_j(x) for x in lk), tuple(_j(x) for x in lkval),
+            _j(lemit), tuple(_j(x) for x in rk), (None,) * nk, _j(remit),
+            *(tuple(a) for a in jargs), (False,) * nk, jt, a_desc=a_desc,
+            b_desc=b_desc, block_rows=8, hash_mode=hash_mode, interpret=True)
+    ref = {"bits_s": got["args"][0], "tag_s": got["args"][1],
+           "lanes": list(got["kw"]["lanes"])}
+    if hash_mode:
+        ref.update(bits2_s=got["kw"]["bits2_s"],
+                   verify_lanes=list(got["kw"]["verify_lanes"]))
+
+    targs = ([_r(x) for x in ldat], [_r(x) for x in lval],
+             [_r(x) for x in rdat], [_r(x) for x in rval])
+    lbits, lkv = tjoin.key_bits([_r(x) for x in lk], [_r(x) for x in lkval])
+    rbits, rkv = tjoin.key_bits([_r(x) for x in rk], [None] * nk)
+
+    def keys():
+        return tjoin.stream_sort_keys(lbits, lkv, _r(lemit), rbits, rkv,
+                                      _r(remit), *targs, jt, a_desc, b_desc,
+                                      hash_mode)
+
+    for kw in (tjoin.stream_sort(keys()), tjoin.record_stream_sort(keys())):
+        assert set(kw) - set(ref) == {"na", "nb", "emit_unmatched_a",
+                                      "n_a_lanes", "n_b_lanes"}
+        for name, want in ref.items():
+            mine = kw[name] if isinstance(want, list) else [kw[name]]
+            want = want if isinstance(want, list) else [want]
+            assert len(mine) == len(want) > 0 or name == "lanes", name
+            for x, y in zip(mine, want):
+                assert x.dtype == torch.int32 and x.shape == (1, len(_u32(y)))
+                assert np.array_equal(_u32(x.numpy()), _u32(y)), name
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 12])
+def test_plain_setop_stream_sort_matches_jax_sort(monkeypatch, lanes):
+    """``plain_setop_stream_sort`` (through ``setop_stream_inputs``) and
+    the record route through K10's plain version hand K5 the operands
+    that the JAX package's ``jax.lax.sort`` hands its Pallas set-op kernel
+    (cylon_tpu/ops/setops.py:239) on the same lanes: h1, h2, the tag and
+    the lanes, bit for bit; rows repeat, so equal hashes meet."""
+    rng = np.random.default_rng(239 + lanes)
+    nl, nr = 700, 523
+    lane_l = [rng.integers(0, 6, nl).astype(np.uint32) for _ in range(lanes)]
+    lane_r = [rng.integers(0, 6, nr).astype(np.uint32) for _ in range(lanes)]
+    lemit, remit = rng.random(nl) < 0.9, rng.random(nr) < 0.8
+    got = _capture_kernel(monkeypatch, "setop_stream")
+    with pytest.raises(_Sorted):
+        jsetops._setop_stream_program.__wrapped__(
+            [jnp.asarray(x) for x in lane_l], [jnp.asarray(x) for x in lane_r],
+            jnp.asarray(lemit), jnp.asarray(remit),
+            (("d", False),) * lanes, jsetops.SetOp.UNION, 8, True)
+    ref = [got["args"][0], got["args"][1], got["args"][2],
+           *got["args"][3]]
+
+    def t(xs):
+        return [_t(x.view(np.int32))[None] for x in xs]
+
+    hashed = K.setop_stack_hash(t(lane_l), t(lane_r), _t(lemit)[None],
+                                _t(remit)[None])
+    from cylon_tpu_torch.ops import setops as tsetops
+    for h1_s, h2_s, stack in (tsetops.setop_stream_sort(*hashed),
+                              tsetops.record_setop_stream_sort(*hashed)):
+        mine = [h1_s, h2_s, *stack]
+        assert len(mine) == len(ref) == 3 + lanes
+        for x, y in zip(mine, ref):
+            assert x.dtype == torch.int32
+            assert np.array_equal(_u32(x.numpy()), _u32(y))
+
+
+@pytest.mark.parametrize("case", sorted(PERMUTE_JOIN_CASES))
+def test_record_stream_sort_matches_plain(case):
+    """The join's record route through K10's plain version equals
+    ``plain_stream_sort`` on the card tests' cases, bit for bit."""
+    args = permute_join_case(case, "cpu")
+    assert_sort_stage_equal(
+        tjoin.record_stream_sort(tjoin.stream_sort_keys(*args)),
+        tjoin.plain_stream_sort(tjoin.stream_sort_keys(*args)))
+
+
+@pytest.mark.parametrize("case", sorted(SETOP_HASH_CASES))
+def test_record_setop_stream_sort_matches_plain(case):
+    """The set op's record route through K10's plain version equals
+    ``plain_setop_stream_sort`` on K9's cases, bit for bit."""
+    from cylon_tpu_torch.ops import setops as tsetops
+
+    hashed = K.setop_hash_rows(*setop_hash_case(case, 3000, "cpu"))
+    assert_sort_stage_equal(tsetops.record_setop_stream_sort(*hashed),
+                            tsetops.plain_setop_stream_sort(*hashed))
