@@ -11,7 +11,13 @@ each of the port's hand-written kernels. A cell of several processes
 (its chips times its ``processes_per_chip``) starts one process a rank,
 joined by the port's ``MultiHostConfig`` (NCCL on the card, gloo on the
 CPU); rank 0
-prints the line.
+prints the line. A cell of one process runs a virtual world of its
+``shards_per_process`` shards (V, default 1; the name and meaning of
+``MultiHostConfig(shards_per_process=)``): at V > 1 set-up splits each
+table into V contiguous blocks of rows (``shard.distribute``) and the
+queries take the port's distributed path at world V on the one device;
+V = 1 is the plain one-shard run. A cell of several processes with V >
+1 is refused before any run.
 """
 from __future__ import annotations
 
@@ -75,6 +81,24 @@ class Cell:
     @property
     def processes(self) -> int:
         return self.chips * int(self.workload.get("processes_per_chip", 1))
+
+    @property
+    def shards(self) -> int:
+        """V, the shards of each process (``shards_per_process``)."""
+        return self.workload.get("shards_per_process", 1)
+
+
+def layout_refusal(cell: Cell) -> Optional[str]:
+    """Why the harness cannot lay out the cell's shards, or None."""
+    v = cell.shards
+    if isinstance(v, bool) or not isinstance(v, int) or v < 1:
+        return (f"cell {cell.name}: shards_per_process must be a positive "
+                f"integer, got {v!r}")
+    if v > 1 and cell.processes > 1:
+        return (f"cell {cell.name}: shards_per_process {v} in a cell of "
+                f"{cell.processes} processes: the harness runs V > 1 "
+                "shards in one process only")
+    return None
 
 
 def load_cell(name: str, root: Path = ROOT) -> Cell:
@@ -215,7 +239,9 @@ def string_column(ct, x, name: str):
 
 def ingest(ct, ctx, tables, nproc: int):
     """The program's tables from the drawn columns: each process's
-    share assembled into one sharded table across processes."""
+    share assembled into one sharded table across processes; in a
+    virtual world of one process, each table split into its shards'
+    contiguous blocks of rows."""
     import numpy as np
     import torch
 
@@ -228,10 +254,11 @@ def ingest(ct, ctx, tables, nproc: int):
     out = {}
     for tname, cols in tables.items():
         t = ct.Table([column(c, x) for c, x in cols], ctx)
-        if nproc > 1:
+        if nproc > 1 or ctx.get_world_size() > 1:
             from cylon_tpu_torch.parallel import shard
 
-            t = shard.assemble_process_local([t], ctx)
+            t = shard.assemble_process_local([t], ctx) if nproc > 1 \
+                else shard.distribute(t, ctx)
         out[tname] = t
     return out
 
@@ -319,6 +346,9 @@ def main(argv, started: float, device: str = "cuda",
     the tests drive the same run on "cpu") and print its line."""
     args = parse(argv)
     cell = load_cell(args.workload, root)
+    why = layout_refusal(cell)
+    if why:
+        return fail(why)
     nproc = cell.processes
     cache_dirs(root)
     import torch
@@ -370,8 +400,8 @@ def run_rank(args, cell: Cell, started: float, dev_kind: str, rank: int,
             num_processes=nproc, process_id=rank, init_method=rdv,
             backend="nccl" if D.cuda else "gloo"), device=dev)
     else:
-        ctx = ct.CylonContext.InitDistributed(ct.VirtualWorldConfig(1),
-                                              device=dev)
+        ctx = ct.CylonContext.InitDistributed(
+            ct.VirtualWorldConfig(cell.shards), device=dev)
     import portbench.gen as gen
     from portbench import check, queries, reference
 
@@ -397,6 +427,8 @@ def run_rank(args, cell: Cell, started: float, dev_kind: str, rank: int,
     print("portbench: setup " + " ".join(
         f"{b[0]}={b[1] - a[1]:.3f}s" for a, b in zip(marks, marks[1:])),
         file=sys.stderr)
+    print(f"portbench: world {ctx.get_world_size()} shards in {nproc} "
+          f"process{'es' if nproc > 1 else ''}", file=sys.stderr)
     setup_peak = D.peak()
     D.reset_peak()
 
